@@ -1,0 +1,223 @@
+"""Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP (port of
+the dense-decode parts of ``repro/models/layers.py``).
+
+Functions take the same layouts as the JAX ones: activations
+``(B, S, D)``, per-head tensors ``(B, S, H, hd)``, params a dict of
+tensors for one layer. Normalisation, RoPE and softmax run in f32;
+matmuls run in the model dtype.
+
+Paged KV pools carry ONE trash page past the end: a layer's pool is
+``(P + 1, ps, KV, hd)`` with ``P`` real pages, and the drop sentinel
+``wpage == P`` names the trash page (JAX drops such writes with
+``mode="drop"``; on CUDA an out-of-range index is a device assert). Block
+tables only ever name pages ``< P``, so the trash page is never read as
+context.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.param import pdef
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Normalization / RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, w, eps: float = 1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)                      # (head_dim//2,)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).
+    Split-halves layout, f32 math, result in x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., :, None].float() * freqs      # (...,S,hd//2)
+    cos = torch.cos(angles)[..., None, :]                 # (...,S,1,hd//2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_defs(d_model, n_heads, n_kv_heads, head_dim, *, qkv_bias=False,
+                   layers=None):
+    """Flat ParamDef dict for one attention block (optionally stacked)."""
+    L = (layers,) if layers else ()
+    ax = ("layers",) if layers else ()
+    defs = {
+        "wq": pdef(L + (d_model, n_heads * head_dim), ax + ("embed", "heads"),
+                   init="scaled"),
+        "wk": pdef(L + (d_model, n_kv_heads * head_dim),
+                   ax + ("embed", "kv_heads"), init="scaled"),
+        "wv": pdef(L + (d_model, n_kv_heads * head_dim),
+                   ax + ("embed", "kv_heads"), init="scaled"),
+        "wo": pdef(L + (n_heads * head_dim, d_model), ax + ("heads", "embed"),
+                   init="scaled"),
+    }
+    if qkv_bias:
+        defs["bq"] = pdef(L + (n_heads * head_dim,), ax + ("heads",), "zeros")
+        defs["bk"] = pdef(L + (n_kv_heads * head_dim,), ax + ("kv_heads",),
+                          "zeros")
+        defs["bv"] = pdef(L + (n_kv_heads * head_dim,), ax + ("kv_heads",),
+                          "zeros")
+    return defs
+
+
+def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return (q.reshape(B, S, n_heads, head_dim),
+            k.reshape(B, S, n_kv_heads, head_dim),
+            v.reshape(B, S, n_kv_heads, head_dim))
+
+
+def _sdpa(q, k, v, mask):
+    """q: (B,Sq,H,hd)  k,v: (B,Sk,KV,hd)  mask: (B|1,1,Sq,Sk) additive.
+    Scores and softmax in f32, matmuls in the inputs' dtype."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    q = q.reshape(B, Sq, KV, H // KV, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = scores + mask[:, :, None, :, :]              # (B,KV,G,Sq,Sk)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+class KVEntry(NamedTuple):
+    k: torch.Tensor   # paged: (P+1, ps, KV, hd) per layer, or stacked
+    v: torch.Tensor
+
+
+def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
+                           woff, scrub=None, cow_src=None, cow_dst=None,
+                           n_heads, n_kv_heads, head_dim, rope_theta,
+                           attn_impl: str = "xla"):
+    """One-token decode against a paged KV pool. x: (B,1,D).
+
+    kv.k/v: (P+1, ps, KV, hd) — this layer's pool, trash page at index P.
+    block_table: (B, NP) int32 (-1 = unmapped); pos: (B,) absolute
+    positions. wpage/woff: per-row write page and in-page offset from the
+    caller's allocator; ``wpage == P`` drops the write (into the trash
+    page). scrub: optional (B,) pages to zero before the write (sentinel P
+    = none). Write-then-attend: the new token's K/V lands in the pool
+    first, then the row attends over positions ``< pos + 1``.
+
+    The pools are updated IN PLACE (the returned KVEntry holds the same
+    tensors). attn_impl: "xla" gathers the row's pages into a dense view
+    and runs ``_sdpa`` in the model dtype; "paged" runs the CUDA kernel
+    (its plain f32 version on CPU tensors).
+
+    cow_src/cow_dst (copy-on-write for prefix sharing) are not ported yet
+    and raise.
+    """
+    if cow_src is not None or cow_dst is not None:
+        raise NotImplementedError(
+            "copy-on-write page copies arrive with prefix sharing "
+            "(ROADMAP Queue 1 item 8)")
+    B, S1, _ = x.shape
+    if S1 != 1:
+        raise ValueError(f"decode takes one token per row, got {S1}")
+    P = kv.k.shape[0] - 1
+    ps = kv.k.shape[1]
+    NP = block_table.shape[1]
+    positions = pos[:, None]
+    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k_new = apply_rope(k_new, positions, rope_theta)
+    if scrub is not None:
+        idx = scrub.long()
+        kv.k.index_fill_(0, idx, 0)
+        kv.v.index_fill_(0, idx, 0)
+    wp, wo = wpage.long(), woff.long()
+    kv.k.index_put_((wp, wo), k_new[:, 0].to(kv.k.dtype))
+    kv.v.index_put_((wp, wo), v_new[:, 0].to(kv.v.dtype))
+    lens = (pos + 1).to(torch.int32)       # current token included
+    if attn_impl == "paged":
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        out = pa_ops.paged_decode_attention(
+            q[:, 0].contiguous(), kv.k, kv.v, block_table, lens)[:, None]
+    elif attn_impl == "xla":
+        bt_c = block_table.clamp(0, P - 1).long()
+        k = kv.k[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(q.dtype)
+        v = kv.v[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(q.dtype)
+        s_idx = torch.arange(NP * ps, device=x.device)[None, :]
+        mapped = (block_table >= 0)[:, :, None].expand(B, NP, ps).reshape(
+            B, NP * ps)
+        valid = (s_idx < lens[:, None]) & mapped
+        mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+        out = _sdpa(q, k, v, mask)
+    else:
+        raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
+                         f"{attn_impl!r}")
+    out = out.reshape(B, 1, n_heads * head_dim)
+    return out @ p["wo"], kv
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(d_model, d_ff, *, layers=None):
+    L = (layers,) if layers else ()
+    ax = ("layers",) if layers else ()
+    return {
+        "w_gate": pdef(L + (d_model, d_ff), ax + ("embed", "mlp"), "scaled"),
+        "w_up": pdef(L + (d_model, d_ff), ax + ("embed", "mlp"), "scaled"),
+        "w_down": pdef(L + (d_ff, d_model), ax + ("mlp", "embed"), "scaled"),
+    }
+
+
+def mlp(p, x):
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    act = F.silu(gate.float()).to(x.dtype) * up
+    return act @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embedding_defs(vocab, d_model):
+    return pdef((vocab, d_model), ("vocab", "embed"), init="normal")
+
+
+def embed(emb, tokens):
+    return emb[tokens]
+
+
+def unembed(emb_or_head, x):
+    """x: (B,S,D) -> logits (B,S,V). Takes the (V,D) table (tied) or a
+    (D,V) head, told apart by shape as in the JAX package."""
+    if emb_or_head.shape[0] < emb_or_head.shape[1]:
+        return x @ emb_or_head
+    return x @ emb_or_head.T

@@ -1,0 +1,206 @@
+"""Dense decoder-only transformer, paged decode path (port of the decode
+parts of ``repro/models/transformer.py``).
+
+Layer params keep the stacked leading ``layers`` axis of the JAX tree;
+``lax.scan`` over layers becomes a Python loop over views of the stacked
+tensors. The paged KV pools are updated IN PLACE by each decode step; the
+block table, refcounts and positions are returned as new tensors.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import paging
+from repro_torch.models.param import pdef
+
+
+def block_defs(cfg: ModelConfig):
+    n = cfg.n_layers
+    defs = {
+        "ln1": pdef((n, cfg.d_model), ("layers", "embed"), "ones"),
+        "ln2": pdef((n, cfg.d_model), ("layers", "embed"), "ones"),
+    }
+    for k, d in L.attention_defs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim_, qkv_bias=cfg.qkv_bias,
+                                 layers=n).items():
+        defs[f"attn.{k}"] = d
+    for k, d in L.mlp_defs(cfg.d_model, cfg.d_ff, layers=n).items():
+        defs[f"mlp.{k}"] = d
+    return defs
+
+
+def model_defs(cfg: ModelConfig):
+    """Flat ParamDef dict with the JAX tree's dotted paths."""
+    defs = {"embedding": L.embedding_defs(cfg.vocab_size, cfg.d_model),
+            "ln_f": pdef((cfg.d_model,), ("embed",), "ones")}
+    for k, d in block_defs(cfg).items():
+        defs[f"layers.{k}"] = d
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = pdef((cfg.d_model, cfg.vocab_size),
+                               ("embed", "vocab"), "scaled")
+    return defs
+
+
+def layer_params(params, i: int):
+    """Views of layer ``i``'s params: ``{"ln1", "ln2", "attn": {...},
+    "mlp": {...}}`` sliced from the stacked leaves."""
+    out = {"attn": {}, "mlp": {}}
+    for path, t in params.items():
+        parts = path.split(".")
+        if parts[0] != "layers":
+            continue
+        if len(parts) == 2:
+            out[parts[1]] = t[i]
+        else:
+            out[parts[1]][parts[2]] = t[i]
+    return out
+
+
+class PagedDecodeCache(NamedTuple):
+    """Paged KV layout: one shared page pool per layer plus per-slot block
+    tables. ``kv.k``/``kv.v`` are ``(n_layers, n_pages + 1, page_size, KV,
+    hd)``: the last page of every layer is the trash page that dropped
+    writes land in (see ``layers``)."""
+    kv: L.KVEntry
+    block_table: torch.Tensor   # (B, pages_per_slot) int32; -1 = unmapped
+    refcount: torch.Tensor      # (n_pages,) int32 — 0 = free
+    pos: torch.Tensor           # (B,) int32 per-row cache fill
+
+    @property
+    def page_size(self) -> int:
+        return self.kv.k.shape[2]
+
+    @property
+    def n_pages(self) -> int:
+        return self.refcount.shape[0]
+
+
+KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, *, layout: str = "paged",
+               page_size: int = 16, n_pages: Optional[int] = None,
+               kv_dtype: Optional[str] = None, device=None):
+    """Paged cache with ``n_pages`` pool pages (default: full provisioning,
+    ``batch * pages_per_slot``). ``kv_dtype`` ("fp32" | "bf16") overrides
+    ``dtype`` by name."""
+    if layout != "paged":
+        raise NotImplementedError(
+            "the dense cache layout arrives with ROADMAP Queue 1 item 2")
+    if kv_dtype == "int8":
+        raise NotImplementedError(
+            "int8 KV pages arrive with ROADMAP Queue 1 item 8")
+    if kv_dtype is not None:
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {list(KV_DTYPES)}, "
+                             f"got {kv_dtype!r}")
+        dtype = KV_DTYPES[kv_dtype]
+    nps = paging.pages_per_slot(s_max, page_size)
+    if n_pages is None:
+        n_pages = batch * nps
+    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
+             cfg.head_dim_)
+    kv = L.KVEntry(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+    return PagedDecodeCache(
+        kv=kv,
+        block_table=torch.full((batch, nps), paging.PAGE_UNMAPPED,
+                               dtype=torch.int32, device=device),
+        refcount=torch.zeros((n_pages,), dtype=torch.int32, device=device),
+        pos=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _paged_decode_step(cfg: ModelConfig, params, token,
+                       cache: PagedDecodeCache, *, attn_impl: str = "xla",
+                       advance=None, layers=None):
+    """One decode step on the paged layout. The page allocator runs ONCE
+    per token, outside the layer loop: every layer shares the block table.
+    Rows with ``advance=False`` neither allocate nor write (their write
+    goes to the trash page) and keep their position. ``layers``: the
+    per-layer param views, when the caller has already sliced them."""
+    x = L.embed(params["embedding"], token[:, None])
+    B = token.shape[0]
+    dev = token.device
+    pos = cache.pos
+    adv = (torch.ones((B,), dtype=torch.bool, device=dev)
+           if advance is None else advance)
+    ps, P = cache.page_size, cache.n_pages
+    rows = torch.arange(B, device=dev)
+
+    pidx = (pos // ps).clamp(0, cache.block_table.shape[1] - 1).long()
+    cur = cache.block_table[rows, pidx]
+    need = adv & (cur < 0)
+    pages, refcount = paging.alloc_pages(cache.refcount, need)
+    fresh = need & (pages < P)
+    bt = cache.block_table.clone()
+    bt[rows, pidx] = torch.where(fresh, pages, cur)
+    wpage = bt[rows, pidx]                                  # (B,) may be -1
+    w_ok = adv & (wpage >= 0)
+    wpage = torch.where(w_ok, wpage, P)                     # trash page
+    woff = pos % ps
+    # a page mapped mid-row (recovery from pool exhaustion: writes dropped
+    # while pos advanced) is scrubbed, or the offsets below woff would
+    # expose a freed episode's K/V as live context
+    scrub = torch.where(fresh & (woff > 0), wpage, P)
+
+    if layers is None:
+        layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    for i, lp in enumerate(layers):
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        h, _ = L.paged_decode_attention(
+            lp["attn"], h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), bt, pos,
+            wpage=wpage, woff=woff, scrub=scrub, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+            rope_theta=cfg.rope_theta, attn_impl=attn_impl)
+        x = x + h
+        h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+        x = x + L.mlp(lp["mlp"], h)
+    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    head = params.get("lm_head", params["embedding"])
+    logits = L.unembed(head, x)[:, 0]
+    return logits, PagedDecodeCache(kv=cache.kv, block_table=bt,
+                                    refcount=refcount,
+                                    pos=pos + adv.to(torch.int32))
+
+
+def decode_step(cfg: ModelConfig, params, token, cache, *,
+                attn_impl: str = "xla", advance=None):
+    """One decode step. token: (B,) int. Returns (logits (B,V), cache).
+    advance: optional (B,) bool — rows with False are no-ops. The pools of
+    ``cache`` are written in place."""
+    if not isinstance(cache, PagedDecodeCache):
+        raise NotImplementedError(
+            "dense-cache decode arrives with ROADMAP Queue 1 item 2")
+    return _paged_decode_step(cfg, params, token, cache,
+                              attn_impl=attn_impl, advance=advance)
+
+
+def scan_body_over(step_fn):
+    """Wrap ``(token, advance, cache) -> (logits, cache)`` into the JAX
+    scan-body shape ``((logits, cache), (token, advance)) -> ((logits,
+    cache), None)``: rows with ``advance=False`` neither write the cache
+    nor update their logits."""
+
+    def body(carry, x):
+        logits, cache = carry
+        token, advance = x
+        new_logits, cache = step_fn(token, advance, cache)
+        logits = torch.where(advance[:, None], new_logits, logits)
+        return (logits, cache), None
+
+    return body
+
+
+def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
+    """Decode body for in-loop generation, bound to the paged decode step
+    (per-layer param views are sliced once here, not once per token)."""
+    layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    return scan_body_over(
+        lambda token, advance, cache: _paged_decode_step(
+            cfg, params, token, cache, attn_impl=attn_impl,
+            advance=advance, layers=layers))

@@ -1,0 +1,375 @@
+"""Slot-based rollout engine on the paged KV pool (port of
+``repro/rl/engine/compiled.py``, paged layout).
+
+One *macro-step* is one agent turn for every slot:
+
+    [generate max_turn_tokens steps] -> [pool telemetry] ->
+    [fallback actions] -> [env step] -> [harvest finished episodes] ->
+    [slot refill: release pages + reset rows] -> [one combined obs feed]
+
+The combined feed teacher-forces continuing rows' env observation and
+refilled rows' reset observation in one loop over ``obs_len`` decode
+steps. JAX compiles the macro-step into one XLA program; here it is a
+Python loop over device tensors that enqueues work without waiting on the
+GPU: ``lax.scan`` becomes a ``for`` loop and ``lax.cond`` becomes
+unconditional masked work (``torch.where``), which computes the same
+result. The host syncs ONCE per turn — it reads the ``returned`` counter
+(and, with ``on_exhaust="raise"``, the dropped-write counter); nothing
+inside a macro-step calls ``.item()``, branches on a tensor, or indexes
+with a boolean mask.
+
+Randomness is a tensor argument: ``run(..., noise=fn)`` takes a callable
+``fn(kind, macro_step, index, shape) -> Tensor`` returning Gumbel noise
+(``kind`` "sample": the draw for token ``index`` of the turn, shape (B, V);
+"env": the opponent's draw, shape (B, env.step_noise_width)). Without it
+the engine draws from ``generator`` on its device.
+
+The episode store and the slot token buffers carry one trash row/column
+where JAX drops out-of-range writes (``slots.py``); the paged pools carry
+one trash page (``models/layers.py``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.rl.algo import reinforce_advantages
+from repro_torch.rl.engine import common, paging, slots
+from repro_torch.rl.engine.common import ACTION_BASE
+from repro_torch.rl.envs.base import TOK_PAD
+from repro_torch.rl.experience import ExperienceBatch
+
+NoiseFn = Callable[[str, int, int, tuple], torch.Tensor]
+
+
+def _unported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: it arrives with "
+                               f"ROADMAP Queue 1 item {item}")
+
+
+class CompiledRolloutEngine:
+    """Multi-turn generation with slot-based continuous batching on the
+    paged KV pool. ``run(params, batch, n_episodes)`` returns
+    ``(ExperienceBatch, RolloutStats)``; with ``n_episodes > batch``
+    finished episodes free their slot and a fresh episode is reset into
+    it. ``device=None`` means the GPU and raises if none is present.
+
+    Options ported in this slice: ``attn_impl`` ("paged" = the CUDA
+    kernel, the default; "xla" = gather + dense attention), ``sampling``
+    ("fused" = the one-pass CUDA sampler, the default; "reference" = plain
+    argmax + log-softmax),
+    ``on_exhaust`` ("count" or "raise"), ``temperature``, ``top_p``,
+    ``page_size``, ``cache_pages`` and ``kv_dtype`` ("bf16" or "fp32").
+    The JAX engine's other options raise ``NotImplementedError``. Unlike
+    the JAX engine, the defaults are the production path: both kernels on
+    the card, and their plain versions for CPU tensors.
+    """
+
+    def __init__(self, model, env, *, max_turns: int = 4,
+                 max_turn_tokens: int = 8, max_context: int = 256,
+                 temperature: float = 1.0, top_p: float = 1.0,
+                 sampling: str = "fused", attn_impl: str = "paged",
+                 cache_layout: str = "paged", page_size: int = 16,
+                 cache_pages: Optional[int] = None, kv_dtype: str = "bf16",
+                 on_exhaust: str = "count", share_prefix: bool = False,
+                 pool_growth: str = "off", speculation: str = "off",
+                 mesh_config=None, device=None):
+        cfg = model.cfg
+        if cache_layout == "dense":
+            raise _unported("cache_layout='dense'", "2")
+        if cache_layout != "paged":
+            raise ValueError(f"cache_layout must be 'paged', got "
+                             f"{cache_layout!r}")
+        if share_prefix:
+            raise _unported("share_prefix (copy-on-write prefix sharing)",
+                            "8")
+        if kv_dtype == "int8":
+            raise _unported("kv_dtype='int8'", "8")
+        if on_exhaust == "preempt":
+            raise _unported("on_exhaust='preempt'", "8")
+        if pool_growth != "off":
+            raise _unported("pool_growth", "8")
+        if speculation != "off":
+            raise _unported("speculation", "8")
+        if mesh_config is not None:
+            raise _unported("mesh_config (multi-device)", "9")
+        if ACTION_BASE + env.n_actions > cfg.vocab_size:
+            raise ValueError("the action tokens do not fit the vocabulary")
+        if env.obs_len + max_turn_tokens + env.obs_len > max_context:
+            raise ValueError("max_context cannot fit even one turn")
+        if attn_impl not in ("paged", "xla"):
+            raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
+                             f"{attn_impl!r}")
+        if sampling not in ("fused", "reference"):
+            raise ValueError(f"sampling must be 'fused' or 'reference', got "
+                             f"{sampling!r}")
+        if on_exhaust not in ("count", "raise"):
+            raise ValueError(f"on_exhaust must be 'count' or 'raise', got "
+                             f"{on_exhaust!r}")
+        if kv_dtype not in ("bf16", "fp32"):
+            raise ValueError(f"kv_dtype must be 'bf16' or 'fp32', got "
+                             f"{kv_dtype!r}")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        self.model = model
+        self.env = env
+        self.max_turns = max_turns
+        self.max_turn_tokens = max_turn_tokens
+        self.max_context = max_context
+        self.temperature = temperature
+        self.top_p = top_p
+        self.sampling = sampling
+        self.attn_impl = attn_impl
+        self.page_size = page_size
+        self.cache_pages = cache_pages      # None = full provisioning
+        self.kv_dtype = kv_dtype
+        self.on_exhaust = on_exhaust
+        self.device = resolve_device(device)
+
+    # -- carry ---------------------------------------------------------------
+    def init_carry(self, B: int, N: int) -> slots.SlotCarry:
+        dev, T = self.device, self.max_context
+        live = torch.arange(B, device=dev) < N
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        return slots.SlotCarry(
+            cache=self.model.init_cache(
+                B, T, layout="paged", page_size=self.page_size,
+                n_pages=self.cache_pages, kv_dtype=self.kv_dtype,
+                device=dev),
+            logits=z((B, self.model.cfg.vocab_size), torch.float32),
+            env_state=self.env.reset(B, device=dev),
+            tokens=torch.full((B, T + 1), TOK_PAD, dtype=torch.int32,
+                              device=dev),
+            gen_mask=z((B, T + 1), torch.bool),
+            logprobs=z((B, T + 1), torch.float32),
+            pos=z((B,), torch.int32),
+            live=live,
+            truncated=z((B,), torch.bool),
+            n_turns=z((B,), torch.int32),
+            turn_lengths=z((B, self.max_turns), torch.int32),
+            episode=torch.where(live, torch.arange(B, device=dev), N).to(
+                torch.int32),
+            launched=torch.full((), min(B, N), dtype=torch.int32,
+                                device=dev),
+            returned=z((), torch.int32),
+            store=slots.init_store(N, T, self.max_turns, dev),
+            pages_peak=z((), torch.int32),
+            kv_dropped=z((), torch.int32),
+            kv_shortfall=z((B,), torch.int32),
+        )
+
+    # -- pieces of the macro-step --------------------------------------------
+    def _decode(self, params):
+        return self.model.decode_scan_body(params, attn_impl=self.attn_impl)
+
+    def _feed_obs(self, decode, logits, cache, tokens, pos, obs, mask):
+        """Teacher-force the obs columns into ``mask`` rows, one decode
+        step per column; other rows are no-ops."""
+        T = self.max_context
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        for j in range(obs.shape[1]):
+            col = torch.where(mask, obs[:, j], TOK_PAD).to(torch.int32)
+            cidx = torch.where(mask, pos, T).long()     # T = trash column
+            tokens[rows, cidx] = col
+            (logits, cache), _ = decode((logits, cache), (col, mask))
+            pos = pos + mask.to(torch.int32)
+        return logits, cache, tokens, pos
+
+    def _sample(self, logits, noise):
+        if self.sampling == "fused":
+            from repro_torch.kernels.fused_sample import ops as fs_ops
+            return fs_ops.fused_sample_tokens(logits, self.temperature,
+                                              top_p=self.top_p, noise=noise)
+        return common.sample_with_noise(logits, noise, self.temperature,
+                                        self.top_p)
+
+    def init_feed(self, params, carry: slots.SlotCarry) -> slots.SlotCarry:
+        """Feed the initial observation of every live slot (run once before
+        the macro-step loop)."""
+        logits, cache, tokens, pos = self._feed_obs(
+            self._decode(params), carry.logits, carry.cache, carry.tokens,
+            carry.pos, self.env.encode_obs(carry.env_state), carry.live)
+        return carry._replace(logits=logits, cache=cache, tokens=tokens,
+                              pos=pos)
+
+    def turn_step(self, params, c: slots.SlotCarry, m: int,
+                  noise: NoiseFn) -> slots.SlotCarry:
+        """One macro-step (one turn for every slot). Enqueues device work
+        only: no host read."""
+        env, T, olen = self.env, self.max_context, self.env.obs_len
+        mtt, mturns = self.max_turn_tokens, self.max_turns
+        n_actions, V = env.n_actions, self.model.cfg.vocab_size
+        B = c.pos.shape[0]
+        N = c.store.tokens.shape[0] - 1
+        dev = c.pos.device
+        rows = torch.arange(B, device=dev)
+        decode = self._decode(params)
+        i32 = lambda t: t.to(torch.int32)
+
+        # 1. truncation / active set
+        room = c.pos + mtt + olen <= T
+        truncated = c.truncated | (c.live & ~room)
+        active = c.live & room & (c.n_turns < mturns)
+
+        # 2. generation: mtt decode steps; sample, then write the token's
+        #    K/V (fused sample-and-write when sampling="fused")
+        logits, cache, pos = c.logits, c.cache, c.pos
+        tokens, gen_mask, logprobs = c.tokens, c.gen_mask, c.logprobs
+        acted = ~active
+        actions = torch.zeros((B,), dtype=torch.int32, device=dev)
+        last_tok = torch.zeros_like(actions)
+        tl = torch.zeros_like(actions)
+        for t in range(mtt):
+            write = ~acted
+            nz = (noise("sample", m, t, (B, V))
+                  if self.temperature > 0.0 else None)
+            tok, lp = self._sample(logits, nz)
+            (logits_next, cache), _ = decode((logits, cache), (tok, write))
+            cidx = torch.where(write, pos, T).long()    # T = trash column
+            tokens[rows, cidx] = tok
+            gen_mask[rows, cidx] = write      # True where it lands
+            logprobs[rows, cidx] = lp
+            pos = pos + i32(write)
+            tl = tl + i32(write)
+            last_tok = torch.where(write, tok, last_tok)
+            newly = write & common.action_mask(tok, n_actions)
+            actions = torch.where(newly, tok - ACTION_BASE, actions)
+            acted = acted | newly
+            logits = logits_next
+
+        # 2b. pool telemetry after generation (peak: nothing released yet);
+        #     the drop counter accumulates per-slot shortfall growth
+        occ, _ = paging.pool_stats(cache)
+        pages_peak = torch.maximum(c.pages_peak, occ)
+        drop_now = paging.dropped_tokens(cache, self.page_size)
+        kv_dropped = c.kv_dropped + (drop_now - c.kv_shortfall).clamp_min(
+            0).sum(dtype=torch.int32)
+        kv_shortfall = drop_now
+
+        # 3. action fallback + turn accounting
+        actions = common.fallback_actions(actions, last_tok, active, acted,
+                                          n_actions)
+        turn_idx = c.n_turns.clamp(0, mturns - 1).long()
+        turn_lengths = c.turn_lengths.clone()
+        turn_lengths[rows, turn_idx] = (turn_lengths[rows, turn_idx]
+                                        + torch.where(active, tl, 0))
+        n_turns = c.n_turns + i32(active)
+
+        # 4. env transition (inactive rows absorb inside env.step)
+        env_actions = i32(torch.where(active, actions, 0))
+        state2, res = env.step(c.env_state, env_actions,
+                               noise("env", m, 0,
+                                     (B, env.step_noise_width)))
+
+        # 5. harvest finished episodes (truncated -> zero reward)
+        finished = c.live & (state2.done | truncated | (n_turns >= mturns))
+        rewards_row = torch.where(truncated, 0.0, state2.reward).float()
+        store = slots.harvest(
+            c.store, finished=finished, episode=c.episode,
+            tokens=tokens[:, :T], gen_mask=gen_mask[:, :T],
+            logprobs=logprobs[:, :T], rewards=rewards_row, pos=pos,
+            truncated=truncated, n_turns=n_turns, turn_lengths=turn_lengths)
+        returned = c.returned + finished.sum(dtype=torch.int32)
+
+        # 6. slot refill: release pages, reset rows (masked, unconditional)
+        refill, new_ids, launched = slots.refill_plan(finished, c.launched,
+                                                      N)
+        r1 = refill[:, None]
+        cache = paging.release_slot_pages(cache, refill)
+        state3 = env.reset_rows(state2, refill)
+        tokens = torch.where(r1, TOK_PAD, tokens)
+        gen_mask = torch.where(r1, False, gen_mask)
+        logprobs = torch.where(r1, 0.0, logprobs)
+        pos = torch.where(refill, 0, pos)
+        n_turns = torch.where(refill, 0, n_turns)
+        turn_lengths = torch.where(r1, 0, turn_lengths)
+        kv_shortfall = torch.where(refill, 0, kv_shortfall)
+
+        # 7. one combined obs feed: continuing rows get the env observation,
+        #    refilled rows their reset observation
+        cont = active & ~state2.done & ~finished
+        feed_mask = cont | refill
+        obs = torch.where(r1, env.encode_obs(state3), res.obs_tokens)
+        logits, cache, tokens, pos = self._feed_obs(
+            decode, logits, cache, tokens, pos, obs, feed_mask)
+
+        return slots.SlotCarry(
+            cache=cache, logits=logits, env_state=state3, tokens=tokens,
+            gen_mask=gen_mask, logprobs=logprobs, pos=pos,
+            live=(c.live & ~finished) | refill,
+            truncated=torch.where(finished | refill, False, truncated),
+            n_turns=n_turns, turn_lengths=turn_lengths,
+            episode=torch.where(refill, new_ids,
+                                torch.where(finished, N, c.episode)).to(
+                                    torch.int32),
+            launched=launched, returned=returned, store=store,
+            pages_peak=pages_peak, kv_dropped=kv_dropped,
+            kv_shortfall=kv_shortfall)
+
+    # ------------------------------------------------------------------------
+    def default_noise(self, generator: Optional[torch.Generator] = None
+                      ) -> NoiseFn:
+        """Gumbel draws from ``generator`` (or the device's default
+        generator) on the engine's device."""
+        def draw(kind, m, index, shape):
+            del kind, m, index
+            return common.gumbel(shape, generator=generator,
+                                 device=self.device)
+        return draw
+
+    def run(self, params, batch: int, n_episodes: Optional[int] = None, *,
+            generator: Optional[torch.Generator] = None,
+            noise: Optional[NoiseFn] = None, params_version: int = -1,
+            ref_params=None):
+        """Roll out ``n_episodes`` (default ``batch``) episodes over
+        ``batch`` slots. Returns ``(ExperienceBatch, RolloutStats)``."""
+        if ref_params is not None:
+            raise _unported("in-loop reference log-probs (ref_params)", "4")
+        B = int(batch)
+        N = int(n_episodes) if n_episodes is not None else B
+        if N < 1 or B < 1:
+            raise ValueError(f"batch and n_episodes must be >= 1, got {B}, "
+                             f"{N}")
+        noise = noise if noise is not None else self.default_noise(generator)
+        carry = self.init_feed(params, self.init_carry(B, N))
+        max_macro = self.max_turns * math.ceil(N / B) + 2
+        for m in range(max_macro):
+            carry = self.turn_step(params, carry, m, noise)
+            # the one host sync per turn (plus the drop counter in
+            # on_exhaust="raise" mode)
+            if self.on_exhaust == "raise" and int(carry.kv_dropped) > 0:
+                raise RuntimeError(
+                    f"KV page pool exhausted during rollout: "
+                    f"{int(carry.kv_dropped)} dropped KV write(s) by "
+                    f"macro-step {m} (pool {carry.cache.n_pages} pages, "
+                    f"peak in use {int(carry.pages_peak)}); grow "
+                    f"cache_pages (see models.paging.pool_pages_needed) or "
+                    f"use on_exhaust='count' to tolerate truncation")
+            if int(carry.returned) >= N:
+                break
+        return self._finalize(carry, N, params_version)
+
+    def _finalize(self, carry: slots.SlotCarry, N: int,
+                  params_version: int = -1):
+        s = carry.store
+        rewards = s.rewards[:N]
+        exp = ExperienceBatch(
+            tokens=s.tokens[:N], gen_mask=s.gen_mask[:N],
+            loss_mask=s.gen_mask[:N], logprobs=s.logprobs[:N],
+            ref_logprobs=s.ref_logprobs[:N], rewards=rewards,
+            returns=rewards, advantages=reinforce_advantages(rewards),
+            context_len=s.context_len[:N], truncated=s.truncated[:N])
+        stats = common.summarize(
+            s.turn_lengths[:N].cpu(), s.context_len[:N].cpu(),
+            s.n_turns[:N].cpu(), s.truncated[:N].cpu(), rewards.cpu(),
+            episodes_started=int(carry.launched),
+            episodes_returned=int(carry.returned),
+            params_version=params_version,
+            pages_in_use=int(carry.pages_peak),
+            page_capacity=(carry.cache.n_pages
+                           if paging.is_paged(carry.cache) else 0),
+            kv_dropped_writes=int(carry.kv_dropped))
+        return exp, stats

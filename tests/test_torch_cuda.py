@@ -1,0 +1,187 @@
+"""The port's CUDA kernels on the card, held against their plain PyTorch
+versions, and the smoke-size rollout through them. Every test here needs a
+CUDA device and nvcc and skips without one; this file imports no JAX, so
+it runs on a GPU machine that has none:
+
+    python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances are set at each case's own output scale s = max|ref|, as in
+``chip_smoke.py``: f32 outputs within 32 f32 ulps of s (the same f32 math
+in another order, atol 2^-18 s); bf16 outputs add one bf16 ulp of each
+element (two nearby f32 results may round to adjacent bf16 values, rtol
+2^-7); log-probs within (V/1024 + 60) unit roundings of the two f32
+logsumexps plus 8 ulps of the largest |log-prob|.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.fused_sample import ops as fs_ops
+from repro_torch.kernels.fused_sample.ref import fused_sample_ref
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro_torch.models.registry import build_model
+from repro_torch.rl.engine import CompiledRolloutEngine
+from repro_torch.rl.envs import TicTacToe
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    """The card, or a skip: decided when the test runs, not at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU, see "
+                    "README)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+PAGED_CASES = {
+    # name: (B, NP, P, ps, H, KV, hd, lens, int8)
+    "shuffled_table": (3, 4, 16, 8, 4, 2, 32, [25, 9, 32], False),
+    "lens_zero_and_partial_page": (3, 4, 16, 8, 4, 2, 32, [0, 17, 8], False),
+    "qwen2_heads": (4, 16, 65, 16, 14, 2, 64, [256, 1, 100, 0], False),
+    "int8_scales": (3, 4, 16, 8, 4, 2, 32, [25, 0, 13], True),
+    "big_pages_hd128": (2, 2, 8, 128, 8, 1, 128, [200, 129], False),
+}
+
+
+def _paged_case(seed, B, NP, P, ps, H, KV, hd, lens, int8, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=g)
+    if int8:
+        kp = torch.randint(-127, 128, (P, ps, KV, hd), generator=g).to(
+            torch.int8)
+        vp = torch.randint(-127, 128, (P, ps, KV, hd), generator=g).to(
+            torch.int8)
+        ks = torch.rand((P, ps, KV), generator=g) / 127
+        vs = torch.rand((P, ps, KV), generator=g) / 127
+    else:
+        kp = torch.randn((P, ps, KV, hd), generator=g)
+        vp = torch.randn((P, ps, KV, hd), generator=g)
+        ks = vs = None
+    lens = torch.tensor(lens, dtype=torch.int32)
+    perm = torch.randperm(P, generator=g)[:B * NP].reshape(B, NP)
+    npages = (lens + ps - 1) // ps
+    bt = torch.where(torch.arange(NP)[None, :] < npages[:, None], perm, -1)
+    if npages[0] > 1:
+        bt[0, 1] = -1                    # unmapped entry inside the range
+    out = [q, kp, vp, bt.to(torch.int32), lens, ks, vs]
+    return [None if t is None else t.to(device) for t in out]
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain_version(name, qdtype, dev):
+    q, kp, vp, bt, lens, ks, vs = _paged_case(0, *PAGED_CASES[name], dev)
+    q = q.to(qdtype)
+    if ks is None:
+        kp, vp = kp.to(qdtype), vp.to(qdtype)
+    n0 = pa_ops.launches
+    out = pa_ops.paged_decode_attention(q, kp, vp, bt, lens, k_scales=ks,
+                                        v_scales=vs)
+    assert pa_ops.launches == n0 + 1
+    ref = paged_decode_attention_ref(q, kp, vp, bt, lens, ks, vs)
+    torch.cuda.synchronize()
+    atol = 2.0 ** -18 * float(ref.float().abs().max())
+    rtol = 0.0 if qdtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    if int(lens[-1]) == 0 or int(lens[0]) == 0:
+        i = 0 if int(lens[0]) == 0 else -1
+        assert not bool(out[i].any())    # fully masked row outputs zeros
+
+
+def test_paged_attention_wrapper_checks_inputs(dev):
+    q, kp, vp, bt, lens, _, _ = _paged_case(1, *PAGED_CASES["shuffled_table"],
+                                            dev)
+    with pytest.raises(TypeError, match="int32"):
+        pa_ops.paged_decode_attention(q, kp, vp, bt.long(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_decode_attention(q, kp.transpose(0, 1), vp.transpose(
+            0, 1), bt, lens)
+    with pytest.raises(ValueError, match="scales"):
+        pa_ops.paged_decode_attention(q, kp.to(torch.int8),
+                                      vp.to(torch.int8), bt, lens)
+
+
+def _lp_atol(lp_ref, V):
+    return ((V / 1024 + 60) * 2.0 ** -24
+            + 8 * 2.0 ** -23 * float(lp_ref.abs().max()))
+
+
+def _sample_inputs(seed, B, V, noise, device):
+    rs = np.random.RandomState(seed)
+    lg = (rs.standard_normal((B, V)) * 3).astype(np.float32)
+    lg[0, 7] = lg[0, V - 3] = 50.0       # planted tie: the earliest wins
+    nz = (np.zeros((B, V), np.float32) if noise == "zero" else
+          rs.gumbel(size=(B, V)).astype(np.float32))
+    nz[0] = 0.0
+    return torch.from_numpy(lg).to(device), torch.from_numpy(nz).to(device)
+
+
+@pytest.mark.parametrize("V", [1000, 2500, 151936, 151937])
+@pytest.mark.parametrize("noise", ["zero", "gumbel"])
+def test_fused_sample_kernel_matches_plain_version(V, noise, dev):
+    lg, nz = _sample_inputs(3, 8, V, noise, dev)
+    n0 = fs_ops.launches
+    tok, lp = fs_ops.fused_sample(lg, nz)
+    assert fs_ops.launches == n0 + 1
+    tok_r, lp_r = fused_sample_ref(lg, nz)
+    assert torch.equal(tok, tok_r) and int(tok[0]) == 7
+    torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
+
+
+def test_fused_sample_misaligned_rows_take_scalar_loads(dev):
+    """A view starting one float in is still contiguous but not 16-byte
+    aligned: the kernel must fall back to scalar loads and agree."""
+    lg, nz = _sample_inputs(4, 4, 2048, "gumbel", dev)
+    buf = torch.empty(lg.numel() + 1, device=dev)
+    flat_l = buf[1:].view(4, 2048)
+    flat_l.copy_(lg)
+    assert flat_l.is_contiguous() and flat_l.data_ptr() % 16
+    tok, lp = fs_ops.fused_sample(flat_l, nz)
+    tok_r, lp_r = fused_sample_ref(flat_l, nz)
+    assert torch.equal(tok, tok_r)
+    torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, 2048), rtol=0)
+
+
+@pytest.fixture
+def smoke(dev):
+    model = build_model(get_smoke_config("qwen2-0.5b"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.float32)
+    # the defaults: attn_impl="paged", sampling="fused", on the card
+    eng = CompiledRolloutEngine(
+        model, TicTacToe(), kv_dtype="fp32", temperature=1.0, max_turns=3,
+        max_turn_tokens=4, max_context=96)
+    return model, params, eng
+
+
+def test_smoke_rollout_runs_through_both_kernels(smoke):
+    model, params, eng = smoke
+    pa_ops.reset_launches()
+    fs_ops.reset_launches()
+    exp, st = eng.run(params, 4, 8,
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    assert pa_ops.launches > 0 and fs_ops.launches > 0
+    assert pa_ops.launches % model.cfg.n_layers == 0
+    assert st.episodes_started == st.episodes_returned == 8
+    assert st.kv_dropped_writes == 0
+    assert bool(torch.isfinite(exp.logprobs).all())
+
+
+def test_macro_step_makes_no_host_sync(smoke):
+    _, params, eng = smoke
+    carry = eng.init_feed(params, eng.init_carry(4, 8))
+    noise = eng.default_noise(torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = eng.turn_step(params, carry, 0, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(carry.launched) >= 4
