@@ -16,6 +16,10 @@ Phases, in order; any failure raises and exits non-zero:
                both with CUDA events (median of 50 single launches, L2
                flushed before each) beside the bound from bytes and
                operations.
+     The flash-attention forward, dq and dk/dv kernels are held at the
+               update's shapes (B=32, S=256, 14/2 heads, hd 64) and also
+               timed against torch's scaled_dot_product_attention and its
+               autograd backward (library_ms; the port never calls it).
   4. path    — full-width qwen2-0.5b (24 layers, d=896, 14/2 heads,
                V=151936, bf16, random weights from a seeded generator)
                driven through CompiledRolloutEngine on TicTacToe with
@@ -28,6 +32,17 @@ Phases, in order; any failure raises and exits non-zero:
   6. sync    — one macro-step under torch.cuda.set_sync_debug_mode("error").
   7. trace   — one macro-step timed on the host clock, and the next under
                torch.profiler: device busy time and idle share.
+  8. train   — full-width qwen2-0.5b through EarlTrainer (the sync step:
+               Rollout -> ExpPrep -> Dispatch -> Update with AdamW) for 2
+               steps on TicTacToe, B=N=32, max_context 256, KL 0.05,
+               clip 0.2, bf16, remat "full"; every launch counter set to
+               0 before each step and read after it, and checked against
+               the exact counts the step must make.
+  9. train_trace — one more update of the last batch on the host clock,
+               the next under torch.profiler: device busy and idle share.
+ 10. train_branch — one update batch of the train phase through the
+               update step with attn_impl "flash" (the kernels) and
+               "xla" (plain attention): loss and per-leaf grad norms.
 
 Prints JSON lines; the line before the last lists every kernel, and the
 last line is {"ok": true, "device": {...}}.
@@ -35,6 +50,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,6 +61,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS = 67e12             # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM, bf16 dense tensor cores
 N_TIMED = 50
 
 
@@ -52,9 +69,11 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    """Least ms for the work: bytes over HBM bandwidth or operations over
+    the peak rate of the inputs' type, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -218,6 +237,108 @@ def phase_kernels(torch, report):
     report["fused_sample"] = dict(cases["gumbel"], cases=cases)
 
 
+def phase_flash(torch, report):
+    """The flash-attention kernels at the update's shapes: B=32, S=256,
+    14/2 heads, hd 64, causal, bf16 (the main path) and fp32. Each is held
+    against ``ref.py`` and timed beside its bound, the plain version and
+    torch's scaled_dot_product_attention (forward, or its autograd
+    backward, which computes dq, dk and dv in one call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, S, H, KV, hd = 32, 256, 14, 2, 64
+    pairs = B * H * S * (S + 1) // 2            # causal (query, key) pairs
+    cases = {"flash_fwd": {}, "flash_dq": {}, "flash_dkv": {}}
+    # Tolerances at each output's own scale s = max|ref|: O and L within
+    # 32 f32 ulps of s (atol 2^-18 s), as for paged attention; gradients
+    # within 2^-14 s, because each sums up to 7 x 256 products of terms
+    # that cancel in dS = P(dP - D). bf16 outputs add one bf16 ulp of
+    # each element (rtol 2^-7).
+    for name, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
+                                  2.0 ** -7),
+                                 ("fp32", torch.float32, F32_FLOPS, 0.0)):
+        q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        out, L = fa_ops.flash_attention_fwd(q, k, v, True, 0)
+        dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, out, do, L, True, 0)
+        out_r, L_r = attention_fwd_ref(q, k, v, True, 0)
+        # the backward on the same inputs as the kernels' (the kernel's O
+        # and L): in bf16 the rounding of O moves D = rowsum(dO O)
+        dq_r, dk_r, dv_r = attention_bwd_ref(q, k, v, out, do, L, True, 0)
+        torch.cuda.synchronize()
+        scale = lambda t: float(t.float().abs().max())
+        checks = {
+            "flash_fwd": [held(torch, out, out_r, 2.0 ** -18 * scale(out_r),
+                               rtol),
+                          held(torch, L, L_r, 2.0 ** -18 * scale(L_r), 0.0)],
+            "flash_dq": [held(torch, dq, dq_r, 2.0 ** -14 * scale(dq_r),
+                              rtol)],
+            "flash_dkv": [held(torch, x, r, 2.0 ** -14 * scale(r), rtol)
+                          for x, r in ((dk, dk_r), (dv, dv_r))]}
+        D = torch.einsum("bshd,bshd->bhs", do.float(),
+                         out.float()).contiguous()
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        lib_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                              retain_graph=True)
+        e = q.element_size()
+        qb, kvb, lb = B * S * H * hd * e, B * S * KV * hd * e, B * H * S * 4
+        work = {"flash_fwd": (2 * qb + 2 * kvb + lb, 4 * hd * pairs),
+                "flash_dq": (3 * qb + 2 * kvb + 2 * lb, 6 * hd * pairs),
+                "flash_dkv": (2 * qb + 4 * kvb + 2 * lb, 8 * hd * pairs)}
+        times = {
+            "flash_fwd": (
+                lambda: fa_ops.flash_attention_fwd(q, k, v, True, 0),
+                lambda: attention_fwd_ref(q, k, v, True, 0),
+                lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True)),
+            "flash_dq": (
+                lambda: fa_ops.flash_attention_dq(q, k, v, do, L, D, True, 0),
+                lambda: attention_bwd_ref(q, k, v, out, do, L, True, 0),
+                lib_bwd),
+            "flash_dkv": (
+                lambda: fa_ops.flash_attention_dkv(q, k, v, do, L, D, True,
+                                                   0),
+                lambda: attention_bwd_ref(q, k, v, out, do, L, True, 0),
+                lib_bwd)}
+        plain_bwd_ms = lib_bwd_ms = None
+        for kname, chk in checks.items():
+            ok = all(c["ok"] for c in chk)
+            case = dict(max_abs_err=max(c["max_abs_err"] for c in chk),
+                        atol=[c["atol"] for c in chk], rtol=rtol,
+                        err_over_tol=max(c["err_over_tol"] for c in chk))
+            if not ok:
+                raise AssertionError(f"{kname} {name}: {case}")
+            kern, plain, lib = times[kname]
+            b_ms, b_by = bound(*work[kname], peak)
+            case["ms"] = time_cold(torch, kern)
+            if kname == "flash_fwd":
+                case["plain_ms"] = time_cold(torch, plain)
+                case["library_ms"] = time_cold(torch, lib)
+            else:          # one plain / library call computes dq, dk, dv
+                if plain_bwd_ms is None:
+                    plain_bwd_ms = time_cold(torch, plain)
+                    lib_bwd_ms = time_cold(torch, lib)
+                case["plain_ms"], case["library_ms"] = plain_bwd_ms, \
+                    lib_bwd_ms
+            case.update(bound_ms=b_ms, bound_by=b_by, bytes=work[kname][0],
+                        flops=work[kname][1])
+            cases[kname][name] = case
+            emit({"phase": "kernels", "kernel": kname, "case": name, **case})
+    for kname, by_case in cases.items():
+        report[kname] = dict(by_case["bf16"], cases=by_case)
+
+
 # ---------------------------------------------------------------------------
 def phase_path(torch, model, params, report):
     from repro_torch.kernels.fused_sample import ops as fs_ops
@@ -370,6 +491,182 @@ def phase_macro_step(torch, engine, params):
           "top_device_ms": top})
 
 
+class _RecordingUpdate:
+    """Wraps the trainer's UpdateStage to keep the batches it is given."""
+
+    def __init__(self, stage):
+        self.stage, self.batches = stage, []
+
+    def __call__(self, params, opt_state, exp):
+        self.batches.append(exp)
+        return self.stage(params, opt_state, exp)
+
+
+def phase_train(torch, model, report):
+    """Two sync steps of EarlTrainer at full width (the training path).
+    Expected launches per step, exactly: the flash forward once per layer
+    in the update, once more in its remat recompute, and once more in the
+    ExpPrep reference pass on step 1 (step 0 reuses the behaviour
+    log-probs: the reference IS the policy); dq and dk/dv once per layer;
+    one fused sample per generated-token step and one paged attention per
+    layer per decode step (the initial feed, then max_turn_tokens +
+    obs_len decode steps per macro-step)."""
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.rl.envs import TicTacToe
+
+    cfg = model.cfg
+    tr = EarlTrainer(model=model, env=TicTacToe(),
+                     optimizer=adamw(3e-4, weight_decay=0.0), batch_size=32,
+                     rollout_episodes=32, max_turns=4, max_turn_tokens=32,
+                     max_context=256, kl_coef=0.05, clip_eps=0.2,
+                     temperature=1.0, seed=0)
+    tr.update_stage = _RecordingUpdate(tr.update_stage)
+    params, opt_state, ref = tr.init_state()
+    first = {k: ref[k].clone() for k in ("layers.attn.wq", "embedding")}
+    nl, mtt, olen = cfg.n_layers, tr.max_turn_tokens, tr.env.obs_len
+    totals = dict.fromkeys(("paged_attention", "fused_sample", "flash_fwd",
+                            "flash_dq", "flash_dkv"), 0)
+    for step in range(2):
+        for ops in (pa_ops, fs_ops, fa_ops):
+            ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        new, opt_state, rec = tr.run_step(step, params, opt_state, ref)
+        torch.cuda.synchronize()
+        counts = dict(paged_attention=pa_ops.launches,
+                      fused_sample=fs_ops.launches,
+                      flash_fwd=fa_ops.launches["fwd"],
+                      flash_dq=fa_ops.launches["dq"],
+                      flash_dkv=fa_ops.launches["dkv"])
+        n_macro = counts["fused_sample"] // mtt
+        expected = dict(paged_attention=nl * (olen + n_macro * (mtt + olen)),
+                        fused_sample=n_macro * mtt,
+                        flash_fwd=nl * (3 if step else 2),
+                        flash_dq=nl, flash_dkv=nl)
+        exp = tr.update_stage.batches[-1]
+        changed = not torch.equal(new["layers.attn.wq"],
+                                  params["layers.attn.wq"])
+        out = dict(phase="train", step=step, ref_pass=step > 0,
+                   mean_return=rec.mean_return,
+                   mean_context_len=rec.mean_context_len,
+                   truncated_frac=rec.truncated_frac, loss=rec.loss,
+                   kl=rec.kl, rollout_s=rec.rollout_wall_s,
+                   update_s=rec.update_wall_s, step_s=rec.wall_time_s,
+                   update_tokens=exp.tokens.numel(),
+                   update_tokens_per_s=exp.tokens.numel()
+                   / rec.update_wall_s,
+                   launches=counts, expected_launches=expected,
+                   kv_dropped_writes=rec.kv_dropped_writes,
+                   params_changed=changed,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        emit(out)
+        if not (counts == expected and n_macro > 0 and changed
+                and math.isfinite(rec.loss) and math.isfinite(rec.kl)
+                and rec.kv_dropped_writes == 0):
+            raise AssertionError(f"train step {step} checks failed: {out}")
+        for k_, n in counts.items():
+            totals[k_] += n
+        params = new
+    if not all(torch.equal(ref[k], v) for k, v in first.items()):
+        raise AssertionError("the update wrote the aliased reference params")
+    for k_ in ("flash_fwd", "flash_dq", "flash_dkv"):
+        report[k_]["launches"] = totals[k_]
+    report["train_launches"] = totals
+    return tr, params, opt_state, tr.update_stage.batches[-1]
+
+
+def phase_train_trace(torch, trainer, params, opt_state, exp):
+    """One more update of the train phase's last batch timed on the host
+    clock, and the next under torch.profiler: device busy time, idle
+    share and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.update_stage(params, opt_state, exp)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.update_stage(params, opt_state, exp)
+        torch.cuda.synchronize()
+    busy_ms, n_events, top = device_busy(torch, prof)
+    from torch.autograd import DeviceType
+    flash_ms = {name: sum(a.self_device_time_total for a in
+                          prof.key_averages()
+                          if a.device_type == DeviceType.CUDA
+                          and name in a.key) / 1e3
+                for name in ("fa_fwd_kernel", "fa_dq_kernel",
+                             "fa_dkv_kernel")}
+    emit({"phase": "train_trace", "update_wall_ms": wall_ms,
+          "device_busy_ms": busy_ms,
+          "device_idle_share": (None if busy_ms is None
+                                else 1.0 - busy_ms / wall_ms),
+          "device_events": n_events, "flash_device_ms": flash_ms,
+          "top_device_ms": top})
+
+
+def phase_train_branch(torch, model, params, opt_state, exp):
+    """One update batch through the update step with the kernels
+    ("flash") and with plain attention ("xla"): loss and per-leaf
+    gradient norms. The two branches differ only in rounding: bf16
+    weights; the xla branch rounds its softmax weights to bf16 before P.V
+    and runs its backward through bf16 einsums, while the kernels stay
+    f32 inside. On an H100 (seed 0) this phase read a loss gap of 1.9e-5,
+    a KL gap of 2.7e-4, a worst leaf gradient-norm gap of 0.21 of the
+    leaf bound below and a gradient cosine of 0.9976. The tolerances are
+    about 10x those readings: the loss within 2e-4 and the KL within 3e-3
+    absolute, the gradient cosine at least 0.98; each leaf's gradient
+    norm within 5% of itself plus 0.1% of the global norm (about 5x its
+    reading; leaves whose exact gradient is 0, like the key bias, hold
+    only rounding noise). The kernels themselves are held elementwise in
+    the flash phase."""
+    from repro_torch.core.train_step import make_rl_train_step
+    from repro_torch.optim.adamw import Optimizer, adamw
+
+    res = {}
+    for impl in ("flash", "xla"):
+        store = {}
+        opt = adamw(3e-4, weight_decay=0.0)
+
+        def update(grads, state, p, opt=opt, store=store):
+            store["grads"] = grads
+            return opt.update(grads, state, p)
+        step = make_rl_train_step(model, Optimizer(init=opt.init,
+                                                   update=update),
+                                  clip_eps=0.2, kl_coef=0.05,
+                                  attn_impl=impl)
+        _, _, m = step(params, opt_state, exp)
+        grads = store["grads"]
+        res[impl] = dict(loss=float(m["loss"]), kl=float(m["kl"]),
+                         norms={k: float(g.float().norm())
+                                for k, g in grads.items()},
+                         flat=torch.cat([g.float().flatten()
+                                         for g in grads.values()]))
+        del grads, store
+    f, x = res["flash"], res["xla"]
+    loss_tol, kl_tol, min_cos = 2e-4, 3e-3, 0.98
+    gn = float(x["flat"].norm())
+    worst = max(abs(f["norms"][k] - n) / (0.05 * n + 1e-3 * gn)
+                for k, n in x["norms"].items())
+    cos = float((f["flat"] @ x["flat"]) / (f["flat"].norm() * gn))
+    out = dict(phase="train_branch", loss_flash=f["loss"],
+               loss_xla=x["loss"], kl_flash=f["kl"], kl_xla=x["kl"],
+               loss_tolerance=loss_tol, kl_tolerance=kl_tol,
+               grad_norm_flash=float(f["flat"].norm()), grad_norm_xla=gn,
+               worst_leaf_norm_err_over_tol=worst, grad_cosine=cos,
+               min_grad_cosine=min_cos)
+    emit(out)
+    if not (abs(f["loss"] - x["loss"]) <= loss_tol
+            and abs(f["kl"] - x["kl"]) <= kl_tol and worst <= 1.0
+            and cos >= min_cos):
+        raise AssertionError(f"flash and xla update branches disagree: "
+                             f"{out}")
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     import torch
@@ -400,6 +697,7 @@ def main() -> int:
 
     report = {}
     phase_kernels(torch, report)
+    phase_flash(torch, report)
     cfg = get_config("qwen2-0.5b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -409,24 +707,34 @@ def main() -> int:
     emit({"phase": "init", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "params": sum(t.numel() for t in params.values()),
-          "seconds": time.perf_counter() - t0})
+          "remat": cfg.remat, "seconds": time.perf_counter() - t0})
     engine = phase_path(torch, model, params, report)
     phase_branch(torch, model, params)
     phase_macro_step(torch, engine, params)
+    del engine, params
+    trainer, params, opt_state, exp = phase_train(torch, model, report)
+    phase_train_trace(torch, trainer, params, opt_state, exp)
+    phase_train_branch(torch, model, params, opt_state, exp)
 
     kernels = []
     for name, src, replaces in (
             ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/kernel.py:33"),
             ("fused_sample", "src/repro_torch/csrc/fused_sample.cu",
-             "src/repro/kernels/fused_sample/kernel.py:34")):
+             "src/repro/kernels/fused_sample/kernel.py:34"),
+            ("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:28"),
+            ("flash_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention/bwd_kernel.py:39"),
+            ("flash_dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention/bwd_kernel.py:63")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "cases": {c: {k: v[k] for k in ("max_abs_err", "atol", "rtol",
                                             "err_over_tol", "ms")}
                       for c, v in r["cases"].items()}})

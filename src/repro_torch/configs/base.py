@@ -31,6 +31,9 @@ class ModelConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
     source: str = ""
+    sliding_window: int = 0     # 0 = full attention; >0 = window size
+    # remat policy for training: "none" | "full" (checkpoint each layer)
+    remat: str = "full"
 
     @property
     def head_dim_(self) -> int:

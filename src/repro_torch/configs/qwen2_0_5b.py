@@ -13,7 +13,7 @@ SMOKE_CONFIG = ModelConfig(
     arch_id="qwen2-0.5b-smoke", family="dense",
     n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
     vocab_size=512, head_dim=32, qkv_bias=True, rope_theta=1e6,
-    tie_embeddings=True,
+    tie_embeddings=True, remat="none",
     source="reduced qwen2 family variant",
 )
 

@@ -1,5 +1,6 @@
 """Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP (port of
-the dense-decode parts of ``repro/models/layers.py``).
+the dense-model parts of ``repro/models/layers.py``: full-sequence
+self-attention and paged decode).
 
 Functions take the same layouts as the JAX ones: activations
 ``(B, S, D)``, per-head tensors ``(B, S, H, hd)``, params a dict of
@@ -110,6 +111,47 @@ def _sdpa(q, k, v, mask):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def causal_mask(Sq: int, Sk: int, *, q_offset: int = 0, window: int = 0,
+                device=None):
+    """Additive f32 mask (1,1,Sq,Sk): q position i attends to k <= i +
+    q_offset, and (if window > 0) k > i + q_offset - window."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = kpos <= qpos
+    if window > 0:
+        ok &= kpos > (qpos - window)
+    return torch.where(ok, 0.0, NEG_INF).float()[None, None]
+
+
+def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
+                   positions=None, window: int = 0, attn_impl: str = "xla"):
+    """Full-sequence causal self-attention (training and the reference
+    pass). x: (B,S,D) -> (B,S,D).
+
+    attn_impl: "xla" runs the plain ``_sdpa`` with ``causal_mask``;
+    "flash" runs the flash-attention kernels (``kernels/flash_attention``,
+    forward and backward; their plain versions for CPU tensors) — the
+    port's name for what the JAX package calls "pallas" here. The JAX
+    ``cross_kv`` (encoder-decoder) branch is not ported.
+    """
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    if attn_impl == "flash":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    elif attn_impl == "xla":
+        out = _sdpa(q, k, v, causal_mask(S, S, window=window,
+                                         device=x.device))
+    else:
+        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
+                         f"{attn_impl!r}")
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
 
 
 class KVEntry(NamedTuple):

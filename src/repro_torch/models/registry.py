@@ -2,6 +2,7 @@
 
     model = build_model(cfg)
     params = model.init(generator, device=device)
+    logits, aux = model.forward(params, tokens)
     cache = model.init_cache(batch, s_max, device=device)
     logits, cache = model.decode_step(params, token, cache)
 """
@@ -28,6 +29,13 @@ class Model:
         ``None`` means the generator's device)."""
         device = generator.device if device is None else device
         return init_params(self.defs, generator, device, dtype)
+
+    def forward(self, params, tokens, *, extra=None, attn_impl="xla"):
+        """Full-sequence forward: ``(logits (B,S,V), aux)``; the dense
+        family has no auxiliary losses, so ``aux`` is ``{}``.
+        ``attn_impl``: "xla" (plain attention) or "flash" (the kernels)."""
+        return transformer.forward(self.cfg, params, tokens, extra=extra,
+                                   attn_impl=attn_impl), {}
 
     def init_cache(self, batch, s_max, dtype=torch.bfloat16, **layout_kw):
         return transformer.init_cache(self.cfg, batch, s_max, dtype,

@@ -1,16 +1,20 @@
-"""Dense decoder-only transformer, paged decode path (port of the decode
-parts of ``repro/models/transformer.py``).
+"""Dense decoder-only transformer: the full-sequence forward of training
+and the paged decode path (port of those parts of
+``repro/models/transformer.py``).
 
 Layer params keep the stacked leading ``layers`` axis of the JAX tree;
 ``lax.scan`` over layers becomes a Python loop over views of the stacked
-tensors. The paged KV pools are updated IN PLACE by each decode step; the
-block table, refcounts and positions are returned as new tensors.
+tensors, and ``jax.checkpoint`` (``cfg.remat == "full"``) becomes
+``torch.utils.checkpoint`` per layer. The paged KV pools are updated IN
+PLACE by each decode step; the block table, refcounts and positions are
+returned as new tensors.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -58,6 +62,40 @@ def layer_params(params, i: int):
         else:
             out[parts[1]][parts[2]] = t[i]
     return out
+
+
+def _block_apply(cfg: ModelConfig, p, x, *, window: int,
+                 attn_impl: str = "xla"):
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    h = L.self_attention(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
+        attn_impl=attn_impl)
+    x = x + h
+    h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    return x + L.mlp(p["mlp"], h)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, extra=None,
+            attn_impl: str = "xla"):
+    """Full-sequence forward -> logits (B, S, V). With ``cfg.remat ==
+    "full"`` and grad enabled, each layer keeps only its input for the
+    backward and runs again inside it (with ``attn_impl="flash"`` that
+    recompute launches the forward kernel once more per layer)."""
+    del extra
+    x = L.embed(params["embedding"], tokens)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x = checkpoint(_block_apply, cfg, lp, x,
+                           window=cfg.sliding_window, attn_impl=attn_impl,
+                           use_reentrant=False)
+        else:
+            x = _block_apply(cfg, lp, x, window=cfg.sliding_window,
+                             attn_impl=attn_impl)
+    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    head = params.get("lm_head", params["embedding"])
+    return L.unembed(head, x)
 
 
 class PagedDecodeCache(NamedTuple):

@@ -10,13 +10,21 @@ Tolerances are set at each case's own output scale s = max|ref|, as in
 in another order, atol 2^-18 s); bf16 outputs add one bf16 ulp of each
 element (two nearby f32 results may round to adjacent bf16 values, rtol
 2^-7); log-probs within (V/1024 + 60) unit roundings of the two f32
-logsumexps plus 8 ulps of the largest |log-prob|.
+logsumexps plus 8 ulps of the largest |log-prob|. Flash-attention
+gradients within 2^-14 s: each is a sum of up to group x S products of
+terms that cancel in dS = P(dP - D), summed in another order.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.stages import EarlTrainer
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref)
 from repro_torch.kernels.fused_sample import ops as fs_ops
 from repro_torch.kernels.fused_sample.ref import fused_sample_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -185,3 +193,103 @@ def test_macro_step_makes_no_host_sync(smoke):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert int(carry.launched) >= 4
+
+
+FLASH_CASES = {
+    # name: (B, S, H, KV, hd, causal, window)
+    "s96_group2_hd32": (2, 96, 4, 2, 32, True, 0),
+    "update_heads_group7": (2, 256, 14, 2, 64, True, 0),
+    "ragged_s100": (1, 100, 14, 2, 64, True, 0),
+    "window_after_empty_slab": (1, 200, 4, 2, 32, True, 40),
+    "not_causal_hd128": (1, 130, 8, 1, 128, False, 0),
+}
+
+
+def _flash_inputs(seed, B, S, H, KV, hd, dtype, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)]
+    return [torch.randn(sh, generator=g).to(device=device, dtype=dtype)
+            for sh in shapes]
+
+
+def _held(out, ref, rel, dtype):
+    s = float(ref.float().abs().max())
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=rel * s,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain_versions(name, dtype, dev):
+    B, S, H, KV, hd, causal, window = FLASH_CASES[name]
+    q, k, v, do = _flash_inputs(0, B, S, H, KV, hd, dtype, dev)
+    n0 = dict(fa_ops.launches)
+    out, L = fa_ops.flash_attention_fwd(q, k, v, causal, window)
+    grads = fa_ops.flash_attention_bwd(q, k, v, out, do, L, causal, window)
+    assert fa_ops.launches == {key: n + 1 for key, n in n0.items()}
+    out_r, L_r = attention_fwd_ref(q, k, v, causal, window)
+    # the backward on the kernels' own O and L: in bf16 the rounding of O
+    # moves D = rowsum(dO O) by more than the tolerance
+    grads_r = attention_bwd_ref(q, k, v, out, do, L, causal, window)
+    torch.cuda.synchronize()
+    _held(out, out_r, 2.0 ** -18, dtype)
+    _held(L, L_r, 2.0 ** -18, torch.float32)
+    for gk, gr in zip(grads, grads_r):
+        assert gk.dtype == gr.dtype == dtype
+        _held(gk, gr, 2.0 ** -14, dtype)
+
+
+def test_flash_function_grads_match_autograd_through_plain_forward(dev):
+    q, k, v, do = _flash_inputs(1, 2, 160, 14, 2, 64, torch.float32, dev)
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    b = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa_ops.flash_attention(*a, True, 0).backward(do)
+    attention_fwd_ref(*b, True, 0)[0].backward(do)
+    for x, y in zip(a, b):
+        _held(x.grad, y.grad, 2.0 ** -14, torch.float32)
+
+
+def test_flash_wrapper_checks_inputs(dev):
+    q, k, v, _ = _flash_inputs(2, 1, 64, 4, 2, 32, torch.float32, dev)
+    with pytest.raises(TypeError, match="share"):
+        fa_ops.flash_attention_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention_fwd(q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention_fwd(q[..., :16].contiguous(),
+                                   k[..., :16].contiguous(),
+                                   v[..., :16].contiguous())
+    with pytest.raises(ValueError, match="S <= Sk"):
+        fa_ops.flash_attention_fwd(q, k[:, :32].contiguous(),
+                                   v[:, :32].contiguous())
+
+
+def test_smoke_trainer_steps_launch_every_kernel_exactly(dev):
+    """Two sync steps at smoke size with per-layer remat: per step the
+    forward kernel runs once per layer in the update, once more in the
+    recompute, and once more in the reference pass (step 1 only: step 0
+    reuses the behaviour log-probs); dq and dk/dv once per layer. Each
+    generated token is one fused sample and each decode step one paged
+    attention per layer."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), remat="full")
+    tr = EarlTrainer(model=build_model(cfg), env=TicTacToe(), batch_size=4,
+                     max_turns=3, max_turn_tokens=4, max_context=96,
+                     kl_coef=0.05, clip_eps=0.2)
+    params, opt_state, ref = tr.init_state()
+    nl, env = cfg.n_layers, tr.env
+    for step in range(2):
+        for ops in (pa_ops, fs_ops, fa_ops):
+            ops.reset_launches()
+        new, opt_state, rec = tr.run_step(step, params, opt_state, ref)
+        assert fa_ops.launches == {"fwd": nl * (3 if step else 2),
+                                   "dq": nl, "dkv": nl}
+        n_macro = fs_ops.launches // tr.max_turn_tokens
+        assert fs_ops.launches == n_macro * tr.max_turn_tokens > 0
+        assert pa_ops.launches == nl * (env.obs_len + n_macro * (
+            tr.max_turn_tokens + env.obs_len))
+        assert np.isfinite(rec.loss) and rec.kv_dropped_writes == 0
+        assert any(not torch.equal(new[k], params[k]) for k in params)
+        params = new
+    assert all(torch.equal(ref[k], tr.init_state()[0][k]) for k in ref)
