@@ -20,27 +20,44 @@ Phases, in order; any failure raises and exits non-zero:
                update's shapes (B=32, S=256, 14/2 heads, hd 64) and also
                timed against torch's scaled_dot_product_attention and its
                autograd backward (library_ms; the port never calls it).
+     The split-K decode attention kernel is held at the dense cache's
+               shapes (B=32, S=256, 14/2 heads, hd 64) in bf16 and fp32
+               under four masks (a random fill, a wrapped ring with a
+               window, keys that start after a whole empty chunk, a fully
+               masked row) and timed against scaled_dot_product_attention
+               with a boolean mask.
   4. path    — full-width qwen2-0.5b (24 layers, d=896, 14/2 heads,
                V=151936, bf16, random weights from a seeded generator)
                driven through CompiledRolloutEngine on TicTacToe with
                attn_impl="paged", sampling="fused": one warm-up run, then
                one timed run with every launch counter set to 0 just
                before it and read just after.
-  5. branch  — one token stream teacher-forced through decode_step with
-               the kernel (attn_impl="paged") and with the gather path
+  5. dense_path — the same engine settings on the dense layout
+               (cache_layout="dense", attn_impl="pallas"): one run with
+               the counters set to 0 just before it; every episode
+               returned and exactly one decode attention per layer per
+               decode step.
+  6. branch  — one token stream teacher-forced through decode_step with
+               the paged kernel (attn_impl="paged") and the gather path
                ("xla") from the same empty cache; logits compared.
-  6. sync    — one macro-step under torch.cuda.set_sync_debug_mode("error").
-  7. trace   — one macro-step timed on the host clock, and the next under
+     dense_branch — the same stream through the dense decode_step with
+               the split-K kernel ("pallas") and plain attention ("xla"),
+               and the dense kernel against the paged kernel.
+  7. sync    — one paged macro-step, then one dense macro-step with the
+               folded reference stream, under
+               torch.cuda.set_sync_debug_mode("error").
+  8. trace   — one macro-step timed on the host clock, and the next under
                torch.profiler: device busy time and idle share.
-  8. train   — full-width qwen2-0.5b through EarlTrainer (the sync step:
-               Rollout -> ExpPrep -> Dispatch -> Update with AdamW) for 2
-               steps on TicTacToe, B=N=32, max_context 256, KL 0.05,
-               clip 0.2, bf16, remat "full"; every launch counter set to
-               0 before each step and read after it, and checked against
-               the exact counts the step must make.
-  9. train_trace — one more update of the last batch on the host clock,
+  9. train   — full-width qwen2-0.5b through EarlTrainer (the sync step:
+               Rollout with the reference pass folded in -> ExpPrep ->
+               Dispatch -> Update with AdamW) for 2 steps on TicTacToe,
+               B=N=32, max_context 256, KL 0.05, clip 0.2, bf16, remat
+               "full"; every launch counter set to 0 before each step and
+               read after it, and checked against the exact counts the
+               step must make.
+ 10. train_trace — one more update of the last batch on the host clock,
                the next under torch.profiler: device busy and idle share.
- 10. train_branch — one update batch of the train phase through the
+ 11. train_branch — one update batch of the train phase through the
                update step with attn_impl "flash" (the kernels) and
                "xla" (plain attention): loss and per-leaf grad norms.
 
@@ -80,13 +97,17 @@ def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
 
 def time_cold(torch, fn, n: int = N_TIMED) -> float:
     """Median ms of ``n`` single calls, each after a 256 MiB write that
-    evicts the 50 MB L2."""
+    evicts the 50 MB L2. A spin of about half a millisecond on the card
+    follows the write, so the host has enqueued the call before the
+    device reaches the first event: the wrapper's Python time stays out
+    of the reading."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -339,6 +360,76 @@ def phase_flash(torch, report):
         report[kname] = dict(by_case["bf16"], cases=by_case)
 
 
+def phase_decode(torch, report):
+    """The split-K decode attention kernel at the dense cache's shapes:
+    B=32 rows, S=256 slots, 14/2 heads, hd 64, bf16 (the main path) and
+    fp32, under four masks. Each case is held against ``ref.py`` and timed
+    beside its bound, the plain version and torch's
+    scaled_dot_product_attention with a boolean mask (library_ms; the port
+    never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, S, H, KV, hd = 32, 256, 14, 2, 64
+    idx = torch.arange(S, device=dev)[None, :]
+    fill = torch.randint(1, S, (B, 1), generator=g, device=dev)
+    ring = torch.randint(S, 3 * S, (B, 1), generator=g, device=dev)
+    kpos = ring - torch.remainder(ring - idx, S)
+    masks = {
+        "fill": idx <= fill,
+        # a ring that has wrapped, with a window of 160 positions
+        "ring_window": (kpos >= 0) & (kpos <= ring) & (kpos > ring - 160),
+        # keys valid only from slot 40 on: the first 32-key chunk is empty
+        "late_start": (idx >= 40) & (idx <= fill.clamp_min(40)),
+        "masked_row": (idx <= fill) & (torch.arange(B, device=dev)[:, None]
+                                       != 0),
+    }
+    cases = {}
+    # Tolerances as for paged attention: f32 outputs within 32 f32 ulps of
+    # the case's output scale s = max|ref| (atol 2^-18 s); bf16 adds one
+    # bf16 ulp of each element (rtol 2^-7).
+    for dname, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
+                                   2.0 ** -7),
+                                  ("fp32", torch.float32, F32_FLOPS, 0.0)):
+        q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        e = q.element_size()
+        nbytes = 2 * B * S * KV * hd * e + 2 * q.numel() * e + B * S
+        b_ms, b_by = bound(nbytes, 4 * B * H * S * hd, peak)
+        for mname, valid in masks.items():
+            valid = valid.contiguous()
+            out = da_ops.decode_attention(q, k, v, valid)
+            ref = decode_attention_ref(q, k, v, valid)
+            torch.cuda.synchronize()
+            chk = held(torch, out, ref,
+                       2.0 ** -18 * float(ref.float().abs().max()), rtol)
+            if not chk["ok"]:
+                raise AssertionError(f"decode_attention {dname} {mname}: "
+                                     f"{chk}")
+            am = valid[:, None, None, :]
+            case = dict(
+                chk,
+                ms=time_cold(torch, lambda: da_ops.decode_attention(
+                    q, k, v, valid)),
+                plain_ms=time_cold(torch, lambda: decode_attention_ref(
+                    q, k, v, valid)),
+                library_ms=time_cold(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=am, enable_gqa=True)),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                valid_keys=int(valid.sum()))
+            cases[f"{dname}_{mname}"] = case
+            emit({"phase": "kernels", "kernel": "decode_attention",
+                  "case": f"{dname}_{mname}", **case})
+    # the main path: the bf16 reference stream over a filling cache
+    report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
+
+
 # ---------------------------------------------------------------------------
 def phase_path(torch, model, params, report):
     from repro_torch.kernels.fused_sample import ops as fs_ops
@@ -393,37 +484,104 @@ def phase_path(torch, model, params, report):
     return engine
 
 
+def phase_dense_path(torch, model, params, report):
+    """The engine on the dense layout with the split-K kernel, at the
+    path phase's settings (B=32 slots, 64 episodes, refill on): one run
+    with every counter set to 0 just before it and read just after."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    engine = CompiledRolloutEngine(
+        model, TicTacToe(), cache_layout="dense", attn_impl="pallas",
+        sampling="fused", temperature=1.0, max_turns=4, max_turn_tokens=32,
+        max_context=256)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for ops in (da_ops, fs_ops, pa_ops):
+        ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp, st = engine.run(params, 32, 64, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    da_n, fs_n, pa_n = da_ops.launches, fs_ops.launches, pa_ops.launches
+    mtt, olen = engine.max_turn_tokens, engine.env.obs_len
+    n_macro = fs_n // mtt
+    decode_steps = olen + n_macro * (mtt + olen)
+    gen_tokens = int(exp.gen_mask.sum())
+    ok = (st.episodes_started == st.episodes_returned == 64
+          and fs_n == n_macro * mtt > 0 and pa_n == 0
+          and da_n == model.cfg.n_layers * decode_steps
+          and st.pages_in_use == st.page_capacity == 0
+          and bool(torch.isfinite(exp.logprobs).all())
+          and bool((exp.context_len > 0).all()))
+    out = dict(phase="dense_path", seconds=secs,
+               generated_tokens=gen_tokens, tokens_per_s=gen_tokens / secs,
+               macro_steps=n_macro, decode_steps=decode_steps,
+               decode_steps_per_s=decode_steps / secs,
+               decode_attention_launches=da_n,
+               expected_decode_attention_launches=(model.cfg.n_layers
+                                                   * decode_steps),
+               fused_sample_launches=fs_n, paged_attention_launches=pa_n,
+               episodes_started=st.episodes_started,
+               episodes_returned=st.episodes_returned,
+               mean_context_len=st.mean_context_len,
+               mean_turn_len=st.mean_turn_len, mean_return=st.mean_return,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not ok:
+        raise AssertionError(f"dense_path checks failed: {out}")
+    report["dense_path_launches"] = da_n
+    return engine
+
+
 def phase_branch(torch, model, params):
-    """Kernel branch vs gather branch on one teacher-forced stream: 12
-    observation tokens then 32 generated-length tokens, 32 rows."""
+    """One teacher-forced stream (12 observation tokens then 32
+    generated-length tokens, 32 rows) through decode_step four ways from
+    the same empty bf16 caches: the paged kernel and the gather path on
+    the paged pool (branch), the split-K kernel and plain attention on the
+    dense cache (dense_branch), and the dense kernel against the paged
+    kernel. bf16 model: every branch reads the same bf16 K/V, but the plain
+    branches run their softmax weights and P@V in bf16 while the kernels
+    stay f32, a few bf16 ulps of drift per layer over 24 layers: 5% of the
+    logit scale, the tolerance PR 11 set for the paged branch."""
     cfg = model.cfg
     B, steps = 32, 12 + 32
     g = torch.Generator(device="cuda").manual_seed(3)
     stream = torch.randint(0, cfg.vocab_size, (steps, B), generator=g,
                            device="cuda").to(torch.int32)
     logits = {}
-    for impl in ("paged", "xla"):
-        cache = model.init_cache(B, 256, kv_dtype="bf16", device="cuda")
+    for layout, impl in (("paged", "paged"), ("paged", "xla"),
+                         ("dense", "pallas"), ("dense", "xla")):
+        cache = model.init_cache(B, 256, layout=layout, kv_dtype="bf16",
+                                 device="cuda")
         outs = []
         for t in range(steps):
             lg, cache = model.decode_step(params, stream[t], cache,
                                           attn_impl=impl)
             outs.append(lg.float())
-        logits[impl] = torch.stack(outs)
-    d = (logits["paged"] - logits["xla"]).abs()
-    scale = float(logits["xla"].abs().max())
-    top1 = float((logits["paged"].argmax(-1)
-                  == logits["xla"].argmax(-1)).float().mean())
-    # bf16 model: both branches read the same bf16 K/V, but the gather
-    # branch runs its softmax weights and P@V in bf16 while the kernel
-    # stays f32 — a few bf16 ulps of drift per layer over 24 layers
-    tol = 0.05 * scale
-    out = dict(phase="branch", max_abs_dlogit=float(d.max()),
-               mean_abs_dlogit=float(d.mean()), logit_scale=scale,
-               tolerance=tol, top1_agreement=top1)
-    emit(out)
-    if not float(d.max()) <= tol or not bool(torch.isfinite(d).all()):
-        raise AssertionError(f"kernel and gather branches disagree: {out}")
+        logits[layout, impl] = torch.stack(outs)
+
+    def compare(phase, a, b, **extra):
+        d = (logits[a] - logits[b]).abs()
+        scale = float(logits[b].abs().max())
+        top1 = float((logits[a].argmax(-1)
+                      == logits[b].argmax(-1)).float().mean())
+        tol = 0.05 * scale
+        out = dict(phase=phase, max_abs_dlogit=float(d.max()),
+                   mean_abs_dlogit=float(d.mean()), logit_scale=scale,
+                   tolerance=tol, top1_agreement=top1, **extra)
+        emit(out)
+        if not float(d.max()) <= tol or not bool(torch.isfinite(d).all()):
+            raise AssertionError(f"{phase}: branches disagree: {out}")
+
+    compare("branch", ("paged", "paged"), ("paged", "xla"))
+    compare("dense_branch", ("dense", "pallas"), ("dense", "xla"),
+            against="dense xla")
+    compare("dense_branch", ("dense", "pallas"), ("paged", "paged"),
+            against="paged kernel")
 
 
 def device_busy(torch, prof):
@@ -451,22 +609,32 @@ def device_busy(torch, prof):
     return busy_us / 1e3, len(iv), top
 
 
-def phase_macro_step(torch, engine, params):
+def phase_macro_step(torch, engine, dense_engine, params):
     """Three macro-steps of the path's engine from a fresh feed: the first
     under set_sync_debug_mode("error") (the one-sync-per-turn contract),
     the second timed on the host clock, the third under torch.profiler for
-    the device's busy time. Idle share = 1 - busy / unprofiled wall time."""
-    carry = engine.init_feed(params, engine.init_carry(32, 64))
+    the device's busy time. Idle share = 1 - busy / unprofiled wall time.
+    Before them, one macro-step of the dense engine with the folded
+    reference stream, also under set_sync_debug_mode("error")."""
     noise = engine.default_noise(torch.Generator(device="cuda").manual_seed(4))
+    dc = dense_engine.init_feed(
+        params, dense_engine.init_carry(32, 64, with_ref=True), params)
+    carry = engine.init_feed(params, engine.init_carry(32, 64))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         carry = engine.turn_step(params, carry, 0, noise)
+        dc = dense_engine.turn_step(params, dc, 0, noise, ref_params=params)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    emit({"phase": "sync", "macro_steps_checked": 1,
-          "returned_after_one_turn": int(carry.returned)})
+    emit({"phase": "sync", "macro_steps_checked": 2,
+          "checked": ["paged", "dense with the reference stream"],
+          "returned_after_one_turn": int(carry.returned),
+          "dense_returned_after_one_turn": int(dc.returned),
+          "dense_ref_logprobs_finite": bool(
+              torch.isfinite(dc.ref_logprobs).all())})
+    del dc
 
     t0 = time.perf_counter()
     carry = engine.turn_step(params, carry, 1, noise)
@@ -504,14 +672,16 @@ class _RecordingUpdate:
 
 def phase_train(torch, model, report):
     """Two sync steps of EarlTrainer at full width (the training path).
-    Expected launches per step, exactly: the flash forward once per layer
-    in the update, once more in its remat recompute, and once more in the
-    ExpPrep reference pass on step 1 (step 0 reuses the behaviour
-    log-probs: the reference IS the policy); dq and dk/dv once per layer;
-    one fused sample per generated-token step and one paged attention per
+    The trainer folds the reference pass into the rollout, as JAX's does
+    whenever reference params are given (also when the reference IS the
+    policy). Expected launches per step, exactly: the flash forward once
+    per layer in the update and once more in its remat recompute; dq and
+    dk/dv once per layer; one fused sample per generated-token step; per
     layer per decode step (the initial feed, then max_turn_tokens +
-    obs_len decode steps per macro-step)."""
+    obs_len decode steps per macro-step) one paged attention for the
+    policy and one decode attention for the reference stream."""
     from repro_torch.core.stages import EarlTrainer
+    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -524,14 +694,16 @@ def phase_train(torch, model, report):
                      rollout_episodes=32, max_turns=4, max_turn_tokens=32,
                      max_context=256, kl_coef=0.05, clip_eps=0.2,
                      temperature=1.0, seed=0)
+    if not tr.ref_folded:
+        raise AssertionError("the trainer does not fold the reference pass")
     tr.update_stage = _RecordingUpdate(tr.update_stage)
     params, opt_state, ref = tr.init_state()
     first = {k: ref[k].clone() for k in ("layers.attn.wq", "embedding")}
     nl, mtt, olen = cfg.n_layers, tr.max_turn_tokens, tr.env.obs_len
     totals = dict.fromkeys(("paged_attention", "fused_sample", "flash_fwd",
-                            "flash_dq", "flash_dkv"), 0)
+                            "flash_dq", "flash_dkv", "decode_attention"), 0)
     for step in range(2):
-        for ops in (pa_ops, fs_ops, fa_ops):
+        for ops in (pa_ops, fs_ops, fa_ops, da_ops):
             ops.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -541,16 +713,17 @@ def phase_train(torch, model, report):
                       fused_sample=fs_ops.launches,
                       flash_fwd=fa_ops.launches["fwd"],
                       flash_dq=fa_ops.launches["dq"],
-                      flash_dkv=fa_ops.launches["dkv"])
+                      flash_dkv=fa_ops.launches["dkv"],
+                      decode_attention=da_ops.launches)
         n_macro = counts["fused_sample"] // mtt
-        expected = dict(paged_attention=nl * (olen + n_macro * (mtt + olen)),
-                        fused_sample=n_macro * mtt,
-                        flash_fwd=nl * (3 if step else 2),
-                        flash_dq=nl, flash_dkv=nl)
+        decode = nl * (olen + n_macro * (mtt + olen))
+        expected = dict(paged_attention=decode, fused_sample=n_macro * mtt,
+                        flash_fwd=nl * 2, flash_dq=nl, flash_dkv=nl,
+                        decode_attention=decode)
         exp = tr.update_stage.batches[-1]
         changed = not torch.equal(new["layers.attn.wq"],
                                   params["layers.attn.wq"])
-        out = dict(phase="train", step=step, ref_pass=step > 0,
+        out = dict(phase="train", step=step, ref_folded=tr.ref_folded,
                    mean_return=rec.mean_return,
                    mean_context_len=rec.mean_context_len,
                    truncated_frac=rec.truncated_frac, loss=rec.loss,
@@ -573,7 +746,7 @@ def phase_train(torch, model, report):
         params = new
     if not all(torch.equal(ref[k], v) for k, v in first.items()):
         raise AssertionError("the update wrote the aliased reference params")
-    for k_ in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for k_ in ("flash_fwd", "flash_dq", "flash_dkv", "decode_attention"):
         report[k_]["launches"] = totals[k_]
     report["train_launches"] = totals
     return tr, params, opt_state, tr.update_stage.batches[-1]
@@ -698,6 +871,7 @@ def main() -> int:
     report = {}
     phase_kernels(torch, report)
     phase_flash(torch, report)
+    phase_decode(torch, report)
     cfg = get_config("qwen2-0.5b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -709,9 +883,10 @@ def main() -> int:
           "params": sum(t.numel() for t in params.values()),
           "remat": cfg.remat, "seconds": time.perf_counter() - t0})
     engine = phase_path(torch, model, params, report)
+    dense_engine = phase_dense_path(torch, model, params, report)
     phase_branch(torch, model, params)
-    phase_macro_step(torch, engine, params)
-    del engine, params
+    phase_macro_step(torch, engine, dense_engine, params)
+    del engine, dense_engine, params
     trainer, params, opt_state, exp = phase_train(torch, model, report)
     phase_train_trace(torch, trainer, params, opt_state, exp)
     phase_train_branch(torch, model, params, opt_state, exp)
@@ -727,7 +902,9 @@ def main() -> int:
             ("flash_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention/bwd_kernel.py:39"),
             ("flash_dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
-             "src/repro/kernels/flash_attention/bwd_kernel.py:63")):
+             "src/repro/kernels/flash_attention/bwd_kernel.py:63"),
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:28")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

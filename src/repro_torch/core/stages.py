@@ -1,28 +1,29 @@
 """The EARL RL stage graph (paper Fig. 2) in sync mode (port of
 ``repro/core/stages.py``).
 
-    ┌─► Rollout (policy decode, multi-turn env loop: the compiled engine
-    │        │    on the paged KV pool)
-    │   Experience Preparation (reference log-probs, advantages)
+    ┌─► Rollout (policy decode, multi-turn env loop, and the reference
+    │        │    pass folded into the same decode steps)
+    │   Experience Preparation (advantages; the standalone reference pass
+    │        │    only when the rollout could not fold it)
     │   Dispatch (the identity on one GPU)
     │        ▼
     └── Model Update (policy-gradient step, AdamW)
 
-The JAX trainer folds the reference pass into the rollout macro-step. The
-port's engine does not fold it yet, so ExpPrep runs JAX's standalone route
-(``stages.py:162-183``): the reference log-probs come from a separate
-full-sequence forward of the harvested contexts, or — when the reference
-IS the params that sampled the batch and sampling was unbiased — from the
-behaviour log-probs the engine recorded.
+As in the JAX trainer, the reference log-probs come from the rollout
+(``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
+a second time through the reference model on a dense cache. Prefix
+sharing and speculation would unfold it; both are unported, so the fold
+is always on for now, and ExpPrep keeps JAX's standalone route (a
+full-sequence reference forward, or the behaviour log-probs when the
+reference IS the sampling policy) for them.
 
-``attn_impl="paged"`` (the default) is the production path: the engine
-runs the paged-attention and fused-sampling kernels, and ExpPrep and
-Update run the flash-attention kernels (JAX reads "paged" as flash for
-full-sequence passes too, ``layers.paged_prefill_attention``);
-``attn_impl="xla"`` runs the plain paths everywhere. Randomness is
-injected like the engine's: ``noise(step)`` returns the step's
-``NoiseFn``; without it the trainer draws from a ``torch.Generator``
-seeded with ``seed`` on its device.
+``attn_impl="paged"`` (the default) is the production path: every stream
+runs its kernel (``_ATTN``); ``attn_impl="xla"`` runs the plain paths
+everywhere. ``rollout_backend="python"`` runs the reference loop of
+``rl/rollout.py`` (dense cache, plain attention). Randomness is injected
+like the engine's: ``noise(step)`` returns the step's ``NoiseFn``; without
+it the trainer draws from a ``torch.Generator`` seeded with ``seed`` on
+its device.
 """
 from __future__ import annotations
 
@@ -42,9 +43,16 @@ from repro_torch.rl.algo import (group_relative_advantages,
 from repro_torch.rl.engine import CompiledRolloutEngine, RolloutStats
 from repro_torch.rl.engine.compiled import NoiseFn, _unported
 from repro_torch.rl.experience import ExperienceBatch
+from repro_torch.rl.rollout import RolloutEngine
 
-# the trainer's attn_impl -> the full-sequence passes' attention
-_FULL_SEQ_ATTN = {"paged": "flash", "xla": "xla"}
+# the trainer's attn_impl -> each stream's attention: the policy's decode
+# on either cache layout, the folded reference decode (always on a dense
+# cache) and the full-sequence passes (ExpPrep's standalone route, Update)
+_ATTN = {
+    "paged": {"paged": "paged", "dense": "pallas", "ref": "pallas",
+              "full_seq": "flash"},
+    "xla": {"paged": "xla", "dense": "xla", "ref": "xla", "full_seq": "xla"},
+}
 
 
 @dataclass
@@ -83,22 +91,26 @@ class StepRecord:
 # ---------------------------------------------------------------------------
 
 class RolloutStage:
-    """Fig. 2 ①: rolls out through the engine. Returns ``(exp, stats)``.
-    The selector hook of the JAX stage is not ported (item 9)."""
+    """Fig. 2 ①: rolls out through the engine, with the reference pass
+    folded in when ``ref_params`` is given. Returns ``(exp, stats)``. The
+    selector hook of the JAX stage is not ported (item 9)."""
 
     def __init__(self, engine):
         self.engine = engine
 
     def __call__(self, step: int, params, batch: int, *,
                  n_episodes: Optional[int] = None,
-                 noise: Optional[NoiseFn] = None, params_version: int = -1):
+                 noise: Optional[NoiseFn] = None, params_version: int = -1,
+                 ref_params=None):
         del step
         return self.engine.run(params, batch, n_episodes, noise=noise,
-                               params_version=params_version)
+                               params_version=params_version,
+                               ref_params=ref_params)
 
 
 class ExpPrepStage:
-    """Fig. 2 ②: reference log-probs and advantage estimation."""
+    """Fig. 2 ②: advantage estimation, and the standalone reference pass
+    for rollouts that did not fold it (``ref_folded=False``)."""
 
     def __init__(self, model, *, advantage: str = "reinforce",
                  group_size: int = 4, attn_impl: str = "xla"):
@@ -110,8 +122,9 @@ class ExpPrepStage:
         self._ref_step = make_ref_logprob_step(model, attn_impl=attn_impl)
 
     def __call__(self, exp: ExperienceBatch, *, ref_params=None,
+                 ref_folded: bool = True,
                  reuse_behavior_lp: bool = False) -> ExperienceBatch:
-        if ref_params is not None:
+        if ref_params is not None and not ref_folded:
             if reuse_behavior_lp:
                 # the reference IS the params that sampled the batch and
                 # sampling was unbiased: the behaviour log-probs are the
@@ -162,8 +175,11 @@ class UpdateStage:
 class EarlTrainer:
     """End-to-end agentic RL trainer wiring the Fig. 2 stage graph, sync
     schedule. Defaults are the port's production path: the compiled
-    engine on the paged pool with fused sampling, and every kernel on the
-    card (``device=None`` means the GPU and raises without one). The JAX
+    engine on the paged pool with fused sampling, the reference pass folded
+    into the rollout, and every kernel on the card (``device=None`` means
+    the GPU and raises without one). ``cache_layout`` and ``sampling``
+    default to the backend's own: "paged" and "fused" for the compiled
+    engine, "dense" and "reference" for the python one. The JAX
     trainer's options whose features are not ported raise
     ``NotImplementedError`` naming their ROADMAP Queue 1 item, among them
     step retries (``max_retries > 0``) and the truncated-IS reweighting of
@@ -187,10 +203,10 @@ class EarlTrainer:
     group_size: int = 4
     temperature: float = 1.0
     top_p: float = 1.0
-    sampling: str = "fused"                 # "fused" | "reference"
-    rollout_backend: str = "compiled"
+    sampling: Optional[str] = None          # "fused" | "reference"
+    rollout_backend: str = "compiled"       # "compiled" | "python"
     rollout_episodes: Optional[int] = None  # episodes per rollout
-    cache_layout: str = "paged"
+    cache_layout: Optional[str] = None      # "paged" | "dense"
     page_size: int = 16
     cache_pages: Optional[int] = None       # None = full provisioning
     kv_dtype: str = "bf16"                  # "fp32" | "bf16"
@@ -214,38 +230,65 @@ class EarlTrainer:
 
     def __post_init__(self):
         self._check_unported()
-        if self.attn_impl not in _FULL_SEQ_ATTN:
+        if self.attn_impl not in _ATTN:
             raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
                              f"{self.attn_impl!r}")
+        python = self.rollout_backend == "python"
+        if self.cache_layout is None:
+            self.cache_layout = "dense" if python else "paged"
+        if self.sampling is None:
+            self.sampling = "reference" if python else "fused"
         self.device = resolve_device(self.device)
         self.optimizer = self.optimizer or adamw(3e-4, weight_decay=0.0)
-        self.rollout = CompiledRolloutEngine(
-            self.model, self.env, max_turns=self.max_turns,
-            max_turn_tokens=self.max_turn_tokens,
-            max_context=self.max_context, temperature=self.temperature,
-            top_p=self.top_p, sampling=self.sampling,
-            attn_impl=self.attn_impl, cache_layout=self.cache_layout,
-            page_size=self.page_size, cache_pages=self.cache_pages,
-            kv_dtype=self.kv_dtype, on_exhaust=self.on_exhaust,
-            share_prefix=self.share_prefix, pool_growth=self.pool_growth,
-            speculation=self.speculation, device=self.device)
-        full_seq = _FULL_SEQ_ATTN[self.attn_impl]
+        attn = _ATTN[self.attn_impl]
+        kw = dict(max_turns=self.max_turns,
+                  max_turn_tokens=self.max_turn_tokens,
+                  max_context=self.max_context, temperature=self.temperature,
+                  top_p=self.top_p, device=self.device)
+        if python:
+            self._check_python_backend()
+            self.rollout = RolloutEngine(self.model, self.env, **kw)
+        else:
+            self.rollout = CompiledRolloutEngine(
+                self.model, self.env, sampling=self.sampling,
+                attn_impl=attn[self.cache_layout], ref_attn_impl=attn["ref"],
+                cache_layout=self.cache_layout, page_size=self.page_size,
+                cache_pages=self.cache_pages, kv_dtype=self.kv_dtype,
+                on_exhaust=self.on_exhaust, share_prefix=self.share_prefix,
+                pool_growth=self.pool_growth, speculation=self.speculation,
+                **kw)
+        # JAX folds the reference pass into the rollout unless prefix
+        # sharing or speculation is on (both unported: they raise above)
+        self.ref_folded = not self.share_prefix and self.speculation == "off"
         self.rollout_stage = RolloutStage(self.rollout)
         self.expprep_stage = ExpPrepStage(
             self.model, advantage=self.advantage,
-            group_size=self.group_size, attn_impl=full_seq)
+            group_size=self.group_size, attn_impl=attn["full_seq"])
         self.dispatch_stage = DispatchStage()
         self.update_stage = UpdateStage(
             self.model, self.optimizer, clip_eps=self.clip_eps,
-            kl_coef=self.kl_coef, attn_impl=full_seq)
+            kl_coef=self.kl_coef, attn_impl=attn["full_seq"])
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.seed)
 
+    def _check_python_backend(self) -> None:
+        """The python reference engine decodes against a dense bf16 cache
+        with the reference sampler and has no slot refill (as in JAX)."""
+        for what, bad in (
+                ("rollout_episodes", self.rollout_episodes is not None),
+                (f"cache_layout={self.cache_layout!r}",
+                 self.cache_layout != "dense"),
+                (f"sampling={self.sampling!r}",
+                 self.sampling != "reference"),
+                (f"kv_dtype={self.kv_dtype!r}", self.kv_dtype != "bf16")):
+            if bad:
+                raise ValueError(f"{what} requires rollout_backend="
+                                 f"'compiled' (the python reference engine "
+                                 f"decodes a dense bf16 cache with the "
+                                 f"reference sampler, without slot refill)")
+
     def _check_unported(self) -> None:
-        if self.rollout_backend == "python":
-            raise _unported("rollout_backend='python' (the reference "
-                            "RolloutEngine)", "5")
-        if self.rollout_backend != "compiled":
+        if self.rollout_backend not in ("compiled", "python"):
             raise ValueError(f"unknown rollout_backend "
                              f"{self.rollout_backend!r}")
         if self.pipeline == "async":
@@ -316,16 +359,19 @@ class EarlTrainer:
                  else self.rollout.default_noise(self._gen))
         exp, stats = self.rollout_stage(
             step, params, self.batch_size, n_episodes=self.rollout_episodes,
-            noise=noise, params_version=step)
+            noise=noise, params_version=step,
+            ref_params=ref_params if self.ref_folded else None)
         t_roll = time.perf_counter() - t0
 
-        # the standalone reference pass is skipped when the reference IS
-        # the behaviour params and sampling recorded unbiased model
-        # log-probs (temperature 1 or greedy, top_p off)
+        # the standalone reference pass runs only when the rollout did not
+        # fold it, and is skipped when the reference IS the behaviour
+        # params and sampling recorded unbiased model log-probs
+        # (temperature 1 or greedy, top_p off)
         reuse_lp = (ref_params is params and self.top_p == 1.0
                     and (self.temperature <= 0.0
                          or self.temperature == 1.0))
         exp = self.expprep_stage(exp, ref_params=ref_params,
+                                 ref_folded=self.ref_folded,
                                  reuse_behavior_lp=reuse_lp)
         exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
 

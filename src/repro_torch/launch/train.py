@@ -7,8 +7,12 @@ Fig. 2 loop, sync schedule).
 Takes the flags of ``repro.launch.train`` plus ``--attn-impl`` and
 ``--device``. Unlike the JAX CLI, the defaults are the port's
 production path: the full config (``--smoke`` selects the reduced one),
-the compiled engine on the paged pool with fused sampling, every kernel
-on the GPU (``--device cpu`` runs the plain versions on the CPU). Flags
+the compiled engine on the paged pool with fused sampling and the
+reference pass folded into the rollout, every kernel on the GPU
+(``--device cpu`` runs the plain versions on the CPU).
+``--cache-layout`` and ``--sampling`` default to the backend's own:
+paged and fused for ``--rollout-backend compiled``, dense and reference
+for ``python``. Flags
 of features not ported yet raise ``NotImplementedError`` naming their
 ROADMAP item, and so does any value given to a flag that only those
 features read (``--prefix-len``, ``--pool-growth-max``, ``--spec-k``,
@@ -45,8 +49,9 @@ def parse_args(argv=None):
     ap.add_argument("--rollout-episodes", type=int, default=None,
                     help="episodes per rollout (> batch keeps slots full "
                          "via slot refill)")
-    ap.add_argument("--cache-layout", default="paged",
-                    choices=["dense", "paged"])
+    ap.add_argument("--cache-layout", default=None,
+                    choices=["dense", "paged"],
+                    help="default: paged (compiled), dense (python)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--cache-pages", type=int, default=None,
                     help="pool size in pages (default: full provisioning)")
@@ -59,8 +64,9 @@ def parse_args(argv=None):
     ap.add_argument("--pool-growth-max", type=int, default=None)  # unported
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=["fp32", "bf16", "int8"])
-    ap.add_argument("--sampling", default="fused",
-                    choices=["reference", "fused"])
+    ap.add_argument("--sampling", default=None,
+                    choices=["reference", "fused"],
+                    help="default: fused (compiled), reference (python)")
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--speculation", default="off",
                     choices=["off", "self", "draft"])
@@ -92,9 +98,10 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-sized)")
     ap.add_argument("--attn-impl", default="paged", choices=["paged", "xla"],
-                    help="paged = the kernels (paged attention and fused "
-                         "sampling in the rollout, flash attention in "
-                         "ExpPrep and Update); xla = the plain paths")
+                    help="paged = the kernels (paged or dense decode "
+                         "attention and fused sampling in the rollout, "
+                         "flash attention in Update); xla = the plain "
+                         "paths")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain versions)")

@@ -1,6 +1,7 @@
 """Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP (port of
 the dense-model parts of ``repro/models/layers.py``: full-sequence
-self-attention and paged decode).
+self-attention, the dense ring-buffer prefill and decode, and paged
+decode).
 
 Functions take the same layouts as the JAX ones: activations
 ``(B, S, D)``, per-head tensors ``(B, S, H, hd)``, params a dict of
@@ -155,8 +156,99 @@ def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
 
 
 class KVEntry(NamedTuple):
-    k: torch.Tensor   # paged: (P+1, ps, KV, hd) per layer, or stacked
+    k: torch.Tensor   # dense (B, s_max, KV, hd) or paged (P+1, ps, KV, hd)
+                      # per layer, or stacked over layers
     v: torch.Tensor
+
+
+def init_kv(batch, s_max, n_kv_heads, head_dim, dtype=torch.bfloat16,
+            device=None):
+    shape = (batch, s_max, n_kv_heads, head_dim)
+    return KVEntry(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def prefill_attention(p, x, kv: KVEntry, *, n_heads, n_kv_heads, head_dim,
+                      rope_theta, window: int = 0, attn_impl: str = "xla"):
+    """Causal attention over the prompt x (B,S,D); writes its K/V into
+    cache slots ``[0, S)`` of ``kv`` (B, s_max, KV, hd) IN PLACE.
+    attn_impl: "xla" (``_sdpa``) or "flash" (the flash forward kernel)."""
+    B, S, _ = x.shape
+    if S > kv.k.shape[1]:
+        raise ValueError(f"prompt of {S} tokens does not fit a cache of "
+                         f"{kv.k.shape[1]} slots")
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    kv.k[:, :S] = k.to(kv.k.dtype)
+    kv.v[:, :S] = v.to(kv.v.dtype)
+    if attn_impl == "flash":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    elif attn_impl == "xla":
+        out = _sdpa(q, k, v, causal_mask(S, S, window=window,
+                                         device=x.device))
+    else:
+        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
+                         f"{attn_impl!r}")
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], kv
+
+
+def decode_attention(p, x, kv: KVEntry, pos, *, n_heads, n_kv_heads,
+                     head_dim, rope_theta, window: int = 0,
+                     attn_impl: str = "xla", advance=None):
+    """One-token decode against a dense ring-buffer cache. x: (B,1,D);
+    kv.k/v: (B, s_max, KV, hd), written IN PLACE; pos: (B,) int absolute
+    positions (or an int for every row). advance: optional (B,) bool —
+    rows with False write nothing (their slot keeps its old value) and
+    their output is not to be consumed.
+
+    The token at position t lands in slot ``t % s_max``; slot i holds
+    position ``kpos_i = pos - ((pos - i) mod s_max)``, valid when ``0 <=
+    kpos_i <= pos`` and, with a window, ``kpos_i > pos - window``. With
+    ``s_max`` covering the context the ring is a plain linear cache.
+    attn_impl: "pallas" runs the split-K decode kernel
+    (``kernels/decode_attention``; its plain f32 version on CPU tensors),
+    "xla" the plain ``_sdpa`` with an additive mask in the model dtype.
+    """
+    B, S1, _ = x.shape
+    if S1 != 1:
+        raise ValueError(f"decode takes one token per row, got {S1}")
+    s_max = kv.k.shape[1]
+    dev = x.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
+    positions = pos[:, None]
+    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k_new = apply_rope(k_new, positions, rope_theta)
+    rows = torch.arange(B, device=dev)
+    slot = torch.remainder(pos, s_max).long()             # ring write slot
+    wk, wv = k_new[:, 0].to(kv.k.dtype), v_new[:, 0].to(kv.v.dtype)
+    if advance is not None:
+        adv = advance[:, None, None]
+        wk = torch.where(adv, wk, kv.k[rows, slot])
+        wv = torch.where(adv, wv, kv.v[rows, slot])
+    kv.k.index_put_((rows, slot), wk)
+    kv.v.index_put_((rows, slot), wv)
+    # absolute position held by each ring slot (identity when s_max > pos)
+    idx = torch.arange(s_max, device=dev)[None, :]
+    kpos = pos[:, None] - torch.remainder(pos[:, None] - idx, s_max)
+    valid = (kpos >= 0) & (kpos <= pos[:, None])
+    if window > 0:
+        valid &= kpos > (pos[:, None] - window)
+    if attn_impl == "pallas":
+        from repro_torch.kernels.decode_attention import ops as da_ops
+        out = da_ops.decode_attention(q[:, 0].contiguous(), kv.k, kv.v,
+                                      valid)[:, None]
+    elif attn_impl == "xla":
+        mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+        out = _sdpa(q, kv.k.to(q.dtype), kv.v.to(q.dtype), mask)
+    else:
+        raise ValueError(f"attn_impl must be 'pallas' or 'xla', got "
+                         f"{attn_impl!r}")
+    out = out.reshape(B, 1, n_heads * head_dim)
+    return out @ p["wo"], kv
 
 
 def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,

@@ -4,6 +4,7 @@
     params = model.init(generator, device=device)
     logits, aux = model.forward(params, tokens)
     cache = model.init_cache(batch, s_max, device=device)
+    logits, cache = model.prefill(params, tokens, cache)
     logits, cache = model.decode_step(params, token, cache)
 """
 from __future__ import annotations
@@ -40,6 +41,13 @@ class Model:
     def init_cache(self, batch, s_max, dtype=torch.bfloat16, **layout_kw):
         return transformer.init_cache(self.cfg, batch, s_max, dtype,
                                       **layout_kw)
+
+    def prefill(self, params, tokens, cache, *, extra=None,
+                attn_impl="xla"):
+        """The prompt into a dense cache: ``(last-position logits, cache)``.
+        ``attn_impl``: "xla" or "flash"."""
+        return transformer.prefill(self.cfg, params, tokens, cache,
+                                   extra=extra, attn_impl=attn_impl)
 
     def decode_step(self, params, token, cache, *, attn_impl="xla",
                     advance=None):

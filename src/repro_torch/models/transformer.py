@@ -1,13 +1,13 @@
-"""Dense decoder-only transformer: the full-sequence forward of training
-and the paged decode path (port of those parts of
-``repro/models/transformer.py``).
+"""Dense decoder-only transformer: the full-sequence forward of training,
+the dense ring-buffer cache (prefill and decode) and the paged decode path
+(port of those parts of ``repro/models/transformer.py``).
 
 Layer params keep the stacked leading ``layers`` axis of the JAX tree;
 ``lax.scan`` over layers becomes a Python loop over views of the stacked
 tensors, and ``jax.checkpoint`` (``cfg.remat == "full"``) becomes
-``torch.utils.checkpoint`` per layer. The paged KV pools are updated IN
-PLACE by each decode step; the block table, refcounts and positions are
-returned as new tensors.
+``torch.utils.checkpoint`` per layer. The KV tensors of both layouts are
+updated IN PLACE by prefill and each decode step; the block table,
+refcounts and positions are returned as new tensors.
 """
 from __future__ import annotations
 
@@ -98,6 +98,13 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
     return L.unembed(head, x)
 
 
+class DecodeCache(NamedTuple):
+    """Dense layout: ``kv.k``/``kv.v`` are ``(n_layers, B, s_max, KV, hd)``
+    ring buffers (``layers.decode_attention``)."""
+    kv: L.KVEntry
+    pos: torch.Tensor           # (B,) int32 per-row cache fill
+
+
 class PagedDecodeCache(NamedTuple):
     """Paged KV layout: one shared page pool per layer plus per-slot block
     tables. ``kv.k``/``kv.v`` are ``(n_layers, n_pages + 1, page_size, KV,
@@ -121,15 +128,15 @@ KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, *, layout: str = "paged",
+               dtype=torch.bfloat16, *, layout: str = "dense",
                page_size: int = 16, n_pages: Optional[int] = None,
                kv_dtype: Optional[str] = None, device=None):
-    """Paged cache with ``n_pages`` pool pages (default: full provisioning,
-    ``batch * pages_per_slot``). ``kv_dtype`` ("fp32" | "bf16") overrides
-    ``dtype`` by name."""
-    if layout != "paged":
-        raise NotImplementedError(
-            "the dense cache layout arrives with ROADMAP Queue 1 item 2")
+    """A zeroed decode cache. ``layout="dense"`` (the default, as in JAX):
+    per-row ring buffers of ``s_max`` slots, ``min(s_max, window)`` for a
+    sliding-window config. ``layout="paged"``: a page pool of ``n_pages``
+    pages (default: full provisioning, ``batch * pages_per_slot``) plus one
+    trash page. ``kv_dtype`` ("fp32" | "bf16") overrides ``dtype`` by
+    name."""
     if kv_dtype == "int8":
         raise NotImplementedError(
             "int8 KV pages arrive with ROADMAP Queue 1 item 8")
@@ -138,19 +145,91 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             raise ValueError(f"kv_dtype must be one of {list(KV_DTYPES)}, "
                              f"got {kv_dtype!r}")
         dtype = KV_DTYPES[kv_dtype]
+    zeros = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if layout == "dense":
+        if cfg.sliding_window > 0:
+            s_max = min(s_max, cfg.sliding_window)
+        shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+        return DecodeCache(kv=L.KVEntry(zeros(shape), zeros(shape)), pos=pos)
+    if layout != "paged":
+        raise ValueError(f"layout must be 'dense' or 'paged', got "
+                         f"{layout!r}")
+    if cfg.sliding_window > 0:
+        raise ValueError("the paged cache does not take sliding-window "
+                         "configs (the dense ring buffer already holds "
+                         "only the window)")
     nps = paging.pages_per_slot(s_max, page_size)
     if n_pages is None:
         n_pages = batch * nps
     shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
              cfg.head_dim_)
-    kv = L.KVEntry(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
     return PagedDecodeCache(
-        kv=kv,
+        kv=L.KVEntry(zeros(shape), zeros(shape)),
         block_table=torch.full((batch, nps), paging.PAGE_UNMAPPED,
                                dtype=torch.int32, device=device),
         refcount=torch.zeros((n_pages,), dtype=torch.int32, device=device),
-        pos=torch.zeros((batch,), dtype=torch.int32, device=device))
+        pos=pos)
+
+
+def _apply_layers(cfg: ModelConfig, x, layers, attend):
+    """The decoder stack around an attention callable ``attend(i, attn
+    params, h) -> h``; returns the final-normed hidden state."""
+    for i, lp in enumerate(layers):
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        x = x + attend(i, lp["attn"], h)
+        h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+        x = x + L.mlp(lp["mlp"], h)
+    return x
+
+
+def _logits(cfg: ModelConfig, params, x):
+    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    head = params.get("lm_head", params["embedding"])
+    return L.unembed(head, x)[:, 0]
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
+            attn_impl: str = "xla"):
+    """Run the prompt (B, S) through the model into a dense cache (written
+    in place). Returns ``(logits of the last position (B, V), cache)``.
+    attn_impl: "xla" or "flash". The paged prefill is not ported yet."""
+    del extra
+    if not isinstance(cache, DecodeCache):
+        raise NotImplementedError(
+            "the paged prefill arrives with ROADMAP Queue 1 item 3")
+    B, S = tokens.shape
+    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+               window=cfg.sliding_window, attn_impl=attn_impl)
+    layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    x = _apply_layers(
+        cfg, L.embed(params["embedding"], tokens), layers,
+        lambda i, p, h: L.prefill_attention(
+            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), **akw)[0])
+    return _logits(cfg, params, x[:, -1:]), cache._replace(
+        pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device))
+
+
+def _dense_decode_step(cfg: ModelConfig, params, token, cache: DecodeCache,
+                       *, attn_impl: str = "xla", advance=None, layers=None):
+    """One decode step on the dense layout: rows with ``advance=False``
+    write nothing and keep their position."""
+    B = token.shape[0]
+    adv = (torch.ones((B,), dtype=torch.bool, device=token.device)
+           if advance is None else advance)
+    if layers is None:
+        layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+               window=cfg.sliding_window, attn_impl=attn_impl, advance=adv)
+    x = _apply_layers(
+        cfg, L.embed(params["embedding"], token[:, None]), layers,
+        lambda i, p, h: L.decode_attention(
+            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), cache.pos,
+            **akw)[0])
+    return _logits(cfg, params, x), DecodeCache(
+        kv=cache.kv, pos=cache.pos + adv.to(torch.int32))
 
 
 def _paged_decode_step(cfg: ModelConfig, params, token,
@@ -188,34 +267,29 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
 
     if layers is None:
         layers = [layer_params(params, i) for i in range(cfg.n_layers)]
-    for i, lp in enumerate(layers):
-        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
-        h, _ = L.paged_decode_attention(
-            lp["attn"], h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), bt, pos,
+    x = _apply_layers(
+        cfg, x, layers,
+        lambda i, p, h: L.paged_decode_attention(
+            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), bt, pos,
             wpage=wpage, woff=woff, scrub=scrub, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, attn_impl=attn_impl)
-        x = x + h
-        h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + L.mlp(lp["mlp"], h)
-    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    head = params.get("lm_head", params["embedding"])
-    logits = L.unembed(head, x)[:, 0]
-    return logits, PagedDecodeCache(kv=cache.kv, block_table=bt,
-                                    refcount=refcount,
-                                    pos=pos + adv.to(torch.int32))
+            rope_theta=cfg.rope_theta, attn_impl=attn_impl)[0])
+    return _logits(cfg, params, x), PagedDecodeCache(
+        kv=cache.kv, block_table=bt, refcount=refcount,
+        pos=pos + adv.to(torch.int32))
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, *,
                 attn_impl: str = "xla", advance=None):
     """One decode step. token: (B,) int. Returns (logits (B,V), cache).
-    advance: optional (B,) bool — rows with False are no-ops. The pools of
-    ``cache`` are written in place."""
-    if not isinstance(cache, PagedDecodeCache):
-        raise NotImplementedError(
-            "dense-cache decode arrives with ROADMAP Queue 1 item 2")
-    return _paged_decode_step(cfg, params, token, cache,
-                              attn_impl=attn_impl, advance=advance)
+    advance: optional (B,) bool — rows with False are no-ops. The KV
+    tensors of ``cache`` are written in place. attn_impl: "xla" on either
+    layout; "pallas" (the decode kernel) on the dense layout, "paged" (the
+    paged kernel) on the paged one."""
+    step = (_paged_decode_step if isinstance(cache, PagedDecodeCache)
+            else _dense_decode_step)
+    return step(cfg, params, token, cache, attn_impl=attn_impl,
+                advance=advance)
 
 
 def scan_body_over(step_fn):
@@ -235,10 +309,15 @@ def scan_body_over(step_fn):
 
 
 def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
-    """Decode body for in-loop generation, bound to the paged decode step
-    (per-layer param views are sliced once here, not once per token)."""
+    """Decode body for in-loop generation, bound to the decode step of the
+    cache it is given (per-layer param views are sliced once here, not
+    once per token)."""
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
-    return scan_body_over(
-        lambda token, advance, cache: _paged_decode_step(
-            cfg, params, token, cache, attn_impl=attn_impl,
-            advance=advance, layers=layers))
+
+    def step(token, advance, cache):
+        fn = (_paged_decode_step if isinstance(cache, PagedDecodeCache)
+              else _dense_decode_step)
+        return fn(cfg, params, token, cache, attn_impl=attn_impl,
+                  advance=advance, layers=layers)
+
+    return scan_body_over(step)

@@ -1,5 +1,6 @@
-"""Slot-based rollout engine on the paged KV pool (port of
-``repro/rl/engine/compiled.py``, paged layout).
+"""Slot-based rollout engine on the paged KV pool or the dense ring-buffer
+cache, with the reference pass folded in (port of
+``repro/rl/engine/compiled.py``).
 
 One *macro-step* is one agent turn for every slot:
 
@@ -24,6 +25,13 @@ Randomness is a tensor argument: ``run(..., noise=fn)`` takes a callable
 "env": the opponent's draw, shape (B, env.step_noise_width)). Without it
 the engine draws from ``generator`` on its device.
 
+With ``run(..., ref_params=...)`` a second decode stream runs the
+reference model over the same columns as the policy, on its own dense bf16
+cache (whatever the policy's layout and dtype, as in JAX), and scores each
+fed token from the reference logits before they advance: the harvested
+``ref_logprobs`` are the ExpPrep reference log-probs, so the trainer needs
+no separate reference forward.
+
 The episode store and the slot token buffers carry one trash row/column
 where JAX drops out-of-range writes (``slots.py``); the paged pools carry
 one trash page (``models/layers.py``).
@@ -31,7 +39,7 @@ one trash page (``models/layers.py``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -50,38 +58,61 @@ def _unported(what: str, item: str):
                                f"ROADMAP Queue 1 item {item}")
 
 
-class CompiledRolloutEngine:
-    """Multi-turn generation with slot-based continuous batching on the
-    paged KV pool. ``run(params, batch, n_episodes)`` returns
-    ``(ExperienceBatch, RolloutStats)``; with ``n_episodes > batch``
-    finished episodes free their slot and a fresh episode is reset into
-    it. ``device=None`` means the GPU and raises if none is present.
+class _RefStream(NamedTuple):
+    """The folded reference pass: its decode body and its carry fields."""
+    decode: Callable
+    logits: torch.Tensor       # (B, V) f32 last reference logits
+    cache: Any                 # dense bf16 decode cache
+    logprobs: torch.Tensor     # (B, T+1) f32 ref log-prob of each fed token
 
-    Options ported in this slice: ``attn_impl`` ("paged" = the CUDA
-    kernel, the default; "xla" = gather + dense attention), ``sampling``
-    ("fused" = the one-pass CUDA sampler, the default; "reference" = plain
-    argmax + log-softmax),
+
+def _reset_cache_rows(cache, refill):
+    """Reset a decode cache row-wise for refilled slots. Paged caches
+    release the slots' pages back to the pool (no KV data touched); dense
+    caches zero every leaf of those rows, ``pos`` included, with masked
+    in-place writes."""
+    if paging.is_paged(cache):
+        return paging.release_slot_pages(cache, refill)
+    rows = refill[None, :, None, None, None]       # (layers, B, S, KV, hd)
+    cache.kv.k.masked_fill_(rows, 0)
+    cache.kv.v.masked_fill_(rows, 0)
+    return cache._replace(pos=torch.where(refill, 0, cache.pos))
+
+
+class CompiledRolloutEngine:
+    """Multi-turn generation with slot-based continuous batching.
+    ``run(params, batch, n_episodes)`` returns ``(ExperienceBatch,
+    RolloutStats)``; with ``n_episodes > batch`` finished episodes free
+    their slot and a fresh episode is reset into it. ``device=None`` means
+    the GPU and raises if none is present.
+
+    Options ported so far: ``cache_layout`` ("paged", the default, or
+    "dense"), ``attn_impl`` (paged layout: "paged" = the paged CUDA
+    kernel, "xla" = gather + dense attention; dense layout: "pallas" = the
+    split-K decode kernel, "xla" = masked dense attention; ``None`` = the
+    layout's kernel), ``ref_attn_impl`` (the reference stream's dense
+    decode: "pallas" or "xla"), ``sampling`` ("fused" = the one-pass CUDA
+    sampler, the default; "reference" = plain argmax + log-softmax),
     ``on_exhaust`` ("count" or "raise"), ``temperature``, ``top_p``,
     ``page_size``, ``cache_pages`` and ``kv_dtype`` ("bf16" or "fp32").
     The JAX engine's other options raise ``NotImplementedError``. Unlike
-    the JAX engine, the defaults are the production path: both kernels on
+    the JAX engine, the defaults are the production path: the kernels on
     the card, and their plain versions for CPU tensors.
     """
 
     def __init__(self, model, env, *, max_turns: int = 4,
                  max_turn_tokens: int = 8, max_context: int = 256,
                  temperature: float = 1.0, top_p: float = 1.0,
-                 sampling: str = "fused", attn_impl: str = "paged",
+                 sampling: str = "fused", attn_impl: Optional[str] = None,
+                 ref_attn_impl: str = "pallas",
                  cache_layout: str = "paged", page_size: int = 16,
                  cache_pages: Optional[int] = None, kv_dtype: str = "bf16",
                  on_exhaust: str = "count", share_prefix: bool = False,
                  pool_growth: str = "off", speculation: str = "off",
                  mesh_config=None, device=None):
         cfg = model.cfg
-        if cache_layout == "dense":
-            raise _unported("cache_layout='dense'", "2")
-        if cache_layout != "paged":
-            raise ValueError(f"cache_layout must be 'paged', got "
+        if cache_layout not in ("dense", "paged"):
+            raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
                              f"{cache_layout!r}")
         if share_prefix:
             raise _unported("share_prefix (copy-on-write prefix sharing)",
@@ -100,9 +131,14 @@ class CompiledRolloutEngine:
             raise ValueError("the action tokens do not fit the vocabulary")
         if env.obs_len + max_turn_tokens + env.obs_len > max_context:
             raise ValueError("max_context cannot fit even one turn")
-        if attn_impl not in ("paged", "xla"):
-            raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
-                             f"{attn_impl!r}")
+        kernel = "paged" if cache_layout == "paged" else "pallas"
+        attn_impl = kernel if attn_impl is None else attn_impl
+        if attn_impl not in (kernel, "xla"):
+            raise ValueError(f"attn_impl must be {kernel!r} or 'xla' on the "
+                             f"{cache_layout} layout, got {attn_impl!r}")
+        if ref_attn_impl not in ("pallas", "xla"):
+            raise ValueError(f"ref_attn_impl must be 'pallas' or 'xla', got "
+                             f"{ref_attn_impl!r}")
         if sampling not in ("fused", "reference"):
             raise ValueError(f"sampling must be 'fused' or 'reference', got "
                              f"{sampling!r}")
@@ -123,6 +159,8 @@ class CompiledRolloutEngine:
         self.top_p = top_p
         self.sampling = sampling
         self.attn_impl = attn_impl
+        self.ref_attn_impl = ref_attn_impl
+        self.cache_layout = cache_layout
         self.page_size = page_size
         self.cache_pages = cache_pages      # None = full provisioning
         self.kv_dtype = kv_dtype
@@ -130,16 +168,23 @@ class CompiledRolloutEngine:
         self.device = resolve_device(device)
 
     # -- carry ---------------------------------------------------------------
-    def init_carry(self, B: int, N: int) -> slots.SlotCarry:
+    def init_carry(self, B: int, N: int,
+                   with_ref: bool = False) -> slots.SlotCarry:
         dev, T = self.device, self.max_context
+        V = self.model.cfg.vocab_size
         live = torch.arange(B, device=dev) < N
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-        return slots.SlotCarry(
-            cache=self.model.init_cache(
+        if self.cache_layout == "paged":
+            cache = self.model.init_cache(
                 B, T, layout="paged", page_size=self.page_size,
                 n_pages=self.cache_pages, kv_dtype=self.kv_dtype,
-                device=dev),
-            logits=z((B, self.model.cfg.vocab_size), torch.float32),
+                device=dev)
+        else:
+            kw = {} if self.kv_dtype == "bf16" else {"kv_dtype": self.kv_dtype}
+            cache = self.model.init_cache(B, T, device=dev, **kw)
+        return slots.SlotCarry(
+            cache=cache,
+            logits=z((B, V), torch.float32),
             env_state=self.env.reset(B, device=dev),
             tokens=torch.full((B, T + 1), TOK_PAD, dtype=torch.int32,
                               device=dev),
@@ -159,24 +204,65 @@ class CompiledRolloutEngine:
             pages_peak=z((), torch.int32),
             kv_dropped=z((), torch.int32),
             kv_shortfall=z((B,), torch.int32),
+            # the reference cache is always dense in its default bf16,
+            # whatever the policy's layout and dtype (as in JAX)
+            ref_cache=(self.model.init_cache(B, T, device=dev)
+                       if with_ref else None),
+            ref_logits=z((B, V), torch.float32) if with_ref else None,
+            ref_logprobs=z((B, T + 1), torch.float32) if with_ref else None,
         )
 
     # -- pieces of the macro-step --------------------------------------------
     def _decode(self, params):
         return self.model.decode_scan_body(params, attn_impl=self.attn_impl)
 
-    def _feed_obs(self, decode, logits, cache, tokens, pos, obs, mask):
+    def _ref_stream(self, ref_params, c: slots.SlotCarry):
+        """The carry's reference stream, or None when it has none."""
+        if c.ref_cache is None:
+            return None
+        if ref_params is None:
+            raise ValueError("this carry holds a reference stream: pass "
+                             "ref_params")
+        return _RefStream(
+            self.model.decode_scan_body(ref_params,
+                                        attn_impl=self.ref_attn_impl),
+            c.ref_logits, c.ref_cache, c.ref_logprobs)
+
+    @staticmethod
+    def _ref_advance(ref: _RefStream, tok, mask, pos, rows,
+                     cidx) -> _RefStream:
+        """Score ``tok`` from the reference logits before they advance (0
+        at position 0, where nothing predicts it, and for masked rows),
+        then feed it to the reference stream."""
+        ref.logprobs[rows, cidx] = torch.where(
+            mask & (pos > 0), common.token_lp(ref.logits, tok), 0.0)
+        (logits, cache), _ = ref.decode((ref.logits, ref.cache),
+                                        (tok, mask))
+        return ref._replace(logits=logits, cache=cache)
+
+    def _feed_obs(self, decode, logits, cache, tokens, pos, obs, mask,
+                  ref=None):
         """Teacher-force the obs columns into ``mask`` rows, one decode
-        step per column; other rows are no-ops."""
+        step per column (and one of the reference stream, when on); other
+        rows are no-ops."""
         T = self.max_context
         rows = torch.arange(pos.shape[0], device=pos.device)
         for j in range(obs.shape[1]):
             col = torch.where(mask, obs[:, j], TOK_PAD).to(torch.int32)
             cidx = torch.where(mask, pos, T).long()     # T = trash column
             tokens[rows, cidx] = col
+            if ref is not None:
+                ref = self._ref_advance(ref, col, mask, pos, rows, cidx)
             (logits, cache), _ = decode((logits, cache), (col, mask))
             pos = pos + mask.to(torch.int32)
-        return logits, cache, tokens, pos
+        return logits, cache, tokens, pos, ref
+
+    @staticmethod
+    def _with_ref(carry: slots.SlotCarry, ref) -> slots.SlotCarry:
+        if ref is None:
+            return carry
+        return carry._replace(ref_logits=ref.logits, ref_cache=ref.cache,
+                              ref_logprobs=ref.logprobs)
 
     def _sample(self, logits, noise):
         if self.sampling == "fused":
@@ -186,17 +272,19 @@ class CompiledRolloutEngine:
         return common.sample_with_noise(logits, noise, self.temperature,
                                         self.top_p)
 
-    def init_feed(self, params, carry: slots.SlotCarry) -> slots.SlotCarry:
+    def init_feed(self, params, carry: slots.SlotCarry,
+                  ref_params=None) -> slots.SlotCarry:
         """Feed the initial observation of every live slot (run once before
         the macro-step loop)."""
-        logits, cache, tokens, pos = self._feed_obs(
+        logits, cache, tokens, pos, ref = self._feed_obs(
             self._decode(params), carry.logits, carry.cache, carry.tokens,
-            carry.pos, self.env.encode_obs(carry.env_state), carry.live)
-        return carry._replace(logits=logits, cache=cache, tokens=tokens,
-                              pos=pos)
+            carry.pos, self.env.encode_obs(carry.env_state), carry.live,
+            self._ref_stream(ref_params, carry))
+        return self._with_ref(carry._replace(
+            logits=logits, cache=cache, tokens=tokens, pos=pos), ref)
 
     def turn_step(self, params, c: slots.SlotCarry, m: int,
-                  noise: NoiseFn) -> slots.SlotCarry:
+                  noise: NoiseFn, ref_params=None) -> slots.SlotCarry:
         """One macro-step (one turn for every slot). Enqueues device work
         only: no host read."""
         env, T, olen = self.env, self.max_context, self.env.obs_len
@@ -207,6 +295,7 @@ class CompiledRolloutEngine:
         dev = c.pos.device
         rows = torch.arange(B, device=dev)
         decode = self._decode(params)
+        ref = self._ref_stream(ref_params, c)
         i32 = lambda t: t.to(torch.int32)
 
         # 1. truncation / active set
@@ -232,6 +321,8 @@ class CompiledRolloutEngine:
             tokens[rows, cidx] = tok
             gen_mask[rows, cidx] = write      # True where it lands
             logprobs[rows, cidx] = lp
+            if ref is not None:
+                ref = self._ref_advance(ref, tok, write, pos, rows, cidx)
             pos = pos + i32(write)
             tl = tl + i32(write)
             last_tok = torch.where(write, tok, last_tok)
@@ -241,13 +332,17 @@ class CompiledRolloutEngine:
             logits = logits_next
 
         # 2b. pool telemetry after generation (peak: nothing released yet);
-        #     the drop counter accumulates per-slot shortfall growth
-        occ, _ = paging.pool_stats(cache)
-        pages_peak = torch.maximum(c.pages_peak, occ)
-        drop_now = paging.dropped_tokens(cache, self.page_size)
-        kv_dropped = c.kv_dropped + (drop_now - c.kv_shortfall).clamp_min(
-            0).sum(dtype=torch.int32)
-        kv_shortfall = drop_now
+        #     the drop counter accumulates per-slot shortfall growth. The
+        #     dense layout has no pool: its counters stay 0.
+        pages_peak, kv_dropped, kv_shortfall = (c.pages_peak, c.kv_dropped,
+                                                c.kv_shortfall)
+        if paging.is_paged(cache):
+            occ, _ = paging.pool_stats(cache)
+            pages_peak = torch.maximum(pages_peak, occ)
+            drop_now = paging.dropped_tokens(cache, self.page_size)
+            kv_dropped = kv_dropped + (drop_now - kv_shortfall).clamp_min(
+                0).sum(dtype=torch.int32)
+            kv_shortfall = drop_now
 
         # 3. action fallback + turn accounting
         actions = common.fallback_actions(actions, last_tok, active, acted,
@@ -271,14 +366,19 @@ class CompiledRolloutEngine:
             c.store, finished=finished, episode=c.episode,
             tokens=tokens[:, :T], gen_mask=gen_mask[:, :T],
             logprobs=logprobs[:, :T], rewards=rewards_row, pos=pos,
-            truncated=truncated, n_turns=n_turns, turn_lengths=turn_lengths)
+            truncated=truncated, n_turns=n_turns, turn_lengths=turn_lengths,
+            ref_logprobs=ref.logprobs[:, :T] if ref is not None else None)
         returned = c.returned + finished.sum(dtype=torch.int32)
 
-        # 6. slot refill: release pages, reset rows (masked, unconditional)
+        # 6. slot refill: release pages or zero dense rows, reset rows
+        #    (masked, unconditional)
         refill, new_ids, launched = slots.refill_plan(finished, c.launched,
                                                       N)
         r1 = refill[:, None]
-        cache = paging.release_slot_pages(cache, refill)
+        cache = _reset_cache_rows(cache, refill)
+        if ref is not None:
+            ref = ref._replace(cache=_reset_cache_rows(ref.cache, refill),
+                               logprobs=torch.where(r1, 0.0, ref.logprobs))
         state3 = env.reset_rows(state2, refill)
         tokens = torch.where(r1, TOK_PAD, tokens)
         gen_mask = torch.where(r1, False, gen_mask)
@@ -293,10 +393,10 @@ class CompiledRolloutEngine:
         cont = active & ~state2.done & ~finished
         feed_mask = cont | refill
         obs = torch.where(r1, env.encode_obs(state3), res.obs_tokens)
-        logits, cache, tokens, pos = self._feed_obs(
-            decode, logits, cache, tokens, pos, obs, feed_mask)
+        logits, cache, tokens, pos, ref = self._feed_obs(
+            decode, logits, cache, tokens, pos, obs, feed_mask, ref)
 
-        return slots.SlotCarry(
+        return self._with_ref(slots.SlotCarry(
             cache=cache, logits=logits, env_state=state3, tokens=tokens,
             gen_mask=gen_mask, logprobs=logprobs, pos=pos,
             live=(c.live & ~finished) | refill,
@@ -307,7 +407,7 @@ class CompiledRolloutEngine:
                                     torch.int32),
             launched=launched, returned=returned, store=store,
             pages_peak=pages_peak, kv_dropped=kv_dropped,
-            kv_shortfall=kv_shortfall)
+            kv_shortfall=kv_shortfall), ref)
 
     # ------------------------------------------------------------------------
     def default_noise(self, generator: Optional[torch.Generator] = None
@@ -325,19 +425,22 @@ class CompiledRolloutEngine:
             noise: Optional[NoiseFn] = None, params_version: int = -1,
             ref_params=None):
         """Roll out ``n_episodes`` (default ``batch``) episodes over
-        ``batch`` slots. Returns ``(ExperienceBatch, RolloutStats)``."""
-        if ref_params is not None:
-            raise _unported("in-loop reference log-probs (ref_params)", "4")
+        ``batch`` slots. Returns ``(ExperienceBatch, RolloutStats)``.
+        ``ref_params`` folds the reference pass into the rollout: the
+        batch's ``ref_logprobs`` hold log p_ref of every fed token at
+        positions ``1 .. context_len-1`` (zeros without it)."""
         B = int(batch)
         N = int(n_episodes) if n_episodes is not None else B
         if N < 1 or B < 1:
             raise ValueError(f"batch and n_episodes must be >= 1, got {B}, "
                              f"{N}")
         noise = noise if noise is not None else self.default_noise(generator)
-        carry = self.init_feed(params, self.init_carry(B, N))
+        carry = self.init_feed(
+            params, self.init_carry(B, N, with_ref=ref_params is not None),
+            ref_params)
         max_macro = self.max_turns * math.ceil(N / B) + 2
         for m in range(max_macro):
-            carry = self.turn_step(params, carry, m, noise)
+            carry = self.turn_step(params, carry, m, noise, ref_params)
             # the one host sync per turn (plus the drop counter in
             # on_exhaust="raise" mode)
             if self.on_exhaust == "raise" and int(carry.kv_dropped) > 0:

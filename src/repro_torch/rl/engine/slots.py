@@ -21,7 +21,7 @@ class EpisodeStore(NamedTuple):
     tokens: torch.Tensor        # (N+1, T) int32
     gen_mask: torch.Tensor      # (N+1, T) bool
     logprobs: torch.Tensor      # (N+1, T) f32
-    ref_logprobs: torch.Tensor  # (N+1, T) f32 (0: no in-loop ExpPrep yet)
+    ref_logprobs: torch.Tensor  # (N+1, T) f32 (0 without the folded ref)
     rewards: torch.Tensor       # (N+1,)   f32 (0 for truncated episodes)
     context_len: torch.Tensor   # (N+1,)   int32
     truncated: torch.Tensor     # (N+1,)   bool
@@ -34,7 +34,7 @@ class SlotCarry(NamedTuple):
     live slot's observation is already fed (``logits`` is its next-token
     distribution). The per-slot token buffers carry one trash column
     (index T) that masked writes land in."""
-    cache: Any                 # paged decode cache (exposes .pos (B,))
+    cache: Any                 # paged or dense decode cache (.pos (B,))
     logits: torch.Tensor       # (B, V) f32 last decode logits per slot
     env_state: Any             # env state, batch-B leaves
     tokens: torch.Tensor       # (B, T+1) int32 episode context buffer
@@ -52,6 +52,10 @@ class SlotCarry(NamedTuple):
     pages_peak: torch.Tensor   # () int32 peak pool occupancy
     kv_dropped: torch.Tensor   # () int32 cumulative dropped KV writes
     kv_shortfall: torch.Tensor  # (B,) int32 current per-slot dropped tokens
+    # the folded reference pass (None when off)
+    ref_cache: Any = None      # dense bf16 decode cache of the reference
+    ref_logits: Any = None     # (B, V) f32 last reference logits
+    ref_logprobs: Any = None   # (B, T+1) f32 ref log-prob of each fed token
 
 
 def init_store(n_episodes: int, max_context: int, max_turns: int,
@@ -72,19 +76,21 @@ def init_store(n_episodes: int, max_context: int, max_turns: int,
 
 
 def harvest(store: EpisodeStore, *, finished, episode, tokens, gen_mask,
-            logprobs, rewards, pos, truncated, n_turns,
-            turn_lengths) -> EpisodeStore:
+            logprobs, rewards, pos, truncated, n_turns, turn_lengths,
+            ref_logprobs=None) -> EpisodeStore:
     """Write finished slot rows into the store at their episode id, in
     place. Unfinished rows target the trash row ``N``. ``tokens`` /
-    ``gen_mask`` / ``logprobs`` are (B, T) views (the slot buffers without
-    their trash column)."""
+    ``gen_mask`` / ``logprobs`` / ``ref_logprobs`` are (B, T) views (the
+    slot buffers without their trash column)."""
     N = store.tokens.shape[0] - 1
     idx = (torch.where(finished, episode, N).long(),)
-    for buf, row in ((store.tokens, tokens), (store.gen_mask, gen_mask),
-                     (store.logprobs, logprobs), (store.rewards, rewards),
-                     (store.context_len, pos), (store.truncated, truncated),
-                     (store.n_turns, n_turns),
-                     (store.turn_lengths, turn_lengths)):
+    pairs = [(store.tokens, tokens), (store.gen_mask, gen_mask),
+             (store.logprobs, logprobs), (store.rewards, rewards),
+             (store.context_len, pos), (store.truncated, truncated),
+             (store.n_turns, n_turns), (store.turn_lengths, turn_lengths)]
+    if ref_logprobs is not None:
+        pairs.append((store.ref_logprobs, ref_logprobs))
+    for buf, row in pairs:
         buf.index_put_(idx, row.to(buf.dtype))
     return store
 

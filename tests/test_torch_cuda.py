@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.stages import EarlTrainer
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
@@ -113,6 +115,80 @@ def test_paged_attention_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="scales"):
         pa_ops.paged_decode_attention(q, kp.to(torch.int8),
                                       vp.to(torch.int8), bt, lens)
+
+
+DECODE_CASES = {
+    # name: (B, S, H, KV, hd, mask)
+    "random_fill_group2": (3, 64, 4, 2, 32, "fill"),
+    "path_heads_s256": (4, 256, 14, 2, 64, "fill"),
+    "ragged_s100_ring_window": (3, 100, 14, 2, 64, "ring"),
+    "empty_first_chunks": (2, 257, 8, 1, 128, "late"),
+    "fully_masked_row": (3, 96, 4, 2, 64, "none"),
+}
+
+
+def decode_valid(kind, B, S, g):
+    """(B,S) bool masks: "fill" a random fill pos in [1,S) (keys <= pos);
+    "ring" a wrapped ring buffer of S slots with a window of S//2; "late"
+    keys valid only from S-40 on (whole empty leading chunks); "none" a
+    random fill with row 0 fully masked."""
+    idx = torch.arange(S)[None, :]
+    if kind == "ring":
+        pos = torch.randint(S, 3 * S, (B, 1), generator=g)
+        kpos = pos - torch.remainder(pos - idx, S)
+        return (kpos >= 0) & (kpos <= pos) & (kpos > pos - S // 2)
+    if kind == "late":
+        return (idx >= S - 40).expand(B, S).clone()
+    pos = torch.randint(1, S, (B, 1), generator=g)
+    valid = idx <= pos
+    if kind == "none":
+        valid[0] = False
+    return valid
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+@pytest.mark.parametrize("qdtype,kvdtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+def test_decode_attention_kernel_matches_plain_version(name, qdtype, kvdtype,
+                                                       dev):
+    B, S, H, KV, hd, mask = DECODE_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn((B, H, hd), generator=g).to(dev, qdtype)
+    # a strided view of a layer-stacked cache, as the model passes it
+    k, v = (torch.randn((2, B, S, KV, hd), generator=g).to(dev, kvdtype)[1]
+            for _ in range(2))
+    valid = decode_valid(mask, B, S, g).to(dev)
+    n0 = da_ops.launches
+    out = da_ops.decode_attention(q, k, v, valid)
+    assert da_ops.launches == n0 + 1
+    ref = decode_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    atol = 2.0 ** -18 * float(ref.float().abs().max())
+    rtol = 0.0 if qdtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    if mask == "none":                   # the mean of V over S
+        mean = v[0].float().mean(0).repeat_interleave(H // KV, 0)
+        torch.testing.assert_close(out[0].float(), mean.to(qdtype).float(),
+                                   atol=atol, rtol=rtol)
+
+
+def test_decode_attention_wrapper_checks_inputs(dev):
+    q = torch.randn((2, 4, 32), device=dev)
+    k = torch.randn((2, 16, 2, 32), device=dev)
+    valid = torch.ones((2, 16), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="bool"):
+        da_ops.decode_attention(q, k, k, valid.int())
+    with pytest.raises(TypeError, match="bfloat16"):
+        da_ops.decode_attention(q, k.half(), k.half(), valid)
+    with pytest.raises(ValueError, match="contiguously"):
+        kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+        da_ops.decode_attention(q, kt, kt, valid)
+    with pytest.raises(ValueError, match="head_dim"):
+        da_ops.decode_attention(q[..., :16].contiguous(),
+                                k[..., :16].contiguous(),
+                                k[..., :16].contiguous(), valid)
 
 
 def _lp_atol(lp_ref, V):
@@ -267,29 +343,50 @@ def test_flash_wrapper_checks_inputs(dev):
 
 
 def test_smoke_trainer_steps_launch_every_kernel_exactly(dev):
-    """Two sync steps at smoke size with per-layer remat: per step the
-    forward kernel runs once per layer in the update, once more in the
-    recompute, and once more in the reference pass (step 1 only: step 0
-    reuses the behaviour log-probs); dq and dk/dv once per layer. Each
-    generated token is one fused sample and each decode step one paged
-    attention per layer."""
+    """Two sync steps at smoke size with per-layer remat, the reference
+    pass folded into the rollout: per step the forward kernel runs once per
+    layer in the update and once more in the recompute; dq and dk/dv once
+    per layer. Each generated token is one fused sample, and each decode
+    step one paged attention (the policy) and one decode attention (the
+    reference) per layer."""
     cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), remat="full")
     tr = EarlTrainer(model=build_model(cfg), env=TicTacToe(), batch_size=4,
                      max_turns=3, max_turn_tokens=4, max_context=96,
                      kl_coef=0.05, clip_eps=0.2)
+    assert tr.ref_folded
     params, opt_state, ref = tr.init_state()
     nl, env = cfg.n_layers, tr.env
     for step in range(2):
-        for ops in (pa_ops, fs_ops, fa_ops):
+        for ops in (pa_ops, fs_ops, fa_ops, da_ops):
             ops.reset_launches()
         new, opt_state, rec = tr.run_step(step, params, opt_state, ref)
-        assert fa_ops.launches == {"fwd": nl * (3 if step else 2),
-                                   "dq": nl, "dkv": nl}
+        assert fa_ops.launches == {"fwd": nl * 2, "dq": nl, "dkv": nl}
         n_macro = fs_ops.launches // tr.max_turn_tokens
         assert fs_ops.launches == n_macro * tr.max_turn_tokens > 0
-        assert pa_ops.launches == nl * (env.obs_len + n_macro * (
-            tr.max_turn_tokens + env.obs_len))
+        decode = nl * (env.obs_len + n_macro * (tr.max_turn_tokens
+                                                + env.obs_len))
+        assert pa_ops.launches == da_ops.launches == decode
         assert np.isfinite(rec.loss) and rec.kv_dropped_writes == 0
         assert any(not torch.equal(new[k], params[k]) for k in params)
         params = new
     assert all(torch.equal(ref[k], tr.init_state()[0][k]) for k in ref)
+
+
+def test_dense_rollout_runs_through_the_decode_kernel(smoke):
+    """The dense layout with the reference stream: both streams launch the
+    split-K kernel once per layer per decode step."""
+    model, params, _ = smoke
+    eng = CompiledRolloutEngine(model, TicTacToe(), cache_layout="dense",
+                                temperature=1.0, max_turns=3,
+                                max_turn_tokens=4, max_context=96)
+    da_ops.reset_launches()
+    fs_ops.reset_launches()
+    exp, st = eng.run(params, 4, 8, ref_params=params,
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    n_macro = fs_ops.launches // eng.max_turn_tokens
+    steps = eng.env.obs_len + n_macro * (eng.max_turn_tokens
+                                         + eng.env.obs_len)
+    assert da_ops.launches == 2 * model.cfg.n_layers * steps
+    assert st.episodes_started == st.episodes_returned == 8
+    assert st.pages_in_use == st.page_capacity == 0
+    assert bool(torch.isfinite(exp.ref_logprobs).all())
