@@ -60,6 +60,25 @@ Phases, in order; any failure raises and exits non-zero:
  11. train_branch — one update batch of the train phase through the
                update step with attn_impl "flash" (the kernels) and
                "xla" (plain attention): loss and per-leaf grad norms.
+     The speculative slice:
+     kernels: spec_verify — (in phase 3) the verify kernel at the spec
+               path's shapes (B=32, K=4, 14/2 heads, hd 64, 16-token
+               pages, 256-token context), pools in bf16, fp32 and int8,
+               under four cases; held against ref.py, and each query j
+               bitwise against the paged kernel at lens = pos + j + 1.
+ 12. spec_path — the engine with speculation="self" (spec_k 4, 12 draft
+               layers) on the paged pool, sampling="reference", at the
+               path phase's settings: verify rounds, spec counters, and
+               exactly one verify kernel per layer per round.
+ 13. spec_branch — one teacher-forced chunk through spec_verify_step and
+               through K sequential decode_steps (logits within 5% of the
+               scale); the greedy engine with speculation on and off
+               (reported: episodes whose streams are identical).
+ 14. spec_sync — one speculative macro-step under
+               set_sync_debug_mode("error") everywhere except the round
+               helper: host reads per turn = verify rounds + 1.
+ 15. spec_train — one EarlTrainer step with speculation="self" at the
+               train phase's settings, with exact launch counts.
 
 Prints JSON lines; the line before the last lists every kernel, and the
 last line is {"ok": true, "device": {...}}.
@@ -360,6 +379,112 @@ def phase_flash(torch, report):
         report[kname] = dict(by_case["bf16"], cases=by_case)
 
 
+def phase_spec_verify(torch, report):
+    """The spec-verify kernel at the spec path's shapes: B=32 rows, K=4
+    chunk queries, 14/2 heads, hd 64, 16-token pages, 256-token context
+    (NP=16, full provisioning), with pools in bf16 (the main path), fp32
+    and int8 (dequantised in the kernel as JAX's is; int8 pages are not an
+    engine option yet), under four cases: a random fill; ragged pos with
+    a partial last page (a chunk that starts a page, one that straddles
+    two, one that ends a token short of a page); an unmapped chunk page
+    (row 0 loses its chunk's second page; row 1 has no page, so its
+    queries are fully masked and give 0); K=1. Each is held elementwise
+    against ref.py by the paged kernel's rule, then every query j against
+    the paged kernel at lens = pos + j + 1 on the same pool and q rows,
+    with exact equality (0 ulp). Timed with time_cold beside its bound
+    (each live K/V element read once; 4 hd flops per valid (query head,
+    key) pair at the f32 rate) and the plain version. No single PyTorch
+    call computes it."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(8)
+    B, H, KV, hd, ps, NP = 32, 14, 2, 64, 16, 16
+    P = B * NP + 1
+    group = H // KV
+    perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
+    perm = perm.reshape(B, NP).to(torch.int32)
+    idx = torch.arange(NP * ps, device=dev)
+    cases = {}
+    for cname, K in (("fill", 4), ("ragged", 4), ("unmapped", 4),
+                     ("k1", 1)):
+        pos = torch.randint(0, NP * ps - K + 1, (B,), generator=g,
+                            device=dev)
+        if cname == "ragged":
+            pos[:3] = torch.tensor([2 * ps, ps - 2, 2 * ps - K - 1])
+        if cname == "unmapped":
+            pos[:2] = torch.tensor([ps - 2, 0])
+        pos = pos.to(torch.int32)
+        npages = (pos + K + ps - 1) // ps
+        bt = torch.where(torch.arange(NP, device=dev)[None, :]
+                         < npages[:, None], perm, -1)
+        if cname == "unmapped":
+            bt[0, 1] = -1
+            bt[1] = -1
+        bt = bt.contiguous()
+        mapped = (bt >= 0)[:, :, None].expand(B, NP, ps).reshape(B, NP * ps)
+        qpos = pos[:, None] + torch.arange(K, device=dev)[None, :]
+        valid = (idx[None, None, :] <= qpos[:, :, None]) & mapped[:, None]
+        pairs = int(valid.sum()) * H                 # (query head, key)
+        live = int(valid.any(dim=1).sum())           # K/V positions read
+        for dname, qdt, kvdt, rtol in (
+                ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7),
+                ("fp32", torch.float32, torch.float32, 0.0),
+                ("int8", torch.bfloat16, torch.int8, 2.0 ** -7)):
+            q = torch.randn((B, K, H, hd), generator=g, device=dev).to(qdt)
+            if kvdt == torch.int8:
+                kp, vp = (torch.randint(-127, 128, (P, ps, KV, hd),
+                                        generator=g, device=dev).to(
+                                            torch.int8) for _ in range(2))
+                ks, vs = (torch.rand((P, ps, KV), generator=g, device=dev)
+                          / 127 for _ in range(2))
+            else:
+                kp, vp = (torch.randn((P, ps, KV, hd), generator=g,
+                                      device=dev).to(kvdt)
+                          for _ in range(2))
+                ks = vs = None
+            out = sv_ops.spec_verify_attention(q, kp, vp, bt, pos,
+                                               k_scales=ks, v_scales=vs)
+            ref = spec_verify_attention_ref(q, kp, vp, bt, pos, ks, vs)
+            torch.cuda.synchronize()
+            name = f"{dname}_{cname}"
+            chk = held(torch, out, ref,
+                       2.0 ** -18 * float(ref.float().abs().max()), rtol)
+            if not chk["ok"]:
+                raise AssertionError(f"spec_verify {name}: {chk}")
+            if cname == "unmapped" and bool((out[1] != 0).any()):
+                raise AssertionError("spec_verify: a fully masked query "
+                                     "row is not zero")
+            diff_q = [j for j in range(K) if not torch.equal(
+                out[:, j], pa_ops.paged_decode_attention(
+                    q[:, j].contiguous(), kp, vp, bt, pos + j + 1,
+                    k_scales=ks, v_scales=vs))]
+            if diff_q:
+                raise AssertionError(f"spec_verify {name}: queries {diff_q} "
+                                     f"differ from the paged kernel")
+            esz = kp.element_size()
+            nbytes = (2 * live * KV * hd * esz
+                      + (2 * live * KV * 4 if ks is not None else 0)
+                      + 2 * q.numel() * q.element_size() + bt.numel() * 4
+                      + B * 4)
+            b_ms, b_by = bound(nbytes, 4 * hd * pairs)
+            case = dict(
+                chk, paged_kernel_bitwise=True,
+                ms=time_cold(torch, lambda: sv_ops.spec_verify_attention(
+                    q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)),
+                plain_ms=time_cold(torch, lambda: spec_verify_attention_ref(
+                    q, kp, vp, bt, pos, ks, vs)),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                flops=4 * hd * pairs, K=K, group=group)
+            cases[name] = case
+            emit({"phase": "kernels", "kernel": "spec_verify", "case": name,
+                  **case})
+    # the main path: bf16 q against the bf16 pool, K=4 over a filled pool
+    report["spec_verify"] = dict(cases["bf16_fill"], cases=cases)
+
+
 def phase_decode(torch, report):
     """The split-K decode attention kernel at the dense cache's shapes:
     B=32 rows, S=256 slots, 14/2 heads, hd 64, bf16 (the main path) and
@@ -431,6 +556,18 @@ def phase_decode(torch, report):
 
 
 # ---------------------------------------------------------------------------
+def count_calls(obj, name: str) -> list:
+    """Replace the method ``obj.name`` by one that records each call in the
+    returned list (one entry per call) and then calls the original."""
+    calls, orig = [], getattr(obj, name)
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return orig(*args, **kw)
+    setattr(obj, name, counted)
+    return calls
+
+
 def phase_path(torch, model, params, report):
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -659,6 +796,288 @@ def phase_macro_step(torch, engine, dense_engine, params):
           "top_device_ms": top})
 
 
+SPEC = dict(cache_layout="paged", attn_impl="paged", sampling="reference",
+            speculation="self", spec_k=4, draft_layers=12, max_turns=4,
+            max_turn_tokens=32, max_context=256, page_size=16)
+
+
+def phase_spec_path(torch, model, params, report):
+    """Full-width qwen2-0.5b through the engine with speculation="self"
+    (spec_k 4, draft_layers 12, JAX's default of n_layers // 2) on the
+    paged pool, sampling="reference", temperature 1.0, B=32 slots, 64
+    episodes: one warm-up of one turn, then one run with every launch
+    counter set to 0 just before it. The verify rounds are counted on the
+    host (each is one call of the round helper). Gates: every episode
+    returned, 0 dropped writes, accepted <= proposed, the mean accepted
+    length (accepted + rounds) / rounds in [1, K], exactly one spec-verify
+    launch per layer per round, one paged attention per layer per fed
+    column (the initial feed and one obs feed per macro-step: the draft
+    runs plain attention, as in JAX), and no fused sampling."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    CompiledRolloutEngine(model, TicTacToe(), temperature=1.0,
+                          **dict(SPEC, max_turns=1)).run(params, 32, 32,
+                                                         generator=gen)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine = CompiledRolloutEngine(model, TicTacToe(), temperature=1.0,
+                                   **SPEC)
+    rounds = count_calls(engine, "_more_rounds")
+    turns = count_calls(engine, "turn_step")
+    for ops in (sv_ops, pa_ops, fs_ops, da_ops):
+        ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp, st = engine.run(params, 32, 64, generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nl, olen, K = model.cfg.n_layers, engine.env.obs_len, engine.spec_k
+    counts = dict(spec_verify=sv_ops.launches,
+                  paged_attention=pa_ops.launches,
+                  fused_sample=fs_ops.launches,
+                  decode_attention=da_ops.launches)
+    expected = dict(spec_verify=nl * len(rounds),
+                    paged_attention=nl * olen * (1 + len(turns)),
+                    fused_sample=0, decode_attention=0)
+    gen_tokens = int(exp.gen_mask.sum())
+    mean_len = (st.spec_accepted + st.spec_rounds) / max(st.spec_rounds, 1)
+    out = dict(phase="spec_path", seconds=secs, warmup_seconds=warm_s,
+               generated_tokens=gen_tokens, tokens_per_s=gen_tokens / secs,
+               macro_steps=len(turns), verify_rounds=len(rounds),
+               rounds_per_turn=len(rounds) / max(len(turns), 1),
+               spec_proposed=st.spec_proposed,
+               spec_accepted=st.spec_accepted, spec_rounds=st.spec_rounds,
+               acceptance=st.spec_accepted / max(st.spec_proposed, 1),
+               mean_accepted_len=mean_len, launches=counts,
+               expected_launches=expected,
+               spec_verify_per_round=counts["spec_verify"]
+               / max(len(rounds), 1),
+               episodes_started=st.episodes_started,
+               episodes_returned=st.episodes_returned,
+               kv_dropped_writes=st.kv_dropped_writes,
+               pages_in_use=st.pages_in_use, page_capacity=st.page_capacity,
+               mean_context_len=st.mean_context_len,
+               mean_turn_len=st.mean_turn_len, mean_return=st.mean_return,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (st.episodes_started == st.episodes_returned == 64
+            and st.kv_dropped_writes == 0 and counts == expected
+            and len(rounds) > 0 and st.spec_rounds > 0
+            and 0 <= st.spec_accepted <= st.spec_proposed
+            and 1.0 <= mean_len <= K
+            and bool(torch.isfinite(exp.logprobs).all())
+            and bool((exp.context_len > 0).all())):
+        raise AssertionError(f"spec_path checks failed: {out}")
+    report["spec_verify"]["launches"] = counts["spec_verify"]
+    return engine
+
+
+def phase_spec_branch(torch, model, params):
+    """Greedy at full width. (a) One teacher-forced chunk of K=4 tokens for
+    32 rows, after a 20-token prefix on a bf16 paged cache, through
+    spec_verify_step and through K sequential decode_steps from a copy of
+    the same cache, both with the kernels: max |dlogit| against the branch
+    phase's 5% of the logit scale, and whether it is bitwise (the GEMMs see
+    M = B*K rows against M = B, so cuBLAS may pick other algorithms; the
+    kernel itself is held bitwise in the kernels phase). (b) The engine
+    with speculation on and off (sampling="reference", temperature 0, B=N=
+    32, two turns, the opponent's draws from equally seeded generators):
+    the fraction of episodes whose committed token streams are identical
+    and the first divergence, reported, not gated."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    cfg = model.cfg
+    B, K, prefix = 32, 4, 20
+    g = torch.Generator(device="cuda").manual_seed(10)
+    toks = torch.randint(0, cfg.vocab_size, (B, prefix + K), generator=g,
+                         device="cuda").to(torch.int32)
+    cache = model.init_cache(B, 256, layout="paged", kv_dtype="bf16",
+                             device="cuda")
+    for t in range(prefix):
+        _, cache = model.decode_step(params, toks[:, t], cache,
+                                     attn_impl="paged")
+    copy = cache._replace(kv=L.KVEntry(cache.kv.k.clone(),
+                                       cache.kv.v.clone()))
+    vlogits, _ = tf.spec_verify_step(cfg, params, toks[:, prefix:], cache,
+                                     attn_impl="paged")
+    seq = []
+    for j in range(K):
+        lg, copy = model.decode_step(params, toks[:, prefix + j], copy,
+                                     attn_impl="paged")
+        seq.append(lg)
+    seq = torch.stack(seq, dim=1).float()
+    d = (vlogits.float() - seq).abs()
+    scale = float(seq.abs().max())
+    out = dict(phase="spec_branch", part="verify_vs_sequential",
+               max_abs_dlogit=float(d.max()), logit_scale=scale,
+               tolerance=0.05 * scale, bitwise=bool(torch.equal(
+                   vlogits.float(), seq)),
+               top1_agreement=float((vlogits.argmax(-1) == seq.argmax(-1))
+                                    .float().mean()))
+    emit(out)
+    if not float(d.max()) <= 0.05 * scale:
+        raise AssertionError(f"spec_branch: verify and sequential logits "
+                             f"disagree: {out}")
+
+    res = {}
+    for spec in ("off", "self"):
+        eng = CompiledRolloutEngine(model, TicTacToe(), temperature=0.0,
+                                    **dict(SPEC, max_turns=2,
+                                           speculation=spec))
+        t0 = time.perf_counter()
+        res[spec] = eng.run(params, 32, 32, generator=torch.Generator(
+            device="cuda").manual_seed(12))          # the env's draws
+        torch.cuda.synchronize()
+        res[spec] += (time.perf_counter() - t0,)
+    (e0, _, s_off), (e1, st, s_on) = res["off"], res["self"]
+    same_len = e0.context_len == e1.context_len
+    same = same_len & (e0.tokens == e1.tokens).all(dim=1)
+    diff = (e0.tokens != e1.tokens).any(dim=0).nonzero()
+    out = dict(phase="spec_branch", part="engine_on_vs_off_greedy",
+               episodes=int(same.numel()),
+               identical_fraction=float(same.float().mean()),
+               first_divergent_position=(int(diff[0]) if diff.numel()
+                                         else None),
+               gen_mask_equal=bool(torch.equal(e0.gen_mask, e1.gen_mask)),
+               max_abs_dlogprob=float((e0.logprobs - e1.logprobs).abs()
+                                      .max()),
+               spec_accepted=st.spec_accepted,
+               spec_proposed=st.spec_proposed, spec_rounds=st.spec_rounds,
+               off_seconds=s_off, on_seconds=s_on)
+    emit(out)
+
+
+def phase_spec_sync(torch, engine, params):
+    """One speculative macro-step of the spec path's engine under
+    set_sync_debug_mode("error") everywhere except the round helper, which
+    runs in mode "warn" for its one read. Host reads per turn: one per
+    verify round, plus the returned counter that the run loop reads after
+    the turn (read here in mode "warn" too). Each read is counted as a
+    sync warning, and their number must be the verify rounds + 1."""
+    import warnings
+    rounds = count_calls(engine, "_more_rounds")
+    more = engine._more_rounds
+
+    def allowed(pending):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return more(pending)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    engine._more_rounds = allowed
+    noise = engine.default_noise(torch.Generator(device="cuda").manual_seed(
+        11))
+    carry = engine.init_feed(params, engine.init_carry(32, 64))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry = engine.turn_step(params, carry, 0, noise)
+            torch.cuda.set_sync_debug_mode("warn")
+            returned = int(carry.returned)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    warned = sum("synchronizing" in str(w.message) for w in caught)
+    out = dict(phase="spec_sync", verify_rounds=len(rounds),
+               host_reads_per_turn=warned, returned_after_one_turn=returned,
+               spec_rounds=int(carry.spec_rounds))
+    emit(out)
+    if not (1 <= len(rounds) <= engine.max_turn_tokens
+            and warned == len(rounds) + 1 and int(carry.spec_rounds) > 0):
+        raise AssertionError(f"spec_sync checks failed: {out}")
+
+
+def phase_spec_train(torch, model, report):
+    """One EarlTrainer step at full width with speculation="self" (spec_k
+    4, draft_layers 12) on the train phase's other settings (B=N=32,
+    max_context 256, KL 0.05, clip 0.2, bf16, remat "full"). The trainer
+    does not fold the reference pass (ref_folded false) and warns once; on
+    step 0 the reference IS the policy, sampled at temperature 1.0, so
+    ExpPrep's standalone route reuses the behaviour log-probs and runs no
+    reference forward. Expected launches, exactly: one spec-verify per
+    layer per verify round; one paged attention per layer per fed column
+    (the initial feed and one obs feed per macro-step, obs_len columns
+    each; the draft runs plain attention); the flash forward once per
+    layer in the update and once more in its remat recompute, dq and
+    dk/dv once per layer; no fused sampling and no decode attention."""
+    import warnings
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.rl.envs import TicTacToe
+
+    nl = model.cfg.n_layers
+    tr = EarlTrainer(model=model, env=TicTacToe(),
+                     optimizer=adamw(3e-4, weight_decay=0.0), batch_size=32,
+                     rollout_episodes=32, max_turns=4, max_turn_tokens=32,
+                     max_context=256, kl_coef=0.05, clip_eps=0.2,
+                     temperature=1.0, seed=0, speculation="self", spec_k=4,
+                     draft_layers=12)
+    rounds = count_calls(tr.rollout, "_more_rounds")
+    turns = count_calls(tr.rollout, "turn_step")
+    params, opt_state, ref = tr.init_state()
+    for ops in (sv_ops, pa_ops, fs_ops, fa_ops, da_ops):
+        ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        new, _, rec = tr.run_step(0, params, opt_state, ref)
+    torch.cuda.synchronize()
+    counts = dict(spec_verify=sv_ops.launches,
+                  paged_attention=pa_ops.launches,
+                  fused_sample=fs_ops.launches,
+                  flash_fwd=fa_ops.launches["fwd"],
+                  flash_dq=fa_ops.launches["dq"],
+                  flash_dkv=fa_ops.launches["dkv"],
+                  decode_attention=da_ops.launches)
+    expected = dict(spec_verify=nl * len(rounds),
+                    paged_attention=nl * tr.env.obs_len * (1 + len(turns)),
+                    fused_sample=0, flash_fwd=2 * nl, flash_dq=nl,
+                    flash_dkv=nl, decode_attention=0)
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)
+              and "speculation" in str(w.message)]
+    changed = not torch.equal(new["layers.attn.wq"], params["layers.attn.wq"])
+    out = dict(phase="spec_train", step=0, ref_folded=tr.ref_folded,
+               sampling=tr.sampling, fallback_warnings=len(warned),
+               mean_return=rec.mean_return,
+               mean_context_len=rec.mean_context_len, loss=rec.loss,
+               kl=rec.kl, rollout_s=rec.rollout_wall_s,
+               update_s=rec.update_wall_s, step_s=rec.wall_time_s,
+               macro_steps=len(turns), verify_rounds=len(rounds),
+               spec_proposed=rec.spec_proposed,
+               spec_accepted=rec.spec_accepted, spec_rounds=rec.spec_rounds,
+               mean_accepted_len=(rec.spec_accepted + rec.spec_rounds)
+               / max(rec.spec_rounds, 1),
+               launches=counts, expected_launches=expected,
+               kv_dropped_writes=rec.kv_dropped_writes,
+               params_changed=changed,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (counts == expected and not tr.ref_folded and len(warned) == 1
+            and rec.spec_rounds > 0 and changed and math.isfinite(rec.loss)
+            and math.isfinite(rec.kl) and rec.kv_dropped_writes == 0):
+        raise AssertionError(f"spec_train checks failed: {out}")
+    report["spec_train_launches"] = counts
+
+
 class _RecordingUpdate:
     """Wraps the trainer's UpdateStage to keep the batches it is given."""
 
@@ -872,6 +1291,7 @@ def main() -> int:
     phase_kernels(torch, report)
     phase_flash(torch, report)
     phase_decode(torch, report)
+    phase_spec_verify(torch, report)
     cfg = get_config("qwen2-0.5b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -886,10 +1306,16 @@ def main() -> int:
     dense_engine = phase_dense_path(torch, model, params, report)
     phase_branch(torch, model, params)
     phase_macro_step(torch, engine, dense_engine, params)
-    del engine, dense_engine, params
+    del engine, dense_engine
+    spec_engine = phase_spec_path(torch, model, params, report)
+    phase_spec_branch(torch, model, params)
+    phase_spec_sync(torch, spec_engine, params)
+    del spec_engine, params
     trainer, params, opt_state, exp = phase_train(torch, model, report)
     phase_train_trace(torch, trainer, params, opt_state, exp)
     phase_train_branch(torch, model, params, opt_state, exp)
+    del trainer, params, opt_state, exp
+    phase_spec_train(torch, model, report)
 
     kernels = []
     for name, src, replaces in (
@@ -904,7 +1330,9 @@ def main() -> int:
             ("flash_dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention/bwd_kernel.py:63"),
             ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:28")):
+             "src/repro/kernels/decode_attention/kernel.py:28"),
+            ("spec_verify", "src/repro_torch/csrc/spec_verify.cu",
+             "src/repro/kernels/spec_verify/kernel.py:44")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

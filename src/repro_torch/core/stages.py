@@ -11,11 +11,12 @@
 
 As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
-a second time through the reference model on a dense cache. Prefix
-sharing and speculation would unfold it; both are unported, so the fold
-is always on for now, and ExpPrep keeps JAX's standalone route (a
-full-sequence reference forward, or the behaviour log-probs when the
-reference IS the sampling policy) for them.
+a second time through the reference model on a dense cache. Speculation
+unfolds it (the folded decode consumes one token per step and cannot
+consume drafted chunks; prefix sharing would too, and is not ported):
+ExpPrep then takes JAX's standalone route, a full-sequence reference
+forward, or the behaviour log-probs when the reference IS the sampling
+policy, and the trainer warns once that it does.
 
 ``attn_impl="paged"`` (the default) is the production path: every stream
 runs its kernel (``_ATTN``); ``attn_impl="xla"`` runs the plain paths
@@ -28,6 +29,7 @@ its device.
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional
 
@@ -76,11 +78,14 @@ class StepRecord:
     pages_in_use: int = 0
     page_capacity: int = 0
     kv_dropped_writes: int = 0
-    # graceful-degradation and speculation telemetry: 0 until those
-    # engine features are ported (ROADMAP Queue 1 item 8)
+    # graceful-degradation telemetry: 0 until those engine features are
+    # ported (ROADMAP Queue 1 item 8)
     preemptions: int = 0
     requeue_depth: int = 0
     pool_grows: int = 0
+    # speculative decoding (0 unless speculation is on): draft tokens
+    # proposed and accepted, (row, verify round) pairs; the mean accepted
+    # length per round is (spec_accepted + spec_rounds) / spec_rounds
     spec_proposed: int = 0
     spec_accepted: int = 0
     spec_rounds: int = 0
@@ -179,14 +184,18 @@ class EarlTrainer:
     into the rollout, and every kernel on the card (``device=None`` means
     the GPU and raises without one). ``cache_layout`` and ``sampling``
     default to the backend's own: "paged" and "fused" for the compiled
-    engine, "dense" and "reference" for the python one. The JAX
-    trainer's options whose features are not ported raise
-    ``NotImplementedError`` naming their ROADMAP Queue 1 item, among them
-    step retries (``max_retries > 0``) and the truncated-IS reweighting of
-    the lagged async pipeline (``is_rho_max > 0``); the settings that only
-    those features read (``prefix_len``, ``pool_growth_max``,
-    ``admit_watermark``, ``spec_k``, ``draft_layers``, ``max_policy_lag``,
-    ``dispatch_strategy``, ``retry_backoff_s``) are not fields."""
+    engine, "dense" and "reference" for the python one; with
+    ``speculation`` ("self" or "draft", with ``spec_k`` and
+    ``draft_layers``) an unset ``sampling`` is "reference", JAX's default,
+    and the reference pass is not folded. The JAX trainer's options whose
+    features are not ported raise ``NotImplementedError`` naming their
+    ROADMAP Queue 1 item, among them step retries (``max_retries > 0``)
+    and the truncated-IS reweighting of the lagged async pipeline
+    (``is_rho_max > 0``); the settings that only those features read
+    (``prefix_len``, ``pool_growth_max``, ``admit_watermark``,
+    ``max_policy_lag``, ``dispatch_strategy``, ``retry_backoff_s``) are not
+    fields. As in JAX, the trainer passes no ``draft_model``, so
+    ``speculation="draft"`` raises from the engine."""
 
     model: Any                              # repro_torch Model
     env: Any
@@ -213,7 +222,9 @@ class EarlTrainer:
     share_prefix: bool = False
     on_exhaust: str = "count"               # "count" | "raise"
     pool_growth: str = "off"
-    speculation: str = "off"
+    speculation: str = "off"                # "off" | "self" | "draft"
+    spec_k: int = 4                         # speculative chunk length
+    draft_layers: Optional[int] = None      # "self": draft depth (L // 2)
     pipeline: str = "sync"
     is_rho_max: float = 0.0                 # > 0 raises (item 8)
     max_retries: int = 0                    # > 0 raises (item 8)
@@ -237,7 +248,8 @@ class EarlTrainer:
         if self.cache_layout is None:
             self.cache_layout = "dense" if python else "paged"
         if self.sampling is None:
-            self.sampling = "reference" if python else "fused"
+            self.sampling = ("reference" if python or self.speculation != "off"
+                             else "fused")
         self.device = resolve_device(self.device)
         self.optimizer = self.optimizer or adamw(3e-4, weight_decay=0.0)
         attn = _ATTN[self.attn_impl]
@@ -256,10 +268,11 @@ class EarlTrainer:
                 cache_pages=self.cache_pages, kv_dtype=self.kv_dtype,
                 on_exhaust=self.on_exhaust, share_prefix=self.share_prefix,
                 pool_growth=self.pool_growth, speculation=self.speculation,
-                **kw)
+                spec_k=self.spec_k, draft_layers=self.draft_layers, **kw)
         # JAX folds the reference pass into the rollout unless prefix
-        # sharing or speculation is on (both unported: they raise above)
+        # sharing (unported: it raises above) or speculation is on
         self.ref_folded = not self.share_prefix and self.speculation == "off"
+        self._warned_ref_fallback = False
         self.rollout_stage = RolloutStage(self.rollout)
         self.expprep_stage = ExpPrepStage(
             self.model, advantage=self.advantage,
@@ -280,7 +293,9 @@ class EarlTrainer:
                  self.cache_layout != "dense"),
                 (f"sampling={self.sampling!r}",
                  self.sampling != "reference"),
-                (f"kv_dtype={self.kv_dtype!r}", self.kv_dtype != "bf16")):
+                (f"kv_dtype={self.kv_dtype!r}", self.kv_dtype != "bf16"),
+                (f"speculation={self.speculation!r}",
+                 self.speculation != "off")):
             if bad:
                 raise ValueError(f"{what} requires rollout_backend="
                                  f"'compiled' (the python reference engine "
@@ -345,15 +360,35 @@ class EarlTrainer:
             is_weight_mean=metrics.get("is_weight_mean", 0.0),
             pages_in_use=stats.pages_in_use,
             page_capacity=stats.page_capacity,
-            kv_dropped_writes=stats.kv_dropped_writes)
+            kv_dropped_writes=stats.kv_dropped_writes,
+            spec_proposed=stats.spec_proposed,
+            spec_accepted=stats.spec_accepted,
+            spec_rounds=stats.spec_rounds)
         self.history.append(rec)
         return rec
+
+    def _maybe_warn_ref_fallback(self, ref_params) -> None:
+        """One-time RuntimeWarning when a reference pass is requested but
+        the rollout cannot fold it: the switch to ExpPrep's standalone
+        route names its reason instead of just happening."""
+        if ref_params is None or self.ref_folded or self._warned_ref_fallback:
+            return
+        self._warned_ref_fallback = True
+        warnings.warn(
+            f"EarlTrainer: reference log-probs will come from ExpPrep's "
+            f"standalone route, not the rollout fold (reason: "
+            f"speculation={self.speculation!r}: the folded reference pass "
+            f"consumes tokens one decode step at a time and cannot consume "
+            f"the drafted chunks the speculative loop commits). The "
+            f"reference pass re-runs each harvested context per step.",
+            RuntimeWarning, stacklevel=3)
 
     # ------------------------------------------------------------------
     def run_step(self, step: int, params, opt_state, ref_params=None,
                  dst_shardings=None):
         """One full Fig. 2 iteration: Rollout → ExpPrep → Dispatch →
         Update. Returns (params, opt_state, record)."""
+        self._maybe_warn_ref_fallback(ref_params)
         t0 = time.perf_counter()
         noise = (self.noise(step) if self.noise is not None
                  else self.rollout.default_noise(self._gen))

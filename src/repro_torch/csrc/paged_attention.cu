@@ -21,9 +21,10 @@
 // Design: one block per (row, kv head); each page of the row is loaded
 //   once into shared memory (converted to f32, dequantised) and shared by
 //   the GQA group's query heads, one warp per head, each running an f32
-//   online softmax with its output accumulator in registers. Only the
-//   pages that hold positions < lens[b] are touched, and unmapped entries
-//   are skipped. Tile rows are padded to hd+1 floats so the per-position
+//   online softmax with its output accumulator in registers (that per-row
+//   arithmetic lives in paged_softmax.cuh, shared with spec_verify.cu).
+//   Only the pages that hold positions < lens[b] are touched, and unmapped
+//   entries are skipped. Tile rows are padded to hd+1 floats so the per-position
 //   dot products read shared memory without bank conflicts. No split of
 //   the page axis yet: at B=32, KV=2 this is 64 blocks for 132 SMs, so a
 //   flash-decoding split with a combine pass is the first speed-up to try.
@@ -32,35 +33,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "paged_softmax.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kMaxHd = 256;
-constexpr int kLaneD = kMaxHd / 32;   // output dims owned by one lane
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using paged_softmax::kLaneD;
+using paged_softmax::kMaxHd;
+using paged_softmax::kNegInf;
 
 template <typename QT, typename KT>
 __global__ void paged_decode_kernel(
@@ -83,7 +62,7 @@ __global__ void paged_decode_kernel(
 
   const QT* qrow = q + (static_cast<size_t>(b) * KV + h) * group * hd;
   for (int i = threadIdx.x; i < group * hd; i += nthreads)
-    q_s[i] = to_f(qrow[i]) * scale;
+    q_s[i] = paged_softmax::to_f(qrow[i]) * scale;
 
   const int len = lens[b];
   int n_pages = (len + ps - 1) / ps;
@@ -100,70 +79,17 @@ __global__ void paged_decode_kernel(
     if (page < 0) continue;   // unmapped: fully masked, adds exactly 0
     const int pg = page < P ? page : P - 1;
     __syncthreads();          // the previous tile is fully consumed
-    const size_t base = static_cast<size_t>(pg) * ps * KV * hd;
-    for (int i = threadIdx.x; i < ps * hd; i += nthreads) {
-      const int j = i / hd;
-      const int d = i - j * hd;
-      const size_t off = base + (static_cast<size_t>(j) * KV + h) * hd + d;
-      float kx = to_f(kp[off]);
-      float vx = to_f(vp[off]);
-      if (ks != nullptr) {
-        const size_t so = (static_cast<size_t>(pg) * ps + j) * KV + h;
-        kx *= ks[so];
-        vx *= vs[so];
-      }
-      k_s[j * stride + d] = kx;
-      v_s[j * stride + d] = vx;
-    }
+    paged_softmax::load_page(kp, vp, ks, vs, pg, h, KV, hd, ps, k_s, v_s);
     __syncthreads();
-    if (warp < group) {
-      float* pw = p_s + warp * ps;
-      const float* qg = q_s + warp * hd;
-      float smax = kNegInf;
-      for (int j = lane; j < ps; j += 32) {
-        float s = kNegInf;
-        if (pi * ps + j < len) {
-          const float* kj = k_s + j * stride;
-          float dot = 0.f;
-          for (int d = 0; d < hd; ++d) dot = fmaf(qg[d], kj[d], dot);
-          s = dot;
-        }
-        pw[j] = s;
-        smax = fmaxf(smax, s);
-      }
-      smax = warp_max(smax);
-      const float m_new = fmaxf(m_run, smax);
-      float psum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const float p = (pi * ps + j < len) ? expf(pw[j] - m_new) : 0.f;
-        pw[j] = p;
-        psum += p;
-      }
-      psum = warp_sum(psum);
-      const float alpha = expf(m_run - m_new);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < kLaneD; ++i) {
-        const int d = lane + 32 * i;
-        if (d < hd) {
-          float a = acc[i] * alpha;
-          for (int j = 0; j < ps; ++j) a = fmaf(pw[j], v_s[j * stride + d], a);
-          acc[i] = a;
-        }
-      }
-      l_run = alpha * l_run + psum;
-      m_run = m_new;
-    }
+    if (warp < group)
+      paged_softmax::page_update(q_s + warp * hd, k_s, v_s, p_s + warp * ps,
+                                 ps, hd, lane, pi * ps, len, m_run, l_run,
+                                 acc);
   }
-  if (warp < group) {
-    const float l = (l_run == 0.f) ? 1.f : l_run;   // fully masked row -> 0
-    QT* orow = out + ((static_cast<size_t>(b) * KV + h) * group + warp) * hd;
-#pragma unroll
-    for (int i = 0; i < kLaneD; ++i) {
-      const int d = lane + 32 * i;
-      if (d < hd) store_f(&orow[d], acc[i] / l);
-    }
-  }
+  if (warp < group)
+    paged_softmax::store_row(
+        out + ((static_cast<size_t>(b) * KV + h) * group + warp) * hd, acc,
+        l_run, hd, lane);
 }
 
 template <typename QT, typename KT>

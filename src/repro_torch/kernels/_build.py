@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point (no PyTorch headers,
 so ``nvcc`` takes seconds, not minutes). At first use in a process it is
 compiled for Hopper into ``build/repro_torch/<name>-<hash>.so`` under the
-repository root — the hash covers the source and the flags, so an edited
-source rebuilds — and loaded with ``ctypes``. There is no fallback: without
-``nvcc`` or a CUDA device, loading raises.
+repository root — the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source rebuilds — and loaded with
+``ctypes``. There is no fallback: without ``nvcc`` or a CUDA device,
+loading raises.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("paged_attention", "fused_sample", "flash_attention",
-           "flash_attention_bwd", "decode_attention")
+           "flash_attention_bwd", "decode_attention", "spec_verify")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -52,6 +53,7 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

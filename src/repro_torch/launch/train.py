@@ -15,10 +15,13 @@ paged and fused for ``--rollout-backend compiled``, dense and reference
 for ``python``. Flags
 of features not ported yet raise ``NotImplementedError`` naming their
 ROADMAP item, and so does any value given to a flag that only those
-features read (``--prefix-len``, ``--pool-growth-max``, ``--spec-k``,
-``--draft-layers``, ``--max-policy-lag``, ``--is-rho-max``,
-``--retry-backoff``, ``--dispatch``). Writes the same JSONL rows as the
-JAX CLI.
+features read (``--prefix-len``, ``--pool-growth-max``,
+``--max-policy-lag``, ``--is-rho-max``, ``--retry-backoff``,
+``--dispatch``). ``--speculation self --spec-k K --draft-layers L`` runs
+speculative decoding (paged layout, reference sampling); as in JAX, the
+CLI builds no draft model, so ``--speculation draft`` raises. Writes the
+same JSONL rows as the JAX CLI, ``spec_proposed``, ``spec_accepted`` and
+``spec_rounds`` among them.
 """
 from __future__ import annotations
 
@@ -69,9 +72,16 @@ def parse_args(argv=None):
                     help="default: fused (compiled), reference (python)")
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--speculation", default="off",
-                    choices=["off", "self", "draft"])
-    ap.add_argument("--spec-k", type=int, default=None)  # unported
-    ap.add_argument("--draft-layers", type=int, default=None)  # unported
+                    choices=["off", "self", "draft"],
+                    help="speculative decoding (paged layout): self = the "
+                         "policy's first --draft-layers layers draft; the "
+                         "committed tokens are the ones off commits")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="chunk length: 1 exact token + up to spec-k - 1 "
+                         "draft proposals verified per round")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="speculation=self: layers of the draft (default "
+                         "n_layers // 2)")
     ap.add_argument("--pipeline", default="sync", choices=["sync", "async"])
     ap.add_argument("--max-policy-lag", type=int, default=None)  # unported
     ap.add_argument("--is-rho-max", type=float, default=None)  # unported
@@ -110,7 +120,6 @@ def parse_args(argv=None):
 
 # flags read only by unported features: (flag, ROADMAP Queue 1 item)
 _UNPORTED_FLAGS = (("prefix_len", "8"), ("pool_growth_max", "8"),
-                   ("spec_k", "8"), ("draft_layers", "8"),
                    ("max_policy_lag", "8"), ("is_rho_max", "8"),
                    ("retry_backoff", "8"), ("dispatch", "9"))
 
@@ -137,7 +146,8 @@ def main(argv=None):
         cache_pages=args.cache_pages, share_prefix=args.share_prefix,
         on_exhaust=args.on_exhaust, pool_growth=args.pool_growth,
         kv_dtype=args.kv_dtype, sampling=args.sampling, top_p=args.top_p,
-        speculation=args.speculation, pipeline=args.pipeline,
+        speculation=args.speculation, spec_k=args.spec_k,
+        draft_layers=args.draft_layers, pipeline=args.pipeline,
         max_retries=args.max_retries,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume=args.resume,

@@ -1,7 +1,7 @@
 """Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP (port of
 the dense-model parts of ``repro/models/layers.py``: full-sequence
-self-attention, the dense ring-buffer prefill and decode, and paged
-decode).
+self-attention, the dense ring-buffer prefill and decode, paged decode
+and the speculative verify chunk).
 
 Functions take the same layouts as the JAX ones: activations
 ``(B, S, D)``, per-head tensors ``(B, S, H, hd)``, params a dict of
@@ -251,6 +251,21 @@ def decode_attention(p, x, kv: KVEntry, pos, *, n_heads, n_kv_heads,
     return out @ p["wo"], kv
 
 
+def _gather_pool(kv: KVEntry, block_table, dtype):
+    """Each row's pages gathered into dense ``(B, NP*ps, KV, hd)`` K/V in
+    ``dtype`` (unmapped entries read a clamped page), and the ``(B,
+    NP*ps)`` mask of positions on mapped pages."""
+    P = kv.k.shape[0] - 1                       # the trash page excluded
+    ps, n_kv_heads, head_dim = kv.k.shape[1:]
+    B, NP = block_table.shape
+    bt_c = block_table.clamp(0, P - 1).long()
+    k = kv.k[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(dtype)
+    v = kv.v[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(dtype)
+    mapped = (block_table >= 0)[:, :, None].expand(B, NP, ps).reshape(
+        B, NP * ps)
+    return k, v, mapped
+
+
 def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
                            woff, scrub=None, cow_src=None, cow_dst=None,
                            n_heads, n_kv_heads, head_dim, rope_theta,
@@ -280,9 +295,6 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
     B, S1, _ = x.shape
     if S1 != 1:
         raise ValueError(f"decode takes one token per row, got {S1}")
-    P = kv.k.shape[0] - 1
-    ps = kv.k.shape[1]
-    NP = block_table.shape[1]
     positions = pos[:, None]
     q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
@@ -300,12 +312,8 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
         out = pa_ops.paged_decode_attention(
             q[:, 0].contiguous(), kv.k, kv.v, block_table, lens)[:, None]
     elif attn_impl == "xla":
-        bt_c = block_table.clamp(0, P - 1).long()
-        k = kv.k[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(q.dtype)
-        v = kv.v[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(q.dtype)
-        s_idx = torch.arange(NP * ps, device=x.device)[None, :]
-        mapped = (block_table >= 0)[:, :, None].expand(B, NP, ps).reshape(
-            B, NP * ps)
+        k, v, mapped = _gather_pool(kv, block_table, q.dtype)
+        s_idx = torch.arange(mapped.shape[1], device=x.device)[None, :]
         valid = (s_idx < lens[:, None]) & mapped
         mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
         out = _sdpa(q, k, v, mask)
@@ -313,6 +321,62 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
         raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
                          f"{attn_impl!r}")
     out = out.reshape(B, 1, n_heads * head_dim)
+    return out @ p["wo"], kv
+
+
+def spec_verify_chunk_attention(p, x, kv: KVEntry, block_table, pos, *,
+                                wpage, woff, scrub=None, cow_src=None,
+                                cow_dst=None, n_heads, n_kv_heads, head_dim,
+                                rope_theta, attn_impl: str = "xla"):
+    """Speculative-verify attention for a chunk of K candidate tokens.
+    x: (B,K,D) hidden states at absolute positions ``pos[b] .. pos[b]+K-1``;
+    the committed pool context ends at ``pos``.
+
+    The K-token form of ``paged_decode_attention``'s write-then-attend: the
+    whole chunk's K/V is written IN PLACE into pool entries ``(wpage,
+    woff)`` (both (B,K); ``wpage == P``, the trash page, drops the write),
+    after the optional ``scrub`` of a freshly mapped first page. Attention
+    then reads everything back from the pool with per-query validity ``idx
+    <= pos + j``, so each query sees the keys a sequential decode step
+    would see at its position. Chunk entries beyond the accepted prefix
+    stay above the fill line, invisible to later reads and rewritten by
+    the next chunk. attn_impl: "paged" runs the spec-verify CUDA kernel
+    (its plain f32 version on CPU tensors); "xla" gathers the row's pages
+    and runs ``_sdpa`` with the additive mask in the model dtype.
+
+    cow_src/cow_dst (copy-on-write for prefix sharing) are not ported yet
+    and raise.
+    """
+    if cow_src is not None or cow_dst is not None:
+        raise NotImplementedError(
+            "copy-on-write page copies arrive with prefix sharing "
+            "(ROADMAP Queue 1 item 8)")
+    B, K, _ = x.shape
+    positions = pos[:, None] + torch.arange(K, device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k_new = apply_rope(k_new, positions, rope_theta)
+    if scrub is not None:
+        idx = scrub.long()
+        kv.k.index_fill_(0, idx, 0)
+        kv.v.index_fill_(0, idx, 0)
+    wp, wo = wpage.long(), woff.long()
+    kv.k.index_put_((wp, wo), k_new.to(kv.k.dtype))
+    kv.v.index_put_((wp, wo), v_new.to(kv.v.dtype))
+    if attn_impl == "paged":
+        from repro_torch.kernels.spec_verify import ops as sv_ops
+        out = sv_ops.spec_verify_attention(q.contiguous(), kv.k, kv.v,
+                                           block_table, pos)
+    elif attn_impl == "xla":
+        k, v, mapped = _gather_pool(kv, block_table, q.dtype)
+        s_idx = torch.arange(mapped.shape[1], device=x.device)[None, None, :]
+        valid = (s_idx <= positions[:, :, None]) & mapped[:, None, :]
+        mask = torch.where(valid, 0.0, NEG_INF).float()[:, None]
+        out = _sdpa(q, k, v, mask)
+    else:
+        raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
+                         f"{attn_impl!r}")
+    out = out.reshape(B, K, n_heads * head_dim)
     return out @ p["wo"], kv
 
 

@@ -1,6 +1,7 @@
 """Dense decoder-only transformer: the full-sequence forward of training,
-the dense ring-buffer cache (prefill and decode) and the paged decode path
-(port of those parts of ``repro/models/transformer.py``).
+the dense ring-buffer cache (prefill and decode), the paged decode path
+and the speculative verify step (port of those parts of
+``repro/models/transformer.py``).
 
 Layer params keep the stacked leading ``layers`` axis of the JAX tree;
 ``lax.scan`` over layers becomes a Python loop over views of the stacked
@@ -183,10 +184,15 @@ def _apply_layers(cfg: ModelConfig, x, layers, attend):
     return x
 
 
-def _logits(cfg: ModelConfig, params, x):
+def _chunk_logits(cfg: ModelConfig, params, x):
+    """Final norm and head over every position: (B,S,D) -> (B,S,V)."""
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
     head = params.get("lm_head", params["embedding"])
-    return L.unembed(head, x)[:, 0]
+    return L.unembed(head, x)
+
+
+def _logits(cfg: ModelConfig, params, x):
+    return _chunk_logits(cfg, params, x)[:, 0]
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
@@ -290,6 +296,98 @@ def decode_step(cfg: ModelConfig, params, token, cache, *,
             else _dense_decode_step)
     return step(cfg, params, token, cache, attn_impl=attn_impl,
                 advance=advance)
+
+
+def spec_verify_step(cfg: ModelConfig, params, chunk,
+                     cache: PagedDecodeCache, *, attn_impl: str = "xla",
+                     advance=None, eff_k=None):
+    """Score a (B, K) chunk of candidate tokens against the full model in
+    one batched pass on the paged layout: the verify half of speculative
+    decoding. ``chunk[:, 0]`` is the token sequential decode would commit
+    next; ``chunk[:, j>0]`` are draft proposals. Returns ``(logits (B, K,
+    V), cache)``: ``logits[:, j]`` is the model's next-token distribution
+    after consuming ``chunk[:, :j+1]``.
+
+    The page allocator runs once, outside the layer loop: a static loop of
+    ``(K + ps - 2) // ps + 1`` rank-match allocations maps every page that
+    covers ``[pos, pos + eff_k)``. Every layer then writes the whole
+    chunk's K/V into the pool IN PLACE (``layers.
+    spec_verify_chunk_attention``). ``cache.pos`` is NOT advanced: the
+    caller learns the accepted prefix from the logits and commits it with
+    ``spec_commit``.
+
+    advance: (B,) bool — rows with False are no-ops. eff_k: (B,) int32 —
+    positions ``j >= eff_k[b]`` are neither allocated nor written (rows
+    near their turn's token budget); their logits must not be committed.
+    attn_impl: "paged" (the spec-verify kernel) or "xla". Copy-on-write
+    (the JAX ``cow`` flag, for shared prefix pages) is not ported.
+    """
+    B, K = chunk.shape
+    dev = chunk.device
+    x = L.embed(params["embedding"], chunk)                  # (B,K,D)
+    pos = cache.pos
+    adv = (torch.ones((B,), dtype=torch.bool, device=dev)
+           if advance is None else advance)
+    ek = (torch.full((B,), K, dtype=torch.int32, device=dev)
+          if eff_k is None else eff_k.to(torch.int32))
+    ps, P = cache.page_size, cache.n_pages
+    NP = cache.block_table.shape[1]
+    rows = torch.arange(B, device=dev)
+
+    pidx0 = (pos // ps).clamp(0, NP - 1).long()
+    last = pos + ek.clamp_min(1) - 1          # last chunk position per row
+    lastd = (last // ps).clamp(0, NP - 1).long() - pidx0
+    bt = cache.block_table.clone()
+    refcount = cache.refcount
+    fresh0 = None
+    for d in range((K + ps - 2) // ps + 1):   # pages a chunk can touch
+        pidx = (pidx0 + d).clamp(0, NP - 1)
+        cur = bt[rows, pidx]
+        need = adv & (ek > 0) & (d <= lastd) & (cur < 0)
+        pages, refcount = paging.alloc_pages(refcount, need)
+        fresh = need & (pages < P)
+        bt[rows, pidx] = torch.where(fresh, pages, cur)
+        if d == 0:
+            fresh0 = fresh
+    # a freshly mapped first page mid-row (recovery from pool exhaustion)
+    # is scrubbed, as in _paged_decode_step; later chunk pages always map
+    # at offset 0
+    scrub = torch.where(fresh0 & (pos % ps > 0), bt[rows, pidx0], P)
+
+    # the (B, K) write plan: the trash page P takes non-advancing rows,
+    # positions past eff_k and unmapped (exhausted) pages
+    j = torch.arange(K, device=dev)[None, :]
+    cpos = pos[:, None] + j
+    wp = bt[rows[:, None], (cpos // ps).clamp(0, NP - 1).long()]
+    w_ok = adv[:, None] & (j < ek[:, None]) & (wp >= 0)
+    wpage = torch.where(w_ok, wp, P)
+    woff = cpos % ps
+
+    layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    x = _apply_layers(
+        cfg, x, layers,
+        lambda i, p, h: L.spec_verify_chunk_attention(
+            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), bt, pos,
+            wpage=wpage, woff=woff, scrub=scrub, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
+            rope_theta=cfg.rope_theta, attn_impl=attn_impl)[0])
+    return _chunk_logits(cfg, params, x), PagedDecodeCache(
+        kv=cache.kv, block_table=bt, refcount=refcount, pos=pos)
+
+
+def spec_commit(cache: PagedDecodeCache, n_commit):
+    """Advance the paged fill line by ``n_commit`` (B,) committed tokens
+    after ``spec_verify_step``: validity everywhere is ``idx < pos``, so
+    this add is the whole commit."""
+    return cache._replace(pos=cache.pos + n_commit.to(torch.int32))
+
+
+def draft_params_view(params, draft_layers: int):
+    """The truncated layer stack of ``speculation="self"``: the first
+    ``draft_layers`` entries of every stacked layer leaf, as views (no
+    copy), sharing the embedding, ``ln_f`` and the head."""
+    return {k: (t[:draft_layers] if k.startswith("layers.") else t)
+            for k, t in params.items()}
 
 
 def scan_body_over(step_fn):

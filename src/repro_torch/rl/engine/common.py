@@ -36,6 +36,14 @@ class RolloutStats:
     pages_in_use: int = 0           # peak pool occupancy over the rollout
     page_capacity: int = 0          # pool size in pages
     kv_dropped_writes: int = 0      # tokens whose KV write was dropped
+    # speculative decoding (all 0 when speculation="off"): draft tokens
+    # proposed, draft tokens accepted, and (row, verify round) pairs. Each
+    # round commits one exactly sampled token per writing row whatever the
+    # acceptance, so the mean accepted length per round is
+    #   (spec_accepted + spec_rounds) / spec_rounds
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_rounds: int = 0
 
 
 def action_mask(tokens, n_actions: int):
@@ -88,8 +96,9 @@ def sample_with_noise(logits, noise, temperature: float, top_p: float = 1.0):
 def summarize(turn_lengths, context_lengths, n_turns, truncated, rewards, *,
               episodes_started: int, episodes_returned: int,
               params_version: int = -1, pages_in_use: int = 0,
-              page_capacity: int = 0,
-              kv_dropped_writes: int = 0) -> RolloutStats:
+              page_capacity: int = 0, kv_dropped_writes: int = 0,
+              spec_proposed: int = 0, spec_accepted: int = 0,
+              spec_rounds: int = 0) -> RolloutStats:
     turn_lengths = np.asarray(turn_lengths)
     context_lengths = np.asarray(context_lengths)
     tl = turn_lengths[turn_lengths > 0]
@@ -107,4 +116,7 @@ def summarize(turn_lengths, context_lengths, n_turns, truncated, rewards, *,
         pages_in_use=int(pages_in_use),
         page_capacity=int(page_capacity),
         kv_dropped_writes=int(kv_dropped_writes),
+        spec_proposed=int(spec_proposed),
+        spec_accepted=int(spec_accepted),
+        spec_rounds=int(spec_rounds),
     )

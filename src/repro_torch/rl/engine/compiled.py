@@ -17,7 +17,22 @@ unconditional masked work (``torch.where``), which computes the same
 result. The host syncs ONCE per turn — it reads the ``returned`` counter
 (and, with ``on_exhaust="raise"``, the dropped-write counter); nothing
 inside a macro-step calls ``.item()``, branches on a tensor, or indexes
-with a boolean mask.
+with a boolean mask, except the speculative round loop below.
+
+**Speculative decoding** (``speculation="self"`` or ``"draft"``, paged
+layout, ``sampling="reference"``): generation runs verify rounds instead
+of single decode steps. Each round samples c0 exactly as sequential decode
+would, lets a draft model (the policy's first ``draft_layers`` layers, or
+a separate small model) propose up to ``spec_k - 1`` more tokens, scores
+the whole chunk in ONE ``transformer.spec_verify_step``, and commits the
+longest prefix whose tokens are what sequential decode would have sampled
+from the same noise rows, capped at the first action token. The draft
+decodes on its own dense cache in plain attention (as in JAX) and consumes
+every fed column; rejecting proposals rolls its fill line back. JAX's
+round loop is a ``lax.while_loop`` whose exit test runs on the device;
+here the test is read back once per round (``_more_rounds``). So the
+contract is one host read per turn plus one per verify round. A turn
+always runs at least one round (masked no-op work when no row writes).
 
 Randomness is a tensor argument: ``run(..., noise=fn)`` takes a callable
 ``fn(kind, macro_step, index, shape) -> Tensor`` returning Gumbel noise
@@ -38,12 +53,14 @@ one trash page (``models/layers.py``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 from repro_torch.rl.algo import reinforce_advantages
 from repro_torch.rl.engine import common, paging, slots
 from repro_torch.rl.engine.common import ACTION_BASE
@@ -64,6 +81,12 @@ class _RefStream(NamedTuple):
     logits: torch.Tensor       # (B, V) f32 last reference logits
     cache: Any                 # dense bf16 decode cache
     logprobs: torch.Tensor     # (B, T+1) f32 ref log-prob of each fed token
+
+
+class _DraftStream(NamedTuple):
+    """The speculative draft: its dense decode body and its cache."""
+    decode: Callable
+    cache: Any                 # dense bf16 decode cache of the draft
 
 
 def _reset_cache_rows(cache, refill):
@@ -90,11 +113,14 @@ class CompiledRolloutEngine:
     "dense"), ``attn_impl`` (paged layout: "paged" = the paged CUDA
     kernel, "xla" = gather + dense attention; dense layout: "pallas" = the
     split-K decode kernel, "xla" = masked dense attention; ``None`` = the
-    layout's kernel), ``ref_attn_impl`` (the reference stream's dense
+    layout's kernel; with speculation the verify pass takes "paged" = the
+    spec-verify kernel), ``ref_attn_impl`` (the reference stream's dense
     decode: "pallas" or "xla"), ``sampling`` ("fused" = the one-pass CUDA
     sampler, the default; "reference" = plain argmax + log-softmax),
     ``on_exhaust`` ("count" or "raise"), ``temperature``, ``top_p``,
-    ``page_size``, ``cache_pages`` and ``kv_dtype`` ("bf16" or "fp32").
+    ``page_size``, ``cache_pages``, ``kv_dtype`` ("bf16" or "fp32") and
+    ``speculation`` ("off", "self" or "draft", with ``spec_k``,
+    ``draft_layers`` and ``draft_model``).
     The JAX engine's other options raise ``NotImplementedError``. Unlike
     the JAX engine, the defaults are the production path: the kernels on
     the card, and their plain versions for CPU tensors.
@@ -109,7 +135,8 @@ class CompiledRolloutEngine:
                  cache_pages: Optional[int] = None, kv_dtype: str = "bf16",
                  on_exhaust: str = "count", share_prefix: bool = False,
                  pool_growth: str = "off", speculation: str = "off",
-                 mesh_config=None, device=None):
+                 spec_k: int = 4, draft_layers: Optional[int] = None,
+                 draft_model=None, mesh_config=None, device=None):
         cfg = model.cfg
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
@@ -123,8 +150,6 @@ class CompiledRolloutEngine:
             raise _unported("on_exhaust='preempt'", "8")
         if pool_growth != "off":
             raise _unported("pool_growth", "8")
-        if speculation != "off":
-            raise _unported("speculation", "8")
         if mesh_config is not None:
             raise _unported("mesh_config (multi-device)", "9")
         if ACTION_BASE + env.n_actions > cfg.vocab_size:
@@ -150,6 +175,9 @@ class CompiledRolloutEngine:
                              f"{kv_dtype!r}")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        draft_layers = self._check_speculation(
+            cfg, speculation, cache_layout, sampling, spec_k, draft_layers,
+            draft_model)
         self.model = model
         self.env = env
         self.max_turns = max_turns
@@ -165,7 +193,63 @@ class CompiledRolloutEngine:
         self.cache_pages = cache_pages      # None = full provisioning
         self.kv_dtype = kv_dtype
         self.on_exhaust = on_exhaust
+        self.speculation = speculation
+        self.spec_k = spec_k
+        self.draft_layers = draft_layers
+        self._draft_cfg = (
+            dataclasses.replace(cfg, n_layers=draft_layers)
+            if speculation == "self" else
+            draft_model.cfg if speculation == "draft" else None)
         self.device = resolve_device(device)
+
+    @staticmethod
+    def _check_speculation(cfg, speculation, cache_layout, sampling, spec_k,
+                           draft_layers, draft_model):
+        """JAX's speculation checks; returns ``draft_layers`` with its
+        default (``n_layers // 2``) for ``"self"``."""
+        if speculation not in ("off", "self", "draft"):
+            raise ValueError(f"speculation must be 'off', 'self' or "
+                             f"'draft', got {speculation!r}")
+        if speculation == "off":
+            return draft_layers
+        if cache_layout != "paged":
+            raise ValueError(
+                "speculation requires cache_layout='paged': the verify pass "
+                "writes the candidate chunk into pool pages before "
+                "attending (models/transformer.spec_verify_step)")
+        if cfg.family != "dense":
+            raise ValueError(f"speculation is a dense-family feature; got "
+                             f"family {cfg.family!r}")
+        if sampling == "fused":
+            raise ValueError(
+                f"speculation={speculation!r} is incompatible with "
+                f"sampling='fused': the speculative path samples from "
+                f"precomputed per-step noise rows so the committed stream "
+                f"stays the one sequential decode commits; the fused "
+                f"sampler draws one token per call")
+        if spec_k < 2:
+            raise ValueError(f"spec_k must be >= 2 (k=1 is non-speculative "
+                             f"decode), got {spec_k}")
+        if speculation == "self":
+            if draft_layers is None:
+                draft_layers = max(1, cfg.n_layers // 2)
+            if not 1 <= draft_layers < cfg.n_layers:
+                raise ValueError(f"draft_layers must be in [1, n_layers) = "
+                                 f"[1, {cfg.n_layers}), got {draft_layers}")
+            return draft_layers
+        if draft_model is None:
+            raise ValueError(
+                "speculation='draft' requires a draft_model (a small dense "
+                "Model whose params are passed to run(draft_params=...)); "
+                "use speculation='self' for the truncated-layer draft")
+        if draft_model.cfg.family != "dense":
+            raise ValueError("draft_model must be dense-family")
+        if draft_model.cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft_model vocab ({draft_model.cfg.vocab_size}) must "
+                f"match the policy's ({cfg.vocab_size}): the draft proposes "
+                f"token ids the verify pass scores")
+        return draft_layers
 
     # -- carry ---------------------------------------------------------------
     def init_carry(self, B: int, N: int,
@@ -174,6 +258,7 @@ class CompiledRolloutEngine:
         V = self.model.cfg.vocab_size
         live = torch.arange(B, device=dev) < N
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+        spec = self.speculation != "off"
         if self.cache_layout == "paged":
             cache = self.model.init_cache(
                 B, T, layout="paged", page_size=self.page_size,
@@ -210,6 +295,14 @@ class CompiledRolloutEngine:
                        if with_ref else None),
             ref_logits=z((B, V), torch.float32) if with_ref else None,
             ref_logprobs=z((B, T + 1), torch.float32) if with_ref else None,
+            # the draft's cache is always dense in its default bf16 (a
+            # truncated stack or a small model; as in JAX)
+            draft_cache=(transformer.init_cache(self._draft_cfg, B, T,
+                                                device=dev)
+                         if spec else None),
+            spec_proposed=z((), torch.int32) if spec else None,
+            spec_accepted=z((), torch.int32) if spec else None,
+            spec_rounds=z((), torch.int32) if spec else None,
         )
 
     # -- pieces of the macro-step --------------------------------------------
@@ -228,6 +321,25 @@ class CompiledRolloutEngine:
                                         attn_impl=self.ref_attn_impl),
             c.ref_logits, c.ref_cache, c.ref_logprobs)
 
+    def _draft_stream(self, params, draft_params,
+                      c: slots.SlotCarry) -> Optional[_DraftStream]:
+        """The carry's draft stream, or None when speculation is off. The
+        draft decodes in plain attention, as JAX's (which passes no
+        attn_impl): it launches no kernel."""
+        if self.speculation == "off":
+            return None
+        if self.speculation == "self":
+            d_params = transformer.draft_params_view(params,
+                                                     self.draft_layers)
+        elif draft_params is None:
+            raise ValueError("speculation='draft' requires draft_params "
+                             "(the draft_model's weights)")
+        else:
+            d_params = draft_params
+        return _DraftStream(
+            transformer.decode_scan_body(self._draft_cfg, d_params),
+            c.draft_cache)
+
     @staticmethod
     def _ref_advance(ref: _RefStream, tok, mask, pos, rows,
                      cidx) -> _RefStream:
@@ -241,28 +353,41 @@ class CompiledRolloutEngine:
         return ref._replace(logits=logits, cache=cache)
 
     def _feed_obs(self, decode, logits, cache, tokens, pos, obs, mask,
-                  ref=None):
+                  ref=None, draft=None):
         """Teacher-force the obs columns into ``mask`` rows, one decode
-        step per column (and one of the reference stream, when on); other
-        rows are no-ops."""
+        step per column (and one of the reference stream and of the draft,
+        when on; the draft's logits are discarded, as its proposals always
+        start from a freshly sampled c0); other rows are no-ops."""
         T = self.max_context
-        rows = torch.arange(pos.shape[0], device=pos.device)
+        B = pos.shape[0]
+        rows = torch.arange(B, device=pos.device)
+        d_logits = (torch.zeros((B, self.model.cfg.vocab_size),
+                                dtype=torch.float32, device=pos.device)
+                    if draft is not None else None)
         for j in range(obs.shape[1]):
             col = torch.where(mask, obs[:, j], TOK_PAD).to(torch.int32)
             cidx = torch.where(mask, pos, T).long()     # T = trash column
             tokens[rows, cidx] = col
             if ref is not None:
                 ref = self._ref_advance(ref, col, mask, pos, rows, cidx)
+            if draft is not None:
+                (d_logits, dc), _ = draft.decode((d_logits, draft.cache),
+                                                 (col, mask))
+                draft = draft._replace(cache=dc)
             (logits, cache), _ = decode((logits, cache), (col, mask))
             pos = pos + mask.to(torch.int32)
-        return logits, cache, tokens, pos, ref
+        return logits, cache, tokens, pos, ref, draft
 
     @staticmethod
-    def _with_ref(carry: slots.SlotCarry, ref) -> slots.SlotCarry:
-        if ref is None:
-            return carry
-        return carry._replace(ref_logits=ref.logits, ref_cache=ref.cache,
-                              ref_logprobs=ref.logprobs)
+    def _with_streams(carry: slots.SlotCarry, ref,
+                      draft) -> slots.SlotCarry:
+        if ref is not None:
+            carry = carry._replace(ref_logits=ref.logits,
+                                   ref_cache=ref.cache,
+                                   ref_logprobs=ref.logprobs)
+        if draft is not None:
+            carry = carry._replace(draft_cache=draft.cache)
+        return carry
 
     def _sample(self, logits, noise):
         if self.sampling == "fused":
@@ -272,21 +397,130 @@ class CompiledRolloutEngine:
         return common.sample_with_noise(logits, noise, self.temperature,
                                         self.top_p)
 
-    def init_feed(self, params, carry: slots.SlotCarry,
-                  ref_params=None) -> slots.SlotCarry:
+    def init_feed(self, params, carry: slots.SlotCarry, ref_params=None,
+                  draft_params=None) -> slots.SlotCarry:
         """Feed the initial observation of every live slot (run once before
         the macro-step loop)."""
-        logits, cache, tokens, pos, ref = self._feed_obs(
+        logits, cache, tokens, pos, ref, draft = self._feed_obs(
             self._decode(params), carry.logits, carry.cache, carry.tokens,
             carry.pos, self.env.encode_obs(carry.env_state), carry.live,
-            self._ref_stream(ref_params, carry))
-        return self._with_ref(carry._replace(
-            logits=logits, cache=cache, tokens=tokens, pos=pos), ref)
+            self._ref_stream(ref_params, carry),
+            self._draft_stream(params, draft_params, carry))
+        return self._with_streams(carry._replace(
+            logits=logits, cache=cache, tokens=tokens, pos=pos), ref, draft)
+
+    @staticmethod
+    def _more_rounds(pending) -> bool:
+        """Whether any row still writes after a verify round: THE host read
+        of the round. JAX's round loop is a ``lax.while_loop`` whose test
+        runs on the device; eager PyTorch must read it back."""
+        return bool(pending.any())
+
+    def _spec_gen_turn(self, params, draft: _DraftStream, logits, cache,
+                       tokens, gen_mask, logprobs, pos, active, m: int,
+                       noise: NoiseFn):
+        """One turn of speculative generation: verify rounds until no row
+        writes (JAX's ``spec_gen_turn``, ``compiled.py:369-505``). Every
+        round commits at least one token per writing row, so a turn runs at
+        most ``max_turn_tokens`` rounds. Row b's token at turn index t is
+        judged with the noise row the sequential loop draws for it,
+        ``noise("sample", m, t, (B, V))``, all drawn up front (in the same
+        order as the sequential loop) and gathered per row."""
+        K, mtt, T = self.spec_k, self.max_turn_tokens, self.max_context
+        V, n_actions = self.model.cfg.vocab_size, self.env.n_actions
+        B = pos.shape[0]
+        dev = pos.device
+        rows = torch.arange(B, device=dev)
+        i32 = lambda t: t.to(torch.int32)
+        if self.temperature > 0.0:
+            noise_all = torch.stack([noise("sample", m, t, (B, V))
+                                     for t in range(mtt)])   # (mtt, B, V)
+            noise_at = lambda t: noise_all[t.clamp(0, mtt - 1).long(), rows]
+        else:
+            noise_at = lambda t: None                       # greedy
+        sample = lambda lg, t: common.sample_with_noise(
+            lg, noise_at(t), self.temperature, self.top_p)
+        dcache = draft.cache
+        acted = ~active
+        actions = torch.zeros((B,), dtype=torch.int32, device=dev)
+        last_tok = torch.zeros_like(actions)
+        tl = torch.zeros_like(actions)
+        sp, sa, sr = (torch.zeros((), dtype=torch.int32, device=dev)
+                      for _ in range(3))
+        jarr = torch.arange(K, device=dev)[None, :]
+        while True:
+            write = active & ~acted & (tl < mtt)
+            ek = torch.where(write, (mtt - tl).clamp(max=K), 0)
+            # c0: the exact token sequential decode commits next; the draft
+            # proposes c1 .. c_{K-1} and also consumes c_{K-1}, so its cache
+            # covers every position a full acceptance can commit
+            c0, lp0 = sample(logits, tl)
+            toks, lps = [c0], [lp0]
+            d_logits, cur = logits, c0
+            for jj in range(K):
+                (d_logits, dcache), _ = draft.decode(
+                    (d_logits, dcache), (cur, write & (jj < ek)))
+                if jj < K - 1:
+                    cur, _ = sample(d_logits, tl + jj + 1)
+                    toks.append(cur)
+            chunk = torch.stack(toks, dim=1)                # (B, K)
+            vlogits, cache = transformer.spec_verify_step(
+                self.model.cfg, params, chunk, cache,
+                attn_impl=self.attn_impl, advance=write, eff_k=ek)
+            # chunk[:, j] commits iff it is the token sequential decode
+            # samples from vlogits[:, j-1] with that step's noise row
+            match, commits = write, i32(write)
+            for jj in range(1, K):
+                e_j, lp_j = sample(vlogits[:, jj - 1], tl + jj)
+                lps.append(lp_j)
+                match = match & (chunk[:, jj] == e_j) & (jj < ek)
+                commits = commits + i32(match)
+            # an action token ends the turn: never commit past the first
+            is_act = common.action_mask(chunk, n_actions)
+            first_act = i32(torch.where(is_act.any(dim=1),
+                                        i32(is_act).argmax(dim=1), K))
+            commits = torch.where(write,
+                                  torch.minimum(commits, first_act + 1), 0)
+            # every buffer in one scatter; the rest of the chunk lands in
+            # the trash column T
+            cmask = write[:, None] & (jarr < commits[:, None])
+            cidx = torch.where(cmask, pos[:, None] + jarr, T).long()
+            r2 = rows[:, None]
+            tokens[r2, cidx] = chunk
+            gen_mask[r2, cidx] = cmask
+            logprobs[r2, cidx] = torch.stack(lps, dim=1)
+            # carried logits: the full model's after the last committed
+            # token (non-writing rows keep theirs)
+            lastj = (commits - 1).clamp(0, K - 1).long()
+            logits = torch.where(write[:, None], vlogits[rows, lastj],
+                                 logits)
+            cache = transformer.spec_commit(cache, commits)
+            # the draft's rollback: its dense ring derives validity from
+            # pos alone, so the committed fill line is the whole rollback
+            dcache = dcache._replace(pos=pos + commits)
+            last_tok = torch.where(write, chunk[rows, lastj], last_tok)
+            newly = write & (first_act < commits)
+            act_tok = chunk[rows, first_act.clamp(0, K - 1).long()]
+            actions = torch.where(newly, act_tok - ACTION_BASE, actions)
+            acted = acted | newly
+            pos = pos + commits
+            tl = tl + commits
+            sp = sp + (ek - 1).clamp_min(0).sum(dtype=torch.int32)
+            sa = sa + torch.where(write, commits - 1, 0).sum(
+                dtype=torch.int32)
+            sr = sr + write.sum(dtype=torch.int32)
+            if not self._more_rounds(active & ~acted & (tl < mtt)):
+                break
+        return (logits, cache, draft._replace(cache=dcache), tokens,
+                gen_mask, logprobs, pos, acted, actions, last_tok, tl,
+                (sp, sa, sr))
 
     def turn_step(self, params, c: slots.SlotCarry, m: int,
-                  noise: NoiseFn, ref_params=None) -> slots.SlotCarry:
+                  noise: NoiseFn, ref_params=None,
+                  draft_params=None) -> slots.SlotCarry:
         """One macro-step (one turn for every slot). Enqueues device work
-        only: no host read."""
+        only, with no host read, unless speculation is on: then it reads
+        one flag per verify round."""
         env, T, olen = self.env, self.max_context, self.env.obs_len
         mtt, mturns = self.max_turn_tokens, self.max_turns
         n_actions, V = env.n_actions, self.model.cfg.vocab_size
@@ -296,6 +530,7 @@ class CompiledRolloutEngine:
         rows = torch.arange(B, device=dev)
         decode = self._decode(params)
         ref = self._ref_stream(ref_params, c)
+        draft = self._draft_stream(params, draft_params, c)
         i32 = lambda t: t.to(torch.int32)
 
         # 1. truncation / active set
@@ -304,32 +539,43 @@ class CompiledRolloutEngine:
         active = c.live & room & (c.n_turns < mturns)
 
         # 2. generation: mtt decode steps; sample, then write the token's
-        #    K/V (fused sample-and-write when sampling="fused")
+        #    K/V (fused sample-and-write when sampling="fused"). With
+        #    speculation: verify rounds committing the same token stream.
         logits, cache, pos = c.logits, c.cache, c.pos
         tokens, gen_mask, logprobs = c.tokens, c.gen_mask, c.logprobs
-        acted = ~active
-        actions = torch.zeros((B,), dtype=torch.int32, device=dev)
-        last_tok = torch.zeros_like(actions)
-        tl = torch.zeros_like(actions)
-        for t in range(mtt):
-            write = ~acted
-            nz = (noise("sample", m, t, (B, V))
-                  if self.temperature > 0.0 else None)
-            tok, lp = self._sample(logits, nz)
-            (logits_next, cache), _ = decode((logits, cache), (tok, write))
-            cidx = torch.where(write, pos, T).long()    # T = trash column
-            tokens[rows, cidx] = tok
-            gen_mask[rows, cidx] = write      # True where it lands
-            logprobs[rows, cidx] = lp
-            if ref is not None:
-                ref = self._ref_advance(ref, tok, write, pos, rows, cidx)
-            pos = pos + i32(write)
-            tl = tl + i32(write)
-            last_tok = torch.where(write, tok, last_tok)
-            newly = write & common.action_mask(tok, n_actions)
-            actions = torch.where(newly, tok - ACTION_BASE, actions)
-            acted = acted | newly
-            logits = logits_next
+        spec = (c.spec_proposed, c.spec_accepted, c.spec_rounds)
+        if draft is not None:
+            (logits, cache, draft, tokens, gen_mask, logprobs, pos, acted,
+             actions, last_tok, tl, d_spec) = self._spec_gen_turn(
+                params, draft, logits, cache, tokens, gen_mask, logprobs,
+                pos, active, m, noise)
+            spec = tuple(a + b for a, b in zip(spec, d_spec))
+        else:
+            acted = ~active
+            actions = torch.zeros((B,), dtype=torch.int32, device=dev)
+            last_tok = torch.zeros_like(actions)
+            tl = torch.zeros_like(actions)
+            for t in range(mtt):
+                write = ~acted
+                nz = (noise("sample", m, t, (B, V))
+                      if self.temperature > 0.0 else None)
+                tok, lp = self._sample(logits, nz)
+                (logits_next, cache), _ = decode((logits, cache),
+                                                 (tok, write))
+                cidx = torch.where(write, pos, T).long()  # T: trash column
+                tokens[rows, cidx] = tok
+                gen_mask[rows, cidx] = write      # True where it lands
+                logprobs[rows, cidx] = lp
+                if ref is not None:
+                    ref = self._ref_advance(ref, tok, write, pos, rows,
+                                            cidx)
+                pos = pos + i32(write)
+                tl = tl + i32(write)
+                last_tok = torch.where(write, tok, last_tok)
+                newly = write & common.action_mask(tok, n_actions)
+                actions = torch.where(newly, tok - ACTION_BASE, actions)
+                acted = acted | newly
+                logits = logits_next
 
         # 2b. pool telemetry after generation (peak: nothing released yet);
         #     the drop counter accumulates per-slot shortfall growth. The
@@ -379,6 +625,9 @@ class CompiledRolloutEngine:
         if ref is not None:
             ref = ref._replace(cache=_reset_cache_rows(ref.cache, refill),
                                logprobs=torch.where(r1, 0.0, ref.logprobs))
+        if draft is not None:
+            draft = draft._replace(cache=_reset_cache_rows(draft.cache,
+                                                           refill))
         state3 = env.reset_rows(state2, refill)
         tokens = torch.where(r1, TOK_PAD, tokens)
         gen_mask = torch.where(r1, False, gen_mask)
@@ -393,10 +642,10 @@ class CompiledRolloutEngine:
         cont = active & ~state2.done & ~finished
         feed_mask = cont | refill
         obs = torch.where(r1, env.encode_obs(state3), res.obs_tokens)
-        logits, cache, tokens, pos, ref = self._feed_obs(
-            decode, logits, cache, tokens, pos, obs, feed_mask, ref)
+        logits, cache, tokens, pos, ref, draft = self._feed_obs(
+            decode, logits, cache, tokens, pos, obs, feed_mask, ref, draft)
 
-        return self._with_ref(slots.SlotCarry(
+        return self._with_streams(slots.SlotCarry(
             cache=cache, logits=logits, env_state=state3, tokens=tokens,
             gen_mask=gen_mask, logprobs=logprobs, pos=pos,
             live=(c.live & ~finished) | refill,
@@ -407,7 +656,8 @@ class CompiledRolloutEngine:
                                     torch.int32),
             launched=launched, returned=returned, store=store,
             pages_peak=pages_peak, kv_dropped=kv_dropped,
-            kv_shortfall=kv_shortfall), ref)
+            kv_shortfall=kv_shortfall, spec_proposed=spec[0],
+            spec_accepted=spec[1], spec_rounds=spec[2]), ref, draft)
 
     # ------------------------------------------------------------------------
     def default_noise(self, generator: Optional[torch.Generator] = None
@@ -423,26 +673,38 @@ class CompiledRolloutEngine:
     def run(self, params, batch: int, n_episodes: Optional[int] = None, *,
             generator: Optional[torch.Generator] = None,
             noise: Optional[NoiseFn] = None, params_version: int = -1,
-            ref_params=None):
+            ref_params=None, draft_params=None):
         """Roll out ``n_episodes`` (default ``batch``) episodes over
         ``batch`` slots. Returns ``(ExperienceBatch, RolloutStats)``.
         ``ref_params`` folds the reference pass into the rollout: the
         batch's ``ref_logprobs`` hold log p_ref of every fed token at
-        positions ``1 .. context_len-1`` (zeros without it)."""
+        positions ``1 .. context_len-1`` (zeros without it).
+        ``draft_params`` are the draft model's weights for
+        ``speculation="draft"`` (``"self"`` slices the policy's own
+        stack)."""
         B = int(batch)
         N = int(n_episodes) if n_episodes is not None else B
         if N < 1 or B < 1:
             raise ValueError(f"batch and n_episodes must be >= 1, got {B}, "
                              f"{N}")
+        if ref_params is not None and self.speculation != "off":
+            raise ValueError(
+                "speculation with the folded reference pass (ref_params) is "
+                "not supported: the reference decode consumes tokens one "
+                "step at a time and cannot consume drafted chunks. Run the "
+                "reference pass separately (ExpPrep's standalone route) or "
+                "turn speculation off.")
         noise = noise if noise is not None else self.default_noise(generator)
         carry = self.init_feed(
             params, self.init_carry(B, N, with_ref=ref_params is not None),
-            ref_params)
+            ref_params, draft_params)
         max_macro = self.max_turns * math.ceil(N / B) + 2
         for m in range(max_macro):
-            carry = self.turn_step(params, carry, m, noise, ref_params)
+            carry = self.turn_step(params, carry, m, noise, ref_params,
+                                   draft_params)
             # the one host sync per turn (plus the drop counter in
-            # on_exhaust="raise" mode)
+            # on_exhaust="raise" mode, and one per speculative verify
+            # round inside turn_step)
             if self.on_exhaust == "raise" and int(carry.kv_dropped) > 0:
                 raise RuntimeError(
                     f"KV page pool exhausted during rollout: "
@@ -474,5 +736,9 @@ class CompiledRolloutEngine:
             pages_in_use=int(carry.pages_peak),
             page_capacity=(carry.cache.n_pages
                            if paging.is_paged(carry.cache) else 0),
-            kv_dropped_writes=int(carry.kv_dropped))
+            kv_dropped_writes=int(carry.kv_dropped),
+            **({} if self.speculation == "off" else dict(
+                spec_proposed=int(carry.spec_proposed),
+                spec_accepted=int(carry.spec_accepted),
+                spec_rounds=int(carry.spec_rounds))))
         return exp, stats

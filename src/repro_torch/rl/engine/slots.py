@@ -56,6 +56,12 @@ class SlotCarry(NamedTuple):
     ref_cache: Any = None      # dense bf16 decode cache of the reference
     ref_logits: Any = None     # (B, V) f32 last reference logits
     ref_logprobs: Any = None   # (B, T+1) f32 ref log-prob of each fed token
+    # speculative decoding (None when off): the draft's dense decode cache
+    # and the three counters of RolloutStats, as device scalars
+    draft_cache: Any = None
+    spec_proposed: Any = None  # () int32 draft tokens proposed
+    spec_accepted: Any = None  # () int32 draft tokens accepted
+    spec_rounds: Any = None    # () int32 (row, verify round) pairs
 
 
 def init_store(n_episodes: int, max_context: int, max_turns: int,

@@ -12,7 +12,10 @@ element (two nearby f32 results may round to adjacent bf16 values, rtol
 2^-7); log-probs within (V/1024 + 60) unit roundings of the two f32
 logsumexps plus 8 ulps of the largest |log-prob|. Flash-attention
 gradients within 2^-14 s: each is a sum of up to group x S products of
-terms that cancel in dS = P(dP - D), summed in another order.
+terms that cancel in dS = P(dP - D), summed in another order. The
+spec-verify kernel is held against its plain version by the same rule,
+and each of its queries j bitwise (0 ulp) against the paged kernel at
+lens = pos + j + 1, which runs the same per-row code.
 """
 import dataclasses
 
@@ -31,6 +34,8 @@ from repro_torch.kernels.fused_sample import ops as fs_ops
 from repro_torch.kernels.fused_sample.ref import fused_sample_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.spec_verify import ops as sv_ops
+from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 from repro_torch.models.registry import build_model
 from repro_torch.rl.engine import CompiledRolloutEngine
 from repro_torch.rl.envs import TicTacToe
@@ -390,3 +395,161 @@ def test_dense_rollout_runs_through_the_decode_kernel(smoke):
     assert st.episodes_started == st.episodes_returned == 8
     assert st.pages_in_use == st.page_capacity == 0
     assert bool(torch.isfinite(exp.ref_logprobs).all())
+
+
+SPEC_CASES = {
+    # name: (B, K, NP, P, ps, H, KV, hd, pos or None, int8)
+    "group2": (2, 4, 4, 16, 8, 4, 2, 64, None, False),
+    "path_heads_k4": (4, 4, 16, 65, 16, 14, 2, 64, [0, 100, 250, 15], False),
+    "k8_two_rows_per_warp": (2, 8, 8, 32, 16, 14, 2, 64, None, False),
+    "k16_four_rows_per_warp": (1, 16, 4, 8, 16, 14, 2, 64, [30], False),
+    "k1": (3, 1, 4, 16, 8, 4, 2, 32, None, False),
+    "mqa_big_page_hd128": (1, 8, 2, 8, 128, 2, 1, 128, [100], False),
+    "unmapped_chunk_page": (2, 4, 4, 16, 8, 4, 2, 32, [6, 0], False),
+    "int8_scales": (3, 4, 4, 16, 8, 4, 2, 32, None, True),
+}
+
+
+def _spec_case(seed, B, K, NP, P, ps, H, KV, hd, pos, int8, device):
+    """A shuffled block table whose mapped pages cover [0, pos+K) per row;
+    the unmapped case drops row 0's chunk page and all of row 1."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, K, H, hd), generator=g)
+    if int8:
+        kp = torch.randint(-127, 128, (P, ps, KV, hd), generator=g).to(
+            torch.int8)
+        vp = torch.randint(-127, 128, (P, ps, KV, hd), generator=g).to(
+            torch.int8)
+        ks = torch.rand((P, ps, KV), generator=g) / 127
+        vs = torch.rand((P, ps, KV), generator=g) / 127
+    else:
+        kp = torch.randn((P, ps, KV, hd), generator=g)
+        vp = torch.randn((P, ps, KV, hd), generator=g)
+        ks = vs = None
+    pos = (torch.randint(0, NP * ps - K + 1, (B,), generator=g)
+           if pos is None else torch.tensor(pos))
+    pos = pos.to(torch.int32)
+    perm = torch.randperm(P, generator=g)[:B * NP].reshape(B, NP)
+    npages = (pos + K + ps - 1) // ps
+    bt = torch.where(torch.arange(NP)[None, :] < npages[:, None], perm, -1)
+    if B == 2 and pos.tolist() == [6, 0]:
+        bt[0, 1] = -1
+        bt[1] = -1
+    out = [q, kp, vp, bt.to(torch.int32).contiguous(), pos, ks, vs]
+    return [None if t is None else t.to(device) for t in out]
+
+
+def _spec_inputs(name, qdtype, dev):
+    q, kp, vp, bt, pos, ks, vs = _spec_case(0, *SPEC_CASES[name], dev)
+    q = q.to(qdtype)
+    if ks is None:
+        kp, vp = kp.to(qdtype), vp.to(qdtype)
+    return q, kp, vp, bt, pos, ks, vs
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_CASES))
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_spec_verify_kernel_matches_plain_version(name, qdtype, dev):
+    q, kp, vp, bt, pos, ks, vs = _spec_inputs(name, qdtype, dev)
+    n0 = sv_ops.launches
+    out = sv_ops.spec_verify_attention(q, kp, vp, bt, pos, k_scales=ks,
+                                       v_scales=vs)
+    assert sv_ops.launches == n0 + 1
+    ref = spec_verify_attention_ref(q, kp, vp, bt, pos, ks, vs)
+    torch.cuda.synchronize()
+    atol = 2.0 ** -18 * float(ref.float().abs().max())
+    rtol = 0.0 if qdtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    if name == "unmapped_chunk_page":
+        assert not bool(out[1].any())    # no valid position: zeros
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_CASES))
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_spec_verify_queries_equal_the_paged_kernel(name, qdtype, dev):
+    """Query j is bitwise the paged kernel's output at lens = pos + j + 1
+    on the same pool and q rows."""
+    q, kp, vp, bt, pos, ks, vs = _spec_inputs(name, qdtype, dev)
+    out = sv_ops.spec_verify_attention(q, kp, vp, bt, pos, k_scales=ks,
+                                       v_scales=vs)
+    for j in range(q.shape[1]):
+        single = pa_ops.paged_decode_attention(
+            q[:, j].contiguous(), kp, vp, bt, pos + j + 1, k_scales=ks,
+            v_scales=vs)
+        assert torch.equal(out[:, j], single), f"query {j}"
+
+
+def test_spec_verify_wrapper_checks_inputs(dev):
+    q, kp, vp, bt, pos, _, _ = _spec_inputs("group2", torch.float32, dev)
+    with pytest.raises(TypeError, match="int32"):
+        sv_ops.spec_verify_attention(q, kp, vp, bt, pos.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        sv_ops.spec_verify_attention(q.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), kp, vp, bt, pos)
+    with pytest.raises(ValueError, match="query rows"):
+        big = torch.zeros((2, 70, 4, 64), device=dev)   # 140 rows
+        sv_ops.spec_verify_attention(big, kp, vp, bt, pos)
+    with pytest.raises(ValueError, match="scales"):
+        sv_ops.spec_verify_attention(q, kp.to(torch.int8),
+                                     vp.to(torch.int8), bt, pos)
+
+
+@pytest.fixture
+def spec_smoke(smoke):
+    """The smoke engine with speculation="self" (one draft layer), and a
+    count of its verify rounds (one host read each)."""
+    model, params, _ = smoke
+    eng = CompiledRolloutEngine(
+        model, TicTacToe(), kv_dtype="fp32", temperature=1.0, max_turns=3,
+        max_turn_tokens=4, max_context=96, sampling="reference",
+        speculation="self", spec_k=3, draft_layers=1)
+    rounds = []
+    more = eng._more_rounds
+
+    def counted(pending):
+        rounds.append(1)
+        return more(pending)
+    eng._more_rounds = counted
+    return model, params, eng, rounds
+
+
+def test_spec_rollout_launches_the_verify_kernel_per_round(spec_smoke):
+    model, params, eng, rounds = spec_smoke
+    sv_ops.reset_launches()
+    fs_ops.reset_launches()
+    exp, st = eng.run(params, 4, 8,
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    assert len(rounds) > 0
+    assert sv_ops.launches == model.cfg.n_layers * len(rounds)
+    assert fs_ops.launches == 0
+    assert st.episodes_started == st.episodes_returned == 8
+    assert st.kv_dropped_writes == 0 and st.spec_rounds > 0
+    assert 0 <= st.spec_accepted <= st.spec_proposed
+    assert bool(torch.isfinite(exp.logprobs).all())
+
+
+def test_spec_macro_step_syncs_once_per_round(spec_smoke):
+    """Nothing in a speculative macro-step syncs with the host except the
+    round helper, once per verify round."""
+    _, params, eng, rounds = spec_smoke
+    carry = eng.init_feed(params, eng.init_carry(4, 8))
+    noise = eng.default_noise(torch.Generator(device="cuda").manual_seed(2))
+    more = eng._more_rounds
+
+    def allowed(pending):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return more(pending)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    eng._more_rounds = allowed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = eng.turn_step(params, carry, 0, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert 1 <= len(rounds) <= eng.max_turn_tokens
+    assert int(carry.spec_rounds) > 0

@@ -174,7 +174,6 @@ def test_python_backend_takes_its_own_settings(option, value):
     ("kv_dtype", "int8", "item 8"),
     ("on_exhaust", "preempt", "item 8"),
     ("pool_growth", "double", "item 8"),
-    ("speculation", "self", "item 8"),
     ("pipeline", "async", "item 8"),
     ("checkpoint_dir", "/nonexistent", "item 8"),
     ("resume", True, "item 8"),
@@ -240,8 +239,6 @@ def test_cli_runs_the_dense_layout_and_python_backend(tmp_path, flags):
 @pytest.mark.parametrize("flag,value,item", [
     ("--prefix-len", "8", "item 8"),
     ("--pool-growth-max", "64", "item 8"),
-    ("--spec-k", "4", "item 8"),
-    ("--draft-layers", "1", "item 8"),
     ("--max-policy-lag", "1", "item 8"),
     ("--is-rho-max", "2.0", "item 8"),
     ("--retry-backoff", "0.05", "item 8"),
