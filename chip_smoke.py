@@ -79,6 +79,27 @@ Phases, in order; any failure raises and exits non-zero:
                helper: host reads per turn = verify rounds + 1.
  15. spec_train — one EarlTrainer step with speculation="self" at the
                train phase's settings, with exact launch counts.
+     The ssm slice (mamba2):
+     kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
+               (the model's chunked form) at the ssm_score shape (B=32,
+               S=512, 32 heads x 64, state 128, chunk 256) in bf16 and
+               fp32, at S=1024 (four chunks), at a ragged S=300 and with
+               four groups; fused_sample also at mamba2's V=50280.
+ 16. ssm_path — full-width mamba2-370m (48 layers, d=1024, V=50280, bf16,
+               random weights) through CompiledRolloutEngine on its
+               recurrent cache with the folded reference stream, B=32
+               slots, 64 episodes, max_context 512: exactly one fused
+               sample per generated-token step, no attention kernel and no
+               SSD scan.
+ 17. ssm_score — ExpPrep's standalone reference pass over 32 of those
+               episodes (32 x 512 tokens): exactly 48 SSD scan launches,
+               its log-probs against the plain pass and against the folded
+               recurrent ones; kernel and plain wall time.
+ 18. ssm_sync — one ssm macro-step with the reference stream under
+               set_sync_debug_mode("error").
+ 19. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
+               KL 0.05, clip 0.2, remat "full"): reference folded, exact
+               launch counts (the update runs the plain chunked form).
 
 Prints JSON lines; the line before the last lists every kernel, and the
 last line is {"ok": true, "device": {...}}.
@@ -273,6 +294,30 @@ def phase_kernels(torch, report):
         cases[name] = case
         emit({"phase": "kernels", "kernel": "fused_sample", "case": name,
               **case})
+    # mamba2-370m's vocabulary: V=50280 is a multiple of 4, so rows stay
+    # 16-byte aligned and the kernel takes its float4 loads
+    V2 = 50280
+    lg2 = torch.randn((B, V2), generator=g, device=dev) * 3.0
+    gum2 = -torch.log(-torch.log(
+        torch.rand((B, V2), generator=g, device=dev).clamp_min(1e-38)))
+    tok, lp = fs_ops.fused_sample(lg2, gum2)
+    tok_r, lp_r = fused_sample_ref(lg2, gum2)
+    torch.cuda.synchronize()
+    if not torch.equal(tok, tok_r):
+        raise AssertionError("fused_sample gumbel_v50280: tokens differ")
+    atol = ((V2 / 1024 + 60) * 2.0 ** -24
+            + 8 * 2.0 ** -23 * float(lp_r.abs().max()))
+    chk = held(torch, lp, lp_r, atol, 0.0)
+    if not chk["ok"]:
+        raise AssertionError(f"fused_sample gumbel_v50280: {chk}")
+    b_ms, b_by = bound(2 * B * V2 * 4 + B * 8, 4 * B * V2)
+    cases["gumbel_v50280"] = dict(
+        chk, tokens_equal=True,
+        ms=time_cold(torch, lambda: fs_ops.fused_sample(lg2, gum2)),
+        plain_ms=time_cold(torch, lambda: fused_sample_ref(lg2, gum2)),
+        bound_ms=b_ms, bound_by=b_by)
+    emit({"phase": "kernels", "kernel": "fused_sample",
+          "case": "gumbel_v50280", **cases["gumbel_v50280"]})
     # the engine samples at temperature 1.0 from aligned logits
     report["fused_sample"] = dict(cases["gumbel"], cases=cases)
 
@@ -553,6 +598,101 @@ def phase_decode(torch, report):
                   "case": f"{dname}_{mname}", **case})
     # the main path: the bf16 reference stream over a filling cache
     report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
+
+
+def ssd_work(b, s, h, g, p, n, q, esz):
+    """(bytes, flops) of one SSD scan: x and y, dt and dA, B and C each
+    read or written once, and the final f32 state; per (row, head, chunk)
+    of L real positions, the causal half of the Gram (2 L(L+1)/2 n), W x
+    over the same pairs (2 L(L+1)/2 p), the carried-state term and the
+    state update (2 L p n each)."""
+    nbytes = (2 * b * s * h * p * esz + 2 * b * s * h * 4
+              + 2 * b * s * g * n * esz + b * h * p * n * 4)
+    flops = 0
+    for c0 in range(0, s, q):
+        L = min(q, s - c0)
+        pairs = L * (L + 1) // 2
+        flops += 2 * pairs * (n + p) + 4 * L * p * n
+    return nbytes, b * h * flops
+
+
+def phase_ssd(torch, report):
+    """The SSD scan kernel against ref.py (the model's chunked form) on
+    the card: the ssm_score shape (B=32, S=512, 32 heads x 64, state 128,
+    one group, chunk 256: two chunks) in bf16 (the main path) and fp32;
+    S=1,024 (four chunks, B=8); a ragged S=300 (B=8; padded to 512 with
+    zero-dt steps); four groups at a narrow shape. Inputs in the mixer's
+    layout: x, B and C strided views of one xbc tensor. Tolerances at each
+    output's scale s = max|ref|: y and the final state at fp32, and the
+    state at bf16, within 32 f32 ulps of s (atol 2^-18 s: the same f32
+    math in another order); y at bf16 within 2^-6 s plus one bf16 ulp of
+    each element (rtol 2^-7), because the plain form rounds W and W x to
+    bf16 before its sums where the kernel keeps f32 (as the TPU kernel
+    does): at the ssm_score shape both are also held against an f64
+    evaluation of the plain form, and their errors reported. Timed with
+    time_cold beside the bound (bytes, or operations at the inputs'
+    type's peak; the f32 FMA floor of this design beside it) and the
+    plain version. No single PyTorch call computes it."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(13)
+    cases = {}
+    for cname, (b, s, h, gg, p, n, q), dnames in (
+            ("score", (32, 512, 32, 1, 64, 128, 256), ("bf16", "fp32")),
+            ("s1024", (8, 1024, 32, 1, 64, 128, 256), ("bf16",)),
+            ("ragged300", (8, 300, 32, 1, 64, 128, 256), ("bf16",)),
+            ("groups4", (4, 256, 16, 4, 32, 64, 64), ("bf16", "fp32"))):
+        for dname in dnames:
+            dt_ = torch.bfloat16 if dname == "bf16" else torch.float32
+            xbc = (torch.randn((b, s, h * p + 2 * gg * n), generator=g,
+                               device=dev) * 0.5).to(dt_)
+            x = xbc[..., :h * p].reshape(b, s, h, p)
+            Bm = xbc[..., h * p:h * p + gg * n].reshape(b, s, gg, n)
+            Cm = xbc[..., h * p + gg * n:].reshape(b, s, gg, n)
+            dt = torch.nn.functional.softplus(
+                torch.randn((b, s, h), generator=g, device=dev))
+            A = -torch.exp(torch.randn((h,), generator=g, device=dev) * 0.3)
+            y, fin = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, q)
+            yr, finr = ssd_ref(x, dt, A, Bm, Cm, q)
+            torch.cuda.synchronize()
+            sy = float(yr.float().abs().max())
+            sf = float(finr.abs().max())
+            bf = dt_ == torch.bfloat16
+            cy = held(torch, y, yr, (2.0 ** -6 if bf else 2.0 ** -18) * sy,
+                      2.0 ** -7 if bf else 0.0)
+            cf = held(torch, fin, finr, 2.0 ** -18 * sf, 0.0)
+            name = f"{dname}_{cname}"
+            if not (cy["ok"] and cf["ok"]) or y.shape != x.shape:
+                raise AssertionError(f"ssd_scan {name}: y {cy}, state {cf}")
+            extra = {}
+            if cname == "score":
+                y64, _ = ssd_ref(x.double(), dt.double(), A.double(),
+                                 Bm.double(), Cm.double(), q)
+                extra = dict(
+                    plain_err_vs_f64=float((yr.double() - y64).abs().max()),
+                    kernel_err_vs_f64=float((y.double() - y64).abs().max()))
+                del y64
+            nbytes, flops = ssd_work(b, s, h, gg, p, n, q, x.element_size())
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if bf else F32_FLOPS)
+            case = dict(
+                max_abs_err=max(cy["max_abs_err"], cf["max_abs_err"]),
+                atol=[cy["atol"], cf["atol"]], rtol=cy["rtol"],
+                err_over_tol=max(cy["err_over_tol"], cf["err_over_tol"]),
+                y_scale=sy, state_scale=sf, **extra,
+                ms=time_cold(torch, lambda: ssd_ops.ssd_scan(
+                    x, dt, A, Bm, Cm, q)),
+                plain_ms=time_cold(torch, lambda: ssd_ref(x, dt, A, Bm, Cm,
+                                                          q)),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                f32_fma_floor_ms=flops / F32_FLOPS * 1e3,
+                shape=dict(b=b, s=s, h=h, g=gg, p=p, n=n, chunk=q))
+            cases[name] = case
+            emit({"phase": "kernels", "kernel": "ssd_scan", "case": name,
+                  **case})
+    # the main path: ExpPrep's bf16 scoring pass at the ssm_score shape
+    report["ssd_scan"] = dict(cases["bf16_score"], cases=cases)
 
 
 # ---------------------------------------------------------------------------
@@ -1078,6 +1218,247 @@ def phase_spec_train(torch, model, report):
     report["spec_train_launches"] = counts
 
 
+SSM = dict(cache_layout="dense", sampling="fused", temperature=1.0,
+           max_turns=4, max_turn_tokens=32, max_context=512)
+
+
+def _ssm_counters():
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return dict(fused_sample=fs_ops, ssd_scan=ssd_ops, paged_attention=pa_ops,
+                decode_attention=da_ops, spec_verify=sv_ops,
+                flash_attention=fa_ops)
+
+
+def _read_counters(ops_by_name):
+    return {k: (sum(o.launches.values()) if isinstance(o.launches, dict)
+                else o.launches) for k, o in ops_by_name.items()}
+
+
+def phase_ssm_path(torch, model, params, report):
+    """Full-width mamba2-370m (48 layers, d=1024, 32 SSM heads x 64, state
+    128, V=50280, bf16, random weights from a seeded generator) through
+    CompiledRolloutEngine on TicTacToe on its recurrent cache
+    (cache_layout="dense"), sampling="fused", with the reference stream
+    folded in (ref_params = params): B=32 slots, N=64 episodes,
+    max_turns 4, max_turn_tokens 32, max_context 512. One warm-up of one
+    turn, then one run with every launch counter set to 0 just before it
+    and read just after. Gates: every episode returned; exactly one fused
+    sampling launch per generated-token step (max_turn_tokens per
+    macro-step); no launch of any attention kernel or of the SSD scan (the
+    ssm decode is recurrent, as JAX's)."""
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    t0 = time.perf_counter()
+    CompiledRolloutEngine(model, TicTacToe(), **dict(SSM, max_turns=1)).run(
+        params, 32, 32, generator=gen, ref_params=params)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine = CompiledRolloutEngine(model, TicTacToe(), **SSM)
+    turns = count_calls(engine, "turn_step")
+    ops = _ssm_counters()
+    for o in ops.values():
+        o.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp, st = engine.run(params, 32, 64, generator=gen, ref_params=params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _read_counters(ops)
+    mtt, olen = engine.max_turn_tokens, engine.env.obs_len
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_sample"] = len(turns) * mtt
+    decode_steps = olen + len(turns) * (mtt + olen)
+    gen_tokens = int(exp.gen_mask.sum())
+    out = dict(phase="ssm_path", seconds=secs, warmup_seconds=warm_s,
+               generated_tokens=gen_tokens, tokens_per_s=gen_tokens / secs,
+               macro_steps=len(turns), decode_steps=decode_steps,
+               decode_steps_per_s=decode_steps / secs, launches=counts,
+               expected_launches=expected,
+               episodes_started=st.episodes_started,
+               episodes_returned=st.episodes_returned,
+               mean_context_len=st.mean_context_len,
+               mean_turn_len=st.mean_turn_len, mean_return=st.mean_return,
+               ref_logprobs_finite=bool(torch.isfinite(exp.ref_logprobs)
+                                        .all()),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (st.episodes_started == st.episodes_returned == 64
+            and counts == expected and len(turns) > 0
+            and bool(torch.isfinite(exp.logprobs).all())
+            and out["ref_logprobs_finite"]
+            and bool((exp.ref_logprobs[exp.gen_mask] < 0).all())
+            and bool((exp.context_len > 0).all())):
+        raise AssertionError(f"ssm_path checks failed: {out}")
+    return engine, exp
+
+
+def phase_ssm_score(torch, model, params, exp, report):
+    """ExpPrep's standalone reference pass (ref_folded=False,
+    reuse_behavior_lp=False, ref_params = params) over the first 32
+    episodes of ssm_path's batch (32 x 512 tokens): the full-sequence
+    forward with attn_impl="pallas", the trainer's choice for ssm, with
+    every counter set to 0 just before it: exactly one SSD scan per layer,
+    48, and nothing else. Log-probs are compared at the scored positions
+    (1 <= t < context_len; the KL reads the generated ones among them).
+
+    - fp32: the same weights cast to f32, the kernel pass against the
+      plain pass ("xla", the chunked form): within 1e-4 absolute, the
+      same f32 math in another order through 48 layers.
+    - bf16 (the main path): with random weights the 48-layer residual
+      stream amplifies bf16 roundings on every route alike, so the bf16
+      log-probs are held against their own drift d_X = max |lp_X -
+      lp_f32| from the f32 plain pass: the kernel pass no further from it
+      than 1.25 d_plain (the kernel adds no error beyond bf16 rounding);
+      against the plain pass within 2 d_plain (two evaluations that each
+      drift d_plain); against the folded recurrent log-probs at the
+      generated positions within d_plain + d_folded.
+    Wall time of the pass with the kernel and with the plain form."""
+    from repro_torch.core.stages import ExpPrepStage
+    from repro_torch.rl.experience import ExperienceBatch
+
+    batch = ExperienceBatch(*(t[:32] for t in exp))
+    kern = ExpPrepStage(model, attn_impl="pallas")
+    plain = ExpPrepStage(model, attn_impl="xla")
+    ops = _ssm_counters()
+    kw = dict(ref_folded=False, reuse_behavior_lp=False)
+    kern(batch, ref_params=params, **kw)                  # warm-up
+    torch.cuda.synchronize()
+    for o in ops.values():
+        o.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp_k = kern(batch, ref_params=params, **kw).ref_logprobs
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    counts = _read_counters(ops)
+    plain(batch, ref_params=params, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp_x = plain(batch, ref_params=params, **kw).ref_logprobs
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    p32 = {k: v.float() for k, v in params.items()}
+    lp_k32 = kern(batch, ref_params=p32, **kw).ref_logprobs
+    lp_x32 = plain(batch, ref_params=p32, **kw).ref_logprobs
+    del p32
+    expected = dict.fromkeys(counts, 0)
+    expected["ssd_scan"] = model.cfg.n_layers
+
+    idx = torch.arange(batch.seq, device=batch.tokens.device)[None, :]
+    fed = (idx >= 1) & (idx < batch.context_len[:, None])
+    gen = batch.gen_mask
+    dmax = lambda a, b_, m: float((a - b_)[m].abs().max())
+    d_plain = dmax(lp_x, lp_x32, fed)
+    d_kern = dmax(lp_k, lp_x32, fed)
+    d_fold = dmax(batch.ref_logprobs, lp_x32, gen)
+
+    def compare(a, b_, m, tol):
+        d = (a - b_)[m].abs()
+        return dict(max_abs_dlogprob=float(d.max()),
+                    mean_abs_dlogprob=float(d.mean()),
+                    logprob_scale=float(b_[m].abs().max()), tolerance=tol,
+                    ok=float(d.max()) <= tol
+                    and bool(torch.isfinite(a[m]).all()))
+    checks = dict(
+        fp32_vs_xla=compare(lp_k32, lp_x32, fed, 1e-4),
+        bf16_drift_vs_f32=dict(kernel=d_kern, plain=d_plain, folded=d_fold,
+                               tolerance=1.25 * d_plain,
+                               ok=d_kern <= 1.25 * d_plain),
+        bf16_vs_xla=compare(lp_k, lp_x, fed, 2 * d_plain),
+        bf16_vs_folded=compare(lp_k, batch.ref_logprobs, gen,
+                               d_plain + d_fold))
+    out = dict(phase="ssm_score", batch=list(batch.tokens.shape),
+               launches=counts, expected_launches=expected,
+               kernel_pass_s=kern_s, plain_pass_s=plain_s,
+               scored_positions=int(fed.sum()),
+               generated_positions=int(gen.sum()), **checks)
+    emit(out)
+    if not (counts == expected and all(c["ok"] for c in checks.values())):
+        raise AssertionError(f"ssm_score checks failed: {out}")
+    report["ssd_scan"]["launches"] = counts["ssd_scan"]
+
+
+def phase_ssm_sync(torch, engine, params):
+    """One ssm macro-step with the folded reference stream under
+    set_sync_debug_mode("error"): nothing in it reads the device, so the
+    turn's one host read is the run loop's returned counter."""
+    noise = engine.default_noise(torch.Generator(device="cuda").manual_seed(
+        15))
+    carry = engine.init_feed(params, engine.init_carry(32, 64,
+                                                       with_ref=True), params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = engine.turn_step(params, carry, 0, noise, ref_params=params)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit({"phase": "ssm_sync", "macro_steps_checked": 1,
+          "returned_after_one_turn": int(carry.returned),
+          "ref_logprobs_finite": bool(torch.isfinite(carry.ref_logprobs)
+                                      .all())})
+
+
+def phase_ssm_train(torch, model, report):
+    """One EarlTrainer step on full-width mamba2-370m: B=N=32,
+    max_context 512, KL 0.05, clip 0.2, lr 3e-4, bf16, remat "full". The
+    layout resolves to the recurrent cache and the reference pass is folded
+    into the rollout (ref_folded true). Expected launches, exactly: one
+    fused sample per generated-token step; no attention kernel and no SSD
+    scan (the update runs the chunked form under autograd, as JAX's: the
+    kernel has no backward)."""
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.rl.envs import TicTacToe
+
+    tr = EarlTrainer(model=model, env=TicTacToe(),
+                     optimizer=adamw(3e-4, weight_decay=0.0), batch_size=32,
+                     rollout_episodes=32, max_turns=4, max_turn_tokens=32,
+                     max_context=512, kl_coef=0.05, clip_eps=0.2,
+                     temperature=1.0, seed=0)
+    turns = count_calls(tr.rollout, "turn_step")
+    tr.update_stage = _RecordingUpdate(tr.update_stage)
+    params, opt_state, ref = tr.init_state()
+    ops = _ssm_counters()
+    for o in ops.values():
+        o.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    new, _, rec = tr.run_step(0, params, opt_state, ref)
+    torch.cuda.synchronize()
+    counts = _read_counters(ops)
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_sample"] = len(turns) * tr.max_turn_tokens
+    key = "layers.mixer.in_proj"
+    changed = not torch.equal(new[key], params[key])
+    out = dict(phase="ssm_train", step=0, ref_folded=tr.ref_folded,
+               cache_layout=tr.cache_layout, mean_return=rec.mean_return,
+               mean_context_len=rec.mean_context_len,
+               truncated_frac=rec.truncated_frac, loss=rec.loss, kl=rec.kl,
+               rollout_s=rec.rollout_wall_s, update_s=rec.update_wall_s,
+               step_s=rec.wall_time_s, macro_steps=len(turns),
+               update_tokens=tr.update_stage.batches[-1].tokens.numel(),
+               update_tokens_per_s=tr.update_stage.batches[-1].tokens.numel()
+               / rec.update_wall_s,
+               launches=counts, expected_launches=expected,
+               params_changed=changed,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (tr.ref_folded and tr.cache_layout == "dense"
+            and counts == expected and len(turns) > 0 and changed
+            and math.isfinite(rec.loss) and math.isfinite(rec.kl)):
+        raise AssertionError(f"ssm_train checks failed: {out}")
+    report["ssm_train_launches"] = counts
+
+
 class _RecordingUpdate:
     """Wraps the trainer's UpdateStage to keep the batches it is given."""
 
@@ -1292,6 +1673,7 @@ def main() -> int:
     phase_flash(torch, report)
     phase_decode(torch, report)
     phase_spec_verify(torch, report)
+    phase_ssd(torch, report)
     cfg = get_config("qwen2-0.5b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1316,6 +1698,24 @@ def main() -> int:
     phase_train_branch(torch, model, params, opt_state, exp)
     del trainer, params, opt_state, exp
     phase_spec_train(torch, model, report)
+    del model
+
+    cfg = get_config("mamba2-370m")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "ssm": vars(cfg.ssm),
+          "params": sum(t.numel() for t in params.values()),
+          "remat": cfg.remat, "seconds": time.perf_counter() - t0})
+    ssm_engine, ssm_exp = phase_ssm_path(torch, model, params, report)
+    phase_ssm_score(torch, model, params, ssm_exp, report)
+    phase_ssm_sync(torch, ssm_engine, params)
+    del ssm_engine, ssm_exp, params
+    phase_ssm_train(torch, model, report)
 
     kernels = []
     for name, src, replaces in (
@@ -1332,7 +1732,9 @@ def main() -> int:
             ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/kernel.py:28"),
             ("spec_verify", "src/repro_torch/csrc/spec_verify.cu",
-             "src/repro/kernels/spec_verify/kernel.py:44")):
+             "src/repro/kernels/spec_verify/kernel.py:44"),
+            ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:31")):
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,

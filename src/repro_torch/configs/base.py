@@ -1,5 +1,5 @@
 """Model configs and the registry (the port's own copy of
-``repro/configs/base.py``, dense family only).
+``repro/configs/base.py``, for the dense and ssm families).
 
 Each config module exposes ``CONFIG`` (the published hyper-parameters,
 source cited) and ``SMOKE_CONFIG`` (a reduced variant of the same family
@@ -9,16 +9,28 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
+from typing import Optional
 
-ARCH_IDS = ["qwen2-0.5b"]
+ARCH_IDS = ["qwen2-0.5b", "mamba2-370m"]
 
 ARCH_REGISTRY: dict = {}
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    state_size: int             # N: SSM state dimension
+    n_heads: int                # value heads (Mamba2 "nheads")
+    head_dim: int               # P: channels per head
+    conv_width: int = 4
+    chunk_size: int = 256       # SSD chunk length
+    n_groups: int = 1           # B/C groups (GVA-style)
+    expand: int = 2
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                 # dense (the only family ported so far)
+    family: str                 # dense | ssm (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +43,7 @@ class ModelConfig:
     rms_eps: float = 1e-5
     tie_embeddings: bool = False
     source: str = ""
+    ssm: Optional[SSMConfig] = None
     sliding_window: int = 0     # 0 = full attention; >0 = window size
     # remat policy for training: "none" | "full" (checkpoint each layer)
     remat: str = "full"

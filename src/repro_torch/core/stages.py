@@ -19,8 +19,8 @@ forward, or the behaviour log-probs when the reference IS the sampling
 policy, and the trainer warns once that it does.
 
 ``attn_impl="paged"`` (the default) is the production path: every stream
-runs its kernel (``_ATTN``); ``attn_impl="xla"`` runs the plain paths
-everywhere. ``rollout_backend="python"`` runs the reference loop of
+runs its family's kernel (``_ATTN``); ``attn_impl="xla"`` runs the plain
+paths everywhere. ``rollout_backend="python"`` runs the reference loop of
 ``rl/rollout.py`` (dense cache, plain attention). Randomness is injected
 like the engine's: ``noise(step)`` returns the step's ``NoiseFn``; without
 it the trainer draws from a ``torch.Generator`` seeded with ``seed`` on
@@ -47,13 +47,24 @@ from repro_torch.rl.engine.compiled import NoiseFn, _unported
 from repro_torch.rl.experience import ExperienceBatch
 from repro_torch.rl.rollout import RolloutEngine
 
-# the trainer's attn_impl -> each stream's attention: the policy's decode
-# on either cache layout, the folded reference decode (always on a dense
-# cache) and the full-sequence passes (ExpPrep's standalone route, Update)
+# per model family, the trainer's attn_impl -> each stream's attention:
+# the policy's decode on either cache layout, the folded reference decode
+# (always on a dense cache), ExpPrep's standalone reference pass and the
+# Update. The ssm decode has no attention and ignores its value (JAX's
+# decode_step drops it); ssm's ExpPrep pass runs the SSD scan kernel, and
+# its Update the plain chunked form under autograd, as JAX's does: the
+# kernel has no backward in either package.
 _ATTN = {
-    "paged": {"paged": "paged", "dense": "pallas", "ref": "pallas",
-              "full_seq": "flash"},
-    "xla": {"paged": "xla", "dense": "xla", "ref": "xla", "full_seq": "xla"},
+    "dense": {
+        "paged": {"paged": "paged", "dense": "pallas", "ref": "pallas",
+                  "expprep": "flash", "update": "flash"},
+        "xla": {"paged": "xla", "dense": "xla", "ref": "xla",
+                "expprep": "xla", "update": "xla"}},
+    "ssm": {
+        "paged": {"dense": "pallas", "ref": "pallas", "expprep": "pallas",
+                  "update": "xla"},
+        "xla": {"dense": "xla", "ref": "xla", "expprep": "xla",
+                "update": "xla"}},
 }
 
 
@@ -184,7 +195,8 @@ class EarlTrainer:
     into the rollout, and every kernel on the card (``device=None`` means
     the GPU and raises without one). ``cache_layout`` and ``sampling``
     default to the backend's own: "paged" and "fused" for the compiled
-    engine, "dense" and "reference" for the python one; with
+    engine, "dense" and "reference" for the python one; the ssm family's
+    layout is "dense" (its recurrent cache; "paged" raises). With
     ``speculation`` ("self" or "draft", with ``spec_k`` and
     ``draft_layers``) an unset ``sampling`` is "reference", JAX's default,
     and the reference pass is not folded. The JAX trainer's options whose
@@ -241,18 +253,22 @@ class EarlTrainer:
 
     def __post_init__(self):
         self._check_unported()
-        if self.attn_impl not in _ATTN:
+        if self.attn_impl not in ("paged", "xla"):
             raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
                              f"{self.attn_impl!r}")
         python = self.rollout_backend == "python"
         if self.cache_layout is None:
-            self.cache_layout = "dense" if python else "paged"
+            # the dense family's engine default is the paged pool; the
+            # ssm family decodes on its recurrent cache (JAX's default)
+            self.cache_layout = ("dense" if python
+                                 or self.model.cfg.family != "dense"
+                                 else "paged")
         if self.sampling is None:
             self.sampling = ("reference" if python or self.speculation != "off"
                              else "fused")
         self.device = resolve_device(self.device)
         self.optimizer = self.optimizer or adamw(3e-4, weight_decay=0.0)
-        attn = _ATTN[self.attn_impl]
+        attn = _ATTN[self.model.cfg.family][self.attn_impl]
         kw = dict(max_turns=self.max_turns,
                   max_turn_tokens=self.max_turn_tokens,
                   max_context=self.max_context, temperature=self.temperature,
@@ -263,7 +279,8 @@ class EarlTrainer:
         else:
             self.rollout = CompiledRolloutEngine(
                 self.model, self.env, sampling=self.sampling,
-                attn_impl=attn[self.cache_layout], ref_attn_impl=attn["ref"],
+                attn_impl=attn.get(self.cache_layout),
+                ref_attn_impl=attn["ref"],
                 cache_layout=self.cache_layout, page_size=self.page_size,
                 cache_pages=self.cache_pages, kv_dtype=self.kv_dtype,
                 on_exhaust=self.on_exhaust, share_prefix=self.share_prefix,
@@ -276,11 +293,11 @@ class EarlTrainer:
         self.rollout_stage = RolloutStage(self.rollout)
         self.expprep_stage = ExpPrepStage(
             self.model, advantage=self.advantage,
-            group_size=self.group_size, attn_impl=attn["full_seq"])
+            group_size=self.group_size, attn_impl=attn["expprep"])
         self.dispatch_stage = DispatchStage()
         self.update_stage = UpdateStage(
             self.model, self.optimizer, clip_eps=self.clip_eps,
-            kl_coef=self.kl_coef, attn_impl=attn["full_seq"])
+            kl_coef=self.kl_coef, attn_impl=attn["update"])
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.seed)
 

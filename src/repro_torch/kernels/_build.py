@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("paged_attention", "fused_sample", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "spec_verify")
+           "flash_attention_bwd", "decode_attention", "spec_verify",
+           "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

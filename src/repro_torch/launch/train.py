@@ -17,7 +17,11 @@ of features not ported yet raise ``NotImplementedError`` naming their
 ROADMAP item, and so does any value given to a flag that only those
 features read (``--prefix-len``, ``--pool-growth-max``,
 ``--max-policy-lag``, ``--is-rho-max``, ``--retry-backoff``,
-``--dispatch``). ``--speculation self --spec-k K --draft-layers L`` runs
+``--dispatch``). ``--arch mamba2-370m`` trains the ssm family (Mamba2)
+on its recurrent cache: the layout defaults to dense there and
+``--cache-layout paged`` raises; ExpPrep's standalone pass runs the SSD
+scan kernel and the update its plain chunked form, as JAX's.
+``--speculation self --spec-k K --draft-layers L`` runs
 speculative decoding (paged layout, reference sampling); as in JAX, the
 CLI builds no draft model, so ``--speculation draft`` raises. Writes the
 same JSONL rows as the JAX CLI, ``spec_proposed``, ``spec_accepted`` and
@@ -31,7 +35,7 @@ import sys
 import time
 from pathlib import Path
 
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.stages import EarlTrainer
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import adamw
@@ -42,7 +46,7 @@ from repro_torch.rl.envs import TicTacToe
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="EARL agentic RL training "
                                              "(PyTorch/CUDA port)")
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCH_IDS)
     ap.add_argument("--env", default="tictactoe",
                     choices=["tictactoe", "connect_four", "bandit"])
     ap.add_argument("--steps", type=int, default=50)
@@ -54,7 +58,8 @@ def parse_args(argv=None):
                          "via slot refill)")
     ap.add_argument("--cache-layout", default=None,
                     choices=["dense", "paged"],
-                    help="default: paged (compiled), dense (python)")
+                    help="default: paged (compiled, dense family), "
+                         "dense (python, and the ssm family)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--cache-pages", type=int, default=None,
                     help="pool size in pages (default: full provisioning)")
@@ -110,8 +115,9 @@ def parse_args(argv=None):
     ap.add_argument("--attn-impl", default="paged", choices=["paged", "xla"],
                     help="paged = the kernels (paged or dense decode "
                          "attention and fused sampling in the rollout, "
-                         "flash attention in Update); xla = the plain "
-                         "paths")
+                         "flash attention in Update; ssm: fused sampling "
+                         "and the SSD scan in ExpPrep's standalone pass); "
+                         "xla = the plain paths")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "kernels' plain versions)")

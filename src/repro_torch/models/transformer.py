@@ -51,9 +51,11 @@ def model_defs(cfg: ModelConfig):
 
 
 def layer_params(params, i: int):
-    """Views of layer ``i``'s params: ``{"ln1", "ln2", "attn": {...},
-    "mlp": {...}}`` sliced from the stacked leaves."""
-    out = {"attn": {}, "mlp": {}}
+    """Views of layer ``i``'s params sliced from the stacked leaves:
+    ``layers.<name>`` becomes ``out[name]`` and ``layers.<block>.<name>``
+    ``out[block][name]`` (dense: ``{"ln1", "ln2", "attn": {...}, "mlp":
+    {...}}``; ssm: ``{"ln", "mixer": {...}}``)."""
+    out = {}
     for path, t in params.items():
         parts = path.split(".")
         if parts[0] != "layers":
@@ -61,7 +63,7 @@ def layer_params(params, i: int):
         if len(parts) == 2:
             out[parts[1]] = t[i]
         else:
-            out[parts[1]][parts[2]] = t[i]
+            out.setdefault(parts[1], {})[parts[2]] = t[i]
     return out
 
 

@@ -91,15 +91,23 @@ class _DraftStream(NamedTuple):
 
 def _reset_cache_rows(cache, refill):
     """Reset a decode cache row-wise for refilled slots. Paged caches
-    release the slots' pages back to the pool (no KV data touched); dense
-    caches zero every leaf of those rows, ``pos`` included, with masked
-    in-place writes."""
+    release the slots' pages back to the pool (no KV data touched). Other
+    caches are zeroed generically over the families, as JAX's: ``pos``
+    (rank 1) per row on dim 0, every other leaf (KV rings, conv windows,
+    SSM states) on dim 1, with masked in-place writes. An SSM or conv
+    state is not invalidated by position, so every leaf is zeroed."""
     if paging.is_paged(cache):
         return paging.release_slot_pages(cache, refill)
-    rows = refill[None, :, None, None, None]       # (layers, B, S, KV, hd)
-    cache.kv.k.masked_fill_(rows, 0)
-    cache.kv.v.masked_fill_(rows, 0)
-    return cache._replace(pos=torch.where(refill, 0, cache.pos))
+
+    def zero(leaf):
+        if isinstance(leaf, tuple):                # the nested KV pair
+            return type(leaf)(*(zero(x) for x in leaf))
+        if leaf.dim() == 1:
+            return torch.where(refill, 0, leaf)
+        return leaf.masked_fill_(
+            refill.view((1, -1) + (1,) * (leaf.dim() - 2)), 0)
+
+    return zero(cache)
 
 
 class CompiledRolloutEngine:
@@ -110,11 +118,13 @@ class CompiledRolloutEngine:
     the GPU and raises if none is present.
 
     Options ported so far: ``cache_layout`` ("paged", the default, or
-    "dense"), ``attn_impl`` (paged layout: "paged" = the paged CUDA
+    "dense"; the ssm family takes only "dense", its recurrent
+    ``MambaCache``), ``attn_impl`` (paged layout: "paged" = the paged CUDA
     kernel, "xla" = gather + dense attention; dense layout: "pallas" = the
     split-K decode kernel, "xla" = masked dense attention; ``None`` = the
     layout's kernel; with speculation the verify pass takes "paged" = the
-    spec-verify kernel), ``ref_attn_impl`` (the reference stream's dense
+    spec-verify kernel; the ssm decode has no attention and ignores it, as
+    JAX's), ``ref_attn_impl`` (the reference stream's dense
     decode: "pallas" or "xla"), ``sampling`` ("fused" = the one-pass CUDA
     sampler, the default; "reference" = plain argmax + log-softmax),
     ``on_exhaust`` ("count" or "raise"), ``temperature``, ``top_p``,
@@ -141,6 +151,11 @@ class CompiledRolloutEngine:
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
                              f"{cache_layout!r}")
+        if cache_layout == "paged" and cfg.family != "dense":
+            raise ValueError(
+                f"the paged KV pool is a dense-family layout; family "
+                f"{cfg.family!r} decodes on its own recurrent cache: pass "
+                f"cache_layout='dense'")
         if share_prefix:
             raise _unported("share_prefix (copy-on-write prefix sharing)",
                             "8")

@@ -15,7 +15,13 @@ gradients within 2^-14 s: each is a sum of up to group x S products of
 terms that cancel in dS = P(dP - D), summed in another order. The
 spec-verify kernel is held against its plain version by the same rule,
 and each of its queries j bitwise (0 ulp) against the paged kernel at
-lens = pos + j + 1, which runs the same per-row code.
+lens = pos + j + 1, which runs the same per-row code. The SSD scan
+kernel's y and final state at fp32, and its final state at bf16, within
+32 f32 ulps of their scale (the same f32 math in another order); its bf16
+y within 2^-6 s plus one bf16 ulp of each element: the plain chunked form
+rounds W and W x to bf16 before its sums, where the kernel keeps f32
+(``chip_smoke.py`` reports both against an f64 evaluation at the
+ssm_score shape: on an H100 the plain version was the further from it).
 """
 import dataclasses
 
@@ -24,7 +30,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core.stages import EarlTrainer
+from repro_torch.core.stages import EarlTrainer, ExpPrepStage
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -36,6 +42,8 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
 from repro_torch.kernels.spec_verify import ops as sv_ops
 from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.models.registry import build_model
 from repro_torch.rl.engine import CompiledRolloutEngine
 from repro_torch.rl.envs import TicTacToe
@@ -553,3 +561,104 @@ def test_spec_macro_step_syncs_once_per_round(spec_smoke):
     torch.cuda.synchronize()
     assert 1 <= len(rounds) <= eng.max_turn_tokens
     assert int(carry.spec_rounds) > 0
+
+
+SSD_CASES = {
+    # name: (b, s, h, g, p, n, chunk)
+    "ragged_s100": (2, 100, 4, 1, 32, 16, 32),
+    "groups4_p64": (2, 96, 8, 4, 64, 32, 64),
+    "wide_state_n128": (1, 128, 2, 1, 64, 128, 64),
+    "p16_n8_groups2": (1, 40, 4, 2, 16, 8, 16),
+    "p128_ragged_chunk": (1, 130, 2, 1, 128, 128, 128),
+    "s_below_chunk": (2, 20, 4, 1, 32, 16, 64),
+    "mamba2_heads_chunk256": (2, 600, 32, 1, 64, 128, 256),
+}
+
+
+def _ssd_inputs(seed, b, s, h, g, p, n, dtype, device):
+    """x, B and C as strided views of one (b, s, h*p + 2*g*n) tensor, the
+    layout the mixer hands the kernel; dt softplus'ed, A negative."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    xbc = (torch.randn((b, s, h * p + 2 * g * n), generator=gen)
+           * 0.5).to(device=device, dtype=dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    B = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen))
+    A = -torch.exp(torch.randn((h,), generator=gen) * 0.3)
+    return x, dt.to(device), A.to(device), B, C
+
+
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_version(name, dtype, dev):
+    b, s, h, g, p, n, chunk = SSD_CASES[name]
+    x, dt, A, B, C = _ssd_inputs(0, b, s, h, g, p, n, dtype, dev)
+    n0 = ssd_ops.launches
+    y, fin = ssd_ops.ssd_scan(x, dt, A, B, C, chunk)
+    assert ssd_ops.launches == n0 + 1
+    yr, finr = ssd_ref(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert y.shape == (b, s, h, p) and y.dtype == dtype
+    assert fin.shape == (b, h, p, n) and fin.dtype == torch.float32
+    sy, sf = float(yr.float().abs().max()), float(finr.abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yr, atol=2.0 ** -18 * sy, rtol=0)
+    else:
+        torch.testing.assert_close(y.float(), yr.float(),
+                                   atol=2.0 ** -6 * sy, rtol=2.0 ** -7)
+    torch.testing.assert_close(fin, finr, atol=2.0 ** -18 * sf, rtol=0)
+
+
+def test_ssd_scan_wrapper_checks_inputs(dev):
+    x, dt, A, B, C = _ssd_inputs(1, 1, 32, 2, 1, 32, 16, torch.float32,
+                                 dev)
+    with pytest.raises(ValueError, match="zero state"):
+        ssd_ops.ssd_scan(x, dt, A, B, C, 16,
+                         initial_state=torch.zeros((1, 2, 32, 16),
+                                                   device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_ops.ssd_scan(x.detach().requires_grad_(True), dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_ops.ssd_scan(x[..., :24], dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="state"):
+        wide = torch.zeros((1, 32, 1, 129), device=dev)
+        ssd_ops.ssd_scan(x, dt, A, wide, wide, 16)
+    with pytest.raises(TypeError, match="share"):
+        ssd_ops.ssd_scan(x, dt, A, B.to(torch.bfloat16),
+                         C.to(torch.bfloat16), 16)
+    with pytest.raises(ValueError, match="last dim"):
+        ssd_ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, B, C, 16)
+
+
+def test_ssm_smoke_paths_launch_exactly(dev):
+    """mamba2 at smoke size on the card: one trainer step folds the
+    reference (fused sampling per generated token, no SSD scan: the update
+    runs the chunked form under autograd, as JAX's), and ExpPrep's
+    standalone pass launches the SSD scan once per layer and agrees with
+    the plain pass within 2e-4 (f32 params, bf16 conv caches only in the
+    rollout)."""
+    cfg = dataclasses.replace(get_smoke_config("mamba2-370m"), remat="full")
+    model = build_model(cfg)
+    tr = EarlTrainer(model=model, env=TicTacToe(), batch_size=4,
+                     rollout_episodes=8, max_turns=3, max_turn_tokens=4,
+                     max_context=96, kl_coef=0.05, clip_eps=0.2)
+    assert tr.cache_layout == "dense" and tr.ref_folded
+    params, opt_state, ref = tr.init_state()
+    for ops in (ssd_ops, fs_ops, pa_ops, da_ops, fa_ops):
+        ops.reset_launches()
+    new, _, rec = tr.run_step(0, params, opt_state, ref)
+    n_macro = fs_ops.launches // tr.max_turn_tokens
+    assert fs_ops.launches == n_macro * tr.max_turn_tokens > 0
+    assert ssd_ops.launches == pa_ops.launches == da_ops.launches == 0
+    assert fa_ops.launches == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert np.isfinite(rec.loss) and np.isfinite(rec.kl)
+    exp, _ = tr.rollout.run(new, 4, 8, generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    p32 = {k: v.float() for k, v in new.items()}
+    alone = tr.expprep_stage(exp, ref_params=p32, ref_folded=False)
+    assert ssd_ops.launches == cfg.n_layers
+    plain = ExpPrepStage(model)(exp, ref_params=p32, ref_folded=False)
+    torch.testing.assert_close(alone.ref_logprobs, plain.ref_logprobs,
+                               atol=2e-4, rtol=0)
