@@ -17,8 +17,9 @@ Phases, in order; any failure raises and exits non-zero:
                flushed before each) beside the bound from bytes and
                operations.
      The flash-attention forward, dq and dk/dv kernels are held at the
-               update's shapes (B=32, S=256, 14/2 heads, hd 64) and also
-               timed against torch's scaled_dot_product_attention and its
+               update's shapes (B=32, S=256, 14/2 heads, hd 64) in bf16
+               and fp32, and in bf16 at B=4, S=2048, and also timed
+               against torch's scaled_dot_product_attention and its
                autograd backward (library_ms; the port never calls it).
      The split-K decode attention kernel is held at the dense cache's
                shapes (B=32, S=256, 14/2 heads, hd 64) in bf16 and fp32
@@ -56,7 +57,8 @@ Phases, in order; any failure raises and exits non-zero:
                read after it, and checked against the exact counts the
                step must make.
  10. train_trace — one more update of the last batch on the host clock,
-               the next under torch.profiler: device busy and idle share.
+               the next under torch.profiler: device busy and idle share,
+               and device ms per flash kernel (each launched one > 0).
  11. train_branch — one update batch of the train phase through the
                update step with attn_impl "flash" (the kernels) and
                "xla" (plain attention): loss and per-leaf grad norms.
@@ -322,12 +324,50 @@ def phase_kernels(torch, report):
     report["fused_sample"] = dict(cases["gumbel"], cases=cases)
 
 
+def one_rounding_errors(torch, q, k, v, do, out, L, out_r, grads_r,
+                        causal, window):
+    """The error the bf16 kernels would make with one bf16 rounding of each
+    f32 A operand (P in P V; P and dS in dV = P^T dO and dK = dS^T Q)
+    instead of the hi + lo split they use: the plain formulas of ref.py
+    with those operands rounded once, as err / tol under the kernels'
+    gates. Reported, not gated: it is why the kernels split."""
+    import math
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, _scores
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rnd = lambda t: t.bfloat16().float()
+    s, ok, qf = _scores(q, k, causal, window)
+    sm = torch.where(ok, s, NEG_INF)
+    p = torch.exp(sm - sm.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True).permute(0, 3, 1, 2, 4)
+    o1 = (torch.einsum("bkgqs,bskh->bqkgh", rnd(p), v.float()) / l)
+    o1 = o1.reshape(B, S, H, hd).to(q.dtype)
+    p = torch.where(ok, torch.exp(s - L.reshape(B, KV, H // KV, S, 1)), 0.0)
+    dof = do.float().reshape(B, S, KV, H // KV, hd)
+    D = (dof * out.float().reshape(B, S, KV, H // KV, hd)).sum(-1)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dof, v.float())
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dk1 = torch.einsum("bkgqs,bqkgh->bskh", rnd(ds), qf) / math.sqrt(hd)
+    dv1 = torch.einsum("bkgqs,bqkgh->bskh", rnd(p), dof)
+    tol = lambda r, rel: 2.0 ** rel * float(r.float().abs().max())
+    return {"flash_fwd": held(torch, o1, out_r, tol(out_r, -18),
+                              2.0 ** -7)["err_over_tol"],
+            "flash_dkv": max(held(torch, x.to(r.dtype), r, tol(r, -14),
+                                  2.0 ** -7)["err_over_tol"]
+                             for x, r in ((dk1, grads_r[1]),
+                                          (dv1, grads_r[2])))}
+
+
 def phase_flash(torch, report):
     """The flash-attention kernels at the update's shapes: B=32, S=256,
-    14/2 heads, hd 64, causal, bf16 (the main path) and fp32. Each is held
-    against ``ref.py`` and timed beside its bound, the plain version and
-    torch's scaled_dot_product_attention (forward, or its autograd
-    backward, which computes dq, dk and dv in one call)."""
+    14/2 heads, hd 64, causal, bf16 (the main path) and fp32, and in bf16
+    at a long context, B=4, S=2048, where the forward crosses the tensor
+    cores' balance. Each is held against ``ref.py`` and timed beside its
+    bound, the plain version and torch's scaled_dot_product_attention
+    (forward, or its autograd backward, which computes dq, dk and dv in
+    one call). At the update's bf16 shape the flash_fwd and flash_dkv
+    cases also report the error one bf16 rounding of their f32 A operands
+    would give (``one_rounding_errors``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -335,17 +375,18 @@ def phase_flash(torch, report):
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
-    B, S, H, KV, hd = 32, 256, 14, 2, 64
-    pairs = B * H * S * (S + 1) // 2            # causal (query, key) pairs
+    H, KV, hd = 14, 2, 64
     cases = {"flash_fwd": {}, "flash_dq": {}, "flash_dkv": {}}
     # Tolerances at each output's own scale s = max|ref|: O and L within
     # 32 f32 ulps of s (atol 2^-18 s), as for paged attention; gradients
-    # within 2^-14 s, because each sums up to 7 x 256 products of terms
+    # within 2^-14 s, because each sums up to 7 x S products of terms
     # that cancel in dS = P(dP - D). bf16 outputs add one bf16 ulp of
     # each element (rtol 2^-7).
-    for name, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
-                                  2.0 ** -7),
-                                 ("fp32", torch.float32, F32_FLOPS, 0.0)):
+    for name, B, S, dt, peak, rtol in (
+            ("bf16", 32, 256, torch.bfloat16, BF16_FLOPS, 2.0 ** -7),
+            ("fp32", 32, 256, torch.float32, F32_FLOPS, 0.0),
+            ("bf16_s2048", 4, 2048, torch.bfloat16, BF16_FLOPS, 2.0 ** -7)):
+        pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
@@ -366,6 +407,9 @@ def phase_flash(torch, report):
                               rtol)],
             "flash_dkv": [held(torch, x, r, 2.0 ** -14 * scale(r), rtol)
                           for x, r in ((dk, dk_r), (dv, dv_r))]}
+        one_rounding = (one_rounding_errors(
+            torch, q, k, v, do, out, L, out_r, (dq_r, dk_r, dv_r), True, 0)
+            if name == "bf16" else {})
         D = torch.einsum("bshd,bshd->bhs", do.float(),
                          out.float()).contiguous()
         qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
@@ -399,9 +443,12 @@ def phase_flash(torch, report):
         plain_bwd_ms = lib_bwd_ms = None
         for kname, chk in checks.items():
             ok = all(c["ok"] for c in chk)
-            case = dict(max_abs_err=max(c["max_abs_err"] for c in chk),
+            case = dict(B=B, S=S, max_abs_err=max(c["max_abs_err"]
+                                                  for c in chk),
                         atol=[c["atol"] for c in chk], rtol=rtol,
                         err_over_tol=max(c["err_over_tol"] for c in chk))
+            if kname in one_rounding:
+                case["one_rounding_err_over_tol"] = one_rounding[kname]
             if not ok:
                 raise AssertionError(f"{kname} {name}: {case}")
             kern, plain, lib = times[kname]
@@ -420,6 +467,7 @@ def phase_flash(torch, report):
                         flops=work[kname][1])
             cases[kname][name] = case
             emit({"phase": "kernels", "kernel": kname, "case": name, **case})
+        del out_r, L_r, dq_r, dk_r, dv_r, o_lib
     for kname, by_case in cases.items():
         report[kname] = dict(by_case["bf16"], cases=by_case)
 
@@ -1552,34 +1600,50 @@ def phase_train(torch, model, report):
     return tr, params, opt_state, tr.update_stage.batches[-1]
 
 
+# The kernel symbols behind each flash launch counter: bf16 runs the wgmma
+# kernels, fp32 the SIMT ones (substrings of the profiler's kernel names).
+FLASH_SYMBOLS = {"fwd": ("fa_fwd_wgmma_kernel", "fa_fwd_kernel"),
+                 "dq": ("fa_dq_kernel",),
+                 "dkv": ("fa_dkv_wgmma_kernel", "fa_dkv_kernel")}
+
+
 def phase_train_trace(torch, trainer, params, opt_state, exp):
     """One more update of the train phase's last batch timed on the host
     clock, and the next under torch.profiler: device busy time, idle
-    share and the kernels that took the most device time."""
+    share, the kernels that took the most device time, and the device ms
+    of each flash kernel symbol. Every flash counter that launched in the
+    profiled update must read > 0 device ms, so a renamed kernel cannot
+    drop out of the reading."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.update_stage(params, opt_state, exp)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    fa_ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         trainer.update_stage(params, opt_state, exp)
         torch.cuda.synchronize()
     busy_ms, n_events, top = device_busy(torch, prof)
     from torch.autograd import DeviceType
-    flash_ms = {name: sum(a.self_device_time_total for a in
-                          prof.key_averages()
-                          if a.device_type == DeviceType.CUDA
-                          and name in a.key) / 1e3
-                for name in ("fa_fwd_kernel", "fa_dq_kernel",
-                             "fa_dkv_kernel")}
+    device = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA]
+    flash_ms = {sym: sum(a.self_device_time_total for a in device
+                         if sym in a.key) / 1e3
+                for syms in FLASH_SYMBOLS.values() for sym in syms}
     emit({"phase": "train_trace", "update_wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": (None if busy_ms is None
                                 else 1.0 - busy_ms / wall_ms),
           "device_events": n_events, "flash_device_ms": flash_ms,
-          "top_device_ms": top})
+          "flash_launches": dict(fa_ops.launches), "top_device_ms": top})
+    unread = [c for c, n in fa_ops.launches.items()
+              if n > 0 and sum(flash_ms[s] for s in FLASH_SYMBOLS[c]) <= 0]
+    if unread:
+        raise AssertionError(f"flash kernels {unread} launched in the traced "
+                             f"update but read no device time: {flash_ms}")
 
 
 def phase_train_branch(torch, model, params, opt_state, exp):

@@ -18,26 +18,62 @@
 //   The mask is the forward's: j < Sk, j <= i when causal, j > i - window
 //   when window > 0. q, k, v, dO are read in the model layout (B,S,H,hd)
 //   and (B,Sk,KV,hd); L and D are (B,H,S) f32; dq, dk, dv are written in
-//   the layouts and dtypes of q, k, v. All arithmetic is f32.
+//   the layouts and dtypes of q, k, v. Both passes are deterministic: no
+//   atomics, every sum is owned by one block and taken in a fixed order,
+//   as in the TPU kernels.
 //
 // What bounds it: at the update's shapes (B=32, S=256, 14/2 heads, hd 64,
 //   bf16) dq does 5.6e9 causal flops on 49 MB and dk/dv 7.5e9 on 39 MB:
-//   both below the tensor cores' balance, so bytes set the floor (15 and
-//   12 us). Like the forward, this first version runs its products as f32
-//   FMAs in shared memory (67 TFLOP/s: 84 and 112 us floors of this
-//   design).
+//   both below the tensor cores' balance (about 295 bf16 flops a byte), so
+//   bytes set the floor (15 and 12 us).
 //
-// Design: 256 threads per block; each thread owns a 4x4 block of the
-//   64x64 score tile and a 4 x hd/16 block of its accumulators, in
-//   registers. dq walks the kv slabs a causal / windowed q tile can see.
-//   dk/dv walks every (head in group, q tile) pair that can see its kv
-//   tile and keeps both accumulators in registers: no atomics, so the
-//   result is deterministic, as in `_dkv_kernel`. Rows and keys past S /
-//   Sk are masked, so any S works.
+// dk/dv in bf16 (`fa_dkv_wgmma_kernel`, tile machinery in flash_sm90.cuh):
+//   one block of two warpgroups per (kv head, b, 64-key tile), the key
+//   tile slowest in the grid and walked from tile 0 up, so under a causal
+//   mask the tiles that see the most q tiles start first. The K and V
+//   tiles stay resident in shared memory. The (head in group, q tile)
+//   pairs that can see them (the loop that `fori_loop` ran on the TPU) are
+//   dealt alternately to the two warpgroups; each streams its pairs' q and
+//   dO tiles by TMA through its own two-stage ring on mbarriers, and
+//   stages each pair's L and D rows in shared memory one pair ahead. The
+//   products are transposed, so each A operand is already in registers:
+//     S^T = K Q^T and dP^T = V dO^T   (wgmma, both operands K-major),
+//     P^T and dS^T in registers       (L and D index their columns; a
+//                                      pair wholly inside the mask skips
+//                                      it),
+//     dV += P^T dO and dK += dS^T Q   (A from registers, B MN-major).
+//   Each warpgroup keeps its dK and dV sums in f32 registers for its whole
+//   walk; at the end warpgroup 1 hands them to warpgroup 0 through shared
+//   memory, which adds them in a fixed order and writes dK and dV with TMA
+//   stores. No atomics: the same sums in the same order on every run. Two
+//   warpgroups halve the walk of the busiest tile (28 pairs at the
+//   update's shape), which is what sets the kernel's time: 256 blocks, one
+//   per SM (212 registers a thread at hd 64).
+//   Precision: P^T and dS^T are f32 as in the TPU kernel. One bf16
+//   rounding of either puts about 2^-9 of each term on dV and dK against a
+//   2^-14 s gate, so each is split into hi = bf16(x) and lo = bf16(x - hi)
+//   and both terms go through the tensor cores into one accumulator
+//   (about 2^-17 of x).
+//   Left for later: a producer warp with setmaxnreg, overlapping the
+//   products of one pair with the softmax of the next, and the long
+//   context, where the products set the pace.
+//
+// dq, and dk/dv in fp32: the first SIMT design. 256 threads per block;
+//   each thread owns a 4x4 block of the 64x64 score tile and a 4 x hd/16
+//   block of its accumulators, in registers; products are f32 FMAs from
+//   padded shared-memory tiles (67 TFLOP/s: an 84 us floor for dq at the
+//   update's shape). dq walks the kv slabs a causal / windowed q tile can
+//   see; fp32 dk/dv walks every (head in group, q tile) pair that can see
+//   its kv tile. Rows and keys past S / Sk are masked, so any S works.
+//   The dq kernel's redesign on the tile machinery above is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -323,6 +359,267 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- dk/dv in bf16: wgmma + TMA ----------------------------------------------
+constexpr int kStages = 2;    // (q, dO) tile pairs in flight per warpgroup
+
+// K, V; then per warpgroup a ring of (q, dO) stages and two L/D buffers;
+// then the mbarriers.
+template <int HD>
+constexpr size_t dkv_wgmma_smem() {
+  return fa_sm90::kAlignSlack + (2 + 2 * 2 * kStages) * fa_sm90::Tile<HD>::kBytes +
+         2 * 2 * 2 * kBQ * sizeof(float) + (1 + 2 * kStages) * sizeof(uint64_t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(256, 1)
+    fa_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_dk,
+                        const __grid_constant__ CUtensorMap tm_dv,
+                        const float* __restrict__ L,
+                        const float* __restrict__ D, int S, int Sk, int H,
+                        int KV, int causal, int window, float scale) {
+  using namespace fa_sm90;
+  constexpr int kTile = Tile<HD>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, tl = tid & 127;   // warpgroup, thread in it
+  const int w = tl >> 5, g = (tl & 31) >> 2, t = tl & 3;
+  uint8_t* k_s = align_1024(smem_raw);
+  uint8_t* v_s = k_s + kTile;
+  uint8_t* ring = v_s + kTile + wg * 2 * kStages * kTile;  // stage: q, dO
+  float* ld_s = reinterpret_cast<float*>(v_s + kTile + 2 * 2 * kStages * kTile)
+                + wg * 2 * 2 * kBQ;                        // [2][L | D]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<float*>(v_s + kTile + 2 * 2 * kStages * kTile) +
+      2 * 2 * 2 * kBQ);
+  uint64_t* bar_q = bar_kv + 1 + wg * kStages;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBK;
+  const int group = H / KV;
+
+  // the q tiles with a row that may see a key of this tile
+  const int k_last = min(k0 + kBK, Sk) - 1;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int i0 = causal ? min(k0, S) / kBQ : 0;
+  const int i1 =
+      window > 0 ? min(n_qt, (k_last + window - 1) / kBQ + 1) : n_qt;
+  const int nq = max(0, i1 - i0);
+  const int n_it = group * nq;             // (head in group, q tile) pairs
+  // warpgroup wg takes pairs wg, wg + 2, ...: local pair li is 2 li + wg
+  const int n_loc = (n_it + 1 - wg) / 2;
+
+  if (tid == 0) {
+    tma_prefetch(&tm_q);
+    tma_prefetch(&tm_k);
+    tma_prefetch(&tm_v);
+    tma_prefetch(&tm_do);
+    mbar_init(bar_kv, 1);
+    for (int i = 0; i < 2 * kStages; ++i) mbar_init(bar_kv + 1 + i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const CUtensorMap* map_q = &tm_q;
+  const CUtensorMap* map_do = &tm_do;
+  auto pair_head = [&](int li) { return kvh * group + (2 * li + wg) / nq; };
+  auto pair_q0 = [&](int li) { return (i0 + (2 * li + wg) % nq) * kBQ; };
+  auto load_pair = [&](int li) {
+    uint8_t* dst = ring + (li % kStages) * 2 * kTile;
+    uint64_t* bar = &bar_q[li % kStages];
+    mbar_expect_tx(bar, 2 * kTile);
+    tma_load_tile<HD>(dst, map_q, bar, pair_head(li), pair_q0(li), b);
+    tma_load_tile<HD>(dst + kTile, map_do, bar, pair_head(li), pair_q0(li),
+                      b);
+  };
+  // L * log2(e) (threads 0-63) and D (64-127) of local pair li
+  auto load_ld = [&](int li) {
+    const int s_pos = pair_q0(li) + (tl & (kBQ - 1));
+    const size_t off = (static_cast<size_t>(b) * H + pair_head(li)) * S;
+    float x = 0.f;
+    if (s_pos < S) x = tl < kBQ ? L[off + s_pos] * kLog2e : D[off + s_pos];
+    ld_s[(li & 1) * 2 * kBQ + tl] = x;
+  };
+  if (tid == 0 && n_it > 0) {
+    mbar_expect_tx(bar_kv, 2 * kTile);
+    tma_load_tile<HD>(k_s, &tm_k, bar_kv, kvh, k0, b);
+    tma_load_tile<HD>(v_s, &tm_v, bar_kv, kvh, k0, b);
+  }
+  if (tl == 0)
+    for (int li = 0; li < min(kStages, n_loc); ++li) load_pair(li);
+  if (n_loc > 0) load_ld(0);
+  __syncthreads();
+
+  // This thread's keys 16w + g + 8i (i = 0, 1) hold dK, dV rows in f32;
+  // its q columns are 8n + 2t + j. A key kp sees q rows [kp (causal),
+  // kp + window - 1] below S; kept less 2t.
+  int q_lo[2], q_hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + 16 * w + g + 8 * i;
+    q_lo[i] = (causal ? kp : 0) - 2 * t;
+    q_hi[i] = (kp < Sk ? (window > 0 ? min(S - 1, kp + window - 1) : S - 1)
+                       : -1) - 2 * t;
+  }
+  const float sl2 = scale * kLog2e;
+  float acc_k[HD / 2], acc_v[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) acc_k[r] = acc_v[r] = 0.f;
+  const uint32_t k_addr = smem_addr(k_s), v_addr = smem_addr(v_s);
+  const uint32_t ring_addr = smem_addr(ring);
+  if (n_loc > 0) mbar_wait(bar_kv, 0);
+
+  for (int li = 0; li < n_loc; ++li) {
+    const int st = li % kStages;
+    const int q0 = pair_q0(li);
+    if (li + 1 < n_loc) load_ld(li + 1);   // read after the loop's barrier
+    const uint32_t q_addr = ring_addr + st * 2 * kTile;
+    const uint32_t do_addr = q_addr + kTile;
+    mbar_wait(&bar_q[st], (li / kStages) & 1);
+
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(s, desc_k<HD>(k_addr, kk), desc_k<HD>(q_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(dp, desc_k<HD>(v_addr, kk), desc_k<HD>(do_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp2(s * scale * log2(e) - L log2(e)), 0 where masked; a pair
+    // whose every (key, q row) is allowed skips the mask (warpgroup
+    // uniform). dS^T = P^T o (dP^T - D).
+    const float* L_s = ld_s + (li & 1) * 2 * kBQ;
+    const float* D_s = L_s + kBQ;
+    const bool full = q0 + kBQ <= S && k0 + kBK <= Sk &&
+                      (!causal || q0 >= k0 + kBK - 1) &&
+                      (window <= 0 || q0 + kBQ - 1 < k0 + window);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int i = (r >> 1) & 1, col = 8 * (r >> 2) + (r & 1);
+      const int c = col + 2 * t;                      // q row in the tile
+      float p = fast_exp2(fmaf(s[r], sl2, -L_s[c]));
+      if (!full && !(q0 + col >= q_lo[i] && q0 + col <= q_hi[i])) p = 0.f;
+      s[r] = p;
+      dp[r] = p * (dp[r] - D_s[c]);
+    }
+
+    uint32_t a_hi[4][4], a_lo[4][4];
+    split_frags(s, a_hi, a_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_v, a_hi[kk], desc_mn<HD>(do_addr, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_v, a_lo[kk], desc_mn<HD>(do_addr, kk));
+    wgmma_commit();
+    if (HD == 128) {          // free P's fragments before dS's
+      wgmma_wait_all();
+      fence_regs(acc_v);
+      fence_regs(a_hi);
+      fence_regs(a_lo);
+    }
+    uint32_t b_hi[4][4], b_lo[4][4];
+    split_frags(dp, b_hi, b_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_k, b_hi[kk], desc_mn<HD>(q_addr, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_k, b_lo[kk], desc_mn<HD>(q_addr, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    fence_regs(a_hi);
+    fence_regs(a_lo);
+    fence_regs(b_hi);
+    fence_regs(b_lo);
+
+    warpgroup_sync(1 + wg);   // stage st and L/D buffer li & 1 are free
+    if (tl == 0 && li + kStages < n_loc) load_pair(li + kStages);
+  }
+
+  // Warpgroup 1 hands its sums to warpgroup 0 through its own (now idle)
+  // ring, which adds them in a fixed order: deterministic.
+  float* red = reinterpret_cast<float*>(ring);    // [HD][128] per warpgroup
+  static_assert(HD * 128 * sizeof(float) <= 2 * kStages * kTile,
+                "the ring holds one warpgroup's dK and dV");
+  __syncthreads();
+  if (wg == 1) {
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r) {
+      red[r * 128 + tl] = acc_k[r];
+      red[(HD / 2 + r) * 128 + tl] = acc_v[r];
+    }
+  }
+  __syncthreads();
+  if (wg == 0) {
+    red += 2 * kStages * kTile / sizeof(float);     // warpgroup 1's ring
+#pragma unroll
+    for (int r = 0; r < HD / 2; ++r) {
+      acc_k[r] += red[r * 128 + tl];
+      acc_v[r] += red[(HD / 2 + r) * 128 + tl];
+    }
+    // dK and dV go out through warpgroup 0's idle ring and two TMA
+    // stores, which skip rows past Sk.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 16 * w + g + 8 * i;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const uint32_t off = tile_offset<HD>(row, 8 * n + 2 * t);
+        const int r = 4 * n + 2 * i;
+        *reinterpret_cast<__nv_bfloat162*>(ring + off) =
+            __floats2bfloat162_rn(acc_k[r] * scale, acc_k[r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(ring + kTile + off) =
+            __floats2bfloat162_rn(acc_v[r], acc_v[r + 1]);
+      }
+    }
+    fence_async_smem();
+    warpgroup_sync(1);
+    if (tl == 0) {
+      tma_store_tile<HD>(ring, &tm_dk, kvh, k0, b);
+      tma_store_tile<HD>(ring + kTile, &tm_dv, kvh, k0, b);
+    }
+  }
+}
+
+template <int HD>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* L, const void* D, void* dk,
+                     void* dv, int B, int S, int Sk, int H, int KV,
+                     int causal, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  if (!fa_sm90::make_tile_map<HD>(&tq, q, B, S, H) ||
+      !fa_sm90::make_tile_map<HD>(&tk, k, B, Sk, KV) ||
+      !fa_sm90::make_tile_map<HD>(&tv, v, B, Sk, KV) ||
+      !fa_sm90::make_tile_map<HD>(&tdo, dout, B, S, H) ||
+      !fa_sm90::make_tile_map<HD>(&tdk, dk, B, Sk, KV) ||
+      !fa_sm90::make_tile_map<HD>(&tdv, dv, B, Sk, KV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = dkv_wgmma_smem<HD>();
+  auto kern = fa_dkv_wgmma_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(KV, B, (Sk + kBK - 1) / kBK);
+  kern<<<grid, 256, smem, stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, static_cast<const float*>(L),
+      static_cast<const float*>(D), S, Sk, H, KV, causal, window,
+      1.0f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -349,25 +646,31 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 -> the wgmma kernel; fp32 -> the SIMT kernel.
 template <typename T, int HD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* L, const void* D, void* dk, void* dv, int B, int S,
                int Sk, int H, int KV, int causal, int window,
                cudaStream_t stream) {
-  constexpr int P = HD + 1;
-  const size_t smem = (2 * static_cast<size_t>(kBK) * P + 2 * kBQ * P +
-                       2 * kBQ * (kBK + 1) + 2 * kBQ) * sizeof(float);
-  auto kern = fa_dkv_kernel<T, HD>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Sk + kBK - 1) / kBK, KV, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(L), static_cast<const float*>(D),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, H, KV, causal, window,
-      1.0f / sqrtf(static_cast<float>(HD)));
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_dkv_wgmma<HD>(q, k, v, dout, L, D, dk, dv, B, S, Sk, H, KV,
+                                causal, window, stream);
+  } else {
+    constexpr int P = HD + 1;
+    const size_t smem = (2 * static_cast<size_t>(kBK) * P + 2 * kBQ * P +
+                         2 * kBQ * (kBK + 1) + 2 * kBQ) * sizeof(float);
+    auto kern = fa_dkv_kernel<T, HD>;
+    cudaError_t e = set_smem(kern, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((Sk + kBK - 1) / kBK, KV, B);
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(L), static_cast<const float*>(D),
+        static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, H, KV, causal,
+        window, 1.0f / sqrtf(static_cast<float>(HD)));
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // Dispatch on (dtype code, head_dim) to FN<T, HD>(args...).

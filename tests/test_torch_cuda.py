@@ -285,18 +285,29 @@ def test_macro_step_makes_no_host_sync(smoke):
 
 
 FLASH_CASES = {
-    # name: (B, S, H, KV, hd, causal, window)
-    "s96_group2_hd32": (2, 96, 4, 2, 32, True, 0),
-    "update_heads_group7": (2, 256, 14, 2, 64, True, 0),
-    "ragged_s100": (1, 100, 14, 2, 64, True, 0),
-    "window_after_empty_slab": (1, 200, 4, 2, 32, True, 40),
-    "not_causal_hd128": (1, 130, 8, 1, 128, False, 0),
+    # name: (B, S, Sk, H, KV, hd, causal, window)
+    "s96_group2_hd32": (2, 96, 96, 4, 2, 32, True, 0),
+    "update_heads_group7": (2, 256, 256, 14, 2, 64, True, 0),
+    "ragged_s100": (1, 100, 100, 14, 2, 64, True, 0),
+    "window_after_empty_slab": (1, 200, 200, 4, 2, 32, True, 40),
+    "not_causal_hd128": (1, 130, 130, 8, 1, 128, False, 0),
+    # the edges of the 64-row tiles and of the TMA boxes
+    "ragged_s257": (2, 257, 257, 14, 2, 64, True, 0),
+    "ragged_s65": (2, 65, 65, 14, 2, 64, True, 0),
+    "s_below_sk_not_causal": (2, 100, 200, 8, 2, 64, False, 0),
+    "group1": (2, 192, 192, 4, 4, 64, True, 0),
+    "window_ends_mid_tile": (2, 300, 300, 6, 2, 64, True, 100),
+    "causal_hd32": (2, 256, 256, 8, 2, 32, True, 0),
+    "causal_hd128": (2, 200, 200, 8, 2, 128, True, 0),
+    # 12 heads x 3 rows x 16 q tiles = 576 forward blocks, > 4 x 132 SMs
+    "more_blocks_than_4_per_sm": (3, 1000, 1000, 12, 4, 64, True, 0),
 }
 
 
-def _flash_inputs(seed, B, S, H, KV, hd, dtype, device):
+def _flash_inputs(seed, B, S, H, KV, hd, dtype, device, Sk=None):
+    Sk = S if Sk is None else Sk
     g = torch.Generator(device="cpu").manual_seed(seed)
-    shapes = [(B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd)]
+    shapes = [(B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd), (B, S, H, hd)]
     return [torch.randn(sh, generator=g).to(device=device, dtype=dtype)
             for sh in shapes]
 
@@ -311,8 +322,8 @@ def _held(out, ref, rel, dtype):
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain_versions(name, dtype, dev):
-    B, S, H, KV, hd, causal, window = FLASH_CASES[name]
-    q, k, v, do = _flash_inputs(0, B, S, H, KV, hd, dtype, dev)
+    B, S, Sk, H, KV, hd, causal, window = FLASH_CASES[name]
+    q, k, v, do = _flash_inputs(0, B, S, H, KV, hd, dtype, dev, Sk)
     n0 = dict(fa_ops.launches)
     out, L = fa_ops.flash_attention_fwd(q, k, v, causal, window)
     grads = fa_ops.flash_attention_bwd(q, k, v, out, do, L, causal, window)
@@ -327,6 +338,20 @@ def test_flash_kernels_match_plain_versions(name, dtype, dev):
     for gk, gr in zip(grads, grads_r):
         assert gk.dtype == gr.dtype == dtype
         _held(gk, gr, 2.0 ** -14, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dkv_is_deterministic(dtype, dev):
+    """dk and dv have one owner block each and no atomics: two launches on
+    the same inputs agree bitwise."""
+    q, k, v, do = _flash_inputs(3, 2, 256, 14, 2, 64, dtype, dev)
+    out, L = fa_ops.flash_attention_fwd(q, k, v, True, 0)
+    D = torch.einsum("bshd,bshd->bhs", do.float(), out.float()).contiguous()
+    first = fa_ops.flash_attention_dkv(q, k, v, do, L, D, True, 0)
+    second = fa_ops.flash_attention_dkv(q, k, v, do, L, D, True, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_function_grads_match_autograd_through_plain_forward(dev):
@@ -353,6 +378,17 @@ def test_flash_wrapper_checks_inputs(dev):
     with pytest.raises(ValueError, match="S <= Sk"):
         fa_ops.flash_attention_fwd(q, k[:, :32].contiguous(),
                                    v[:, :32].contiguous())
+
+
+def test_flash_wrapper_refuses_misaligned_bf16(dev):
+    """The bf16 kernels load their tiles by TMA, which needs 16-byte
+    aligned bases: a contiguous view two bytes into a buffer is refused."""
+    q, k, v, _ = _flash_inputs(2, 1, 64, 4, 2, 32, torch.bfloat16, dev)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=dev)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention_fwd(shifted, k, v)
 
 
 def test_smoke_trainer_steps_launch_every_kernel_exactly(dev):
