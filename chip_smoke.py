@@ -20,13 +20,16 @@ Phases, in order; any failure raises and exits non-zero:
                update's shapes (B=32, S=256, 14/2 heads, hd 64) in bf16
                and fp32, and in bf16 at B=4, S=2048, and also timed
                against torch's scaled_dot_product_attention and its
-               autograd backward (library_ms; the port never calls it).
-     The split-K decode attention kernel is held at the dense cache's
-               shapes (B=32, S=256, 14/2 heads, hd 64) in bf16 and fp32
-               under four masks (a random fill, a wrapped ring with a
-               window, keys that start after a whole empty chunk, a fully
-               masked row) and timed against scaled_dot_product_attention
-               with a boolean mask.
+               autograd backward (library_ms; the port never calls it);
+               the bf16 update shape reports the error one bf16 rounding
+               of P / dS would give in place of the kernels' split.
+     The decode attention kernel is held at the dense cache's shapes
+               (B=32, S=256, 14/2 heads, hd 64) in bf16 and fp32 under
+               four masks (a random fill, a wrapped ring with a window,
+               keys that start at slot 40 past an empty first tile, a
+               fully masked row) and in bf16 at S=2048, timed against
+               scaled_dot_product_attention with a boolean mask, and
+               profiled (one launch per call).
   4. path    — full-width qwen2-0.5b (24 layers, d=896, 14/2 heads,
                V=151936, bf16, random weights from a seeded generator)
                driven through CompiledRolloutEngine on TicTacToe with
@@ -49,6 +52,10 @@ Phases, in order; any failure raises and exits non-zero:
                torch.cuda.set_sync_debug_mode("error").
   8. trace   — one macro-step timed on the host clock, and the next under
                torch.profiler: device busy time and idle share.
+     ref_trace — a macro-step of the path's engine with the folded
+               reference stream under torch.profiler: decode attention's
+               device ms over exactly one launch per layer per decode
+               step.
   9. train   — full-width qwen2-0.5b through EarlTrainer (the sync step:
                Rollout with the reference pass folded in -> ExpPrep ->
                Dispatch -> Update with AdamW) for 2 steps on TicTacToe,
@@ -158,6 +165,48 @@ def time_cold(torch, fn, n: int = N_TIMED) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_profile(torch, fn, symbols, n: int = 20) -> dict:
+    """Device time of ``n`` single calls of ``fn`` under torch.profiler,
+    each after the L2 flush and spin of ``time_cold``: per call, the
+    launches of kernels whose names hold one of ``symbols``, each symbol's
+    device microseconds, and the span from the first one's start to the
+    last one's end (the span less the kernels' sum is the time the call
+    spends on the device between its launches). Medians over the calls,
+    which the spins separate by about half a millisecond."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted(((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(sym in e.name for sym in symbols)))
+    calls = []
+    for ev in evs:
+        if not calls or ev[0] - calls[-1][-1][1] > 100.0:
+            calls.append([])
+        calls[-1].append(ev)
+    if len(calls) != n:
+        raise AssertionError(f"kernel_profile: {len(calls)} calls of "
+                             f"{symbols} in the trace, expected {n}")
+    med = statistics.median
+    per_sym = {sym: med(sum(e - s0 for s0, e, nm in c if sym in nm)
+                        for c in calls) for sym in symbols}
+    span = med(c[-1][1] - c[0][0] for c in calls)
+    return dict(launches_per_call=med(len(c) for c in calls),
+                device_us=per_sym, span_us=span,
+                between_launches_us=med((c[-1][1] - c[0][0])
+                                        - sum(e - s0 for s0, e, _ in c)
+                                        for c in calls))
 
 
 # ---------------------------------------------------------------------------
@@ -327,10 +376,10 @@ def phase_kernels(torch, report):
 def one_rounding_errors(torch, q, k, v, do, out, L, out_r, grads_r,
                         causal, window):
     """The error the bf16 kernels would make with one bf16 rounding of each
-    f32 A operand (P in P V; P and dS in dV = P^T dO and dK = dS^T Q)
-    instead of the hi + lo split they use: the plain formulas of ref.py
-    with those operands rounded once, as err / tol under the kernels'
-    gates. Reported, not gated: it is why the kernels split."""
+    f32 A operand (P in P V; dS in dQ = dS K; P and dS in dV = P^T dO and
+    dK = dS^T Q) instead of the hi + lo split they use: the plain formulas
+    of ref.py with those operands rounded once, as err / tol under the
+    kernels' gates. Reported, not gated: it is why the kernels split."""
     import math
     from repro_torch.kernels.flash_attention.ref import NEG_INF, _scores
     B, S, H, hd = q.shape
@@ -347,11 +396,15 @@ def one_rounding_errors(torch, q, k, v, do, out, L, out_r, grads_r,
     D = (dof * out.float().reshape(B, S, KV, H // KV, hd)).sum(-1)
     dp = torch.einsum("bqkgh,bskh->bkgqs", dof, v.float())
     ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dq1 = (torch.einsum("bkgqs,bskh->bqkgh", rnd(ds), k.float())
+           / math.sqrt(hd)).reshape(B, S, H, hd)
     dk1 = torch.einsum("bkgqs,bqkgh->bskh", rnd(ds), qf) / math.sqrt(hd)
     dv1 = torch.einsum("bkgqs,bqkgh->bskh", rnd(p), dof)
     tol = lambda r, rel: 2.0 ** rel * float(r.float().abs().max())
     return {"flash_fwd": held(torch, o1, out_r, tol(out_r, -18),
                               2.0 ** -7)["err_over_tol"],
+            "flash_dq": held(torch, dq1.to(q.dtype), grads_r[0],
+                             tol(grads_r[0], -14), 2.0 ** -7)["err_over_tol"],
             "flash_dkv": max(held(torch, x.to(r.dtype), r, tol(r, -14),
                                   2.0 ** -7)["err_over_tol"]
                              for x, r in ((dk1, grads_r[1]),
@@ -365,9 +418,9 @@ def phase_flash(torch, report):
     cores' balance. Each is held against ``ref.py`` and timed beside its
     bound, the plain version and torch's scaled_dot_product_attention
     (forward, or its autograd backward, which computes dq, dk and dv in
-    one call). At the update's bf16 shape the flash_fwd and flash_dkv
-    cases also report the error one bf16 rounding of their f32 A operands
-    would give (``one_rounding_errors``)."""
+    one call). At the update's bf16 shape every case also reports the
+    error one bf16 rounding of its f32 A operands would give
+    (``one_rounding_errors``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -578,13 +631,19 @@ def phase_spec_verify(torch, report):
     report["spec_verify"] = dict(cases["bf16_fill"], cases=cases)
 
 
+# The decode attention kernel's symbol (a substring of the profiler's name).
+DECODE_SYMBOLS = ("decode_attention_kernel",)
+
+
 def phase_decode(torch, report):
-    """The split-K decode attention kernel at the dense cache's shapes:
-    B=32 rows, S=256 slots, 14/2 heads, hd 64, bf16 (the main path) and
-    fp32, under four masks. Each case is held against ``ref.py`` and timed
-    beside its bound, the plain version and torch's
-    scaled_dot_product_attention with a boolean mask (library_ms; the port
-    never calls it)."""
+    """The decode attention kernel at the dense cache's shapes: B=32 rows,
+    S=256 slots, 14/2 heads, hd 64, bf16 (the main path) and fp32, under
+    four masks, and in bf16 at S=2048 under a random fill. Each case is
+    held against ``ref.py`` and timed beside its bound, the plain version
+    and torch's scaled_dot_product_attention with a boolean mask
+    (library_ms; the port never calls it). The bf16 fill case also
+    reports its device profile (``kernel_profile``): one launch per
+    call."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -600,50 +659,76 @@ def phase_decode(torch, report):
         "fill": idx <= fill,
         # a ring that has wrapped, with a window of 160 positions
         "ring_window": (kpos >= 0) & (kpos <= ring) & (kpos > ring - 160),
-        # keys valid only from slot 40 on: the first 32-key chunk is empty
+        # keys valid only from slot 40 on: the first 32-key tile is empty
         "late_start": (idx >= 40) & (idx <= fill.clamp_min(40)),
         "masked_row": (idx <= fill) & (torch.arange(B, device=dev)[:, None]
                                        != 0),
     }
     cases = {}
+
     # Tolerances as for paged attention: f32 outputs within 32 f32 ulps of
     # the case's output scale s = max|ref| (atol 2^-18 s); bf16 adds one
     # bf16 ulp of each element (rtol 2^-7).
+    def run_case(name, q, k, v, valid, peak, rtol):
+        out = da_ops.decode_attention(q, k, v, valid)
+        ref = decode_attention_ref(q, k, v, valid)
+        torch.cuda.synchronize()
+        chk = held(torch, out, ref,
+                   2.0 ** -18 * float(ref.float().abs().max()), rtol)
+        if not chk["ok"]:
+            raise AssertionError(f"decode_attention {name}: {chk}")
+        # The least work: K and V of each row's valid keys (a row with no
+        # valid key needs only all of V, for its mean), q, the output and
+        # the mask; 4 hd flops per valid (query head, key) pair, and one
+        # add per V element of a row with no valid key.
+        Bq, Sk = valid.shape
+        _, _, kvh, d = k.shape
+        n_valid = valid.sum(1)
+        n_keys, n_empty = int(n_valid.sum()), int((n_valid == 0).sum())
+        nbytes = ((2 * n_keys + n_empty * Sk) * kvh * d * k.element_size()
+                  + 2 * q.numel() * q.element_size() + Bq * Sk)
+        flops = 4 * q.shape[1] * d * n_keys + n_empty * Sk * kvh * d
+        b_ms, b_by = bound(nbytes, flops, peak)
+        am = valid[:, None, None, :]
+        case = dict(
+            chk,
+            ms=time_cold(torch, lambda: da_ops.decode_attention(
+                q, k, v, valid)),
+            plain_ms=time_cold(torch, lambda: decode_attention_ref(
+                q, k, v, valid)),
+            library_ms=time_cold(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=am, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+            valid_keys=n_keys)
+        if name == "bf16_fill":
+            case["profile"] = kernel_profile(
+                torch, lambda: da_ops.decode_attention(q, k, v, valid),
+                DECODE_SYMBOLS)
+        cases[name] = case
+        emit({"phase": "kernels", "kernel": "decode_attention",
+              "case": name, **case})
+
     for dname, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
                                    2.0 ** -7),
                                   ("fp32", torch.float32, F32_FLOPS, 0.0)):
         q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
         k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
                 for _ in range(2))
-        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        e = q.element_size()
-        nbytes = 2 * B * S * KV * hd * e + 2 * q.numel() * e + B * S
-        b_ms, b_by = bound(nbytes, 4 * B * H * S * hd, peak)
         for mname, valid in masks.items():
-            valid = valid.contiguous()
-            out = da_ops.decode_attention(q, k, v, valid)
-            ref = decode_attention_ref(q, k, v, valid)
-            torch.cuda.synchronize()
-            chk = held(torch, out, ref,
-                       2.0 ** -18 * float(ref.float().abs().max()), rtol)
-            if not chk["ok"]:
-                raise AssertionError(f"decode_attention {dname} {mname}: "
-                                     f"{chk}")
-            am = valid[:, None, None, :]
-            case = dict(
-                chk,
-                ms=time_cold(torch, lambda: da_ops.decode_attention(
-                    q, k, v, valid)),
-                plain_ms=time_cold(torch, lambda: decode_attention_ref(
-                    q, k, v, valid)),
-                library_ms=time_cold(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=am, enable_gqa=True)),
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                valid_keys=int(valid.sum()))
-            cases[f"{dname}_{mname}"] = case
-            emit({"phase": "kernels", "kernel": "decode_attention",
-                  "case": f"{dname}_{mname}", **case})
+            run_case(f"{dname}_{mname}", q, k, v, valid.contiguous(), peak,
+                     rtol)
+    # a long context, S=2048 in bf16 under a random fill, where each block
+    # walks eight tiles
+    S = 2048
+    fill = torch.randint(1, S, (B, 1), generator=g, device=dev)
+    q = torch.randn((B, H, hd), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    run_case("bf16_fill_s2048", q, k, v,
+             (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
+             BF16_FLOPS, 2.0 ** -7)
     # the main path: the bf16 reference stream over a filling cache
     report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
 
@@ -940,7 +1025,11 @@ def phase_macro_step(torch, engine, dense_engine, params):
     the second timed on the host clock, the third under torch.profiler for
     the device's busy time. Idle share = 1 - busy / unprofiled wall time.
     Before them, one macro-step of the dense engine with the folded
-    reference stream, also under set_sync_debug_mode("error")."""
+    reference stream, also under set_sync_debug_mode("error"). After
+    them, the path's engine with the folded reference stream (the train
+    step's route): one macro-step to warm, the next under torch.profiler
+    for decode attention's device time and launches (exactly one per
+    layer per decode step of the reference stream)."""
     noise = engine.default_noise(torch.Generator(device="cuda").manual_seed(4))
     dc = dense_engine.init_feed(
         params, dense_engine.init_carry(32, 64, with_ref=True), params)
@@ -982,6 +1071,44 @@ def phase_macro_step(torch, engine, dense_engine, params):
           "device_events": n_events,
           "device_events_per_decode_step": n_events / steps,
           "top_device_ms": top})
+    del carry
+
+    # The train step's route: the paged policy with the reference stream
+    # folded in on its dense cache, where decode attention runs once per
+    # layer per decode step. One macro-step to warm, the next traced.
+    from torch.autograd import DeviceType
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    rc = engine.init_feed(params, engine.init_carry(32, 64, with_ref=True),
+                          params)
+    rc = engine.turn_step(params, rc, 0, noise, ref_params=params)
+    torch.cuda.synchronize()
+    da_ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc = engine.turn_step(params, rc, 1, noise, ref_params=params)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    n_da = da_ops.launches
+    busy_ms, n_events, top = device_busy(torch, prof)
+    da_ms = sum(a.self_device_time_total for a in prof.key_averages()
+                if a.device_type == DeviceType.CUDA
+                and any(sym in a.key for sym in DECODE_SYMBOLS)) / 1e3
+    expected = engine.model.cfg.n_layers * steps
+    out = {"phase": "ref_trace", "decode_steps": steps,
+           "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+           "device_events": n_events,
+           "decode_attention_device_ms": da_ms,
+           "decode_attention_launches": n_da,
+           "expected_decode_attention_launches": expected,
+           "decode_attention_us_per_launch": (1e3 * da_ms / n_da
+                                              if n_da else None),
+           "top_device_ms": top}
+    emit(out)
+    if n_da != expected or not da_ms > 0:
+        raise AssertionError(f"ref_trace: decode attention launched "
+                             f"{n_da} times (expected {expected}) or read "
+                             f"no device time: {out}")
 
 
 SPEC = dict(cache_layout="paged", attn_impl="paged", sampling="reference",
@@ -1603,7 +1730,7 @@ def phase_train(torch, model, report):
 # The kernel symbols behind each flash launch counter: bf16 runs the wgmma
 # kernels, fp32 the SIMT ones (substrings of the profiler's kernel names).
 FLASH_SYMBOLS = {"fwd": ("fa_fwd_wgmma_kernel", "fa_fwd_kernel"),
-                 "dq": ("fa_dq_kernel",),
+                 "dq": ("fa_dq_wgmma_kernel", "fa_dq_kernel"),
                  "dkv": ("fa_dkv_wgmma_kernel", "fa_dkv_kernel")}
 
 

@@ -25,18 +25,57 @@
 // What bounds it: at the update's shapes (B=32, S=256, 14/2 heads, hd 64,
 //   bf16) dq does 5.6e9 causal flops on 49 MB and dk/dv 7.5e9 on 39 MB:
 //   both below the tensor cores' balance (about 295 bf16 flops a byte), so
-//   bytes set the floor (15 and 12 us).
+//   bytes set the floor (15 and 12 us). At a long context (B=4, S=2048)
+//   dq does 45 GFLOP on 12 MB: there the tensor cores set the floor
+//   (46 us; 61 us for the products this design issues, below).
 //
-// dk/dv in bf16 (`fa_dkv_wgmma_kernel`, tile machinery in flash_sm90.cuh):
-//   one block of two warpgroups per (kv head, b, 64-key tile), the key
-//   tile slowest in the grid and walked from tile 0 up, so under a causal
-//   mask the tiles that see the most q tiles start first. The K and V
-//   tiles stay resident in shared memory. The (head in group, q tile)
-//   pairs that can see them (the loop that `fori_loop` ran on the TPU) are
-//   dealt alternately to the two warpgroups; each streams its pairs' q and
-//   dO tiles by TMA through its own two-stage ring on mbarriers, and
-//   stages each pair's L and D rows in shared memory one pair ahead. The
-//   products are transposed, so each A operand is already in registers:
+// dq in bf16 (`fa_dq_wgmma_kernel`, tile machinery in flash_sm90.cuh): the
+//   forward's shape with two score products and no online softmax. One
+//   warpgroup (128 threads) per (q head, b, 64-row q tile), the q tile
+//   slowest in the grid and walked from the last tile down, so under a
+//   causal mask the tiles with the most slabs start first. Thread 0 loads
+//   the Q and dO tiles once by TMA, and streams the K/V slabs the tile can
+//   see (those above the causal diagonal or before the window are skipped)
+//   through a two-stage TMA ring completed on mbarriers, so slab j+1 is in
+//   flight while slab j is multiplied. The L and D rows of the thread's
+//   two accumulator rows (16w + g and +8) sit in registers. Per slab:
+//     S = Q K^T and dP = dO V^T   (one wgmma chain each, both operands
+//                                  K-major, f32 accumulators),
+//     P and dS in registers       (P = exp2(s scale log2e - L log2e), 0
+//                                  where masked; a slab wholly inside the
+//                                  mask skips it; dS = P o (dP - D)),
+//     dQ += dS K                  (A = dS from registers, B = the K slab
+//                                  MN-major, N = HD: the forward's P V).
+//   The scale multiplies the f32 accumulator at the end, and dQ leaves
+//   through the Q tile's shared memory and one TMA store, which clips rows
+//   past S. One owner block per dq tile and a fixed slab order: no
+//   atomics, the same bits on every run.
+//   Precision: dS is f32 as in the TPU kernel. One bf16 rounding of it
+//   puts about 2^-9 of each term on dq against a 2^-14 s gate (chip_smoke
+//   reports the error that would give as `one_rounding_err_over_tol`), so
+//   dS is split into hi = bf16(dS) and lo = bf16(dS - hi) and both go
+//   through the tensor cores into one accumulator (about 2^-17 of dS):
+//   four products per slab where three would do.
+//   Occupancy: as in the forward, blocks at S = 256 walk only 1-4 slabs,
+//   so latency and the number of resident blocks set the pace. The S, dP
+//   and dQ accumulators are 32 + 32 + HD/2 registers a thread, and S is
+//   dead once dS exists: at hd 64 the kernel takes 122 registers (106 at
+//   hd 32, 154 at hd 128; no spills) and 50 KB of shared
+//   memory, so four blocks fit on an SM.
+//   Left for later: a 128-row tile over two warpgroups for the long
+//   context, where the products set the pace, and a producer warp with
+//   setmaxnreg.
+//
+// dk/dv in bf16 (`fa_dkv_wgmma_kernel`): one block of two warpgroups per
+//   (kv head, b, 64-key tile), the key tile slowest in the grid and walked
+//   from tile 0 up, so under a causal mask the tiles that see the most q
+//   tiles start first. The K and V tiles stay resident in shared memory.
+//   The (head in group, q tile) pairs that can see them (the loop that
+//   `fori_loop` ran on the TPU) are dealt alternately to the two
+//   warpgroups; each streams its pairs' q and dO tiles by TMA through its
+//   own two-stage ring on mbarriers, and stages each pair's L and D rows in
+//   shared memory one pair ahead. The products are transposed, so each A
+//   operand is already in registers:
 //     S^T = K Q^T and dP^T = V dO^T   (wgmma, both operands K-major),
 //     P^T and dS^T in registers       (L and D index their columns; a
 //                                      pair wholly inside the mask skips
@@ -49,23 +88,20 @@
 //   warpgroups halve the walk of the busiest tile (28 pairs at the
 //   update's shape), which is what sets the kernel's time: 256 blocks, one
 //   per SM (212 registers a thread at hd 64).
-//   Precision: P^T and dS^T are f32 as in the TPU kernel. One bf16
-//   rounding of either puts about 2^-9 of each term on dV and dK against a
-//   2^-14 s gate, so each is split into hi = bf16(x) and lo = bf16(x - hi)
-//   and both terms go through the tensor cores into one accumulator
-//   (about 2^-17 of x).
+//   Precision: P^T and dS^T are split hi + lo as dS is in dq.
 //   Left for later: a producer warp with setmaxnreg, overlapping the
 //   products of one pair with the softmax of the next, and the long
 //   context, where the products set the pace.
 //
-// dq, and dk/dv in fp32: the first SIMT design. 256 threads per block;
+// fp32 dq and dk/dv keep the first SIMT design. 256 threads per block;
 //   each thread owns a 4x4 block of the 64x64 score tile and a 4 x hd/16
 //   block of its accumulators, in registers; products are f32 FMAs from
 //   padded shared-memory tiles (67 TFLOP/s: an 84 us floor for dq at the
 //   update's shape). dq walks the kv slabs a causal / windowed q tile can
-//   see; fp32 dk/dv walks every (head in group, q tile) pair that can see
-//   its kv tile. Rows and keys past S / Sk are masked, so any S works.
-//   The dq kernel's redesign on the tile machinery above is the next step.
+//   see; dk/dv walks every (head in group, q tile) pair that can see its
+//   kv tile. Rows and keys past S / Sk are masked, so any S works. TF32
+//   tensor cores would break the fp32 gate, and fp32 is off the main
+//   path.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,13 +120,7 @@ static_assert(kBQ == 64 && kBK == 64, "load_tile and the 4x4 thread blocks "
               "assume 64-row tiles");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ bool allowed(int qp, int kp, int S, int Sk,
                                         int causal, int window) {
@@ -620,30 +650,224 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- dq in bf16: wgmma + TMA -------------------------------------------------
+constexpr int kDqStages = 2;  // K/V slabs in flight
+
+// Q, dO; the ring of K/V slabs; the mbarriers.
+template <int HD>
+constexpr size_t dq_wgmma_smem() {
+  return fa_sm90::kAlignSlack +
+         (2 + 2 * kDqStages) * fa_sm90::Tile<HD>::kBytes +
+         (1 + kDqStages) * sizeof(uint64_t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128, HD == 128 ? 2 : 3)
+    fa_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_dq,
+                       const float* __restrict__ L,
+                       const float* __restrict__ D, int S, int Sk, int H,
+                       int group, int causal, int window, float scale) {
+  using namespace fa_sm90;
+  constexpr int kTile = Tile<HD>::kBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + kTile;
+  uint8_t* kv_s = do_s + kTile;            // stage st: K, then V
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(kv_s + 2 * kDqStages * kTile);
+  uint64_t* bar_kv = bar_q + 1;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // longest tiles first
+  const int kvh = h / group;
+  const int tid = threadIdx.x;
+  const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+
+  // the slabs holding an allowed key of some row of this tile
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int j0 = lo / kBK;
+  const int n_slabs = (hi + kBK - 1) / kBK - j0;
+
+  if (tid == 0) {
+    tma_prefetch(&tm_q);
+    tma_prefetch(&tm_k);
+    tma_prefetch(&tm_v);
+    tma_prefetch(&tm_do);
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kDqStages; ++st) mbar_init(&bar_kv[st], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_slab = [&](int it) {
+    uint8_t* dst = kv_s + (it % kDqStages) * 2 * kTile;
+    uint64_t* bar = &bar_kv[it % kDqStages];
+    mbar_expect_tx(bar, 2 * kTile);
+    tma_load_tile<HD>(dst, map_k, bar, kvh, (j0 + it) * kBK, b);
+    tma_load_tile<HD>(dst + kTile, map_v, bar, kvh, (j0 + it) * kBK, b);
+  };
+  if (tid == 0 && n_slabs > 0) {
+    mbar_expect_tx(bar_q, 2 * kTile);
+    tma_load_tile<HD>(q_s, &tm_q, bar_q, h, q0, b);
+    tma_load_tile<HD>(do_s, &tm_do, bar_q, h, q0, b);
+    for (int it = 0; it < min(kDqStages, n_slabs); ++it) load_slab(it);
+  }
+
+  // This thread's rows 16w + g + 8i (i = 0, 1): their L * log2(e) and D,
+  // and their allowed keys [key_lo, key_hi], less 2t (its columns are
+  // 8n + 2t + j). Rows past S see no key.
+  float l2[2], dr[2];
+  int key_lo[2], key_hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + 16 * w + g + 8 * i;
+    const size_t off = (static_cast<size_t>(b) * H + h) * S + qp;
+    l2[i] = qp < S ? L[off] * kLog2e : 0.f;
+    dr[i] = qp < S ? D[off] : 0.f;
+    key_hi[i] = (qp < S ? (causal ? min(qp, Sk - 1) : Sk - 1) : -1) - 2 * t;
+    key_lo[i] = (window > 0 ? qp - window + 1 : 0) - 2 * t;
+  }
+  const float sl2 = scale * kLog2e;
+  float acc[HD / 2];
+#pragma unroll
+  for (int r = 0; r < HD / 2; ++r) acc[r] = 0.f;
+  const uint32_t q_addr = smem_addr(q_s), do_addr = smem_addr(do_s);
+  const uint32_t kv_addr = smem_addr(kv_s);
+  if (n_slabs > 0) mbar_wait(bar_q, 0);
+
+  for (int it = 0; it < n_slabs; ++it) {
+    const int st = it % kDqStages;
+    const int k0 = (j0 + it) * kBK;
+    const uint32_t k_addr = kv_addr + st * 2 * kTile;
+    const uint32_t v_addr = k_addr + kTile;
+    mbar_wait(&bar_kv[st], (it / kDqStages) & 1);
+
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(s, desc_k<HD>(q_addr, kk), desc_k<HD>(k_addr, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(dp, desc_k<HD>(do_addr, kk), desc_k<HD>(v_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp2(s * scale * log2(e) - L log2(e)), 0 where masked; a slab
+    // whose every (row, key) is allowed skips the mask (block uniform).
+    // dS = P o (dP - D), in dp's registers.
+    const bool full = q0 + kBQ <= S && k0 + kBK <= Sk &&
+                      (!causal || k0 + kBK - 1 <= q0) &&
+                      (window <= 0 || k0 > q0 + kBQ - 1 - window);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int i = (r >> 1) & 1, col = k0 + 8 * (r >> 2) + (r & 1);
+      float p = fast_exp2(fmaf(s[r], sl2, -l2[i]));
+      if (!full && !(col >= key_lo[i] && col <= key_hi[i])) p = 0.f;
+      dp[r] = p * (dp[r] - dr[i]);
+    }
+
+    uint32_t a_hi[4][4], a_lo[4][4];
+    split_frags(dp, a_hi, a_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a_hi[kk], desc_mn<HD>(k_addr, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a_lo[kk], desc_mn<HD>(k_addr, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(a_hi);
+    fence_regs(a_lo);
+
+    __syncthreads();   // every warp is done with stage st
+    if (tid == 0 && it + kDqStages < n_slabs) load_slab(it + kDqStages);
+  }
+
+  // dQ = scale * acc goes out through the Q tile's shared memory (free
+  // after the loop's last barrier) and one TMA store, which skips rows
+  // past S.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * w + g + 8 * i;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(q_s +
+                                         tile_offset<HD>(row, 8 * n + 2 * t)) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale,
+                                acc[4 * n + 2 * i + 1] * scale);
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) tma_store_tile<HD>(q_s, &tm_dq, h, q0, b);
+}
+
+template <int HD>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* L, const void* D, void* dq,
+                    int B, int S, int Sk, int H, int KV, int causal,
+                    int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!fa_sm90::make_tile_map<HD>(&tq, q, B, S, H) ||
+      !fa_sm90::make_tile_map<HD>(&tk, k, B, Sk, KV) ||
+      !fa_sm90::make_tile_map<HD>(&tv, v, B, Sk, KV) ||
+      !fa_sm90::make_tile_map<HD>(&tdo, dout, B, S, H) ||
+      !fa_sm90::make_tile_map<HD>(&tdq, dq, B, S, H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = dq_wgmma_smem<HD>();
+  auto kern = fa_dq_wgmma_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  kern<<<grid, 128, smem, stream>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(L),
+      static_cast<const float*>(D), S, Sk, H, H / KV, causal, window,
+      1.0f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
+// bf16 -> the wgmma kernel; fp32 -> the SIMT kernel.
 template <typename T, int HD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* L, const void* D, void* dq, int B, int S, int Sk,
               int H, int KV, int causal, int window, cudaStream_t stream) {
-  constexpr int P = HD + 1;
-  const size_t smem = (2 * static_cast<size_t>(kBQ) * P + 2 * kBK * P +
-                       kBQ * (kBK + 1) + 2 * kBQ) * sizeof(float);
-  auto kern = fa_dq_kernel<T, HD>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(L), static_cast<const float*>(D),
-      static_cast<T*>(dq), S, Sk, H, KV, causal, window,
-      1.0f / sqrtf(static_cast<float>(HD)));
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_dq_wgmma<HD>(q, k, v, dout, L, D, dq, B, S, Sk, H, KV,
+                               causal, window, stream);
+  } else {
+    constexpr int P = HD + 1;
+    const size_t smem = (2 * static_cast<size_t>(kBQ) * P + 2 * kBK * P +
+                         kBQ * (kBK + 1) + 2 * kBQ) * sizeof(float);
+    auto kern = fa_dq_kernel<T, HD>;
+    cudaError_t e = set_smem(kern, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+    kern<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(L), static_cast<const float*>(D),
+        static_cast<T*>(dq), S, Sk, H, KV, causal, window,
+        1.0f / sqrtf(static_cast<float>(HD)));
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // bf16 -> the wgmma kernel; fp32 -> the SIMT kernel.

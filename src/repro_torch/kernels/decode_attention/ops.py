@@ -1,12 +1,14 @@
-"""Public wrapper for the split-K decode attention kernel
+"""Public wrapper for the decode attention kernel
 (``csrc/decode_attention.cu``; replaces the Pallas ``_decode_kernel`` of
 ``repro/kernels/decode_attention/kernel.py``).
 
 The kernel reads the model layout ``(B, S, KV, hd)`` by stride, so the JAX
 wrapper's transposes and block picking have no counterpart; it masks the
-ragged last tile itself, so any S is taken. CPU tensors go to the plain
-version in ``ref.py``; CUDA tensors launch the kernel or raise — there is
-no fallback between the two.
+ragged last tile itself, so any S is taken. It splits the keys into chunks
+that one thread-block cluster merges inside the launch, so a call is one
+launch and needs no workspace. CPU tensors go to the plain version in
+``ref.py``; CUDA tensors launch the kernel or raise — there is no fallback
+between the two.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ launches = 0          # wrapper calls that launched the kernel since reset
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 32       # one warp per query head of a GQA group
 _MAX_HD = 256
-_TILE = 32            # keys per tile in the kernel: one per lane
+_TILE = 32            # keys per tile in the kernel: one mask bit per lane
+_MAX_CHUNKS = 8       # chunks of one (row, kv head): the portable cluster
 _BLOCKS_PER_SM = 4    # the split aims at about this many blocks per SM
 
 
@@ -35,7 +38,7 @@ def reset_launches() -> None:
 @functools.cache
 def _bind():
     fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -48,13 +51,17 @@ def _sm_count(index: int) -> int:
 
 
 def split_plan(n_pairs: int, S: int, n_sm: int):
-    """``(chunk, n_chunks)``: keys per pass-1 block, in whole 32-key tiles,
-    so that ``n_pairs`` (row, kv head) pairs times ``n_chunks`` fill about
-    four blocks per SM (at B=32, KV=2, S=256 on 132 SMs: 8 chunks of 32
-    keys, 512 blocks)."""
+    """``(chunk, n_chunks)``: keys per block, in whole 32-key tiles. As
+    many chunks as fill about four blocks per SM over ``n_pairs`` (row, kv
+    head) pairs, but at most 8 (one cluster per pair) and at most one per
+    two tiles, so each block has a tile in flight while it computes one;
+    past that the chunk grows with S. No chunk is empty. At B=32, KV=2 on
+    132 SMs: S=256 gives 4 chunks of 64 keys (256 blocks), S=2048 8 chunks
+    of 256."""
     tiles = -(-S // _TILE)
-    want = max(1, -(-_BLOCKS_PER_SM * n_sm // n_pairs))
-    chunk = _TILE * max(1, -(-tiles // want))
+    want = min(_MAX_CHUNKS, max(1, tiles // 2),
+               max(1, -(-_BLOCKS_PER_SM * n_sm // n_pairs)))
+    chunk = _TILE * -(-tiles // want)
     return chunk, -(-S // chunk)
 
 
@@ -102,13 +109,8 @@ def decode_attention(q, k, v, valid):
     S, KV = k.shape[1], k.shape[2]
     group = H // KV
     chunk, n_chunks = split_plan(B * KV, S, _sm_count(q.device.index or 0))
-    n_part = B * KV * n_chunks * group
-    ws = torch.empty((n_part * (hd + 2),), dtype=torch.float32,
-                     device=q.device)
-    ws_m, ws_l, ws_acc = ws[:n_part], ws[n_part:2 * n_part], ws[2 * n_part:]
     out = torch.empty_like(q)
     err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                  ws_m.data_ptr(), ws_l.data_ptr(), ws_acc.data_ptr(),
                   out.data_ptr(), B, S, KV, group, hd, chunk, n_chunks,
                   k.stride(0), k.stride(1), v.stride(0), v.stride(1),
                   _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],

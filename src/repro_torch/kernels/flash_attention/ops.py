@@ -8,8 +8,8 @@ kernel.py``; ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` and
 saves q, k, v, O and L; the backward computes ``D = rowsum(dO∘O)`` and
 launches the dq and dk/dv kernels. The kernels read the model layout by
 stride, so the JAX wrapper's transposes and block-size picking have no
-counterpart. bf16 runs the forward and dk/dv on the tensor cores
-(wgmma, tiles loaded by TMA); fp32 and dq run f32 FMA kernels. CPU
+counterpart. bf16 runs the forward, dq and dk/dv on the tensor cores
+(wgmma, tiles loaded by TMA); fp32 runs f32 FMA kernels. CPU
 tensors go to the plain versions in ``ref.py``; CUDA tensors launch the
 kernels or raise — there is no fallback between the two. Under ``torch.utils.checkpoint`` the forward runs again inside the
 backward, and that recompute launches (and counts) the forward kernel a

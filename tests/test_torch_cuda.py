@@ -137,15 +137,30 @@ DECODE_CASES = {
     "ragged_s100_ring_window": (3, 100, 14, 2, 64, "ring"),
     "empty_first_chunks": (2, 257, 8, 1, 128, "late"),
     "fully_masked_row": (3, 96, 4, 2, 64, "none"),
+    # the cluster's edges: 8 chunks of several tiles each; the widest
+    # head; one pair (B=1, group 1) whose S=200 keys split into 3 chunks
+    # of 96 (the last ragged), and whose S=512 keys fill a whole cluster
+    # (8 chunks of 64); valid keys starting mid-tile; hd 96 (3 lanes'
+    # groups of 8)
+    "long_s2048_fill": (2, 2048, 14, 2, 64, "fill"),
+    "hd256": (2, 300, 8, 2, 256, "fill"),
+    "group1_b1": (1, 200, 1, 1, 64, "fill"),
+    "group1_b1_cluster8": (1, 512, 1, 1, 64, "fill"),
+    "valid_from_mid_tile": (3, 256, 14, 2, 64, "mid"),
+    "hd96_ring": (2, 130, 6, 2, 96, "ring"),
 }
 
 
 def decode_valid(kind, B, S, g):
     """(B,S) bool masks: "fill" a random fill pos in [1,S) (keys <= pos);
     "ring" a wrapped ring buffer of S slots with a window of S//2; "late"
-    keys valid only from S-40 on (whole empty leading chunks); "none" a
-    random fill with row 0 fully masked."""
+    keys valid only from S-40 on (whole empty leading chunks); "mid" keys
+    valid from 45 (inside the second 32-key tile) to a random pos >= 45;
+    "none" a random fill with row 0 fully masked."""
     idx = torch.arange(S)[None, :]
+    if kind == "mid":
+        pos = torch.randint(45, S, (B, 1), generator=g)
+        return (idx >= 45) & (idx <= pos)
     if kind == "ring":
         pos = torch.randint(S, 3 * S, (B, 1), generator=g)
         kpos = pos - torch.remainder(pos - idx, S)
@@ -185,6 +200,44 @@ def test_decode_attention_kernel_matches_plain_version(name, qdtype, kvdtype,
         mean = v[0].float().mean(0).repeat_interleave(H // KV, 0)
         torch.testing.assert_close(out[0].float(), mean.to(qdtype).float(),
                                    atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", ["path_heads_s256", "long_s2048_fill"])
+def test_decode_attention_is_deterministic(name, dev):
+    """Each chunk's partial is merged by one warp in chunk order, with no
+    atomics: two launches on the same inputs agree bitwise."""
+    B, S, H, KV, hd, mask = DECODE_CASES[name]
+    g = torch.Generator(device="cpu").manual_seed(4)
+    q = torch.randn((B, H, hd), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, hd), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    valid = decode_valid(mask, B, S, g).to(dev)
+    first = da_ops.decode_attention(q, k, v, valid)
+    second = da_ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_misaligned_cache_takes_element_copies(kvdtype,
+                                                                dev):
+    """A K/V view one element past a 16-byte boundary cannot be read by
+    16-byte copies: the kernel copies its tiles element by element and
+    gives the plain version's result all the same."""
+    B, S, H, KV, hd, mask = DECODE_CASES["path_heads_s256"]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn((B, H, hd), generator=g).to(dev, torch.bfloat16)
+    n = B * S * KV * hd
+    k, v = (torch.randn((n + 1,), generator=g).to(dev, kvdtype)[1:]
+            .view(B, S, KV, hd) for _ in range(2))
+    assert k.data_ptr() % 16
+    valid = decode_valid(mask, B, S, g).to(dev)
+    out = da_ops.decode_attention(q, k, v, valid)
+    ref = decode_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), ref.float(),
+        atol=2.0 ** -18 * float(ref.float().abs().max()), rtol=2.0 ** -7)
 
 
 def test_decode_attention_wrapper_checks_inputs(dev):
@@ -340,16 +393,20 @@ def test_flash_kernels_match_plain_versions(name, dtype, dev):
         _held(gk, gr, 2.0 ** -14, dtype)
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_dkv_is_deterministic(dtype, dev):
-    """dk and dv have one owner block each and no atomics: two launches on
-    the same inputs agree bitwise."""
+def test_flash_backward_kernel_is_deterministic(kernel, dtype, dev):
+    """dq, dk and dv tiles have one owner block each and no atomics: two
+    launches on the same inputs agree bitwise."""
     q, k, v, do = _flash_inputs(3, 2, 256, 14, 2, 64, dtype, dev)
     out, L = fa_ops.flash_attention_fwd(q, k, v, True, 0)
     D = torch.einsum("bshd,bshd->bhs", do.float(), out.float()).contiguous()
-    first = fa_ops.flash_attention_dkv(q, k, v, do, L, D, True, 0)
-    second = fa_ops.flash_attention_dkv(q, k, v, do, L, D, True, 0)
+    fn = {"dq": fa_ops.flash_attention_dq, "dkv": fa_ops.flash_attention_dkv}
+    first = fn[kernel](q, k, v, do, L, D, True, 0)
+    second = fn[kernel](q, k, v, do, L, D, True, 0)
     torch.cuda.synchronize()
+    if kernel == "dq":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

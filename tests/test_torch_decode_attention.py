@@ -84,6 +84,29 @@ def test_ref_matches_jax_kernel_and_ref(B, S, H, KV, hd, mask, dtype):
                                    dtype == "float32" else 2e-2)
 
 
+@pytest.mark.parametrize("n_sm", [1, 8, 78, 132])
+def test_split_plan_invariants(n_sm):
+    """The kernel's chunks, over a grid of (B*KV, S): whole 32-key tiles,
+    covering S with no empty chunk, at most 8 (one thread-block cluster
+    per (row, kv head)), and two tiles or more in each when S is split."""
+    for n_pairs in (1, 2, 3, 7, 64, 100, 1000, 4096):
+        for S in [*range(1, 70), 100, 255, 256, 257, 1000, 2048, 4097,
+                  32768]:
+            chunk, n = da_ops.split_plan(n_pairs, S, n_sm)
+            assert chunk % da_ops._TILE == 0 and chunk >= da_ops._TILE
+            assert chunk * n >= S and chunk * (n - 1) < S
+            assert 1 <= n <= da_ops._MAX_CHUNKS
+            assert n == 1 or chunk >= 2 * da_ops._TILE
+    # the main path's shape on an H100: 4 chunks of two tiles, 256 blocks
+    if n_sm == 132:
+        assert da_ops.split_plan(64, 256, n_sm) == (64, 4)
+        assert da_ops.split_plan(64, 2048, n_sm) == (256, 8)
+        # the card tests' one-pair cases: 3 chunks of 96 at S=200, a whole
+        # 8-block cluster at S=512
+        assert da_ops.split_plan(1, 200, n_sm) == (96, 3)
+        assert da_ops.split_plan(1, 512, n_sm) == (64, 8)
+
+
 WINDOW, S_MAX, B, STEPS = 8, 8, 3, 14
 
 
