@@ -30,6 +30,11 @@ Phases, in order; any failure raises and exits non-zero:
                fully masked row) and in bf16 at S=2048, timed against
                scaled_dot_product_attention with a boolean mask, and
                profiled (one launch per call).
+     The paged attention kernel is held at the rollout's shapes (B=32,
+               14/2 heads, hd 64, 16-token pages, NP=16) in fp32, bf16 and
+               int8 pools, with lens at the kernel's chunk edges and whole
+               chunks unmapped, and at NP=128 (2,048 tokens), profiled,
+               and timed under 8 chunks against its plan's 4.
   4. path    — full-width qwen2-0.5b (24 layers, d=896, 14/2 heads,
                V=151936, bf16, random weights from a seeded generator)
                driven through CompiledRolloutEngine on TicTacToe with
@@ -51,7 +56,9 @@ Phases, in order; any failure raises and exits non-zero:
                folded reference stream, under
                torch.cuda.set_sync_debug_mode("error").
   8. trace   — one macro-step timed on the host clock, and the next under
-               torch.profiler: device busy time and idle share.
+               torch.profiler: device busy time and idle share, and paged
+               attention's device ms over exactly one launch per layer
+               per decode step.
      ref_trace — a macro-step of the path's engine with the folded
                reference stream under torch.profiler: decode attention's
                device ms over exactly one launch per layer per decode
@@ -223,6 +230,7 @@ def held(torch, out, ref, atol: float, rtol: float) -> dict:
 
 
 def phase_kernels(torch, report):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.fused_sample.ref import fused_sample_ref
     from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -233,46 +241,39 @@ def phase_kernels(torch, report):
     g = torch.Generator(device=dev).manual_seed(1)
     # --- paged attention at the rollout's shapes: B=32 slots, qwen2-0.5b
     #     heads (14 q / 2 kv, hd 64), page 16, 256-token context (NP=16),
-    #     full provisioning (512 pages + the trash page)
+    #     full provisioning (512 pages + the trash page); the kernel's plan
+    #     there is 4 chunks of 4 pages per (row, kv head)
     B, H, KV, hd, ps, NP = 32, 14, 2, 64, 16, 16
-    P = B * NP + 1
-    lens = torch.randint(1, NP * ps + 1, (B,), generator=g, device=dev)
-    lens[0] = 0                      # a row with nothing to attend to
-    lens[1] = 3 * ps + 5             # a partially filled last page
-    lens = lens.to(torch.int32)
-    perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
-    bt = perm.reshape(B, NP).to(torch.int32)
-    npages = (lens + ps - 1) // ps
-    bt = torch.where(torch.arange(NP, device=dev)[None, :] < npages[:, None],
-                     bt, -1)
-    bt[2, 1] = -1                    # an unmapped entry inside a live range
-    bt = bt.contiguous()
-    valid = ((torch.arange(NP * ps, device=dev)[None, :] < lens[:, None])
-             & (bt >= 0)[:, :, None].expand(B, NP, ps).reshape(B, NP * ps))
-    n_valid = int(valid.sum())
+
+    def table(NP, lens, g):
+        """A shuffled block table mapping each row's pages below lens."""
+        P = B * NP + 1
+        perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
+        bt = perm.reshape(B, NP).to(torch.int32)
+        npages = (lens + ps - 1) // ps
+        return P, torch.where(
+            torch.arange(NP, device=dev)[None, :] < npages[:, None], bt, -1)
+
+    def pools(P, kvdt, g):
+        if kvdt == torch.int8:
+            kp, vp = (torch.randint(-127, 128, (P, ps, KV, hd), generator=g,
+                                    device=dev).to(torch.int8)
+                      for _ in range(2))
+            ks, vs = (torch.rand((P, ps, KV), generator=g, device=dev) / 127
+                      for _ in range(2))
+            return kp, vp, ks, vs
+        kp, vp = (torch.randn((P, ps, KV, hd), generator=g,
+                              device=dev).to(kvdt) for _ in range(2))
+        return kp, vp, None, None
+
     cases = {}
+
     # Tolerances at each case's own output scale s = max|ref|. Kernel and
     # plain version do the same f32 math in another order: f32 output
     # within 32 f32 ulps of s (atol 2^-18 s). A bf16 output is that f32
     # result rounded once, and two nearby f32 values may round to adjacent
     # bf16 values: one bf16 ulp of each element (rtol 2^-7) on top.
-    for name, qdt, kvdt, rtol in (("fp32", torch.float32, torch.float32, 0.0),
-                                  ("bf16", torch.bfloat16, torch.bfloat16,
-                                   2.0 ** -7),
-                                  ("int8", torch.bfloat16, torch.int8,
-                                   2.0 ** -7)):
-        q = torch.randn((B, H, hd), generator=g, device=dev).to(qdt)
-        if kvdt == torch.int8:
-            kp = torch.randint(-127, 128, (P, ps, KV, hd), generator=g,
-                               device=dev).to(torch.int8)
-            vp = torch.randint(-127, 128, (P, ps, KV, hd), generator=g,
-                               device=dev).to(torch.int8)
-            ks = torch.rand((P, ps, KV), generator=g, device=dev) / 127
-            vs = torch.rand((P, ps, KV), generator=g, device=dev) / 127
-        else:
-            kp = torch.randn((P, ps, KV, hd), generator=g, device=dev).to(kvdt)
-            vp = torch.randn((P, ps, KV, hd), generator=g, device=dev).to(kvdt)
-            ks = vs = None
+    def run_case(name, q, kp, vp, bt, lens, ks, vs, rtol, profile=False):
         out = pa_ops.paged_decode_attention(q, kp, vp, bt, lens, k_scales=ks,
                                             v_scales=vs)
         ref = paged_decode_attention_ref(q, kp, vp, bt, lens, ks, vs)
@@ -281,24 +282,106 @@ def phase_kernels(torch, report):
                    2.0 ** -18 * float(ref.float().abs().max()), rtol)
         if not chk["ok"]:
             raise AssertionError(f"paged_attention {name}: {chk}")
-        if bool((out[0] != 0).any()):
-            raise AssertionError("paged_attention: lens=0 row is not zero")
+        empty = (lens <= 0) | ~(bt >= 0).any(dim=1)
+        if bool((out[empty] != 0).any()):
+            raise AssertionError(f"paged_attention {name}: a row with no "
+                                 f"valid position is not zero")
+        NPc = bt.shape[1]
+        valid = ((torch.arange(NPc * ps, device=dev)[None, :] < lens[:, None])
+                 & (bt >= 0)[:, :, None].expand(B, NPc, ps).reshape(
+                     B, NPc * ps))
+        n_valid = int(valid.sum())
         esz = kp.element_size()
         nbytes = (2 * n_valid * KV * hd * esz
                   + (2 * n_valid * KV * 4 if ks is not None else 0)
                   + 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4)
         flops = 4 * n_valid * (H // KV) * KV * hd
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS
+                           if q.dtype == torch.bfloat16 else F32_FLOPS)
         case = dict(
             chk,
             ms=time_cold(torch, lambda: pa_ops.paged_decode_attention(
                 q, kp, vp, bt, lens, k_scales=ks, v_scales=vs)),
             plain_ms=time_cold(torch, lambda: paged_decode_attention_ref(
                 q, kp, vp, bt, lens, ks, vs)),
-            bound_ms=b_ms, bound_by=b_by, valid_positions=n_valid)
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            valid_positions=n_valid,
+            plan=pa_ops.split_plan(B * KV, NPc, ps, _build.sm_count(0)))
+        if profile:
+            case["profile"] = kernel_profile(
+                torch, lambda: pa_ops.paged_decode_attention(
+                    q, kp, vp, bt, lens, k_scales=ks, v_scales=vs),
+                PAGED_SYMBOLS)
         cases[name] = case
         emit({"phase": "kernels", "kernel": "paged_attention", "case": name,
               **case})
+        return out
+
+    lens = torch.randint(1, NP * ps + 1, (B,), generator=g, device=dev)
+    lens[0] = 0                      # a row with nothing to attend to
+    lens[1] = 3 * ps + 5             # a partially filled last page
+    lens = lens.to(torch.int32)
+    P, bt = table(NP, lens, g)
+    bt[2, 1] = -1                    # an unmapped entry inside a live range
+    bt = bt.contiguous()
+    main = {}
+    for name, qdt, kvdt, rtol in (("fp32", torch.float32, torch.float32, 0.0),
+                                  ("bf16", torch.bfloat16, torch.bfloat16,
+                                   2.0 ** -7),
+                                  ("int8", torch.bfloat16, torch.int8,
+                                   2.0 ** -7)):
+        q = torch.randn((B, H, hd), generator=g, device=dev).to(qdt)
+        kp, vp, ks, vs = pools(P, kvdt, g)
+        run_case(name, q, kp, vp, bt, lens, ks, vs, rtol,
+                 profile=name == "bf16")
+        main[name] = (q, kp, vp, ks, vs)
+
+    # the chunk edges (64, 128, 192): lens at each and one either side,
+    # lens 0 and 1, and rows whose second chunk is all unmapped; from a
+    # generator of their own, so that adding them left the data of the
+    # cases above and below as it was
+    g2 = torch.Generator(device=dev).manual_seed(11)
+    edges = [0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 256]
+    lens_e = torch.tensor([edges[i % len(edges)] for i in range(B)],
+                          dtype=torch.int32, device=dev)
+    P_e, bt_e = table(NP, lens_e, g2)
+    for r in (6, 9, 11, 22):         # lens 128, 192, 256, 193
+        bt_e[r, 4:8] = -1
+    bt_e = bt_e.contiguous()
+    q = torch.randn((B, H, hd), generator=g2, device=dev).bfloat16()
+    kp, vp, _, _ = pools(P_e, torch.bfloat16, g2)
+    run_case("bf16_edges", q, kp, vp, bt_e, lens_e, None, None, 2.0 ** -7)
+
+    # a long context, NP=128 (2,048 tokens) under a random fill: 8 chunks
+    # of 16 pages, beside decode attention's S=2048 case
+    NPl = 128
+    lens_l = torch.randint(1, NPl * ps + 1, (B,), generator=g2,
+                           device=dev).to(torch.int32)
+    P_l, bt_l = table(NPl, lens_l, g2)
+    q = torch.randn((B, H, hd), generator=g2, device=dev).bfloat16()
+    kp, vp, _, _ = pools(P_l, torch.bfloat16, g2)
+    run_case("bf16_s2048", q, kp, vp, bt_l.contiguous(), lens_l, None, None,
+             2.0 ** -7)
+
+    # four two-tile chunks against eight one-tile chunks (decode
+    # attention's plan rule) on the bf16 main case, in turns (4, 8, 8, 4
+    # chunks), each plan held against ref.py first
+    q, kp, vp, _, _ = main["bf16"]
+    ref = paged_decode_attention_ref(q, kp, vp, bt, lens)
+    probe = {}
+    for plan in ((4, 4), (2, 8), (2, 8), (4, 4)):
+        out = pa_ops._launch(q, kp, vp, bt, lens, None, None, plan)
+        torch.cuda.synchronize()
+        chk = held(torch, out, ref,
+                   2.0 ** -18 * float(ref.float().abs().max()), 2.0 ** -7)
+        if not chk["ok"]:
+            raise AssertionError(f"paged_attention plan {plan}: {chk}")
+        probe.setdefault(f"{plan[1]}_chunks_ms", []).append(time_cold(
+            torch, lambda: pa_ops._launch(q, kp, vp, bt, lens, None, None,
+                                          plan)))
+    emit({"phase": "kernels", "kernel": "paged_attention",
+          "case": "split_probe_bf16", **probe})
+    cases["bf16"]["split_probe"] = probe
     # the engine's main path runs bf16 q against a bf16 pool
     report["paged_attention"] = dict(cases["bf16"], cases=cases)
 
@@ -534,41 +617,61 @@ def phase_spec_verify(torch, report):
     a partial last page (a chunk that starts a page, one that straddles
     two, one that ends a token short of a page); an unmapped chunk page
     (row 0 loses its chunk's second page; row 1 has no page, so its
-    queries are fully masked and give 0); K=1. Each is held elementwise
-    against ref.py by the paged kernel's rule, then every query j against
-    the paged kernel at lens = pos + j + 1 on the same pool and q rows,
-    with exact equality (0 ulp). Timed with time_cold beside its bound
-    (each live K/V element read once; 4 hd flops per valid (query head,
-    key) pair at the f32 rate) and the plain version. No single PyTorch
-    call computes it."""
+    queries are fully masked and give 0); K=1; and chunk edges (queries
+    ending at the kernel's chunk boundary or one past it, verify chunks
+    straddling two kernel chunks, rows with a whole kernel chunk
+    unmapped). Then in bf16 at NP=128 (2,048 tokens, 8 chunks), and at
+    K=8 (56 query rows: the layout of 32 warps of four rows each, held to
+    64 registers by its 1,024 threads). Each is
+    held elementwise against ref.py by the paged kernel's rule, then every
+    query j against the paged kernel at lens = pos + j + 1 on the same
+    pool and q rows, with exact equality (0 ulp). Timed with time_cold
+    beside its bound (each live K/V element read once; 4 hd flops per
+    valid (query head, key) pair at the peak rate of q's type) and the
+    plain version;
+    the bf16 fill case also profiled (one launch per call) and timed under
+    8 chunks against the plan's 4. No single PyTorch call computes it."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(8)
-    B, H, KV, hd, ps, NP = 32, 14, 2, 64, 16, 16
-    P = B * NP + 1
+    B, H, KV, hd, ps = 32, 14, 2, 64, 16
     group = H // KV
-    perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
-    perm = perm.reshape(B, NP).to(torch.int32)
-    idx = torch.arange(NP * ps, device=dev)
+    perms = {}
+    # pos at the kernel's chunk edges (64, 128, 192 at NP=16)
+    edges = [60, 61, 63, 64, 124, 125, 127, 128, 188, 189, 191, 192, 0, 252]
     cases = {}
-    for cname, K in (("fill", 4), ("ragged", 4), ("unmapped", 4),
-                     ("k1", 1)):
+    for cname, K, NP in (("fill", 4, 16), ("ragged", 4, 16),
+                         ("unmapped", 4, 16), ("k1", 1, 16),
+                         ("edges", 4, 16), ("s2048", 4, 128),
+                         ("k8", 8, 16)):
+        P = B * NP + 1
+        if NP not in perms:          # NP=16's first: its cases' data stay
+            perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
+            perms[NP] = perm.reshape(B, NP).to(torch.int32)
+        idx = torch.arange(NP * ps, device=dev)
         pos = torch.randint(0, NP * ps - K + 1, (B,), generator=g,
                             device=dev)
         if cname == "ragged":
             pos[:3] = torch.tensor([2 * ps, ps - 2, 2 * ps - K - 1])
         if cname == "unmapped":
             pos[:2] = torch.tensor([ps - 2, 0])
+        if cname == "edges":
+            pos = torch.tensor([edges[i % len(edges)] for i in range(B)],
+                               device=dev)
         pos = pos.to(torch.int32)
         npages = (pos + K + ps - 1) // ps
         bt = torch.where(torch.arange(NP, device=dev)[None, :]
-                         < npages[:, None], perm, -1)
+                         < npages[:, None], perms[NP], -1)
         if cname == "unmapped":
             bt[0, 1] = -1
             bt[1] = -1
+        if cname == "edges":
+            for r in (7, 11, 13):    # pos 128, 192, 252: chunk 1 unmapped
+                bt[r, 4:8] = -1
         bt = bt.contiguous()
         mapped = (bt >= 0)[:, :, None].expand(B, NP, ps).reshape(B, NP * ps)
         qpos = pos[:, None] + torch.arange(K, device=dev)[None, :]
@@ -579,6 +682,8 @@ def phase_spec_verify(torch, report):
                 ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7),
                 ("fp32", torch.float32, torch.float32, 0.0),
                 ("int8", torch.bfloat16, torch.int8, 2.0 ** -7)):
+            if cname in ("s2048", "k8") and dname != "bf16":
+                continue
             q = torch.randn((B, K, H, hd), generator=g, device=dev).to(qdt)
             if kvdt == torch.int8:
                 kp, vp = (torch.randint(-127, 128, (P, ps, KV, hd),
@@ -615,7 +720,8 @@ def phase_spec_verify(torch, report):
                       + (2 * live * KV * 4 if ks is not None else 0)
                       + 2 * q.numel() * q.element_size() + bt.numel() * 4
                       + B * 4)
-            b_ms, b_by = bound(nbytes, 4 * hd * pairs)
+            b_ms, b_by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS
+                               if qdt == torch.bfloat16 else F32_FLOPS)
             case = dict(
                 chk, paged_kernel_bitwise=True,
                 ms=time_cold(torch, lambda: sv_ops.spec_verify_attention(
@@ -623,7 +729,27 @@ def phase_spec_verify(torch, report):
                 plain_ms=time_cold(torch, lambda: spec_verify_attention_ref(
                     q, kp, vp, bt, pos, ks, vs)),
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                flops=4 * hd * pairs, K=K, group=group)
+                flops=4 * hd * pairs, K=K, group=group,
+                plan=pa_ops.split_plan(B * KV, NP, ps, _build.sm_count(0)))
+            if name == "bf16_fill":
+                case["profile"] = kernel_profile(
+                    torch, lambda: sv_ops.spec_verify_attention(
+                        q, kp, vp, bt, pos), SPEC_SYMBOLS)
+                # the paged kernel's probe: 8 one-tile chunks against the
+                # plan's 4 two-tile chunks, in turns
+                probe = {}
+                for plan in ((4, 4), (2, 8), (2, 8), (4, 4)):
+                    alt = sv_ops._launch(q, kp, vp, bt, pos, None, None,
+                                         plan)
+                    torch.cuda.synchronize()
+                    achk = held(torch, alt, ref, chk["atol"], rtol)
+                    if not achk["ok"]:
+                        raise AssertionError(f"spec_verify plan {plan}: "
+                                             f"{achk}")
+                    probe.setdefault(f"{plan[1]}_chunks_ms", []).append(
+                        time_cold(torch, lambda: sv_ops._launch(
+                            q, kp, vp, bt, pos, None, None, plan)))
+                case["split_probe"] = probe
             cases[name] = case
             emit({"phase": "kernels", "kernel": "spec_verify", "case": name,
                   **case})
@@ -631,8 +757,10 @@ def phase_spec_verify(torch, report):
     report["spec_verify"] = dict(cases["bf16_fill"], cases=cases)
 
 
-# The decode attention kernel's symbol (a substring of the profiler's name).
+# The kernels' symbols (substrings of the profiler's names).
 DECODE_SYMBOLS = ("decode_attention_kernel",)
+PAGED_SYMBOLS = ("paged_decode_kernel",)
+SPEC_SYMBOLS = ("spec_verify_kernel",)
 
 
 def phase_decode(torch, report):
@@ -1050,33 +1178,50 @@ def phase_macro_step(torch, engine, dense_engine, params):
               torch.isfinite(dc.ref_logprobs).all())})
     del dc
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     t0 = time.perf_counter()
     carry = engine.turn_step(params, carry, 1, noise)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.profiler import ProfilerActivity, profile
+    pa_ops.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry = engine.turn_step(params, carry, 2, noise)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    n_pa = pa_ops.launches
     busy_ms, n_events, top = device_busy(torch, prof)
+    pa_ms = sum(a.self_device_time_total for a in prof.key_averages()
+                if a.device_type == DeviceType.CUDA
+                and any(sym in a.key for sym in PAGED_SYMBOLS)) / 1e3
     steps = engine.max_turn_tokens + engine.env.obs_len
-    emit({"phase": "trace", "decode_steps_per_macro_step": steps,
-          "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
-          "device_busy_ms": busy_ms,
-          "device_idle_share": (None if busy_ms is None
-                                else 1.0 - busy_ms / wall_ms),
-          "device_events": n_events,
-          "device_events_per_decode_step": n_events / steps,
-          "top_device_ms": top})
+    expected = engine.model.cfg.n_layers * steps
+    out = {"phase": "trace", "decode_steps_per_macro_step": steps,
+           "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+           "device_busy_ms": busy_ms,
+           "device_idle_share": (None if busy_ms is None
+                                 else 1.0 - busy_ms / wall_ms),
+           "device_events": n_events,
+           "device_events_per_decode_step": n_events / steps,
+           "paged_attention_device_ms": pa_ms,
+           "paged_attention_launches": n_pa,
+           "expected_paged_attention_launches": expected,
+           "paged_attention_us_per_launch": (1e3 * pa_ms / n_pa
+                                             if n_pa else None),
+           "top_device_ms": top}
+    emit(out)
+    if n_pa != expected or not pa_ms > 0:
+        raise AssertionError(f"trace: paged attention launched {n_pa} "
+                             f"times (expected {expected}) or read no "
+                             f"device time: {out}")
     del carry
 
     # The train step's route: the paged policy with the reference stream
     # folded in on its dense cache, where decode attention runs once per
     # layer per decode step. One macro-step to warm, the next traced.
-    from torch.autograd import DeviceType
     from repro_torch.kernels.decode_attention import ops as da_ops
     rc = engine.init_feed(params, engine.init_carry(32, 64, with_ref=True),
                           params)

@@ -1,4 +1,5 @@
-// Speculative verify attention for Hopper (sm_90a), plain C entry point.
+// Speculative verify attention for Hopper (sm_90a), one launch per call,
+// plain C entry point.
 //
 // Replaces: the Pallas TPU kernel `_spec_verify_kernel` in
 //   src/repro/kernels/spec_verify/kernel.py:44 (wrapper
@@ -23,19 +24,14 @@
 //   117 MFLOP, 1.75 us at the f32 rate, against 4.19 MB of K/V, 1.25 us at
 //   the HBM rate.
 //
-// Design: the paged kernel's, with K*group rows in place of group. One
-//   block per (row, kv head); each page the longest query needs is loaded
-//   once into shared memory (f32, dequantised) and shared by every query
-//   row. Warps stride over the rows (min(K*group, 32) warps, up to 4 rows
-//   each, their (m, l, acc) in registers); each row runs paged_softmax.cuh's
-//   page_update, the paged kernel's own code, over exactly the pages the
-//   paged kernel visits for lens = pos + j + 1 (a page past the query's
-//   last one is skipped, as the paged kernel's loop bound skips it). So
-//   every query row is bitwise the paged kernel's output at that length,
-//   the contract speculative decoding rests on. The page axis is not split
-//   yet: at B=32, KV=2 this is 64 blocks for 132 SMs, as in the paged
-//   kernel; a split with a combine pass, wgmma for the K*group x ps score
-//   tile and TMA page loads are the speed-ups to try.
+// Design: paged_softmax.cuh's block body, the paged kernel's own, with
+//   K*group rows in place of group (one warp per row up to 8 rows, then
+//   2 rows a warp up to 32, then 4) and query j attending the positions
+//   < pos[b] + 1 + j. The chunks come from the paged wrapper's split_plan,
+//   which depends on neither lens nor pos, so query j runs exactly the
+//   operations the paged kernel runs at lens = pos + j + 1: every query row
+//   is bitwise the paged kernel's output at that length, the contract
+//   speculative decoding rests on.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,187 +41,48 @@
 
 namespace {
 
-using paged_softmax::kLaneD;
-using paged_softmax::kMaxHd;
-using paged_softmax::kNegInf;
-
-constexpr int kMaxWarps = 32;
-constexpr int kMaxRowsPerWarp = 4;
-constexpr int kMaxRows = kMaxWarps * kMaxRowsPerWarp;   // K * group
-
-__device__ __forceinline__ int pages_for(int len, int ps, int NP) {
-  int n = (len + ps - 1) / ps;
-  return n > NP ? NP : (n < 0 ? 0 : n);
+template <typename KT, int HD, int R, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
+    spec_verify_kernel(paged_softmax::Args a) {
+  paged_softmax::attend<KT, HD, R>(a, a.len[blockIdx.z] + 1);
 }
 
-template <typename QT, typename KT, int R>
-__global__ void __launch_bounds__(kMaxWarps * 32) spec_verify_kernel(
-    const QT* __restrict__ q, const KT* __restrict__ kp,
-    const KT* __restrict__ vp, const float* __restrict__ ks,
-    const float* __restrict__ vs, const int* __restrict__ bt,
-    const int* __restrict__ pos, QT* __restrict__ out, int K, int KV,
-    int group, int hd, int P, int ps, int NP, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / KV;
-  const int h = blockIdx.x - b * KV;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int nthreads = blockDim.x;
-  const int stride = hd + 1;
-  const int kq = K * group;
-  const int H = KV * group;
-  float* k_s = smem;                    // (ps, hd+1)
-  float* v_s = k_s + ps * stride;       // (ps, hd+1)
-  float* q_s = v_s + ps * stride;       // (K*group, hd), prescaled
-  float* p_s = q_s + kq * hd;           // (nwarps, ps) scores / probs
-
-  for (int i = threadIdx.x; i < kq * hd; i += nthreads) {
-    const int r = i / hd;
-    const int d = i - r * hd;
-    const int j = r / group;
-    const size_t qi =
-        ((static_cast<size_t>(b) * K + j) * H + h * group + (r - j * group)) *
-            hd + d;
-    q_s[i] = paged_softmax::to_f(q[qi]) * scale;
-  }
-
-  const int base = pos[b];
-  const int n_pages = pages_for(base + K, ps, NP);   // the last query's
-  const int* btrow = bt + static_cast<size_t>(b) * NP;
-
-  float m_run[R], l_run[R];
-  float acc[R][kLaneD];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kLaneD; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int pi = 0; pi < n_pages; ++pi) {
-    const int page = btrow[pi];
-    if (page < 0) continue;   // unmapped: fully masked, adds exactly 0
-    const int pg = page < P ? page : P - 1;
-    __syncthreads();          // the previous tile is fully consumed
-    paged_softmax::load_page(kp, vp, ks, vs, pg, h, KV, hd, ps, k_s, v_s);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = warp + i * nwarps;
-      const int len = base + r / group + 1;     // query j = r / group
-      if (r < kq && pi < pages_for(len, ps, NP)) {
-        paged_softmax::page_update(q_s + r * hd, k_s, v_s, p_s + warp * ps,
-                                   ps, hd, lane, pi * ps, len, m_run[i],
-                                   l_run[i], acc[i]);
-        __syncwarp();         // the warp's scratch row is reused next
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = warp + i * nwarps;
-    if (r < kq) {
-      const int j = r / group;
-      paged_softmax::store_row(
-          out + ((static_cast<size_t>(b) * K + j) * H + h * group +
-                 (r - j * group)) * hd,
-          acc[i], l_run[i], hd, lane);
-    }
-  }
-}
-
-template <typename QT, typename KT, int R>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* bt, const void* pos, void* out,
-           int B, int K, int KV, int group, int hd, int P, int ps, int NP,
-           int nwarps, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(ps) * (hd + 1) +
-                       static_cast<size_t>(K) * group * hd +
-                       static_cast<size_t>(nwarps) * ps) * sizeof(float);
-  auto kern = spec_verify_kernel<QT, KT, R>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
-  kern<<<B * KV, 32 * nwarps, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(bt),
-      static_cast<const int*>(pos), static_cast<QT*>(out), K, KV, group, hd,
-      P, ps, NP, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename QT, typename KT>
-int launch_r(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* bt, const void* pos, void* out,
-             int B, int K, int KV, int group, int hd, int P, int ps, int NP,
-             cudaStream_t s) {
-  const int kq = K * group;
-  const int nwarps = kq < kMaxWarps ? kq : kMaxWarps;
-  const int rows = (kq + nwarps - 1) / nwarps;   // rows per warp
-  if (rows <= 1)
-    return launch<QT, KT, 1>(q, k, v, ks, vs, bt, pos, out, B, K, KV, group,
-                             hd, P, ps, NP, nwarps, s);
-  if (rows <= 2)
-    return launch<QT, KT, 2>(q, k, v, ks, vs, bt, pos, out, B, K, KV, group,
-                             hd, P, ps, NP, nwarps, s);
-  return launch<QT, KT, kMaxRowsPerWarp>(q, k, v, ks, vs, bt, pos, out, B, K,
-                                         KV, group, hd, P, ps, NP, nwarps, s);
-}
-
-template <typename QT>
-int launch_q(int kv_dtype, const void* q, const void* k, const void* v,
-             const void* ks, const void* vs, const void* bt, const void* pos,
-             void* out, int B, int K, int KV, int group, int hd, int P,
-             int ps, int NP, cudaStream_t s) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_r<QT, float>(q, k, v, ks, vs, bt, pos, out, B, K, KV,
-                                 group, hd, P, ps, NP, s);
-    case 1:
-      return launch_r<QT, __nv_bfloat16>(q, k, v, ks, vs, bt, pos, out, B, K,
-                                         KV, group, hd, P, ps, NP, s);
-    case 2:
-      return launch_r<QT, int8_t>(q, k, v, ks, vs, bt, pos, out, B, K, KV,
-                                  group, hd, P, ps, NP, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+template <typename KT, int HD, int R, int kThreads>
+struct VerifyKernel {
+  static auto fn() { return spec_verify_kernel<KT, HD, R, kThreads>; }
+};
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).
-// Returns the cudaError_t of the launch (0 = success); shapes the kernel
-// does not take (K*group above 128 rows, hd not a multiple of 32 up to
-// 256) return cudaErrorInvalidValue, and a tile set above the card's
-// shared memory returns the error of cudaFuncSetAttribute.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only). The NP
+// pages of a row are cut into n_chunks chunks of `chunk` whole pages (none
+// empty, n_chunks <= 8), one cluster per (row, kv head). Returns the
+// cudaError_t of the launch (0 = success); shapes the kernel does not take
+// (K*group above 128 rows, hd not a multiple of 32 up to 256, a plan that
+// breaks those rules) return cudaErrorInvalidValue.
 extern "C" int spec_verify_launch(
     const void* q, const void* k, const void* v, const void* k_scales,
     const void* v_scales, const void* block_table, const void* pos,
     void* out, int B, int K, int KV, int group, int hd, int P, int ps,
-    int NP, int q_dtype, int kv_dtype, void* stream) {
-  if (B == 0 || KV == 0 || K == 0) return 0;
-  if (K < 0 || group < 1 || K * group > kMaxRows || hd % 32 != 0 ||
-      hd > kMaxHd || ps < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
-    case 0:
-      return launch_q<float>(kv_dtype, q, k, v, k_scales, v_scales,
-                             block_table, pos, out, B, K, KV, group, hd, P,
-                             ps, NP, s);
-    case 1:
-      return launch_q<__nv_bfloat16>(kv_dtype, q, k, v, k_scales, v_scales,
-                                     block_table, pos, out, B, K, KV, group,
-                                     hd, P, ps, NP, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+    int NP, int chunk, int n_chunks, int q_dtype, int kv_dtype,
+    void* stream) {
+  paged_softmax::Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ks = static_cast<const float*>(k_scales);
+  a.vs = static_cast<const float*>(v_scales);
+  a.bt = static_cast<const int*>(block_table);
+  a.len = static_cast<const int*>(pos);
+  a.out = out;
+  a.K = K;
+  a.KV = KV;
+  a.group = group;
+  a.P = P;
+  a.ps = ps;
+  a.NP = NP;
+  a.chunk = chunk;
+  return paged_softmax::launch_all<VerifyKernel, 4>(a, B, hd, n_chunks,
+                                                    q_dtype, kv_dtype,
+                                                    stream);
 }

@@ -11,6 +11,7 @@ loading raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -117,6 +118,13 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _loaded[name] = lib
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    split plans size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

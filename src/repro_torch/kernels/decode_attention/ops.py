@@ -45,11 +45,6 @@ def _bind():
     return fn
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_plan(n_pairs: int, S: int, n_sm: int):
     """``(chunk, n_chunks)``: keys per block, in whole 32-key tiles. As
     many chunks as fill about four blocks per SM over ``n_pairs`` (row, kv
@@ -108,7 +103,8 @@ def decode_attention(q, k, v, valid):
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     group = H // KV
-    chunk, n_chunks = split_plan(B * KV, S, _sm_count(q.device.index or 0))
+    chunk, n_chunks = split_plan(B * KV, S,
+                                 _build.sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     err = _bind()(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
                   out.data_ptr(), B, S, KV, group, hd, chunk, n_chunks,

@@ -5,9 +5,15 @@
 The JAX wrapper flattens q position-major into ``(B, KV, K*group, hd)``
 (row ``j*group + g``); the kernel numbers its rows the same way but reads
 q and writes the output in place in the model layout ``(B, K, H, hd)``, so
-the two transposes have no counterpart here. CPU tensors go to the plain
-version in ``ref.py``; CUDA tensors launch the kernel or raise — there is
-no fallback between the two.
+the two transposes have no counterpart here. The kernel splits each row's
+pages into the chunks of the paged wrapper's ``split_plan`` (which depends
+on neither ``pos`` nor ``lens``), so query ``j`` walks exactly the chunks
+the paged kernel walks at ``lens = pos + j + 1``. Every shape this wrapper
+takes (up to 128 query rows, hd up to 256) fits the kernel's shared
+memory under any plan, because the merge reuses the tiles' bytes: the
+plan is never narrowed for the verify kernel, and no shape is refused for
+it. CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch
+the kernel or raise — there is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.ops import (check_aligned,
+                                                     split_plan)
 from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
 launches = 0          # kernel launches since the last reset_launches()
@@ -35,7 +43,7 @@ def reset_launches() -> None:
 def _bind():
     fn = _build.load("spec_verify").spec_verify_launch
     fn.argtypes = ([ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,6 +93,7 @@ def _check_cuda_inputs(q, k_pages, v_pages, block_table, pos, k_scales,
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
+    check_aligned(k_pages, v_pages)
 
 
 def spec_verify_attention(q, k_pages, v_pages, block_table, pos, *,
@@ -104,18 +113,28 @@ def spec_verify_attention(q, k_pages, v_pages, block_table, pos, *,
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, block_table, pos, k_scales,
                        v_scales)
+    B = q.shape[0]
+    _, ps, KV, _ = k_pages.shape
+    return _launch(q, k_pages, v_pages, block_table, pos, k_scales,
+                   v_scales, split_plan(B * KV, block_table.shape[1], ps,
+                                        _build.sm_count(q.device.index or 0)))
+
+
+def _launch(q, k_pages, v_pages, block_table, pos, k_scales, v_scales,
+            plan):
+    """One counted launch on checked CUDA inputs under ``plan`` =
+    ``(chunk, n_chunks)``: the wrapper's is ``split_plan``'s, and
+    ``chip_smoke.py``'s split probe times another."""
     B, K, H, hd = q.shape
     P, ps, KV, _ = k_pages.shape
-    NP = block_table.shape[1]
     out = torch.empty_like(q)
-    fn = _bind()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scales.data_ptr() if k_scales is not None else None,
-             v_scales.data_ptr() if v_scales is not None else None,
-             block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-             B, K, KV, H // KV, hd, P, ps, NP,
-             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], stream)
+    err = _bind()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  k_scales.data_ptr() if k_scales is not None else None,
+                  v_scales.data_ptr() if v_scales is not None else None,
+                  block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                  B, K, KV, H // KV, hd, P, ps, block_table.shape[1], *plan,
+                  _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "spec_verify")
     global launches
     launches += 1

@@ -62,16 +62,31 @@ def dev():
 
 
 PAGED_CASES = {
-    # name: (B, NP, P, ps, H, KV, hd, lens, int8)
-    "shuffled_table": (3, 4, 16, 8, 4, 2, 32, [25, 9, 32], False),
-    "lens_zero_and_partial_page": (3, 4, 16, 8, 4, 2, 32, [0, 17, 8], False),
-    "qwen2_heads": (4, 16, 65, 16, 14, 2, 64, [256, 1, 100, 0], False),
-    "int8_scales": (3, 4, 16, 8, 4, 2, 32, [25, 0, 13], True),
-    "big_pages_hd128": (2, 2, 8, 128, 8, 1, 128, [200, 129], False),
+    # name: (B, NP, P, ps, H, KV, hd, lens, int8, drop); drop lists
+    # (row, first page, end page) runs of the block table left unmapped.
+    # At NP=16, ps=16 and B*KV <= 132 the kernel splits a row into 4
+    # chunks of 4 pages (64 positions), at NP=64 and B=1 into 8 chunks of
+    # 8, at NP=128 into 8 chunks of 16.
+    "shuffled_table": (3, 4, 16, 8, 4, 2, 32, [25, 9, 32], False, ()),
+    "lens_zero_and_partial_page": (3, 4, 16, 8, 4, 2, 32, [0, 17, 8], False,
+                                   ()),
+    "qwen2_heads": (4, 16, 65, 16, 14, 2, 64, [256, 1, 100, 0], False, ()),
+    "int8_scales": (3, 4, 16, 8, 4, 2, 32, [25, 0, 13], True, ()),
+    "big_pages_hd128": (2, 2, 8, 128, 8, 1, 128, [200, 129], False, ()),
+    # lens at a chunk boundary and one either side, a lens = 0 row
+    "lens_at_chunk_edges": (6, 16, 97, 16, 14, 2, 64,
+                            [64, 63, 65, 128, 0, 256], False, ()),
+    # a chunk whose pages are all unmapped while the row's others are live
+    "chunk_all_unmapped": (4, 16, 65, 16, 14, 2, 64, [256, 200, 100, 70],
+                           False, ((0, 4, 8), (1, 12, 16), (3, 4, 5))),
+    "b1_most_chunks": (1, 64, 64, 16, 14, 2, 64, [1000], False, ()),
+    "np128_s2048": (2, 128, 256, 16, 14, 2, 64, [2048, 1500], False, ()),
+    "int8_chunks": (4, 16, 65, 16, 14, 2, 64, [256, 65, 0, 129], True,
+                    ((0, 8, 12),)),
 }
 
 
-def _paged_case(seed, B, NP, P, ps, H, KV, hd, lens, int8, device):
+def _paged_case(seed, B, NP, P, ps, H, KV, hd, lens, int8, drop, device):
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g)
     if int8:
@@ -91,6 +106,8 @@ def _paged_case(seed, B, NP, P, ps, H, KV, hd, lens, int8, device):
     bt = torch.where(torch.arange(NP)[None, :] < npages[:, None], perm, -1)
     if npages[0] > 1:
         bt[0, 1] = -1                    # unmapped entry inside the range
+    for row, first, end in drop:
+        bt[row, first:end] = -1
     out = [q, kp, vp, bt.to(torch.int32), lens, ks, vs]
     return [None if t is None else t.to(device) for t in out]
 
@@ -112,9 +129,34 @@ def test_paged_attention_kernel_matches_plain_version(name, qdtype, dev):
     rtol = 0.0 if qdtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=rtol)
-    if int(lens[-1]) == 0 or int(lens[0]) == 0:
-        i = 0 if int(lens[0]) == 0 else -1
+    for i in (lens == 0).nonzero().flatten().tolist():
         assert not bool(out[i].any())    # fully masked row outputs zeros
+
+
+@pytest.mark.parametrize("name", ["np128_s2048", "chunk_all_unmapped"])
+def test_paged_attention_is_deterministic(name, dev):
+    """Each chunk's partial is merged by one warp in chunk order, with no
+    atomics: two launches on the same inputs agree bitwise."""
+    q, kp, vp, bt, lens, ks, vs = _paged_case(4, *PAGED_CASES[name], dev)
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    first = pa_ops.paged_decode_attention(q, kp, vp, bt, lens)
+    second = pa_ops.paged_decode_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_paged_kernels_refuse_misaligned_pools(dev):
+    """Both kernels read pool rows by 16-byte copies: a pool view off a
+    16-byte boundary is refused, not read another way."""
+    q, kp, vp, bt, lens, _, _ = _paged_case(1, *PAGED_CASES["shuffled_table"],
+                                            dev)
+    odd = torch.empty(kp.numel() + 1, device=dev)[1:].view(kp.shape)
+    odd.copy_(kp)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa_ops.paged_decode_attention(q, odd, vp, bt, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        sv_ops.spec_verify_attention(q[:, None].contiguous(), kp, odd, bt,
+                                     lens)
 
 
 def test_paged_attention_wrapper_checks_inputs(dev):
@@ -499,21 +541,38 @@ def test_dense_rollout_runs_through_the_decode_kernel(smoke):
 
 
 SPEC_CASES = {
-    # name: (B, K, NP, P, ps, H, KV, hd, pos or None, int8)
-    "group2": (2, 4, 4, 16, 8, 4, 2, 64, None, False),
-    "path_heads_k4": (4, 4, 16, 65, 16, 14, 2, 64, [0, 100, 250, 15], False),
-    "k8_two_rows_per_warp": (2, 8, 8, 32, 16, 14, 2, 64, None, False),
-    "k16_four_rows_per_warp": (1, 16, 4, 8, 16, 14, 2, 64, [30], False),
-    "k1": (3, 1, 4, 16, 8, 4, 2, 32, None, False),
-    "mqa_big_page_hd128": (1, 8, 2, 8, 128, 2, 1, 128, [100], False),
-    "unmapped_chunk_page": (2, 4, 4, 16, 8, 4, 2, 32, [6, 0], False),
-    "int8_scales": (3, 4, 4, 16, 8, 4, 2, 32, None, True),
+    # name: (B, K, NP, P, ps, H, KV, hd, pos or None, int8, drop); drop as
+    # in PAGED_CASES, and the kernel's chunks as there.
+    "group2": (2, 4, 4, 16, 8, 4, 2, 64, None, False, ()),
+    "path_heads_k4": (4, 4, 16, 65, 16, 14, 2, 64, [0, 100, 250, 15], False,
+                      ()),
+    "k8_two_rows_per_warp": (2, 8, 8, 32, 16, 14, 2, 64, None, False, ()),
+    "k16_four_rows_per_warp": (1, 16, 4, 8, 16, 14, 2, 64, [30], False, ()),
+    "k1": (3, 1, 4, 16, 8, 4, 2, 32, None, False, ()),
+    "mqa_big_page_hd128": (1, 8, 2, 8, 128, 2, 1, 128, [100], False, ()),
+    "unmapped_chunk_page": (2, 4, 4, 16, 8, 4, 2, 32, [6, 0], False, ()),
+    "int8_scales": (3, 4, 4, 16, 8, 4, 2, 32, None, True, ()),
+    # queries ending at a chunk boundary (pos 60), one past it (64), and
+    # verify chunks that straddle two kernel chunks (61, 63)
+    "pos_at_chunk_edges": (4, 4, 16, 65, 16, 14, 2, 64, [60, 64, 63, 61],
+                           False, ()),
+    # a kernel chunk whose pages are all unmapped; row 2's queries see
+    # only their own chunk's page
+    "chunk_all_unmapped": (4, 4, 16, 65, 16, 14, 2, 64, [200, 100, 64, 250],
+                           False, ((0, 4, 8), (2, 0, 4))),
+    "b1_most_chunks": (1, 4, 64, 64, 16, 14, 2, 64, [1000], False, ()),
+    "np128_s2048": (2, 4, 128, 256, 16, 14, 2, 64, [2040, 1000], False, ()),
+    # the most rows the kernel takes (16 x 8) at the widest head, 8 chunks
+    "max_rows_hd256": (1, 16, 64, 64, 16, 8, 1, 256, [900], False, ()),
+    "int8_chunks": (4, 4, 16, 65, 16, 14, 2, 64, [250, 61, 0, 130], True,
+                    ()),
 }
 
 
-def _spec_case(seed, B, K, NP, P, ps, H, KV, hd, pos, int8, device):
-    """A shuffled block table whose mapped pages cover [0, pos+K) per row;
-    the unmapped case drops row 0's chunk page and all of row 1."""
+def _spec_case(seed, B, K, NP, P, ps, H, KV, hd, pos, int8, drop, device):
+    """A shuffled block table whose mapped pages cover [0, pos+K) per row,
+    less the runs in ``drop``; the unmapped case drops row 0's chunk page
+    and all of row 1."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, K, H, hd), generator=g)
     if int8:
@@ -536,6 +595,8 @@ def _spec_case(seed, B, K, NP, P, ps, H, KV, hd, pos, int8, device):
     if B == 2 and pos.tolist() == [6, 0]:
         bt[0, 1] = -1
         bt[1] = -1
+    for row, first, end in drop:
+        bt[row, first:end] = -1
     out = [q, kp, vp, bt.to(torch.int32).contiguous(), pos, ks, vs]
     return [None if t is None else t.to(device) for t in out]
 
@@ -579,6 +640,16 @@ def test_spec_verify_queries_equal_the_paged_kernel(name, qdtype, dev):
             q[:, j].contiguous(), kp, vp, bt, pos + j + 1, k_scales=ks,
             v_scales=vs)
         assert torch.equal(out[:, j], single), f"query {j}"
+
+
+@pytest.mark.parametrize("name", ["np128_s2048", "max_rows_hd256"])
+def test_spec_verify_is_deterministic(name, dev):
+    """Two launches on the same inputs agree bitwise."""
+    q, kp, vp, bt, pos, ks, vs = _spec_inputs(name, torch.bfloat16, dev)
+    first = sv_ops.spec_verify_attention(q, kp, vp, bt, pos)
+    second = sv_ops.spec_verify_attention(q, kp, vp, bt, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_spec_verify_wrapper_checks_inputs(dev):

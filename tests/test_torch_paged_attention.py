@@ -83,3 +83,48 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.paged_decode_attention(q, q, q, q, q)
 
+
+PLAN_CASES = [
+    # (B*KV, NP, ps, n_sm)
+    (64, 16, 16, 132),      # the rollout's shape: 4 chunks of 4 pages
+    (64, 128, 16, 132),     # S=2048: 8 chunks of 16
+    (2, 64, 16, 132),       # B=1: the most chunks
+    (1, 1, 16, 132),        # one page
+    (8, 2, 128, 132),       # big pages: a page per chunk
+    (6, 4, 8, 132),
+    (264, 16, 16, 132),     # many rows: fewer chunks
+    (1000, 256, 16, 132),
+    (64, 17, 16, 132),      # a ragged last chunk
+    (64, 16, 16, 114),      # another card
+    (4, 3, 1, 16),
+    (1, 0, 16, 132),        # an empty table
+]
+
+
+@pytest.mark.parametrize("n_pairs,NP,ps,n_sm", PLAN_CASES)
+def test_split_plan_cuts_whole_pages_into_at_most_8_chunks(n_pairs, NP, ps,
+                                                           n_sm):
+    chunk, n_chunks = ops.split_plan(n_pairs, NP, ps, n_sm)
+    assert isinstance(chunk, int) and isinstance(n_chunks, int)
+    assert 1 <= n_chunks <= 8 and chunk >= 1
+    assert chunk * n_chunks >= NP                  # every page covered
+    assert chunk * (n_chunks - 1) < max(NP, 1)     # no chunk is empty
+    if n_chunks > 1:                               # two 32-key tiles each
+        assert chunk * ps >= 64
+
+
+def test_split_plan_at_the_main_path_shapes():
+    assert ops.split_plan(64, 16, 16, 132) == (4, 4)
+    assert ops.split_plan(64, 128, 16, 132) == (16, 8)
+
+
+def test_split_plan_takes_no_length_and_serves_both_kernels():
+    """The plan depends on neither lens nor pos, so a verify query at
+    pos + j + 1 and the paged kernel at lens = pos + j + 1 walk the same
+    chunks; the verify wrapper takes the very same function."""
+    import inspect
+
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    assert list(inspect.signature(ops.split_plan).parameters) == [
+        "n_pairs", "NP", "ps", "n_sm"]
+    assert sv_ops.split_plan is ops.split_plan
