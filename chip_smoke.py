@@ -30,6 +30,11 @@ Phases, in order; any failure raises and exits non-zero:
                fully masked row) and in bf16 at S=2048, timed against
                scaled_dot_product_attention with a boolean mask, and
                profiled (one launch per call).
+     The fused sampling kernel is held at B=32 over qwen2's V=151936
+               (zero noise, Gumbel noise, rows off a 16-byte boundary),
+               tokens bitwise and a planted tie broken to the earliest
+               index, profiled (one launch per call), and its cluster
+               size probed (8, 4, 2, 1 blocks a row and back).
      The paged attention kernel is held at the rollout's shapes (B=32,
                14/2 heads, hd 64, 16-token pages, NP=16) in fp32, bf16 and
                int8 pools, with lens at the kernel's chunk edges and whole
@@ -98,9 +103,12 @@ Phases, in order; any failure raises and exits non-zero:
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
-               S=512, 32 heads x 64, state 128, chunk 256) in bf16 and
-               fp32, at S=1024 (four chunks), at a ragged S=300 and with
-               four groups; fused_sample also at mamba2's V=50280.
+               S=512, 32 heads x 64, state 128, chunk 256) in bf16 (the
+               tensor-core route) and fp32, at S=1024 (four chunks), at a
+               ragged S=300 and with four groups; the bf16 main shape
+               profiled, and the head tile probed there, in fp32 and at
+               four groups (two heads a block against one); fused_sample
+               also at mamba2's V=50280.
  16. ssm_path — full-width mamba2-370m (48 layers, d=1024, V=50280, bf16,
                random weights) through CompiledRolloutEngine on its
                recurrent cache with the folded reference stream, B=32
@@ -110,7 +118,9 @@ Phases, in order; any failure raises and exits non-zero:
  17. ssm_score — ExpPrep's standalone reference pass over 32 of those
                episodes (32 x 512 tokens): exactly 48 SSD scan launches,
                its log-probs against the plain pass and against the folded
-               recurrent ones; kernel and plain wall time.
+               recurrent ones; kernel and plain wall time, and the scan's
+               device time in a traced kernel pass and its share of the
+               pass's wall time.
  18. ssm_sync — one ssm macro-step with the reference stream under
                set_sync_debug_mode("error").
  19. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
@@ -181,27 +191,34 @@ def kernel_profile(torch, fn, symbols, n: int = 20) -> dict:
     device microseconds, and the span from the first one's start to the
     last one's end (the span less the kernels' sum is the time the call
     spends on the device between its launches). Medians over the calls,
-    which the spins separate by about half a millisecond."""
+    which the spins separate by about half a millisecond. The trace must
+    hold exactly ``n`` calls; one that lost kernel events (the card's
+    tracer has dropped a few on an H100) is taken again, three times at
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted(((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and any(sym in e.name for sym in symbols)))
-    calls = []
-    for ev in evs:
-        if not calls or ev[0] - calls[-1][-1][1] > 100.0:
-            calls.append([])
-        calls[-1].append(ev)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                torch.cuda._sleep(1_000_000)
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted(((e.time_range.start, e.time_range.end, e.name)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and any(sym in e.name for sym in symbols)))
+        calls = []
+        for ev in evs:
+            if not calls or ev[0] - calls[-1][-1][1] > 100.0:
+                calls.append([])
+            calls[-1].append(ev)
+        if len(calls) == n:
+            break
     if len(calls) != n:
         raise AssertionError(f"kernel_profile: {len(calls)} calls of "
                              f"{symbols} in the trace, expected {n}")
@@ -410,10 +427,11 @@ def phase_kernels(torch, report):
             raise AssertionError("fused_sample: tie not broken to the "
                                  "earliest index")
         # lp = lg[tok] - (m + log l): each side sums V terms in f32 (the
-        # kernel V/1024 per thread, then a 10-level tree with a rescale per
-        # merge; torch its own tree), so log l carries about (V/1024 + 60)
-        # unit roundings between the two, plus a few ulps of |lp| from the
-        # last subtractions
+        # kernel at most V/1024 per thread, then a tree of at most 11
+        # levels, 5 in the warp, 3 in the block and 3 over the cluster,
+        # with a rescale per merge; torch its own tree), so log l carries
+        # about (V/1024 + 60) unit roundings between the two, plus a few
+        # ulps of |lp| from the last subtractions
         atol = ((V / 1024 + 60) * 2.0 ** -24
                 + 8 * 2.0 ** -23 * float(lp_r.abs().max()))
         chk = held(torch, lp, lp_r, atol, 0.0)
@@ -425,9 +443,34 @@ def phase_kernels(torch, report):
                     plain_ms=time_cold(torch,
                                        lambda: fused_sample_ref(x, nz)),
                     bound_ms=b_ms, bound_by=b_by)
+        if name == "gumbel":
+            case["plan"] = fs_ops.cluster_plan(B, V, _build.sm_count(0))
+            case["profile"] = kernel_profile(
+                torch, lambda: fs_ops.fused_sample(x, nz), SAMPLE_SYMBOLS)
+            if case["profile"]["launches_per_call"] != 1:
+                raise AssertionError(f"fused_sample: {case['profile']}")
         cases[name] = case
         emit({"phase": "kernels", "kernel": "fused_sample", "case": name,
               **case})
+    # the cluster size: k blocks a row for k in 8, 4, 2, 1 and back, each
+    # held against ref.py (tokens bitwise) before it is timed
+    tok_r, lp_r = fused_sample_ref(lg, gum)
+    probe = {}
+    for k in (8, 4, 2, 1, 1, 2, 4, 8):
+        sl = 4 * -(-V // (4 * k))
+        plan = (-(-V // sl), sl)
+        tok, lp = fs_ops._launch(lg, gum, plan)
+        torch.cuda.synchronize()
+        if not torch.equal(tok, tok_r) or not held(
+                torch, lp, lp_r, ((V / 1024 + 60) * 2.0 ** -24 + 8 * 2.0 **
+                                  -23 * float(lp_r.abs().max())), 0.0)["ok"]:
+            raise AssertionError(f"fused_sample cluster plan {plan} differs "
+                                 f"from ref.py")
+        probe.setdefault(f"k{plan[0]}_ms", []).append(time_cold(
+            torch, lambda: fs_ops._launch(lg, gum, plan)))
+    emit({"phase": "kernels", "kernel": "fused_sample",
+          "case": "cluster_probe_gumbel", **probe})
+    cases["gumbel"]["cluster_probe"] = probe
     # mamba2-370m's vocabulary: V=50280 is a multiple of 4, so rows stay
     # 16-byte aligned and the kernel takes its float4 loads
     V2 = 50280
@@ -447,6 +490,7 @@ def phase_kernels(torch, report):
     b_ms, b_by = bound(2 * B * V2 * 4 + B * 8, 4 * B * V2)
     cases["gumbel_v50280"] = dict(
         chk, tokens_equal=True,
+        plan=fs_ops.cluster_plan(B, V2, _build.sm_count(0)),
         ms=time_cold(torch, lambda: fs_ops.fused_sample(lg2, gum2)),
         plain_ms=time_cold(torch, lambda: fused_sample_ref(lg2, gum2)),
         bound_ms=b_ms, bound_by=b_by)
@@ -758,6 +802,8 @@ def phase_spec_verify(torch, report):
 
 
 # The kernels' symbols (substrings of the profiler's names).
+SAMPLE_SYMBOLS = ("fused_sample_kernel",)
+SSD_SYMBOLS = ("ssd_tc_kernel", "ssd_simt_kernel")
 DECODE_SYMBOLS = ("decode_attention_kernel",)
 PAGED_SYMBOLS = ("paged_decode_kernel",)
 SPEC_SYMBOLS = ("spec_verify_kernel",)
@@ -862,38 +908,47 @@ def phase_decode(torch, report):
 
 
 def ssd_work(b, s, h, g, p, n, q, esz):
-    """(bytes, flops) of one SSD scan: x and y, dt and dA, B and C each
-    read or written once, and the final f32 state; per (row, head, chunk)
-    of L real positions, the causal half of the Gram (2 L(L+1)/2 n), W x
-    over the same pairs (2 L(L+1)/2 p), the carried-state term and the
-    state update (2 L p n each)."""
-    nbytes = (2 * b * s * h * p * esz + 2 * b * s * h * 4
+    """(bytes, flops) of one SSD scan: x and y, dt, A, B and C each read
+    or written once, and the final f32 state (dA is the wrapper's dt * A,
+    not an input); per (row, group, chunk) of L real positions the causal
+    half of the Gram C B^T (2 L(L+1)/2 n), formed once since B and C are
+    per group; per (row, head, chunk) W x over the same pairs (2 L(L+1)/2
+    p) and the state update (2 L p n), and the carried-state term (2 L p
+    n) in every chunk but the first, which starts from zero state."""
+    nbytes = (2 * b * s * h * p * esz + b * s * h * 4 + h * 4
               + 2 * b * s * g * n * esz + b * h * p * n * 4)
-    flops = 0
+    gram = per_head = 0
     for c0 in range(0, s, q):
         L = min(q, s - c0)
         pairs = L * (L + 1) // 2
-        flops += 2 * pairs * (n + p) + 4 * L * p * n
-    return nbytes, b * h * flops
+        gram += 2 * pairs * n
+        per_head += 2 * pairs * p + (4 if c0 else 2) * L * p * n
+    return nbytes, b * (g * gram + h * per_head)
 
 
 def phase_ssd(torch, report):
     """The SSD scan kernel against ref.py (the model's chunked form) on
     the card: the ssm_score shape (B=32, S=512, 32 heads x 64, state 128,
-    one group, chunk 256: two chunks) in bf16 (the main path) and fp32;
-    S=1,024 (four chunks, B=8); a ragged S=300 (B=8; padded to 512 with
-    zero-dt steps); four groups at a narrow shape. Inputs in the mixer's
-    layout: x, B and C strided views of one xbc tensor. Tolerances at each
-    output's scale s = max|ref|: y and the final state at fp32, and the
-    state at bf16, within 32 f32 ulps of s (atol 2^-18 s: the same f32
-    math in another order); y at bf16 within 2^-6 s plus one bf16 ulp of
-    each element (rtol 2^-7), because the plain form rounds W and W x to
-    bf16 before its sums where the kernel keeps f32 (as the TPU kernel
-    does): at the ssm_score shape both are also held against an f64
-    evaluation of the plain form, and their errors reported. Timed with
-    time_cold beside the bound (bytes, or operations at the inputs'
-    type's peak; the f32 FMA floor of this design beside it) and the
-    plain version. No single PyTorch call computes it."""
+    one group, chunk 256: two chunks) in bf16 (the main path, on the
+    tensor cores) and fp32 (the f32 route); S=1,024 (four chunks, B=8); a
+    ragged S=300 (B=8; padded to 512 with zero-dt steps); four groups at
+    a narrow shape (p=32: the f32 route). Inputs in the mixer's layout: x,
+    B and C strided views of one xbc tensor. Tolerances at each output's
+    scale s = max|ref|: y and the final state at fp32, and the state at
+    bf16, within 32 f32 ulps of s (atol 2^-18 s: the same f32 math in
+    another order); y at bf16 within 2^-6 s plus one bf16 ulp of each
+    element (rtol 2^-7), because the plain form rounds W and W x to bf16
+    before its sums where the kernel keeps f32 (as the TPU kernel does;
+    on the tensor cores W is split hi + lo): at the ssm_score shape both
+    are also held against an f64 evaluation of the plain form, and their
+    errors reported. Timed with time_cold beside the bound (bytes, or
+    operations at the inputs' type's peak, the Gram counted once per
+    group) and the plain version. No single PyTorch call computes it. At
+    the bf16 ssm_score shape also the device profile (one launch per call);
+    at the ssm_score and four-group shapes the head-tile probe (two heads
+    a block against one on the plan's route, in turns, each held against
+    ref.py first)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
@@ -935,8 +990,9 @@ def phase_ssd(torch, report):
                     plain_err_vs_f64=float((yr.double() - y64).abs().max()),
                     kernel_err_vs_f64=float((y.double() - y64).abs().max()))
                 del y64
+            peak = BF16_FLOPS if bf else F32_FLOPS
             nbytes, flops = ssd_work(b, s, h, gg, p, n, q, x.element_size())
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if bf else F32_FLOPS)
+            b_ms, b_by = bound(nbytes, flops, peak)
             case = dict(
                 max_abs_err=max(cy["max_abs_err"], cf["max_abs_err"]),
                 atol=[cy["atol"], cf["atol"]], rtol=cy["rtol"],
@@ -948,7 +1004,34 @@ def phase_ssd(torch, report):
                                                           q)),
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                 f32_fma_floor_ms=flops / F32_FLOPS * 1e3,
+                plan=ssd_ops.plan(dt_, p, n, q, h // gg, b * h,
+                                  _build.sm_count(0),
+                                  ssd_ops._tma_ready(x, Bm, Cm)),
                 shape=dict(b=b, s=s, h=h, g=gg, p=p, n=n, chunk=q))
+            if name == "bf16_score":
+                case["profile"] = kernel_profile(
+                    torch, lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm, q),
+                    SSD_SYMBOLS)
+                if case["profile"]["launches_per_call"] != 1:
+                    raise AssertionError(f"ssd_scan: {case['profile']}")
+            if cname in ("score", "groups4"):
+                dtc = dt.float().contiguous()
+                dA = (dtc * A.float()[None, None, :]).contiguous()
+                probe = {}
+                route = case["plan"][0]
+                for plan in ((route, 2), (route, 1), (route, 1), (route, 2)):
+                    yp, fp = ssd_ops._launch(x, dtc, dA, Bm, Cm, q, plan)
+                    torch.cuda.synchronize()
+                    py = held(torch, yp, yr, (2.0 ** -6 if bf else 2.0 ** -18)
+                              * sy, 2.0 ** -7 if bf else 0.0)
+                    pf = held(torch, fp, finr, 2.0 ** -18 * sf, 0.0)
+                    if not (py["ok"] and pf["ok"]):
+                        raise AssertionError(f"ssd_scan plan {plan}: y {py}, "
+                                             f"state {pf}")
+                    probe.setdefault(f"heads_{plan[1]}_ms", []).append(
+                        time_cold(torch, lambda: ssd_ops._launch(
+                            x, dtc, dA, Bm, Cm, q, plan)))
+                case["head_tile_probe"] = probe
             cases[name] = case
             emit({"phase": "kernels", "kernel": "ssd_scan", "case": name,
                   **case})
@@ -1640,7 +1723,9 @@ def phase_ssm_score(torch, model, params, exp, report):
       against the plain pass within 2 d_plain (two evaluations that each
       drift d_plain); against the folded recurrent log-probs at the
       generated positions within d_plain + d_folded.
-    Wall time of the pass with the kernel and with the plain form."""
+    Wall time of the pass with the kernel and with the plain form; the
+    scan's device time and its share of the kernel pass, from a trace of
+    one more pass that caught all 48 scans."""
     from repro_torch.core.stages import ExpPrepStage
     from repro_torch.rl.experience import ExperienceBatch
 
@@ -1665,6 +1750,27 @@ def phase_ssm_score(torch, model, params, exp, report):
     lp_x = plain(batch, ref_params=params, **kw).ref_logprobs
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
+    # the scan's device time within one more kernel pass, against the
+    # timed pass's wall time (one small op first: the trace may drop the
+    # first kernel after it starts). The card's tracer sometimes loses a
+    # kernel event: a trace that holds fewer scans than the pass launched
+    # is taken again, three times at most, and the share is reported
+    # only from a trace that holds them all.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            kern(batch, ref_params=params, **kw)
+            torch.cuda.synchronize()
+        scans = [e.time_range.end - e.time_range.start
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and any(sym in e.name for sym in SSD_SYMBOLS)]
+        if len(scans) == model.cfg.n_layers:
+            break
+    scan_ms = sum(scans) / 1e3
+    whole = len(scans) == model.cfg.n_layers
     p32 = {k: v.float() for k, v in params.items()}
     lp_k32 = kern(batch, ref_params=p32, **kw).ref_logprobs
     lp_x32 = plain(batch, ref_params=p32, **kw).ref_logprobs
@@ -1698,6 +1804,9 @@ def phase_ssm_score(torch, model, params, exp, report):
     out = dict(phase="ssm_score", batch=list(batch.tokens.shape),
                launches=counts, expected_launches=expected,
                kernel_pass_s=kern_s, plain_pass_s=plain_s,
+               scan_launches_traced=len(scans),
+               scan_device_ms=scan_ms if whole else None,
+               scan_share=scan_ms / (kern_s * 1e3) if whole else None,
                scored_positions=int(fed.sum()),
                generated_positions=int(gen.sum()), **checks)
     emit(out)

@@ -1,5 +1,6 @@
 // Hopper tile machinery shared by the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): TMA tile loads completed on
+// (flash_attention.cu, flash_attention_bwd.cu) and the SSD scan's
+// tensor-core route (ssd_scan.cu): TMA tile loads completed on
 // mbarriers and TMA tile stores, shared-memory descriptors for wgmma, the
 // wgmma products themselves, the conversion of an f32 accumulator tile
 // into bf16 A-operand fragments, and the host code that builds the tensor
@@ -253,6 +254,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 32, f32) {=, +=} A (64 x 16, smem) * B (16 x 32, smem), both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, smem, MN-major).
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                           const uint32_t (&a)[4],
@@ -406,12 +426,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of 64-row tiles of one head of a contiguous (B, n, heads, HD)
-// bf16 tensor. Returns false if the driver refuses it (for instance a base
+// The map of 64-row tiles of one head of a (B, n, heads, HD) bf16 tensor
+// whose last dim is contiguous, with the other three strides given in
+// elements (each a multiple of 8: TMA takes strides in whole 16 bytes).
+// Returns false if cuTensorMapEncodeTiled refuses it (for instance a base
 // address that is not 16-byte aligned).
 template <int HD>
-bool make_tile_map(CUtensorMap* map, const void* ptr, int B, int n,
-                   int heads) {
+bool make_tile_map_strided(CUtensorMap* map, const void* ptr, int B, int n,
+                           int heads, long long s_head, long long s_n,
+                           long long s_b) {
   using T = Tile<HD>;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
@@ -419,8 +442,9 @@ bool make_tile_map(CUtensorMap* map, const void* ptr, int B, int n,
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(n),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(HD) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * n};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_n) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::kCW), 1,
                              static_cast<cuuint32_t>(kRows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -430,6 +454,15 @@ bool make_tile_map(CUtensorMap* map, const void* ptr, int B, int n,
                                : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same map for a contiguous (B, n, heads, HD) tensor.
+template <int HD>
+bool make_tile_map(CUtensorMap* map, const void* ptr, int B, int n,
+                   int heads) {
+  const long long row = HD;
+  return make_tile_map_strided<HD>(map, ptr, B, n, heads, row, row * heads,
+                                   row * heads * n);
 }
 
 // Dynamic shared memory is only 16-byte aligned: the kernels round their

@@ -20,6 +20,11 @@ from repro_torch.kernels.fused_sample.ref import NEG_INF, fused_sample_ref
 
 launches = 0          # kernel launches since the last reset_launches()
 
+_MAX_BLOCKS = 8       # blocks per row: one cluster, the portable size
+_THREADS = 256        # threads per block (csrc/fused_sample.cu)
+_BLOCKS_PER_SM = 4    # resident blocks an SM holds at the kernel's registers
+_MIN_SLICE = 2048     # elements a block streams at least (8 per thread)
+
 
 def reset_launches() -> None:
     global launches
@@ -29,10 +34,26 @@ def reset_launches() -> None:
 @functools.cache
 def _bind():
     fn = _build.load("fused_sample").fused_sample_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def cluster_plan(B: int, V: int, n_sm: int):
+    """``(k, slice)``: blocks per row (one thread-block cluster, at most 8)
+    and the elements each streams. As many blocks as fill about four per
+    SM over the ``B`` rows, but none with fewer than 8 elements a thread,
+    and at least four while the row allows, so that no thread sums more
+    terms than about the first design's V/1024 (or 16, in a short row);
+    the slice is a whole number of float4s, so each starts 16-byte
+    aligned when the row does, and no block is empty. At B=32 on 132 SMs:
+    V=151,936 gives 8 blocks of 18,992; V=50,280 gives 8 of 6,288."""
+    V = max(V, 1)
+    k = min(_MAX_BLOCKS, max(1, V // _MIN_SLICE),
+            max(1024 // _THREADS, -(-_BLOCKS_PER_SM * n_sm // max(B, 1))))
+    slice_ = 4 * -(-V // (4 * k))
+    return -(-V // slice_), slice_
 
 
 def fused_sample(lg, noise):
@@ -55,11 +76,20 @@ def fused_sample(lg, noise):
     if not (lg.is_contiguous() and noise.is_contiguous()):
         raise ValueError("logits and noise must be contiguous")
     B, V = lg.shape
+    return _launch(lg, noise, cluster_plan(B, V, _build.sm_count(
+        lg.device.index or 0)))
+
+
+def _launch(lg, noise, plan):
+    """One counted launch on checked CUDA inputs under ``plan`` = ``(k,
+    slice)``: the wrapper's is ``cluster_plan``'s, and ``chip_smoke.py``'s
+    cluster probe times others."""
+    B, V = lg.shape
     tok = torch.empty((B,), dtype=torch.int32, device=lg.device)
     lp = torch.empty((B,), dtype=torch.float32, device=lg.device)
     stream = torch.cuda.current_stream(lg.device).cuda_stream
     err = _bind()(lg.data_ptr(), noise.data_ptr(), tok.data_ptr(),
-                  lp.data_ptr(), B, V, stream)
+                  lp.data_ptr(), B, V, *plan, stream)
     _build.check(err, "fused_sample")
     global launches
     launches += 1

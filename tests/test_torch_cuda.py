@@ -37,7 +37,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
 from repro_torch.kernels.fused_sample import ops as fs_ops
-from repro_torch.kernels.fused_sample.ref import fused_sample_ref
+from repro_torch.kernels.fused_sample.ref import NEG_INF, fused_sample_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
 from repro_torch.kernels.spec_verify import ops as sv_ops
@@ -314,15 +314,83 @@ def _sample_inputs(seed, B, V, noise, device):
     return torch.from_numpy(lg).to(device), torch.from_numpy(nz).to(device)
 
 
-@pytest.mark.parametrize("V", [1000, 2500, 151936, 151937])
+@pytest.mark.parametrize("V", [1000, 2500, 151936, 151937, 32004])
 @pytest.mark.parametrize("noise", ["zero", "gumbel"])
 def test_fused_sample_kernel_matches_plain_version(V, noise, dev):
+    """V=32004 is a multiple of 4 but not of 4 k (k = 8 blocks a row): the
+    last block's slice is shorter; 151937 takes the scalar loads."""
     lg, nz = _sample_inputs(3, 8, V, noise, dev)
     n0 = fs_ops.launches
     tok, lp = fs_ops.fused_sample(lg, nz)
     assert fs_ops.launches == n0 + 1
     tok_r, lp_r = fused_sample_ref(lg, nz)
     assert torch.equal(tok, tok_r) and int(tok[0]) == 7
+    torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
+
+
+def _plan(B, V, dev):
+    return fs_ops.cluster_plan(B, V, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_fused_sample_tie_across_cluster_blocks(B, dev):
+    """A tie planted in blocks 3 and 5 of the row's cluster, none in block
+    0: the merge keeps the earlier index. B=1 runs at the largest k."""
+    V = 151936
+    k, sl = _plan(B, V, dev)
+    assert k == 8
+    lg, nz = _sample_inputs(5, B, V, "gumbel", dev)
+    i, j = 3 * sl + 17, 5 * sl + 2
+    lg[:, i] = lg[:, j] = 60.0
+    nz[:, i] = nz[:, j] = 0.0
+    tok, lp = fs_ops.fused_sample(lg, nz)
+    tok_r, lp_r = fused_sample_ref(lg, nz)
+    assert torch.equal(tok, tok_r) and (tok == i).all()
+    torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
+
+
+def test_fused_sample_mostly_masked_rows(dev):
+    """Rows that top-p left mostly at NEG_INF: a handful of live logits
+    in a row of -1e30, one row with a single live logit."""
+    B, V = 4, 151936
+    lg, nz = _sample_inputs(6, B, V, "gumbel", dev)
+    keep = torch.zeros((B, V), dtype=torch.bool, device=dev)
+    keep[:, [5, 40000, 90001, 151935]] = True
+    keep[3] = False
+    keep[3, 120000] = True
+    lg = torch.where(keep, lg, torch.full_like(lg, NEG_INF))
+    tok, lp = fs_ops.fused_sample(lg, nz)
+    tok_r, lp_r = fused_sample_ref(lg, nz)
+    assert torch.equal(tok, tok_r) and int(tok[3]) == 120000
+    assert float(lp[3]) == 0.0
+    torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
+
+
+@pytest.mark.parametrize("V", [50280, 151936])
+def test_fused_sample_every_cluster_size_gives_the_same_tokens(V, dev):
+    """Every k from 1 to 8 blocks a row: tokens bitwise those of ref.py,
+    lp within the same tolerance; the plan's own launch is one call."""
+    lg, nz = _sample_inputs(7, 8, V, "gumbel", dev)
+    tok_r, lp_r = fused_sample_ref(lg, nz)
+    for k in range(1, 9):
+        sl = 4 * -(-V // (4 * k))
+        tok, lp = fs_ops._launch(lg, nz, (-(-V // sl), sl))
+        assert torch.equal(tok, tok_r), k
+        torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
+
+
+def test_fused_sample_more_rows_than_a_grid_column_holds(dev):
+    """66,000 rows (a grid's y and z dims stop at 65,535) at two blocks a
+    row: the rows run along the grid's x, tokens bitwise ref.py's."""
+    B, V = 66000, 4096
+    assert _plan(B, V, dev)[0] == 2
+    g = torch.Generator(device=dev).manual_seed(8)
+    lg = torch.randn((B, V), generator=g, device=dev) * 3
+    nz = torch.randn((B, V), generator=g, device=dev)
+    tok, lp = fs_ops.fused_sample(lg, nz)
+    tok_r, lp_r = fused_sample_ref(lg, nz)
+    assert torch.equal(tok, tok_r)
     torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
 
 
@@ -736,15 +804,20 @@ SSD_CASES = {
     "p128_ragged_chunk": (1, 130, 2, 1, 128, 128, 128),
     "s_below_chunk": (2, 20, 4, 1, 32, 16, 64),
     "mamba2_heads_chunk256": (2, 600, 32, 1, 64, 128, 256),
+    "mamba2_score_b2": (2, 512, 32, 1, 64, 128, 256),
+    "heads3_per_group": (2, 200, 6, 2, 64, 64, 64),
+    "p128_n128_chunk256": (2, 512, 4, 1, 128, 128, 256),
+    "p64_chunk32_ragged": (2, 72, 4, 1, 64, 64, 32),
 }
 
 
-def _ssd_inputs(seed, b, s, h, g, p, n, dtype, device):
+def _ssd_inputs(seed, b, s, h, g, p, n, dtype, device, offset=0):
     """x, B and C as strided views of one (b, s, h*p + 2*g*n) tensor, the
-    layout the mixer hands the kernel; dt softplus'ed, A negative."""
+    layout the mixer hands the kernel (``offset`` elements into a wider
+    one: views off a 16-byte boundary); dt softplus'ed, A negative."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    xbc = (torch.randn((b, s, h * p + 2 * g * n), generator=gen)
-           * 0.5).to(device=device, dtype=dtype)
+    xbc = (torch.randn((b, s, h * p + 2 * g * n + offset), generator=gen)
+           * 0.5).to(device=device, dtype=dtype)[..., offset:]
     x = xbc[..., :h * p].reshape(b, s, h, p)
     B = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
     C = xbc[..., h * p + g * n:].reshape(b, s, g, n)
@@ -772,6 +845,73 @@ def test_ssd_scan_kernel_matches_plain_version(name, dtype, dev):
         torch.testing.assert_close(y.float(), yr.float(),
                                    atol=2.0 ** -6 * sy, rtol=2.0 ** -7)
     torch.testing.assert_close(fin, finr, atol=2.0 ** -18 * sf, rtol=0)
+
+
+def _ssd_route(x, B, C, chunk):
+    b, s, h, p = x.shape
+    return ssd_ops.plan(x.dtype, p, B.shape[3], min(chunk, s),
+                        h // B.shape[2], b * h,
+                        torch.cuda.get_device_properties(
+                            x.device).multi_processor_count,
+                        ssd_ops._tma_ready(x, B, C))
+
+
+def test_ssd_scan_misaligned_view_takes_the_f32_route(dev):
+    """x, B and C one element off a 16-byte boundary: TMA cannot read
+    them, so the plan takes the f32 route, which reads by element."""
+    x, dt, A, B, C = _ssd_inputs(2, 2, 256, 4, 1, 64, 128, torch.bfloat16,
+                                 dev, offset=1)
+    assert x.data_ptr() % 16 and _ssd_route(x, B, C, 64)[0] == ssd_ops.SIMT
+    y, fin = ssd_ops.ssd_scan(x, dt, A, B, C, 64)
+    yr, finr = ssd_ref(x, dt, A, B, C, 64)
+    sy, sf = float(yr.float().abs().max()), float(finr.abs().max())
+    torch.testing.assert_close(y.float(), yr.float(), atol=2.0 ** -6 * sy,
+                               rtol=2.0 ** -7)
+    torch.testing.assert_close(fin, finr, atol=2.0 ** -18 * sf, rtol=0)
+
+
+@pytest.mark.parametrize("name,dtype", [
+    ("mamba2_score_b2", torch.bfloat16), ("mamba2_score_b2", torch.float32),
+    ("p64_chunk32_ragged", torch.bfloat16)])
+def test_ssd_scan_is_deterministic(name, dtype, dev):
+    """No atomics on either route: two launches give the same bits."""
+    b, s, h, g, p, n, chunk = SSD_CASES[name]
+    x, dt, A, B, C = _ssd_inputs(3, b, s, h, g, p, n, dtype, dev)
+    y1, f1 = ssd_ops.ssd_scan(x, dt, A, B, C, chunk)
+    y2, f2 = ssd_ops.ssd_scan(x, dt, A, B, C, chunk)
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("route,ht", [(0, 1), (0, 2), (1, 1), (1, 2)])
+def test_ssd_scan_every_head_tile_matches_plain_version(route, ht, dev):
+    """Each route and head tile the plan may choose, at mamba2's score
+    widths, through the private launch the head-tile probe uses."""
+    b, s, h, g, p, n, chunk = SSD_CASES["mamba2_score_b2"]
+    x, dt, A, B, C = _ssd_inputs(4, b, s, h, g, p, n, torch.bfloat16, dev)
+    dA = (dt * A[None, None, :]).contiguous()
+    y, fin = ssd_ops._launch(x, dt.contiguous(), dA, B, C, chunk, (route, ht))
+    yr, finr = ssd_ref(x, dt, A, B, C, chunk)
+    sy, sf = float(yr.float().abs().max()), float(finr.abs().max())
+    torch.testing.assert_close(y.float(), yr.float(), atol=2.0 ** -6 * sy,
+                               rtol=2.0 ** -7)
+    torch.testing.assert_close(fin, finr, atol=2.0 ** -18 * sf, rtol=0)
+
+
+def test_ssd_scan_smem_formula_matches_the_kernel(dev):
+    """ops.smem_bytes, which the plan and the CPU tests use, is the
+    kernel's own count for every route, head width, state and chunk."""
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = _build.load("ssd_scan").ssd_scan_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for route in (0, 1):
+        for p in (16, 32, 64, 128):
+            for n in (8, 16, 32, 64, 128):
+                for q in (16, 64, 256, 1024):
+                    for ht in (1, 2):
+                        assert fn(route, p, n, q, ht) == ssd_ops.smem_bytes(
+                            route, p, n, q, ht), (route, p, n, q, ht)
 
 
 def test_ssd_scan_wrapper_checks_inputs(dev):

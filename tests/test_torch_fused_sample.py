@@ -1,9 +1,9 @@
 """Fused sampling: the port's plain version (``ref.py``) against the JAX
 Pallas kernel in interpret mode on the same numpy noise, ``apply_top_p``
 and ``fused_sample_tokens`` against JAX (the CUDA kernel is held against
-the plain version on the card in tests/test_torch_cuda.py). Tokens must
-be equal; log-probs within atol 1e-5 (one f32 logsumexp in another
-order)."""
+the plain version on the card in tests/test_torch_cuda.py), and the
+kernel's cluster plan. Tokens must be equal; log-probs within atol 1e-5
+(one f32 logsumexp in another order)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,3 +69,27 @@ def test_sampling_needs_noise():
     with pytest.raises(ValueError, match="noise"):
         ops.fused_sample_tokens(torch.zeros(2, 8), 1.0)
 
+
+
+@pytest.mark.parametrize("n_sm", [1, 78, 132])
+@pytest.mark.parametrize("B", [1, 2, 8, 32, 300, 1000])
+def test_cluster_plan_covers_every_index_once(B, n_sm):
+    """k blocks a row, at most 8 (one portable cluster); slices cover
+    every index of the row exactly once, none empty; a whole number of
+    float4s when V is a multiple of 4, so each starts 16-byte aligned;
+    no thread sums more than about the first design's V/1024 terms, or 16
+    in a short row."""
+    for V in (1, 3, 4, 1000, 2047, 2048, 4100, 32004, 50280, 151936,
+              151937):
+        k, sl = ops.cluster_plan(B, V, n_sm)
+        assert 1 <= k <= 8
+        cover = np.zeros(V, np.int64)
+        for r in range(k):
+            lo, hi = r * sl, min(V, (r + 1) * sl)
+            assert hi > lo
+            cover[lo:hi] += 1
+        assert (cover == 1).all()
+        if V % 4 == 0:
+            assert sl % 4 == 0
+        per_thread = -(-sl // ops._THREADS)
+        assert per_thread <= max(V // 1024 + 1, 16), (B, V, n_sm, k, sl)

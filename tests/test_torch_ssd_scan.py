@@ -12,8 +12,9 @@ fp32 tolerance in both dtypes; against the JAX kernel, which keeps W in
 f32 where the chunked form rounds it to x's dtype, the final state is
 held at the JAX test's 5e-3. Then: the carried ``initial_state`` and the
 recurrent ``ssd_decode_step`` against JAX, the chunked form against the
-per-token recurrence, and the wrapper's refusals (an initial state; an
-input that requires grad under autograd: the kernel has no backward)."""
+per-token recurrence, the wrapper's refusals (an initial state; an input
+that requires grad under autograd: the kernel has no backward), and the
+wrapper's plan (route and head tile) for every shape it takes."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -141,3 +142,50 @@ def test_ops_refuses_initial_state_and_autograd():
     with torch.no_grad():
         y, _ = ops.ssd_scan(xg, dt, A, B, C, 8)
     torch.testing.assert_close(y, ssd_ref(x, dt, A, B, C, 8)[0])
+
+
+def test_plan_routes():
+    """The bf16 score shape (B=32, 32 heads, 132 SMs) runs on the tensor
+    cores, two heads a block; three heads a group take one; p=32, fp32
+    and views TMA cannot read take the f32 route; two heads a block only
+    where they save a wave (64 one-head blocks fill one wave already)."""
+    bf, f32, tc, simt = torch.bfloat16, torch.float32, ops.TENSOR_CORES, \
+        ops.SIMT
+    assert ops.plan(bf, 64, 128, 256, 32, 1024, 132) == (tc, 2)
+    assert ops.plan(bf, 64, 128, 256, 32, 256, 132) == (tc, 2)
+    assert ops.plan(bf, 64, 64, 64, 3, 12, 132) == (tc, 1)
+    assert ops.plan(bf, 128, 128, 256, 4, 8, 132) == (tc, 1)
+    assert ops.plan(bf, 32, 16, 32, 4, 8, 132)[0] == simt
+    assert ops.plan(f32, 64, 128, 256, 32, 1024, 132) == (simt, 2)
+    assert ops.plan(bf, 64, 128, 256, 32, 1024, 132, False) == (simt, 2)
+    assert ops.plan(bf, 32, 64, 64, 4, 64, 132) == (simt, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [16, 32, 64, 128])
+def test_plan_fits_every_shape_the_wrapper_takes(dtype, p):
+    """For every (p, n, chunk) and heads per group: either the wrapper
+    refuses the shape, or the plan's head tile divides the heads of a
+    group, its warpgroups fit a block, and its shared memory fits the
+    232,448 bytes a Hopper block may use."""
+    for n in (1, 8, 16, 24, 32, 48, 64, 96, 128):
+        for q in (1, 16, 32, 64, 100, 128, 256, 512, 1024, 2048, 4096):
+            x = torch.zeros((1, q, 6, p), dtype=dtype)
+            B = torch.zeros((1, q, 1, n), dtype=dtype)
+            dt, A = torch.zeros((1, q, 6)), torch.zeros(6)
+            try:
+                ops._check_cuda_inputs(x, dt, A, B, B, q)
+            except ValueError as e:
+                assert "fits" in str(e)
+                assert ops.smem_bytes(ops.SIMT, p, n, q, 1) > 232448
+                continue
+            for hpg in (1, 2, 3, 4, 6, 32):
+                for tma, blocks in ((True, 6), (True, 4096),
+                                    (False, 4096)):
+                    route, ht = ops.plan(dtype, p, n, q, hpg, blocks, 132,
+                                         tma)
+                    assert hpg % ht == 0
+                    assert ops.smem_bytes(route, p, n, q, ht) <= 232448
+                    if route == ops.TENSOR_CORES:
+                        assert dtype == torch.bfloat16 and tma
+                        assert ht * p // 64 <= 2 and n % 32 == 0
