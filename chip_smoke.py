@@ -60,7 +60,9 @@ Phases, in order; any failure raises and exits non-zero:
   7. sync    — one paged macro-step, then one dense macro-step with the
                folded reference stream, under
                torch.cuda.set_sync_debug_mode("error").
-  8. trace   — one macro-step timed on the host clock, and the next under
+  8. trace   — on the first 6 of the 24 layers (profiling a full-depth
+               macro-step took a fifth of the script's time), one
+               macro-step timed on the host clock, and the next under
                torch.profiler: device busy time and idle share, and paged
                attention's device ms over exactly one launch per layer
                per decode step.
@@ -100,6 +102,32 @@ Phases, in order; any failure raises and exits non-zero:
                helper: host reads per turn = verify rounds + 1.
  15. spec_train — one EarlTrainer step with speculation="self" at the
                train phase's settings, with exact launch counts.
+     The paged pool's second half (prefix sharing, int8 pages,
+     preemption), on full-width qwen2-0.5b:
+ 16. shared_path — MultiArmedBandit with a 95-token prompt (96 shared
+               tokens, six pages), B=32, 64 episodes, greedy,
+               share_prefix=True on int8 pages: exactly one paged
+               attention per layer per decode step, all on int8 pools;
+               greedy tokens bitwise equal shared and unshared at int8 and
+               bf16; the page peak within pool_pages_needed_shared; the
+               int8 kernel route against the gather route; then a decode
+               step and a verify chunk into a partial page forked into all
+               32 rows, kernel against gather route, with the copy-on-write
+               copy of values and scales checked.
+ 17. shared_spec — the same with speculation="self" (spec_k 4, 12 draft
+               layers), 32 episodes: one int8 spec-verify launch per layer
+               per verify round; greedy tokens bitwise equal to the
+               non-speculative shared int8 run, and every committed token
+               of both the greedy choice of a teacher-forced plain forward.
+ 18. preempt_path — TicTacToe under on_exhaust="preempt" at the path's
+               sizes (B=32, 64 episodes, 16-token pages, turns of 32
+               tokens), greedy, int8, admit_watermark 64: preemptions in a
+               pool of half the unpressured peak with trajectories bitwise
+               equal to the unpressured run; the minimum-pool ValueError;
+               pool_growth="double" from the minimum pool.
+ 19. shared_train — one EarlTrainer step on the bandit with sharing and
+               int8 pages: the fallback warning once, ExpPrep's standalone
+               pass (one flash forward per layer), exact launch counts.
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
@@ -109,21 +137,21 @@ Phases, in order; any failure raises and exits non-zero:
                profiled, and the head tile probed there, in fp32 and at
                four groups (two heads a block against one); fused_sample
                also at mamba2's V=50280.
- 16. ssm_path — full-width mamba2-370m (48 layers, d=1024, V=50280, bf16,
+ 20. ssm_path — full-width mamba2-370m (48 layers, d=1024, V=50280, bf16,
                random weights) through CompiledRolloutEngine on its
                recurrent cache with the folded reference stream, B=32
                slots, 64 episodes, max_context 512: exactly one fused
                sample per generated-token step, no attention kernel and no
                SSD scan.
- 17. ssm_score — ExpPrep's standalone reference pass over 32 of those
+ 21. ssm_score — ExpPrep's standalone reference pass over 32 of those
                episodes (32 x 512 tokens): exactly 48 SSD scan launches,
                its log-probs against the plain pass and against the folded
                recurrent ones; kernel and plain wall time, and the scan's
                device time in a traced kernel pass and its share of the
                pass's wall time.
- 18. ssm_sync — one ssm macro-step with the reference stream under
+ 22. ssm_sync — one ssm macro-step with the reference stream under
                set_sync_debug_mode("error").
- 19. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
+ 23. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
                KL 0.05, clip 0.2, remat "full"): reference folded, exact
                launch counts (the update runs the plain chunked form).
 
@@ -132,6 +160,7 @@ last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -146,9 +175,14 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS = 67e12             # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS = 989e12           # H100 SXM, bf16 dense tensor cores
 N_TIMED = 50
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; phase lines carry ``t_s``, the seconds since the
+    script started, so the time each phase takes can be read off."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1052,16 +1086,24 @@ def count_calls(obj, name: str) -> list:
     return calls
 
 
+PATH = dict(cache_layout="paged", attn_impl="paged", sampling="fused",
+            temperature=1.0, max_turns=4, max_turn_tokens=32,
+            max_context=256, page_size=16)
+# the trace and ref_trace phases profile the path's settings on the first
+# TRACE_LAYERS layers of the same weights: profiling one full-depth
+# macro-step with the reference stream took 133 s of the script's 703 s
+# on an H100, 71 s at 12 layers, and each layer's device work is
+# the same at any depth
+TRACE_LAYERS = 6
+
+
 def phase_path(torch, model, params, report):
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.rl.engine import CompiledRolloutEngine
     from repro_torch.rl.envs import TicTacToe
 
-    engine = CompiledRolloutEngine(
-        model, TicTacToe(), cache_layout="paged", attn_impl="paged",
-        sampling="fused", temperature=1.0, max_turns=4, max_turn_tokens=32,
-        max_context=256, page_size=16)
+    engine = CompiledRolloutEngine(model, TicTacToe(), **PATH)
     gen = torch.Generator(device="cuda").manual_seed(2)
     t0 = time.perf_counter()
     engine.run(params, 32, 64, generator=gen)
@@ -1205,10 +1247,12 @@ def phase_branch(torch, model, params):
             against="paged kernel")
 
 
-def device_busy(torch, prof):
+def device_busy(torch, prof, averages):
     """Union of the device intervals (kernels, copies, fills) a profiler
     trace holds, in ms, with their count and the five kernels that took the
-    most device time; (None, 0, []) when the trace holds no device event."""
+    most device time (from ``averages``, the trace's ``key_averages()``,
+    which its caller reuses: each call walks every event again); (None, 0,
+    []) when the trace holds no device event."""
     from torch.autograd import DeviceType
     iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                 if e.device_type == DeviceType.CUDA)
@@ -1224,23 +1268,22 @@ def device_busy(torch, prof):
     busy_us += hi - lo
 
     top = sorted(((a.key[:90], a.self_device_time_total / 1e3, a.count)
-                  for a in prof.key_averages()
-                  if a.device_type == DeviceType.CUDA),
+                  for a in averages if a.device_type == DeviceType.CUDA),
                  key=lambda r: -r[1])[:5]
     return busy_us / 1e3, len(iv), top
 
 
 def phase_macro_step(torch, engine, dense_engine, params):
-    """Three macro-steps of the path's engine from a fresh feed: the first
-    under set_sync_debug_mode("error") (the one-sync-per-turn contract),
-    the second timed on the host clock, the third under torch.profiler for
-    the device's busy time. Idle share = 1 - busy / unprofiled wall time.
-    Before them, one macro-step of the dense engine with the folded
-    reference stream, also under set_sync_debug_mode("error"). After
-    them, the path's engine with the folded reference stream (the train
-    step's route): one macro-step to warm, the next under torch.profiler
-    for decode attention's device time and launches (exactly one per
-    layer per decode step of the reference stream)."""
+    """One macro-step of the path's engine under
+    set_sync_debug_mode("error") (the one-sync-per-turn contract), and one
+    of the dense engine with the folded reference stream. Then the path's
+    settings on the first TRACE_LAYERS layers: a macro-step to warm, one
+    timed on the host clock, one under torch.profiler for the device's
+    busy time (idle share = 1 - busy / unprofiled wall time); and the
+    same engine with the folded reference stream (the train step's
+    route): one macro-step to warm, the next under torch.profiler for
+    decode attention's device time and launches (exactly one per layer
+    per decode step of the reference stream)."""
     noise = engine.default_noise(torch.Generator(device="cuda").manual_seed(4))
     dc = dense_engine.init_feed(
         params, dense_engine.init_carry(32, 64, with_ref=True), params)
@@ -1259,7 +1302,18 @@ def phase_macro_step(torch, engine, dense_engine, params):
           "dense_returned_after_one_turn": int(dc.returned),
           "dense_ref_logprobs_finite": bool(
               torch.isfinite(dc.ref_logprobs).all())})
-    del dc
+    del dc, carry
+
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+    model = build_model(dataclasses.replace(engine.model.cfg,
+                                            n_layers=TRACE_LAYERS))
+    params = transformer.draft_params_view(params, TRACE_LAYERS)
+    engine = CompiledRolloutEngine(model, TicTacToe(), **PATH)
+    carry = engine.init_feed(params, engine.init_carry(32, 64))
+    carry = engine.turn_step(params, carry, 0, noise)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1276,13 +1330,15 @@ def phase_macro_step(torch, engine, dense_engine, params):
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     n_pa = pa_ops.launches
-    busy_ms, n_events, top = device_busy(torch, prof)
-    pa_ms = sum(a.self_device_time_total for a in prof.key_averages()
+    averages = prof.key_averages()
+    busy_ms, n_events, top = device_busy(torch, prof, averages)
+    pa_ms = sum(a.self_device_time_total for a in averages
                 if a.device_type == DeviceType.CUDA
                 and any(sym in a.key for sym in PAGED_SYMBOLS)) / 1e3
     steps = engine.max_turn_tokens + engine.env.obs_len
     expected = engine.model.cfg.n_layers * steps
-    out = {"phase": "trace", "decode_steps_per_macro_step": steps,
+    out = {"phase": "trace", "n_layers": TRACE_LAYERS,
+           "decode_steps_per_macro_step": steps,
            "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
            "device_busy_ms": busy_ms,
            "device_idle_share": (None if busy_ms is None
@@ -1318,12 +1374,14 @@ def phase_macro_step(torch, engine, dense_engine, params):
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     n_da = da_ops.launches
-    busy_ms, n_events, top = device_busy(torch, prof)
-    da_ms = sum(a.self_device_time_total for a in prof.key_averages()
+    averages = prof.key_averages()
+    busy_ms, n_events, top = device_busy(torch, prof, averages)
+    da_ms = sum(a.self_device_time_total for a in averages
                 if a.device_type == DeviceType.CUDA
                 and any(sym in a.key for sym in DECODE_SYMBOLS)) / 1e3
     expected = engine.model.cfg.n_layers * steps
-    out = {"phase": "ref_trace", "decode_steps": steps,
+    out = {"phase": "ref_trace", "n_layers": TRACE_LAYERS,
+           "decode_steps": steps,
            "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
            "device_events": n_events,
            "decode_attention_device_ms": da_ms,
@@ -1619,6 +1677,571 @@ def phase_spec_train(torch, model, report):
             and math.isfinite(rec.kl) and rec.kv_dropped_writes == 0):
         raise AssertionError(f"spec_train checks failed: {out}")
     report["spec_train_launches"] = counts
+
+
+# ---------------------------------------------------------------------------
+# The paged pool's second half: prefix sharing, int8 pages, preemption.
+
+class PagedCounter:
+    """Counts decode steps on the paged layout and the pool dtype of every
+    paged-attention and spec-verify call, by wrapping the module functions
+    the engine reaches (restored by ``close``). The kernels' own launch
+    counters stay the gate; these say how many launches there must be, and
+    on which pools."""
+
+    def __init__(self):
+        from repro_torch.kernels.paged_attention import ops as pa_ops
+        from repro_torch.kernels.spec_verify import ops as sv_ops
+        from repro_torch.models import transformer
+        self.steps, self.dtypes = 0, {"paged": [], "verify": []}
+        self._undo = []
+
+        def wrap(mod, name, fn):
+            orig = getattr(mod, name)
+            self._undo.append((mod, name, orig))
+            setattr(mod, name, fn(orig))
+
+        def step(orig):
+            def counted(*a, **kw):
+                self.steps += 1
+                return orig(*a, **kw)
+            return counted
+
+        def pools(kind):
+            def make(orig):
+                def seen(q, k_pages, *a, **kw):
+                    self.dtypes[kind].append(str(k_pages.dtype))
+                    return orig(q, k_pages, *a, **kw)
+                return seen
+            return make
+        wrap(transformer, "_paged_decode_step", step)
+        wrap(pa_ops, "paged_decode_attention", pools("paged"))
+        wrap(sv_ops, "spec_verify_attention", pools("verify"))
+
+    def close(self):
+        for mod, name, orig in reversed(self._undo):
+            setattr(mod, name, orig)
+
+
+def cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.kv
+               if t is not None)
+
+
+def bandit_engine(model, **kw):
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import MultiArmedBandit
+    return CompiledRolloutEngine(model, MultiArmedBandit(prompt_len=95),
+                                 **dict(SHARED, **kw))
+
+
+# an agent's fixed 95-token system prompt: 96 shared tokens (BOS + prompt),
+# six full 16-token pages; the bandit ends each episode in one turn
+SHARED = dict(cache_layout="paged", attn_impl="paged", sampling="fused",
+              temperature=0.0, max_turns=1, max_turn_tokens=32,
+              max_context=256, page_size=16)
+
+
+def phase_shared_path(torch, model, params, report):
+    """Full-width qwen2-0.5b through the engine on MultiArmedBandit
+    (prompt_len 95: 96 shared tokens, six pages), B=32 slots, 64 episodes,
+    greedy, fused sampling, share_prefix=True on int8 pages. Four runs from
+    equally seeded generators: int8 unshared (also the warm-up), int8
+    shared (timed, every counter set to 0 just before it), bf16 shared and
+    bf16 unshared. Gates: every episode returned, 0 dropped writes, the
+    shared peak within pool_pages_needed_shared, exactly one paged
+    attention per layer per decode step and every one on an int8 pool, and
+    greedy tokens (and masks, context lengths) bitwise equal shared and
+    unshared at int8 and at bf16. Then one decode step on the shared int8
+    pool through the paged kernel and the gather route (dequantize +
+    plain attention): within 5% of the logit scale, the branch phase's
+    tolerance (the plain route's softmax runs in bf16). Last, the
+    copy-on-write copy on a forked partial page (``shared_cow``)."""
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models.paging import pool_pages_needed_shared
+
+    nl = model.cfg.n_layers
+    gen = lambda: torch.Generator(device="cuda").manual_seed(7)
+    runs = {}
+    for name, kw in (("int8_off", dict(kv_dtype="int8")),
+                     ("int8_on", dict(kv_dtype="int8", share_prefix=True)),
+                     ("bf16_on", dict(share_prefix=True)),
+                     ("bf16_off", {})):
+        engine = bandit_engine(model, **kw)
+        counter = PagedCounter()
+        pa_ops.reset_launches()
+        fs_ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            exp, st = engine.run(params, 32, 64, generator=gen())
+            torch.cuda.synchronize()
+        finally:
+            counter.close()
+        runs[name] = dict(exp=exp, st=st, secs=time.perf_counter() - t0,
+                          steps=counter.steps, pa=pa_ops.launches,
+                          fs=fs_ops.launches, dtypes=counter.dtypes["paged"],
+                          engine=engine)
+    on = runs["int8_on"]
+    st, eng = on["st"], on["engine"]
+    need = pool_pages_needed_shared(32, 256, eng.shared_len, 16)
+
+    def same(a, b):
+        ea, eb = runs[a]["exp"], runs[b]["exp"]
+        eq = (ea.tokens == eb.tokens).all(dim=1)
+        return dict(episodes_identical=int(eq.sum()),
+                    tokens_bitwise=bool(eq.all()),
+                    masks_bitwise=bool(torch.equal(ea.gen_mask, eb.gen_mask)
+                                       and torch.equal(ea.context_len,
+                                                       eb.context_len)),
+                    max_abs_dlogprob=float((ea.logprobs - eb.logprobs).abs()
+                                           .max()))
+    int8_eq, bf16_eq = same("int8_on", "int8_off"), same("bf16_on",
+                                                         "bf16_off")
+
+    # the int8 kernel route against the gather route, on the shared pool
+    carry = eng.init_feed(params, eng.init_carry(32, 64))
+    tok = torch.full((32,), 40, dtype=torch.int32, device=params["embedding"].device)
+    lg = {}
+    for impl in ("paged", "xla"):
+        cache = carry.cache._replace(kv=type(carry.cache.kv)(
+            *(t.clone() for t in carry.cache.kv)))
+        lg[impl] = model.decode_step(params, tok, cache,
+                                     attn_impl=impl)[0].float()
+    scale = float(lg["xla"].abs().max())
+    d_route = float((lg["paged"] - lg["xla"]).abs().max())
+    int8_bytes = cache_bytes(carry.cache)
+    bf16_bytes = cache_bytes(model.init_cache(
+        32, 256, layout="paged", page_size=16, n_pages=carry.cache.n_pages,
+        device="cuda"))
+    del carry
+    gen_tokens = int(on["exp"].gen_mask.sum())
+    out = dict(
+        phase="shared_path", prompt_prefix_len=eng.env.prompt_prefix_len,
+        shared_len=eng.shared_len, shared_pages=eng.shared_pages,
+        seconds=on["secs"], generated_tokens=gen_tokens,
+        tokens_per_s=gen_tokens / on["secs"],
+        unshared_seconds=runs["int8_off"]["secs"],
+        unshared_tokens_per_s=int(runs["int8_off"]["exp"].gen_mask.sum())
+        / runs["int8_off"]["secs"],
+        bf16_shared_seconds=runs["bf16_on"]["secs"],
+        bf16_unshared_seconds=runs["bf16_off"]["secs"],
+        decode_steps=on["steps"], unshared_decode_steps=runs["int8_off"][
+            "steps"],
+        paged_attention_launches=on["pa"], fused_sample_launches=on["fs"],
+        paged_attention_per_decode_step=on["pa"] / max(on["steps"], 1),
+        int8_pool_calls=on["dtypes"].count("torch.int8"),
+        pages_peak=st.pages_in_use,
+        unshared_pages_peak=runs["int8_off"]["st"].pages_in_use,
+        pool_pages_needed_shared=need, page_capacity=st.page_capacity,
+        pool_bytes_int8=int8_bytes, pool_bytes_bf16=bf16_bytes,
+        pool_bytes_ratio=int8_bytes / bf16_bytes,
+        episodes_started=st.episodes_started,
+        episodes_returned=st.episodes_returned,
+        kv_dropped_writes=st.kv_dropped_writes,
+        int8_shared_vs_unshared=int8_eq, bf16_shared_vs_unshared=bf16_eq,
+        route_max_abs_dlogit=d_route, route_logit_scale=scale,
+        route_tolerance=0.05 * scale,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    ok = (all(r["st"].episodes_returned == 64 and r["st"].kv_dropped_writes
+              == 0 for r in runs.values())
+          and st.pages_in_use <= need and on["steps"] > 0
+          and on["pa"] == nl * on["steps"]
+          and on["dtypes"] == ["torch.int8"] * on["pa"]
+          and int8_eq["tokens_bitwise"] and int8_eq["masks_bitwise"]
+          and bf16_eq["tokens_bitwise"] and bf16_eq["masks_bitwise"]
+          and d_route <= 0.05 * scale and math.isfinite(d_route)
+          and bool(torch.isfinite(on["exp"].logprobs).all()))
+    if not ok:
+        raise AssertionError(f"shared_path checks failed: {out}")
+    report["paged_attention"]["launches_int8"] = on["pa"]
+    shared_cow(torch, model, params)
+
+
+def shared_cow(torch, model, params):
+    """The copy-on-write copy at full width, which the engine never needs
+    (its shared run is whole pages): an int8 pool after a shared 100-token
+    prompt (six full pages and a partial seventh, 4 tokens in), with row
+    0's partial page aliased into all 32 rows (refcount 32), as a caller
+    that forks a partial page leaves it. One decode step and one K=4
+    verify chunk into that page, each through the kernel ("paged") and
+    the gather route ("xla") from copies of the pool. Gates: logits of the
+    two routes within 5% of their scale (the branch phase's tolerance),
+    the allocator state equal, every row writing into its own new page,
+    the source page's values and scales untouched and freed, and each
+    copy holding the source's 4 entries (values and scales)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.models import transformer as tf
+
+    B, S, ps, nl = 32, 100, 16, model.cfg.n_layers
+    fill, slot = S % ps, S // ps
+    g = torch.Generator(device="cuda").manual_seed(9)
+    toks = torch.randint(3, model.cfg.vocab_size, (1, S), generator=g,
+                         device="cuda").to(torch.int32).repeat(B, 1)
+    cache = model.init_cache(B, 256, layout="paged", page_size=ps,
+                             kv_dtype="int8", device="cuda")
+    _, cache = model.prefill(params, toks, cache, shared_prefix_len=S)
+    bt, rc = cache.block_table.clone(), cache.refcount.clone()
+    page = int(bt[0, slot])
+    rc.index_add_(0, bt[1:, slot].long(), -torch.ones_like(rc[:B - 1]))
+    rc[page] += B - 1
+    bt[1:, slot] = page
+    cache = cache._replace(block_table=bt, refcount=rc)
+    before = [t[:, page].clone() for t in cache.kv]
+    chunk = torch.randint(3, model.cfg.vocab_size, (B, 4), generator=g,
+                          device="cuda").to(torch.int32)
+    out = dict(phase="shared_path", part="cow", batch=B, prompt=S,
+               refcount_before=int(rc[page]))
+    ok = True
+    for step in ("decode", "verify"):
+        res, launches = {}, {}
+        for impl in ("paged", "xla"):
+            c = cache._replace(
+                kv=type(cache.kv)(*(None if t is None else t.clone()
+                                    for t in cache.kv)),
+                block_table=bt.clone(), refcount=rc.clone(),
+                pos=cache.pos.clone())
+            pa_ops.reset_launches()
+            sv_ops.reset_launches()
+            if step == "decode":
+                res[impl] = model.decode_step(params, chunk[:, 0], c,
+                                              attn_impl=impl)
+            else:
+                res[impl] = tf.spec_verify_step(model.cfg, params, chunk, c,
+                                                attn_impl=impl)
+            launches[impl] = (pa_ops.launches if step == "decode"
+                              else sv_ops.launches)
+        (lk, ck), (lx, cx) = res["paged"], res["xla"]
+        scale = float(lx.float().abs().max())
+        d = float((lk.float() - lx.float()).abs().max())
+        new = ck.block_table[:, slot].long()
+        copied = all(
+            torch.equal(t[:, page], b) and torch.equal(
+                t[:, new, :fill], b[:, None, :fill].expand_as(
+                    t[:, new, :fill]))
+            for c in (ck, cx) for t, b in zip(c.kv, before))
+        r = dict(max_abs_dlogit=d, logit_scale=scale,
+                 tolerance=0.05 * scale,
+                 allocator_equal=bool(torch.equal(ck.block_table,
+                                                  cx.block_table)
+                                      and torch.equal(ck.refcount,
+                                                      cx.refcount)),
+                 private_pages=len(set(new.tolist()) - {page}),
+                 source_refcount_after=int(ck.refcount[page]),
+                 copies_hold_source=copied,
+                 kernel_launches=launches["paged"],
+                 int8=ck.kv.k.dtype == torch.int8)
+        out[step] = r
+        ok = ok and (d <= 0.05 * scale and math.isfinite(d)
+                     and r["allocator_equal"] and r["private_pages"] == B
+                     and r["source_refcount_after"] == 0 and copied
+                     and r["kernel_launches"] == nl and r["int8"])
+    emit(out)
+    if not ok:
+        raise AssertionError(f"shared_path copy-on-write checks failed: "
+                             f"{out}")
+
+
+def greedy_gaps(torch, model, params, exp) -> dict:
+    """Teacher-forces a greedy batch's committed contexts through the plain
+    bf16 forward (8 rows at a time) and reads, at every generated position,
+    the gap between the forward's largest logit and the committed token's
+    (0 where the committed token is the forward's argmax), and how far the
+    engine's log-prob of that token lies from the forward's."""
+    toks, gm, lps = exp.tokens, exp.gen_mask[:, 1:], exp.logprobs[:, 1:]
+    gaps, dlps, scale = [], [], 0.0
+    with torch.no_grad():
+        for r in range(0, toks.shape[0], 8):
+            lg = model.forward(params, toks[r:r + 8])[0][:, :-1].float()
+            m = gm[r:r + 8]
+            at = lg.gather(-1, toks[r:r + 8, 1:, None].long())[..., 0]
+            gaps.append((lg.amax(-1) - at)[m])
+            lp = (at - torch.logsumexp(lg, -1))[m]
+            dlps.append((lp - lps[r:r + 8][m]).abs())
+            scale = max(scale, float(lg.abs().max()))
+            del lg
+    gaps, dlps = torch.cat(gaps), torch.cat(dlps)
+    return dict(positions=int(gaps.numel()),
+                argmax_fraction=float((gaps == 0).float().mean()),
+                max_gap=float(gaps.max()), max_abs_dlogprob=float(dlps.max()),
+                logit_scale=scale)
+
+
+def phase_shared_spec(torch, model, params, report):
+    """The shared int8 engine with speculation="self" (spec_k 4, 12 draft
+    layers, sampling="reference", greedy), B=32, 32 episodes: the verify
+    chunk runs the spec-verify kernel's int8 route on forked prefix pages.
+    Gates: every episode returned, 0 dropped writes, exactly one
+    spec-verify launch per layer per verify round and one paged attention
+    per layer per fed column, every one on an int8 pool. Then the same
+    episodes through the non-speculative shared int8 engine (equally
+    seeded generators: greedy runs draw only the bandit's reset and payout
+    draws, in the same order): tokens, masks and context lengths bitwise
+    equal, JAX's contract that speculation does not change greedy output.
+    The verify GEMMs see M = B*K rows against M = B, which flips greedy
+    near-ties on TicTacToe (spec_branch, ROADMAP Queue 3); on this batch
+    they agreed bitwise on an H100. Beside it, for both runs:
+    every committed token is the greedy choice of the plain bf16 forward
+    over the committed context, up to a gap of 10% of the logit scale
+    (the branch phase's 5% for each of the two logits compared; a wrong
+    commit sits a large part of the scale below the top), which tells a
+    near-tie flip from a wrong commit if the bitwise gate fails."""
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+
+    nl = model.cfg.n_layers
+    kw = dict(kv_dtype="int8", share_prefix=True, sampling="reference")
+    engine = bandit_engine(model, speculation="self", spec_k=4,
+                           draft_layers=12, **kw)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(8)
+    rounds = count_calls(engine, "_more_rounds")
+    counter = PagedCounter()
+    for ops in (sv_ops, pa_ops, fs_ops):
+        ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        exp, st = engine.run(params, 32, 32, generator=gen())
+        torch.cuda.synchronize()
+    finally:
+        counter.close()
+    secs = time.perf_counter() - t0
+    counts = dict(spec_verify=sv_ops.launches,
+                  paged_attention=pa_ops.launches,
+                  fused_sample=fs_ops.launches)
+    expected = dict(spec_verify=nl * len(rounds),
+                    paged_attention=nl * counter.steps, fused_sample=0)
+    int8 = all(d == "torch.int8" for k in ("paged", "verify")
+               for d in counter.dtypes[k])
+    off, _ = bandit_engine(model, **kw).run(params, 32, 32,
+                                            generator=gen())
+    same = ((exp.tokens == off.tokens).all(dim=1)
+            & (exp.gen_mask == off.gen_mask).all(dim=1)
+            & (exp.context_len == off.context_len))
+    diff = (exp.tokens != off.tokens).any(dim=0).nonzero()
+    gaps = dict(spec=greedy_gaps(torch, model, params, exp),
+                off=greedy_gaps(torch, model, params, off))
+    tol = {k: 0.1 * g["logit_scale"] for k, g in gaps.items()}
+    gen_tokens = int(exp.gen_mask.sum())
+    out = dict(phase="shared_spec", seconds=secs,
+               generated_tokens=gen_tokens, tokens_per_s=gen_tokens / secs,
+               verify_rounds=len(rounds), decode_steps=counter.steps,
+               spec_proposed=st.spec_proposed,
+               spec_accepted=st.spec_accepted, spec_rounds=st.spec_rounds,
+               mean_accepted_len=(st.spec_accepted + st.spec_rounds)
+               / max(st.spec_rounds, 1),
+               launches=counts, expected_launches=expected,
+               int8_verify_calls=counter.dtypes["verify"].count("torch.int8"),
+               all_int8=int8, pages_peak=st.pages_in_use,
+               episodes_returned=st.episodes_returned,
+               kv_dropped_writes=st.kv_dropped_writes,
+               vs_off_identical_fraction=float(same.float().mean()),
+               vs_off_first_divergent_position=(int(diff[0]) if diff.numel()
+                                                else None),
+               greedy_gaps=gaps, gap_tolerance=tol,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (counts == expected and len(rounds) > 0 and int8
+            and st.episodes_returned == 32 and st.kv_dropped_writes == 0
+            and bool(torch.isfinite(exp.logprobs).all())
+            and bool(same.all())
+            and all(gaps[k]["positions"] > 0
+                    and gaps[k]["max_gap"] <= tol[k] for k in gaps)):
+        raise AssertionError(f"shared_spec checks failed: {out}")
+    report["spec_verify"]["launches_int8"] = counts["spec_verify"]
+
+
+# the path's settings (B=32 slots, 64 episodes, four turns of up to 32
+# tokens, 16-token pages), greedy, on int8 pages, under preemption
+PREEMPT = dict(PATH, temperature=0.0, kv_dtype="int8", on_exhaust="preempt",
+               admit_watermark=64)
+
+
+def phase_preempt_path(torch, model, params, report):
+    """Full-width qwen2-0.5b on TicTacToe under on_exhaust="preempt" at the
+    path's sizes, greedy, int8 pages. The unpressured run (the default
+    pool) first; its page peak is the exhaustion-free size for these
+    trajectories, and the pressured run gets half of it, which must lie
+    above the governor's minimum. Gates: preemptions > 0, 0 dropped writes,
+    every episode returned, trajectories (tokens, masks, log-probs,
+    rewards, context lengths) bitwise equal to the unpressured run's; a
+    pool one page below min_pool_pages raises ValueError;
+    pool_growth="double" from the minimum pool grows, stays within
+    pool_growth_max (the unpressured peak), drains with 0 dropped writes
+    and commits the same trajectories.
+
+    admit_watermark is 64 pages (two a slot). At the default (one turn of
+    one slot, 4 pages) the governor of both packages can fail to drain at
+    these sizes: admission refills every freed page with a fresh episode,
+    which runs first (shortest context first), so the long episodes are
+    preempted over and over (ROADMAP Queue 3). 32 pages drains too, but
+    the half-pool run took 268 s on an H100 where 64 pages takes fewer
+    macro-steps (91-105 against 58-62 on the CPU at smoke size)."""
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    B, N = 32, 64
+    gen = lambda: torch.Generator(device="cuda").manual_seed(5)
+    mk = lambda **kw: CompiledRolloutEngine(model, TicTacToe(),
+                                            **dict(PREEMPT, **kw))
+    runs = {}
+
+    def run(name, engine):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp, st = engine.run(params, B, N, generator=gen())
+        torch.cuda.synchronize()
+        runs[name] = (exp, st, time.perf_counter() - t0)
+
+    full = mk()
+    run("full", full)
+    minimum = full.min_pool_pages(B)
+    peak = runs["full"][1].pages_in_use
+    half = peak // 2
+    if half <= minimum:
+        raise AssertionError(f"preempt_path: half the unpressured peak "
+                             f"({half} of {peak} pages) is not above the "
+                             f"governor's minimum ({minimum})")
+    run("half", mk(cache_pages=half))
+    run("grow", mk(cache_pages=minimum, pool_growth="double",
+                   pool_growth_max=peak))
+    try:
+        mk(cache_pages=minimum - 1).run(params, B, N, generator=gen())
+        refused = False
+    except ValueError as e:
+        refused = "minimum viable pool" in str(e)
+
+    def same(name):
+        a, b = runs["full"][0], runs[name][0]
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+                   ("tokens", "gen_mask", "logprobs", "rewards",
+                    "context_len"))
+    st = {k: v[1] for k, v in runs.items()}
+    out = dict(phase="preempt_path", batch=B, episodes=N,
+               admit_watermark=full.admit_watermark,
+               min_pool_pages=minimum, full_pool=st["full"].page_capacity,
+               full_pages_peak=peak, half_pool=half,
+               half_pages_peak=st["half"].pages_in_use,
+               preemptions=st["half"].preemptions,
+               requeue_depth=st["half"].requeue_depth,
+               grow_start=minimum, grow_max=peak,
+               pool_grows=st["grow"].pool_grows,
+               grow_capacity=st["grow"].page_capacity,
+               grow_preemptions=st["grow"].preemptions,
+               seconds={k: v[2] for k, v in runs.items()},
+               tokens_per_s={k: int(v[0].gen_mask.sum()) / v[2]
+                             for k, v in runs.items()},
+               kv_dropped_writes={k: v.kv_dropped_writes
+                                  for k, v in st.items()},
+               episodes_returned={k: v.episodes_returned
+                                  for k, v in st.items()},
+               half_equals_full=same("half"), grow_equals_full=same("grow"),
+               below_minimum_refused=refused,
+               mean_context_len=st["full"].mean_context_len)
+    emit(out)
+    if not (st["half"].preemptions > 0 and refused
+            and all(s.kv_dropped_writes == 0 and s.episodes_returned == N
+                    for s in st.values())
+            and out["half_equals_full"] and out["grow_equals_full"]
+            and st["grow"].pool_grows >= 1
+            and st["grow"].page_capacity <= peak):
+        raise AssertionError(f"preempt_path checks failed: {out}")
+
+
+def phase_shared_train(torch, model, report):
+    """One EarlTrainer step at full width on MultiArmedBandit (prompt_len
+    95) with share_prefix=True and int8 pages, B=N=32, max_context 256,
+    KL 0.05, clip 0.2, bf16, remat "full". Sharing unfolds the reference
+    pass: the trainer warns once and ExpPrep runs its standalone pass (the
+    reference params are a copy, so the behaviour log-probs are not
+    reused). Expected launches, exactly: one paged attention per layer per
+    decode step, all on int8 pools; one fused sample per generated-token
+    step; in ExpPrep one flash forward per layer; in the update the flash
+    forward twice per layer (forward and remat recompute) and dq and dk/dv
+    once; no decode attention."""
+    import warnings
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.rl.envs import MultiArmedBandit
+
+    nl = model.cfg.n_layers
+    tr = EarlTrainer(model=model, env=MultiArmedBandit(prompt_len=95),
+                     optimizer=adamw(3e-4, weight_decay=0.0), batch_size=32,
+                     rollout_episodes=32, max_turns=1, max_turn_tokens=32,
+                     max_context=256, kl_coef=0.05, clip_eps=0.2,
+                     temperature=1.0, seed=0, share_prefix=True,
+                     kv_dtype="int8")
+    params, opt_state, _ = tr.init_state()
+    ref = {k: v.clone() for k, v in params.items()}
+    expprep, stage = {}, tr.expprep_stage
+
+    def timed_expprep(exp, **kw):
+        torch.cuda.synchronize()
+        n0, t0 = fa_ops.launches["fwd"], time.perf_counter()
+        out = stage(exp, **kw)
+        torch.cuda.synchronize()
+        expprep.update(seconds=time.perf_counter() - t0,
+                       flash_fwd=fa_ops.launches["fwd"] - n0)
+        return out
+    tr.expprep_stage = timed_expprep
+    counter = PagedCounter()
+    for ops in (pa_ops, fs_ops, fa_ops, da_ops):
+        ops.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            new, _, rec = tr.run_step(0, params, opt_state, ref)
+        torch.cuda.synchronize()
+    finally:
+        counter.close()
+    counts = dict(paged_attention=pa_ops.launches,
+                  fused_sample=fs_ops.launches,
+                  flash_fwd=fa_ops.launches["fwd"],
+                  flash_dq=fa_ops.launches["dq"],
+                  flash_dkv=fa_ops.launches["dkv"],
+                  decode_attention=da_ops.launches)
+    expected = dict(paged_attention=nl * counter.steps,
+                    fused_sample=counts["fused_sample"], flash_fwd=3 * nl,
+                    flash_dq=nl, flash_dkv=nl, decode_attention=0)
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)
+              and "share_prefix" in str(w.message)]
+    changed = not torch.equal(new["layers.attn.wq"], params["layers.attn.wq"])
+    out = dict(phase="shared_train", step=0, ref_folded=tr.ref_folded,
+               fallback_warnings=len(warned), shared_len=tr.rollout.shared_len,
+               mean_return=rec.mean_return,
+               mean_context_len=rec.mean_context_len, loss=rec.loss,
+               kl=rec.kl, rollout_s=rec.rollout_wall_s,
+               expprep_s=expprep.get("seconds"),
+               expprep_flash_fwd=expprep.get("flash_fwd"),
+               update_s=rec.update_wall_s, step_s=rec.wall_time_s,
+               decode_steps=counter.steps, launches=counts,
+               expected_launches=expected,
+               all_int8=all(d == "torch.int8"
+                            for d in counter.dtypes["paged"]),
+               pages_in_use=rec.pages_in_use,
+               page_capacity=rec.page_capacity,
+               kv_dropped_writes=rec.kv_dropped_writes,
+               params_changed=changed,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (counts == expected and not tr.ref_folded and len(warned) == 1
+            and expprep.get("flash_fwd") == nl and out["all_int8"]
+            and counter.steps > 0 and counts["fused_sample"] > 0 and changed
+            and math.isfinite(rec.loss) and math.isfinite(rec.kl)
+            and rec.kv_dropped_writes == 0):
+        raise AssertionError(f"shared_train checks failed: {out}")
+    report["shared_train_launches"] = counts
 
 
 SSM = dict(cache_layout="dense", sampling="fused", temperature=1.0,
@@ -2007,10 +2630,10 @@ def phase_train_trace(torch, trainer, params, opt_state, exp):
                              ProfilerActivity.CUDA]) as prof:
         trainer.update_stage(params, opt_state, exp)
         torch.cuda.synchronize()
-    busy_ms, n_events, top = device_busy(torch, prof)
     from torch.autograd import DeviceType
-    device = [a for a in prof.key_averages()
-              if a.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    busy_ms, n_events, top = device_busy(torch, prof, averages)
+    device = [a for a in averages if a.device_type == DeviceType.CUDA]
     flash_ms = {sym: sum(a.self_device_time_total for a in device
                          if sym in a.key) / 1e3
                 for syms in FLASH_SYMBOLS.values() for sym in syms}
@@ -2137,12 +2760,17 @@ def main() -> int:
     spec_engine = phase_spec_path(torch, model, params, report)
     phase_spec_branch(torch, model, params)
     phase_spec_sync(torch, spec_engine, params)
-    del spec_engine, params
+    del spec_engine
+    phase_shared_path(torch, model, params, report)
+    phase_shared_spec(torch, model, params, report)
+    phase_preempt_path(torch, model, params, report)
+    del params
     trainer, params, opt_state, exp = phase_train(torch, model, report)
     phase_train_trace(torch, trainer, params, opt_state, exp)
     phase_train_branch(torch, model, params, opt_state, exp)
     del trainer, params, opt_state, exp
     phase_spec_train(torch, model, report)
+    phase_shared_train(torch, model, report)
     del model
 
     cfg = get_config("mamba2-370m")
@@ -2181,6 +2809,8 @@ def main() -> int:
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:31")):
         r = report[name]
+        extra = ({"launches_int8": r["launches_int8"]}
+                 if "launches_int8" in r else {})
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": r["launches"],
@@ -2189,7 +2819,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "cases": {c: {k: v[k] for k in ("max_abs_err", "atol", "rtol",
                                             "err_over_tol", "ms")}
-                      for c, v in r["cases"].items()}})
+                      for c, v in r["cases"].items()}, **extra})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

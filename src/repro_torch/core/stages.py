@@ -13,10 +13,11 @@ As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
 a second time through the reference model on a dense cache. Speculation
 unfolds it (the folded decode consumes one token per step and cannot
-consume drafted chunks; prefix sharing would too, and is not ported):
-ExpPrep then takes JAX's standalone route, a full-sequence reference
-forward, or the behaviour log-probs when the reference IS the sampling
-policy, and the trainer warns once that it does.
+consume drafted chunks), and so does prefix sharing (the reference's dense
+cache cannot fork the shared prefix pages): ExpPrep then takes JAX's
+standalone route, a full-sequence reference forward, or the behaviour
+log-probs when the reference IS the sampling policy, and the trainer warns
+once that it does.
 
 ``attn_impl="paged"`` (the default) is the production path: every stream
 runs its family's kernel (``_ATTN``); ``attn_impl="xla"`` runs the plain
@@ -89,8 +90,8 @@ class StepRecord:
     pages_in_use: int = 0
     page_capacity: int = 0
     kv_dropped_writes: int = 0
-    # graceful-degradation telemetry: 0 until those engine features are
-    # ported (ROADMAP Queue 1 item 8)
+    # pool-pressure telemetry: slots preempted, peak re-admission queue
+    # depth, pool doublings
     preemptions: int = 0
     requeue_depth: int = 0
     pool_grows: int = 0
@@ -199,15 +200,18 @@ class EarlTrainer:
     layout is "dense" (its recurrent cache; "paged" raises). With
     ``speculation`` ("self" or "draft", with ``spec_k`` and
     ``draft_layers``) an unset ``sampling`` is "reference", JAX's default,
-    and the reference pass is not folded. The JAX trainer's options whose
-    features are not ported raise ``NotImplementedError`` naming their
-    ROADMAP Queue 1 item, among them step retries (``max_retries > 0``)
-    and the truncated-IS reweighting of the lagged async pipeline
-    (``is_rho_max > 0``); the settings that only those features read
-    (``prefix_len``, ``pool_growth_max``, ``admit_watermark``,
-    ``max_policy_lag``, ``dispatch_strategy``, ``retry_backoff_s``) are not
-    fields. As in JAX, the trainer passes no ``draft_model``, so
-    ``speculation="draft"`` raises from the engine."""
+    and the reference pass is not folded. The paged pool's options reach
+    the engine: ``kv_dtype="int8"``, ``share_prefix`` with ``prefix_len``
+    (which unfolds the reference pass too), ``on_exhaust="preempt"`` with
+    ``admit_watermark``, and ``pool_growth="double"`` with
+    ``pool_growth_max``. The JAX trainer's options whose features are not
+    ported raise ``NotImplementedError`` naming their ROADMAP Queue 1 item,
+    among them step retries (``max_retries > 0``) and the truncated-IS
+    reweighting of the lagged async pipeline (``is_rho_max > 0``); the
+    settings that only those features read (``max_policy_lag``,
+    ``dispatch_strategy``, ``retry_backoff_s``) are not fields. As in JAX,
+    the trainer passes no ``draft_model``, so ``speculation="draft"``
+    raises from the engine."""
 
     model: Any                              # repro_torch Model
     env: Any
@@ -230,10 +234,13 @@ class EarlTrainer:
     cache_layout: Optional[str] = None      # "paged" | "dense"
     page_size: int = 16
     cache_pages: Optional[int] = None       # None = full provisioning
-    kv_dtype: str = "bf16"                  # "fp32" | "bf16"
-    share_prefix: bool = False
-    on_exhaust: str = "count"               # "count" | "raise"
-    pool_growth: str = "off"
+    kv_dtype: str = "bf16"                  # "fp32" | "bf16" | "int8" (paged)
+    share_prefix: bool = False              # paged: fork shared-prompt pages
+    prefix_len: Optional[int] = None        # None = env.prompt_prefix_len
+    on_exhaust: str = "count"               # "count" | "raise" | "preempt"
+    pool_growth: str = "off"                # paged: "off" | "double"
+    pool_growth_max: Optional[int] = None   # growth cap (None = full)
+    admit_watermark: Optional[int] = None   # preempt: free-page watermark
     speculation: str = "off"                # "off" | "self" | "draft"
     spec_k: int = 4                         # speculative chunk length
     draft_layers: Optional[int] = None      # "self": draft depth (L // 2)
@@ -284,11 +291,17 @@ class EarlTrainer:
                 cache_layout=self.cache_layout, page_size=self.page_size,
                 cache_pages=self.cache_pages, kv_dtype=self.kv_dtype,
                 on_exhaust=self.on_exhaust, share_prefix=self.share_prefix,
-                pool_growth=self.pool_growth, speculation=self.speculation,
-                spec_k=self.spec_k, draft_layers=self.draft_layers, **kw)
+                prefix_len=self.prefix_len, pool_growth=self.pool_growth,
+                pool_growth_max=self.pool_growth_max,
+                admit_watermark=self.admit_watermark,
+                speculation=self.speculation, spec_k=self.spec_k,
+                draft_layers=self.draft_layers, **kw)
         # JAX folds the reference pass into the rollout unless prefix
-        # sharing (unported: it raises above) or speculation is on
-        self.ref_folded = not self.share_prefix and self.speculation == "off"
+        # sharing or speculation is on: the folded reference decodes on a
+        # dense cache, which can neither fork the shared prefix pages nor
+        # consume drafted chunks
+        self.ref_folded = (not getattr(self.rollout, "shared_pages", 0)
+                           and self.speculation == "off")
         self._warned_ref_fallback = False
         self.rollout_stage = RolloutStage(self.rollout)
         self.expprep_stage = ExpPrepStage(
@@ -311,6 +324,11 @@ class EarlTrainer:
                 (f"sampling={self.sampling!r}",
                  self.sampling != "reference"),
                 (f"kv_dtype={self.kv_dtype!r}", self.kv_dtype != "bf16"),
+                ("share_prefix", self.share_prefix),
+                (f"on_exhaust={self.on_exhaust!r}",
+                 self.on_exhaust == "preempt"),
+                (f"pool_growth={self.pool_growth!r}",
+                 self.pool_growth != "off"),
                 (f"speculation={self.speculation!r}",
                  self.speculation != "off")):
             if bad:
@@ -378,6 +396,9 @@ class EarlTrainer:
             pages_in_use=stats.pages_in_use,
             page_capacity=stats.page_capacity,
             kv_dropped_writes=stats.kv_dropped_writes,
+            preemptions=stats.preemptions,
+            requeue_depth=stats.requeue_depth,
+            pool_grows=stats.pool_grows,
             spec_proposed=stats.spec_proposed,
             spec_accepted=stats.spec_accepted,
             spec_rounds=stats.spec_rounds)
@@ -391,13 +412,19 @@ class EarlTrainer:
         if ref_params is None or self.ref_folded or self._warned_ref_fallback:
             return
         self._warned_ref_fallback = True
+        if self.speculation != "off":
+            reason = (f"speculation={self.speculation!r}: the folded "
+                      f"reference pass consumes tokens one decode step at a "
+                      f"time and cannot consume the drafted chunks the "
+                      f"speculative loop commits")
+        else:
+            reason = (f"share_prefix=True: the reference model's dense cache "
+                      f"cannot fork the {self.rollout.shared_len}-token "
+                      f"shared prefix run")
         warnings.warn(
             f"EarlTrainer: reference log-probs will come from ExpPrep's "
-            f"standalone route, not the rollout fold (reason: "
-            f"speculation={self.speculation!r}: the folded reference pass "
-            f"consumes tokens one decode step at a time and cannot consume "
-            f"the drafted chunks the speculative loop commits). The "
-            f"reference pass re-runs each harvested context per step.",
+            f"standalone route, not the rollout fold (reason: {reason}). "
+            f"The reference pass re-runs each harvested context per step.",
             RuntimeWarning, stacklevel=3)
 
     # ------------------------------------------------------------------

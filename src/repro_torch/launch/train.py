@@ -12,11 +12,14 @@ reference pass folded into the rollout, every kernel on the GPU
 (``--device cpu`` runs the plain versions on the CPU).
 ``--cache-layout`` and ``--sampling`` default to the backend's own:
 paged and fused for ``--rollout-backend compiled``, dense and reference
-for ``python``. Flags
-of features not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item, and so does any value given to a flag that only those
-features read (``--prefix-len``, ``--pool-growth-max``,
-``--max-policy-lag``, ``--is-rho-max``, ``--retry-backoff``,
+for ``python``. ``--env`` takes tictactoe, connect_four or bandit (the
+bandit with JAX's CLI defaults: no prompt run). The paged pool's options
+reach the trainer: ``--kv-dtype int8``, ``--share-prefix`` with
+``--prefix-len``, ``--on-exhaust preempt``, ``--pool-growth double`` with
+``--pool-growth-max``. Flags of features not ported yet raise
+``NotImplementedError`` naming their ROADMAP item (fault injection among
+them), and so does any value given to a flag that only those features
+read (``--max-policy-lag``, ``--is-rho-max``, ``--retry-backoff``,
 ``--dispatch``). ``--arch mamba2-370m`` trains the ssm family (Mamba2)
 on its recurrent cache: the layout defaults to dense there and
 ``--cache-layout paged`` raises; ExpPrep's standalone pass runs the SSD
@@ -40,7 +43,7 @@ from repro_torch.core.stages import EarlTrainer
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import adamw
 from repro_torch.rl.engine.compiled import _unported
-from repro_torch.rl.envs import TicTacToe
+from repro_torch.rl.envs import make_env
 
 
 def parse_args(argv=None):
@@ -64,12 +67,16 @@ def parse_args(argv=None):
     ap.add_argument("--cache-pages", type=int, default=None,
                     help="pool size in pages (default: full provisioning)")
     ap.add_argument("--share-prefix", action="store_true")
-    ap.add_argument("--prefix-len", type=int, default=None)  # unported
+    ap.add_argument("--prefix-len", type=int, default=None,
+                    help="shared-prompt length in tokens (default: the "
+                         "env's prompt_prefix_len; full pages are shared)")
     ap.add_argument("--on-exhaust", default="count",
                     choices=["count", "raise", "preempt"])
     ap.add_argument("--pool-growth", default="off",
                     choices=["off", "double"])
-    ap.add_argument("--pool-growth-max", type=int, default=None)  # unported
+    ap.add_argument("--pool-growth-max", type=int, default=None,
+                    help="pool growth cap in pages (default: full "
+                         "per-slot provisioning)")
     ap.add_argument("--kv-dtype", default="bf16",
                     choices=["fp32", "bf16", "int8"])
     ap.add_argument("--sampling", default=None,
@@ -125,15 +132,12 @@ def parse_args(argv=None):
 
 
 # flags read only by unported features: (flag, ROADMAP Queue 1 item)
-_UNPORTED_FLAGS = (("prefix_len", "8"), ("pool_growth_max", "8"),
-                   ("max_policy_lag", "8"), ("is_rho_max", "8"),
+_UNPORTED_FLAGS = (("max_policy_lag", "8"), ("is_rho_max", "8"),
                    ("retry_backoff", "8"), ("dispatch", "9"))
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.env != "tictactoe":
-        raise _unported(f"env {args.env!r}", "5")
     if args.inject_fault or args.inject_pool_pressure > 0:
         raise _unported("fault injection", "8")
     for name, item in _UNPORTED_FLAGS:
@@ -141,7 +145,7 @@ def main(argv=None):
             raise _unported(f"--{name.replace('_', '-')}", item)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     trainer = EarlTrainer(
-        model=build_model(cfg), env=TicTacToe(),
+        model=build_model(cfg), env=make_env(args.env),
         optimizer=adamw(args.lr, weight_decay=0.0),
         batch_size=args.batch, max_turns=args.max_turns,
         max_turn_tokens=args.max_turn_tokens, max_context=args.max_context,
@@ -150,7 +154,8 @@ def main(argv=None):
         rollout_episodes=args.rollout_episodes,
         cache_layout=args.cache_layout, page_size=args.page_size,
         cache_pages=args.cache_pages, share_prefix=args.share_prefix,
-        on_exhaust=args.on_exhaust, pool_growth=args.pool_growth,
+        prefix_len=args.prefix_len, on_exhaust=args.on_exhaust,
+        pool_growth=args.pool_growth, pool_growth_max=args.pool_growth_max,
         kv_dtype=args.kv_dtype, sampling=args.sampling, top_p=args.top_p,
         speculation=args.speculation, spec_k=args.spec_k,
         draft_layers=args.draft_layers, pipeline=args.pipeline,

@@ -1,7 +1,7 @@
 """Transformer layers: RMSNorm, RoPE, GQA attention, SwiGLU MLP (port of
 the dense-model parts of ``repro/models/layers.py``: full-sequence
-self-attention, the dense ring-buffer prefill and decode, paged decode
-and the speculative verify chunk).
+self-attention, the dense ring-buffer prefill and decode, the paged
+prefill, chunk and decode attention and the speculative verify chunk).
 
 Functions take the same layouts as the JAX ones: activations
 ``(B, S, D)``, per-head tensors ``(B, S, H, hd)``, params a dict of
@@ -13,16 +13,20 @@ Paged KV pools carry ONE trash page past the end: a layer's pool is
 ``wpage == P`` names the trash page (JAX drops such writes with
 ``mode="drop"``; on CUDA an out-of-range index is a device assert). Block
 tables only ever name pages ``< P``, so the trash page is never read as
-context.
+context. An int8 pool carries ``(P + 1, ps, KV)`` f32 scale pools beside
+its values (``paging.quantize_kv``): every write quantizes per token and
+kv head, every read dequantizes, and the copy-on-write copy and the scrub
+move the scales with their values.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import paging
 from repro_torch.models.param import pdef
 
 NEG_INF = -1e30
@@ -159,6 +163,78 @@ class KVEntry(NamedTuple):
     k: torch.Tensor   # dense (B, s_max, KV, hd) or paged (P+1, ps, KV, hd)
                       # per layer, or stacked over layers
     v: torch.Tensor
+    # int8 page pools: per (page, offset, kv head) f32 scales, (P+1, ps, KV)
+    # per layer; None for full-precision pools and every dense cache
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    def layer(self, i: int) -> "KVEntry":
+        """Layer ``i``'s views of a stacked entry (scales included)."""
+        return KVEntry(*(None if t is None else t[i] for t in self))
+
+
+def _pool_is_quantized(kv: KVEntry) -> bool:
+    return kv.k_scale is not None
+
+
+def _scatter_pool(kv: KVEntry, pages, k, v):
+    """Write new (B, S, KV, hd) K/V IN PLACE into the pool pages ``pages``
+    (B, npp) (the trash page takes dropped rows), padding the last page;
+    int8 pools quantize on write, values and scales in the same scatter."""
+    B, S = k.shape[:2]
+    npp = pages.shape[1]
+    ps = kv.k.shape[1]
+    pad = npp * ps - S
+    idx = (pages.long(),)
+
+    def put(pool, new):
+        buf = F.pad(new.to(pool.dtype),
+                    (0, 0) * (new.dim() - 2) + (0, pad))
+        pool.index_put_(idx, buf.reshape((B, npp, ps) + new.shape[2:]))
+
+    if _pool_is_quantized(kv):
+        qk, sk = paging.quantize_kv(k)
+        qv, sv = paging.quantize_kv(v)
+        for pool, new in ((kv.k, qk), (kv.v, qv), (kv.k_scale, sk),
+                          (kv.v_scale, sv)):
+            put(pool, new)
+    else:
+        put(kv.k, k)
+        put(kv.v, v)
+    return kv
+
+
+def _cow_scrub_write(kv: KVEntry, k_new, v_new, *, wpage, woff, scrub,
+                     cow_src, cow_dst):
+    """The paged write of one decode step or verify chunk, IN PLACE, in
+    JAX's order: the copy-on-write copy of privatized pages (values and
+    scales: a privatized page reads bitwise as its shared source until the
+    row's own write lands), the scrub of pages mapped mid-row (zero scales
+    dequantize to 0 whatever int8 residue the values hold), then the write
+    of ``k_new``/``v_new`` (B, [K,] KV, hd) at ``(wpage, woff)``, quantized
+    per token for int8 pools. Sentinel ``P`` (the trash page) makes each a
+    no-op: the CoW sentinel copies the trash page onto itself."""
+    quant = _pool_is_quantized(kv)
+    pools = ((kv.k, kv.v, kv.k_scale, kv.v_scale) if quant
+             else (kv.k, kv.v))
+    if cow_src is not None:
+        src, dst = cow_src.long(), cow_dst.long()
+        for t in pools:
+            t.index_copy_(0, dst, t[src])
+    if scrub is not None:
+        idx = scrub.long()
+        for t in pools:
+            t.index_fill_(0, idx, 0)
+    wp, wo = wpage.long(), woff.long()
+    if quant:
+        qk, sk = paging.quantize_kv(k_new)
+        qv, sv = paging.quantize_kv(v_new)
+        for t, new in zip(pools, (qk, qv, sk, sv)):
+            t.index_put_((wp, wo), new)
+    else:
+        kv.k.index_put_((wp, wo), k_new.to(kv.k.dtype))
+        kv.v.index_put_((wp, wo), v_new.to(kv.v.dtype))
+    return kv
 
 
 def init_kv(batch, s_max, n_kv_heads, head_dim, dtype=torch.bfloat16,
@@ -253,17 +329,82 @@ def decode_attention(p, x, kv: KVEntry, pos, *, n_heads, n_kv_heads,
 
 def _gather_pool(kv: KVEntry, block_table, dtype):
     """Each row's pages gathered into dense ``(B, NP*ps, KV, hd)`` K/V in
-    ``dtype`` (unmapped entries read a clamped page), and the ``(B,
-    NP*ps)`` mask of positions on mapped pages."""
+    ``dtype`` (unmapped entries read a clamped page; int8 pools
+    dequantized in the same step, the plain twin of the kernels' in-register
+    dequant), and the ``(B, NP*ps)`` mask of positions on mapped pages."""
     P = kv.k.shape[0] - 1                       # the trash page excluded
     ps, n_kv_heads, head_dim = kv.k.shape[1:]
     B, NP = block_table.shape
     bt_c = block_table.clamp(0, P - 1).long()
-    k = kv.k[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(dtype)
-    v = kv.v[bt_c].reshape(B, NP * ps, n_kv_heads, head_dim).to(dtype)
+    k, v = kv.k[bt_c], kv.v[bt_c]
+    if _pool_is_quantized(kv):
+        k = paging.dequantize_kv(k, kv.k_scale[bt_c])
+        v = paging.dequantize_kv(v, kv.v_scale[bt_c])
+    k = k.reshape(B, NP * ps, n_kv_heads, head_dim).to(dtype)
+    v = v.reshape(B, NP * ps, n_kv_heads, head_dim).to(dtype)
     mapped = (block_table >= 0)[:, :, None].expand(B, NP, ps).reshape(
         B, NP * ps)
     return k, v, mapped
+
+
+def paged_prefill_attention(p, x, kv: KVEntry, block_table, *, n_heads,
+                            n_kv_heads, head_dim, rope_theta,
+                            attn_impl: str = "xla"):
+    """Causal attention over the prompt x (B,S,D); its K/V are written IN
+    PLACE into the pool pages ``block_table[:, :ceil(S/ps)]`` (already
+    mapped by ``transformer._paged_prefill``; unmapped entries drop into
+    the trash page). The attention itself is the dense prefill's:
+    attn_impl "flash" or "paged" runs the flash forward kernel, "xla"
+    ``_sdpa`` with the causal mask."""
+    B, S, _ = x.shape
+    P, ps = kv.k.shape[0] - 1, kv.k.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    pages = block_table[:, :-(-S // ps)]
+    _scatter_pool(kv, torch.where(pages >= 0, pages, P), k, v)
+    if attn_impl in ("flash", "paged"):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=0)
+    elif attn_impl == "xla":
+        out = _sdpa(q, k, v, causal_mask(S, S, device=x.device))
+    else:
+        raise ValueError(f"attn_impl must be 'flash', 'paged' or 'xla', got "
+                         f"{attn_impl!r}")
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], kv
+
+
+def paged_chunk_attention(p, x, kv: KVEntry, block_table, start: int, *,
+                          n_heads, n_kv_heads, head_dim, rope_theta,
+                          attn_impl: str = "xla"):
+    """Causal attention for a chunk of positions ``[start, start + S)``
+    whose preceding context already lives in the pool: the per-row suffix
+    pass of the shared-prefix prefill. The chunk's K/V are written IN PLACE
+    into the rows' (already mapped) pages, then each query attends over the
+    full context gathered back through the block table, forked prefix pages
+    included. ``start`` is page-aligned (the shared run is whole pages).
+    JAX has no kernel here; ``attn_impl`` is accepted for the signature and
+    the attention is always the gather path's ``_sdpa``."""
+    del attn_impl
+    B, S, _ = x.shape
+    P, ps = kv.k.shape[0] - 1, kv.k.shape[1]
+    if start % ps:
+        raise ValueError(f"chunk start {start} is not page-aligned ({ps})")
+    dev = x.device
+    positions = start + torch.arange(S, device=dev)[None, :]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    j0, npp = start // ps, -(-S // ps)
+    pages = block_table[:, j0:j0 + npp]
+    _scatter_pool(kv, torch.where(pages >= 0, pages, P), k, v)
+    kc, vc, mapped = _gather_pool(kv, block_table[:, :j0 + npp], q.dtype)
+    s_idx = torch.arange(mapped.shape[1], device=dev)[None, None, :]
+    valid = (s_idx <= positions[:, :, None]) & mapped[:, None, :]
+    mask = torch.where(valid, 0.0, NEG_INF).float()[:, None]
+    out = _sdpa(q, kc, vc, mask)
+    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], kv
 
 
 def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
@@ -277,21 +418,19 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
     positions. wpage/woff: per-row write page and in-page offset from the
     caller's allocator; ``wpage == P`` drops the write (into the trash
     page). scrub: optional (B,) pages to zero before the write (sentinel P
-    = none). Write-then-attend: the new token's K/V lands in the pool
-    first, then the row attends over positions ``< pos + 1``.
+    = none). cow_src/cow_dst: optional (B,) page pairs from
+    ``paging.cow_pages`` — this layer's slice of each privatized shared
+    page is copied into its fresh page before the write (sentinel P = no
+    copy); the caller has already remapped the block table. Write-then-
+    attend: the new token's K/V lands in the pool first (quantized for an
+    int8 pool), then the row attends over positions ``< pos + 1``.
 
     The pools are updated IN PLACE (the returned KVEntry holds the same
     tensors). attn_impl: "xla" gathers the row's pages into a dense view
-    and runs ``_sdpa`` in the model dtype; "paged" runs the CUDA kernel
-    (its plain f32 version on CPU tensors).
-
-    cow_src/cow_dst (copy-on-write for prefix sharing) are not ported yet
-    and raise.
+    (dequantized) and runs ``_sdpa`` in the model dtype; "paged" runs the
+    CUDA kernel, which takes int8 pools with their scales (its plain f32
+    version on CPU tensors).
     """
-    if cow_src is not None or cow_dst is not None:
-        raise NotImplementedError(
-            "copy-on-write page copies arrive with prefix sharing "
-            "(ROADMAP Queue 1 item 8)")
     B, S1, _ = x.shape
     if S1 != 1:
         raise ValueError(f"decode takes one token per row, got {S1}")
@@ -299,18 +438,14 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
     q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k_new = apply_rope(k_new, positions, rope_theta)
-    if scrub is not None:
-        idx = scrub.long()
-        kv.k.index_fill_(0, idx, 0)
-        kv.v.index_fill_(0, idx, 0)
-    wp, wo = wpage.long(), woff.long()
-    kv.k.index_put_((wp, wo), k_new[:, 0].to(kv.k.dtype))
-    kv.v.index_put_((wp, wo), v_new[:, 0].to(kv.v.dtype))
+    _cow_scrub_write(kv, k_new[:, 0], v_new[:, 0], wpage=wpage, woff=woff,
+                     scrub=scrub, cow_src=cow_src, cow_dst=cow_dst)
     lens = (pos + 1).to(torch.int32)       # current token included
     if attn_impl == "paged":
         from repro_torch.kernels.paged_attention import ops as pa_ops
         out = pa_ops.paged_decode_attention(
-            q[:, 0].contiguous(), kv.k, kv.v, block_table, lens)[:, None]
+            q[:, 0].contiguous(), kv.k, kv.v, block_table, lens,
+            k_scales=kv.k_scale, v_scales=kv.v_scale)[:, None]
     elif attn_impl == "xla":
         k, v, mapped = _gather_pool(kv, block_table, q.dtype)
         s_idx = torch.arange(mapped.shape[1], device=x.device)[None, :]
@@ -340,33 +475,27 @@ def spec_verify_chunk_attention(p, x, kv: KVEntry, block_table, pos, *,
     <= pos + j``, so each query sees the keys a sequential decode step
     would see at its position. Chunk entries beyond the accepted prefix
     stay above the fill line, invisible to later reads and rewritten by
-    the next chunk. attn_impl: "paged" runs the spec-verify CUDA kernel
-    (its plain f32 version on CPU tensors); "xla" gathers the row's pages
-    and runs ``_sdpa`` with the additive mask in the model dtype.
-
-    cow_src/cow_dst (copy-on-write for prefix sharing) are not ported yet
-    and raise.
+    the next chunk. scrub / cow_src / cow_dst: as in
+    ``paged_decode_attention``, one page per row — only the chunk's first
+    page can pre-exist (a mid-page fill line or a shared prefix page); an
+    int8 pool is written per token, so the stored bytes are bitwise what K
+    sequential writes store. attn_impl: "paged" runs the spec-verify CUDA
+    kernel (its plain f32 version on CPU tensors); "xla" gathers the row's
+    pages and runs ``_sdpa`` with the additive mask in the model dtype.
     """
-    if cow_src is not None or cow_dst is not None:
-        raise NotImplementedError(
-            "copy-on-write page copies arrive with prefix sharing "
-            "(ROADMAP Queue 1 item 8)")
     B, K, _ = x.shape
     positions = pos[:, None] + torch.arange(K, device=x.device)[None, :]
     q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k_new = apply_rope(k_new, positions, rope_theta)
-    if scrub is not None:
-        idx = scrub.long()
-        kv.k.index_fill_(0, idx, 0)
-        kv.v.index_fill_(0, idx, 0)
-    wp, wo = wpage.long(), woff.long()
-    kv.k.index_put_((wp, wo), k_new.to(kv.k.dtype))
-    kv.v.index_put_((wp, wo), v_new.to(kv.v.dtype))
+    _cow_scrub_write(kv, k_new, v_new, wpage=wpage, woff=woff, scrub=scrub,
+                     cow_src=cow_src, cow_dst=cow_dst)
     if attn_impl == "paged":
         from repro_torch.kernels.spec_verify import ops as sv_ops
         out = sv_ops.spec_verify_attention(q.contiguous(), kv.k, kv.v,
-                                           block_table, pos)
+                                           block_table, pos,
+                                           k_scales=kv.k_scale,
+                                           v_scales=kv.v_scale)
     elif attn_impl == "xla":
         k, v, mapped = _gather_pool(kv, block_table, q.dtype)
         s_idx = torch.arange(mapped.shape[1], device=x.device)[None, None, :]

@@ -1,6 +1,12 @@
 """Page-pool primitives for the paged KV cache (port of
-``repro/models/paging.py``: allocation and release; fork and copy-on-write
-arrive with prefix sharing).
+``repro/models/paging.py``): allocation, release, fork and copy-on-write
+on refcounted pages, and the int8 page format.
+
+Pages are refcounted: a page may be mapped by several block tables at once
+(the prefix-sharing substrate). ``fork_pages`` maps an existing page run
+into more rows, ``release_pages`` decrements, and ``cow_pages`` privatizes
+a shared page on first write (allocate + remap; the data copy is the
+caller's, per layer).
 
 Conventions, as in the JAX package:
 
@@ -32,6 +38,17 @@ def pages_per_slot(s_max: int, page_size: int) -> int:
 def pool_pages_needed(batch: int, s_max: int, page_size: int) -> int:
     """Pool size that can never exhaust: full per-slot provisioning."""
     return batch * pages_per_slot(s_max, page_size)
+
+
+def pool_pages_needed_shared(batch: int, s_max: int, prefix_len: int,
+                             page_size: int) -> int:
+    """Exhaustion-free pool size when the first ``prefix_len`` tokens of
+    every slot are one shared prefix run: its full pages are allocated once
+    and forked into every slot. Pass the effective shared length (full
+    pages only); a partial prefix page stays per slot."""
+    pps = pages_per_slot(s_max, page_size)
+    shared = min(prefix_len // page_size, pps)
+    return batch * (pps - shared) + shared
 
 
 def _i32_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +94,92 @@ def release_pages(refcount: torch.Tensor, block_table: torch.Tensor,
     return refcount, block_table
 
 
+def fork_pages(refcount: torch.Tensor, block_table: torch.Tensor,
+               pages: torch.Tensor, rows: torch.Tensor):
+    """Map the page run ``pages`` (K,) into block-table entries ``[0, K)``
+    of every row with ``rows=True``, adding one reference per (row, page).
+    Sentinel and unmapped entries of ``pages`` are skipped. The target
+    entries must be unmapped (released rows, fresh slots). Returns
+    ``(refcount', block_table')``."""
+    P = refcount.shape[0]
+    K = pages.shape[0]
+    valid = (pages >= 0) & (pages < P)                      # (K,)
+    take = rows[:, None] & valid[None, :]                   # (B, K)
+    head = torch.where(take, pages[None, :].to(block_table.dtype),
+                       block_table[:, :K])
+    block_table = torch.cat([head, block_table[:, K:]], dim=1)
+    n = rows.sum(dtype=torch.int32)
+    refcount = refcount.scatter_add(
+        0, torch.where(valid, pages, 0).long(),
+        torch.where(valid, n, 0).to(refcount.dtype))
+    return refcount, block_table
+
+
+def cow_pages(refcount: torch.Tensor, block_table: torch.Tensor,
+              entry: torch.Tensor, rows: torch.Tensor):
+    """Copy-on-write: privatize the page behind ``block_table[r,
+    entry[r]]`` for every row with ``rows=True`` about to write into a
+    SHARED page (refcount > 1) — allocate a fresh page, remap the entry and
+    drop one reference from the shared source. Private and unmapped pages
+    are untouched.
+
+    Returns ``(src, dst, blocked, refcount', block_table')``: ``src``/``dst``
+    (B,) are the page pairs whose data the caller copies per layer
+    (sentinel ``P`` = no copy); ``blocked`` marks rows that needed a
+    private copy and found the pool exhausted: their write must be dropped,
+    or it would land in every sibling's page."""
+    B, NP = block_table.shape
+    P = refcount.shape[0]
+    ridx = torch.arange(B, device=block_table.device)
+    ent = entry.long().clamp(0, NP - 1)
+    cur = block_table[ridx, ent]                            # (B,)
+    shared = (cur >= 0) & (refcount[cur.clamp(0, P - 1).long()] > 1)
+    need = rows & shared
+    new_pages, refcount = alloc_pages(refcount, need)
+    ok = need & (new_pages < P)
+    blocked = need & ~ok
+    block_table = block_table.clone()
+    block_table[ridx, ent] = torch.where(ok, new_pages, cur)
+    refcount = refcount.scatter_add(
+        0, torch.where(ok, cur, 0).long(), -ok.to(refcount.dtype))
+    src = torch.where(ok, cur, P).to(torch.int32)
+    dst = torch.where(ok, new_pages, P).to(torch.int32)
+    return src, dst, blocked, refcount, block_table
+
+
 def pages_in_use(refcount: torch.Tensor) -> torch.Tensor:
-    """0-d int32 tensor: currently allocated pages."""
+    """0-d int32 tensor: currently allocated pages. A page forked into many
+    rows counts once: that is the prefix-sharing memory win."""
     return (refcount > 0).sum(dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Quantized page format (kv_dtype="int8")
+# ---------------------------------------------------------------------------
+#
+# An int8 pool stores each K/V head vector as 8-bit values plus ONE f32
+# scale per (page, in-page offset, kv head): the scales are a second pool
+# of shape (..., n_pages, page_size, KV) with the same refcount lifecycle,
+# so alloc, release, fork, the CoW copy and the scrub treat both alike.
+# Per-entry scales keep a write independent of its page's other entries.
+
+INT8_QMAX = 127.0
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-vector int8 quantization over the last axis: ``x``
+    (..., hd) float -> ``(q (..., hd) int8, scale (...) f32)``. JAX's order
+    of operations: ``round(x / scale)`` with ties to even, then the clip
+    (a multiply by the reciprocal would move ties). An all-zero vector
+    quantizes exactly (scale 0, q 0)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / INT8_QMAX               # 0 for zero rows
+    safe = torch.where(scale > 0, scale, 1.0)
+    q = torch.round(xf / safe[..., None]).clamp(-INT8_QMAX, INT8_QMAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_kv``: (..., hd) int8 + (...) f32 -> f32, the
+    formula the kernels apply in registers."""
+    return q.float() * scale.float()[..., None]

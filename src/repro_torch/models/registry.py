@@ -59,22 +59,26 @@ class Model:
         return self._init_cache(self.cfg, batch, s_max, dtype, **layout_kw)
 
     def prefill(self, params, tokens, cache, *, extra=None,
-                attn_impl="xla"):
-        """The prompt into the cache: ``(last-position logits, cache)``."""
+                attn_impl="xla", **kw):
+        """The prompt into the cache: ``(last-position logits, cache)``.
+        ``kw``: the dense family's ``shared_prefix_len`` (paged layout)."""
         return self._prefill(self.cfg, params, tokens, cache, extra=extra,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, **kw)
 
     def decode_step(self, params, token, cache, *, attn_impl="xla",
-                    advance=None):
+                    advance=None, **kw):
+        """One token per row; ``kw``: the paged step's ``cow``."""
         return self._decode_step(self.cfg, params, token, cache,
-                                 attn_impl=attn_impl, advance=advance)
+                                 attn_impl=attn_impl, advance=advance, **kw)
 
-    def decode_scan_body(self, params, *, attn_impl="xla"):
+    def decode_scan_body(self, params, *, attn_impl="xla", **kw):
         """``body((logits, cache), (token, advance)) -> ((logits, cache),
         None)`` for in-loop generation: the dense family's own, and for
         ssm ``decode_step`` wrapped by ``transformer.scan_body_over``, as
-        JAX's ``Model`` wraps families without a native body."""
-        return self._decode_scan_body(self.cfg, params, attn_impl=attn_impl)
+        JAX's ``Model`` wraps families without a native body. ``kw``: the
+        paged step's ``cow``."""
+        return self._decode_scan_body(self.cfg, params, attn_impl=attn_impl,
+                                      **kw)
 
 
 _FAMILIES = {

@@ -1,7 +1,7 @@
 """Dense decoder-only transformer: the full-sequence forward of training,
-the dense ring-buffer cache (prefill and decode), the paged decode path
-and the speculative verify step (port of those parts of
-``repro/models/transformer.py``).
+the dense ring-buffer cache (prefill and decode), the paged pool (prefill
+with prefix sharing, decode with copy-on-write, int8 pages) and the
+speculative verify step (port of ``repro/models/transformer.py``).
 
 Layer params keep the stacked leading ``layers`` axis of the JAX tree;
 ``lax.scan`` over layers becomes a Python loop over views of the stacked
@@ -112,7 +112,9 @@ class PagedDecodeCache(NamedTuple):
     """Paged KV layout: one shared page pool per layer plus per-slot block
     tables. ``kv.k``/``kv.v`` are ``(n_layers, n_pages + 1, page_size, KV,
     hd)``: the last page of every layer is the trash page that dropped
-    writes land in (see ``layers``)."""
+    writes land in (see ``layers``). An int8 pool also carries
+    ``kv.k_scale``/``kv.v_scale`` of ``(n_layers, n_pages + 1, page_size,
+    KV)`` f32, each with its trash page."""
     kv: L.KVEntry
     block_table: torch.Tensor   # (B, pages_per_slot) int32; -1 = unmapped
     refcount: torch.Tensor      # (n_pages,) int32 — 0 = free
@@ -127,7 +129,8 @@ class PagedDecodeCache(NamedTuple):
         return self.refcount.shape[0]
 
 
-KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
@@ -138,15 +141,19 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     per-row ring buffers of ``s_max`` slots, ``min(s_max, window)`` for a
     sliding-window config. ``layout="paged"``: a page pool of ``n_pages``
     pages (default: full provisioning, ``batch * pages_per_slot``) plus one
-    trash page. ``kv_dtype`` ("fp32" | "bf16") overrides ``dtype`` by
-    name."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV pages arrive with ROADMAP Queue 1 item 8")
+    trash page. ``kv_dtype`` ("fp32" | "bf16" | "int8") overrides ``dtype``
+    by name; "int8" (paged layout only) stores page values as int8 with f32
+    scale pools of ``(n_layers, n_pages + 1, page_size, KV)`` beside them
+    (``paging.quantize_kv``)."""
     if kv_dtype is not None:
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {list(KV_DTYPES)}, "
                              f"got {kv_dtype!r}")
+        if kv_dtype == "int8" and layout != "paged":
+            raise ValueError(
+                "kv_dtype='int8' requires the paged layout — the scales are "
+                "a second page pool sharing the block-table/refcount "
+                "lifecycle")
         dtype = KV_DTYPES[kv_dtype]
     zeros = lambda shape: torch.zeros(shape, dtype=dtype, device=device)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -167,8 +174,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
         n_pages = batch * nps
     shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
              cfg.head_dim_)
+    kv = L.KVEntry(zeros(shape), zeros(shape))
+    if dtype == torch.int8:
+        scale = lambda: torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device)
+        kv = kv._replace(k_scale=scale(), v_scale=scale())
     return PagedDecodeCache(
-        kv=L.KVEntry(zeros(shape), zeros(shape)),
+        kv=kv,
         block_table=torch.full((batch, nps), paging.PAGE_UNMAPPED,
                                dtype=torch.int32, device=device),
         refcount=torch.zeros((n_pages,), dtype=torch.int32, device=device),
@@ -197,15 +209,87 @@ def _logits(cfg: ModelConfig, params, x):
     return _chunk_logits(cfg, params, x)[:, 0]
 
 
+def _paged_prefill(cfg: ModelConfig, params, tokens,
+                   cache: PagedDecodeCache, *, attn_impl: str = "xla",
+                   shared_prefix_len: int = 0):
+    """Prompt pass on the paged layout: the covering pages are allocated
+    once (every layer shares the block table), then each layer writes its
+    K/V into them in place.
+
+    ``shared_prefix_len > 0`` declares the first tokens of EVERY row
+    identical: their full pages are prefilled once at batch 1 and forked
+    into every row (refcount B), and only the rest of the prompt (the
+    partial last page included) runs per row (``L.paged_chunk_attention``).
+    The shared run is whole pages and never the whole prompt: the last
+    position's logits come from a per-row pass."""
+    B, S = tokens.shape
+    dev = tokens.device
+    ps, P = cache.page_size, cache.n_pages
+    npp = paging.pages_per_slot(S, ps)
+    if npp > cache.block_table.shape[1]:
+        raise ValueError(f"prompt of {S} tokens does not fit "
+                         f"{cache.block_table.shape[1]} pages of {ps}")
+    shared_pages = min(int(shared_prefix_len), S - 1) // ps if B > 1 else 0
+    shared_len = shared_pages * ps
+    bt, refcount = cache.block_table, cache.refcount
+    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+               attn_impl=attn_impl)
+    layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+
+    def layer_pass(x, table, attend):
+        return _apply_layers(cfg, x, layers, lambda i, p, h: attend(
+            p, h, cache.kv.layer(i), table, **akw)[0])
+
+    if shared_pages > 0:
+        # the shared prefix ONCE (batch 1) into a fresh page run, forked
+        # into every row; the run's own allocation reference is handed
+        # over to the rows
+        run, refcount = paging.alloc_pages(
+            refcount, torch.ones((shared_pages,), dtype=torch.bool,
+                                 device=dev))
+        layer_pass(L.embed(params["embedding"], tokens[:1, :shared_len]),
+                   run[None, :], L.paged_prefill_attention)
+        refcount, bt = paging.fork_pages(
+            refcount, bt, run, torch.ones((B,), dtype=torch.bool,
+                                          device=dev))
+        ok = run < P
+        refcount = refcount.scatter_add(0, torch.where(ok, run, 0).long(),
+                                        -ok.to(refcount.dtype))
+    bt = bt.clone()
+    for j in range(shared_pages, npp):     # static page-slot loop
+        need = bt[:, j] < 0
+        pages, refcount = paging.alloc_pages(refcount, need)
+        bt[:, j] = torch.where(need & (pages < P), pages, bt[:, j])
+    if shared_pages > 0:
+        x = layer_pass(
+            L.embed(params["embedding"], tokens[:, shared_len:]), bt,
+            lambda p, h, kv, table, **kw: L.paged_chunk_attention(
+                p, h, kv, table, shared_len, **kw))
+    else:
+        x = layer_pass(L.embed(params["embedding"], tokens), bt,
+                       L.paged_prefill_attention)
+    return _logits(cfg, params, x[:, -1:]), PagedDecodeCache(
+        kv=cache.kv, block_table=bt, refcount=refcount,
+        pos=torch.full((B,), S, dtype=torch.int32, device=dev))
+
+
 def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
-            attn_impl: str = "xla"):
-    """Run the prompt (B, S) through the model into a dense cache (written
-    in place). Returns ``(logits of the last position (B, V), cache)``.
-    attn_impl: "xla" or "flash". The paged prefill is not ported yet."""
+            attn_impl: str = "xla", shared_prefix_len: int = 0):
+    """Run the prompt (B, S) through the model into the cache (its KV
+    tensors written in place). Returns ``(logits of the last position
+    (B, V), cache)``. attn_impl: "xla" or "flash" (the paged layout also
+    takes "paged", its flash route). ``shared_prefix_len`` (paged layout
+    only): the first tokens of every row are identical — prefill them once
+    and fork their pages (``_paged_prefill``)."""
     del extra
-    if not isinstance(cache, DecodeCache):
-        raise NotImplementedError(
-            "the paged prefill arrives with ROADMAP Queue 1 item 3")
+    if isinstance(cache, PagedDecodeCache):
+        return _paged_prefill(cfg, params, tokens, cache,
+                              attn_impl=attn_impl,
+                              shared_prefix_len=shared_prefix_len)
+    if shared_prefix_len:
+        raise ValueError("shared_prefix_len requires the paged cache layout "
+                         "(dense rows have nothing to fork)")
     B, S = tokens.shape
     akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
@@ -214,7 +298,7 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
     x = _apply_layers(
         cfg, L.embed(params["embedding"], tokens), layers,
         lambda i, p, h: L.prefill_attention(
-            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), **akw)[0])
+            p, h, cache.kv.layer(i), **akw)[0])
     return _logits(cfg, params, x[:, -1:]), cache._replace(
         pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device))
 
@@ -234,20 +318,27 @@ def _dense_decode_step(cfg: ModelConfig, params, token, cache: DecodeCache,
     x = _apply_layers(
         cfg, L.embed(params["embedding"], token[:, None]), layers,
         lambda i, p, h: L.decode_attention(
-            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), cache.pos,
-            **akw)[0])
+            p, h, cache.kv.layer(i), cache.pos, **akw)[0])
     return _logits(cfg, params, x), DecodeCache(
         kv=cache.kv, pos=cache.pos + adv.to(torch.int32))
 
 
 def _paged_decode_step(cfg: ModelConfig, params, token,
                        cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                       advance=None, layers=None):
+                       advance=None, layers=None, cow: bool = True):
     """One decode step on the paged layout. The page allocator runs ONCE
     per token, outside the layer loop: every layer shares the block table.
     Rows with ``advance=False`` neither allocate nor write (their write
     goes to the trash page) and keep their position. ``layers``: the
-    per-layer param views, when the caller has already sliced them."""
+    per-layer param views, when the caller has already sliced them.
+
+    A row writing into a SHARED page (refcount > 1: a forked prefix page
+    whose run was not page-aligned) privatizes it first (``paging.
+    cow_pages``; each layer copies the page before its write); a row that
+    finds no free page for its copy drops its write. ``cow=False``
+    statically removes this guard, its allocator pass and its per-layer
+    copies: only safe when no write can land in a shared page (no sharing,
+    or page-aligned sharing whose writes start past the shared run)."""
     x = L.embed(params["embedding"], token[:, None])
     B = token.shape[0]
     dev = token.device
@@ -264,13 +355,20 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
     fresh = need & (pages < P)
     bt = cache.block_table.clone()
     bt[rows, pidx] = torch.where(fresh, pages, cur)
+    cow_src = cow_dst = None
+    w_ok = adv
+    if cow:
+        cow_src, cow_dst, blocked, refcount, bt = paging.cow_pages(
+            refcount, bt, pidx, adv & (bt[rows, pidx] >= 0))
+        w_ok = adv & ~blocked
     wpage = bt[rows, pidx]                                  # (B,) may be -1
-    w_ok = adv & (wpage >= 0)
+    w_ok = w_ok & (wpage >= 0)
     wpage = torch.where(w_ok, wpage, P)                     # trash page
     woff = pos % ps
     # a page mapped mid-row (recovery from pool exhaustion: writes dropped
     # while pos advanced) is scrubbed, or the offsets below woff would
-    # expose a freed episode's K/V as live context
+    # expose a freed episode's K/V as live context (a CoW copy is not: its
+    # content below the fill line is the shared prefix, which must stay)
     scrub = torch.where(fresh & (woff > 0), wpage, P)
 
     if layers is None:
@@ -278,8 +376,9 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
     x = _apply_layers(
         cfg, x, layers,
         lambda i, p, h: L.paged_decode_attention(
-            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), bt, pos,
-            wpage=wpage, woff=woff, scrub=scrub, n_heads=cfg.n_heads,
+            p, h, cache.kv.layer(i), bt, pos, wpage=wpage, woff=woff,
+            scrub=scrub, cow_src=cow_src, cow_dst=cow_dst,
+            n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
             rope_theta=cfg.rope_theta, attn_impl=attn_impl)[0])
     return _logits(cfg, params, x), PagedDecodeCache(
@@ -288,21 +387,24 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, *,
-                attn_impl: str = "xla", advance=None):
+                attn_impl: str = "xla", advance=None, cow: bool = True):
     """One decode step. token: (B,) int. Returns (logits (B,V), cache).
     advance: optional (B,) bool — rows with False are no-ops. The KV
     tensors of ``cache`` are written in place. attn_impl: "xla" on either
     layout; "pallas" (the decode kernel) on the dense layout, "paged" (the
-    paged kernel) on the paged one."""
-    step = (_paged_decode_step if isinstance(cache, PagedDecodeCache)
-            else _dense_decode_step)
-    return step(cfg, params, token, cache, attn_impl=attn_impl,
-                advance=advance)
+    paged kernel) on the paged one. cow: paged layout only — False drops
+    the copy-on-write guard (``_paged_decode_step``)."""
+    if isinstance(cache, PagedDecodeCache):
+        return _paged_decode_step(cfg, params, token, cache,
+                                  attn_impl=attn_impl, advance=advance,
+                                  cow=cow)
+    return _dense_decode_step(cfg, params, token, cache,
+                              attn_impl=attn_impl, advance=advance)
 
 
 def spec_verify_step(cfg: ModelConfig, params, chunk,
                      cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                     advance=None, eff_k=None):
+                     advance=None, eff_k=None, cow: bool = True):
     """Score a (B, K) chunk of candidate tokens against the full model in
     one batched pass on the paged layout: the verify half of speculative
     decoding. ``chunk[:, 0]`` is the token sequential decode would commit
@@ -321,8 +423,10 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
     advance: (B,) bool — rows with False are no-ops. eff_k: (B,) int32 —
     positions ``j >= eff_k[b]`` are neither allocated nor written (rows
     near their turn's token budget); their logits must not be committed.
-    attn_impl: "paged" (the spec-verify kernel) or "xla". Copy-on-write
-    (the JAX ``cow`` flag, for shared prefix pages) is not ported.
+    attn_impl: "paged" (the spec-verify kernel) or "xla". cow: as in
+    ``_paged_decode_step`` — only the chunk's FIRST page can be a shared
+    page (later chunk pages are freshly allocated), so a row whose copy is
+    blocked drops its writes into that page only.
     """
     B, K = chunk.shape
     dev = chunk.device
@@ -351,17 +455,25 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
         bt[rows, pidx] = torch.where(fresh, pages, cur)
         if d == 0:
             fresh0 = fresh
+    cow_src = cow_dst = None
+    if cow:
+        cow_src, cow_dst, blocked, refcount, bt = paging.cow_pages(
+            refcount, bt, pidx0, adv & (ek > 0) & (bt[rows, pidx0] >= 0))
     # a freshly mapped first page mid-row (recovery from pool exhaustion)
     # is scrubbed, as in _paged_decode_step; later chunk pages always map
     # at offset 0
     scrub = torch.where(fresh0 & (pos % ps > 0), bt[rows, pidx0], P)
 
     # the (B, K) write plan: the trash page P takes non-advancing rows,
-    # positions past eff_k and unmapped (exhausted) pages
+    # positions past eff_k, unmapped (exhausted) pages and CoW-blocked
+    # writes into the still-shared first page
     j = torch.arange(K, device=dev)[None, :]
     cpos = pos[:, None] + j
-    wp = bt[rows[:, None], (cpos // ps).clamp(0, NP - 1).long()]
+    pidx_j = (cpos // ps).clamp(0, NP - 1).long()
+    wp = bt[rows[:, None], pidx_j]
     w_ok = adv[:, None] & (j < ek[:, None]) & (wp >= 0)
+    if cow:
+        w_ok = w_ok & ~(blocked[:, None] & (pidx_j == pidx0[:, None]))
     wpage = torch.where(w_ok, wp, P)
     woff = cpos % ps
 
@@ -369,8 +481,9 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
     x = _apply_layers(
         cfg, x, layers,
         lambda i, p, h: L.spec_verify_chunk_attention(
-            p, h, L.KVEntry(cache.kv.k[i], cache.kv.v[i]), bt, pos,
-            wpage=wpage, woff=woff, scrub=scrub, n_heads=cfg.n_heads,
+            p, h, cache.kv.layer(i), bt, pos, wpage=wpage, woff=woff,
+            scrub=scrub, cow_src=cow_src, cow_dst=cow_dst,
+            n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
             rope_theta=cfg.rope_theta, attn_impl=attn_impl)[0])
     return _chunk_logits(cfg, params, x), PagedDecodeCache(
@@ -408,16 +521,20 @@ def scan_body_over(step_fn):
     return body
 
 
-def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
+def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla",
+                     cow: bool = True):
     """Decode body for in-loop generation, bound to the decode step of the
     cache it is given (per-layer param views are sliced once here, not
-    once per token)."""
+    once per token). cow: the paged step's copy-on-write guard."""
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
 
     def step(token, advance, cache):
-        fn = (_paged_decode_step if isinstance(cache, PagedDecodeCache)
-              else _dense_decode_step)
-        return fn(cfg, params, token, cache, attn_impl=attn_impl,
-                  advance=advance, layers=layers)
+        if isinstance(cache, PagedDecodeCache):
+            return _paged_decode_step(cfg, params, token, cache,
+                                      attn_impl=attn_impl, advance=advance,
+                                      layers=layers, cow=cow)
+        return _dense_decode_step(cfg, params, token, cache,
+                                  attn_impl=attn_impl, advance=advance,
+                                  layers=layers)
 
     return scan_body_over(step)

@@ -7,6 +7,13 @@
   - **Sampling**: Gumbel-argmax with the noise passed in as a tensor (the
     port's stand-in for JAX's keys: tests feed the JAX draws), or greedy
     argmax when ``temperature <= 0``.
+  - **Episode-keyed draws** (``on_exhaust="preempt"``): a preempted
+    episode replays from scratch in another slot at another macro-step, so
+    its env draws must be a function of the episode alone. JAX keys them
+    by episode id and env step (``episode_reset_rng``/``episode_env_rng``);
+    torch cannot rebuild threefry keys, so the port keys its injected noise
+    by (kind, episode id, env step), and its own draws hash those
+    coordinates (``keyed_uniform``).
   - **Stats**: ``RolloutStats`` plus the slot-engine episode accounting.
 """
 from __future__ import annotations
@@ -36,6 +43,15 @@ class RolloutStats:
     pages_in_use: int = 0           # peak pool occupancy over the rollout
     page_capacity: int = 0          # pool size in pages
     kv_dropped_writes: int = 0      # tokens whose KV write was dropped
+    # prefix sharing (0 = off): leading tokens of every episode's initial
+    # observation served from the one pinned prefix run
+    shared_prefix_len: int = 0
+    # under pool pressure (0 unless the mode is on): slots evicted by the
+    # preemption governor, the peak number of episodes awaiting
+    # re-admission, and pool doublings (pool_growth="double")
+    preemptions: int = 0
+    requeue_depth: int = 0
+    pool_grows: int = 0
     # speculative decoding (all 0 when speculation="off"): draft tokens
     # proposed, draft tokens accepted, and (row, verify round) pairs. Each
     # round commits one exactly sampled token per writing row whatever the
@@ -65,14 +81,53 @@ def token_lp(logits, tokens):
     return token_logprobs(logits.float()[:, None, :], tokens[:, None])[:, 0]
 
 
+def gumbel_from_uniform(u):
+    """``-log(-log(u))``: the transform of ``jax.random.gumbel``."""
+    return -torch.log(-torch.log(u))
+
+
 def gumbel(shape, *, generator=None, device=None):
-    """Standard Gumbel draws, ``-log(-log(u))`` with ``u`` uniform in
-    ``(0, 1)`` (the same transform as ``jax.random.gumbel``; the bits
-    differ)."""
+    """Standard Gumbel draws from ``u`` uniform in ``(0, 1)`` (the same
+    transform as ``jax.random.gumbel``; the bits differ)."""
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float32)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    return gumbel_from_uniform(u.clamp_min(torch.finfo(torch.float32).tiny))
+
+
+_MASK32 = 0xFFFFFFFF
+_KINDS = {"sample": 1, "env": 2, "reset": 3}
+
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for int64 ``x`` in [0, 2**32), in two 16-bit
+    halves so no product leaves int64."""
+    return ((((x >> 16) * c) & 0xFFFF) << 16) + (x & 0xFFFF) * c & _MASK32
+
+
+def _hash32(x):
+    """A 32-bit integer mix (lowbias32) on int64 tensors."""
+    x = x & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keyed_uniform(seed: int, kind: str, episode, step, width: int):
+    """(B, width) f32 uniform draws in (0, 1) that are a pure function of
+    ``(seed, kind, episode[b], step[b], column)``: the engine's own draws
+    under ``on_exhaust="preempt"``, where a replayed episode must draw what
+    it drew the first time. Computed on ``episode``'s device, no host
+    read."""
+    base = _hash32(torch.full_like(episode, seed, dtype=torch.int64)
+                   ^ _KINDS[kind])
+    h = _hash32(base ^ episode.long())
+    h = _hash32(h ^ step.long())                            # (B,)
+    col = _hash32(torch.arange(width, device=episode.device,
+                               dtype=torch.int64) + 0x9E3779B9)
+    bits = _hash32(h[:, None] ^ col[None, :]) >> 8          # 24 bits
+    return (bits.float() + 0.5) * (1.0 / (1 << 24))
 
 
 def sample_with_noise(logits, noise, temperature: float, top_p: float = 1.0):
@@ -97,6 +152,8 @@ def summarize(turn_lengths, context_lengths, n_turns, truncated, rewards, *,
               episodes_started: int, episodes_returned: int,
               params_version: int = -1, pages_in_use: int = 0,
               page_capacity: int = 0, kv_dropped_writes: int = 0,
+              shared_prefix_len: int = 0, preemptions: int = 0,
+              requeue_depth: int = 0, pool_grows: int = 0,
               spec_proposed: int = 0, spec_accepted: int = 0,
               spec_rounds: int = 0) -> RolloutStats:
     turn_lengths = np.asarray(turn_lengths)
@@ -116,6 +173,10 @@ def summarize(turn_lengths, context_lengths, n_turns, truncated, rewards, *,
         pages_in_use=int(pages_in_use),
         page_capacity=int(page_capacity),
         kv_dropped_writes=int(kv_dropped_writes),
+        shared_prefix_len=int(shared_prefix_len),
+        preemptions=int(preemptions),
+        requeue_depth=int(requeue_depth),
+        pool_grows=int(pool_grows),
         spec_proposed=int(spec_proposed),
         spec_accepted=int(spec_accepted),
         spec_rounds=int(spec_rounds),

@@ -35,10 +35,42 @@ contract is one host read per turn plus one per verify round. A turn
 always runs at least one round (masked no-op work when no row writes).
 
 Randomness is a tensor argument: ``run(..., noise=fn)`` takes a callable
-``fn(kind, macro_step, index, shape) -> Tensor`` returning Gumbel noise
-(``kind`` "sample": the draw for token ``index`` of the turn, shape (B, V);
-"env": the opponent's draw, shape (B, env.step_noise_width)). Without it
-the engine draws from ``generator`` on its device.
+``fn(kind, macro_step, index, shape) -> Tensor`` (``kind`` "sample": the
+Gumbel draw for token ``index`` of the turn, shape (B, V); "env": the env
+step's draw, shape (B, env.step_noise_width); "reset": the env reset's
+draw, shape (B, env.reset_noise_width), asked only of an env that takes
+one, with macro-step -1 for the initial reset). Under
+``on_exhaust="preempt"`` the "env" and "reset" draws are keyed by episode:
+``macro_step`` is then the (B,) episode-id tensor and ``index`` the (B,)
+env-step tensor (JAX's ``episode_env_rng``/``episode_reset_rng``), so a
+preempted episode replays its draws. Sampled (non-greedy) runs under
+preemption are NOT schedule-invariant, as in JAX: the "sample" draws stay
+keyed by (macro-step, token). Without ``noise`` the engine draws from
+``generator`` on its device (under preemption, from a hash of the episode
+coordinates seeded once from ``generator``).
+
+**Prefix sharing** (``share_prefix=True``, paged layout): the full pages of
+the env's common prompt prefix (``env.prompt_prefix_len`` tokens, or
+``prefix_len``) are decoded ONCE through slot 0 at init, pinned by an
+engine-held reference, and forked into every slot's block table at init
+and on every refill; refilled slots feed only the per-episode suffix.
+Writes into shared pages are copy-on-write guarded. Greedy decode is
+bitwise the unshared engine's: per-row math is row-independent, so a
+forked page holds exactly the K/V the slot would have computed. Whether a
+turn's feed needs the full observation (some row continues) or only the
+refilled rows' suffix is JAX's ``lax.cond``; here it is a host decision,
+so under sharing the turn's one host read moves before the feed and
+carries the run loop's counters too (``SlotCarry.host``).
+
+**Pool pressure.** ``kv_dtype="int8"`` stores pages in int8 with f32
+scales (the kernels dequantize in registers). ``on_exhaust="preempt"``
+runs the pressure governor before each turn writes (``paging.
+pressure_plan``: throttle, then preempt longest-context victims, whose
+episodes are re-admitted first by the watermark-gated ``slots.
+admission_plan``), so an undersized pool runs slower instead of dropping
+K/V. ``pool_growth="double"`` doubles the pool between macro-steps when it
+shows distress, up to ``pool_growth_max``. The governor adds no host read:
+its decisions stay on the device.
 
 With ``run(..., ref_params=...)`` a second decode stream runs the
 reference model over the same columns as the policy, on its own dense bf16
@@ -60,11 +92,12 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import paging as pool_paging
 from repro_torch.models import transformer
 from repro_torch.rl.algo import reinforce_advantages
 from repro_torch.rl.engine import common, paging, slots
 from repro_torch.rl.engine.common import ACTION_BASE
-from repro_torch.rl.envs.base import TOK_PAD
+from repro_torch.rl.envs.base import TOK_PAD, blend_rows
 from repro_torch.rl.experience import ExperienceBatch
 
 NoiseFn = Callable[[str, int, int, tuple], torch.Tensor]
@@ -100,6 +133,8 @@ def _reset_cache_rows(cache, refill):
         return paging.release_slot_pages(cache, refill)
 
     def zero(leaf):
+        if leaf is None:                           # an absent scale pool
+            return None
         if isinstance(leaf, tuple):                # the nested KV pair
             return type(leaf)(*(zero(x) for x in leaf))
         if leaf.dim() == 1:
@@ -127,13 +162,16 @@ class CompiledRolloutEngine:
     JAX's), ``ref_attn_impl`` (the reference stream's dense
     decode: "pallas" or "xla"), ``sampling`` ("fused" = the one-pass CUDA
     sampler, the default; "reference" = plain argmax + log-softmax),
-    ``on_exhaust`` ("count" or "raise"), ``temperature``, ``top_p``,
-    ``page_size``, ``cache_pages``, ``kv_dtype`` ("bf16" or "fp32") and
-    ``speculation`` ("off", "self" or "draft", with ``spec_k``,
-    ``draft_layers`` and ``draft_model``).
-    The JAX engine's other options raise ``NotImplementedError``. Unlike
-    the JAX engine, the defaults are the production path: the kernels on
-    the card, and their plain versions for CPU tensors.
+    ``temperature``, ``top_p``,
+    ``page_size``, ``cache_pages``, ``kv_dtype`` ("bf16", "fp32", or
+    "int8" on the paged layout), ``share_prefix`` with ``prefix_len``,
+    ``on_exhaust`` ("count", "raise" or "preempt" with
+    ``admit_watermark``), ``pool_growth`` ("off" or "double" with
+    ``pool_growth_max``) and ``speculation`` ("off", "self" or "draft",
+    with ``spec_k``, ``draft_layers`` and ``draft_model``). A
+    ``mesh_config`` raises ``NotImplementedError`` (multi-device is not
+    ported). Unlike the JAX engine, the defaults are the production path:
+    the kernels on the card, and their plain versions for CPU tensors.
     """
 
     def __init__(self, model, env, *, max_turns: int = 4,
@@ -144,7 +182,10 @@ class CompiledRolloutEngine:
                  cache_layout: str = "paged", page_size: int = 16,
                  cache_pages: Optional[int] = None, kv_dtype: str = "bf16",
                  on_exhaust: str = "count", share_prefix: bool = False,
-                 pool_growth: str = "off", speculation: str = "off",
+                 prefix_len: Optional[int] = None, pool_growth: str = "off",
+                 pool_growth_max: Optional[int] = None,
+                 admit_watermark: Optional[int] = None,
+                 speculation: str = "off",
                  spec_k: int = 4, draft_layers: Optional[int] = None,
                  draft_model=None, mesh_config=None, device=None):
         cfg = model.cfg
@@ -156,15 +197,8 @@ class CompiledRolloutEngine:
                 f"the paged KV pool is a dense-family layout; family "
                 f"{cfg.family!r} decodes on its own recurrent cache: pass "
                 f"cache_layout='dense'")
-        if share_prefix:
-            raise _unported("share_prefix (copy-on-write prefix sharing)",
-                            "8")
-        if kv_dtype == "int8":
-            raise _unported("kv_dtype='int8'", "8")
-        if on_exhaust == "preempt":
-            raise _unported("on_exhaust='preempt'", "8")
-        if pool_growth != "off":
-            raise _unported("pool_growth", "8")
+        self._check_pool_options(cache_layout, kv_dtype, on_exhaust,
+                                 pool_growth, share_prefix)
         if mesh_config is not None:
             raise _unported("mesh_config (multi-device)", "9")
         if ACTION_BASE + env.n_actions > cfg.vocab_size:
@@ -182,12 +216,6 @@ class CompiledRolloutEngine:
         if sampling not in ("fused", "reference"):
             raise ValueError(f"sampling must be 'fused' or 'reference', got "
                              f"{sampling!r}")
-        if on_exhaust not in ("count", "raise"):
-            raise ValueError(f"on_exhaust must be 'count' or 'raise', got "
-                             f"{on_exhaust!r}")
-        if kv_dtype not in ("bf16", "fp32"):
-            raise ValueError(f"kv_dtype must be 'bf16' or 'fp32', got "
-                             f"{kv_dtype!r}")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         draft_layers = self._check_speculation(
@@ -208,6 +236,23 @@ class CompiledRolloutEngine:
         self.cache_pages = cache_pages      # None = full provisioning
         self.kv_dtype = kv_dtype
         self.on_exhaust = on_exhaust
+        self.pool_growth = pool_growth
+        self.pool_growth_max = pool_growth_max
+        # admission low-watermark (preempt mode): free pages the refill
+        # must leave after admitting; JAX's default is one turn of one slot
+        self.admit_watermark = (
+            admit_watermark if admit_watermark is not None
+            else math.ceil((max_turn_tokens + env.obs_len) / page_size) + 1)
+        # the shared run: FULL pages of the initial observation's common
+        # prefix, never the whole observation (each slot's feed runs at
+        # least one step, so its logits are its own)
+        if prefix_len is None:
+            prefix_len = int(getattr(env, "prompt_prefix_len", 0))
+        self.share_prefix = share_prefix
+        self.prefix_len = prefix_len
+        self.shared_pages = (min(prefix_len, env.obs_len - 1) // page_size
+                             if share_prefix else 0)
+        self.shared_len = self.shared_pages * page_size
         self.speculation = speculation
         self.spec_k = spec_k
         self.draft_layers = draft_layers
@@ -216,6 +261,46 @@ class CompiledRolloutEngine:
             if speculation == "self" else
             draft_model.cfg if speculation == "draft" else None)
         self.device = resolve_device(device)
+
+    @staticmethod
+    def _check_pool_options(cache_layout, kv_dtype, on_exhaust, pool_growth,
+                            share_prefix):
+        """JAX's checks of the paged-pool options (``compiled.py:
+        150-176``)."""
+        if on_exhaust not in ("count", "raise", "preempt"):
+            raise ValueError(f"on_exhaust must be 'count', 'raise' or "
+                             f"'preempt', got {on_exhaust!r}")
+        if pool_growth not in ("off", "double"):
+            raise ValueError(f"pool_growth must be 'off' or 'double', got "
+                             f"{pool_growth!r}")
+        if kv_dtype not in ("fp32", "bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp32', 'bf16' or 'int8', "
+                             f"got {kv_dtype!r}")
+        if cache_layout == "paged":
+            return
+        for what, bad, why in (
+                ("on_exhaust='preempt'", on_exhaust == "preempt",
+                 "the pressure governor releases and re-admits pool pages"),
+                ("pool_growth", pool_growth != "off",
+                 "growth appends free pages to the shared pool"),
+                ("share_prefix", share_prefix,
+                 "sharing forks pool pages across slots' block tables"),
+                ("kv_dtype='int8'", kv_dtype == "int8",
+                 "the scales are a second page pool sharing the block-table"
+                 "/refcount lifecycle")):
+            if bad:
+                raise ValueError(f"{what} requires cache_layout='paged' "
+                                 f"({why})")
+
+    def min_pool_pages(self, batch: int) -> int:
+        """Smallest pool for which ``on_exhaust="preempt"`` guarantees zero
+        dropped writes at ``batch`` slots: one full-context episode (the
+        survivor always progresses) and the ungoverned initial feed (the
+        pinned shared run once plus a private suffix per slot)."""
+        ps = self.page_size
+        per_admit = -(-(self.env.obs_len - self.shared_len) // ps)
+        return max(-(-self.max_context // ps),
+                   self.shared_pages + batch * per_admit)
 
     @staticmethod
     def _check_speculation(cfg, speculation, cache_layout, sampling, spec_k,
@@ -267,25 +352,47 @@ class CompiledRolloutEngine:
         return draft_layers
 
     # -- carry ---------------------------------------------------------------
-    def init_carry(self, B: int, N: int,
-                   with_ref: bool = False) -> slots.SlotCarry:
+    def _reset_noise(self, noise: NoiseFn, m, index, B: int):
+        """The env reset's draw, or None for an env whose reset takes
+        none."""
+        w = self.env.reset_noise_width
+        return noise("reset", m, index, (B, w)) if w else None
+
+    def init_carry(self, B: int, N: int, with_ref: bool = False,
+                   noise: Optional[NoiseFn] = None) -> slots.SlotCarry:
+        """The carry before the initial feed. ``noise`` supplies the env
+        reset's draw (default: the engine's own draws)."""
         dev, T = self.device, self.max_context
         V = self.model.cfg.vocab_size
         live = torch.arange(B, device=dev) < N
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
         spec = self.speculation != "off"
+        preempt = self.on_exhaust == "preempt"
+        noise = noise if noise is not None else self.default_noise()
+        if preempt:
+            # episode-keyed initial state: slot i starts episode i with the
+            # draw a later re-admission of episode i makes
+            rn = self._reset_noise(noise, torch.arange(B, device=dev),
+                                   z((B,), torch.int32), B)
+        else:
+            rn = self._reset_noise(noise, -1, 0, B)
         if self.cache_layout == "paged":
+            n_pages = self.cache_pages
+            if n_pages is None and self.shared_pages > 0:
+                # sharing-aware full provisioning: the shared run is one
+                # allocation, not one per slot
+                n_pages = pool_paging.pool_pages_needed_shared(
+                    B, T, self.shared_len, self.page_size)
             cache = self.model.init_cache(
                 B, T, layout="paged", page_size=self.page_size,
-                n_pages=self.cache_pages, kv_dtype=self.kv_dtype,
-                device=dev)
+                n_pages=n_pages, kv_dtype=self.kv_dtype, device=dev)
         else:
             kw = {} if self.kv_dtype == "bf16" else {"kv_dtype": self.kv_dtype}
             cache = self.model.init_cache(B, T, device=dev, **kw)
         return slots.SlotCarry(
             cache=cache,
             logits=z((B, V), torch.float32),
-            env_state=self.env.reset(B, device=dev),
+            env_state=self.env.reset(B, device=dev, noise=rn),
             tokens=torch.full((B, T + 1), TOK_PAD, dtype=torch.int32,
                               device=dev),
             gen_mask=z((B, T + 1), torch.bool),
@@ -318,11 +425,23 @@ class CompiledRolloutEngine:
             spec_proposed=z((), torch.int32) if spec else None,
             spec_accepted=z((), torch.int32) if spec else None,
             spec_rounds=z((), torch.int32) if spec else None,
+            prefix_pages=(torch.full((self.shared_pages,), -1,
+                                     dtype=torch.int32, device=dev)
+                          if self.shared_pages > 0 else None),
+            preempted=z((), torch.int32) if preempt else None,
+            requeue=z((N,), torch.bool) if preempt else None,
+            requeue_peak=z((), torch.int32) if preempt else None,
         )
 
     # -- pieces of the macro-step --------------------------------------------
     def _decode(self, params):
-        return self.model.decode_scan_body(params, attn_impl=self.attn_impl)
+        # the copy-on-write guard is dropped statically: without sharing no
+        # page reaches refcount > 1, and the shared run is whole pages, so
+        # every write lands past it (the guard stays in the model API for
+        # callers that fork a partial page)
+        kw = {"cow": False} if self.cache_layout == "paged" else {}
+        return self.model.decode_scan_body(params, attn_impl=self.attn_impl,
+                                           **kw)
 
     def _ref_stream(self, ref_params, c: slots.SlotCarry):
         """The carry's reference stream, or None when it has none."""
@@ -368,11 +487,14 @@ class CompiledRolloutEngine:
         return ref._replace(logits=logits, cache=cache)
 
     def _feed_obs(self, decode, logits, cache, tokens, pos, obs, mask,
-                  ref=None, draft=None):
+                  ref=None, draft=None, skip=None, n_skip: int = 0):
         """Teacher-force the obs columns into ``mask`` rows, one decode
         step per column (and one of the reference stream and of the draft,
         when on; the draft's logits are discarded, as its proposals always
-        start from a freshly sampled c0); other rows are no-ops."""
+        start from a freshly sampled c0); other rows are no-ops. ``skip``
+        rows sit out the first ``n_skip`` columns (their forked prefix
+        pages already hold them) and join at column ``n_skip``, where their
+        fill position already points."""
         T = self.max_context
         B = pos.shape[0]
         rows = torch.arange(B, device=pos.device)
@@ -380,17 +502,18 @@ class CompiledRolloutEngine:
                                 dtype=torch.float32, device=pos.device)
                     if draft is not None else None)
         for j in range(obs.shape[1]):
-            col = torch.where(mask, obs[:, j], TOK_PAD).to(torch.int32)
-            cidx = torch.where(mask, pos, T).long()     # T = trash column
+            m = mask & ~skip if j < n_skip else mask
+            col = torch.where(m, obs[:, j], TOK_PAD).to(torch.int32)
+            cidx = torch.where(m, pos, T).long()        # T = trash column
             tokens[rows, cidx] = col
             if ref is not None:
-                ref = self._ref_advance(ref, col, mask, pos, rows, cidx)
+                ref = self._ref_advance(ref, col, m, pos, rows, cidx)
             if draft is not None:
                 (d_logits, dc), _ = draft.decode((d_logits, draft.cache),
-                                                 (col, mask))
+                                                 (col, m))
                 draft = draft._replace(cache=dc)
-            (logits, cache), _ = decode((logits, cache), (col, mask))
-            pos = pos + mask.to(torch.int32)
+            (logits, cache), _ = decode((logits, cache), (col, m))
+            pos = pos + m.to(torch.int32)
         return logits, cache, tokens, pos, ref, draft
 
     @staticmethod
@@ -412,17 +535,57 @@ class CompiledRolloutEngine:
         return common.sample_with_noise(logits, noise, self.temperature,
                                         self.top_p)
 
+    def _write_prefix_tokens(self, tokens, obs, rows_mask):
+        """The skipped shared-prefix columns of ``obs`` into ``rows_mask``
+        rows' context buffers: the harvested episode carries its whole
+        prompt, although only the forked pages hold the prefix's K/V."""
+        S = self.shared_len
+        cols = torch.arange(tokens.shape[1], device=tokens.device)
+        pre = torch.nn.functional.pad(obs[:, :S].to(tokens.dtype),
+                                      (0, tokens.shape[1] - S))
+        return torch.where(rows_mask[:, None] & (cols < S)[None, :], pre,
+                           tokens)
+
     def init_feed(self, params, carry: slots.SlotCarry, ref_params=None,
                   draft_params=None) -> slots.SlotCarry:
         """Feed the initial observation of every live slot (run once before
-        the macro-step loop)."""
+        the macro-step loop). With sharing, the common prefix is decoded
+        through slot 0 only, its pages pinned and forked into every live
+        slot, and then every slot feeds its own suffix."""
+        decode = self._decode(params)
+        ref = self._ref_stream(ref_params, carry)
+        draft = self._draft_stream(params, draft_params, carry)
+        obs = self.env.encode_obs(carry.env_state)
+        logits, cache, tokens, pos = (carry.logits, carry.cache,
+                                      carry.tokens, carry.pos)
+        live, S = carry.live, self.shared_len
+        prefix_pages = carry.prefix_pages
+        if self.shared_pages > 0:
+            row0 = torch.arange(live.shape[0], device=live.device) == 0
+            logits, cache, tokens, pos, ref, draft = self._feed_obs(
+                decode, logits, cache, tokens, pos, obs[:, :S], row0 & live,
+                ref, draft)
+            prefix_pages = cache.block_table[0, :self.shared_pages].clone()
+            # the engine-held pin (an unmapped entry adds 0)
+            pinned = prefix_pages >= 0
+            cache = cache._replace(refcount=cache.refcount.scatter_add(
+                0, torch.where(pinned, prefix_pages, 0).long(),
+                pinned.to(cache.refcount.dtype)))
+            cache = paging.fork_prefix(cache, prefix_pages, live & ~row0, S)
+            pos = torch.where(live, S, pos)
+            if draft is not None:
+                # the draft's dense cache cannot fork pool pages: other
+                # rows skip the prefix with zero draft K/V behind their fill
+                # line (lower acceptance only; verify gates every commit)
+                draft = draft._replace(cache=draft.cache._replace(
+                    pos=torch.where(live, S, draft.cache.pos)))
+            tokens = self._write_prefix_tokens(tokens, obs, live)
+            obs = obs[:, S:]
         logits, cache, tokens, pos, ref, draft = self._feed_obs(
-            self._decode(params), carry.logits, carry.cache, carry.tokens,
-            carry.pos, self.env.encode_obs(carry.env_state), carry.live,
-            self._ref_stream(ref_params, carry),
-            self._draft_stream(params, draft_params, carry))
+            decode, logits, cache, tokens, pos, obs, live, ref, draft)
         return self._with_streams(carry._replace(
-            logits=logits, cache=cache, tokens=tokens, pos=pos), ref, draft)
+            logits=logits, cache=cache, tokens=tokens, pos=pos,
+            prefix_pages=prefix_pages), ref, draft)
 
     @staticmethod
     def _more_rounds(pending) -> bool:
@@ -481,7 +644,8 @@ class CompiledRolloutEngine:
             chunk = torch.stack(toks, dim=1)                # (B, K)
             vlogits, cache = transformer.spec_verify_step(
                 self.model.cfg, params, chunk, cache,
-                attn_impl=self.attn_impl, advance=write, eff_k=ek)
+                attn_impl=self.attn_impl, advance=write, eff_k=ek,
+                cow=False)                      # as in ``_decode``
             # chunk[:, j] commits iff it is the token sequential decode
             # samples from vlogits[:, j-1] with that step's noise row
             match, commits = write, i32(write)
@@ -530,28 +694,115 @@ class CompiledRolloutEngine:
                 gen_mask, logprobs, pos, acted, actions, last_tok, tl,
                 (sp, sa, sr))
 
+    def _govern(self, c: slots.SlotCarry):
+        """The pressure governor (preempt mode), before anything generates:
+        which slots may write this turn, and which are evicted (their
+        private pages released, their episode re-queued). Stalled slots
+        keep their pages and their fed observation. Returns ``(carry,
+        run_mask, victims)``."""
+        mtt, olen, ps = self.max_turn_tokens, self.env.obs_len, self.page_size
+        T, N = self.max_context, c.requeue.shape[0]
+        bt = c.cache.block_table
+        elig = (c.live & (c.pos + mtt + olen <= T)
+                & (c.n_turns < self.max_turns))
+        tgt = (c.pos + mtt + olen).clamp(max=bt.shape[1] * ps)
+        mapped = (bt >= 0).sum(dim=1, dtype=torch.int32)
+        demand = torch.where(elig, ((tgt + ps - 1) // ps - mapped).clamp_min(
+            0), 0)
+        run_mask, victims = paging.pressure_plan(
+            c.cache.refcount, bt, elig, c.pos, demand)
+        hit = torch.zeros((N + 1,), dtype=torch.bool, device=bt.device)
+        hit.scatter_(0, torch.where(victims, c.episode, N).long(),
+                     torch.ones_like(victims))
+        requeue = c.requeue | hit[:N]
+        c = c._replace(
+            cache=paging.release_slot_pages(c.cache, victims),
+            live=c.live & ~victims, truncated=c.truncated & ~victims,
+            episode=torch.where(victims, N, c.episode).to(torch.int32),
+            preempted=c.preempted + victims.sum(dtype=torch.int32),
+            requeue=requeue,
+            requeue_peak=torch.maximum(c.requeue_peak,
+                                       requeue.sum(dtype=torch.int32)))
+        return c, run_mask, victims
+
+    def _admit(self, c: slots.SlotCarry, cache, victims, finished, active,
+               done, pos):
+        """The watermark-gated refill plan of preempt mode: every finished
+        slot releases its pages first, re-queued episodes are admitted
+        before fresh ones, and admission leaves ``admit_watermark`` free
+        pages beyond what the continuing slots' obs feeds can take.
+        Returns ``(cache, refill, new_ids, launched, requeue)``."""
+        olen, ps = self.env.obs_len, self.page_size
+        N = c.requeue.shape[0]
+        cache = paging.release_slot_pages(cache, finished)
+        bt = cache.block_table
+        free_now = (cache.refcount == 0).sum(dtype=torch.int32)
+        mapped = (bt >= 0).sum(dim=1, dtype=torch.int32)
+        cont = active & ~done & ~finished
+        tgt = (pos + olen).clamp(max=bt.shape[1] * ps)
+        reserved = torch.where(
+            cont, ((tgt + ps - 1) // ps - mapped).clamp_min(0), 0).sum(
+                dtype=torch.int32)
+        per_admit = -(-(olen - self.shared_len) // ps)
+        quota = ((free_now - reserved - self.admit_watermark)
+                 // per_admit).clamp_min(0)
+        # deadlock breaker: with no survivor but work left, every unpinned
+        # page is free, so admit at least one episode (min_pool_pages
+        # guarantees it fits)
+        surv = (c.live & ~finished).any()
+        work_left = (c.launched < N) | c.requeue.any()
+        quota = torch.where(~surv & work_left, quota.clamp_min(1), quota)
+        free_slots = finished | (~c.live & ~victims)
+        refill, new_ids, launched, requeue = slots.admission_plan(
+            free_slots, c.requeue, c.launched, N, quota)
+        return cache, refill, new_ids, launched, requeue
+
+    def _feed_pages(self, cache, pos, feed_mask, refill):
+        """Pages the obs feed is about to allocate: each feeding row's
+        unmapped block-table entries over the positions it writes. The
+        pool's free count after the feed is the free count now less this
+        (an exhausted pool stops at 0), which is what pool growth reads
+        when sharing moves the turn's host read before the feed."""
+        ps, olen, S = self.page_size, self.env.obs_len, self.shared_len
+        bt = cache.block_table
+        n = torch.where(refill, olen - S, olen)
+        j = torch.arange(bt.shape[1], device=bt.device)[None, :]
+        span = ((j >= (pos // ps)[:, None])
+                & (j <= ((pos + n - 1) // ps)[:, None]))
+        return (span & (bt < 0) & feed_mask[:, None]).sum(dtype=torch.int32)
+
     def turn_step(self, params, c: slots.SlotCarry, m: int,
                   noise: NoiseFn, ref_params=None,
                   draft_params=None) -> slots.SlotCarry:
         """One macro-step (one turn for every slot). Enqueues device work
-        only, with no host read, unless speculation is on: then it reads
-        one flag per verify round."""
+        only, with no host read, unless speculation is on (one flag per
+        verify round) or prefix sharing is (the turn's one read, before the
+        feed; ``SlotCarry.host`` carries what it read)."""
         env, T, olen = self.env, self.max_context, self.env.obs_len
         mtt, mturns = self.max_turn_tokens, self.max_turns
         n_actions, V = env.n_actions, self.model.cfg.vocab_size
         B = c.pos.shape[0]
         N = c.store.tokens.shape[0] - 1
+        S = self.shared_len
         dev = c.pos.device
         rows = torch.arange(B, device=dev)
+        preempt = self.on_exhaust == "preempt"
         decode = self._decode(params)
         ref = self._ref_stream(ref_params, c)
         draft = self._draft_stream(params, draft_params, c)
         i32 = lambda t: t.to(torch.int32)
 
+        # 0. the pressure governor (preempt mode)
+        victims = None
+        if preempt:
+            c, run_mask, victims = self._govern(c)
+
         # 1. truncation / active set
         room = c.pos + mtt + olen <= T
         truncated = c.truncated | (c.live & ~room)
         active = c.live & room & (c.n_turns < mturns)
+        if preempt:
+            active = active & run_mask
 
         # 2. generation: mtt decode steps; sample, then write the token's
         #    K/V (fused sample-and-write when sampling="fused"). With
@@ -614,11 +865,20 @@ class CompiledRolloutEngine:
                                         + torch.where(active, tl, 0))
         n_turns = c.n_turns + i32(active)
 
-        # 4. env transition (inactive rows absorb inside env.step)
+        # 4. env transition (inactive rows absorb inside env.step). Preempt
+        #    mode draws per episode and env step, and keeps inactive rows'
+        #    state: a stalled slot is a no-op, not a step with action 0.
         env_actions = i32(torch.where(active, actions, 0))
-        state2, res = env.step(c.env_state, env_actions,
-                               noise("env", m, 0,
-                                     (B, env.step_noise_width)))
+        if preempt:
+            state2, res = env.step(
+                c.env_state, env_actions,
+                noise("env", c.episode, c.n_turns,
+                      (B, env.step_noise_width)))
+            state2 = blend_rows(active, state2, c.env_state)
+        else:
+            state2, res = env.step(c.env_state, env_actions,
+                                   noise("env", m, 0,
+                                         (B, env.step_noise_width)))
 
         # 5. harvest finished episodes (truncated -> zero reward)
         finished = c.live & (state2.done | truncated | (n_turns >= mturns))
@@ -631,36 +891,76 @@ class CompiledRolloutEngine:
             ref_logprobs=ref.logprobs[:, :T] if ref is not None else None)
         returned = c.returned + finished.sum(dtype=torch.int32)
 
-        # 6. slot refill: release pages or zero dense rows, reset rows
-        #    (masked, unconditional)
-        refill, new_ids, launched = slots.refill_plan(finished, c.launched,
-                                                      N)
+        # 6. slot refill: release pages or zero dense rows, fork the shared
+        #    prefix, reset rows (masked, unconditional). Preempt mode plans
+        #    the refill with the admission watermark.
+        requeue = c.requeue
+        if preempt:
+            cache, refill, new_ids, launched, requeue = self._admit(
+                c, cache, victims, finished, active, state2.done, pos)
+        else:
+            refill, new_ids, launched = slots.refill_plan(finished,
+                                                          c.launched, N)
         r1 = refill[:, None]
         cache = _reset_cache_rows(cache, refill)
         if ref is not None:
             ref = ref._replace(cache=_reset_cache_rows(ref.cache, refill),
                                logprobs=torch.where(r1, 0.0, ref.logprobs))
         if draft is not None:
-            draft = draft._replace(cache=_reset_cache_rows(draft.cache,
-                                                           refill))
-        state3 = env.reset_rows(state2, refill)
+            dc = _reset_cache_rows(draft.cache, refill)
+            draft = draft._replace(cache=dc._replace(
+                pos=torch.where(refill, S, dc.pos)))
+        if self.shared_pages > 0:
+            # a fresh episode inherits the pinned prefix run: its pages are
+            # forked into the slot, whose own writes start after them
+            cache = paging.fork_prefix(cache, c.prefix_pages, refill, S)
+        if preempt:
+            # episode-keyed reset: a re-admitted episode draws the initial
+            # state it drew at first launch
+            rn = self._reset_noise(noise, torch.where(refill, new_ids, 0),
+                                   torch.zeros_like(new_ids), B)
+        else:
+            rn = self._reset_noise(noise, m, 0, B)
+        state3 = env.reset_rows(state2, refill, rn)
         tokens = torch.where(r1, TOK_PAD, tokens)
         gen_mask = torch.where(r1, False, gen_mask)
         logprobs = torch.where(r1, 0.0, logprobs)
-        pos = torch.where(refill, 0, pos)
+        pos = torch.where(refill, S, pos)
         n_turns = torch.where(refill, 0, n_turns)
         turn_lengths = torch.where(r1, 0, turn_lengths)
         kv_shortfall = torch.where(refill, 0, kv_shortfall)
 
         # 7. one combined obs feed: continuing rows get the env observation,
-        #    refilled rows their reset observation
+        #    refilled rows their reset observation. With sharing, refilled
+        #    rows skip the shared columns, and the turn's one host read
+        #    decides JAX's lax.cond: no feed, the refilled rows' suffix
+        #    only (the common case under churn), or the full observation.
         cont = active & ~state2.done & ~finished
         feed_mask = cont | refill
         obs = torch.where(r1, env.encode_obs(state3), res.obs_tokens)
-        logits, cache, tokens, pos, ref, draft = self._feed_obs(
-            decode, logits, cache, tokens, pos, obs, feed_mask, ref, draft)
+        host = None
+        if self.shared_pages == 0:
+            logits, cache, tokens, pos, ref, draft = self._feed_obs(
+                decode, logits, cache, tokens, pos, obs, feed_mask, ref,
+                draft)
+        else:
+            tokens = self._write_prefix_tokens(tokens, obs, refill)
+            free = ((cache.refcount == 0).sum(dtype=torch.int32)
+                    - self._feed_pages(cache, pos, feed_mask, refill))
+            host = self._host_read(
+                returned, kv_dropped,
+                c.preempted if preempt else None, free.clamp_min(0),
+                cont.any(), feed_mask.any())
+            if host["any_cont"]:
+                logits, cache, tokens, pos, ref, draft = self._feed_obs(
+                    decode, logits, cache, tokens, pos, obs, feed_mask, ref,
+                    draft, skip=refill, n_skip=S)
+            elif host["any_feed"]:
+                logits, cache, tokens, pos, ref, draft = self._feed_obs(
+                    decode, logits, cache, tokens, pos, obs[:, S:], refill,
+                    ref, draft)
 
-        return self._with_streams(slots.SlotCarry(
+        return self._with_streams(c._replace(
             cache=cache, logits=logits, env_state=state3, tokens=tokens,
             gen_mask=gen_mask, logprobs=logprobs, pos=pos,
             live=(c.live & ~finished) | refill,
@@ -672,17 +972,47 @@ class CompiledRolloutEngine:
             launched=launched, returned=returned, store=store,
             pages_peak=pages_peak, kv_dropped=kv_dropped,
             kv_shortfall=kv_shortfall, spec_proposed=spec[0],
-            spec_accepted=spec[1], spec_rounds=spec[2]), ref, draft)
+            spec_accepted=spec[1], spec_rounds=spec[2], requeue=requeue,
+            host=host), ref, draft)
+
+    @staticmethod
+    def _host_read(returned, kv_dropped, preempted, free, *flags) -> dict:
+        """THE host read of a turn: the run loop's counters (and, under
+        sharing, the feed's two flags) in one copy."""
+        vals = [returned, kv_dropped,
+                preempted if preempted is not None else returned * 0, free,
+                *flags]
+        out = torch.stack([v.to(torch.int64) for v in vals]).tolist()
+        keys = ("returned", "kv_dropped", "preempted", "free", "any_cont",
+                "any_feed")
+        return dict(zip(keys, out))
 
     # ------------------------------------------------------------------------
     def default_noise(self, generator: Optional[torch.Generator] = None
                       ) -> NoiseFn:
-        """Gumbel draws from ``generator`` (or the device's default
-        generator) on the engine's device."""
+        """The engine's own draws on its device: uniform draws from
+        ``generator`` (or the device's default generator), made Gumbel for
+        sampling and the env's own for "env" and "reset". Under preemption
+        the episode-keyed "env"/"reset" draws hash the episode coordinates
+        from a seed taken once from ``generator``
+        (``common.keyed_uniform``)."""
+        env = self.env
+        seed = None
+        if self.on_exhaust == "preempt":
+            seed = int(torch.randint(1 << 31, (1,), generator=generator,
+                                     device=self.device))
+
         def draw(kind, m, index, shape):
-            del kind, m, index
-            return common.gumbel(shape, generator=generator,
-                                 device=self.device)
+            if kind == "sample":
+                return common.gumbel(shape, generator=generator,
+                                     device=self.device)
+            if isinstance(m, torch.Tensor):
+                u = common.keyed_uniform(seed, kind, m, index, shape[1])
+            else:
+                u = torch.rand(shape, generator=generator,
+                               device=self.device).clamp_min(
+                                   torch.finfo(torch.float32).tiny)
+            return env.noise_from_uniform(kind, u)
         return draw
 
     def run(self, params, batch: int, n_episodes: Optional[int] = None, *,
@@ -702,6 +1032,13 @@ class CompiledRolloutEngine:
         if N < 1 or B < 1:
             raise ValueError(f"batch and n_episodes must be >= 1, got {B}, "
                              f"{N}")
+        if ref_params is not None and self.shared_pages > 0:
+            raise ValueError(
+                "share_prefix with the folded reference pass (ref_params) is "
+                "not supported: the reference model's dense cache cannot "
+                "fork prefix pages, so refilled slots would skip tokens the "
+                "reference pass needs. Run the reference pass separately "
+                "(ExpPrep's standalone route) or disable share_prefix.")
         if ref_params is not None and self.speculation != "off":
             raise ValueError(
                 "speculation with the folded reference pass (ref_params) is "
@@ -709,31 +1046,73 @@ class CompiledRolloutEngine:
                 "step at a time and cannot consume drafted chunks. Run the "
                 "reference pass separately (ExpPrep's standalone route) or "
                 "turn speculation off.")
+        preempt = self.on_exhaust == "preempt"
+        if preempt and self.cache_pages is not None \
+                and self.cache_pages < self.min_pool_pages(B):
+            raise ValueError(
+                f"cache_pages={self.cache_pages} is below the preemption "
+                f"governor's minimum viable pool ({self.min_pool_pages(B)} "
+                f"pages for batch {B}): the pool must hold one full-context "
+                f"episode plus the initial observation feed of every slot, "
+                f"or the zero-drop guarantee cannot hold.")
         noise = noise if noise is not None else self.default_noise(generator)
         carry = self.init_feed(
-            params, self.init_carry(B, N, with_ref=ref_params is not None),
+            params, self.init_carry(B, N, with_ref=ref_params is not None,
+                                    noise=noise),
             ref_params, draft_params)
-        max_macro = self.max_turns * math.ceil(N / B) + 2
+        # preemption stalls slots and restarts episodes: its budget assumes
+        # near-serial progress plus an admission turn per episode, as JAX's
+        max_macro = ((self.max_turns + 2) * (N + B) + 8 if preempt
+                     else self.max_turns * math.ceil(N / B) + 2)
+        grow = self.pool_growth == "double"
+        grow_cap = (self.pool_growth_max if self.pool_growth_max is not None
+                    else pool_paging.pool_pages_needed(B, self.max_context,
+                                                       self.page_size))
+        pool_grows = last_dropped = last_preempted = 0
         for m in range(max_macro):
             carry = self.turn_step(params, carry, m, noise, ref_params,
                                    draft_params)
-            # the one host sync per turn (plus the drop counter in
-            # on_exhaust="raise" mode, and one per speculative verify
-            # round inside turn_step)
-            if self.on_exhaust == "raise" and int(carry.kv_dropped) > 0:
+            # the one host read per turn (made inside turn_step under
+            # sharing), plus one per speculative verify round
+            h = carry.host if carry.host is not None else self._host_read(
+                carry.returned, carry.kv_dropped, carry.preempted,
+                (carry.cache.refcount == 0).sum(dtype=torch.int32)
+                if paging.is_paged(carry.cache) else carry.returned * 0)
+            if self.on_exhaust == "raise" and h["kv_dropped"] > 0:
                 raise RuntimeError(
                     f"KV page pool exhausted during rollout: "
-                    f"{int(carry.kv_dropped)} dropped KV write(s) by "
-                    f"macro-step {m} (pool {carry.cache.n_pages} pages, "
-                    f"peak in use {int(carry.pages_peak)}); grow "
-                    f"cache_pages (see models.paging.pool_pages_needed) or "
-                    f"use on_exhaust='count' to tolerate truncation")
-            if int(carry.returned) >= N:
+                    f"{h['kv_dropped']} dropped KV write(s) by macro-step "
+                    f"{m} (pool {carry.cache.n_pages} pages); grow "
+                    f"cache_pages (see models.paging.pool_pages_needed"
+                    f"[_shared]), set pool_growth='double', use "
+                    f"on_exhaust='preempt' to trade throughput for "
+                    f"completeness, or on_exhaust='count' to tolerate "
+                    f"truncation")
+            if grow:
+                # grow when the pool showed distress this turn: a dropped
+                # write, a preemption, or free pages under the watermark
+                cap = carry.cache.n_pages
+                if cap < grow_cap and (
+                        h["kv_dropped"] > last_dropped
+                        or h["preempted"] > last_preempted
+                        or h["free"] < self.admit_watermark):
+                    carry = carry._replace(cache=paging.grow_pool(
+                        carry.cache, min(2 * cap, grow_cap)))
+                    pool_grows += 1
+                last_dropped, last_preempted = h["kv_dropped"], h["preempted"]
+            if h["returned"] >= N:
                 break
-        return self._finalize(carry, N, params_version)
+        if preempt and h["returned"] < N:
+            raise RuntimeError(
+                f"preemption governor failed to drain the rollout: "
+                f"{h['returned']}/{N} episodes returned after {max_macro} "
+                f"macro-steps (pool {carry.cache.n_pages} pages, "
+                f"{h['preempted']} preemption(s)); the pool is likely "
+                f"below min_pool_pages({B}) = {self.min_pool_pages(B)}.")
+        return self._finalize(carry, N, params_version, pool_grows)
 
     def _finalize(self, carry: slots.SlotCarry, N: int,
-                  params_version: int = -1):
+                  params_version: int = -1, pool_grows: int = 0):
         s = carry.store
         rewards = s.rewards[:N]
         exp = ExperienceBatch(
@@ -742,6 +1121,7 @@ class CompiledRolloutEngine:
             ref_logprobs=s.ref_logprobs[:N], rewards=rewards,
             returns=rewards, advantages=reinforce_advantages(rewards),
             context_len=s.context_len[:N], truncated=s.truncated[:N])
+        opt = lambda t: int(t) if t is not None else 0
         stats = common.summarize(
             s.turn_lengths[:N].cpu(), s.context_len[:N].cpu(),
             s.n_turns[:N].cpu(), s.truncated[:N].cpu(), rewards.cpu(),
@@ -752,8 +1132,11 @@ class CompiledRolloutEngine:
             page_capacity=(carry.cache.n_pages
                            if paging.is_paged(carry.cache) else 0),
             kv_dropped_writes=int(carry.kv_dropped),
-            **({} if self.speculation == "off" else dict(
-                spec_proposed=int(carry.spec_proposed),
-                spec_accepted=int(carry.spec_accepted),
-                spec_rounds=int(carry.spec_rounds))))
+            shared_prefix_len=self.shared_len,
+            preemptions=opt(carry.preempted),
+            requeue_depth=opt(carry.requeue_peak),
+            pool_grows=pool_grows,
+            spec_proposed=opt(carry.spec_proposed),
+            spec_accepted=opt(carry.spec_accepted),
+            spec_rounds=opt(carry.spec_rounds))
         return exp, stats

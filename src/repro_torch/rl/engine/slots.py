@@ -62,6 +62,19 @@ class SlotCarry(NamedTuple):
     spec_proposed: Any = None  # () int32 draft tokens proposed
     spec_accepted: Any = None  # () int32 draft tokens accepted
     spec_rounds: Any = None    # () int32 (row, verify round) pairs
+    # the shared-prefix run (None when share_prefix is off): the pinned
+    # pool pages of the common prompt's full pages, prefilled once at init
+    # and forked into every refilled slot
+    prefix_pages: Any = None   # (shared_pages,) int32 pool page indices
+    # preemption (None unless on_exhaust="preempt"): an evicted slot
+    # releases its pages and its episode id enters ``requeue`` until the
+    # admission plan re-launches it from scratch
+    preempted: Any = None      # () int32 cumulative slot preemptions
+    requeue: Any = None        # (N,) bool episodes awaiting re-admission
+    requeue_peak: Any = None   # () int32 peak requeue depth
+    # the turn's host read when the macro-step made it itself (prefix
+    # sharing reads before its feed): the run loop's counters as ints
+    host: Any = None
 
 
 def init_store(n_episodes: int, max_context: int, max_turns: int,
@@ -110,3 +123,45 @@ def refill_plan(finished, launched, n_episodes: int):
     refill = finished & (new_ids < n_episodes)
     launched = launched + refill.sum(dtype=torch.int32)
     return refill, torch.where(refill, new_ids, 0), launched
+
+
+def _i32_cumsum(x):
+    return torch.cumsum(x.to(torch.int32), 0, dtype=torch.int32)
+
+
+def admission_plan(free_slots, requeue, launched, n_episodes: int, quota):
+    """Watermark-gated refill of ``on_exhaust="preempt"``. Like
+    ``refill_plan``, but (a) every free slot is a candidate (``free_slots``:
+    slots freed by preemption or earlier throttling too), (b) re-queued
+    episodes are admitted first, in ascending id order, before any fresh
+    id, and (c) at most ``quota`` episodes are admitted.
+
+    free_slots: (B,) bool; requeue: (N,) bool; quota: 0-d int. Returns
+    ``(admit, new_ids, launched', requeue')``; ``launched`` advances only
+    for fresh ids (a re-admitted episode was counted at its first launch).
+    """
+    B = free_slots.shape[0]
+    N = requeue.shape[0]
+    dev = free_slots.device
+    rank = _i32_cumsum(free_slots) - 1                     # admission rank
+    n_rq = requeue.sum(dtype=torch.int32)
+    # rank-match requeued ids: the r-th admission takes the r-th lowest
+    # requeued id (slot B of the table is the trash entry)
+    rq_rank = _i32_cumsum(requeue) - 1                     # (N,)
+    slot_of = torch.where(requeue & (rq_rank < B), rq_rank, B).long()
+    rank_to_eid = torch.full((B + 1,), N, dtype=torch.int32, device=dev)
+    rank_to_eid.scatter_(0, slot_of,
+                         torch.arange(N, dtype=torch.int32, device=dev))
+    from_rq = free_slots & (rank < n_rq)
+    fresh_id = launched + (rank - n_rq)                    # ranks >= n_rq
+    eid = torch.where(from_rq, rank_to_eid[rank.clamp(0, B - 1).long()],
+                      fresh_id).to(torch.int32)
+    have = free_slots & (from_rq
+                         | ((rank >= n_rq) & (fresh_id < n_episodes)))
+    admit = have & (rank < quota)
+    launched = launched + (admit & ~from_rq).sum(dtype=torch.int32)
+    done = torch.zeros((N + 1,), dtype=torch.bool, device=dev)
+    done.scatter_(0, torch.where(admit & from_rq, eid, N).long(),
+                  torch.ones_like(admit))
+    return (admit, torch.where(admit, eid, 0), launched,
+            requeue & ~done[:N])

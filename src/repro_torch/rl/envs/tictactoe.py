@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.rl.envs.base import (StepResult, TOK_BOS, TOK_DRAW,
                                       TOK_ILLEGAL, TOK_LOSS, TOK_OBS_BASE,
-                                      TOK_TURN, TOK_WIN, default_reset_rows)
+                                      TOK_TURN, TOK_WIN, default_reset_rows,
+                                      gumbel_from_uniform)
 
 
 class TTTState(NamedTuple):
@@ -20,15 +21,25 @@ class TicTacToe:
     n_actions = 9
     obs_len = 12           # BOS + 9 cells + result/turn + turn marker
     step_noise_width = 9   # opponent Gumbel noise per row, one per cell
+    reset_noise_width = 0  # the reset is deterministic (an empty board)
+    # so EVERY episode's initial observation is identical end to end: the
+    # whole prompt can be shared across slots (engine prefix sharing)
+    prompt_prefix_len = obs_len
 
-    def reset(self, batch: int, *, device) -> TTTState:
+    def noise_from_uniform(self, kind: str, u):
+        """The opponent's Gumbel draw from uniform ``u``."""
+        del kind
+        return gumbel_from_uniform(u)
+
+    def reset(self, batch: int, *, device, noise=None) -> TTTState:
+        del noise
         return TTTState(
             board=torch.zeros((batch, 9), dtype=torch.int32, device=device),
             done=torch.zeros((batch,), dtype=torch.bool, device=device),
             reward=torch.zeros((batch,), dtype=torch.float32, device=device))
 
-    def reset_rows(self, state: TTTState, mask) -> TTTState:
-        return default_reset_rows(self, state, mask)
+    def reset_rows(self, state: TTTState, mask, noise=None) -> TTTState:
+        return default_reset_rows(self, state, mask, noise)
 
     @staticmethod
     def _wins(board, piece):

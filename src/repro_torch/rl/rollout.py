@@ -53,9 +53,15 @@ class RolloutEngine:
 
     def default_noise(self, generator: Optional[torch.Generator] = None
                       ) -> NoiseFn:
-        """Gumbel draws from ``generator`` on the engine's device."""
-        return lambda kind, m, index, shape: common.gumbel(
-            shape, generator=generator, device=self.device)
+        """Uniform draws from ``generator`` on the engine's device, made
+        Gumbel for sampling and the env's own for "env" and "reset"."""
+        def draw(kind, m, index, shape):
+            u = torch.rand(shape, generator=generator,
+                           device=self.device).clamp_min(
+                               torch.finfo(torch.float32).tiny)
+            return (common.gumbel_from_uniform(u) if kind == "sample"
+                    else self.env.noise_from_uniform(kind, u))
+        return draw
 
     def run(self, params, batch: int, n_episodes: Optional[int] = None, *,
             generator: Optional[torch.Generator] = None,
@@ -75,7 +81,9 @@ class RolloutEngine:
         env, model, dev = self.env, self.model, self.device
         T, B, V = self.max_context, int(batch), model.cfg.vocab_size
 
-        state = env.reset(B, device=dev)
+        w = env.reset_noise_width
+        state = env.reset(B, device=dev, noise=noise("reset", -1, 0, (B, w))
+                          if w else None)
         obs = env.encode_obs(state).cpu().numpy()            # (B, obs_len)
         tokens = np.full((B, T), TOK_PAD, np.int32)
         gen_mask = np.zeros((B, T), bool)

@@ -46,7 +46,8 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.models.registry import build_model
 from repro_torch.rl.engine import CompiledRolloutEngine
-from repro_torch.rl.envs import TicTacToe
+from repro_torch.rl.engine.common import keyed_uniform
+from repro_torch.rl.envs import MultiArmedBandit, TicTacToe
 
 pytestmark = pytest.mark.cuda
 
@@ -966,3 +967,213 @@ def test_ssm_smoke_paths_launch_exactly(dev):
     plain = ExpPrepStage(model)(exp, ref_params=p32, ref_folded=False)
     torch.testing.assert_close(alone.ref_logprobs, plain.ref_logprobs,
                                atol=2e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the paged pool's second half: prefix sharing, int8 pages, preemption
+# ---------------------------------------------------------------------------
+
+POOL_KW = dict(max_turns=1, max_turn_tokens=4, max_context=64, page_size=8,
+               temperature=0.0)
+
+
+@pytest.fixture
+def pool_smoke(dev):
+    model = build_model(get_smoke_config("qwen2-0.5b"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.float32)
+    return model, params
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp32"])
+def test_shared_rollout_equals_unshared_on_the_card(pool_smoke, kv_dtype):
+    """Greedy bandit episodes with a 17-token prompt (two shared pages):
+    the shared engine commits the unshared engine's tokens and log-probs
+    bitwise (per-row math does not see the fork), launches the paged kernel
+    a whole number of times per layer, drops nothing and peaks lower."""
+    model, params = pool_smoke
+    env = MultiArmedBandit(prompt_len=16)
+    out = {}
+    for share in (False, True):
+        eng = CompiledRolloutEngine(model, env, kv_dtype=kv_dtype,
+                                    share_prefix=share, **POOL_KW)
+        pa_ops.reset_launches()
+        # equally seeded: the bandit's reset draws come from the generator
+        out[share] = eng.run(params, 4, 12, generator=torch.Generator(
+            device="cuda").manual_seed(3)), pa_ops.launches
+    (e0, s0), n0 = out[False]
+    (e1, s1), n1 = out[True]
+    assert torch.equal(e0.tokens, e1.tokens)
+    assert torch.equal(e0.logprobs, e1.logprobs)
+    assert n1 > 0 and n1 % model.cfg.n_layers == 0 and n1 < n0
+    assert s1.kv_dropped_writes == 0 and s1.episodes_returned == 12
+    assert s1.pages_in_use < s0.pages_in_use
+
+
+def test_int8_kernel_route_matches_gather_route_on_the_card(pool_smoke):
+    """One decode step on a shared int8 pool after the initial feed: the
+    paged kernel (in-register dequant) against the gather route, logits
+    within 1e-4 of their scale."""
+    model, params = pool_smoke
+    eng = CompiledRolloutEngine(model, MultiArmedBandit(prompt_len=16),
+                                kv_dtype="int8", share_prefix=True,
+                                **POOL_KW)
+    carry = eng.init_feed(params, eng.init_carry(4, 4))
+    tok = torch.full((4,), 40, dtype=torch.int32, device="cuda")
+    out = {}
+    for impl in ("paged", "xla"):
+        cache = carry.cache._replace(kv=type(carry.cache.kv)(
+            *(t.clone() for t in carry.cache.kv)))
+        out[impl] = model.decode_step(params, tok, cache, attn_impl=impl)[0]
+    s = float(out["xla"].abs().max())
+    torch.testing.assert_close(out["paged"], out["xla"], atol=1e-4 * s,
+                               rtol=0)
+
+
+def _forked_partial_page(model, params, B, S, ps, dev):
+    """An int8 paged cache after a shared prompt of ``S`` tokens whose last
+    page is partial (``S % ps > 0``), with that page of row 0 aliased into
+    every other row (refcount ``B``; the rows' own copies released), as a
+    caller that forks a partial page leaves it. Returns ``(cache, page)``."""
+    toks = torch.randint(3, model.cfg.vocab_size, (1, S), generator=torch.
+                         Generator(device=dev).manual_seed(4), device=dev)
+    cache = model.init_cache(B, 4 * S, layout="paged", page_size=ps,
+                             kv_dtype="int8", device=dev)
+    _, cache = model.prefill(params, toks.repeat(B, 1).to(torch.int32),
+                             cache, shared_prefix_len=S)
+    slot = S // ps
+    bt, rc = cache.block_table.clone(), cache.refcount.clone()
+    page = int(bt[0, slot])
+    rc.index_add_(0, bt[1:, slot].long(), -torch.ones_like(rc[:B - 1]))
+    rc[page] += B - 1
+    bt[1:, slot] = page
+    return cache._replace(block_table=bt, refcount=rc), page
+
+
+def _clone_cache(cache):
+    return cache._replace(
+        kv=type(cache.kv)(*(None if t is None else t.clone()
+                            for t in cache.kv)),
+        block_table=cache.block_table.clone(),
+        refcount=cache.refcount.clone(), pos=cache.pos.clone())
+
+
+@pytest.mark.parametrize("step", ["decode", "verify"])
+def test_int8_write_into_forked_page_copies_on_the_card(pool_smoke, step):
+    """A decode step (and a K=4 verify chunk) into a partial page that all
+    four rows share, at int8, through the kernel and through the gather
+    route: each route's logits within 1e-4 of their scale of the other's;
+    the allocator state equal; the source page's values and scales
+    untouched; every row writes into its own copy, which holds the source's
+    entries (values and scales) below the fill line."""
+    from repro_torch.models import transformer as tf
+    model, params = pool_smoke
+    B, S, ps = 4, 12, 8
+    cache, page = _forked_partial_page(model, params, B, S, ps, "cuda")
+    fill, slot = S % ps, S // ps
+    before = [t[:, page].clone() for t in cache.kv]
+    chunk = torch.randint(3, 100, (B, 4), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda").to(torch.int32)
+    out = {}
+    for impl in ("paged", "xla"):
+        c = _clone_cache(cache)
+        if step == "decode":
+            out[impl] = model.decode_step(params, chunk[:, 0], c,
+                                          attn_impl=impl)
+        else:
+            out[impl] = tf.spec_verify_step(model.cfg, params, chunk, c,
+                                            attn_impl=impl)
+    (lk, ck), (lx, cx) = out["paged"], out["xla"]
+    s = float(lx.abs().max())
+    torch.testing.assert_close(lk, lx, atol=1e-4 * s, rtol=0)
+    for c in (ck, cx):
+        assert torch.equal(c.block_table, ck.block_table)
+        assert torch.equal(c.refcount, ck.refcount)
+        assert c.kv.k.dtype == torch.int8
+        new = c.block_table[:, slot].long()
+        assert page not in new.tolist() and len(set(new.tolist())) == B
+        assert int(c.refcount[page]) == 0
+        assert bool((c.refcount[new] == 1).all())
+        for t, b in zip(c.kv, before):
+            assert torch.equal(t[:, page], b)
+            assert torch.equal(t[:, new, :fill],
+                               b[:, None, :fill].expand_as(t[:, new, :fill]))
+
+
+def test_shared_macro_step_reads_the_host_once(pool_smoke):
+    """Under sharing the turn's one host read moves before the obs feed
+    (it picks JAX's feed branch); nothing else in the macro-step syncs."""
+    model, params = pool_smoke
+    eng = CompiledRolloutEngine(model, MultiArmedBandit(prompt_len=16),
+                                kv_dtype="int8", share_prefix=True,
+                                **POOL_KW)
+    carry = eng.init_feed(params, eng.init_carry(4, 8))
+    noise = eng.default_noise(torch.Generator(device="cuda").manual_seed(2))
+    reads, read = [], eng._host_read
+
+    def allowed(*args):
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    eng._host_read = allowed
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry = eng.turn_step(params, carry, 0, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(reads) == 1 and carry.host["returned"] == 4
+
+
+def test_preempt_macro_step_makes_no_host_sync(pool_smoke):
+    """The pressure governor and the admission plan stay on the device."""
+    model, params = pool_smoke
+    eng = CompiledRolloutEngine(model, TicTacToe(), kv_dtype="fp32",
+                                on_exhaust="preempt", max_turns=3,
+                                max_turn_tokens=4, max_context=96,
+                                page_size=8, temperature=1.0)
+    eng.cache_pages = eng.min_pool_pages(4)
+    noise = eng.default_noise(torch.Generator(device="cuda").manual_seed(2))
+    carry = eng.init_feed(params, eng.init_carry(4, 8, noise=noise))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for m in range(3):
+            carry = eng.turn_step(params, carry, m, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(carry.launched) >= 4
+
+
+def test_preempt_and_growth_drain_on_the_card(pool_smoke):
+    """At the minimum pool the governor preempts, drops nothing and
+    returns every episode; with growth from a 4-page pool the pool grows
+    under its cap and the rollout drains."""
+    model, params = pool_smoke
+    kw = dict(kv_dtype="int8", max_turns=3, max_turn_tokens=4,
+              max_context=96, page_size=8, temperature=0.0)
+    eng = CompiledRolloutEngine(model, TicTacToe(), on_exhaust="preempt",
+                                **kw)
+    eng.cache_pages = eng.min_pool_pages(4)
+    _, st = eng.run(params, 4, 8)
+    assert st.preemptions > 0 and st.kv_dropped_writes == 0
+    assert st.episodes_returned == 8
+    eng = CompiledRolloutEngine(model, TicTacToe(), pool_growth="double",
+                                pool_growth_max=40, cache_pages=4, **kw)
+    _, st = eng.run(params, 4, 8)
+    assert st.pool_grows >= 1 and st.page_capacity <= 40
+    assert st.episodes_returned == 8
+
+
+def test_keyed_draws_are_the_same_on_cpu_and_card(dev):
+    """The preempt mode's own draws hash the episode coordinates: the same
+    bits on either device."""
+    eid = torch.arange(64, dtype=torch.int32)
+    step = eid % 5
+    a = keyed_uniform(123, "env", eid, step, 9)
+    b = keyed_uniform(123, "env", eid.cuda(), step.cuda(), 9)
+    assert torch.equal(a, b.cpu())
+    assert 0.0 < float(a.min()) and float(a.max()) < 1.0

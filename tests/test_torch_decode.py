@@ -83,6 +83,8 @@ def test_decode_stream_matches_jax(models, attn_impl, n_pages):
 
 
 def test_unported_layouts_raise(models):
+    """int8 pages are a paged-layout format: the dense cache refuses them
+    with JAX's reason."""
     tmodel = models[3]
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8.*requires the paged layout"):
         tmodel.init_cache(2, 16, kv_dtype="int8")

@@ -147,7 +147,26 @@ def test_sliding_window_ring_matches_jax(models, decode_impl):
 
 
 def test_paged_prefill_raises(models):
-    tmodel = models[2]
-    cache = tmodel.init_cache(1, 16, layout="paged")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tmodel.prefill({}, torch.zeros((1, 4), dtype=torch.long), cache)
+    """The paged prefill (ported with prefix sharing) no longer raises: at
+    fp32 its last-position logits match JAX's paged prefill and the port's
+    dense prefill within atol 1e-4, and its block table and refcounts are
+    JAX's bitwise. A shared prefix needs the paged layout (ValueError on
+    the dense one, as JAX's assert)."""
+    _, jmodel, tmodel, out = models
+    jp, tp = out["float32"]
+    toks = np.random.RandomState(3).randint(8, 500, (B, PROMPT))
+    tl, tc = tmodel.prefill(tp, torch.from_numpy(toks), tmodel.init_cache(
+        B, 32, layout="paged", page_size=8, kv_dtype="fp32", device="cpu"))
+    jl, jc = jmodel.prefill(jp, jnp.asarray(toks), jmodel.init_cache(
+        B, 32, layout="paged", page_size=8, kv_dtype="fp32"))
+    dl, _ = tmodel.prefill(tp, torch.from_numpy(toks), tmodel.init_cache(
+        B, 32, kv_dtype="fp32", device="cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), dl.numpy(), atol=1e-4)
+    for f in ("block_table", "refcount", "pos"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(),
+                                      np.asarray(getattr(jc, f)))
+    with pytest.raises(ValueError, match="paged"):
+        tmodel.prefill(tp, torch.from_numpy(toks),
+                       tmodel.init_cache(B, 32, device="cpu"),
+                       shared_prefix_len=8)

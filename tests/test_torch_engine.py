@@ -167,10 +167,6 @@ def test_small_pool_counts_or_raises(models):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("share_prefix", True, "item 8"),
-    ("kv_dtype", "int8", "item 8"),
-    ("on_exhaust", "preempt", "item 8"),
-    ("pool_growth", "double", "item 8"),
     ("mesh_config", object(), "item 9"),
 ])
 def test_unported_options_raise(models, option, value, item):

@@ -130,8 +130,34 @@ def test_paged_decode_attention_write_then_attend(attn_impl):
 
 
 def test_paged_decode_attention_cow_unported():
-    with pytest.raises(NotImplementedError, match="prefix sharing"):
-        TL.paged_decode_attention(
-            {}, torch.zeros(1, 1, 8), None, None, None, wpage=None,
-            woff=None, cow_src=torch.zeros(1), n_heads=1, n_kv_heads=1,
-            head_dim=8, rope_theta=1e4)
+    """The copy-on-write copy (ported with prefix sharing): row 0 writes
+    into a privatized copy (page 4) of shared page 1, row 1 takes the
+    sentinel (no copy). Pools and outputs match JAX's at fp32 within atol,
+    and the copied page holds the source's entries below the fill line."""
+    rs = np.random.RandomState(8)
+    B, P, ps, KV, hd, H = 2, 6, 4, 2, 32, 4
+    tp, jp = _attn_params(rs)
+    kp, vp = _np(rs, P, ps, KV, hd), _np(rs, P, ps, KV, hd)
+    bt = np.array([[4, -1], [2, -1]], np.int32)
+    pos = np.array([2, 1], np.int32)
+    args = dict(wpage=np.array([4, 2], np.int32),
+                woff=np.array([2, 1], np.int32),
+                cow_src=np.array([1, P], np.int32),
+                cow_dst=np.array([4, P], np.int32))
+    x = _np(rs, B, 1, 128)
+    kw = dict(n_heads=H, n_kv_heads=KV, head_dim=hd, rope_theta=1e6)
+    trash = np.zeros((1, ps, KV, hd), np.float32)
+    tkv = TL.KVEntry(torch.from_numpy(np.concatenate([kp, trash])),
+                     torch.from_numpy(np.concatenate([vp, trash])))
+    out_t, kv_t = TL.paged_decode_attention(
+        tp, torch.from_numpy(x), tkv, torch.from_numpy(bt),
+        torch.from_numpy(pos), attn_impl="paged", **kw,
+        **{k: torch.from_numpy(v) for k, v in args.items()})
+    out_j, kv_j = JL.paged_decode_attention(
+        jp, jnp.asarray(x), JL.KVEntry(jnp.asarray(kp), jnp.asarray(vp)),
+        jnp.asarray(bt), jnp.asarray(pos), attn_impl="xla", **kw,
+        **{k: jnp.asarray(v) for k, v in args.items()})
+    _close(out_t, out_j)
+    _close(kv_t.k[:P], kv_j.k)
+    _close(kv_t.v[:P], kv_j.v)
+    np.testing.assert_array_equal(kv_t.k[4, :2].numpy(), kp[1, :2])

@@ -170,10 +170,6 @@ def test_python_backend_takes_its_own_settings(option, value):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("share_prefix", True, "item 8"),
-    ("kv_dtype", "int8", "item 8"),
-    ("on_exhaust", "preempt", "item 8"),
-    ("pool_growth", "double", "item 8"),
     ("pipeline", "async", "item 8"),
     ("checkpoint_dir", "/nonexistent", "item 8"),
     ("resume", True, "item 8"),
@@ -217,8 +213,6 @@ def test_cli_runs_two_smoke_steps_on_cpu(tmp_path, capsys):
                for r in rows)
     assert rows[1]["kl"] > 0
     assert "step    1" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 5"):
-        train_cli.main(["--smoke", "--device", "cpu", "--env", "bandit"])
 
 
 @pytest.mark.parametrize("flags", [["--cache-layout", "dense"],
@@ -237,8 +231,6 @@ def test_cli_runs_the_dense_layout_and_python_backend(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--prefix-len", "8", "item 8"),
-    ("--pool-growth-max", "64", "item 8"),
     ("--max-policy-lag", "1", "item 8"),
     ("--is-rho-max", "2.0", "item 8"),
     ("--retry-backoff", "0.05", "item 8"),
