@@ -83,6 +83,17 @@ Phases, in order; any failure raises and exits non-zero:
  11. train_branch — one update batch of the train phase through the
                update step with attn_impl "flash" (the kernels) and
                "xla" (plain attention): loss and per-leaf grad norms.
+     async_train — the async pipeline at the train phase's settings: (a)
+               lag 0 through train(), the update on the schedule's side
+               stream: records and final params equal to the train
+               phase's, bitwise, and exact launches; (b) lag 1 with the IS
+               cap 2.0, three steps, a checkpoint at step 2 and an
+               injected update fault there: the fault fires once, the
+               pipeline restarts from the checkpoint (lags 0, 1, 0),
+               exact launches over 4 rollouts and 3 updates; (c) the
+               checkpoint read back bitwise; then a lag-1 run at 6 layers
+               traced from step 1's rollout on: each flash kernel's
+               stream, the busy share and the overlap of the two streams.
      The speculative slice:
      kernels: spec_verify — (in phase 3) the verify kernel at the spec
                path's shapes (B=32, K=4, 14/2 heads, hd 64, 16-token
@@ -147,8 +158,8 @@ Phases, in order; any failure raises and exits non-zero:
                episodes (32 x 512 tokens): exactly 48 SSD scan launches,
                its log-probs against the plain pass and against the folded
                recurrent ones; kernel and plain wall time, and the scan's
-               device time in a traced kernel pass and its share of the
-               pass's wall time.
+               device time in a traced kernel pass (after a profiler
+               warm-up pass) and its share of the pass's wall time.
  22. ssm_sync — one ssm macro-step with the reference stream under
                set_sync_debug_mode("error").
  23. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
@@ -160,6 +171,7 @@ last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -1490,8 +1502,12 @@ def phase_spec_branch(torch, model, params):
     kernel itself is held bitwise in the kernels phase). (b) The engine
     with speculation on and off (sampling="reference", temperature 0, B=N=
     32, two turns, the opponent's draws from equally seeded generators):
-    the fraction of episodes whose committed token streams are identical
-    and the first divergence, reported, not gated."""
+    the fraction of episodes whose committed token streams are identical,
+    the first divergence and the top-two logit gaps there
+    (``divergence_margins``), reported, not gated: every episode shares
+    its greedy first turn, and with the cluster paged and verify kernels
+    the runs part at a one-bf16-ulp tie that the verify GEMMs' rounding
+    flips (ROADMAP Queue 3)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as tf
     from repro_torch.rl.engine import CompiledRolloutEngine
@@ -1554,8 +1570,41 @@ def phase_spec_branch(torch, model, params):
                                       .max()),
                spec_accepted=st.spec_accepted,
                spec_proposed=st.spec_proposed, spec_rounds=st.spec_rounds,
-               off_seconds=s_off, on_seconds=s_on)
+               off_seconds=s_off, on_seconds=s_on,
+               **divergence_margins(torch, model, params, e0, e1))
     emit(out)
+
+
+def divergence_margins(torch, model, params, e0, e1) -> dict:
+    """Where greedy speculation on and off first part, how close the off
+    run's choice was: one bf16 forward of the off run's tokens gives, at
+    each episode's first divergent position, the gap between its top two
+    logits and the rank there of the token the on run committed. The same
+    gap over every generated position of the off run is the baseline."""
+    T = min(e0.tokens.shape[1], e1.tokens.shape[1])
+    t0, t1 = e0.tokens[:, :T], e1.tokens[:, :T]
+    differs = t0 != t1
+    rows = differs.any(dim=1).nonzero().flatten()
+    if rows.numel() == 0:
+        return {"divergent_episodes": 0}
+    with torch.no_grad():
+        logits, _ = model.forward(params, e0.tokens, attn_impl="flash")
+    first = differs.int().argmax(dim=1)[rows]
+    lg = logits[rows, first - 1].float()             # predicts position first
+    top2 = lg.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    rank = (lg > lg.gather(1, t1[rows, first].long()[:, None])).sum(1)
+    gen = e0.gen_mask[:, 1:T].bool()
+    all_top2 = logits[:, :T - 1].float().topk(2, dim=-1).values
+    all_gap = (all_top2[..., 0] - all_top2[..., 1])[gen]
+    del logits
+    return {"divergent_episodes": int(rows.numel()),
+            "first_divergence_gap_max": float(gap.max()),
+            "first_divergence_gap_median": float(gap.median()),
+            "on_token_rank_in_off_logits": rank.tolist(),
+            "generated_gap_median": float(all_gap.median()),
+            "generated_gap_frac_below_0.05": float(
+                (all_gap < 0.05).float().mean())}
 
 
 def phase_spec_sync(torch, engine, params):
@@ -2374,22 +2423,41 @@ def phase_ssm_score(torch, model, params, exp, report):
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     # the scan's device time within one more kernel pass, against the
-    # timed pass's wall time (one small op first: the trace may drop the
-    # first kernel after it starts). The card's tracer sometimes loses a
-    # kernel event: a trace that holds fewer scans than the pass launched
-    # is taken again, three times at most, and the share is reported
-    # only from a trace that holds them all.
+    # timed pass's wall time. A trace started just before the pass lost
+    # one of the 48 scans in four of six calls: first one such cold trace,
+    # reported with where its scans have a hole (the widest gap between
+    # consecutive scans against their median gap, or "ends" when the gaps
+    # show none). The reading comes from a trace whose profiler ran a
+    # warm-up pass first (schedule: warmup 1, active 1); it is taken
+    # again, three times at most, if it holds fewer scans than the pass
+    # launched, and the share is reported only from one that holds all.
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
-            kern(batch, ref_params=params, **kw)
-            torch.cuda.synchronize()
-        scans = [e.time_range.end - e.time_range.start
-                 for e in prof.events() if e.device_type == DeviceType.CUDA
-                 and any(sym in e.name for sym in SSD_SYMBOLS)]
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def scan_spans(prof):
+        return sorted((e.time_range.start, e.time_range.end)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and any(sym in e.name for sym in SSD_SYMBOLS))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kern(batch, ref_params=params, **kw)
+        torch.cuda.synchronize()
+    cold = scan_spans(prof)
+    gaps = [b_[0] - a[0] for a, b_ in zip(cold, cold[1:])]
+    hole = None
+    if len(cold) < model.cfg.n_layers and gaps:
+        i = max(range(len(gaps)), key=gaps.__getitem__)
+        hole = (f"after scan {i}" if gaps[i] > 1.5 * statistics.median(gaps)
+                else "ends")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                kern(batch, ref_params=params, **kw)
+                torch.cuda.synchronize()
+                prof.step()
+        scans = [e - s_ for s_, e in scan_spans(prof)]
         if len(scans) == model.cfg.n_layers:
             break
     scan_ms = sum(scans) / 1e3
@@ -2427,7 +2495,8 @@ def phase_ssm_score(torch, model, params, exp, report):
     out = dict(phase="ssm_score", batch=list(batch.tokens.shape),
                launches=counts, expected_launches=expected,
                kernel_pass_s=kern_s, plain_pass_s=plain_s,
-               scan_launches_traced=len(scans),
+               scan_launches_traced=len(scans), trace_attempts=attempt + 1,
+               cold_trace_scans=len(cold), cold_trace_hole=hole,
                scan_device_ms=scan_ms if whole else None,
                scan_share=scan_ms / (kern_s * 1e3) if whole else None,
                scored_positions=int(fed.sum()),
@@ -2522,56 +2591,74 @@ class _RecordingUpdate:
         return self.stage(params, opt_state, exp)
 
 
-def phase_train(torch, model, report):
-    """Two sync steps of EarlTrainer at full width (the training path).
-    The trainer folds the reference pass into the rollout, as JAX's does
-    whenever reference params are given (also when the reference IS the
-    policy). Expected launches per step, exactly: the flash forward once
-    per layer in the update and once more in its remat recompute; dq and
-    dk/dv once per layer; one fused sample per generated-token step; per
-    layer per decode step (the initial feed, then max_turn_tokens +
-    obs_len decode steps per macro-step) one paged attention for the
-    policy and one decode attention for the reference stream."""
-    from repro_torch.core.stages import EarlTrainer
+# the trainer settings of phase_train and phase_async_train
+TRAIN = dict(batch_size=32, rollout_episodes=32, max_turns=4,
+             max_turn_tokens=32, max_context=256, kl_coef=0.05, clip_eps=0.2,
+             temperature=1.0, seed=0)
+
+
+def train_launch_gate(cfg, obs_len, mtt, counts, rollouts, updates):
+    """The launches ``rollouts`` folded rollouts and ``updates`` updates
+    make, by phase_train's formula: per layer per decode step (the initial
+    feed, then mtt + obs_len steps per macro-step) one paged and one decode
+    attention; one fused sample per generated-token step; per update the
+    flash forward twice per layer (remat), dq and dk/dv once."""
+    nl = cfg.n_layers
+    n_macro = counts["fused_sample"] // mtt
+    decode = nl * (rollouts * obs_len + n_macro * (mtt + obs_len))
+    return dict(paged_attention=decode, fused_sample=n_macro * mtt,
+                flash_fwd=updates * 2 * nl, flash_dq=updates * nl,
+                flash_dkv=updates * nl, decode_attention=decode)
+
+
+def train_counters():
+    """Sets the counters of the train step's six kernels to 0; returns a
+    function that reads them."""
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    for ops in (pa_ops, fs_ops, fa_ops, da_ops):
+        ops.reset_launches()
+    return lambda: dict(paged_attention=pa_ops.launches,
+                        fused_sample=fs_ops.launches,
+                        flash_fwd=fa_ops.launches["fwd"],
+                        flash_dq=fa_ops.launches["dq"],
+                        flash_dkv=fa_ops.launches["dkv"],
+                        decode_attention=da_ops.launches)
+
+
+def phase_train(torch, model, report):
+    """Two sync steps of EarlTrainer at full width (the training path).
+    The trainer folds the reference pass into the rollout, as JAX's does
+    whenever reference params are given (also when the reference IS the
+    policy). Launches per step, exactly those of ``train_launch_gate``
+    for one rollout and one update."""
+    from repro_torch.core.stages import EarlTrainer
     from repro_torch.optim.adamw import adamw
     from repro_torch.rl.envs import TicTacToe
 
-    cfg = model.cfg
     tr = EarlTrainer(model=model, env=TicTacToe(),
-                     optimizer=adamw(3e-4, weight_decay=0.0), batch_size=32,
-                     rollout_episodes=32, max_turns=4, max_turn_tokens=32,
-                     max_context=256, kl_coef=0.05, clip_eps=0.2,
-                     temperature=1.0, seed=0)
+                     optimizer=adamw(3e-4, weight_decay=0.0), **TRAIN)
     if not tr.ref_folded:
         raise AssertionError("the trainer does not fold the reference pass")
     tr.update_stage = _RecordingUpdate(tr.update_stage)
     params, opt_state, ref = tr.init_state()
     first = {k: ref[k].clone() for k in ("layers.attn.wq", "embedding")}
-    nl, mtt, olen = cfg.n_layers, tr.max_turn_tokens, tr.env.obs_len
+    mtt = tr.max_turn_tokens
     totals = dict.fromkeys(("paged_attention", "fused_sample", "flash_fwd",
                             "flash_dq", "flash_dkv", "decode_attention"), 0)
+    records = []
     for step in range(2):
-        for ops in (pa_ops, fs_ops, fa_ops, da_ops):
-            ops.reset_launches()
+        read = train_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         new, opt_state, rec = tr.run_step(step, params, opt_state, ref)
         torch.cuda.synchronize()
-        counts = dict(paged_attention=pa_ops.launches,
-                      fused_sample=fs_ops.launches,
-                      flash_fwd=fa_ops.launches["fwd"],
-                      flash_dq=fa_ops.launches["dq"],
-                      flash_dkv=fa_ops.launches["dkv"],
-                      decode_attention=da_ops.launches)
+        counts = read()
         n_macro = counts["fused_sample"] // mtt
-        decode = nl * (olen + n_macro * (mtt + olen))
-        expected = dict(paged_attention=decode, fused_sample=n_macro * mtt,
-                        flash_fwd=nl * 2, flash_dq=nl, flash_dkv=nl,
-                        decode_attention=decode)
+        expected = train_launch_gate(model.cfg, tr.env.obs_len, mtt, counts,
+                                     1, 1)
         exp = tr.update_stage.batches[-1]
         changed = not torch.equal(new["layers.attn.wq"],
                                   params["layers.attn.wq"])
@@ -2595,12 +2682,16 @@ def phase_train(torch, model, report):
             raise AssertionError(f"train step {step} checks failed: {out}")
         for k_, n in counts.items():
             totals[k_] += n
+        records.append({k_: out[k_] for k_ in (
+            "mean_return", "mean_context_len", "truncated_frac", "loss",
+            "kl", "rollout_s", "update_s", "step_s")})
         params = new
     if not all(torch.equal(ref[k], v) for k, v in first.items()):
         raise AssertionError("the update wrote the aliased reference params")
     for k_ in ("flash_fwd", "flash_dq", "flash_dkv", "decode_attention"):
         report[k_]["launches"] = totals[k_]
     report["train_launches"] = totals
+    report["train_records"] = records
     return tr, params, opt_state, tr.update_stage.batches[-1]
 
 
@@ -2708,6 +2799,247 @@ def phase_train_branch(torch, model, params, opt_state, exp):
                              f"{out}")
 
 
+def _union_ms(iv) -> float:
+    total, lo, hi = 0, None, None
+    for s_, e_ in sorted(iv):
+        if hi is None or s_ > hi:
+            total += 0 if hi is None else hi - lo
+            lo, hi = s_, e_
+        else:
+            hi = max(hi, e_)
+    return (total + (0 if hi is None else hi - lo)) / 1e6
+
+
+def stream_overlap(torch, prof, wall_ms) -> dict:
+    """From a trace's device kernels: the stream each flash kernel and the
+    rollout's paged attention ran on (the profiler's stream ids), the
+    device-busy share of the wall time, and the ms during which kernels of
+    the flash kernels' stream and of the paged kernel's stream ran at the
+    same time (busy(a) + busy(b) - busy(a or b))."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    by_stream = collections.defaultdict(list)
+    for e in evs:
+        by_stream[e.device_resource_id()].append(
+            (e.start_ns(), e.start_ns() + e.duration_ns()))
+    streams = lambda syms: sorted({e.device_resource_id() for e in evs
+                                   if any(x in e.name() for x in syms)})
+    flash = {c: streams(syms) for c, syms in FLASH_SYMBOLS.items()}
+    rollout = streams(PAGED_SYMBOLS)
+    side = sorted({s_ for ids in flash.values() for s_ in ids})
+    busy = _union_ms([iv for ivs in by_stream.values() for iv in ivs])
+    a = [iv for s_ in side for iv in by_stream[s_]]
+    b = [iv for s_ in rollout for iv in by_stream[s_]]
+    overlap = (_union_ms(a) + _union_ms(b) - _union_ms(a + b)
+               if a and b else 0.0)
+    return {"flash_streams": flash, "rollout_streams": rollout,
+            "flash_off_the_rollout_stream": bool(side) and not (
+                set(side) & set(rollout)),
+            "device_events": len(evs), "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "side_stream_busy_ms": _union_ms(a),
+            "overlap_ms": overlap}
+
+
+def phase_async_train(torch, model, train_params, report):
+    """The async pipeline at full width, phase_train's trainer settings.
+    (a) Lag 0, two steps through train(): the update runs on the
+    schedule's side stream, and the records and final params must equal
+    phase_train's exactly, with exact launch totals. (b) Lag 1, IS cap
+    2.0, three steps with a checkpoint every 2 and an injected update
+    fault at step 2 (max_retries 1, no backoff): the worker saves step 2,
+    the fault fires once, the pipeline restarts from the checkpoint and
+    rolls step 2 out again on the restored version (lags [0, 1, 0]); the
+    launch totals count 4 rollouts and 3 updates. (c) The checkpoint read
+    back on the card equals the state the worker saved, bitwise. Then one
+    traced lag-1 run of two steps at TRACE_LAYERS layers: the stream of
+    each flash kernel, the device-busy share and the overlap of side- and
+    main-stream kernels (reported, not gated). The checkpoint directory is
+    removed whether the phase passes or not."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.core import scheduler as sched_mod
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.rl.envs import TicTacToe
+    from repro_torch.utils.faults import FaultInjector
+
+    cfg, t_phase = model.cfg, time.perf_counter()
+    mk = lambda m=model, **kw: EarlTrainer(
+        model=m, env=TicTacToe(), optimizer=adamw(3e-4, weight_decay=0.0),
+        **TRAIN, **kw)
+
+    # (a) lag 0 through train()
+    tr = mk(pipeline="async", max_policy_lag=0)
+    read = train_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, hist = tr.train(2)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    counts = read()
+    expected = train_launch_gate(cfg, tr.env.obs_len, tr.max_turn_tokens,
+                                 counts, 2, 2)
+    ref = report["train_records"]
+    same_records = all(
+        (r.mean_return, r.mean_context_len, r.truncated_frac)
+        == (q["mean_return"], q["mean_context_len"], q["truncated_frac"])
+        for r, q in zip(hist, ref))
+    diff = [k for k in params if not torch.equal(params[k], train_params[k])]
+    out = dict(phase="async_train", part="lag0", steps=[r.step for r in hist],
+               policy_lag=[r.policy_lag for r in hist],
+               loss=[r.loss for r in hist], train_loss=[q["loss"] for q in ref],
+               same_records=same_records, params_bitwise=not diff,
+               params_differ=diff[:5], launches=counts,
+               expected_launches=expected,
+               rollout_s=[r.rollout_wall_s for r in hist],
+               update_s=[r.update_wall_s for r in hist],
+               step_s=[r.wall_time_s for r in hist],
+               train_step_s=[q["step_s"] for q in ref], wall_s=wall_a)
+    emit(out)
+    if not (same_records and not diff and counts == expected
+            and counts == report["train_launches"]
+            and [r.policy_lag for r in hist] == [0, 0]):
+        raise AssertionError(f"async_train lag 0 differs from phase_train: "
+                             f"{out}")
+    del tr, params, hist
+
+    # (b) lag 1, a checkpoint at step 2 and an update fault at step 2
+    ckdir = tempfile.mkdtemp(prefix="earl-ckpt-")
+    try:
+        faults = FaultInjector.parse(["update@2"])
+        tr = mk(pipeline="async", max_policy_lag=1, is_rho_max=2.0,
+                faults=faults)
+        dev = tr.device
+        sched = sched_mod.PipelineSchedule(
+            tr, mode="async", max_policy_lag=1, max_retries=1,
+            retry_backoff_s=0.0, checkpoint_dir=ckdir, checkpoint_every=2)
+        saved, timing = {}, {}
+
+        def save(done, p, o, rng, _save=sched._maybe_save):
+            # in the worker, after the update's host sync: keep what it
+            # saves (no tensor is written in place) and time the save
+            t1 = time.perf_counter()
+            _save(done, p, o, rng)
+            if done % 2 == 0:
+                timing["save_s"] = time.perf_counter() - t1
+                saved.update(tree=sched._ckpt_tree(p, o, rng))
+
+        def restore(step, p, o, _restore=sched._restore):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = _restore(step, p, o)
+            torch.cuda.synchronize()
+            timing["restart_restore_s"] = time.perf_counter() - t1
+            return got
+        sched._maybe_save, sched._restore = save, restore
+        p0, o0, ref0 = tr.init_state()
+        read = train_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, hist = sched.run(3, params=p0, opt_state=o0, ref_params=ref0)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del p0, o0, ref0
+        counts = read()
+        expected = train_launch_gate(cfg, tr.env.obs_len, tr.max_turn_tokens,
+                                     counts, 4, 3)
+        ck_file = os.path.join(ckdir, "step_00000002", "state.pt")
+        isw = [r.is_weight_mean for r in hist]
+        out = dict(phase="async_train", part="lag1_fault_restart",
+                   steps=[r.step for r in hist],
+                   policy_lag=[r.policy_lag for r in hist],
+                   params_version=[r.params_version for r in hist],
+                   fault_fired=faults.fired("update"),
+                   latest_step=latest_step(ckdir),
+                   loss=[r.loss for r in hist], kl=[r.kl for r in hist],
+                   is_weight_mean=isw,
+                   kv_dropped_writes=[r.kv_dropped_writes for r in hist],
+                   launches=counts, expected_launches=expected,
+                   rollout_s=[r.rollout_wall_s for r in hist],
+                   update_s=[r.update_wall_s for r in hist],
+                   step_s=[r.wall_time_s for r in hist], wall_s=wall_b,
+                   checkpoint_bytes=(os.path.getsize(ck_file)
+                                     if os.path.exists(ck_file) else None),
+                   peak_mem_gib=peak, **timing)
+        emit(out)
+        if not (faults.fired("update") == 1
+                and [r.step for r in hist] == [0, 1, 2]
+                and [r.policy_lag for r in hist] == [0, 1, 0]
+                and latest_step(ckdir) == 2 and counts == expected
+                and all(math.isfinite(w) and 0 < w <= 2 for w in isw)
+                and all(math.isfinite(r.loss) and math.isfinite(r.kl)
+                        and r.kv_dropped_writes == 0 for r in hist)):
+            raise AssertionError(f"async_train lag 1 with the injected "
+                                 f"fault failed its checks: {out}")
+        del tr, sched, hist
+
+        # (c) the checkpoint read back on the card
+        tree = saved["tree"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore_checkpoint(ckdir, 2, tree, map_location=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mism = [name for name, a, b in (
+            ("params/" + k, got["params"][k], tree["params"][k])
+            for k in tree["params"])
+            if not torch.equal(a, b)]
+        for part in ("mu", "nu"):
+            mism += [f"{part}/{k}" for k, v in tree["opt_state"][part].items()
+                     if not torch.equal(got["opt_state"][part][k], v)]
+        mism += [k for k in ("step",) if not torch.equal(
+            got["opt_state"][k], tree["opt_state"][k])]
+        if not torch.equal(got["rng"], tree["rng"]):
+            mism.append("rng")
+        out = dict(phase="async_train", part="checkpoint_round_trip",
+                   checkpoint_bytes=os.path.getsize(ck_file),
+                   save_s=timing.get("save_s"), restore_s=restore_s,
+                   mismatched=mism[:5], bitwise=not mism)
+        emit(out)
+        if mism:
+            raise AssertionError(f"async_train: the checkpoint did not read "
+                                 f"back bitwise: {out}")
+        del got, tree, saved
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # the trace: a lag-1 run of two steps at TRACE_LAYERS layers, the
+    # device traced from the start of step 1's rollout, which overlaps
+    # update 0, to the end of update 1 (no synchronize at the start: it
+    # would wait for update 0)
+    from torch.profiler import ProfilerActivity, profile
+    m6 = build_model(dataclasses.replace(cfg, n_layers=TRACE_LAYERS))
+    tr = mk(m6, pipeline="async", max_policy_lag=1, is_rho_max=2.0)
+    p0, o0, ref0 = tr.init_state()
+    sched = sched_mod.PipelineSchedule(tr, mode="async", max_policy_lag=1)
+    prof, t_start = profile(activities=[ProfilerActivity.CUDA]), []
+
+    def rollout(step, *a, _stage=tr.rollout_stage, **kw):
+        if step == 1:
+            prof.start()
+            t_start.append(time.perf_counter())
+        return _stage(step, *a, **kw)
+    tr.rollout_stage = rollout
+    _, _, hist = sched.run(2, params=p0, opt_state=o0, ref_params=ref0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t_start[0]) * 1e3
+    prof.stop()
+    out = dict(phase="async_trace", n_layers=TRACE_LAYERS,
+               profiled_wall_ms=wall_ms,
+               policy_lag=[r.policy_lag for r in hist],
+               rollout_s=[r.rollout_wall_s for r in hist],
+               update_s=[r.update_wall_s for r in hist],
+               **stream_overlap(torch, prof, wall_ms),
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     import torch
@@ -2768,7 +3100,9 @@ def main() -> int:
     trainer, params, opt_state, exp = phase_train(torch, model, report)
     phase_train_trace(torch, trainer, params, opt_state, exp)
     phase_train_branch(torch, model, params, opt_state, exp)
-    del trainer, params, opt_state, exp
+    del trainer, opt_state, exp
+    phase_async_train(torch, model, params, report)
+    del params
     phase_spec_train(torch, model, report)
     phase_shared_train(torch, model, report)
     del model

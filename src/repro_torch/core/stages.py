@@ -1,4 +1,4 @@
-"""The EARL RL stage graph (paper Fig. 2) in sync mode (port of
+"""The EARL RL stage graph (paper Fig. 2) (port of
 ``repro/core/stages.py``).
 
     ┌─► Rollout (policy decode, multi-turn env loop, and the reference
@@ -8,6 +8,13 @@
     │   Dispatch (the identity on one GPU)
     │        ▼
     └── Model Update (policy-gradient step, AdamW)
+
+``pipeline="sync"`` runs the stages back to back per step;
+``pipeline="async"`` hands them to ``core/scheduler.PipelineSchedule``,
+which overlaps Update(k), on a worker thread and its own CUDA stream, with
+Rollout(k+1) under ``max_policy_lag`` and the truncated-IS correction
+(``is_rho_max``). Both schedules retry, checkpoint, resume and take
+injected faults (``utils/faults.FaultInjector``).
 
 As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
@@ -40,6 +47,8 @@ import torch
 from repro_torch.core.train_step import (make_ref_logprob_step,
                                          make_rl_train_step)
 from repro_torch.device import resolve_device
+from repro_torch.models.paging import (pool_pages_needed,
+                                       pool_pages_needed_shared)
 from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.rl.algo import (group_relative_advantages,
                                  reinforce_advantages)
@@ -47,6 +56,7 @@ from repro_torch.rl.engine import CompiledRolloutEngine, RolloutStats
 from repro_torch.rl.engine.compiled import NoiseFn, _unported
 from repro_torch.rl.experience import ExperienceBatch
 from repro_torch.rl.rollout import RolloutEngine
+from repro_torch.utils.faults import undersize_pool
 
 # per model family, the trainer's attn_impl -> each stream's attention:
 # the policy's decode on either cache layout, the folded reference decode
@@ -172,13 +182,18 @@ class DispatchStage:
 
 class UpdateStage:
     """Fig. 2 Model Update: the policy-gradient step. Params are not
-    updated in place (the reference params may alias them)."""
+    updated in place: the reference params may alias them, and under the
+    async schedule a rollout may still read the version the update
+    starts from. ``is_rho_max > 0`` arms the truncated importance-sampling
+    correction for lagged experience."""
 
     def __init__(self, model, optimizer: Optimizer, *,
                  clip_eps: float = 0.0, kl_coef: float = 0.0,
-                 attn_impl: str = "xla"):
+                 is_rho_max: float = 0.0, attn_impl: str = "xla"):
         self._step = make_rl_train_step(model, optimizer, clip_eps=clip_eps,
-                                        kl_coef=kl_coef, attn_impl=attn_impl)
+                                        kl_coef=kl_coef,
+                                        is_rho_max=is_rho_max,
+                                        attn_impl=attn_impl)
 
     def __call__(self, params, opt_state, exp: ExperienceBatch):
         return self._step(params, opt_state, exp)
@@ -204,14 +219,16 @@ class EarlTrainer:
     the engine: ``kv_dtype="int8"``, ``share_prefix`` with ``prefix_len``
     (which unfolds the reference pass too), ``on_exhaust="preempt"`` with
     ``admit_watermark``, and ``pool_growth="double"`` with
-    ``pool_growth_max``. The JAX trainer's options whose features are not
-    ported raise ``NotImplementedError`` naming their ROADMAP Queue 1 item,
-    among them step retries (``max_retries > 0``) and the truncated-IS
-    reweighting of the lagged async pipeline (``is_rho_max > 0``); the
-    settings that only those features read (``max_policy_lag``,
-    ``dispatch_strategy``, ``retry_backoff_s``) are not fields. As in JAX,
-    the trainer passes no ``draft_model``, so ``speculation="draft"``
-    raises from the engine."""
+    ``pool_growth_max``. ``pipeline="async"`` overlaps the update with
+    the next rollout under ``max_policy_lag``; ``is_rho_max > 0`` arms the
+    truncated-IS correction; ``max_retries`` with ``retry_backoff_s``,
+    ``checkpoint_dir`` with ``checkpoint_every``, ``resume`` and ``faults``
+    (a ``utils.faults.FaultInjector``, whose ``pool_pressure`` undersizes
+    the paged pool at construction) are those of
+    ``core/scheduler.PipelineSchedule``. The parallelism selector and the
+    data dispatcher are not ported and raise ``NotImplementedError`` naming
+    their ROADMAP Queue 1 item. As in JAX, the trainer passes no
+    ``draft_model``, so ``speculation="draft"`` raises from the engine."""
 
     model: Any                              # repro_torch Model
     env: Any
@@ -244,12 +261,18 @@ class EarlTrainer:
     speculation: str = "off"                # "off" | "self" | "draft"
     spec_k: int = 4                         # speculative chunk length
     draft_layers: Optional[int] = None      # "self": draft depth (L // 2)
-    pipeline: str = "sync"
-    is_rho_max: float = 0.0                 # > 0 raises (item 8)
-    max_retries: int = 0                    # > 0 raises (item 8)
+    pipeline: str = "sync"                  # "sync" | "async"
+    max_policy_lag: int = 1                 # async: bounded staleness
+    is_rho_max: float = 0.0                 # truncated-IS cap (0 = off)
+    # fault tolerance (core/scheduler.py): step retries with backoff,
+    # periodic checkpoints and resume (checkpoint/checkpoint.py)
+    max_retries: int = 0
+    retry_backoff_s: float = 0.05
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
     resume: bool = False
+    # deterministic fault injection (utils/faults.FaultInjector): stage
+    # exceptions at chosen steps and pool-pressure undersizing
     faults: Optional[Any] = None
     seed: int = 0
     attn_impl: str = "paged"                # "paged" (kernels) | "xla"
@@ -310,9 +333,32 @@ class EarlTrainer:
         self.dispatch_stage = DispatchStage()
         self.update_stage = UpdateStage(
             self.model, self.optimizer, clip_eps=self.clip_eps,
-            kl_coef=self.kl_coef, attn_impl=attn["update"])
+            kl_coef=self.kl_coef, is_rho_max=self.is_rho_max,
+            attn_impl=attn["update"])
         self._gen = torch.Generator(device=self.device).manual_seed(
             self.seed)
+        if getattr(self.faults, "pool_pressure", 0) > 0:
+            self._undersize_pool(self.faults.pool_pressure)
+
+    def _undersize_pool(self, fraction: float) -> None:
+        """Injected pool pressure: the paged pool at ``fraction`` of its
+        exhaustion-free size, never below the preemption governor's
+        minimum viable pool, so the pressure stays recoverable."""
+        if self.rollout_backend != "compiled" \
+                or self.cache_layout != "paged":
+            raise ValueError(
+                "pool_pressure fault injection requires "
+                "rollout_backend='compiled' with cache_layout='paged'")
+        eng = self.rollout
+        if eng.shared_pages > 0:
+            full = pool_pages_needed_shared(self.batch_size, self.max_context,
+                                            eng.shared_len, self.page_size)
+        else:
+            full = pool_pages_needed(self.batch_size, self.max_context,
+                                     self.page_size)
+        floor = (eng.min_pool_pages(self.batch_size)
+                 if self.on_exhaust == "preempt" else 1)
+        eng.cache_pages = undersize_pool(full, fraction, floor)
 
     def _check_python_backend(self) -> None:
         """The python reference engine decodes against a dense bf16 cache
@@ -341,25 +387,13 @@ class EarlTrainer:
         if self.rollout_backend not in ("compiled", "python"):
             raise ValueError(f"unknown rollout_backend "
                              f"{self.rollout_backend!r}")
-        if self.pipeline == "async":
-            raise _unported("pipeline='async'", "8")
-        if self.pipeline != "sync":
-            raise ValueError(f"pipeline must be 'sync', got "
+        if self.pipeline not in ("sync", "async"):
+            raise ValueError(f"pipeline must be 'sync' or 'async', got "
                              f"{self.pipeline!r}")
-        unported = [
-            ("checkpoint_dir / checkpoint_every / resume",
-             self.checkpoint_dir is not None or self.checkpoint_every > 0
-             or self.resume, "8"),
-            ("fault injection (faults)", self.faults is not None, "8"),
-            ("step retries (max_retries > 0)", self.max_retries > 0, "8"),
-            ("truncated-IS reweighting (is_rho_max > 0)",
-             self.is_rho_max > 0, "8"),
-            ("the parallelism selector", self.selector is not None, "9"),
-            ("the data dispatcher", self.dispatcher is not None, "9"),
-        ]
-        for what, requested, item in unported:
-            if requested:
-                raise _unported(what, item)
+        if self.selector is not None:
+            raise _unported("the parallelism selector", "9")
+        if self.dispatcher is not None:
+            raise _unported("the data dispatcher", "9")
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None):
@@ -374,11 +408,35 @@ class EarlTrainer:
         ref_params = params if self.kl_coef > 0 else None
         return params, opt_state, ref_params
 
+    def check_fault(self, site: str, step: int) -> None:
+        """Stage-boundary hook for deterministic fault injection; a no-op
+        without an injector."""
+        if self.faults is not None:
+            self.faults.check(site, step)
+
+    def rollout_noise(self, step: int) -> NoiseFn:
+        """The draws of step ``step``'s rollout: the injected ``noise(step)``
+        or the engine's own from the trainer's generator. Both schedules
+        take it just before the rollout, so they draw the same values in
+        the same order."""
+        if self.noise is not None:
+            return self.noise(step)
+        return self.rollout.default_noise(self._gen)
+
+    @staticmethod
+    def read_metrics(metrics) -> dict:
+        """The update's one host sync: every metric in one copy. On CUDA
+        it waits for the update's work on the current stream, the new
+        params included (they are computed before the metrics are
+        read)."""
+        return dict(zip(metrics, torch.stack(
+            [v.float() for v in metrics.values()]).tolist()))
+
     def make_record(self, step: int, stats: RolloutStats, metrics, *,
                     dispatch_row=None, wall_time_s=0.0, rollout_wall_s=0.0,
-                    update_wall_s=0.0) -> StepRecord:
-        """The per-step observability row; ``metrics`` holds host
-        floats."""
+                    update_wall_s=0.0, policy_lag: int = 0) -> StepRecord:
+        """The per-step observability row (shared by the sync step and the
+        async schedule); ``metrics`` holds host floats."""
         rec = StepRecord(
             step=step,
             mean_return=stats.mean_return,
@@ -390,6 +448,7 @@ class EarlTrainer:
             dispatch=dispatch_row,
             wall_time_s=wall_time_s,
             params_version=stats.params_version,
+            policy_lag=policy_lag,
             rollout_wall_s=rollout_wall_s,
             update_wall_s=update_wall_s,
             is_weight_mean=metrics.get("is_weight_mean", 0.0),
@@ -434,11 +493,10 @@ class EarlTrainer:
         Update. Returns (params, opt_state, record)."""
         self._maybe_warn_ref_fallback(ref_params)
         t0 = time.perf_counter()
-        noise = (self.noise(step) if self.noise is not None
-                 else self.rollout.default_noise(self._gen))
+        self.check_fault("rollout", step)
         exp, stats = self.rollout_stage(
             step, params, self.batch_size, n_episodes=self.rollout_episodes,
-            noise=noise, params_version=step,
+            noise=self.rollout_noise(step), params_version=step,
             ref_params=ref_params if self.ref_folded else None)
         t_roll = time.perf_counter() - t0
 
@@ -452,14 +510,14 @@ class EarlTrainer:
         exp = self.expprep_stage(exp, ref_params=ref_params,
                                  ref_folded=self.ref_folded,
                                  reuse_behavior_lp=reuse_lp)
+        self.check_fault("dispatch", step)
         exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
 
         t1 = time.perf_counter()
+        self.check_fault("update", step)
         params, opt_state, metrics = self.update_stage(params, opt_state,
                                                        exp)
-        # the update's one host sync: every metric in one copy
-        metrics = dict(zip(metrics, torch.stack(
-            [v.float() for v in metrics.values()]).tolist()))
+        metrics = self.read_metrics(metrics)
         t2 = time.perf_counter()
         rec = self.make_record(step, stats, metrics,
                                dispatch_row=dispatch_row,
@@ -470,12 +528,18 @@ class EarlTrainer:
     # ------------------------------------------------------------------
     def train(self, n_steps: int, *, params=None, opt_state=None,
               ref_params=None, dst_shardings=None, verbose: bool = False):
-        """Train for ``n_steps`` sync steps. Returns ``(params, opt_state,
-        history)``."""
+        """Train for ``n_steps`` steps under the configured schedule.
+        Returns ``(params, opt_state, history)``."""
         from repro_torch.core.scheduler import PipelineSchedule
         if params is None:
             params, opt_state, ref_params = self.init_state()
-        sched = PipelineSchedule(self, mode=self.pipeline)
+        sched = PipelineSchedule(self, mode=self.pipeline,
+                                 max_policy_lag=self.max_policy_lag,
+                                 max_retries=self.max_retries,
+                                 retry_backoff_s=self.retry_backoff_s,
+                                 checkpoint_dir=self.checkpoint_dir,
+                                 checkpoint_every=self.checkpoint_every,
+                                 resume=self.resume)
         return sched.run(n_steps, params=params, opt_state=opt_state,
                          ref_params=ref_params, dst_shardings=dst_shardings,
                          verbose=verbose)

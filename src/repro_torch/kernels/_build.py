@@ -7,6 +7,11 @@ repository root — the hash covers the source, the shared ``csrc/*.cuh``
 headers and the flags, so an edited source rebuilds — and loaded with
 ``ctypes``. There is no fallback: without ``nvcc`` or a CUDA device,
 loading raises.
+
+The kernels may be loaded and launched from more than one host thread (the
+async pipeline's update worker beside the rollout): ``load`` builds and
+loads under a lock, and each wrapper bumps its launch counter under
+``LAUNCH_LOCK``, so the exact launch counts stay exact.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -31,6 +37,8 @@ KERNELS = ("paged_attention", "fused_sample", "flash_attention",
            "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+LAUNCH_LOCK = threading.Lock()   # held by every wrapper's counter bump
 
 
 def find_nvcc() -> str:
@@ -111,13 +119,16 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    _require_cuda()
-    out = _lib_path(name)
-    if not out.exists():
-        _finish_build(name, _start_build(name, find_nvcc()))
-    lib = ctypes.CDLL(str(out))
-    _loaded[name] = lib
-    return lib
+    with _load_lock:
+        if name in _loaded:
+            return _loaded[name]
+        _require_cuda()
+        out = _lib_path(name)
+        if not out.exists():
+            _finish_build(name, _start_build(name, find_nvcc()))
+        lib = ctypes.CDLL(str(out))
+        _loaded[name] = lib
+        return lib
 
 
 @functools.cache

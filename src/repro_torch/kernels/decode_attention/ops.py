@@ -113,5 +113,6 @@ def decode_attention(q, k, v, valid):
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     global launches
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

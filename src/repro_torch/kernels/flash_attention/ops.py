@@ -110,7 +110,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
         L.data_ptr(), *_dims(q, k, causal, window),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd")
-    launches["fwd"] += 1
+    with _build.LAUNCH_LOCK:
+        launches["fwd"] += 1
     return out, L
 
 
@@ -152,7 +153,8 @@ def _launch_bwd(fn_name, counter, q, k, v, dout, L, D, outs, causal,
              *_dims(q, k, causal, window),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, fn_name)
-    launches[counter] += 1
+    with _build.LAUNCH_LOCK:
+        launches[counter] += 1
 
 
 def flash_attention_bwd(q, k, v, out, dout, L, causal: bool = True,

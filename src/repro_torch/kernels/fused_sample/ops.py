@@ -92,7 +92,8 @@ def _launch(lg, noise, plan):
                   lp.data_ptr(), B, V, *plan, stream)
     _build.check(err, "fused_sample")
     global launches
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return tok, lp
 
 

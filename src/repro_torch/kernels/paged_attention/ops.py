@@ -159,5 +159,6 @@ def _launch(q, k_pages, v_pages, block_table, lens, k_scales, v_scales,
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
     global launches
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

@@ -194,5 +194,6 @@ def _launch(x, dt, dA, B, C, q, route_plan):
                   *route_plan, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssd_scan")
     global launches
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return y, final

@@ -1,5 +1,5 @@
 """End-to-end agentic RL training entry point of the port (the paper's
-Fig. 2 loop, sync schedule).
+Fig. 2 loop, sync or async schedule).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen2-0.5b --env tictactoe --steps 50 --batch 16
@@ -16,11 +16,14 @@ for ``python``. ``--env`` takes tictactoe, connect_four or bandit (the
 bandit with JAX's CLI defaults: no prompt run). The paged pool's options
 reach the trainer: ``--kv-dtype int8``, ``--share-prefix`` with
 ``--prefix-len``, ``--on-exhaust preempt``, ``--pool-growth double`` with
-``--pool-growth-max``. Flags of features not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (fault injection among
-them), and so does any value given to a flag that only those features
-read (``--max-policy-lag``, ``--is-rho-max``, ``--retry-backoff``,
-``--dispatch``). ``--arch mamba2-370m`` trains the ssm family (Mamba2)
+``--pool-growth-max``. ``--pipeline async`` overlaps the update with the
+next rollout under ``--max-policy-lag`` (1) and arms the truncated-IS
+cap ``--is-rho-max`` (2.0) when the lag is above 0. ``--max-retries``
+with ``--retry-backoff``, ``--checkpoint-dir`` with
+``--checkpoint-every``, ``--resume``, ``--inject-fault SITE@STEP[*TIMES]``
+and ``--inject-pool-pressure`` are those of the JAX CLI. ``--dispatch``
+(the data dispatcher) is not ported yet: any value given to it raises
+``NotImplementedError`` naming its ROADMAP item. ``--arch mamba2-370m`` trains the ssm family (Mamba2)
 on its recurrent cache: the layout defaults to dense there and
 ``--cache-layout paged`` raises; ExpPrep's standalone pass runs the SSD
 scan kernel and the update its plain chunked form, as JAX's.
@@ -44,6 +47,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import adamw
 from repro_torch.rl.engine.compiled import _unported
 from repro_torch.rl.envs import make_env
+from repro_torch.utils.faults import FaultInjector
 
 
 def parse_args(argv=None):
@@ -94,9 +98,16 @@ def parse_args(argv=None):
     ap.add_argument("--draft-layers", type=int, default=None,
                     help="speculation=self: layers of the draft (default "
                          "n_layers // 2)")
-    ap.add_argument("--pipeline", default="sync", choices=["sync", "async"])
-    ap.add_argument("--max-policy-lag", type=int, default=None)  # unported
-    ap.add_argument("--is-rho-max", type=float, default=None)  # unported
+    ap.add_argument("--pipeline", default="sync", choices=["sync", "async"],
+                    help="async = overlap Rollout(k+1) with Update(k) (the "
+                         "update on a worker thread and its own CUDA "
+                         "stream), bounded by --max-policy-lag")
+    ap.add_argument("--max-policy-lag", type=int, default=1,
+                    help="async: max params-version staleness of rollout "
+                         "experience (0 = the sync order)")
+    ap.add_argument("--is-rho-max", type=float, default=2.0,
+                    help="truncated importance-sampling cap for lagged "
+                         "experience (async with lag > 0 only; 0 = off)")
     ap.add_argument("--max-turns", type=int, default=3)
     ap.add_argument("--max-turn-tokens", type=int, default=6)
     ap.add_argument("--max-context", type=int, default=160)
@@ -107,14 +118,27 @@ def parse_args(argv=None):
                     choices=["reinforce", "group"])
     ap.add_argument("--dispatch", default=None,  # unported
                     choices=["direct", "centralized"])
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--max-retries", type=int, default=0)
-    ap.add_argument("--retry-backoff", type=float, default=None)  # unported
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for periodic {params, opt_state, rng} "
+                         "checkpoints")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save every N completed steps (0 = off)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in "
+                         "--checkpoint-dir when there is one")
+    ap.add_argument("--max-retries", type=int, default=0,
+                    help="step retries (sync) / checkpoint restarts (async)")
+    ap.add_argument("--retry-backoff", type=float, default=0.05,
+                    help="base retry backoff in seconds (doubles per "
+                         "attempt)")
     ap.add_argument("--inject-fault", action="append", default=None,
-                    metavar="SITE@STEP[*TIMES]")
-    ap.add_argument("--inject-pool-pressure", type=float, default=0.0)
+                    metavar="SITE@STEP[*TIMES]",
+                    help="raise at a stage boundary, e.g. 'update@3' or "
+                         "'rollout@1*2' (sites: rollout, dispatch, update; "
+                         "repeatable)")
+    ap.add_argument("--inject-pool-pressure", type=float, default=0.0,
+                    help="undersize the paged pool to this fraction of its "
+                         "exhaustion-free size (0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log", default="train_log.jsonl")
     ap.add_argument("--smoke", action="store_true",
@@ -132,14 +156,11 @@ def parse_args(argv=None):
 
 
 # flags read only by unported features: (flag, ROADMAP Queue 1 item)
-_UNPORTED_FLAGS = (("max_policy_lag", "8"), ("is_rho_max", "8"),
-                   ("retry_backoff", "8"), ("dispatch", "9"))
+_UNPORTED_FLAGS = (("dispatch", "9"),)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.inject_fault or args.inject_pool_pressure > 0:
-        raise _unported("fault injection", "8")
     for name, item in _UNPORTED_FLAGS:
         if getattr(args, name) is not None:
             raise _unported(f"--{name.replace('_', '-')}", item)
@@ -159,9 +180,18 @@ def main(argv=None):
         kv_dtype=args.kv_dtype, sampling=args.sampling, top_p=args.top_p,
         speculation=args.speculation, spec_k=args.spec_k,
         draft_layers=args.draft_layers, pipeline=args.pipeline,
-        max_retries=args.max_retries,
+        max_policy_lag=args.max_policy_lag, max_retries=args.max_retries,
+        retry_backoff_s=args.retry_backoff,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every, resume=args.resume,
+        faults=(FaultInjector.parse(args.inject_fault,
+                                    args.inject_pool_pressure)
+                if args.inject_fault or args.inject_pool_pressure > 0
+                else None),
+        # lag-0 experience is on-policy: the correction there would only
+        # add rounding noise and break lag 0's equality with sync
+        is_rho_max=(args.is_rho_max if args.pipeline == "async"
+                    and args.max_policy_lag > 0 else 0.0),
         seed=args.seed, attn_impl=args.attn_impl, device=args.device)
 
     t0 = time.time()

@@ -1177,3 +1177,79 @@ def test_keyed_draws_are_the_same_on_cpu_and_card(dev):
     b = keyed_uniform(123, "env", eid.cuda(), step.cuda(), 9)
     assert torch.equal(a, b.cpu())
     assert 0.0 < float(a.min()) and float(a.max()) < 1.0
+
+
+class _StreamRecordingUpdate:
+    """Wraps a trainer's UpdateStage: keeps each batch's tokens and the
+    stream each update was called on."""
+
+    def __init__(self, stage):
+        self.stage, self.tokens, self.streams = stage, [], []
+
+    def __call__(self, params, opt_state, exp):
+        self.tokens.append(exp.tokens.clone())
+        self.streams.append(torch.cuda.current_stream())
+        return self.stage(params, opt_state, exp)
+
+
+def test_async_lag0_on_the_side_stream_equals_sync(dev):
+    """Three steps at smoke size, sync against async at lag 0: the async
+    updates run on a stream other than the rollout's, launch the flash
+    kernels exactly as often, and give the same batches and the same
+    final params, bitwise."""
+    cfg = get_smoke_config("qwen2-0.5b")
+    nl, res = cfg.n_layers, {}
+    for pipeline in ("sync", "async"):
+        tr = EarlTrainer(model=build_model(cfg), env=TicTacToe(),
+                         batch_size=4, max_turns=3, max_turn_tokens=4,
+                         max_context=96, kl_coef=0.05, clip_eps=0.2,
+                         pipeline=pipeline, max_policy_lag=0)
+        tr.update_stage = _StreamRecordingUpdate(tr.update_stage)
+        fa_ops.reset_launches()
+        params, _, hist = tr.train(3)
+        torch.cuda.synchronize()
+        assert fa_ops.launches == {"fwd": 3 * nl, "dq": 3 * nl,
+                                   "dkv": 3 * nl}
+        assert [r.policy_lag for r in hist] == [0, 0, 0]
+        res[pipeline] = (params, tr.update_stage, hist)
+    (ps, us, hs), (pa, ua, ha) = res["sync"], res["async"]
+    main = torch.cuda.current_stream()
+    assert all(s == main for s in us.streams)
+    assert len({s.cuda_stream for s in ua.streams}) == 1
+    assert ua.streams[0] != main
+    for a, b in zip(us.tokens, ua.tokens):
+        assert torch.equal(a, b)
+    assert [r.loss for r in hs] == [r.loss for r in ha]
+    for k in ps:
+        assert torch.equal(ps[k], pa[k]), k
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """bf16 and f32 CUDA tensors and the CUDA generator's state come back
+    bitwise, on the card, and the generator draws on from where it was."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tree = {"params": {"w": torch.randn(64, 32, generator=gen, device="cuda")
+                       .bfloat16()},
+            "opt_state": {"step": torch.tensor(3, dtype=torch.int32,
+                                               device="cuda"),
+                          "mu": {"w": torch.randn(64, 32, generator=gen,
+                                                  device="cuda")}},
+            "rng": gen.get_state()}
+    save_checkpoint(str(tmp_path), 4, tree)
+    like = {"params": {"w": torch.zeros(64, 32, dtype=torch.bfloat16,
+                                        device="cuda")},
+            "opt_state": {"step": torch.zeros((), dtype=torch.int32,
+                                              device="cuda"),
+                          "mu": {"w": torch.zeros(64, 32, device="cuda")}},
+            "rng": torch.Generator(device="cuda").get_state()}
+    got = restore_checkpoint(str(tmp_path), 4, like, map_location="cuda")
+    assert got["params"]["w"].is_cuda and got["rng"].device.type == "cpu"
+    assert torch.equal(got["params"]["w"], tree["params"]["w"])
+    assert torch.equal(got["opt_state"]["step"], tree["opt_state"]["step"])
+    assert torch.equal(got["opt_state"]["mu"]["w"],
+                       tree["opt_state"]["mu"]["w"])
+    g2 = torch.Generator(device="cuda")
+    g2.set_state(got["rng"])
+    assert torch.equal(torch.rand(8, generator=g2, device="cuda"),
+                       torch.rand(8, generator=gen, device="cuda"))

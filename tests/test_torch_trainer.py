@@ -18,8 +18,9 @@ are equal. ``loss`` and ``kl`` agree within 1e-6 absolute + 1e-4
 relative: the same f32 math in another summation order, on the same bf16
 roundings of the reference's K/V (measured on the compiled backend: loss
 within 2.4e-8, KL within 6e-8, on both layouts). Then: the python backend's
-settings are checked, unported options raise naming their ROADMAP item,
-and the CLI runs two smoke steps on the CPU on each backend."""
+settings are checked, the options of the async pipeline and of fault
+tolerance act, unported options raise naming their ROADMAP item, and the
+CLI runs two smoke steps on the CPU on each backend."""
 import json
 
 import jax
@@ -35,6 +36,7 @@ from repro.optim.adamw import adamw as jax_adamw
 from repro.rl.engine import common as jcommon
 from repro.rl.envs import make_env
 from repro_torch.bridge import params_from_numpy, to_torch
+from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.stages import EarlTrainer, ExpPrepStage
 from repro_torch.launch import train as train_cli
@@ -42,6 +44,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import adamw
 from repro_torch.rl.engine import CompiledRolloutEngine
 from repro_torch.rl.envs import TicTacToe
+from repro_torch.utils.faults import FaultInjector
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -170,12 +173,6 @@ def test_python_backend_takes_its_own_settings(option, value):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("pipeline", "async", "item 8"),
-    ("checkpoint_dir", "/nonexistent", "item 8"),
-    ("resume", True, "item 8"),
-    ("faults", object(), "item 8"),
-    ("max_retries", 1, "item 8"),
-    ("is_rho_max", 2.0, "item 8"),
     ("selector", object(), "item 9"),
     ("dispatcher", object(), "item 9"),
 ])
@@ -183,6 +180,51 @@ def test_unported_options_raise(option, value, item):
     with pytest.raises(NotImplementedError, match=item):
         EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
                     env=TicTacToe(), device="cpu", **{option: value})
+
+
+SMOKE = dict(batch_size=4, max_turns=2, max_turn_tokens=3, max_context=96,
+             kl_coef=0.05, device="cpu")
+
+
+@pytest.mark.parametrize("option", ["pipeline", "checkpoint_dir", "resume",
+                                    "faults", "max_retries", "is_rho_max"])
+def test_fault_tolerance_and_async_options_take_effect(option, tmp_path):
+    """Each option of the async pipeline and of fault tolerance runs smoke
+    steps, and its record or directory shows that it acted."""
+    ck = str(tmp_path / "ck")
+    kw, steps = {}, 1
+    if option == "pipeline":
+        kw, steps = dict(pipeline="async", max_policy_lag=1), 2
+    elif option == "checkpoint_dir":
+        kw = dict(checkpoint_dir=ck, checkpoint_every=1)
+    elif option == "resume":
+        EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
+                    env=TicTacToe(), checkpoint_dir=ck, checkpoint_every=1,
+                    **SMOKE).train(1)
+        kw, steps = dict(checkpoint_dir=ck, resume=True), 2
+    elif option == "faults":
+        kw = dict(faults=FaultInjector.parse(["rollout@0"]), max_retries=1,
+                  retry_backoff_s=0.0)
+    elif option == "max_retries":
+        kw = dict(faults=FaultInjector.parse(["update@0*2"]), max_retries=2,
+                  retry_backoff_s=0.0)
+    else:
+        kw = dict(is_rho_max=2.0)
+    tr = EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
+                     env=TicTacToe(), **SMOKE, **kw)
+    _, _, hist = tr.train(steps)
+    assert all(np.isfinite(r.loss) for r in hist)
+    if option == "pipeline":
+        assert [r.policy_lag for r in hist] == [0, 1]
+    elif option == "checkpoint_dir":
+        assert latest_step(ck) == 1
+    elif option == "resume":
+        assert [r.step for r in hist] == [1]           # step 0 was saved
+    elif option in ("faults", "max_retries"):
+        assert kw["faults"].fired() == (1 if option == "faults" else 2)
+        assert [r.step for r in hist] == [0]
+    else:
+        assert hist[0].is_weight_mean == pytest.approx(1.0, abs=1e-3)
 
 
 def test_dispatch_destination_raises():
@@ -231,13 +273,33 @@ def test_cli_runs_the_dense_layout_and_python_backend(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--max-policy-lag", "1", "item 8"),
-    ("--is-rho-max", "2.0", "item 8"),
-    ("--retry-backoff", "0.05", "item 8"),
-    ("--max-retries", "1", "item 8"),
     ("--dispatch", "centralized", "item 9"),
 ])
 def test_cli_flags_of_unported_features_raise(tmp_path, flag, value, item):
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(["--smoke", "--device", "cpu", "--steps", "1",
                         "--log", str(tmp_path / "t.jsonl"), flag, value])
+
+
+@pytest.mark.parametrize("flags,lags,is_weight", [
+    (["--pipeline", "async", "--max-policy-lag", "0"], [0, 0], False),
+    (["--pipeline", "async", "--is-rho-max", "2.0"], [0, 1], True),
+    (["--inject-fault", "rollout@1", "--max-retries", "1",
+      "--retry-backoff", "0.01"], [0, 0], False),
+    (["--inject-fault", "update@0*2", "--max-retries", "2",
+      "--retry-backoff", "0"], [0, 0], False),
+])
+def test_cli_async_and_retry_flags_take_effect(tmp_path, flags, lags,
+                                               is_weight):
+    """The async and retry flags run two smoke steps: the lag shows in the
+    rows, the IS weights only where the lag is above 0, and the injected
+    faults are retried."""
+    log = tmp_path / "t.jsonl"
+    assert train_cli.main([
+        "--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+        "--max-turns", "2", "--max-turn-tokens", "3", "--max-context", "96",
+        "--log", str(log), *flags]) == 0
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [r["step"] for r in rows] == [0, 1]
+    assert [r["policy_lag"] for r in rows] == lags
+    assert all((r["is_weight_mean"] > 0) == is_weight for r in rows)

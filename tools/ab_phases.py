@@ -7,10 +7,13 @@
 commit), ``B`` this checkout. Each run is a process of its own that puts
 its tree's ``src`` on the path, imports that tree's ``chip_smoke.py``,
 builds full-width qwen2-0.5b on random bf16 weights from seed 0 and calls
-the named phase functions (``phase_path(torch, model, params, report)``,
-``phase_train(torch, model, report)``, ...). Every JSON line a phase emits
-is printed again with ``tree`` ("A"/"B") and ``run`` (its place in the
-order) added. Needs one CUDA device; A's kernel build reuses B's shared
+the named phase functions with the arguments their parameters name
+(``torch``, ``model``, ``params``, ``report``: ``phase_path(torch, model,
+params, report)``, ``phase_train(torch, model, report)``,
+``phase_spec_branch(torch, model, params)``, ...). ``--order A`` runs
+OTHER_ROOT alone, as a bisect over several trees does. Every JSON line a
+phase emits is printed again with ``tree`` ("A"/"B") and ``run`` (its
+place in the order) added. Needs one CUDA device; A's kernel build reuses B's shared
 objects where the sources hash the same (the names carry the hash).
 """
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import collections
 import importlib.util
+import inspect
 import json
 import os
 import shutil
@@ -47,10 +51,10 @@ def child(root: str, phases: list) -> None:
     report = collections.defaultdict(dict)
     for name in phases:
         fn = getattr(smoke, f"phase_{name}")
-        if name.startswith("train"):
-            fn(torch, model, report)
-        else:
-            fn(torch, model, params, report)
+        # phases take (torch, model[, params][, report]), by their names
+        args = {"torch": torch, "model": model, "params": params,
+                "report": report}
+        fn(*(args[p] for p in inspect.signature(fn).parameters))
 
 
 def main() -> int:
