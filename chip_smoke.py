@@ -83,6 +83,16 @@ Phases, in order; any failure raises and exits non-zero:
  11. train_branch — one update batch of the train phase through the
                update step with attn_impl "flash" (the kernels) and
                "xla" (plain attention): loss and per-leaf grad norms.
+     The train phase runs in a single-rank NCCL process group, with a
+               DataDispatcher routing each step's batch to one-device
+               destination layouts (rows "direct", 0 bytes moved) and a
+               ParallelismSelector of two one-device candidates that
+               switches at step 1 and re-binds the engine.
+     dispatch — on the train phase's last batch: the centralized
+               strategy's host round trip (every leaf bitwise, still on
+               the card), all_to_all_resplit on the one-rank mesh, and
+               distributed_reinforce_advantages over the NCCL world of
+               one against reinforce_advantages; what it costs.
      async_train — the async pipeline at the train phase's settings: (a)
                lag 0 through train(), the update on the schedule's side
                stream: records and final params equal to the train
@@ -90,7 +100,8 @@ Phases, in order; any failure raises and exits non-zero:
                cap 2.0, three steps, a checkpoint at step 2 and an
                injected update fault there: the fault fires once, the
                pipeline restarts from the checkpoint (lags 0, 1, 0),
-               exact launches over 4 rollouts and 3 updates; (c) the
+               exact launches over 4 rollouts and 3 updates, every batch
+               handed off through dispatch_async ("direct-async"); (c) the
                checkpoint read back bitwise; then a lag-1 run at 6 layers
                traced from step 1's rollout on: each flash kernel's
                stream, the busy share and the overlap of the two streams.
@@ -2628,18 +2639,51 @@ def train_counters():
                         decode_attention=da_ops.launches)
 
 
+def one_device_layouts():
+    """Destination layouts of an experience batch on a one-device mesh."""
+    from repro_torch.core.resharding import MeshConfig, replicated
+    from repro_torch.rl.experience import ExperienceBatch
+    return ExperienceBatch(*([replicated(MeshConfig("update-1x1", 1, 1))]
+                             * len(ExperienceBatch._fields)))
+
+
+def two_config_selector():
+    """A profiled selector of two one-device candidates, "a" and "b";
+    "b" wins above 8 tokens of context, so the rollout switches at step 1
+    (``tests/test_core_system.py``'s)."""
+    from repro_torch.core.parallelism_selector import (ContextBuckets,
+                                                       ParallelismSelector,
+                                                       ProfileEntry)
+    from repro_torch.core.resharding import MeshConfig
+    a = MeshConfig("a", dp=1, tp=1)
+    b = MeshConfig("b", dp=1, tp=1, fsdp=False)
+    sel = ParallelismSelector(
+        [a, b], lambda cfg, ctx: ProfileEntry(
+            cfg, ctx, tgs=2.0 if (cfg.name == "b") == (ctx > 8) else 1.0,
+            feasible=True), ContextBuckets((8,)), ema_alpha=1.0)
+    sel.profile()
+    return sel
+
+
 def phase_train(torch, model, report):
     """Two sync steps of EarlTrainer at full width (the training path).
     The trainer folds the reference pass into the rollout, as JAX's does
     whenever reference params are given (also when the reference IS the
     policy). Launches per step, exactly those of ``train_launch_gate``
-    for one rollout and one update."""
+    for one rollout and one update. Each step's batch goes through the
+    data dispatcher to one-device layouts ("direct", nothing moves), and
+    a two-candidate selector switches the rollout's config at step 1 and
+    re-binds the engine: both are the identity on one card."""
+    from repro_torch.core.data_dispatcher import DataDispatcher
     from repro_torch.core.stages import EarlTrainer
     from repro_torch.optim.adamw import adamw
     from repro_torch.rl.envs import TicTacToe
 
+    selector = two_config_selector()
     tr = EarlTrainer(model=model, env=TicTacToe(),
-                     optimizer=adamw(3e-4, weight_decay=0.0), **TRAIN)
+                     optimizer=adamw(3e-4, weight_decay=0.0),
+                     selector=selector, dispatcher=DataDispatcher(), **TRAIN)
+    dst = one_device_layouts()
     if not tr.ref_folded:
         raise AssertionError("the trainer does not fold the reference pass")
     tr.update_stage = _RecordingUpdate(tr.update_stage)
@@ -2653,7 +2697,8 @@ def phase_train(torch, model, report):
         read = train_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        new, opt_state, rec = tr.run_step(step, params, opt_state, ref)
+        new, opt_state, rec = tr.run_step(step, params, opt_state, ref,
+                                          dst_shardings=dst)
         torch.cuda.synchronize()
         counts = read()
         n_macro = counts["fused_sample"] // mtt
@@ -2673,12 +2718,21 @@ def phase_train(torch, model, report):
                    / rec.update_wall_s,
                    launches=counts, expected_launches=expected,
                    kv_dropped_writes=rec.kv_dropped_writes,
-                   params_changed=changed,
+                   params_changed=changed, dispatch=rec.dispatch,
+                   selector_switch=rec.selector_switch,
+                   engine_mesh=tr.rollout.mesh_config.name,
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         emit(out)
+        switched = (rec.selector_switch is None if step == 0 else
+                    rec.selector_switch is not None
+                    and rec.selector_switch["to"] == "b")
         if not (counts == expected and n_macro > 0 and changed
                 and math.isfinite(rec.loss) and math.isfinite(rec.kl)
-                and rec.kv_dropped_writes == 0):
+                and rec.kv_dropped_writes == 0
+                and rec.dispatch is not None
+                and rec.dispatch["strategy"] == "direct"
+                and rec.dispatch["moved_bytes"] == 0 and switched
+                and tr.rollout.mesh_config == selector.current):
             raise AssertionError(f"train step {step} checks failed: {out}")
         for k_, n in counts.items():
             totals[k_] += n
@@ -2797,6 +2851,53 @@ def phase_train_branch(torch, model, params, opt_state, exp):
             and cos >= min_cos):
         raise AssertionError(f"flash and xla update branches disagree: "
                              f"{out}")
+
+
+def phase_dispatch(torch, exp, report):
+    """The dispatcher's other routes on the train phase's last batch, in
+    the NCCL world of one: the centralized strategy (gather to the
+    controller, the host round trip, scatter) gives every leaf back
+    bitwise, on the card, in its dtype; ``all_to_all_resplit`` on the
+    one-rank mesh's data axis is the identity; and
+    ``distributed_reinforce_advantages`` (one scalar all_reduce) equals
+    ``reinforce_advantages`` within 1e-6 of the scale."""
+    from repro_torch.core.data_dispatcher import (DataDispatcher,
+                                                  all_to_all_resplit)
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.rl.algo import (distributed_reinforce_advantages,
+                                     reinforce_advantages)
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    d = DataDispatcher()
+    t0 = time.perf_counter()
+    out, rep = d.dispatch(exp, one_device_layouts(), strategy="centralized")
+    torch.cuda.synchronize()
+    round_trip_ms = (time.perf_counter() - t0) * 1e3
+    bad = [name for name, a, b in zip(exp._fields, exp, out)
+           if not (b.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+                   and a.data_ptr() != b.data_ptr())]
+    mesh = MeshConfig("1x1", dp=1, tp=1).make_mesh("cuda")
+    resplit = all_to_all_resplit(exp.tokens, mesh, "data", split_dim=1,
+                                 concat_dim=0)
+    adv_d = distributed_reinforce_advantages(exp.rewards, mesh)
+    adv = reinforce_advantages(exp.rewards)
+    adv_err = (adv_d - adv).abs().max().item()
+    adv_scale = adv.abs().max().item()
+    torch.cuda.synchronize()
+    res = dict(phase="dispatch", strategy=rep.strategy,
+               total_bytes=rep.total_bytes, moved_bytes=rep.moved_bytes,
+               round_trip_ms=round_trip_ms,
+               report_wall_ms=rep.wall_time_s * 1e3,
+               leaves_differ=bad, resplit_equal=torch.equal(resplit,
+                                                             exp.tokens),
+               adv_max_abs_err=adv_err, adv_scale=adv_scale,
+               phase_s=time.perf_counter() - t_phase)
+    emit(res)
+    if bad or not res["resplit_equal"] or \
+            adv_err > 1e-6 * max(adv_scale, 1.0):
+        raise AssertionError(f"dispatch phase failed: {res}")
+    report["dispatch"] = res
 
 
 def _union_ms(iv) -> float:
@@ -2941,7 +3042,8 @@ def phase_async_train(torch, model, train_params, report):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        _, _, hist = sched.run(3, params=p0, opt_state=o0, ref_params=ref0)
+        _, _, hist = sched.run(3, params=p0, opt_state=o0, ref_params=ref0,
+                               dst_shardings=one_device_layouts())
         torch.cuda.synchronize()
         wall_b = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2966,9 +3068,14 @@ def phase_async_train(torch, model, train_params, report):
                    step_s=[r.wall_time_s for r in hist], wall_s=wall_b,
                    checkpoint_bytes=(os.path.getsize(ck_file)
                                      if os.path.exists(ck_file) else None),
+                   dispatch=[r.dispatch and r.dispatch["strategy"]
+                             for r in hist],
+                   dispatch_ms=[r.dispatch and r.dispatch["wall_time_s"] * 1e3
+                                for r in hist],
                    peak_mem_gib=peak, **timing)
         emit(out)
         if not (faults.fired("update") == 1
+                and out["dispatch"] == ["direct-async"] * 3
                 and [r.step for r in hist] == [0, 1, 2]
                 and [r.policy_lag for r in hist] == [0, 1, 0]
                 and latest_step(ckdir) == 2 and counts == expected
@@ -3097,12 +3204,25 @@ def main() -> int:
     phase_shared_spec(torch, model, params, report)
     phase_preempt_path(torch, model, params, report)
     del params
-    trainer, params, opt_state, exp = phase_train(torch, model, report)
-    phase_train_trace(torch, trainer, params, opt_state, exp)
-    phase_train_branch(torch, model, params, opt_state, exp)
-    del trainer, opt_state, exp
-    phase_async_train(torch, model, params, report)
-    del params
+    # the dispatcher's and the selector's distributed code runs in a
+    # process group of one rank (NCCL allows one rank per card)
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    emit({"phase": "process_group", "backend": dist.get_backend(),
+          "world_size": dist.get_world_size(),
+          "seconds": time.perf_counter() - t0})
+    try:
+        trainer, params, opt_state, exp = phase_train(torch, model, report)
+        phase_dispatch(torch, exp, report)
+        phase_train_trace(torch, trainer, params, opt_state, exp)
+        phase_train_branch(torch, model, params, opt_state, exp)
+        del trainer, opt_state, exp
+        phase_async_train(torch, model, params, report)
+        del params
+    finally:
+        dist.destroy_process_group()
     phase_spec_train(torch, model, report)
     phase_shared_train(torch, model, report)
     del model

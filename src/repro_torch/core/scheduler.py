@@ -22,7 +22,10 @@ autograd runs each backward node on its forward's stream, so the whole
 update, flash backward included, runs on the side stream. On the CPU there
 are no streams and the worker thread alone carries the overlap. Two
 hand-offs cross the streams; each is ordered where it happens
-(``_run_async_once``).
+(``_run_async_once``). With ``dst_shardings`` the worker moves the batch
+through ``DataDispatcher.dispatch_async`` from the source layouts taken at
+submit, enqueues the update against the handle's batch and then resolves
+the handle; the records' ``dispatch`` rows say ``"direct-async"``.
 
 Fault tolerance (both modes): ``max_retries`` arms retries with backoff
 ``retry_backoff_s * 2**attempt``; ``checkpoint_dir``/``checkpoint_every``
@@ -184,7 +187,7 @@ class PipelineSchedule:
                 self.side_stream = torch.cuda.Stream(device=tr.device)
             side = self.side_stream
 
-        def submit(pool, k, exp):
+        def submit(pool, k, exp, src_shardings):
             # the generator AT SUBMIT TIME: rollout k has drawn, rollout
             # k+1 has not, which is where a resume at step k+1 restarts
             rng_after_k = tr._gen.get_state()
@@ -206,11 +209,18 @@ class PipelineSchedule:
                         for t in exp:
                             t.record_stream(side)
                     tr.check_fault("dispatch", k)
-                    exp_d, dispatch_row = tr.dispatch_stage(exp,
-                                                            dst_shardings)
+                    exp_d, handle = tr.dispatch_stage(
+                        exp, dst_shardings, src_shardings=src_shardings,
+                        asynchronous=True)
                     tr.check_fault("update", k)
                     p, o = state["params"], state["opt_state"]
                     p2, o2, metrics = tr.update_stage(p, o, exp_d)
+                    dispatch_row = None
+                    if handle is not None:
+                        # the update is enqueued against the handoff;
+                        # resolving the handle now stamps a wall time of
+                        # the transfer alone, not of the update
+                        dispatch_row = handle.result()[1].row()
                     # the update's host sync: it returns when the side
                     # stream has run the whole update, new params included.
                     # Only then are the old params and moments dropped, so
@@ -239,7 +249,8 @@ class PipelineSchedule:
             versions[k + 1] = p2
             row = pending.pop(k)
             rec = tr.make_record(
-                k, row["stats"], metrics, dispatch_row=dispatch_row,
+                k, row["stats"], metrics, switch=row["switch"],
+                dispatch_row=dispatch_row,
                 wall_time_s=time.perf_counter() - row["t0"],
                 rollout_wall_s=row["rollout_wall_s"],
                 update_wall_s=upd_wall, policy_lag=row["policy_lag"])
@@ -263,7 +274,7 @@ class PipelineSchedule:
                 t0 = time.perf_counter()
                 tr.check_fault("rollout", k)
                 tr._maybe_warn_ref_fallback(ref_params)
-                exp, stats = tr.rollout_stage(
+                exp, stats, switch = tr.rollout_stage(
                     k, behavior, tr.batch_size,
                     n_episodes=tr.rollout_episodes,
                     noise=tr.rollout_noise(k), params_version=v,
@@ -276,12 +287,20 @@ class PipelineSchedule:
                         ref_params is behavior and tr.top_p == 1.0
                         and (tr.temperature <= 0.0
                              or tr.temperature == 1.0)))
+                # the source layouts now: the next rollout overwrites the
+                # engine's before the worker runs
+                src = (tr.dispatch_stage.source_shardings(exp)
+                       if dst_shardings is not None else None)
+                # hook ②: tracked apart from the rollout's config (both
+                # stages are live at once)
+                if tr.selector is not None and tr.selector.policy is not None:
+                    tr.selector.maybe_switch(k, stage="update")
                 pending[k] = {
-                    "stats": stats, "t0": t0,
+                    "stats": stats, "switch": switch, "t0": t0,
                     "rollout_wall_s": time.perf_counter() - t0,
                     "policy_lag": k - v,
                 }
-                submit(pool, k, exp)
+                submit(pool, k, exp, src)
 
             while futures:                   # drain the pipeline
                 resolve(min(futures))

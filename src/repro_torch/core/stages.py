@@ -1,11 +1,12 @@
 """The EARL RL stage graph (paper Fig. 2) (port of
 ``repro/core/stages.py``).
 
-    ┌─► Rollout (policy decode, multi-turn env loop, and the reference
-    │        │    pass folded into the same decode steps)
+    ┌─► [selector hook ①] Rollout (policy decode, multi-turn env loop,
+    │        │    and the reference pass folded into the same decode steps)
     │   Experience Preparation (advantages; the standalone reference pass
     │        │    only when the rollout could not fold it)
-    │   Dispatch (the identity on one GPU)
+    │   [dispatcher ③④⑤] layout-aware move to the Update layout
+    │   [selector hook ②]
     │        ▼
     └── Model Update (policy-gradient step, AdamW)
 
@@ -15,6 +16,16 @@ which overlaps Update(k), on a worker thread and its own CUDA stream, with
 Rollout(k+1) under ``max_policy_lag`` and the truncated-IS correction
 (``is_rho_max``). Both schedules retry, checkpoint, resume and take
 injected faults (``utils/faults.FaultInjector``).
+
+A profiled ``ParallelismSelector`` (``core/parallelism_selector.py``)
+switches each stage's ``MeshConfig`` as the EMA context length crosses its
+buckets: hook ① re-binds the engine before the rollout, hook ② tracks the
+update's config. ``train(dst_shardings=...)`` routes every step's batch
+through the ``DataDispatcher`` (``core/data_dispatcher.py``) from the
+engine's ``experience_shardings`` to those layouts, with
+``dispatch_strategy`` "direct" or "centralized"; the async schedule hands
+off through ``dispatch_async``. The records carry ``selector_switch`` and
+``dispatch`` as JAX's do.
 
 As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
@@ -44,6 +55,8 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.data_dispatcher import DataDispatcher
+from repro_torch.core.parallelism_selector import ParallelismSelector
 from repro_torch.core.train_step import (make_ref_logprob_step,
                                          make_rl_train_step)
 from repro_torch.device import resolve_device
@@ -53,7 +66,7 @@ from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.rl.algo import (group_relative_advantages,
                                  reinforce_advantages)
 from repro_torch.rl.engine import CompiledRolloutEngine, RolloutStats
-from repro_torch.rl.engine.compiled import NoiseFn, _unported
+from repro_torch.rl.engine.compiled import NoiseFn
 from repro_torch.rl.experience import ExperienceBatch
 from repro_torch.rl.rollout import RolloutEngine
 from repro_torch.utils.faults import undersize_pool
@@ -118,21 +131,39 @@ class StepRecord:
 # ---------------------------------------------------------------------------
 
 class RolloutStage:
-    """Fig. 2 ①: rolls out through the engine, with the reference pass
-    folded in when ``ref_params`` is given. Returns ``(exp, stats)``. The
-    selector hook of the JAX stage is not ported (item 9)."""
+    """Fig. 2 ①: runs the selector's rollout-stage hook, binds the engine
+    to the stage's current MeshConfig, rolls out (with the reference pass
+    folded in when ``ref_params`` is given) and feeds the context-length
+    monitor. Returns ``(exp, stats, switch_row)``."""
 
-    def __init__(self, engine):
+    def __init__(self, engine,
+                 selector: Optional[ParallelismSelector] = None):
         self.engine = engine
+        self.selector = selector
 
     def __call__(self, step: int, params, batch: int, *,
                  n_episodes: Optional[int] = None,
                  noise: Optional[NoiseFn] = None, params_version: int = -1,
                  ref_params=None):
-        del step
-        return self.engine.run(params, batch, n_episodes, noise=noise,
-                               params_version=params_version,
-                               ref_params=ref_params)
+        switch = None
+        sel = self.selector
+        if sel is not None and sel.policy is not None:
+            sw = sel.maybe_switch(step, stage="rollout")
+            if sw is not None:
+                switch = {"from": sw[0].name, "to": sw[1].name,
+                          "ema_context": sel.ema_context}
+            # checked every step, not only on a switch: a selector profiled
+            # after the trainer was built binds here too
+            cur = sel.current_for("rollout")
+            if (hasattr(self.engine, "bind_mesh")
+                    and self.engine.mesh_config != cur):
+                self.engine.bind_mesh(cur)
+        exp, stats = self.engine.run(params, batch, n_episodes, noise=noise,
+                                     params_version=params_version,
+                                     ref_params=ref_params)
+        if sel is not None:
+            sel.observe(stats.mean_context_len)
+        return exp, stats, switch
 
 
 class ExpPrepStage:
@@ -169,15 +200,40 @@ class ExpPrepStage:
 
 
 class DispatchStage:
-    """Fig. 2 ③④⑤: the identity on one GPU. A requested destination
-    layout needs the dispatcher, which is not ported (item 9)."""
+    """Fig. 2 ③④⑤: layout-aware move to the Update layout. The source
+    layouts are the ones the engine reports for its harvested batch
+    (``experience_shardings``; ExpPrep keeps them), or this rank alone for
+    an engine that reports none. ``asynchronous=True`` posts the handoff
+    and returns the dispatcher's handle, whose batch can feed the update
+    at once."""
 
-    def __call__(self, exp: ExperienceBatch, dst_shardings=None):
-        """Returns ``(exp, None)``."""
-        if dst_shardings is not None:
-            raise _unported("dispatch to dst_shardings (the data "
-                            "dispatcher)", "9")
-        return exp, None
+    def __init__(self, dispatcher: DataDispatcher, engine=None, *,
+                 strategy: str = "direct"):
+        self.dispatcher = dispatcher
+        self.engine = engine
+        self.strategy = strategy
+
+    def source_shardings(self, exp: ExperienceBatch):
+        del exp                  # ExpPrep's leaves keep the rollout layout
+        return getattr(self.engine, "experience_shardings", None)
+
+    def __call__(self, exp: ExperienceBatch, dst_shardings=None, *,
+                 src_shardings=None, asynchronous: bool = False):
+        """Returns ``(exp, report_row_or_handle)``; ``(exp, None)`` when no
+        destination layouts were requested."""
+        if dst_shardings is None:
+            return exp, None
+        if src_shardings is None:
+            src_shardings = self.source_shardings(exp)
+        if asynchronous:
+            handle = self.dispatcher.dispatch_async(
+                exp, dst_shardings, strategy=self.strategy,
+                src_shardings=src_shardings)
+            return handle.batch, handle
+        exp, rep = self.dispatcher.dispatch(
+            exp, dst_shardings, strategy=self.strategy,
+            src_shardings=src_shardings)
+        return exp, rep.row()
 
 
 class UpdateStage:
@@ -225,16 +281,20 @@ class EarlTrainer:
     ``checkpoint_dir`` with ``checkpoint_every``, ``resume`` and ``faults``
     (a ``utils.faults.FaultInjector``, whose ``pool_pressure`` undersizes
     the paged pool at construction) are those of
-    ``core/scheduler.PipelineSchedule``. The parallelism selector and the
-    data dispatcher are not ported and raise ``NotImplementedError`` naming
-    their ROADMAP Queue 1 item. As in JAX, the trainer passes no
-    ``draft_model``, so ``speculation="draft"`` raises from the engine."""
+    ``core/scheduler.PipelineSchedule``. ``selector`` (a
+    ``ParallelismSelector``) runs hooks ① and ②, and the engine starts on
+    its current config when it is profiled; ``dispatcher`` (default a
+    ``DataDispatcher()``) with ``dispatch_strategy`` moves each batch to
+    the ``dst_shardings`` given to ``train``/``run_step``. As in JAX, the
+    trainer passes no ``draft_model``, so ``speculation="draft"`` raises
+    from the engine."""
 
     model: Any                              # repro_torch Model
     env: Any
     optimizer: Optional[Optimizer] = None
-    selector: Optional[Any] = None
-    dispatcher: Optional[Any] = None
+    selector: Optional[ParallelismSelector] = None
+    dispatcher: Optional[DataDispatcher] = None
+    dispatch_strategy: str = "direct"       # "direct" | "centralized"
     batch_size: int = 8
     max_turns: int = 3
     max_turn_tokens: int = 6
@@ -282,7 +342,7 @@ class EarlTrainer:
     history: List[StepRecord] = field(default_factory=list)
 
     def __post_init__(self):
-        self._check_unported()
+        self._check_modes()
         if self.attn_impl not in ("paged", "xla"):
             raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
                              f"{self.attn_impl!r}")
@@ -298,6 +358,7 @@ class EarlTrainer:
                              else "fused")
         self.device = resolve_device(self.device)
         self.optimizer = self.optimizer or adamw(3e-4, weight_decay=0.0)
+        self.dispatcher = self.dispatcher or DataDispatcher()
         attn = _ATTN[self.model.cfg.family][self.attn_impl]
         kw = dict(max_turns=self.max_turns,
                   max_turn_tokens=self.max_turn_tokens,
@@ -318,7 +379,12 @@ class EarlTrainer:
                 pool_growth_max=self.pool_growth_max,
                 admit_watermark=self.admit_watermark,
                 speculation=self.speculation, spec_k=self.spec_k,
-                draft_layers=self.draft_layers, **kw)
+                draft_layers=self.draft_layers,
+                # start on the selector's current config when profiled
+                mesh_config=(self.selector.current
+                             if self.selector is not None
+                             and self.selector.policy is not None
+                             else None), **kw)
         # JAX folds the reference pass into the rollout unless prefix
         # sharing or speculation is on: the folded reference decodes on a
         # dense cache, which can neither fork the shared prefix pages nor
@@ -326,11 +392,12 @@ class EarlTrainer:
         self.ref_folded = (not getattr(self.rollout, "shared_pages", 0)
                            and self.speculation == "off")
         self._warned_ref_fallback = False
-        self.rollout_stage = RolloutStage(self.rollout)
+        self.rollout_stage = RolloutStage(self.rollout, self.selector)
         self.expprep_stage = ExpPrepStage(
             self.model, advantage=self.advantage,
             group_size=self.group_size, attn_impl=attn["expprep"])
-        self.dispatch_stage = DispatchStage()
+        self.dispatch_stage = DispatchStage(
+            self.dispatcher, self.rollout, strategy=self.dispatch_strategy)
         self.update_stage = UpdateStage(
             self.model, self.optimizer, clip_eps=self.clip_eps,
             kl_coef=self.kl_coef, is_rho_max=self.is_rho_max,
@@ -383,17 +450,16 @@ class EarlTrainer:
                                  f"decodes a dense bf16 cache with the "
                                  f"reference sampler, without slot refill)")
 
-    def _check_unported(self) -> None:
-        if self.rollout_backend not in ("compiled", "python"):
-            raise ValueError(f"unknown rollout_backend "
-                             f"{self.rollout_backend!r}")
-        if self.pipeline not in ("sync", "async"):
-            raise ValueError(f"pipeline must be 'sync' or 'async', got "
-                             f"{self.pipeline!r}")
-        if self.selector is not None:
-            raise _unported("the parallelism selector", "9")
-        if self.dispatcher is not None:
-            raise _unported("the data dispatcher", "9")
+    def _check_modes(self) -> None:
+        for name, value, allowed in (
+                ("rollout_backend", self.rollout_backend,
+                 ("compiled", "python")),
+                ("pipeline", self.pipeline, ("sync", "async")),
+                ("dispatch_strategy", self.dispatch_strategy,
+                 ("direct", "centralized"))):
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{value!r}")
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None):
@@ -433,8 +499,9 @@ class EarlTrainer:
             [v.float() for v in metrics.values()]).tolist()))
 
     def make_record(self, step: int, stats: RolloutStats, metrics, *,
-                    dispatch_row=None, wall_time_s=0.0, rollout_wall_s=0.0,
-                    update_wall_s=0.0, policy_lag: int = 0) -> StepRecord:
+                    switch=None, dispatch_row=None, wall_time_s=0.0,
+                    rollout_wall_s=0.0, update_wall_s=0.0,
+                    policy_lag: int = 0) -> StepRecord:
         """The per-step observability row (shared by the sync step and the
         async schedule); ``metrics`` holds host floats."""
         rec = StepRecord(
@@ -445,6 +512,7 @@ class EarlTrainer:
             truncated_frac=float(np.mean(stats.truncated)),
             loss=metrics["loss"],
             kl=metrics.get("kl", 0.0),
+            selector_switch=switch,
             dispatch=dispatch_row,
             wall_time_s=wall_time_s,
             params_version=stats.params_version,
@@ -494,7 +562,7 @@ class EarlTrainer:
         self._maybe_warn_ref_fallback(ref_params)
         t0 = time.perf_counter()
         self.check_fault("rollout", step)
-        exp, stats = self.rollout_stage(
+        exp, stats, switch = self.rollout_stage(
             step, params, self.batch_size, n_episodes=self.rollout_episodes,
             noise=self.rollout_noise(step), params_version=step,
             ref_params=ref_params if self.ref_folded else None)
@@ -513,13 +581,18 @@ class EarlTrainer:
         self.check_fault("dispatch", step)
         exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
 
+        # hook ②: the update stage's config is tracked apart from the
+        # rollout's (the async schedule needs both at once); the update
+        # runs on this rank under every one-device config
+        if self.selector is not None and self.selector.policy is not None:
+            self.selector.maybe_switch(step, stage="update")
         t1 = time.perf_counter()
         self.check_fault("update", step)
         params, opt_state, metrics = self.update_stage(params, opt_state,
                                                        exp)
         metrics = self.read_metrics(metrics)
         t2 = time.perf_counter()
-        rec = self.make_record(step, stats, metrics,
+        rec = self.make_record(step, stats, metrics, switch=switch,
                                dispatch_row=dispatch_row,
                                wall_time_s=t2 - t0, rollout_wall_s=t_roll,
                                update_wall_s=t2 - t1)
@@ -529,7 +602,9 @@ class EarlTrainer:
     def train(self, n_steps: int, *, params=None, opt_state=None,
               ref_params=None, dst_shardings=None, verbose: bool = False):
         """Train for ``n_steps`` steps under the configured schedule.
-        Returns ``(params, opt_state, history)``."""
+        ``dst_shardings`` (an ``ExperienceBatch`` of ``NamedLayout``s)
+        routes every step's batch through the data dispatcher to those
+        layouts. Returns ``(params, opt_state, history)``."""
         from repro_torch.core.scheduler import PipelineSchedule
         if params is None:
             params, opt_state, ref_params = self.init_state()

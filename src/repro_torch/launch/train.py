@@ -21,9 +21,11 @@ next rollout under ``--max-policy-lag`` (1) and arms the truncated-IS
 cap ``--is-rho-max`` (2.0) when the lag is above 0. ``--max-retries``
 with ``--retry-backoff``, ``--checkpoint-dir`` with
 ``--checkpoint-every``, ``--resume``, ``--inject-fault SITE@STEP[*TIMES]``
-and ``--inject-pool-pressure`` are those of the JAX CLI. ``--dispatch``
-(the data dispatcher) is not ported yet: any value given to it raises
-``NotImplementedError`` naming its ROADMAP item. ``--arch mamba2-370m`` trains the ssm family (Mamba2)
+and ``--inject-pool-pressure`` are those of the JAX CLI, and so is
+``--dispatch {direct,centralized}``, the data dispatcher's strategy
+(default direct; as in JAX, the CLI requests no destination layouts, so on
+one device the dispatch stage hands the batch on as it is). ``--arch
+mamba2-370m`` trains the ssm family (Mamba2)
 on its recurrent cache: the layout defaults to dense there and
 ``--cache-layout paged`` raises; ExpPrep's standalone pass runs the SSD
 scan kernel and the update its plain chunked form, as JAX's.
@@ -45,7 +47,6 @@ from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.stages import EarlTrainer
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import adamw
-from repro_torch.rl.engine.compiled import _unported
 from repro_torch.rl.envs import make_env
 from repro_torch.utils.faults import FaultInjector
 
@@ -116,8 +117,10 @@ def parse_args(argv=None):
     ap.add_argument("--clip-eps", type=float, default=0.2)
     ap.add_argument("--advantage", default="reinforce",
                     choices=["reinforce", "group"])
-    ap.add_argument("--dispatch", default=None,  # unported
-                    choices=["direct", "centralized"])
+    ap.add_argument("--dispatch", default="direct",
+                    choices=["direct", "centralized"],
+                    help="data dispatcher strategy between the stages' "
+                         "layouts")
     ap.add_argument("--checkpoint-dir", default=None,
                     help="directory for periodic {params, opt_state, rng} "
                          "checkpoints")
@@ -155,15 +158,8 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-# flags read only by unported features: (flag, ROADMAP Queue 1 item)
-_UNPORTED_FLAGS = (("dispatch", "9"),)
-
-
 def main(argv=None):
     args = parse_args(argv)
-    for name, item in _UNPORTED_FLAGS:
-        if getattr(args, name) is not None:
-            raise _unported(f"--{name.replace('_', '-')}", item)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     trainer = EarlTrainer(
         model=build_model(cfg), env=make_env(args.env),
@@ -171,7 +167,8 @@ def main(argv=None):
         batch_size=args.batch, max_turns=args.max_turns,
         max_turn_tokens=args.max_turn_tokens, max_context=args.max_context,
         kl_coef=args.kl_coef, clip_eps=args.clip_eps,
-        advantage=args.advantage, rollout_backend=args.rollout_backend,
+        advantage=args.advantage, dispatch_strategy=args.dispatch,
+        rollout_backend=args.rollout_backend,
         rollout_episodes=args.rollout_episodes,
         cache_layout=args.cache_layout, page_size=args.page_size,
         cache_pages=args.cache_pages, share_prefix=args.share_prefix,

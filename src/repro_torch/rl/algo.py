@@ -5,6 +5,7 @@ functions is a ``.detach()`` in the same place."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def token_logprobs(logits, tokens):
@@ -17,10 +18,15 @@ def token_logprobs(logits, tokens):
     return tok_logit - lse
 
 
-def reinforce_advantages(rewards):
-    """Episode-level REINFORCE advantage with a leave-one-out mean
-    baseline. rewards: (B,) -> (B,)."""
+def reinforce_advantages(rewards, *, baseline: str = "batch_mean"):
+    """Episode-level REINFORCE advantage. rewards: (B,) -> (B,).
+    baseline: "none" (the rewards) | "batch_mean" (leave-one-out mean)."""
+    if baseline not in ("none", "batch_mean"):
+        raise ValueError(f"baseline must be 'none' or 'batch_mean', got "
+                         f"{baseline!r}")
     r = rewards.float()
+    if baseline == "none":
+        return r
     B = r.shape[0]
     if B > 1:
         loo = (r.sum() - r) / (B - 1)
@@ -107,3 +113,35 @@ def policy_gradient_loss(logprobs, advantages, gen_mask, *,
 
     metrics["pg_loss"] = loss
     return loss, metrics
+
+
+def distributed_reinforce_advantages(rewards, mesh, *, axis: str = "data"):
+    """Leave-one-out REINFORCE advantages without centralizing the rewards
+    (the paper's §5 future-work item). ``rewards`` is this rank's shard of
+    a (B,) batch split over ``axis`` of the ``DeviceMesh`` ``mesh``: each
+    rank sums its rewards and one scalar ``all_reduce`` over the axis's
+    group crosses the mesh, O(1) bytes instead of a gather of O(B).
+    Collective over that group. Equal to ``reinforce_advantages`` of the
+    whole batch up to the order of the f32 sum."""
+    n_shards = mesh.size(list(mesh.mesh_dim_names).index(axis))
+    r = rewards.float()
+    total = r.sum()
+    dist.all_reduce(total, group=mesh.get_group(axis))
+    B = r.shape[0] * n_shards
+    if B <= 1:
+        return r
+    return r - (total - r) / (B - 1)
+
+
+def distributed_group_advantages(rewards, mesh, group_size: int, *,
+                                 axis: str = "data", eps: float = 1e-6):
+    """GRPO-style group-relative advantages, distributed: response groups
+    lie within a shard (``group_size`` divides the local batch), so the
+    normalization needs no communication at all. ``rewards``: this rank's
+    shard of a (B,) batch split over ``axis``."""
+    del mesh, axis                       # no communication
+    n = rewards.shape[0]
+    if n % group_size:
+        raise ValueError(f"local batch {n} is not a multiple of group_size "
+                         f"{group_size}")
+    return group_relative_advantages(rewards, group_size, eps)

@@ -168,10 +168,16 @@ class CompiledRolloutEngine:
     ``on_exhaust`` ("count", "raise" or "preempt" with
     ``admit_watermark``), ``pool_growth`` ("off" or "double" with
     ``pool_growth_max``) and ``speculation`` ("off", "self" or "draft",
-    with ``spec_k``, ``draft_layers`` and ``draft_model``). A
-    ``mesh_config`` raises ``NotImplementedError`` (multi-device is not
-    ported). Unlike the JAX engine, the defaults are the production path:
-    the kernels on the card, and their plain versions for CPU tensors.
+    with ``spec_k``, ``draft_layers`` and ``draft_model``) and
+    ``mesh_config``: a one-device ``MeshConfig`` on this process's rank
+    (``bind_mesh`` re-binds it on a selector switch); a config with dp or
+    pods above 1 raises ``NotImplementedError`` naming ROADMAP Queue 1 item
+    13, one with tp above 1 item 14. After each ``run``,
+    ``experience_shardings`` holds the harvested batch's layouts (an
+    ``ExperienceBatch`` of ``NamedLayout``s, the batch over ``data``), the
+    data dispatcher's source layouts. Unlike the JAX engine, the defaults
+    are the production path: the kernels on the card, and their plain
+    versions for CPU tensors.
     """
 
     def __init__(self, model, env, *, max_turns: int = 4,
@@ -199,8 +205,9 @@ class CompiledRolloutEngine:
                 f"cache_layout='dense'")
         self._check_pool_options(cache_layout, kv_dtype, on_exhaust,
                                  pool_growth, share_prefix)
-        if mesh_config is not None:
-            raise _unported("mesh_config (multi-device)", "9")
+        self._mesh_config = self._check_mesh(mesh_config)
+        # the layouts of the last harvested batch (the dispatcher's source)
+        self.experience_shardings: Optional[ExperienceBatch] = None
         if ACTION_BASE + env.n_actions > cfg.vocab_size:
             raise ValueError("the action tokens do not fit the vocabulary")
         if env.obs_len + max_turn_tokens + env.obs_len > max_context:
@@ -291,6 +298,39 @@ class CompiledRolloutEngine:
             if bad:
                 raise ValueError(f"{what} requires cache_layout='paged' "
                                  f"({why})")
+
+    # -- selector hook ① ----------------------------------------------------
+    @staticmethod
+    def _check_mesh(cfg):
+        """A one-device config on this rank; data and tensor parallelism
+        are later items."""
+        # the core package imports this engine (through its stages)
+        from repro_torch.core.resharding import current_rank
+        if cfg is None:
+            return None
+        if cfg.dp > 1 or cfg.pods > 1:
+            raise _unported(
+                f"mesh_config {cfg.name!r} (dp={cfg.dp}, pods={cfg.pods}): "
+                f"data-parallel rollout across ranks", "13")
+        if cfg.tp > 1:
+            raise _unported(f"mesh_config {cfg.name!r} (tp={cfg.tp}): a "
+                            f"tensor-parallel model", "14")
+        if cfg.device_offset != current_rank():
+            raise ValueError(
+                f"mesh_config {cfg.name!r} places the rollout on rank "
+                f"{cfg.device_offset}; this process is rank "
+                f"{current_rank()}")
+        return cfg
+
+    @property
+    def mesh_config(self):
+        """The MeshConfig the engine is bound to (None: this rank alone)."""
+        return self._mesh_config
+
+    def bind_mesh(self, mesh_config) -> None:
+        """Re-bind to another MeshConfig (a Parallelism Selector switch).
+        One device holds the same program under every one-device config."""
+        self._mesh_config = self._check_mesh(mesh_config)
 
     def min_pool_pages(self, batch: int) -> int:
         """Smallest pool for which ``on_exhaust="preempt"`` guarantees zero
@@ -1121,6 +1161,11 @@ class CompiledRolloutEngine:
             ref_logprobs=s.ref_logprobs[:N], rewards=rewards,
             returns=rewards, advantages=reinforce_advantages(rewards),
             context_len=s.context_len[:N], truncated=s.truncated[:N])
+        from repro_torch.core.resharding import local_mesh_config
+        from repro_torch.launch.mesh import _batch_spec
+        mesh_cfg = self._mesh_config or local_mesh_config()
+        self.experience_shardings = ExperienceBatch(
+            *(_batch_spec(mesh_cfg, x.shape) for x in exp))
         opt = lambda t: int(t) if t is not None else 0
         stats = common.summarize(
             s.turn_lengths[:N].cpu(), s.context_len[:N].cpu(),

@@ -22,6 +22,10 @@ y within 2^-6 s plus one bf16 ulp of each element: the plain chunked form
 rounds W and W x to bf16 before its sums, where the kernel keeps f32
 (``chip_smoke.py`` reports both against an f64 evaluation at the
 ssm_score shape: on an H100 the plain version was the further from it).
+The data dispatcher's tests run in a single-rank NCCL group: direct and
+centralized dispatch of a CUDA experience batch (bitwise, on the card),
+``all_to_all_resplit`` and the distributed advantages on one rank, and
+the async handle behind a side-stream consumer.
 """
 import dataclasses
 
@@ -1253,3 +1257,99 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
     g2.set_state(got["rng"])
     assert torch.equal(torch.rand(8, generator=g2, device="cuda"),
                        torch.rand(8, generator=gen, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# The data dispatcher in a world of one rank (NCCL allows one rank a card)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_world_of_one():
+    """A single-rank NCCL process group for the module's dispatcher tests
+    (made here unless one exists; destroyed after them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU, see README)")
+    import torch.distributed as dist
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    yield
+    if made:
+        dist.destroy_process_group()
+
+
+def _cuda_batch(B=8, T=32):
+    from repro_torch.rl.experience import ExperienceBatch
+    g = torch.Generator(device="cuda").manual_seed(3)
+    f = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    mask = f(B, T) > 0
+    return ExperienceBatch(
+        tokens=torch.randint(0, 1000, (B, T), generator=g, device="cuda",
+                             dtype=torch.int32),
+        gen_mask=mask, loss_mask=mask, logprobs=f(B, T),
+        ref_logprobs=f(B, T), rewards=f(B), returns=f(B), advantages=f(B),
+        context_len=torch.full((B,), T, dtype=torch.int32, device="cuda"),
+        truncated=f(B) > 1)
+
+
+def _layouts(name):
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.launch.mesh import _batch_spec
+    from repro_torch.rl.experience import ExperienceBatch
+    cfg = MeshConfig(name, 1, 1)
+    return ExperienceBatch(*(_batch_spec(cfg, x.shape)
+                             for x in _cuda_batch()))
+
+
+@pytest.mark.parametrize("strategy", ["direct", "centralized"])
+def test_dispatch_of_a_cuda_batch(dev, nccl_world_of_one, strategy):
+    """One card: nothing moves, every leaf comes back bitwise on the card;
+    direct hands on the same tensors, centralized new ones (its host
+    round trip)."""
+    from repro_torch.core.data_dispatcher import DataDispatcher
+    exp = _cuda_batch()
+    out, rep = DataDispatcher().dispatch(exp, _layouts("update"),
+                                         strategy=strategy,
+                                         src_shardings=_layouts("rollout"))
+    assert rep.moved_bytes == 0 and rep.total_bytes == exp.nbytes()
+    for a, b in zip(exp, out):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+        assert (b is a) == (strategy == "direct")
+
+
+def test_all_to_all_resplit_and_advantages_on_one_rank(dev,
+                                                       nccl_world_of_one):
+    from repro_torch.core.data_dispatcher import all_to_all_resplit
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.rl.algo import (distributed_reinforce_advantages,
+                                     reinforce_advantages)
+    mesh = MeshConfig("1x1", 1, 1).make_mesh("cuda")
+    x = torch.randn(8, 16, device="cuda")
+    assert torch.equal(all_to_all_resplit(x, mesh, "data", split_dim=1,
+                                          concat_dim=0), x)
+    r = torch.randn(32, device="cuda")
+    torch.testing.assert_close(distributed_reinforce_advantages(r, mesh),
+                               reinforce_advantages(r), atol=1e-6, rtol=0)
+
+
+def test_dispatch_handle_after_side_stream_consumer(dev, nccl_world_of_one):
+    """The async handoff on a side stream: a consumer enqueued against the
+    handle's batch before ``result()`` reads the right values, and the
+    report is logged once."""
+    from repro_torch.core.data_dispatcher import DataDispatcher
+    exp = _cuda_batch()
+    d = DataDispatcher()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        h = d.dispatch_async(exp, _layouts("update"),
+                             src_shardings=_layouts("rollout"))
+        y = h.batch.logprobs * 2 + h.batch.rewards[:, None]
+        assert d.log == []
+        _, rep = h.result()
+    torch.cuda.synchronize()
+    assert rep.strategy == "direct-async" and len(d.log) == 1
+    assert torch.equal(y, exp.logprobs * 2 + exp.rewards[:, None])
+    h.result()
+    assert len(d.log) == 1

@@ -24,6 +24,7 @@ from repro.rl.engine import common as jcommon
 from repro.rl.envs import make_env
 from repro_torch.bridge import params_from_numpy, to_torch
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.resharding import MeshConfig
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.fused_sample import ops as fs_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -167,7 +168,8 @@ def test_small_pool_counts_or_raises(models):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("mesh_config", object(), "item 9"),
+    ("mesh_config", MeshConfig("dp2", dp=2, tp=1), "item 13"),
+    ("mesh_config", MeshConfig("tp2", dp=1, tp=2), "item 14"),
 ])
 def test_unported_options_raise(models, option, value, item):
     tmodel = models[2]

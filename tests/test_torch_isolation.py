@@ -4,6 +4,7 @@ package; entry points default to the GPU and raise without one; the
 kernel loader raises without nvcc or CUDA."""
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -37,7 +38,21 @@ def test_no_jax_or_repro_imports(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
-    assert {"compiled.py", "layers.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"compiled.py", "layers.py", "ops.py", "chip_smoke.py",
+            "resharding.py", "data_dispatcher.py", "parallelism_selector.py",
+            "mesh.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_tpu_rate_or_memory_size(path):
+    """The JAX package's TPU figures (ICI's 50 GB/s, v5e's 16 GiB) have
+    no place in the port: its link rate is NVLink's and its memory the
+    card's."""
+    text = path.read_text()
+    patterns = (r"\bICI\b", r"v5e", r"16 \* 2\*\*30", r"(?<![\d.])50e9")
+    bad = [w for w in patterns if re.search(w, text)]
+    assert not bad, f"{path} states {bad}"
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(monkeypatch):

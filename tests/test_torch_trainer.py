@@ -19,8 +19,9 @@ relative: the same f32 math in another summation order, on the same bf16
 roundings of the reference's K/V (measured on the compiled backend: loss
 within 2.4e-8, KL within 6e-8, on both layouts). Then: the python backend's
 settings are checked, the options of the async pipeline and of fault
-tolerance act, unported options raise naming their ROADMAP item, and the
-CLI runs two smoke steps on the CPU on each backend."""
+tolerance act, a selector config beyond one device raises naming its
+ROADMAP item, and the CLI runs two smoke steps on the CPU on each
+backend."""
 import json
 
 import jax
@@ -38,6 +39,7 @@ from repro.rl.envs import make_env
 from repro_torch.bridge import params_from_numpy, to_torch
 from repro_torch.checkpoint import latest_step
 from repro_torch.configs import get_smoke_config
+from repro_torch.core.resharding import MeshConfig, replicated
 from repro_torch.core.stages import EarlTrainer, ExpPrepStage
 from repro_torch.launch import train as train_cli
 from repro_torch.models.registry import build_model
@@ -172,11 +174,23 @@ def test_python_backend_takes_its_own_settings(option, value):
                     rollout_backend="python", **{option: value})
 
 
+def _selector_of(cfg):
+    """A profiled selector whose only candidate is ``cfg``."""
+    from repro_torch.core.parallelism_selector import (ParallelismSelector,
+                                                       ProfileEntry)
+    sel = ParallelismSelector(
+        [cfg], lambda c, ctx: ProfileEntry(c, ctx, 1.0, True))
+    sel.profile()
+    return sel
+
+
 @pytest.mark.parametrize("option,value,item", [
-    ("selector", object(), "item 9"),
-    ("dispatcher", object(), "item 9"),
+    ("selector", _selector_of(MeshConfig("dp2", dp=2, tp=1)), "item 13"),
+    ("selector", _selector_of(MeshConfig("tp2", dp=1, tp=2)), "item 14"),
 ])
 def test_unported_options_raise(option, value, item):
+    """The selector is ported; a config it starts the engine on that needs
+    more than one device is not yet."""
     with pytest.raises(NotImplementedError, match=item):
         EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
                     env=TicTacToe(), device="cpu", **{option: value})
@@ -228,12 +242,16 @@ def test_fault_tolerance_and_async_options_take_effect(option, tmp_path):
 
 
 def test_dispatch_destination_raises():
+    """No destination: the batch passes as it is. A destination on another
+    rank needs a process group, which a single process has not."""
     tr = EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
                      env=TicTacToe(), device="cpu")
     exp = object()
     assert tr.dispatch_stage(exp) == (exp, None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tr.dispatch_stage(exp, dst_shardings=object())
+    batch = {"x": torch.ones(4, 2)}
+    with pytest.raises(RuntimeError, match="process group"):
+        tr.dispatch_stage(batch, dst_shardings={"x": replicated(
+            MeshConfig("r1", dp=1, tp=1, device_offset=1))})
 
 
 def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -274,11 +292,29 @@ def test_cli_runs_the_dense_layout_and_python_backend(tmp_path, flags):
 
 @pytest.mark.parametrize("flag,value,item", [
     ("--dispatch", "centralized", "item 9"),
+    ("--dispatch", "direct", "item 9"),
 ])
-def test_cli_flags_of_unported_features_raise(tmp_path, flag, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(["--smoke", "--device", "cpu", "--steps", "1",
-                        "--log", str(tmp_path / "t.jsonl"), flag, value])
+def test_cli_flags_of_unported_features_raise(tmp_path, monkeypatch, flag,
+                                              value, item):
+    """The flags that raised while unported (``item``: the ROADMAP item
+    that ported each) no longer raise: each reaches the trainer and one
+    smoke step runs."""
+    del item
+    seen = {}
+    real = EarlTrainer.__post_init__
+
+    def spy(self):
+        seen["strategy"] = self.dispatch_strategy
+        real(self)
+    monkeypatch.setattr(EarlTrainer, "__post_init__", spy)
+    log = tmp_path / "t.jsonl"
+    assert train_cli.main([
+        "--smoke", "--device", "cpu", "--steps", "1", "--batch", "2",
+        "--max-turns", "1", "--max-turn-tokens", "2", "--max-context", "64",
+        "--log", str(log), flag, value]) == 0
+    assert seen["strategy"] == value
+    assert [json.loads(x)["step"] for x in log.read_text().splitlines()] \
+        == [0]
 
 
 @pytest.mark.parametrize("flags,lags,is_weight", [
