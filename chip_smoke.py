@@ -9,7 +9,10 @@ Phases, in order; any failure raises and exits non-zero:
   1. device  — refuse to run without CUDA; print the card's name and power
                limit as nvidia-smi reports them.
   2. build   — compile every kernel under src/repro_torch/csrc/ with nvcc
-               (one process per source, in parallel).
+               (one process per source, all started at once, in the
+               background); each kernel phase waits for its own sources
+               only, and the build line (each source's nvcc seconds)
+               follows the last kernel phase.
   3. kernels — at the main path's shapes, hold each kernel against its
                plain PyTorch version on the card, elementwise within a
                tolerance set per case from its own output scale, and time
@@ -176,6 +179,34 @@ Phases, in order; any failure raises and exits non-zero:
  23. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
                KL 0.05, clip 0.2, remat "full"): reference folded, exact
                launch counts (the update runs the plain chunked form).
+     The ssm phases run mamba2-370m at 24 of its 48 layers (SSM_LAYERS),
+     and async_train's lag-1 fault-and-restart run (b) qwen2-0.5b at 6 of
+     its 24 (FAULT_LAYERS): cuts of depth that paid for the phases below,
+     listed with their old and new depth; every gate is kept and each
+     depth-dependent launch gate is computed from the cut config.
+     The moe and hybrid families (flash at hd 160, group 3 and group 1,
+     and sampling at V=49155 and 32000 are in the kernels phase):
+ 24. hybrid_path — zamba2-1.2b at its published widths (38 Mamba2
+               layers, 6 shared-attention sites, V=32000, bf16, random
+               weights) through CompiledRolloutEngine on its own dense
+               cache with the folded reference, B=N=32, max_turns 2,
+               max_turn_tokens 32, max_context 256: every episode
+               returned, decode attention exactly 6 sites x decode steps
+               x 2, one fused sample per generated-token step, no SSD
+               scan or other kernel launch (the Mamba layers decode
+               recurrently, as JAX's).
+     hybrid_score — ExpPrep's standalone pass over that batch with the
+               flash kernels: exactly one flash forward per site, the
+               log-probs against the plain pass at fp32 and within the
+               bf16 drift of the f32 evaluation.
+ 25. moe_train — one folded sync EarlTrainer step of granite-moe-3b-a800m
+               at its published widths (32 layers, 40 experts top-8,
+               V=49155, bf16, random weights made on the card) at the
+               train phase's settings: every episode returned, exact
+               decode attention (policy and reference), fused sampling
+               and flash forward, dq and dk/dv launches, the aux loss
+               finite and positive; rollout, ExpPrep and update seconds
+               and the peak memory.
 
 Prints JSON lines; the line before the last lists every kernel, and the
 last line is {"ok": true, "device": {...}}.
@@ -553,6 +584,33 @@ def phase_kernels(torch, report):
         bound_ms=b_ms, bound_by=b_by)
     emit({"phase": "kernels", "kernel": "fused_sample",
           "case": "gumbel_v50280", **cases["gumbel_v50280"]})
+    # granite-moe's V=49155 (odd: no cluster width divides it, rows after
+    # the first start off a 16-byte boundary and take the scalar loads)
+    # and zamba2's V=32000
+    for V3 in (49155, 32000):
+        lg3 = torch.randn((B, V3), generator=g, device=dev) * 3.0
+        gum3 = -torch.log(-torch.log(
+            torch.rand((B, V3), generator=g, device=dev).clamp_min(1e-38)))
+        tok, lp = fs_ops.fused_sample(lg3, gum3)
+        tok_r, lp_r = fused_sample_ref(lg3, gum3)
+        torch.cuda.synchronize()
+        name = f"gumbel_v{V3}"
+        if not torch.equal(tok, tok_r):
+            raise AssertionError(f"fused_sample {name}: tokens differ")
+        atol = ((V3 / 1024 + 60) * 2.0 ** -24
+                + 8 * 2.0 ** -23 * float(lp_r.abs().max()))
+        chk = held(torch, lp, lp_r, atol, 0.0)
+        if not chk["ok"]:
+            raise AssertionError(f"fused_sample {name}: {chk}")
+        b_ms, b_by = bound(2 * B * V3 * 4 + B * 8, 4 * B * V3)
+        cases[name] = dict(
+            chk, tokens_equal=True,
+            plan=fs_ops.cluster_plan(B, V3, _build.sm_count(0)),
+            ms=time_cold(torch, lambda: fs_ops.fused_sample(lg3, gum3)),
+            plain_ms=time_cold(torch, lambda: fused_sample_ref(lg3, gum3)),
+            bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "kernels", "kernel": "fused_sample", "case": name,
+              **cases[name]})
     # the engine samples at temperature 1.0 from aligned logits
     report["fused_sample"] = dict(cases["gumbel"], cases=cases)
 
@@ -599,7 +657,8 @@ def phase_flash(torch, report):
     """The flash-attention kernels at the update's shapes: B=32, S=256,
     14/2 heads, hd 64, causal, bf16 (the main path) and fp32, and in bf16
     at a long context, B=4, S=2048, where the forward crosses the tensor
-    cores' balance. Each is held against ``ref.py`` and timed beside its
+    cores' balance; at granite-moe's heads (24/8, group 3) in bf16, and at
+    stablelm-12b's (32/8, hd 160) in bf16 and fp32, both at B=32, S=256. Each is held against ``ref.py`` and timed beside its
     bound, the plain version and torch's scaled_dot_product_attention
     (forward, or its autograd backward, which computes dq, dk and dv in
     one call). At the update's bf16 shape every case also reports the
@@ -612,17 +671,24 @@ def phase_flash(torch, report):
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(5)
-    H, KV, hd = 14, 2, 64
     cases = {"flash_fwd": {}, "flash_dq": {}, "flash_dkv": {}}
     # Tolerances at each output's own scale s = max|ref|: O and L within
     # 32 f32 ulps of s (atol 2^-18 s), as for paged attention; gradients
     # within 2^-14 s, because each sums up to 7 x S products of terms
     # that cancel in dS = P(dP - D). bf16 outputs add one bf16 ulp of
     # each element (rtol 2^-7).
-    for name, B, S, dt, peak, rtol in (
-            ("bf16", 32, 256, torch.bfloat16, BF16_FLOPS, 2.0 ** -7),
-            ("fp32", 32, 256, torch.float32, F32_FLOPS, 0.0),
-            ("bf16_s2048", 4, 2048, torch.bfloat16, BF16_FLOPS, 2.0 ** -7)):
+    bf16 = (torch.bfloat16, BF16_FLOPS, 2.0 ** -7)
+    f32 = (torch.float32, F32_FLOPS, 0.0)
+    for name, B, S, H, KV, hd, (dt, peak, rtol) in (
+            ("bf16", 32, 256, 14, 2, 64, bf16),
+            ("fp32", 32, 256, 14, 2, 64, f32),
+            ("bf16_s2048", 4, 2048, 14, 2, 64, bf16),
+            # granite-moe-3b-a800m's update (24/8 heads: group 3)
+            ("bf16_granite", 32, 256, 24, 8, 64, bf16),
+            # stablelm-12b's attention (32/8 heads, hd 160) at the
+            # update's B and S: the 160-wide tiles and m64n160 products
+            ("bf16_hd160", 32, 256, 32, 8, 160, bf16),
+            ("fp32_hd160", 32, 256, 32, 8, 160, f32)):
         pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
@@ -680,7 +746,8 @@ def phase_flash(torch, report):
         plain_bwd_ms = lib_bwd_ms = None
         for kname, chk in checks.items():
             ok = all(c["ok"] for c in chk)
-            case = dict(B=B, S=S, max_abs_err=max(c["max_abs_err"]
+            case = dict(B=B, S=S, H=H, KV=KV, hd=hd,
+                        max_abs_err=max(c["max_abs_err"]
                                                   for c in chk),
                         atol=[c["atol"] for c in chk], rtol=rtol,
                         err_over_tol=max(c["err_over_tol"] for c in chk))
@@ -869,7 +936,8 @@ SPEC_SYMBOLS = ("spec_verify_kernel",)
 def phase_decode(torch, report):
     """The decode attention kernel at the dense cache's shapes: B=32 rows,
     S=256 slots, 14/2 heads, hd 64, bf16 (the main path) and fp32, under
-    four masks, and in bf16 at S=2048 under a random fill. Each case is
+    four masks, and in bf16 at S=2048 under a random fill, and at
+    granite-moe's (24/8) and zamba2's (32/32) heads. Each case is
     held against ``ref.py`` and timed beside its bound, the plain version
     and torch's scaled_dot_product_attention with a boolean mask
     (library_ms; the port never calls it). The bf16 fill case also
@@ -960,6 +1028,18 @@ def phase_decode(torch, report):
     run_case("bf16_fill_s2048", q, k, v,
              (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
              BF16_FLOPS, 2.0 ** -7)
+    # the dense caches of granite-moe-3b-a800m (24/8 heads: group 3) and
+    # of zamba2-1.2b's attention sites (32/32: group 1), bf16, at S=256
+    S = 256
+    fill = torch.randint(1, S, (B, 1), generator=g, device=dev)
+    for name, Hc, KVc in (("bf16_fill_granite", 24, 8),
+                          ("bf16_fill_zamba2", 32, 32)):
+        q = torch.randn((B, Hc, hd), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, KVc, hd), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        run_case(name, q, k, v,
+                 (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
+                 BF16_FLOPS, 2.0 ** -7)
     # the main path: the bf16 reference stream over a filling cache
     report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
 
@@ -1118,6 +1198,8 @@ PATH = dict(cache_layout="paged", attn_impl="paged", sampling="fused",
 # on an H100, 71 s at 12 layers, and each layer's device work is
 # the same at any depth
 TRACE_LAYERS = 6
+# the depth of async_train's lag-1 fault-and-restart run (b)
+FAULT_LAYERS = 6
 
 
 def phase_path(torch, model, params, report):
@@ -2306,6 +2388,8 @@ def phase_shared_train(torch, model, report):
 
 SSM = dict(cache_layout="dense", sampling="fused", temperature=1.0,
            max_turns=4, max_turn_tokens=32, max_context=512)
+# the depth the ssm phases run mamba2-370m at (of its 48 layers)
+SSM_LAYERS = 24
 
 
 def _ssm_counters():
@@ -2326,7 +2410,8 @@ def _read_counters(ops_by_name):
 
 
 def phase_ssm_path(torch, model, params, report):
-    """Full-width mamba2-370m (48 layers, d=1024, 32 SSM heads x 64, state
+    """mamba2-370m at its published widths, SSM_LAYERS = 24 of its 48
+    layers (d=1024, 32 SSM heads x 64, state
     128, V=50280, bf16, random weights from a seeded generator) through
     CompiledRolloutEngine on TicTacToe on its recurrent cache
     (cache_layout="dense"), sampling="fused", with the reference stream
@@ -2392,7 +2477,7 @@ def phase_ssm_score(torch, model, params, exp, report):
     episodes of ssm_path's batch (32 x 512 tokens): the full-sequence
     forward with attn_impl="pallas", the trainer's choice for ssm, with
     every counter set to 0 just before it: exactly one SSD scan per layer,
-    48, and nothing else. Log-probs are compared at the scored positions
+    24 (SSM_LAYERS), and nothing else. Log-probs are compared at the scored positions
     (1 <= t < context_len; the KL reads the generated ones among them).
 
     - fp32: the same weights cast to f32, the kernel pass against the
@@ -2592,14 +2677,33 @@ def phase_ssm_train(torch, model, report):
 
 
 class _RecordingUpdate:
-    """Wraps the trainer's UpdateStage to keep the batches it is given."""
+    """Wraps the trainer's UpdateStage to keep the batches it is given and
+    the metrics it returns."""
 
     def __init__(self, stage):
-        self.stage, self.batches = stage, []
+        self.stage, self.batches, self.metrics = stage, [], []
 
     def __call__(self, params, opt_state, exp):
         self.batches.append(exp)
-        return self.stage(params, opt_state, exp)
+        out = self.stage(params, opt_state, exp)
+        self.metrics.append(out[2])
+        return out
+
+
+class _TimedStage:
+    """Wraps a trainer stage to keep its wall seconds per call (the card
+    synchronized on both sides)."""
+
+    def __init__(self, torch, stage):
+        self.torch, self.stage, self.seconds = torch, stage, []
+
+    def __call__(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.stage(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
 
 
 # the trainer settings of phase_train and phase_async_train
@@ -3008,11 +3112,14 @@ def phase_async_train(torch, model, train_params, report):
                              f"{out}")
     del tr, params, hist
 
-    # (b) lag 1, a checkpoint at step 2 and an update fault at step 2
+    # (b) lag 1, a checkpoint at step 2 and an update fault at step 2, at
+    # FAULT_LAYERS layers (the pipeline's mechanics do not depend on the
+    # depth; the full 24 layers took 83 s of the script here)
     ckdir = tempfile.mkdtemp(prefix="earl-ckpt-")
+    m_b = build_model(dataclasses.replace(cfg, n_layers=FAULT_LAYERS))
     try:
         faults = FaultInjector.parse(["update@2"])
-        tr = mk(pipeline="async", max_policy_lag=1, is_rho_max=2.0,
+        tr = mk(m_b, pipeline="async", max_policy_lag=1, is_rho_max=2.0,
                 faults=faults)
         dev = tr.device
         sched = sched_mod.PipelineSchedule(
@@ -3049,12 +3156,12 @@ def phase_async_train(torch, model, train_params, report):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         del p0, o0, ref0
         counts = read()
-        expected = train_launch_gate(cfg, tr.env.obs_len, tr.max_turn_tokens,
-                                     counts, 4, 3)
+        expected = train_launch_gate(m_b.cfg, tr.env.obs_len,
+                                     tr.max_turn_tokens, counts, 4, 3)
         ck_file = os.path.join(ckdir, "step_00000002", "state.pt")
         isw = [r.is_weight_mean for r in hist]
         out = dict(phase="async_train", part="lag1_fault_restart",
-                   steps=[r.step for r in hist],
+                   n_layers=m_b.cfg.n_layers, steps=[r.step for r in hist],
                    policy_lag=[r.policy_lag for r in hist],
                    params_version=[r.params_version for r in hist],
                    fault_fired=faults.fired("update"),
@@ -3148,6 +3255,267 @@ def phase_async_train(torch, model, train_params, report):
 
 
 # ---------------------------------------------------------------------------
+# The moe and hybrid families
+# ---------------------------------------------------------------------------
+
+def _all_counters():
+    """Every launch counter of the port's kernels, by kernel name."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    for ops in (da_ops, fa_ops, fs_ops, pa_ops, sv_ops, ssd_ops):
+        ops.reset_launches()
+    return lambda: dict(paged_attention=pa_ops.launches,
+                        fused_sample=fs_ops.launches,
+                        flash_fwd=fa_ops.launches["fwd"],
+                        flash_dq=fa_ops.launches["dq"],
+                        flash_dkv=fa_ops.launches["dkv"],
+                        decode_attention=da_ops.launches,
+                        spec_verify=sv_ops.launches,
+                        ssd_scan=ssd_ops.launches)
+
+
+def _init_model(torch, cfg):
+    """``cfg``'s model with random bf16 weights from seed 0, made on the
+    card; emits the init line."""
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": cfg.arch_id, "family": cfg.family,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size,
+          "ssm": vars(cfg.ssm) if cfg.ssm is not None else None,
+          "params": sum(t.numel() for t in params.values()),
+          "param_count": cfg.param_count(), "remat": cfg.remat,
+          "seconds": time.perf_counter() - t0})
+    return model, params
+
+
+HYBRID = dict(cache_layout="dense", sampling="fused", temperature=1.0,
+              max_turns=2, max_turn_tokens=32, max_context=256)
+
+
+def phase_hybrid_path(torch, report):
+    """Full-width zamba2-1.2b (38 Mamba2 layers, d=2048, 64 SSM heads x
+    64, state 64, one shared attention block of 32 heads x 64 after every
+    6th layer: 6 sites, V=32000, bf16, random weights from a seeded
+    generator) through CompiledRolloutEngine on TicTacToe on its own
+    cache (cache_layout="dense": the Mamba states and one KV ring per
+    site), sampling="fused", the reference stream folded in, B=N=32,
+    max_turns 2, max_turn_tokens 32, max_context 256. Every launch counter
+    set to 0 just before the run and read just after. Gates: every
+    episode returned; decode attention exactly sites x decode steps x 2
+    (policy and reference); one fused sample per generated-token step; no
+    flash, paged, spec-verify or SSD scan launch (the Mamba layers decode
+    recurrently, as JAX's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    model, params = _init_model(torch, get_config("zamba2-1.2b"))
+    sites = hybrid.n_attn_sites(model.cfg)
+    engine = CompiledRolloutEngine(model, TicTacToe(), **HYBRID)
+    turns = count_calls(engine, "turn_step")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    read = _all_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp, st = engine.run(params, 32, 32, generator=gen, ref_params=params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read()
+    mtt, olen = engine.max_turn_tokens, engine.env.obs_len
+    decode_steps = olen + len(turns) * (mtt + olen)
+    expected = dict.fromkeys(counts, 0)
+    expected["decode_attention"] = 2 * sites * decode_steps
+    expected["fused_sample"] = len(turns) * mtt
+    gen_tokens = int(exp.gen_mask.sum())
+    out = dict(phase="hybrid_path", arch=model.cfg.arch_id,
+               attn_sites=sites, attn_impl=engine.attn_impl, seconds=secs,
+               generated_tokens=gen_tokens, tokens_per_s=gen_tokens / secs,
+               macro_steps=len(turns), decode_steps=decode_steps,
+               decode_steps_per_s=decode_steps / secs, launches=counts,
+               expected_launches=expected,
+               episodes_started=st.episodes_started,
+               episodes_returned=st.episodes_returned,
+               mean_context_len=st.mean_context_len,
+               mean_turn_len=st.mean_turn_len, mean_return=st.mean_return,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (st.episodes_started == st.episodes_returned == 32
+            and counts == expected and len(turns) > 0
+            and bool(torch.isfinite(exp.logprobs).all())
+            and bool(torch.isfinite(exp.ref_logprobs).all())
+            and bool((exp.ref_logprobs[exp.gen_mask] < 0).all())):
+        raise AssertionError(f"hybrid_path checks failed: {out}")
+    report["hybrid_launches"] = counts
+    phase_hybrid_score(torch, model, params, exp, sites)
+
+
+def phase_hybrid_score(torch, model, params, exp, sites):
+    """ExpPrep's standalone reference pass (ref_folded=False) over the
+    hybrid_path batch (32 x 257 tokens), with attn_impl="flash", the
+    trainer's choice for the hybrid: exactly one flash forward per site
+    and nothing else (the Mamba layers take the plain chunked form, as in
+    JAX). Log-probs at the scored positions (1 <= t < context_len):
+
+    - fp32 (the weights cast to f32): the flash pass against the plain
+      pass ("xla") within 1e-4 absolute, the same f32 math in another
+      order through 38 layers;
+    - bf16 (the main path): random weights make the residual stream
+      amplify bf16 roundings on every route, so the flash pass is held
+      against its drift from the f32 plain pass: no further from it than
+      1.25 times the bf16 plain pass's own drift d_plain, and within
+      d_plain + d_folded of the folded recurrent log-probs at the
+      generated positions.
+    Wall seconds of the flash and the plain pass."""
+    from repro_torch.core.stages import ExpPrepStage
+
+    kern = ExpPrepStage(model, attn_impl="flash")
+    plain = ExpPrepStage(model, attn_impl="xla")
+    kw = dict(ref_params=params, ref_folded=False, reuse_behavior_lp=False)
+    read = _all_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp_k = kern(exp, **kw).ref_logprobs
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t0
+    counts = read()
+    t0 = time.perf_counter()
+    lp_x = plain(exp, **kw).ref_logprobs
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    p32 = {k: v.float() for k, v in params.items()}
+    kw32 = dict(kw, ref_params=p32)
+    lp_k32 = kern(exp, **kw32).ref_logprobs
+    lp_x32 = plain(exp, **kw32).ref_logprobs
+    del p32
+    expected = dict.fromkeys(counts, 0)
+    expected["flash_fwd"] = sites
+    idx = torch.arange(exp.seq, device=exp.tokens.device)[None, :]
+    fed = (idx >= 1) & (idx < exp.context_len[:, None])
+    gen = exp.gen_mask
+    dmax = lambda a, b_, m: float((a - b_)[m].abs().max())
+    d_plain = dmax(lp_x, lp_x32, fed)
+    d_kern = dmax(lp_k, lp_x32, fed)
+    d_fold = dmax(exp.ref_logprobs, lp_x32, gen)
+    checks = dict(
+        fp32_vs_xla=dict(max_abs_dlogprob=dmax(lp_k32, lp_x32, fed),
+                         tolerance=1e-4,
+                         ok=dmax(lp_k32, lp_x32, fed) <= 1e-4),
+        bf16_drift_vs_f32=dict(kernel=d_kern, plain=d_plain, folded=d_fold,
+                               tolerance=1.25 * d_plain,
+                               ok=d_kern <= 1.25 * d_plain),
+        bf16_vs_folded=dict(max_abs_dlogprob=dmax(lp_k, exp.ref_logprobs,
+                                                  gen),
+                            tolerance=d_plain + d_fold,
+                            ok=dmax(lp_k, exp.ref_logprobs, gen)
+                            <= d_plain + d_fold))
+    finite = bool(torch.isfinite(lp_k[fed]).all())
+    out = dict(phase="hybrid_score", batch=list(exp.tokens.shape),
+               launches=counts, expected_launches=expected,
+               flash_pass_s=kern_s, plain_pass_s=plain_s, finite=finite,
+               scored_positions=int(fed.sum()), **checks)
+    emit(out)
+    if not (counts == expected and finite
+            and all(c["ok"] for c in checks.values())):
+        raise AssertionError(f"hybrid_score checks failed: {out}")
+
+
+def phase_moe_train(torch, report):
+    """One folded sync EarlTrainer step of granite-moe-3b-a800m at its
+    published widths (32 layers, d=1536, 24/8 heads x 64, 40 experts of
+    512 top-8, V=49155, bf16, random weights from seed 0 made on the
+    card), at the train phase's settings (TicTacToe, B=N=32, max_turns 4,
+    max_turn_tokens 32, max_context 256, KL 0.05, clip 0.2, remat
+    "full"). The layout resolves to the dense KV ring; the rollout decodes
+    with the drop-free dense MoE and the Update dispatches with capacity
+    (one-hot, groups of 512 tokens across rows), as JAX's. Every counter
+    set to 0 just before the step and read just after. Gates: every
+    episode returned; exactly 2 x 32 decode attentions per decode step
+    (policy and folded reference), one fused sample per generated-token
+    step, the flash forward twice per layer (remat), dq and dk/dv once;
+    nothing else; the aux loss finite and positive, loss and KL finite,
+    the params changed. Reports the rollout, ExpPrep and update seconds
+    and the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.rl.envs import TicTacToe
+
+    cfg = get_config("granite-moe-3b-a800m")
+    model = build_model(cfg)
+    tr = EarlTrainer(model=model, env=TicTacToe(),
+                     optimizer=adamw(3e-4, weight_decay=0.0), **TRAIN)
+    turns = count_calls(tr.rollout, "turn_step")
+    tr.update_stage = _RecordingUpdate(tr.update_stage)
+    tr.expprep_stage = _TimedStage(torch, tr.expprep_stage)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state, ref = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    emit({"phase": "init", "arch": cfg.arch_id, "family": cfg.family,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "moe": vars(cfg.moe),
+          "params": sum(t.numel() for t in params.values()),
+          "param_count": cfg.param_count(),
+          "active_param_count": cfg.active_param_count(),
+          "remat": cfg.remat, "seconds": init_s})
+    read = _all_counters()
+    torch.cuda.synchronize()
+    new, opt_state, rec = tr.run_step(0, params, opt_state, ref)
+    torch.cuda.synchronize()
+    counts = read()
+    nl, mtt, olen = cfg.n_layers, tr.max_turn_tokens, tr.env.obs_len
+    decode_steps = olen + len(turns) * (mtt + olen)
+    expected = dict.fromkeys(counts, 0)
+    expected.update(decode_attention=2 * nl * decode_steps,
+                    fused_sample=len(turns) * mtt,
+                    flash_fwd=(2 if cfg.remat == "full" else 1) * nl,
+                    flash_dq=nl, flash_dkv=nl)
+    metrics = tr.update_stage.metrics[-1]
+    aux = float(metrics["aux_loss"])
+    batch = tr.update_stage.batches[-1]
+    # the router's gradient holds the aux loss's, whatever the rewards
+    changed = not torch.equal(new["layers.moe.router"],
+                              params["layers.moe.router"])
+    out = dict(phase="moe_train", arch=cfg.arch_id, step=0,
+               ref_folded=tr.ref_folded, cache_layout=tr.cache_layout,
+               attn_impl=tr.rollout.attn_impl,
+               moe_dispatch=cfg.moe_dispatch, mean_return=rec.mean_return,
+               mean_context_len=rec.mean_context_len,
+               truncated_frac=rec.truncated_frac, loss=rec.loss, kl=rec.kl,
+               aux_loss=aux, rollout_s=rec.rollout_wall_s,
+               expprep_s=tr.expprep_stage.seconds[-1],
+               update_s=rec.update_wall_s, step_s=rec.wall_time_s,
+               macro_steps=len(turns), decode_steps=decode_steps,
+               update_tokens=batch.tokens.numel(),
+               update_tokens_per_s=batch.tokens.numel() / rec.update_wall_s,
+               launches=counts, expected_launches=expected,
+               episodes_returned=int(batch.tokens.shape[0]),
+               params_changed=changed,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(out)
+    if not (tr.ref_folded and tr.cache_layout == "dense"
+            and counts == expected and len(turns) > 0 and changed
+            and batch.tokens.shape[0] == TRAIN["rollout_episodes"]
+            and bool((batch.context_len > 0).all())
+            and math.isfinite(aux) and aux > 0
+            and math.isfinite(rec.loss) and math.isfinite(rec.kl)):
+        raise AssertionError(f"moe_train checks failed: {out}")
+    report["moe_train_launches"] = counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3157,7 +3525,6 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models.registry import build_model
 
     # full-f32 matmuls wherever results are compared
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3173,24 +3540,25 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
-    emit({"phase": "build", "seconds": _build.build_all()})
+    # every nvcc starts now; each kernel phase below waits for its own
+    # sources only, so the kernels that are built run while the others
+    # compile
+    t_build = time.perf_counter()
+    _build.start_all()
+    emit({"phase": "build_started", "sources": list(_build.KERNELS)})
 
     report = {}
     phase_kernels(torch, report)
-    phase_flash(torch, report)
     phase_decode(torch, report)
+    phase_flash(torch, report)
     phase_spec_verify(torch, report)
     phase_ssd(torch, report)
-    cfg = get_config("qwen2-0.5b")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    emit({"phase": "init", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-          "params": sum(t.numel() for t in params.values()),
-          "remat": cfg.remat, "seconds": time.perf_counter() - t0})
+    _build.build_all()
+    emit({"phase": "build", "seconds": max(_build.build_seconds.values(),
+                                           default=0.0),
+          "until_all_loaded_s": time.perf_counter() - t_build,
+          "per_source_s": dict(_build.build_seconds)})
+    model, params = _init_model(torch, get_config("qwen2-0.5b"))
     engine = phase_path(torch, model, params, report)
     dense_engine = phase_dense_path(torch, model, params, report)
     phase_branch(torch, model, params)
@@ -3227,22 +3595,19 @@ def main() -> int:
     phase_shared_train(torch, model, report)
     del model
 
-    cfg = get_config("mamba2-370m")
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    emit({"phase": "init", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-          "ssm": vars(cfg.ssm),
-          "params": sum(t.numel() for t in params.values()),
-          "remat": cfg.remat, "seconds": time.perf_counter() - t0})
+    # mamba2-370m at SSM_LAYERS of its 48 layers (the full depth took
+    # 116 s of the script in its four phases)
+    model, params = _init_model(torch, dataclasses.replace(
+        get_config("mamba2-370m"), n_layers=SSM_LAYERS))
     ssm_engine, ssm_exp = phase_ssm_path(torch, model, params, report)
     phase_ssm_score(torch, model, params, ssm_exp, report)
     phase_ssm_sync(torch, ssm_engine, params)
     del ssm_engine, ssm_exp, params
     phase_ssm_train(torch, model, report)
+    del model
+
+    phase_hybrid_path(torch, report)
+    phase_moe_train(torch, report)
 
     kernels = []
     for name, src, replaces in (
@@ -3250,15 +3615,15 @@ def main() -> int:
              "src/repro/kernels/paged_attention/kernel.py:33"),
             ("fused_sample", "src/repro_torch/csrc/fused_sample.cu",
              "src/repro/kernels/fused_sample/kernel.py:34"),
-            ("flash_fwd", "src/repro_torch/csrc/flash_attention.cu",
+            ("flash_fwd", "src/repro_torch/csrc/flash_fwd.cuh",
              "src/repro/kernels/flash_attention/kernel.py:28"),
-            ("flash_dq", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            ("flash_dq", "src/repro_torch/csrc/flash_bwd.cuh",
              "src/repro/kernels/flash_attention/bwd_kernel.py:39"),
-            ("flash_dkv", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            ("flash_dkv", "src/repro_torch/csrc/flash_bwd.cuh",
              "src/repro/kernels/flash_attention/bwd_kernel.py:63"),
             ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/kernel.py:28"),
-            ("spec_verify", "src/repro_torch/csrc/spec_verify.cu",
+            ("spec_verify", "src/repro_torch/csrc/spec_verify.cuh",
              "src/repro/kernels/spec_verify/kernel.py:44"),
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:31")):

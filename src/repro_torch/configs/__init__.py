@@ -1,4 +1,8 @@
-from repro_torch.configs.base import (ARCH_REGISTRY, ModelConfig, get_config,
-                                     get_smoke_config)
+from repro_torch.configs.base import (ARCH_IDS, ARCH_REGISTRY, INPUT_SHAPES,
+                                     InputShape, ModelConfig, MoEConfig,
+                                     SSMConfig, get_config, get_smoke_config,
+                                     list_archs)
 
-__all__ = ["ARCH_REGISTRY", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ARCH_REGISTRY", "INPUT_SHAPES", "InputShape",
+           "ModelConfig", "MoEConfig", "SSMConfig", "get_config",
+           "get_smoke_config", "list_archs"]

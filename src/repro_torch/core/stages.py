@@ -77,18 +77,30 @@ from repro_torch.utils.faults import undersize_pool
 # Update. The ssm decode has no attention and ignores its value (JAX's
 # decode_step drops it); ssm's ExpPrep pass runs the SSD scan kernel, and
 # its Update the plain chunked form under autograd, as JAX's does: the
-# kernel has no backward in either package.
+# kernel has no backward in either package. moe decodes on its dense KV
+# ring (the decode kernel once per layer) and its full-sequence passes
+# take the flash kernels. In the hybrid the value reaches the shared-
+# attention sites only: its Mamba layers run the plain chunked form on
+# every pass, as JAX's forward and prefill do, so no hybrid pass launches
+# the SSD scan.
+_XLA = {"dense": "xla", "ref": "xla", "expprep": "xla", "update": "xla"}
 _ATTN = {
     "dense": {
         "paged": {"paged": "paged", "dense": "pallas", "ref": "pallas",
                   "expprep": "flash", "update": "flash"},
-        "xla": {"paged": "xla", "dense": "xla", "ref": "xla",
-                "expprep": "xla", "update": "xla"}},
+        "xla": dict(_XLA, paged="xla")},
     "ssm": {
         "paged": {"dense": "pallas", "ref": "pallas", "expprep": "pallas",
                   "update": "xla"},
-        "xla": {"dense": "xla", "ref": "xla", "expprep": "xla",
-                "update": "xla"}},
+        "xla": _XLA},
+    "moe": {
+        "paged": {"dense": "pallas", "ref": "pallas", "expprep": "flash",
+                  "update": "flash"},
+        "xla": _XLA},
+    "hybrid": {
+        "paged": {"dense": "pallas", "ref": "pallas", "expprep": "flash",
+                  "update": "flash"},
+        "xla": _XLA},
 }
 
 
@@ -267,8 +279,9 @@ class EarlTrainer:
     into the rollout, and every kernel on the card (``device=None`` means
     the GPU and raises without one). ``cache_layout`` and ``sampling``
     default to the backend's own: "paged" and "fused" for the compiled
-    engine, "dense" and "reference" for the python one; the ssm family's
-    layout is "dense" (its recurrent cache; "paged" raises). With
+    engine, "dense" and "reference" for the python one; the ssm, moe and
+    hybrid families' layout is "dense" (their own caches; "paged"
+    raises). With
     ``speculation`` ("self" or "draft", with ``spec_k`` and
     ``draft_layers``) an unset ``sampling`` is "reference", JAX's default,
     and the reference pass is not folded. The paged pool's options reach
@@ -349,7 +362,7 @@ class EarlTrainer:
         python = self.rollout_backend == "python"
         if self.cache_layout is None:
             # the dense family's engine default is the paged pool; the
-            # ssm family decodes on its recurrent cache (JAX's default)
+            # other families decode on their own caches (JAX's default)
             self.cache_layout = ("dense" if python
                                  or self.model.cfg.family != "dense"
                                  else "paged")

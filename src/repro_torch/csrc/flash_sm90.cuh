@@ -9,11 +9,13 @@
 // Tiles. Every tile is 64 rows of one head of a (B, n, heads, HD) bf16
 // tensor in the model layout, loaded by TMA with a 4-D box (CW, 1, 64, 1)
 // over (HD, heads, n, B). A row of CW elements is one swizzle span: 128 B
-// (CW = 64) for HD 64 and 128, 64 B (CW = 32) for HD 32. HD 128 is two
-// such column chunks, one after the other. TMA writes each chunk with the
-// matching 128 B / 64 B swizzle and fills rows past n with zeros; every
-// tile starts on a 1024-byte boundary, so the swizzle pattern wgmma reads
-// is the one TMA wrote.
+// (CW = 64) for HD 64 and 128, 64 B (CW = 32) for HD 32 and 160 (a 320-byte
+// row is 2.5 spans of 128 B, so HD 160 takes five 64 B chunks). HD 128 is
+// two column chunks, HD 160 five, one after the other. TMA writes each
+// chunk with the matching 128 B / 64 B swizzle and fills rows past n with
+// zeros; every tile starts on a 1024-byte boundary, so the swizzle pattern
+// wgmma reads is the one TMA wrote. An MN-major operand spans the chunks:
+// its descriptor's leading byte offset is the chunk stride.
 //
 // Products (m64nNk16, bf16 in, f32 accumulators in registers):
 //   - K-major operands (the reduction runs along HD, the contiguous axis):
@@ -45,12 +47,13 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Shared-memory geometry of one 64-row tile of a head of width HD.
 template <int HD>
 struct Tile {
-  static constexpr int kSwizzle = HD >= 64 ? 128 : 64;  // bytes per row
+  static constexpr int kSwizzle = HD % 64 == 0 ? 128 : 64;  // bytes a row
   static constexpr int kCW = kSwizzle / 2;    // elements per chunk row
   static constexpr int kChunks = HD / kCW;
   static constexpr int kChunkBytes = kRows * kSwizzle;
   static constexpr int kBytes = kChunks * kChunkBytes;  // = 64 * HD * 2
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim 32, 64, 128");
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 160,
+                "head_dim 32, 64, 128, 160");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -351,6 +354,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 160, f32) += A (64 x 16, registers) * B (16 x 160, smem,
+// MN-major): head_dim 160.
+__device__ __forceinline__ void wgmma_rs(float (&d)[80],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

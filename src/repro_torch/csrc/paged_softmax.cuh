@@ -583,11 +583,13 @@ int launch_hd(int hd, const Args& a, int B, int n_chunks, cudaStream_t s) {
 #undef PS_CASE
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only). Checks
-// the plan (whole pages, none empty, at most kMaxChunks) and the shape.
-template <template <typename, int, int, int> class Kern, int kMaxR>
-int launch_all(Args a, int B, int hd, int n_chunks, int q_dtype,
-               int kv_dtype, void* stream) {
+// The launch for pools of element type KT (q float32 or bfloat16, dtype
+// code 0 or 1). Checks the plan (whole pages, none empty, at most
+// kMaxChunks) and the shape.
+template <template <typename, int, int, int> class Kern, int kMaxR,
+          typename KT>
+int launch_kv(Args a, int B, int hd, int n_chunks, int q_dtype,
+              void* stream) {
   if (B == 0 || a.KV == 0 || a.K == 0) return 0;
   const int np = a.NP > 0 ? a.NP : 1;
   if (a.K < 0 || a.group < 1 || a.K * a.group > kMaxR * kMaxWarps ||
@@ -599,14 +601,24 @@ int launch_all(Args a, int B, int hd, int n_chunks, int q_dtype,
     return static_cast<int>(cudaErrorInvalidValue);
   a.scale = 1.0f / sqrtf(static_cast<float>(hd));
   a.q_bf16 = q_dtype;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch_hd<Kern, kMaxR, KT>(hd, a, B, n_chunks,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).
+template <template <typename, int, int, int> class Kern, int kMaxR>
+int launch_all(Args a, int B, int hd, int n_chunks, int q_dtype,
+               int kv_dtype, void* stream) {
   switch (kv_dtype) {
     case 0:
-      return launch_hd<Kern, kMaxR, float>(hd, a, B, n_chunks, s);
+      return launch_kv<Kern, kMaxR, float>(a, B, hd, n_chunks, q_dtype,
+                                           stream);
     case 1:
-      return launch_hd<Kern, kMaxR, __nv_bfloat16>(hd, a, B, n_chunks, s);
+      return launch_kv<Kern, kMaxR, __nv_bfloat16>(a, B, hd, n_chunks,
+                                                   q_dtype, stream);
     case 2:
-      return launch_hd<Kern, kMaxR, int8_t>(hd, a, B, n_chunks, s);
+      return launch_kv<Kern, kMaxR, int8_t>(a, B, hd, n_chunks, q_dtype,
+                                            stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,9 @@
-// Speculative verify attention for Hopper (sm_90a), one launch per call,
-// plain C entry point.
+// Speculative verify attention for Hopper (sm_90a), one launch per call:
+// the kernel and its launcher. The entry points are three translation
+// units, one per pool dtype (spec_verify_f32.cu, spec_verify_bf16.cu,
+// spec_verify_int8.cu): 24 instantiations each (8 head dims x 3 row
+// layouts) where one unit held 72 and took 138 s of nvcc alone on the
+// card's host, the whole build's wall time; three build in parallel.
 //
 // Replaces: the Pallas TPU kernel `_spec_verify_kernel` in
 //   src/repro/kernels/spec_verify/kernel.py:44 (wrapper
@@ -32,6 +36,8 @@
 //   operations the paged kernel runs at lens = pos + j + 1: every query row
 //   is bitwise the paged kernel's output at that length, the contract
 //   speculative decoding rests on.
+#pragma once
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,7 +45,7 @@
 
 #include "paged_softmax.cuh"
 
-namespace {
+namespace spec_verify {
 
 template <typename KT, int HD, int R, int kThreads>
 __global__ void __launch_bounds__(kThreads, 1024 / kThreads)
@@ -52,20 +58,22 @@ struct VerifyKernel {
   static auto fn() { return spec_verify_kernel<KT, HD, R, kThreads>; }
 };
 
-}  // namespace
-
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only). The NP
-// pages of a row are cut into n_chunks chunks of `chunk` whole pages (none
-// empty, n_chunks <= 8), one cluster per (row, kv head). Returns the
-// cudaError_t of the launch (0 = success); shapes the kernel does not take
-// (K*group above 128 rows, hd not a multiple of 32 up to 256, a plan that
-// breaks those rules) return cudaErrorInvalidValue.
-extern "C" int spec_verify_launch(
-    const void* q, const void* k, const void* v, const void* k_scales,
-    const void* v_scales, const void* block_table, const void* pos,
-    void* out, int B, int K, int KV, int group, int hd, int P, int ps,
-    int NP, int chunk, int n_chunks, int q_dtype, int kv_dtype,
-    void* stream) {
+// The launch over pools of element type KT (dtype code kv_code): the
+// entry point of each unit. dtype codes: 0 = float32, 1 = bfloat16, 2 =
+// int8 (pools only). The NP pages of a row are cut into n_chunks chunks of
+// `chunk` whole pages (none empty, n_chunks <= 8), one cluster per (row,
+// kv head). Returns the cudaError_t of the launch (0 = success); shapes
+// the kernel does not take (K*group above 128 rows, hd not a multiple of
+// 32 up to 256, a plan that breaks those rules, another pool dtype)
+// return cudaErrorInvalidValue.
+template <typename KT, int kv_code>
+int launch(const void* q, const void* k, const void* v,
+           const void* k_scales, const void* v_scales,
+           const void* block_table, const void* pos, void* out, int B,
+           int K, int KV, int group, int hd, int P, int ps, int NP,
+           int chunk, int n_chunks, int q_dtype, int kv_dtype,
+           void* stream) {
+  if (kv_dtype != kv_code) return static_cast<int>(cudaErrorInvalidValue);
   paged_softmax::Args a = {};
   a.q = q;
   a.k = k;
@@ -82,7 +90,8 @@ extern "C" int spec_verify_launch(
   a.ps = ps;
   a.NP = NP;
   a.chunk = chunk;
-  return paged_softmax::launch_all<VerifyKernel, 4>(a, B, hd, n_chunks,
-                                                    q_dtype, kv_dtype,
-                                                    stream);
+  return paged_softmax::launch_kv<VerifyKernel, 4, KT>(a, B, hd, n_chunks,
+                                                       q_dtype, stream);
 }
+
+}  // namespace spec_verify

@@ -12,6 +12,11 @@ The kernels may be loaded and launched from more than one host thread (the
 async pipeline's update worker beside the rollout): ``load`` builds and
 loads under a lock, and each wrapper bumps its launch counter under
 ``LAUNCH_LOCK``, so the exact launch counts stay exact.
+
+``start_all`` starts every build in the background (one nvcc per source,
+all at once) and returns; a later ``load`` of a source waits for its own
+build only, so a caller can run the kernels that are ready while the
+others compile. ``build_seconds`` keeps each source's nvcc wall time.
 """
 from __future__ import annotations
 
@@ -33,10 +38,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 KERNELS = ("paged_attention", "fused_sample", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "spec_verify",
+           "flash_attention_bwd", "flash_hd160", "decode_attention",
+           "spec_verify_f32", "spec_verify_bf16", "spec_verify_int8",
            "ssd_scan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_pending: Dict[str, "_Job"] = {}     # builds started and not yet loaded
+build_seconds: Dict[str, float] = {}   # nvcc wall seconds per source
 _load_lock = threading.Lock()
 LAUNCH_LOCK = threading.Lock()   # held by every wrapper's counter bump
 
@@ -68,27 +76,43 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+class _Job:
+    """One nvcc process; a thread waits for it, so its wall time is its
+    own whenever the caller collects it."""
+
+    def __init__(self, name: str, cmd, tmp: Path, out: Path):
+        self.name, self.tmp, self.out = name, tmp, out
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.log = ""
+        self.seconds = 0.0
+        self._waiter = threading.Thread(target=self._wait, daemon=True)
+        self._waiter.start()
+
+    def _wait(self) -> None:
+        self.log, _ = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+
+    def finish(self) -> None:
+        self._waiter.join()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{self.name}.cu "
+                               f"(exit {self.proc.returncode}):\n{self.log}")
+        os.replace(self.tmp, self.out)    # atomic: concurrent builds agree
+        build_seconds[self.name] = self.seconds
+
+
 def _start_build(name: str, nvcc: str):
-    """Launch nvcc for one kernel; returns (process, tmp, target) or None
-    when the library for this source hash already exists."""
+    """Launch nvcc for one kernel; returns its ``_Job``, or None when the
+    library for this source hash already exists."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish_build(name: str, job) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)          # atomic: concurrent builds agree
+    return _Job(name, cmd, tmp, out)
 
 
 def _require_cuda() -> None:
@@ -98,24 +122,33 @@ def _require_cuda() -> None:
             "device (CPU tensors use the plain PyTorch versions)")
 
 
+def start_all() -> None:
+    """Start the build of every kernel not built yet (one nvcc per source,
+    all at once) and return without waiting."""
+    _require_cuda()
+    nvcc = find_nvcc()
+    with _load_lock:
+        for n in KERNELS:
+            if n not in _loaded and n not in _pending:
+                job = _start_build(n, nvcc)
+                if job is not None:
+                    _pending[n] = job
+
+
 def build_all() -> float:
     """Compile every kernel in parallel (one nvcc per source, all started
     together) and load them. Returns the wall seconds taken."""
     t0 = time.perf_counter()
-    _require_cuda()
-    nvcc = find_nvcc()
-    jobs = {n: _start_build(n, nvcc) for n in KERNELS}
-    for n, job in jobs.items():
-        if job is not None:
-            _finish_build(n, job)
+    start_all()
     for n in KERNELS:
         load(n)
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if this
-    source hash has not been built. Cached per process."""
+    """The loaded library for ``csrc/<name>.cu``: waits for its build when
+    ``start_all`` started one, else builds it first if this source hash
+    has not been built. Cached per process."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -123,10 +156,12 @@ def load(name: str) -> ctypes.CDLL:
         if name in _loaded:
             return _loaded[name]
         _require_cuda()
-        out = _lib_path(name)
-        if not out.exists():
-            _finish_build(name, _start_build(name, find_nvcc()))
-        lib = ctypes.CDLL(str(out))
+        job = _pending.pop(name, None)
+        if job is None and not _lib_path(name).exists():
+            job = _start_build(name, find_nvcc())
+        if job is not None:
+            job.finish()
+        lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
         return lib
 

@@ -3,6 +3,11 @@ replaces the Pallas ``_fa_kernel`` of ``repro/kernels/flash_attention/
 kernel.py``; ``csrc/flash_attention_bwd.cu`` replaces ``_dq_kernel`` and
 ``_dkv_kernel`` of ``bwd_kernel.py``).
 
+Head dims 32, 64 and 128 are built from ``csrc/flash_attention.cu`` and
+``flash_attention_bwd.cu``; 160 (stablelm-12b) from ``csrc/flash_hd160.cu``,
+a library of its own with the same entry points (the kernels themselves
+are in ``csrc/flash_fwd.cuh`` and ``flash_bwd.cuh``).
+
 ``flash_attention`` takes the model layout, like the JAX
 ``ops.flash_attention``, and is a ``torch.autograd.Function``: the forward
 saves q, k, v, O and L; the backward computes ``D = rowsum(dO∘O)`` and
@@ -30,7 +35,12 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 launches = {"fwd": 0, "dq": 0, "dkv": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 160)
+
+
+def _lib(name: str, hd: int) -> str:
+    """The library whose entry points take head dim ``hd``."""
+    return "flash_hd160" if hd == 160 else name
 
 
 def reset_launches() -> None:
@@ -105,7 +115,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
     B, S, H, _ = q.shape
     out = torch.empty_like(q)
     L = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    err = _bind("flash_attention", "flash_attention_fwd_launch", 5)(
+    err = _bind(_lib("flash_attention", q.shape[3]),
+                "flash_attention_fwd_launch", 5)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         L.data_ptr(), *_dims(q, k, causal, window),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -147,7 +158,8 @@ def _launch_bwd(fn_name, counter, q, k, v, dout, L, D, outs, causal,
                 not t.is_contiguous() or t.device != q.device:
             raise ValueError("L and D must be contiguous float32 (B,H,S) "
                              "on q's device")
-    fn = _bind("flash_attention_bwd", fn_name, 6 + len(outs))
+    fn = _bind(_lib("flash_attention_bwd", q.shape[3]), fn_name,
+               6 + len(outs))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              L.data_ptr(), D.data_ptr(), *(t.data_ptr() for t in outs),
              *_dims(q, k, causal, window),

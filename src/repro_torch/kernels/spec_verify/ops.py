@@ -1,6 +1,7 @@
 """Public wrapper for the speculative verify attention kernel
-(``csrc/spec_verify.cu``; replaces the Pallas ``_spec_verify_kernel`` of
-``repro/kernels/spec_verify/kernel.py``).
+(``csrc/spec_verify.cuh``, built as one library per pool dtype from
+``spec_verify_{f32,bf16,int8}.cu``; replaces the Pallas
+``_spec_verify_kernel`` of ``repro/kernels/spec_verify/kernel.py``).
 
 The JAX wrapper flattens q position-major into ``(B, KV, K*group, hd)``
 (row ``j*group + g``); the kernel numbers its rows the same way but reads
@@ -39,9 +40,13 @@ def reset_launches() -> None:
     launches = 0
 
 
+# the library of each pool dtype code
+_LIBS = {0: "spec_verify_f32", 1: "spec_verify_bf16", 2: "spec_verify_int8"}
+
+
 @functools.cache
-def _bind():
-    fn = _build.load("spec_verify").spec_verify_launch
+def _bind(kv_code: int):
+    fn = _build.load(_LIBS[kv_code]).spec_verify_launch
     fn.argtypes = ([ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -128,13 +133,14 @@ def _launch(q, k_pages, v_pages, block_table, pos, k_scales, v_scales,
     B, K, H, hd = q.shape
     P, ps, KV, _ = k_pages.shape
     out = torch.empty_like(q)
-    err = _bind()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  k_scales.data_ptr() if k_scales is not None else None,
-                  v_scales.data_ptr() if v_scales is not None else None,
-                  block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                  B, K, KV, H // KV, hd, P, ps, block_table.shape[1], *plan,
-                  _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    err = _bind(_DTYPE_CODES[k_pages.dtype])(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if k_scales is not None else None,
+        v_scales.data_ptr() if v_scales is not None else None,
+        block_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, K, KV, H // KV, hd, P, ps, block_table.shape[1], *plan,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "spec_verify")
     global launches
     with _build.LAUNCH_LOCK:

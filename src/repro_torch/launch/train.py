@@ -24,11 +24,16 @@ with ``--retry-backoff``, ``--checkpoint-dir`` with
 and ``--inject-pool-pressure`` are those of the JAX CLI, and so is
 ``--dispatch {direct,centralized}``, the data dispatcher's strategy
 (default direct; as in JAX, the CLI requests no destination layouts, so on
-one device the dispatch stage hands the batch on as it is). ``--arch
-mamba2-370m`` trains the ssm family (Mamba2)
-on its recurrent cache: the layout defaults to dense there and
+one device the dispatch stage hands the batch on as it is). ``--arch`` takes every
+architecture of the JAX package. ``mamba2-370m`` trains the ssm family
+(Mamba2) on its recurrent cache: the layout defaults to dense there and
 ``--cache-layout paged`` raises; ExpPrep's standalone pass runs the SSD
-scan kernel and the update its plain chunked form, as JAX's.
+scan kernel and the update its plain chunked form, as JAX's. The moe
+(``granite-moe-3b-a800m``, ``grok-1-314b``) and hybrid (``zamba2-1.2b``)
+families also decode on their own dense caches; the update adds the
+router's aux loss for moe. ``whisper-large-v3`` and
+``llama-3.2-vision-11b`` raise ``NotImplementedError`` at ``build_model``
+(ROADMAP Queue 1 item 10).
 ``--speculation self --spec-k K --draft-layers L`` runs
 speculative decoding (paged layout, reference sampling); as in JAX, the
 CLI builds no draft model, so ``--speculation draft`` raises. Writes the
@@ -150,7 +155,9 @@ def parse_args(argv=None):
                     help="paged = the kernels (paged or dense decode "
                          "attention and fused sampling in the rollout, "
                          "flash attention in Update; ssm: fused sampling "
-                         "and the SSD scan in ExpPrep's standalone pass); "
+                         "and the SSD scan in ExpPrep's standalone pass; "
+                         "moe and hybrid: decode attention, fused sampling "
+                         "and flash attention at their attention layers); "
                          "xla = the plain paths")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "

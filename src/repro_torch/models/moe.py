@@ -1,0 +1,361 @@
+"""Mixture-of-Experts decoder (granite-moe / grok-1 family) (port of
+``repro/models/moe.py``).
+
+Expert FFNs use GShard-style capacity-based dispatch over groups of
+tokens:
+
+    probs    = softmax(x @ router)                  (G,T,E)
+    dispatch = one_hot(top-k, capacity slots)       (G,T,E,C)
+    h        = einsum(dispatch, x) -> expert FFN -> combine
+
+Tokens past an expert's capacity are dropped (their expert output is 0;
+the residual carries them). The router aux (load-balance) loss follows
+Shazeer/GShard: ``aux = E * sum_e(frac_tokens_e * mean_prob_e)``.
+
+Routing is held bitwise to JAX's: the top-k order breaks ties to the
+lower expert index as ``lax.top_k`` does (a stable sort), and capacity
+slots are the running count over the flattened ``(t, k)`` order, so a
+dropped token depends on every earlier token's choices. Prefill and the
+Update dispatch with capacity; decode runs every expert on every token
+(``moe_mlp_dense``) and drops nothing, as in JAX, so the rollout's and the
+update's log-probs differ wherever a token was dropped.
+
+The expert products are plain einsums/matmuls, as JAX's are (no Pallas
+kernel in either package); attention takes the dense family's kernels.
+As in the port's transformer, ``prefill`` and ``decode_step`` write the
+KV ring IN PLACE and return ``pos`` as a new tensor.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.param import pdef
+from repro_torch.models.transformer import layer_params, scan_body_over
+
+
+def moe_mlp_defs(cfg: ModelConfig, *, layers=None):
+    m = cfg.moe
+    n = (layers,) if layers else ()
+    ax = ("layers",) if layers else ()
+    d, f, e = cfg.d_model, m.d_ff_expert, m.n_experts
+    return {
+        "router": pdef(n + (d, e), ax + ("embed", "experts"), "scaled"),
+        "w_gate": pdef(n + (e, d, f), ax + ("experts", "embed", "expert_mlp"),
+                       "scaled"),
+        "w_up": pdef(n + (e, d, f), ax + ("experts", "embed", "expert_mlp"),
+                     "scaled"),
+        "w_down": pdef(n + (e, f, d), ax + ("experts", "expert_mlp", "embed"),
+                       "scaled"),
+    }
+
+
+def _capacity(tokens_per_group: int, n_experts: int, top_k: int,
+              factor: float) -> int:
+    c = int(math.ceil(tokens_per_group * top_k / n_experts * factor))
+    return max(c, top_k)
+
+
+MOE_GROUP_TOKENS = 512     # GShard group size: capacity tensors are
+                           # O(T^2 * E) per group, so T must stay bounded
+
+
+def moe_mlp(cfg: ModelConfig, p, x):
+    """x: (B, S, D) -> (out (B,S,D), aux_loss scalar).
+
+    Tokens are regrouped into ``MOE_GROUP_TOKENS``-sized dispatch groups
+    when ``B*S`` divides into them (a group then spans batch rows, padding
+    tokens included, and they count toward an expert's capacity), else
+    into one group per row of ``S``."""
+    B_, S_, D_ = x.shape
+    Tg = MOE_GROUP_TOKENS if (B_ * S_) % MOE_GROUP_TOKENS == 0 else S_
+    x = x.reshape(B_ * S_ // Tg, Tg, D_)
+    out, aux = _moe_mlp_grouped(cfg, p, x)
+    return out.reshape(B_, S_, D_), aux
+
+
+def _top_k(probs, k: int):
+    """``lax.top_k`` over the last axis: the k largest, ties to the lower
+    index (a stable descending sort; ``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg: ModelConfig, p, x):
+    """Shared router: top-k gates + capacity slots + aux loss.
+
+    Returns (gate_vals (G,T,K) f32, gate_idx (G,T,K) int64, slot (G,T,K)
+    int64, in_cap (G,T,K) bool, C, aux)."""
+    m = cfg.moe
+    G, T, D = x.shape
+    E, K = m.n_experts, m.top_k
+    C = _capacity(T, E, K, m.capacity_factor)
+
+    router_logits = x @ p["router"]                          # (G,T,E)
+    probs = torch.softmax(router_logits.float(), dim=-1)
+
+    gate_vals, gate_idx = _top_k(probs, K)                   # (G,T,K)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    # Load-balance aux loss (computed on full probs + hard assignment).
+    assign1 = F.one_hot(gate_idx[..., 0], E).float()         # top-1 choice
+    frac_tokens = assign1.mean(dim=1)                        # (G,E)
+    mean_probs = probs.mean(dim=1)                           # (G,E)
+    aux = E * (frac_tokens * mean_probs).sum(dim=-1).mean()
+
+    # Capacity slots: for the k-th choice of token t in expert e, its slot is
+    # the running count of earlier tokens that chose e (across all k ranks).
+    sel = F.one_hot(gate_idx, E).to(torch.int32)             # (G,T,K,E)
+    flat = sel.reshape(G, T * K, E)
+    pos_in_e = (torch.cumsum(flat, dim=1) - flat).reshape(G, T, K, E)
+    slot = torch.gather(pos_in_e, 3, gate_idx[..., None])[..., 0].long()
+    in_cap = slot < C
+    return gate_vals, gate_idx, slot, in_cap, C, aux
+
+
+def _moe_mlp_grouped(cfg: ModelConfig, p, x):
+    if cfg.moe_dispatch == "scatter":
+        return _moe_mlp_grouped_scatter(cfg, p, x)
+    return _moe_mlp_grouped_onehot(cfg, p, x)
+
+
+def _experts(p, xe, dtype):
+    """The expert SwiGLU on capacity buffers: (G,E,C,D) -> (G,E,C,D)."""
+    gate = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
+    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    act = F.silu(gate.float()).to(dtype) * up
+    return torch.einsum("gecf,efd->gecd", act, p["w_down"])
+
+
+def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x):
+    """x: (G, T, D) grouped tokens -> (out (G,T,D), aux_loss scalar).
+
+    Scatter/gather dispatch: tokens are added into their (expert,
+    capacity-slot) buffers and gathered back by flat slot index; dropped
+    tokens write a clamped slot with zero contribution (masked on both
+    sides). The same semantics as the one-hot dispatch at no dispatch
+    products."""
+    m = cfg.moe
+    G, T, D = x.shape
+    E, K = m.n_experts, m.top_k
+    gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x)
+
+    f_idx = gate_idx * C + torch.clamp(slot, max=C - 1)      # (G,T,K)
+    contrib = x[:, :, None, :] * in_cap[..., None].to(x.dtype)  # (G,T,K,D)
+    xe_flat = torch.zeros((G, E * C, D), dtype=x.dtype, device=x.device)
+    gi = torch.arange(G, device=x.device)[:, None, None]
+    xe_flat = xe_flat.index_put((gi, f_idx), contrib, accumulate=True)
+    ye = _experts(p, xe_flat.reshape(G, E, C, D), x.dtype)   # (G,E,C,D)
+
+    y_tok = ye.reshape(G, E * C, D)[gi, f_idx]               # (G,T,K,D)
+    w = (gate_vals * in_cap).to(x.dtype)                     # (G,T,K)
+    out = torch.einsum("gtk,gtkd->gtd", w, y_tok)
+    return out, aux.float()
+
+
+def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x):
+    """GShard einsum formulation with a fused flat-slot one-hot (the JAX
+    package's default dispatch and its numeric oracle). The one-hot is
+    built in the model dtype by a scatter (``F.one_hot`` would be int64,
+    four times its size)."""
+    m = cfg.moe
+    G, T, D = x.shape
+    E, K = m.n_experts, m.top_k
+    gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x)
+
+    f_idx = gate_idx * C + torch.clamp(slot, max=C - 1)      # (G,T,K)
+    z_oh = torch.zeros((G, T, K, E * C), dtype=x.dtype, device=x.device)
+    z_oh.scatter_(3, f_idx[..., None], in_cap[..., None].to(x.dtype))
+    combine = torch.einsum("gtk,gtkz->gtz", gate_vals.to(x.dtype),
+                           z_oh).reshape(G, T, E, C)
+    del z_oh
+    dispatch = (combine > 0).to(x.dtype)
+
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, x)         # (G,E,C,D)
+    ye = _experts(p, xe, x.dtype)                            # (G,E,C,D)
+    out = torch.einsum("gtec,gecd->gtd", combine, ye)
+    return out, aux.float()
+
+
+def moe_mlp_dense(cfg: ModelConfig, p, x):
+    """Exact (drop-free) top-k combine: every expert runs on every token
+    and the one-hot gate selects. Used at decode, where token counts are
+    tiny: it costs E/top_k redundant products but never drops a live
+    generation token.
+
+    x: (B, T, D) -> (out, aux)."""
+    m = cfg.moe
+    router_logits = x @ p["router"]
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    gate_vals, gate_idx = _top_k(probs, m.top_k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    combine = torch.einsum("btk,btke->bte", gate_vals,
+                           F.one_hot(gate_idx, m.n_experts).float())
+    # every expert on every token: (E, B*T, F) products that broadcast the
+    # tokens over the stacked expert weights (an einsum over "btd,edf"
+    # would copy each weight into a (D, E*F) layout on every call)
+    B, T, D = x.shape
+    xt = x.reshape(1, B * T, D)
+    gate = torch.matmul(xt, p["w_gate"])                     # (E,BT,F)
+    up = torch.matmul(xt, p["w_up"])
+    act = F.silu(gate.float()).to(x.dtype) * up
+    ye = torch.matmul(act, p["w_down"])                      # (E,BT,D)
+    out = torch.einsum("ne,end->nd", combine.reshape(B * T, -1).to(x.dtype),
+                       ye)
+    return (out.reshape(B, T, D),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def block_defs(cfg: ModelConfig):
+    n = cfg.n_layers
+    defs = {
+        "ln1": pdef((n, cfg.d_model), ("layers", "embed"), "ones"),
+        "ln2": pdef((n, cfg.d_model), ("layers", "embed"), "ones"),
+    }
+    for k, d in L.attention_defs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.head_dim_, qkv_bias=cfg.qkv_bias,
+                                 layers=n).items():
+        defs[f"attn.{k}"] = d
+    for k, d in moe_mlp_defs(cfg, layers=n).items():
+        defs[f"moe.{k}"] = d
+    return defs
+
+
+def model_defs(cfg: ModelConfig):
+    """Flat ParamDef dict with the JAX tree's dotted paths."""
+    defs = {"embedding": L.embedding_defs(cfg.vocab_size, cfg.d_model),
+            "ln_f": pdef((cfg.d_model,), ("embed",), "ones")}
+    for k, d in block_defs(cfg).items():
+        defs[f"layers.{k}"] = d
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = pdef((cfg.d_model, cfg.vocab_size),
+                               ("embed", "vocab"), "scaled")
+    return defs
+
+
+def _attn_kw(cfg: ModelConfig, attn_impl: str):
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
+                window=cfg.sliding_window, attn_impl=attn_impl)
+
+
+def _block_apply(cfg: ModelConfig, p, x, *, attn_impl: str = "xla"):
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    x = x + L.self_attention(p["attn"], h, **_attn_kw(cfg, attn_impl))
+    h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    out, aux = moe_mlp(cfg, p["moe"], h)
+    return x + out, aux
+
+
+def _logits(cfg: ModelConfig, params, x):
+    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
+    return L.unembed(params.get("lm_head", params["embedding"]), x)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, extra=None,
+            attn_impl: str = "xla"):
+    """Full-sequence forward -> ``(logits (B,S,V), {"aux_loss": ...})``,
+    the aux loss ``mean over layers * router_aux_weight``. attn_impl:
+    "xla" or "flash" (the flash-attention kernels). With ``cfg.remat ==
+    "full"`` and grad enabled, each layer keeps only its input for the
+    backward and runs again inside it (routing and dispatch included)."""
+    del extra
+    x = L.embed(params["embedding"], tokens)
+    auxes = []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if cfg.remat == "full" and torch.is_grad_enabled():
+            x, aux = checkpoint(_block_apply, cfg, lp, x, attn_impl=attn_impl,
+                                use_reentrant=False)
+        else:
+            x, aux = _block_apply(cfg, lp, x, attn_impl=attn_impl)
+        auxes.append(aux)
+    aux_loss = torch.stack(auxes).mean() * cfg.moe.router_aux_weight
+    return _logits(cfg, params, x), {"aux_loss": aux_loss}
+
+
+class MoECache(NamedTuple):
+    """``kv.k``/``kv.v``: ``(n_layers, B, s_max, KV, hd)`` ring buffers
+    (``layers.decode_attention``)."""
+    kv: L.KVEntry
+    pos: torch.Tensor           # (B,) int32 per-row cache fill
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, *, device=None):
+    """A zeroed dense KV ring: ``s_max`` slots, ``min(s_max, window)``
+    for a sliding-window config."""
+    if cfg.sliding_window > 0:
+        s_max = min(s_max, cfg.sliding_window)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+    return MoECache(
+        kv=L.KVEntry(torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device)),
+        pos=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache: MoECache, *,
+            extra=None, attn_impl: str = "xla"):
+    """Run the prompt (B, S) into the cache (KV written in place; the MoE
+    layers dispatch with capacity). Returns ``(logits of the last
+    position (B, V), cache)``. attn_impl: "xla" or "flash"."""
+    del extra
+    x = L.embed(params["embedding"], tokens)
+    akw = _attn_kw(cfg, attn_impl)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        x = x + L.prefill_attention(lp["attn"], h, cache.kv.layer(i),
+                                    **akw)[0]
+        h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+        x = x + moe_mlp(cfg, lp["moe"], h)[0]
+    B, S = tokens.shape
+    return _logits(cfg, params, x[:, -1:])[:, 0], cache._replace(
+        pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device))
+
+
+def decode_step(cfg: ModelConfig, params, token, cache: MoECache, *,
+                extra=None, attn_impl: str = "xla", advance=None,
+                layers=None):
+    """One decode step. token: (B,) int. Rows with ``advance=False`` write
+    nothing and keep their position. The MoE layers run the drop-free
+    ``moe_mlp_dense``. attn_impl: "xla" or "pallas" (the split-K decode
+    kernel). ``layers``: the per-layer param views, when the caller has
+    already sliced them."""
+    del extra
+    B = token.shape[0]
+    adv = (torch.ones((B,), dtype=torch.bool, device=token.device)
+           if advance is None else advance)
+    if layers is None:
+        layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    akw = dict(_attn_kw(cfg, attn_impl), advance=adv)
+    x = L.embed(params["embedding"], token[:, None])         # (B,1,D)
+    for i, lp in enumerate(layers):
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        x = x + L.decode_attention(lp["attn"], h, cache.kv.layer(i),
+                                   cache.pos, **akw)[0]
+        h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+        x = x + moe_mlp_dense(cfg, lp["moe"], h)[0]
+    return _logits(cfg, params, x)[:, 0], MoECache(
+        kv=cache.kv, pos=cache.pos + adv.to(torch.int32))
+
+
+def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
+    """Decode body for in-loop generation: ``decode_step`` wrapped by
+    ``transformer.scan_body_over``, as JAX's ``Model`` wraps families
+    without a native body (per-layer param views sliced once here)."""
+    layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    return scan_body_over(
+        lambda token, advance, cache: decode_step(
+            cfg, params, token, cache, attn_impl=attn_impl, advance=advance,
+            layers=layers))

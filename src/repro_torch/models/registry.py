@@ -1,5 +1,5 @@
-"""Model interface (port of ``repro/models/registry.py``, dense and ssm
-families).
+"""Model interface (port of ``repro/models/registry.py``: the dense, ssm,
+moe and hybrid families; audio and vlm raise).
 
     model = build_model(cfg)
     params = model.init(generator, device=device)
@@ -17,7 +17,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba, transformer
+from repro_torch.models import hybrid, mamba, moe, transformer
 from repro_torch.models.param import init_params
 
 
@@ -30,6 +30,7 @@ class Model:
     _prefill: Callable
     _decode_step: Callable
     _decode_scan_body: Callable
+    has_aux: bool = False
 
     def init(self, generator: torch.Generator, dtype=torch.bfloat16,
              device=None):
@@ -39,12 +40,15 @@ class Model:
         return init_params(self.defs, generator, device, dtype)
 
     def forward(self, params, tokens, *, extra=None, attn_impl="xla"):
-        """Full-sequence forward: ``(logits (B,S,V), aux)``; the ported
-        families have no auxiliary losses, so ``aux`` is ``{}``.
-        ``attn_impl``: "xla" (the plain paths), "flash" (dense: the
-        flash-attention kernels) or "pallas" (ssm: the SSD scan kernel)."""
-        return self._forward(self.cfg, params, tokens, extra=extra,
-                             attn_impl=attn_impl), {}
+        """Full-sequence forward: ``(logits (B,S,V), aux)``. ``aux`` is
+        the moe family's ``{"aux_loss": ...}`` (the router's load-balance
+        loss) and ``{}`` for the others. ``attn_impl``: "xla" (the plain
+        paths), "flash" (dense, moe and the hybrid's attention sites: the
+        flash-attention kernels) or "pallas" (ssm: the SSD scan
+        kernel)."""
+        out = self._forward(self.cfg, params, tokens, extra=extra,
+                            attn_impl=attn_impl)
+        return out if self.has_aux else (out, {})
 
     def init_cache(self, batch, s_max, dtype=torch.bfloat16, **layout_kw):
         """``layout_kw``: ``device`` and the cache-layout options
@@ -74,9 +78,9 @@ class Model:
     def decode_scan_body(self, params, *, attn_impl="xla", **kw):
         """``body((logits, cache), (token, advance)) -> ((logits, cache),
         None)`` for in-loop generation: the dense family's own, and for
-        ssm ``decode_step`` wrapped by ``transformer.scan_body_over``, as
-        JAX's ``Model`` wraps families without a native body. ``kw``: the
-        paged step's ``cow``."""
+        the others ``decode_step`` wrapped by ``transformer.
+        scan_body_over``, as JAX's ``Model`` wraps families without a
+        native body. ``kw``: the paged step's ``cow``."""
         return self._decode_scan_body(self.cfg, params, attn_impl=attn_impl,
                                       **kw)
 
@@ -84,17 +88,28 @@ class Model:
 _FAMILIES = {
     "dense": (transformer.model_defs, transformer.forward,
               transformer.init_cache, transformer.prefill,
-              transformer.decode_step, transformer.decode_scan_body),
+              transformer.decode_step, transformer.decode_scan_body, False),
+    "moe": (moe.model_defs, moe.forward, moe.init_cache, moe.prefill,
+            moe.decode_step, moe.decode_scan_body, True),
     "ssm": (mamba.model_defs, mamba.forward, mamba.init_cache,
-            mamba.prefill, mamba.decode_step, mamba.decode_scan_body),
+            mamba.prefill, mamba.decode_step, mamba.decode_scan_body, False),
+    "hybrid": (hybrid.model_defs, hybrid.forward, hybrid.init_cache,
+               hybrid.prefill, hybrid.decode_step, hybrid.decode_scan_body,
+               False),
 }
+
+# families of the JAX package whose models are not ported yet
+_UNPORTED = ("audio", "vlm")
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in _FAMILIES:
+    if cfg.family in _UNPORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} arrives with ROADMAP Queue 1 item 10; "
-            f"ported: {sorted(_FAMILIES)}")
-    defs_fn, fwd, ic, pf, ds, body = _FAMILIES[cfg.family]
+            f"family {cfg.family!r} arrives with ROADMAP Queue 1 item 10 "
+            f"(encdec/vlm); ported: {sorted(_FAMILIES)}")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    defs_fn, fwd, ic, pf, ds, body, has_aux = _FAMILIES[cfg.family]
     return Model(cfg=cfg, defs=defs_fn(cfg), _forward=fwd, _init_cache=ic,
-                 _prefill=pf, _decode_step=ds, _decode_scan_body=body)
+                 _prefill=pf, _decode_step=ds, _decode_scan_body=body,
+                 has_aux=has_aux)

@@ -13,6 +13,14 @@ cast to the param dtype, then added in the param dtype. Nothing is updated
 in place: ``update`` and ``apply_updates`` return new tensors, so a caller
 that keeps the old params (the trainer's reference model is the initial
 params, aliased) still holds them unchanged.
+
+Memory: ``init``'s zero moments are zero-stride views of one f32 zero, so
+they hold no memory until the first update writes full moments, and
+``update`` runs leaf by leaf, so only one leaf's f32 temporaries exist at
+a time. The arithmetic is the same elementwise: a 3.4 B-parameter model
+(granite-moe-3b-a800m) steps on one 80 GB card, where the whole-tree form
+held the old and the new moments and an f32 copy of every gradient at
+once.
 """
 from __future__ import annotations
 
@@ -43,28 +51,32 @@ def adamw(learning_rate: Union[float, Callable], *, b1: float = 0.9,
         lambda _: learning_rate)
 
     def init(params) -> OptState:
-        f32 = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in params.items()}
+        def zeros(p):
+            return torch.zeros((), dtype=torch.float32,
+                               device=p.device).expand(p.shape)
         dev = next(iter(params.values())).device
         return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                        mu=f32, nu={k: z.clone() for k, z in f32.items()})
+                        mu={k: zeros(p) for k, p in params.items()},
+                        nu={k: zeros(p) for k, p in params.items()})
 
     def update(grads, state: OptState, params):
         step = state.step + 1
         gnorm = tree_global_norm(grads)
-        if max_grad_norm > 0:
-            scale = torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
-            g = {k: grads[k].float() * scale for k in grads}
-        else:
-            g = {k: grads[k].float() for k in grads}
-        mu = {k: b1 * state.mu[k] + (1 - b1) * g[k] for k in g}
-        nu = {k: b2 * state.nu[k] + (1 - b2) * g[k].square() for k in g}
+        scale = (torch.clamp(max_grad_norm / (gnorm + 1e-9), max=1.0)
+                 if max_grad_norm > 0 else None)
         sf = step.float()
         mu_hat_scale = 1.0 / (1 - b1 ** sf)
         nu_hat_scale = 1.0 / (1 - b2 ** sf)
         lr = lr_fn(step)
-        updates = {}
-        for k, p in params.items():
+        mu, nu, updates = {}, {}, {}
+        for k in grads:
+            g = grads[k].float()
+            if scale is not None:
+                g = g * scale
+            mu[k] = b1 * state.mu[k] + (1 - b1) * g
+            nu[k] = b2 * state.nu[k] + (1 - b2) * g.square()
+            del g
+            p = params[k]
             u = (mu[k] * mu_hat_scale) / (torch.sqrt(nu[k] * nu_hat_scale)
                                           + eps)
             u = u + weight_decay * p.float()

@@ -153,13 +153,14 @@ class CompiledRolloutEngine:
     the GPU and raises if none is present.
 
     Options ported so far: ``cache_layout`` ("paged", the default, or
-    "dense"; the ssm family takes only "dense", its recurrent
-    ``MambaCache``), ``attn_impl`` (paged layout: "paged" = the paged CUDA
+    "dense"; the ssm, moe and hybrid families take only "dense", their own
+    caches: ``MambaCache``, ``MoECache``, ``HybridCache``), ``attn_impl`` (paged layout: "paged" = the paged CUDA
     kernel, "xla" = gather + dense attention; dense layout: "pallas" = the
     split-K decode kernel, "xla" = masked dense attention; ``None`` = the
     layout's kernel; with speculation the verify pass takes "paged" = the
     spec-verify kernel; the ssm decode has no attention and ignores it, as
-    JAX's), ``ref_attn_impl`` (the reference stream's dense
+    JAX's; moe runs it once per layer, the hybrid once per attention
+    site), ``ref_attn_impl`` (the reference stream's dense
     decode: "pallas" or "xla"), ``sampling`` ("fused" = the one-pass CUDA
     sampler, the default; "reference" = plain argmax + log-softmax),
     ``temperature``, ``top_p``,
@@ -201,7 +202,7 @@ class CompiledRolloutEngine:
         if cache_layout == "paged" and cfg.family != "dense":
             raise ValueError(
                 f"the paged KV pool is a dense-family layout; family "
-                f"{cfg.family!r} decodes on its own recurrent cache: pass "
+                f"{cfg.family!r} decodes on its own cache: pass "
                 f"cache_layout='dense'")
         self._check_pool_options(cache_layout, kv_dtype, on_exhaust,
                                  pool_growth, share_prefix)

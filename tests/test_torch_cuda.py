@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.stages import EarlTrainer, ExpPrepStage
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -195,6 +195,11 @@ DECODE_CASES = {
     "group1_b1_cluster8": (1, 512, 1, 1, 64, "fill"),
     "valid_from_mid_tile": (3, 256, 14, 2, 64, "mid"),
     "hd96_ring": (2, 130, 6, 2, 96, "ring"),
+    # the dense caches of granite-moe (group 3) and zamba2's sites
+    # (group 1, 32 heads), and stablelm's hd 160
+    "granite_group3": (4, 256, 24, 8, 64, "fill"),
+    "zamba2_group1": (4, 256, 32, 32, 64, "fill"),
+    "hd160_group4": (2, 256, 32, 8, 160, "fill"),
 }
 
 
@@ -319,11 +324,14 @@ def _sample_inputs(seed, B, V, noise, device):
     return torch.from_numpy(lg).to(device), torch.from_numpy(nz).to(device)
 
 
-@pytest.mark.parametrize("V", [1000, 2500, 151936, 151937, 32004])
+@pytest.mark.parametrize("V", [1000, 2500, 151936, 151937, 32004, 49155,
+                               32000])
 @pytest.mark.parametrize("noise", ["zero", "gumbel"])
 def test_fused_sample_kernel_matches_plain_version(V, noise, dev):
     """V=32004 is a multiple of 4 but not of 4 k (k = 8 blocks a row): the
-    last block's slice is shorter; 151937 takes the scalar loads."""
+    last block's slice is shorter; 151937 takes the scalar loads; 49155
+    (granite-moe) is odd, so no cluster width divides it, and 32000 is
+    zamba2's."""
     lg, nz = _sample_inputs(3, 8, V, noise, dev)
     n0 = fs_ops.launches
     tok, lp = fs_ops.fused_sample(lg, nz)
@@ -372,7 +380,7 @@ def test_fused_sample_mostly_masked_rows(dev):
     torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
 
 
-@pytest.mark.parametrize("V", [50280, 151936])
+@pytest.mark.parametrize("V", [50280, 151936, 49155])
 def test_fused_sample_every_cluster_size_gives_the_same_tokens(V, dev):
     """Every k from 1 to 8 blocks a row: tokens bitwise those of ref.py,
     lp within the same tolerance; the plan's own launch is one call."""
@@ -469,6 +477,15 @@ FLASH_CASES = {
     "causal_hd128": (2, 200, 200, 8, 2, 128, True, 0),
     # 12 heads x 3 rows x 16 q tiles = 576 forward blocks, > 4 x 132 SMs
     "more_blocks_than_4_per_sm": (3, 1000, 1000, 12, 4, 64, True, 0),
+    # granite-moe's group 3 and zamba2's group 1 at the update's S
+    "granite_group3": (2, 256, 256, 24, 8, 64, True, 0),
+    "zamba2_group1": (2, 256, 256, 32, 32, 64, True, 0),
+    # head_dim 160 (stablelm-12b, group 4): five 32-column chunks a tile
+    # row, m64n160 products; ragged tiles, a window, and S < Sk
+    "stablelm_hd160_group4": (2, 256, 256, 32, 8, 160, True, 0),
+    "ragged_s130_hd160": (1, 130, 130, 8, 2, 160, True, 0),
+    "window_hd160": (1, 200, 200, 4, 1, 160, True, 64),
+    "s_below_sk_not_causal_hd160": (2, 100, 200, 8, 2, 160, False, 0),
 }
 
 
@@ -524,6 +541,51 @@ def test_flash_backward_kernel_is_deterministic(kernel, dtype, dev):
         first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_stablelm_12b_full_width_prefill_and_decode_on_the_paged_pool(dev):
+    """Full-width stablelm-12b (all 40 layers, d=5120, 32/8 heads x 160,
+    V=100352, random bf16 weights from seed 0 made on the card): a 64-token
+    prompt prefilled into the paged pool through the flash forward at hd
+    160, then 4 teacher-forced decode steps through the paged kernel,
+    against the plain route ("xla") on a second pool from the same
+    prompt. Launches exact (one flash forward, then one paged attention,
+    per layer per pass); logits finite and within 5% of their scale at
+    every step, the tolerance chip_smoke's branch phases hold bf16
+    full-width kernel and plain branches to."""
+    cfg = get_config("stablelm-12b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        dtype=torch.bfloat16)
+    B, S, steps = 4, 64, 4
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             1)).to(torch.int32)
+    out = {}
+    for impl in ("paged", "xla"):
+        fa_ops.reset_launches()
+        pa_ops.reset_launches()
+        cache = model.init_cache(B, 128, layout="paged", page_size=16,
+                                 device=dev)
+        logits, cache = model.prefill(params, toks[:, :S], cache,
+                                      attn_impl=impl)
+        seq = [logits]
+        for t in range(steps):
+            logits, cache = model.decode_step(params, toks[:, S + t], cache,
+                                              attn_impl=impl)
+            seq.append(logits)
+        torch.cuda.synchronize()
+        out[impl] = torch.stack(seq).float()
+        kern = impl == "paged"
+        assert fa_ops.launches["fwd"] == (cfg.n_layers if kern else 0)
+        assert pa_ops.launches == (cfg.n_layers * steps if kern else 0)
+        assert cache.pos.tolist() == [S + steps] * B
+    del params
+    for t in range(steps + 1):
+        a, b = out["paged"][t], out["xla"][t]
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=0.05 * float(b.abs().max()),
+                                   rtol=0, msg=f"step {t}")
 
 
 def test_flash_function_grads_match_autograd_through_plain_forward(dev):

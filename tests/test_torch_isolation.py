@@ -40,7 +40,10 @@ def test_scan_covers_the_package():
     names = {p.name for p in FILES}
     assert {"compiled.py", "layers.py", "ops.py", "chip_smoke.py",
             "resharding.py", "data_dispatcher.py", "parallelism_selector.py",
-            "mesh.py"} <= names
+            "mesh.py", "moe.py", "hybrid.py", "granite_moe_3b_a800m.py",
+            "zamba2_1_2b.py", "stablelm_12b.py", "grok_1_314b.py",
+            "whisper_large_v3.py", "llama_3_2_vision_11b.py", "glm4_9b.py",
+            "llama3_405b.py", "qwen2_5_72b.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
