@@ -114,7 +114,7 @@ Phases, in order; any failure raises and exits non-zero:
                pages, 256-token context), pools in bf16, fp32 and int8,
                under four cases; held against ref.py, and each query j
                bitwise against the paged kernel at lens = pos + j + 1.
- 12. spec_path — the engine with speculation="self" (spec_k 4, 12 draft
+ 12. spec_path — the engine with speculation="self" (spec_k 4, 6 draft
                layers) on the paged pool, sampling="reference", at the
                path phase's settings: verify rounds, spec counters, and
                exactly one verify kernel per layer per round.
@@ -139,7 +139,7 @@ Phases, in order; any failure raises and exits non-zero:
                step and a verify chunk into a partial page forked into all
                32 rows, kernel against gather route, with the copy-on-write
                copy of values and scales checked.
- 17. shared_spec — the same with speculation="self" (spec_k 4, 12 draft
+ 17. shared_spec — the same with speculation="self" (spec_k 4, 6 draft
                layers), 32 episodes: one int8 spec-verify launch per layer
                per verify round; greedy tokens bitwise equal to the
                non-speculative shared int8 run, and every committed token
@@ -169,7 +169,7 @@ Phases, in order; any failure raises and exits non-zero:
                sample per generated-token step, no attention kernel and no
                SSD scan.
  21. ssm_score — ExpPrep's standalone reference pass over 32 of those
-               episodes (32 x 512 tokens): exactly 48 SSD scan launches,
+               episodes (32 x 512 tokens): exactly one SSD scan launch a layer,
                its log-probs against the plain pass and against the folded
                recurrent ones; kernel and plain wall time, and the scan's
                device time in a traced kernel pass (after a profiler
@@ -179,11 +179,12 @@ Phases, in order; any failure raises and exits non-zero:
  23. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
                KL 0.05, clip 0.2, remat "full"): reference folded, exact
                launch counts (the update runs the plain chunked form).
-     The ssm phases run mamba2-370m at 24 of its 48 layers (SSM_LAYERS),
-     and async_train's lag-1 fault-and-restart run (b) qwen2-0.5b at 6 of
-     its 24 (FAULT_LAYERS): cuts of depth that paid for the phases below,
-     listed with their old and new depth; every gate is kept and each
-     depth-dependent launch gate is computed from the cut config.
+     The ssm phases run mamba2-370m at 12 of its 48 layers (SSM_LAYERS),
+     async_train's lag-1 fault-and-restart run (b) qwen2-0.5b at 6 of its
+     24 (FAULT_LAYERS), and phases 12-17 and 19 qwen2-0.5b at 12 of its 24
+     (CUT_LAYERS, views of the path's weights; preempt_path keeps all 24):
+     cuts of depth that paid for the phases below; every gate is kept and
+     each depth-dependent launch gate is computed from the cut config.
      The moe and hybrid families (flash at hd 160, group 3 and group 1,
      and sampling at V=49155 and 32000 are in the kernels phase):
  24. hybrid_path — zamba2-1.2b at its published widths (38 Mamba2
@@ -207,6 +208,23 @@ Phases, in order; any failure raises and exits non-zero:
                and flash forward, dq and dk/dv launches, the aux loss
                finite and positive; rollout, ExpPrep and update seconds
                and the peak memory.
+     The audio family (flash at whisper's group 1 and decode at its ring,
+     and llama-vision's shapes, are in the kernels phase):
+ 26. audio_serve — whisper-large-v3 at its published widths and depth (32
+               encoder and 32 decoder layers, d=1280, 20/20 heads x 64,
+               V=51866, 1,500 frames from make_extras, bf16, random
+               weights) through make_prefill_step (flash) and 32 greedy
+               make_serve_step decode steps (the decode kernel), B=16
+               rows of a 64-token prompt, then the same on "xla": exactly
+               32 flash forwards in the prefill and 32 decode attentions
+               a step, none from the encoder or the cross-attention;
+               prefill and first-step logits within 5% of the plain
+               route's scale; greedy agreement reported.
+ 27. audio_train — one make_lm_train_step (flash, remat "full", AdamW) at
+               B=16, 256 decoder tokens over 1,500 frames, and one
+               make_ref_logprob_step pass: exactly 64 flash forwards, 32
+               dq and 32 dk/dv in the step and 32 forwards in the pass;
+               the loss within 1% of the plain loss; peak memory.
 
 Prints JSON lines; the line before the last lists every kernel, and the
 last line is {"ok": true, "device": {...}}.
@@ -658,7 +676,10 @@ def phase_flash(torch, report):
     14/2 heads, hd 64, causal, bf16 (the main path) and fp32, and in bf16
     at a long context, B=4, S=2048, where the forward crosses the tensor
     cores' balance; at granite-moe's heads (24/8, group 3) in bf16, and at
-    stablelm-12b's (32/8, hd 160) in bf16 and fp32, both at B=32, S=256. Each is held against ``ref.py`` and timed beside its
+    stablelm-12b's (32/8, hd 160) in bf16 and fp32, both at B=32, S=256;
+    at whisper-large-v3's (20/20, group 1) in bf16 at B=16, S=256 and
+    S=64, and at llama-3.2-vision-11b's (32/8, hd 128) in bf16 at B=4,
+    S=64. Each is held against ``ref.py`` and timed beside its
     bound, the plain version and torch's scaled_dot_product_attention
     (forward, or its autograd backward, which computes dq, dk and dv in
     one call). At the update's bf16 shape every case also reports the
@@ -688,7 +709,14 @@ def phase_flash(torch, report):
             # stablelm-12b's attention (32/8 heads, hd 160) at the
             # update's B and S: the 160-wide tiles and m64n160 products
             ("bf16_hd160", 32, 256, 32, 8, 160, bf16),
-            ("fp32_hd160", 32, 256, 32, 8, 160, f32)):
+            ("fp32_hd160", 32, 256, 32, 8, 160, f32),
+            # whisper-large-v3's decoder (20/20 heads: group 1) at
+            # audio_train's update (B=16, S=256) and audio_serve's prefill
+            # (S=64), and llama-3.2-vision-11b's self layers (32/8, hd 128)
+            # at its card test's prefill (B=4, S=64)
+            ("bf16_whisper", 16, 256, 20, 20, 64, bf16),
+            ("bf16_whisper_s64", 16, 64, 20, 20, 64, bf16),
+            ("bf16_vision", 4, 64, 32, 8, 128, bf16)):
         pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
@@ -937,7 +965,9 @@ def phase_decode(torch, report):
     """The decode attention kernel at the dense cache's shapes: B=32 rows,
     S=256 slots, 14/2 heads, hd 64, bf16 (the main path) and fp32, under
     four masks, and in bf16 at S=2048 under a random fill, and at
-    granite-moe's (24/8) and zamba2's (32/32) heads. Each case is
+    granite-moe's (24/8) and zamba2's (32/32) heads, and at whisper's
+    (B=16, S=96, 20/20) and llama-vision's (B=4, S=128, 32/8 x 128)
+    serving caches. Each case is
     held against ``ref.py`` and timed beside its bound, the plain version
     and torch's scaled_dot_product_attention with a boolean mask
     (library_ms; the port never calls it). The bf16 fill case also
@@ -1036,6 +1066,20 @@ def phase_decode(torch, report):
                           ("bf16_fill_zamba2", 32, 32)):
         q = torch.randn((B, Hc, hd), generator=g, device=dev).bfloat16()
         k, v = (torch.randn((B, S, KVc, hd), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        run_case(name, q, k, v,
+                 (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
+                 BF16_FLOPS, 2.0 ** -7)
+    # audio_serve's decode (whisper-large-v3: B=16, 20/20 heads, a 96-slot
+    # ring filled past its 64-token prompt) and the llama-3.2-vision-11b
+    # card test's (B=4, 32/8 heads x 128, 128 slots)
+    for name, Bc, S, Hc, KVc, hdc in (("bf16_fill_whisper", 16, 96, 20, 20,
+                                       64),
+                                      ("bf16_fill_vision", 4, 128, 32, 8,
+                                       128)):
+        fill = torch.randint(64, S, (Bc, 1), generator=g, device=dev)
+        q = torch.randn((Bc, Hc, hdc), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((Bc, S, KVc, hdc), generator=g,
                             device=dev).bfloat16() for _ in range(2))
         run_case(name, q, k, v,
                  (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
@@ -1502,14 +1546,20 @@ def phase_macro_step(torch, engine, dense_engine, params):
                              f"no device time: {out}")
 
 
+# the depth the speculative phases and the paged pool's second half (all
+# but preempt_path) run qwen2-0.5b at (of its 24 layers): views of the
+# path's weights; their draft takes half of it, JAX's default
+CUT_LAYERS = 12
+
 SPEC = dict(cache_layout="paged", attn_impl="paged", sampling="reference",
-            speculation="self", spec_k=4, draft_layers=12, max_turns=4,
-            max_turn_tokens=32, max_context=256, page_size=16)
+            speculation="self", spec_k=4, draft_layers=CUT_LAYERS // 2,
+            max_turns=4, max_turn_tokens=32, max_context=256, page_size=16)
 
 
 def phase_spec_path(torch, model, params, report):
-    """Full-width qwen2-0.5b through the engine with speculation="self"
-    (spec_k 4, draft_layers 12, JAX's default of n_layers // 2) on the
+    """Full-width qwen2-0.5b at CUT_LAYERS of its 24 layers through the
+    engine with speculation="self" (spec_k 4, draft_layers CUT_LAYERS //
+    2, JAX's default of n_layers // 2) on the
     paged pool, sampling="reference", temperature 1.0, B=32 slots, 64
     episodes: one warm-up of one turn, then one run with every launch
     counter set to 0 just before it. The verify rounds are counted on the
@@ -1743,8 +1793,9 @@ def phase_spec_sync(torch, engine, params):
 
 
 def phase_spec_train(torch, model, report):
-    """One EarlTrainer step at full width with speculation="self" (spec_k
-    4, draft_layers 12) on the train phase's other settings (B=N=32,
+    """One EarlTrainer step at full width (CUT_LAYERS layers) with
+    speculation="self" (spec_k 4, draft_layers CUT_LAYERS // 2) on the
+    train phase's other settings (B=N=32,
     max_context 256, KL 0.05, clip 0.2, bf16, remat "full"). The trainer
     does not fold the reference pass (ref_folded false) and warns once; on
     step 0 the reference IS the policy, sampled at temperature 1.0, so
@@ -1771,7 +1822,7 @@ def phase_spec_train(torch, model, report):
                      rollout_episodes=32, max_turns=4, max_turn_tokens=32,
                      max_context=256, kl_coef=0.05, clip_eps=0.2,
                      temperature=1.0, seed=0, speculation="self", spec_k=4,
-                     draft_layers=12)
+                     draft_layers=nl // 2)
     rounds = count_calls(tr.rollout, "_more_rounds")
     turns = count_calls(tr.rollout, "turn_step")
     params, opt_state, ref = tr.init_state()
@@ -2138,7 +2189,7 @@ def phase_shared_spec(torch, model, params, report):
     nl = model.cfg.n_layers
     kw = dict(kv_dtype="int8", share_prefix=True, sampling="reference")
     engine = bandit_engine(model, speculation="self", spec_k=4,
-                           draft_layers=12, **kw)
+                           draft_layers=nl // 2, **kw)
     gen = lambda: torch.Generator(device="cuda").manual_seed(8)
     rounds = count_calls(engine, "_more_rounds")
     counter = PagedCounter()
@@ -2389,7 +2440,7 @@ def phase_shared_train(torch, model, report):
 SSM = dict(cache_layout="dense", sampling="fused", temperature=1.0,
            max_turns=4, max_turn_tokens=32, max_context=512)
 # the depth the ssm phases run mamba2-370m at (of its 48 layers)
-SSM_LAYERS = 24
+SSM_LAYERS = 12
 
 
 def _ssm_counters():
@@ -2410,7 +2461,7 @@ def _read_counters(ops_by_name):
 
 
 def phase_ssm_path(torch, model, params, report):
-    """mamba2-370m at its published widths, SSM_LAYERS = 24 of its 48
+    """mamba2-370m at its published widths, SSM_LAYERS = 12 of its 48
     layers (d=1024, 32 SSM heads x 64, state
     128, V=50280, bf16, random weights from a seeded generator) through
     CompiledRolloutEngine on TicTacToe on its recurrent cache
@@ -2477,7 +2528,7 @@ def phase_ssm_score(torch, model, params, exp, report):
     episodes of ssm_path's batch (32 x 512 tokens): the full-sequence
     forward with attn_impl="pallas", the trainer's choice for ssm, with
     every counter set to 0 just before it: exactly one SSD scan per layer,
-    24 (SSM_LAYERS), and nothing else. Log-probs are compared at the scored positions
+    12 (SSM_LAYERS), and nothing else. Log-probs are compared at the scored positions
     (1 <= t < context_len; the KL reads the generated ones among them).
 
     - fp32: the same weights cast to f32, the kernel pass against the
@@ -3516,6 +3567,187 @@ def phase_moe_train(torch, report):
     report["moe_train_launches"] = counts
 
 
+AUDIO = dict(batch=16, prompt=64, steps=32, train_tokens=256)
+
+
+def phase_audio_serve(torch, model, params, report):
+    """Full-width whisper-large-v3 served through the stage programs
+    (``make_prefill_step``, then ``make_serve_step``): B=16 rows of a
+    64-token prompt over 1,500 frames from ``make_extras``, the prefill
+    with the flash kernels, then 32 greedy decode steps with the decode
+    kernel; then the same with "xla" on the same weights, the first decode
+    token teacher-forced to the kernel route's so that both first steps
+    see one input. Counters set to 0 just before the prefill and again
+    before the decode loop, read after each. Gates: exactly one flash
+    forward per decoder layer in the prefill and one decode attention per
+    decoder layer per step (the encoder and the cross-attention launch no
+    kernel), none on the plain route; the prefill and first-step logits
+    finite and within 5% of the plain route's scale (the tolerance the
+    branch phases hold bf16 full-width kernel and plain branches to).
+    Reports the greedy agreement over the 32 steps (not gated: the random
+    model's bf16 logits are near-tied, ROADMAP Queue 3), the prefill
+    seconds, ms per decode step, tokens/s, the self and cross cache bytes
+    and the peak memory."""
+    from repro_torch.core.train_step import make_prefill_step, make_serve_step
+
+    cfg = model.cfg
+    B, P, steps = AUDIO["batch"], AUDIO["prompt"], AUDIO["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    extra = model.make_extras(gen, B)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    runs = {}
+    first = None
+    for route, pre, dec in (("kernel", "flash", "pallas"),
+                            ("plain", "xla", "xla")):
+        prefill = make_prefill_step(model, attn_impl=pre)
+        serve = make_serve_step(model, attn_impl=dec)
+        cache = model.init_cache(B, P + steps, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        read = _all_counters()
+        t0 = time.perf_counter()
+        logits0, cache = prefill(params, prompt, cache, extra)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre_counts = read()
+        tok = logits0.argmax(-1).to(torch.int32) if first is None else first
+        first = tok
+        read = _all_counters()
+        toks, step1 = [], None
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok, logits, cache = serve(params, tok, cache, extra)
+            toks.append(tok)
+            if i == 0:
+                step1 = logits.float()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        runs[route] = dict(
+            logits0=logits0.float(), step1=step1, toks=torch.stack(toks, 1),
+            pre_counts=pre_counts, dec_counts=read(), prefill_s=prefill_s,
+            decode_s=decode_s, pos=cache.pos.tolist(),
+            self_cache_bytes=sum(t.numel() * t.element_size()
+                                 for t in cache.self_kv[:2]),
+            cross_cache_bytes=sum(t.numel() * t.element_size()
+                                  for t in cache.cross_kv[:2]),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del cache
+    k, x = runs["kernel"], runs["plain"]
+    zero = dict.fromkeys(k["pre_counts"], 0)
+    expected = dict(kernel=(dict(zero, flash_fwd=cfg.n_layers),
+                            dict(zero, decode_attention=cfg.n_layers * steps)),
+                    plain=(zero, zero))
+    checks = {}
+    for name in ("logits0", "step1"):
+        a, b_ = k[name], x[name]
+        tol = 0.05 * float(b_.abs().max())
+        err = float((a - b_).abs().max())
+        checks[name] = dict(max_abs_err=err, tolerance=tol,
+                            ok=bool(torch.isfinite(a).all()) and err <= tol)
+    launches_ok = all((runs[r]["pre_counts"], runs[r]["dec_counts"])
+                      == expected[r] for r in runs)
+    agree = float((k["toks"] == x["toks"]).float().mean())
+    out = dict(phase="audio_serve", arch=cfg.arch_id, batch=B, prompt=P,
+               frames=cfg.n_audio_frames, decode_steps=steps,
+               prefill_s=k["prefill_s"], plain_prefill_s=x["prefill_s"],
+               decode_ms_per_step=k["decode_s"] / steps * 1e3,
+               plain_decode_ms_per_step=x["decode_s"] / steps * 1e3,
+               tokens_per_s=B * steps / k["decode_s"],
+               self_cache_bytes=k["self_cache_bytes"],
+               cross_cache_bytes=k["cross_cache_bytes"],
+               peak_mem_gib=max(k["peak_mem_gib"], x["peak_mem_gib"]),
+               launches={r: dict(prefill=runs[r]["pre_counts"],
+                                 decode=runs[r]["dec_counts"])
+                         for r in runs},
+               greedy_agreement=agree, **checks)
+    emit(out)
+    if not (launches_ok and all(c["ok"] for c in checks.values())
+            and k["pos"] == x["pos"] == [P + steps] * B):
+        raise AssertionError(f"audio_serve checks failed: {out}")
+    report["flash_fwd"]["launches_audio_prefill"] = \
+        k["pre_counts"]["flash_fwd"]
+    report["decode_attention"]["launches_audio_serve"] = \
+        k["dec_counts"]["decode_attention"]
+
+
+def phase_audio_train(torch, model, params, report):
+    """One ``make_lm_train_step`` of full-width whisper-large-v3 with the
+    flash kernels, ``remat="full"`` and AdamW: B=16 rows of 256 decoder
+    tokens (labels the tokens shifted left, the last masked) over 1,500
+    frames, then one ``make_ref_logprob_step`` pass with the frames on the
+    same pre-step weights. Counters set to 0 just before each and read
+    just after. Gates: exactly two flash forwards per decoder layer in the
+    step (forward and remat), one dq and one dk/dv, and one forward per
+    layer in the reference pass (the encoder launches none); the loss
+    finite and within 1% of the plain ("xla") loss of the same batch and
+    weights (a forward under no_grad); the reference pass's mean
+    log-prob over the scored positions within 1e-3 of minus the step's
+    loss (the same positions through the same kernels); the params moved.
+    Reports the step and pass seconds, tokens/s and the peak memory."""
+    from repro_torch.core.train_step import (lm_loss, make_lm_train_step,
+                                             make_ref_logprob_step)
+    from repro_torch.optim.adamw import adamw
+
+    cfg = model.cfg
+    B, S = AUDIO["batch"], AUDIO["train_tokens"]
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    extra = model.make_extras(gen, B)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    opt = adamw(3e-4, weight_decay=0.0)
+    step = make_lm_train_step(model, opt, attn_impl="flash")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt_state = opt.init(params)
+    read = _all_counters()
+    t0 = time.perf_counter()
+    new, opt_state, metrics = step(params, opt_state, tokens, labels, extra)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(metrics["loss"])
+    moved = not torch.equal(new["decoder.self_attn.wq"],
+                            params["decoder.self_attn.wq"])
+    del new, opt_state
+    with torch.no_grad():
+        plain_loss = float(lm_loss(model, params, tokens, labels,
+                                   extra=extra, attn_impl="xla")[0])
+    ref = make_ref_logprob_step(model, attn_impl="flash")
+    read = _all_counters()
+    t0 = time.perf_counter()
+    lp = ref(params, tokens, extra)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref_counts = read()
+    zero = dict.fromkeys(counts, 0)
+    nl = cfg.n_layers
+    expected = dict(zero, flash_fwd=2 * nl, flash_dq=nl, flash_dkv=nl)
+    ref_mean = float(lp[:, 1:].mean())
+    out = dict(phase="audio_train", arch=cfg.arch_id, batch=B, tokens=S,
+               frames=cfg.n_audio_frames, remat=cfg.remat, loss=loss,
+               plain_loss=plain_loss,
+               loss_rel_diff=abs(loss - plain_loss) / abs(plain_loss),
+               loss_tolerance=0.01, ref_mean_logprob=ref_mean,
+               step_s=step_s, tokens_per_s=B * S / step_s, ref_pass_s=ref_s,
+               ref_tokens_per_s=B * S / ref_s, launches=counts,
+               expected_launches=expected, ref_launches=ref_counts,
+               params_changed=moved, peak_mem_gib=peak)
+    emit(out)
+    if not (counts == expected
+            and ref_counts == dict(zero, flash_fwd=nl)
+            and math.isfinite(loss) and moved
+            and out["loss_rel_diff"] <= 0.01
+            and bool(torch.isfinite(lp).all())
+            and abs(ref_mean + loss) <= 1e-3 * abs(loss)):
+        raise AssertionError(f"audio_train checks failed: {out}")
+    for k_ in ("flash_fwd", "flash_dq", "flash_dkv"):
+        report[k_]["launches_audio_train"] = counts[k_]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3564,12 +3796,19 @@ def main() -> int:
     phase_branch(torch, model, params)
     phase_macro_step(torch, engine, dense_engine, params)
     del engine, dense_engine
-    spec_engine = phase_spec_path(torch, model, params, report)
-    phase_spec_branch(torch, model, params)
-    phase_spec_sync(torch, spec_engine, params)
+    # CUT_LAYERS of the 24 layers, as views of the same weights (the full
+    # depth took 180-250 s of the script in these phases)
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model
+    cut = build_model(dataclasses.replace(model.cfg, n_layers=CUT_LAYERS))
+    cut_params = transformer.draft_params_view(params, CUT_LAYERS)
+    spec_engine = phase_spec_path(torch, cut, cut_params, report)
+    phase_spec_branch(torch, cut, cut_params)
+    phase_spec_sync(torch, spec_engine, cut_params)
     del spec_engine
-    phase_shared_path(torch, model, params, report)
-    phase_shared_spec(torch, model, params, report)
+    phase_shared_path(torch, cut, cut_params, report)
+    phase_shared_spec(torch, cut, cut_params, report)
+    del cut_params
     phase_preempt_path(torch, model, params, report)
     del params
     # the dispatcher's and the selector's distributed code runs in a
@@ -3591,12 +3830,13 @@ def main() -> int:
         del params
     finally:
         dist.destroy_process_group()
-    phase_spec_train(torch, model, report)
-    phase_shared_train(torch, model, report)
-    del model
+    phase_spec_train(torch, cut, report)
+    phase_shared_train(torch, cut, report)
+    del model, cut
 
     # mamba2-370m at SSM_LAYERS of its 48 layers (the full depth took
-    # 116 s of the script in its four phases)
+    # 116 s of the script in its four phases, 24 layers 67 s on a slow
+    # host)
     model, params = _init_model(torch, dataclasses.replace(
         get_config("mamba2-370m"), n_layers=SSM_LAYERS))
     ssm_engine, ssm_exp = phase_ssm_path(torch, model, params, report)
@@ -3608,6 +3848,13 @@ def main() -> int:
 
     phase_hybrid_path(torch, report)
     phase_moe_train(torch, report)
+
+    # full-width, full-depth whisper-large-v3 (32 encoder and 32 decoder
+    # layers, d=1280, 20/20 heads x 64, V=51866, 1,500 frames)
+    model, params = _init_model(torch, get_config("whisper-large-v3"))
+    phase_audio_serve(torch, model, params, report)
+    phase_audio_train(torch, model, params, report)
+    del model, params
 
     kernels = []
     for name, src, replaces in (
@@ -3628,8 +3875,7 @@ def main() -> int:
             ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:31")):
         r = report[name]
-        extra = ({"launches_int8": r["launches_int8"]}
-                 if "launches_int8" in r else {})
+        extra = {k: v for k, v in r.items() if k.startswith("launches_")}
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": r["launches"],

@@ -66,6 +66,7 @@ from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.rl.algo import (group_relative_advantages,
                                  reinforce_advantages)
 from repro_torch.rl.engine import CompiledRolloutEngine, RolloutStats
+from repro_torch.rl.engine.common import check_no_modality_inputs
 from repro_torch.rl.engine.compiled import NoiseFn
 from repro_torch.rl.experience import ExperienceBatch
 from repro_torch.rl.rollout import RolloutEngine
@@ -300,7 +301,9 @@ class EarlTrainer:
     ``DataDispatcher()``) with ``dispatch_strategy`` moves each batch to
     the ``dst_shardings`` given to ``train``/``run_step``. As in JAX, the
     trainer passes no ``draft_model``, so ``speculation="draft"`` raises
-    from the engine."""
+    from the engine. A model that takes modality inputs (audio, vlm) is
+    refused with a ``ValueError``: neither package's rollout carries
+    them."""
 
     model: Any                              # repro_torch Model
     env: Any
@@ -355,6 +358,7 @@ class EarlTrainer:
     history: List[StepRecord] = field(default_factory=list)
 
     def __post_init__(self):
+        check_no_modality_inputs(self.model)
         self._check_modes()
         if self.attn_impl not in ("paged", "xla"):
             raise ValueError(f"attn_impl must be 'paged' or 'xla', got "

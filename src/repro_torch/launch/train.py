@@ -32,8 +32,10 @@ scan kernel and the update its plain chunked form, as JAX's. The moe
 (``granite-moe-3b-a800m``, ``grok-1-314b``) and hybrid (``zamba2-1.2b``)
 families also decode on their own dense caches; the update adds the
 router's aux loss for moe. ``whisper-large-v3`` and
-``llama-3.2-vision-11b`` raise ``NotImplementedError`` at ``build_model``
-(ROADMAP Queue 1 item 10).
+``llama-3.2-vision-11b`` build, and the trainer refuses them with a
+``ValueError``: the rollout engine carries no modality inputs, as in the
+JAX package (train and serve them through ``core/train_step.py``'s steps,
+as ``examples/torch_serve_batched.py`` does).
 ``--speculation self --spec-k K --draft-layers L`` runs
 speculative decoding (paged layout, reference sampling); as in JAX, the
 CLI builds no draft model, so ``--speculation draft`` raises. Writes the

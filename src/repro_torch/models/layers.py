@@ -131,17 +131,32 @@ def causal_mask(Sq: int, Sk: int, *, q_offset: int = 0, window: int = 0,
 
 
 def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
-                   positions=None, window: int = 0, attn_impl: str = "xla"):
+                   positions=None, window: int = 0, cross_kv=None,
+                   attn_impl: str = "xla"):
     """Full-sequence causal self-attention (training and the reference
     pass). x: (B,S,D) -> (B,S,D).
 
     attn_impl: "xla" runs the plain ``_sdpa`` with ``causal_mask``;
     "flash" runs the flash-attention kernels (``kernels/flash_attention``,
     forward and backward; their plain versions for CPU tensors) — the
-    port's name for what the JAX package calls "pallas" here. The JAX
-    ``cross_kv`` (encoder-decoder) branch is not ported.
+    port's name for what the JAX package calls "pallas" here.
+
+    cross_kv: optional ``(k, v)``, each (B, Sk, KV, hd) — attend to those
+    instead of self-derived k/v (encoder-decoder cross-attention and the
+    vlm's image layers): q takes no RoPE, the mask is zero, and the
+    attention is always the plain ``_sdpa``, whatever ``attn_impl`` says
+    (no Pallas kernel computes it in the JAX package either).
     """
     B, S, _ = x.shape
+    if cross_kv is not None:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        k, v = cross_kv
+        mask = torch.zeros((1, 1, S, k.shape[1]), dtype=torch.float32,
+                           device=x.device)
+        out = _sdpa(q.reshape(B, S, n_heads, head_dim), k, v, mask)
+        return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)

@@ -50,15 +50,17 @@ def model_defs(cfg: ModelConfig):
     return defs
 
 
-def layer_params(params, i: int):
-    """Views of layer ``i``'s params sliced from the stacked leaves:
-    ``layers.<name>`` becomes ``out[name]`` and ``layers.<block>.<name>``
-    ``out[block][name]`` (dense: ``{"ln1", "ln2", "attn": {...}, "mlp":
-    {...}}``; ssm: ``{"ln", "mixer": {...}}``)."""
+def layer_params(params, i: int, prefix: str = "layers"):
+    """Views of layer ``i``'s params sliced from the stacked leaves under
+    ``prefix``: ``layers.<name>`` becomes ``out[name]`` and
+    ``layers.<block>.<name>`` ``out[block][name]`` (dense: ``{"ln1",
+    "ln2", "attn": {...}, "mlp": {...}}``; ssm: ``{"ln", "mixer":
+    {...}}``; the audio family's stacks are ``encoder`` and ``decoder``,
+    the vlm's ``layers`` and ``cross_layers``)."""
     out = {}
     for path, t in params.items():
         parts = path.split(".")
-        if parts[0] != "layers":
+        if parts[0] != prefix:
             continue
         if len(parts) == 2:
             out[parts[1]] = t[i]
@@ -386,7 +388,7 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
         pos=pos + adv.to(torch.int32))
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, *,
+def decode_step(cfg: ModelConfig, params, token, cache, *, extra=None,
                 attn_impl: str = "xla", advance=None, cow: bool = True):
     """One decode step. token: (B,) int. Returns (logits (B,V), cache).
     advance: optional (B,) bool — rows with False are no-ops. The KV
@@ -394,6 +396,7 @@ def decode_step(cfg: ModelConfig, params, token, cache, *,
     layout; "pallas" (the decode kernel) on the dense layout, "paged" (the
     paged kernel) on the paged one. cow: paged layout only — False drops
     the copy-on-write guard (``_paged_decode_step``)."""
+    del extra
     if isinstance(cache, PagedDecodeCache):
         return _paged_decode_step(cfg, params, token, cache,
                                   attn_impl=attn_impl, advance=advance,

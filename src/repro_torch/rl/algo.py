@@ -1,7 +1,8 @@
 """RL algorithm substrate (port of ``repro/rl/algo.py``): token log-probs,
-REINFORCE and group-relative advantages, truncated importance weights and
-the policy-gradient loss. Every ``jax.lax.stop_gradient`` of the JAX
-functions is a ``.detach()`` in the same place."""
+REINFORCE and group-relative advantages, returns-to-go, truncated
+importance weights and the policy-gradient loss. Every
+``jax.lax.stop_gradient`` of the JAX functions is a ``.detach()`` in the
+same place."""
 from __future__ import annotations
 
 import torch
@@ -47,6 +48,23 @@ def group_relative_advantages(rewards, group_size: int, eps: float = 1e-6):
     mean = g.mean(dim=1, keepdim=True)
     std = g.std(dim=1, keepdim=True, correction=0)
     return ((g - mean) / (std + eps)).reshape(B)
+
+
+def returns_to_go(step_rewards, gamma: float = 1.0):
+    """step_rewards: (B, n_turns) -> (B, n_turns) f32 discounted
+    reward-to-go per turn, accumulated from the last turn back (JAX's
+    reversed scan, carry ``r + gamma * carry`` from an f32 zero). XLA fuses
+    that update into one multiply-add; it is computed here in f64 (the f32
+    product is exact there) and rounded once to f32, which gives JAX's
+    bits."""
+    g = torch.tensor(gamma, dtype=torch.float32).double()
+    carry = torch.zeros(step_rewards.shape[0], dtype=torch.float64,
+                        device=step_rewards.device)
+    out = []
+    for t in range(step_rewards.shape[1] - 1, -1, -1):
+        carry = (step_rewards[:, t].double() + g * carry).float().double()
+        out.append(carry)
+    return torch.stack(out[::-1], dim=1).float()
 
 
 def truncated_importance_weights(logprobs, behavior_logprobs, *,

@@ -62,6 +62,21 @@ class RolloutStats:
     spec_rounds: int = 0
 
 
+def check_no_modality_inputs(model) -> None:
+    """The rollout engines and the trainer carry no modality inputs, as in
+    the JAX package (its engines never pass ``extra`` to prefill): a model
+    whose ``input_extras`` is non-empty (the audio and vlm families) is
+    refused up front. Serve and train those through
+    ``core/train_step.py``'s steps, which take ``extra``."""
+    extras = sorted(model.input_extras(1))
+    if extras:
+        raise ValueError(
+            f"family {model.cfg.family!r} needs modality inputs {extras}, "
+            f"which the rollout engine does not carry (nor does the JAX "
+            f"package's): use core.train_step's make_lm_train_step, "
+            f"make_prefill_step and make_serve_step with extra=")
+
+
 def action_mask(tokens, n_actions: int):
     """(...,) int tokens -> bool mask of action-protocol tokens."""
     return (tokens >= ACTION_BASE) & (tokens < ACTION_BASE + n_actions)

@@ -195,6 +195,7 @@ class CompiledRolloutEngine:
                  speculation: str = "off",
                  spec_k: int = 4, draft_layers: Optional[int] = None,
                  draft_model=None, mesh_config=None, device=None):
+        common.check_no_modality_inputs(model)
         cfg = model.cfg
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"cache_layout must be 'dense' or 'paged', got "

@@ -46,6 +46,7 @@ class RolloutEngine:
     device: Any = None              # None = the GPU (raises without one)
 
     def __post_init__(self):
+        common.check_no_modality_inputs(self.model)
         if ACTION_BASE + self.env.n_actions > self.model.cfg.vocab_size:
             raise ValueError("the action tokens do not fit the vocabulary")
         self.device = resolve_device(self.device)

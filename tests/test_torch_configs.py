@@ -2,12 +2,12 @@
 the JAX package's: ``ARCH_IDS`` in JAX's order, every field of the full and
 smoke configs (nested MoE and SSM configs included), ``param_count`` and
 ``active_param_count``, the input shapes and ``with_sliding_window``.
-``build_model`` serves the dense, ssm, moe and hybrid families with JAX's
-parameter shapes and raises for audio and vlm, citing the ROADMAP item;
-the CLI takes every architecture, trains the moe and hybrid smoke
-configs for two steps on the CPU (finite loss, the KL of step 1 above 0,
-the layout resolved to the dense caches) and fails for audio and vlm at
-``build_model``, not at argparse."""
+``build_model`` serves every family, audio and vlm included, with JAX's
+parameter shapes; the CLI takes every architecture, trains the moe and
+hybrid smoke configs for two steps on the CPU (finite loss, the KL of
+step 1 above 0, the layout resolved to the dense caches) and refuses
+audio and vlm with the trainer's ``ValueError`` (the rollout carries no
+modality inputs, as in JAX), not at argparse."""
 import dataclasses
 import json
 
@@ -21,7 +21,6 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models.registry import build_model
 
 ARCHS = list(jbase.ARCH_IDS)
-UNPORTED = ("audio", "vlm")
 
 
 def test_arch_ids_are_jaxs():
@@ -55,10 +54,6 @@ def test_input_shapes_and_sliding_window_match_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_build_model_serves_the_ported_families(arch):
     cfg = tbase.get_smoke_config(arch)
-    if cfg.family in UNPORTED:
-        with pytest.raises(NotImplementedError, match=r"item 10 \(encdec/vlm"):
-            build_model(cfg)
-        return
     model = build_model(cfg)
     jmodel = jax_build_model(jbase.get_smoke_config(arch))
     shapes = {".".join(str(k.key) for k in path): tuple(leaf.shape)
@@ -68,12 +63,24 @@ def test_build_model_serves_the_ported_families(arch):
     assert model.has_aux == jmodel.has_aux
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_build_model_defs_match_jax_at_full_size(arch):
+    """The published configs too: every leaf's shape (no tensor is made
+    on either side)."""
+    model = build_model(tbase.get_config(arch))
+    jmodel = jax_build_model(jbase.get_config(arch))
+    shapes = {".".join(str(k.key) for k in path): tuple(leaf.shape)
+              for path, leaf in jax.tree_util.tree_leaves_with_path(
+                  jmodel.abstract())}
+    assert {k: d.shape for k, d in model.defs.items()} == shapes
+
+
 @pytest.mark.parametrize("arch", ["whisper-large-v3",
                                   "llama-3.2-vision-11b"])
 def test_cli_takes_every_arch_and_raises_at_build_model(arch):
     args = train_cli.parse_args(["--arch", arch, "--smoke"])
     assert args.arch == arch
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="rollout engine does not carry"):
         train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--steps", "1"])
 

@@ -1,6 +1,6 @@
 """The port stands alone and never falls back: no file of
-``src/repro_torch/`` (nor ``chip_smoke.py``) imports JAX or the JAX
-package; entry points default to the GPU and raise without one; the
+``src/repro_torch/`` (nor ``chip_smoke.py``, nor the port's examples
+``examples/torch_*.py``) imports JAX or the JAX package; entry points default to the GPU and raise without one; the
 kernel loader raises without nvcc or CUDA."""
 import ast
 import pathlib
@@ -16,8 +16,8 @@ from repro_torch.rl.engine import CompiledRolloutEngine
 from repro_torch.rl.envs import TicTacToe
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
@@ -43,7 +43,9 @@ def test_scan_covers_the_package():
             "mesh.py", "moe.py", "hybrid.py", "granite_moe_3b_a800m.py",
             "zamba2_1_2b.py", "stablelm_12b.py", "grok_1_314b.py",
             "whisper_large_v3.py", "llama_3_2_vision_11b.py", "glm4_9b.py",
-            "llama3_405b.py", "qwen2_5_72b.py"} <= names
+            "llama3_405b.py", "qwen2_5_72b.py", "encdec.py", "vlm.py",
+            "pipeline.py", "torch_quickstart.py",
+            "torch_serve_batched.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
