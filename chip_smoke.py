@@ -153,6 +153,17 @@ Phases, in order; any failure raises and exits non-zero:
  19. shared_train — one EarlTrainer step on the bandit with sharing and
                int8 pages: the fallback warning once, ExpPrep's standalone
                pass (one flash forward per layer), exact launch counts.
+     The tensor-parallel rollout (the kernels at one rank's
+     shapes, 7/1 heads and V=75,968, are in the kernels phase):
+ 19b. tp_path — full-width qwen2-0.5b (24 layers) at tp=2 in two
+               processes that share the card over gloo (NCCL refuses two
+               ranks on one device), started with the script and waiting
+               until this phase: a tp=1 rollout on rank 0, the engine
+               re-bound to tp=2, and the same rollout on both ranks' shards
+               (B=8, greedy, paged, fused; fp32: 2 turns, the reference
+               folded in; bf16: 1 turn): fp32 tokens equal, bf16
+               first-step logits within 5%, launches and per-rank peak
+               memory.
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
@@ -179,7 +190,7 @@ Phases, in order; any failure raises and exits non-zero:
  23. ssm_train — one EarlTrainer step on mamba2 (B=N=32, max_context 512,
                KL 0.05, clip 0.2, remat "full"): reference folded, exact
                launch counts (the update runs the plain chunked form).
-     The ssm phases run mamba2-370m at 12 of its 48 layers (SSM_LAYERS),
+     The ssm phases run mamba2-370m at 8 of its 48 layers (SSM_LAYERS),
      async_train's lag-1 fault-and-restart run (b) qwen2-0.5b at 6 of its
      24 (FAULT_LAYERS), and phases 12-17 and 19 qwen2-0.5b at 12 of its 24
      (CUT_LAYERS, views of the path's weights; preempt_path keeps all 24):
@@ -187,12 +198,13 @@ Phases, in order; any failure raises and exits non-zero:
      each depth-dependent launch gate is computed from the cut config.
      The moe and hybrid families (flash at hd 160, group 3 and group 1,
      and sampling at V=49155 and 32000 are in the kernels phase):
- 24. hybrid_path — zamba2-1.2b at its published widths (38 Mamba2
-               layers, 6 shared-attention sites, V=32000, bf16, random
+ 24. hybrid_path — zamba2-1.2b at its published widths (12 of its 38
+               Mamba2 layers, HYBRID_LAYERS: 2 shared-attention
+               sites, V=32000, bf16, random
                weights) through CompiledRolloutEngine on its own dense
                cache with the folded reference, B=N=32, max_turns 2,
                max_turn_tokens 32, max_context 256: every episode
-               returned, decode attention exactly 6 sites x decode steps
+               returned, decode attention exactly sites x decode steps
                x 2, one fused sample per generated-token step, no SSD
                scan or other kernel launch (the Mamba layers decode
                recurrently, as JAX's).
@@ -201,7 +213,8 @@ Phases, in order; any failure raises and exits non-zero:
                log-probs against the plain pass at fp32 and within the
                bf16 drift of the f32 evaluation.
  25. moe_train — one folded sync EarlTrainer step of granite-moe-3b-a800m
-               at its published widths (32 layers, 40 experts top-8,
+               at its published widths (12 of its 32 layers,
+               MOE_LAYERS; 40 experts top-8,
                V=49155, bf16, random weights made on the card) at the
                train phase's settings: every episode returned, exact
                decode attention (policy and reference), fused sampling
@@ -633,6 +646,144 @@ def phase_kernels(torch, report):
     report["fused_sample"] = dict(cases["gumbel"], cases=cases)
 
 
+def combine_on_threads(torch, parts, offsets):
+    """``fused_sample.ops.combine_partials`` for each vocab shard's partial
+    state in ``parts``, one host thread a shard, with an all-reduce over
+    the threads: the tp ranks' combine on one device."""
+    import threading
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    R = len(parts)
+    barrier = threading.Barrier(R)
+    slots, out = [None] * R, [None] * R
+    ops = {"max": lambda ts: torch.stack(ts).amax(0),
+           "min": lambda ts: torch.stack(ts).amin(0),
+           "sum": lambda ts: sum(ts[1:], ts[0])}
+
+    def work(r):
+        def reduce(t, op):
+            slots[r] = t
+            barrier.wait()
+            res = ops[op](list(slots))
+            barrier.wait()
+            return res
+        out[r] = fs_ops.combine_partials(*parts[r], offsets[r], reduce)
+
+    threads = [threading.Thread(target=work, args=(r,)) for r in range(R)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def phase_tp_kernels(torch, report):
+    """The kernels at one rank's shapes of full-width qwen2-0.5b at tp=2
+    (tp_path): paged attention at 7 q heads on one kv head (group 7, B=32,
+    NP=16, bf16), held and timed as the path's cases; and the fused
+    sampler's partial-state mode on the rank's vocab shard (B=32,
+    V=75,968, zero and Gumbel noise): each of its five outputs against
+    ``fused_sample_partial_ref`` (m, the best score, its index and its
+    logit bitwise; l within the log-prob rule's roundings), and the two
+    shards' states combined (``combine_partials``) against the one-launch
+    kernel on the whole 151,936-wide row: tokens bitwise, log-probs within
+    the one-launch rule, a tie across the shards broken to the earliest
+    index."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.fused_sample.ref import (
+        fused_sample_partial_ref, fused_sample_ref)
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(25)
+    B, H, KV, hd, ps, NP = 32, 7, 1, 64, 16, 16
+    P = B * NP + 1
+    lens = torch.randint(1, NP * ps + 1, (B,), generator=g,
+                         device=dev).to(torch.int32)
+    perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
+    bt = torch.where(torch.arange(NP, device=dev)[None, :]
+                     < ((lens + ps - 1) // ps)[:, None],
+                     perm.reshape(B, NP).to(torch.int32), -1).contiguous()
+    q = torch.randn((B, H, hd), generator=g, device=dev).bfloat16()
+    kp, vp = (torch.randn((P, ps, KV, hd), generator=g,
+                          device=dev).bfloat16() for _ in range(2))
+    out = pa_ops.paged_decode_attention(q, kp, vp, bt, lens)
+    ref = paged_decode_attention_ref(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    chk = held(torch, out, ref, 2.0 ** -18 * float(ref.float().abs().max()),
+               2.0 ** -7)
+    if not chk["ok"]:
+        raise AssertionError(f"paged_attention bf16_tp2: {chk}")
+    n_valid = int(lens.sum())
+    nbytes = (2 * n_valid * KV * hd * 2 + 2 * q.numel() * 2
+              + bt.numel() * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * n_valid * H * hd, BF16_FLOPS)
+    case = dict(chk, H=H, KV=KV, B=B, NP=NP,
+                ms=time_cold(torch, lambda: pa_ops.paged_decode_attention(
+                    q, kp, vp, bt, lens)),
+                plain_ms=time_cold(torch, lambda: paged_decode_attention_ref(
+                    q, kp, vp, bt, lens)),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                plan=pa_ops.split_plan(B * KV, NP, ps, _build.sm_count(0)))
+    report["paged_attention"]["cases"]["bf16_tp2"] = case
+    emit({"phase": "kernels", "kernel": "paged_attention", "case": "bf16_tp2",
+          **case})
+
+    V, Vl = 151936, 75968
+    lg = torch.randn((B, V), generator=g, device=dev) * 3.0
+    lg[0, 1000] = lg[0, Vl + 7] = 100.0     # a tie across the two shards
+    gum = -torch.log(-torch.log(
+        torch.rand((B, V), generator=g, device=dev).clamp_min(1e-38)))
+    gum[0] = 0.0
+    cases = {}
+    for name, nz in (("zero_noise", torch.zeros_like(lg)), ("gumbel", gum)):
+        shards = [(lg[:, r * Vl:(r + 1) * Vl].contiguous(),
+                   nz[:, r * Vl:(r + 1) * Vl].contiguous()) for r in (0, 1)]
+        parts = [fs_ops.fused_sample_partial(*sh) for sh in shards]
+        refs = [fused_sample_partial_ref(*sh) for sh in shards]
+        torch.cuda.synchronize()
+        for got, want in zip(parts, refs):
+            for i, what in ((0, "m"), (2, "best score"), (3, "index"),
+                            (4, "logit")):
+                if not torch.equal(got[i], want[i]):
+                    raise AssertionError(f"fused_sample_partial {name}: "
+                                         f"{what} differs from ref.py")
+        # l sums Vl exponentials in another order: the log-prob rule's
+        # (V/1024 + 60) roundings, relative to l
+        lchk = held(torch, parts[0][1], refs[0][1], 0.0,
+                    (Vl / 1024 + 60) * 2.0 ** -24)
+        combined = combine_on_threads(torch, parts, [0, Vl])
+        tok, lp = fs_ops.fused_sample(lg, nz)
+        torch.cuda.synchronize()
+        atol = ((V / 1024 + 60) * 2.0 ** -24
+                + 8 * 2.0 ** -23 * float(lp.abs().max()))
+        for t, p_ in combined:
+            if not torch.equal(t, tok) or int(t[0]) != 1000:
+                raise AssertionError(f"fused_sample_partial {name}: the "
+                                     f"combined tokens differ from the "
+                                     f"one-launch kernel's")
+            chk = held(torch, p_, lp, atol, 0.0)
+            if not (chk["ok"] and lchk["ok"]):
+                raise AssertionError(f"fused_sample_partial {name}: "
+                                     f"{chk} {lchk}")
+        x, z = shards[0]
+        b_ms, b_by = bound(2 * B * Vl * 4 + B * 20, 4 * B * Vl)
+        cases[name] = dict(
+            chk, l_err_over_tol=lchk["err_over_tol"], tokens_equal=True,
+            V_local=Vl, plan=fs_ops.cluster_plan(B, Vl, _build.sm_count(0)),
+            ms=time_cold(torch, lambda: fs_ops.fused_sample_partial(x, z)),
+            plain_ms=time_cold(torch, lambda: fused_sample_partial_ref(x, z)),
+            one_launch_full_row_ms=time_cold(
+                torch, lambda: fs_ops.fused_sample(lg, nz)),
+            bound_ms=b_ms, bound_by=b_by)
+        emit({"phase": "kernels", "kernel": "fused_sample_partial",
+              "case": name, **cases[name]})
+    # the tp path samples greedily: zero noise
+    report["fused_sample_partial"] = dict(cases["zero_noise"], cases=cases)
+
+
 def one_rounding_errors(torch, q, k, v, do, out, L, out_r, grads_r,
                         causal, window):
     """The error the bf16 kernels would make with one bf16 rounding of each
@@ -716,7 +867,9 @@ def phase_flash(torch, report):
             # at its card test's prefill (B=4, S=64)
             ("bf16_whisper", 16, 256, 20, 20, 64, bf16),
             ("bf16_whisper_s64", 16, 64, 20, 20, 64, bf16),
-            ("bf16_vision", 4, 64, 32, 8, 128, bf16)):
+            ("bf16_vision", 4, 64, 32, 8, 128, bf16),
+            # one rank of qwen2-0.5b at tp=2 (tp_path): 7 q heads, 1 kv
+            ("bf16_tp2", 8, 256, 7, 1, 64, bf16)):
         pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
@@ -1084,6 +1237,15 @@ def phase_decode(torch, report):
         run_case(name, q, k, v,
                  (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
                  BF16_FLOPS, 2.0 ** -7)
+    # one rank of qwen2-0.5b at tp=2 (tp_path's folded reference): 7 q
+    # heads on one kv head, B=32, S=256
+    fill = torch.randint(1, 256, (B, 1), generator=g, device=dev)
+    q = torch.randn((B, 7, hd), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, 256, 1, hd), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    run_case("bf16_fill_tp2", q, k, v,
+             (torch.arange(256, device=dev)[None, :] <= fill).contiguous(),
+             BF16_FLOPS, 2.0 ** -7)
     # the main path: the bf16 reference stream over a filling cache
     report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
 
@@ -1548,7 +1710,9 @@ def phase_macro_step(torch, engine, dense_engine, params):
 
 # the depth the speculative phases and the paged pool's second half (all
 # but preempt_path) run qwen2-0.5b at (of its 24 layers): views of the
-# path's weights; their draft takes half of it, JAX's default
+# path's weights; their draft takes half of it, JAX's default. At 10
+# layers shared_spec's greedy tokens with speculation on and off part at
+# one near-tie (ROADMAP Queue 3), so it stays at 12
 CUT_LAYERS = 12
 
 SPEC = dict(cache_layout="paged", attn_impl="paged", sampling="reference",
@@ -2345,6 +2509,286 @@ def phase_preempt_path(torch, model, params, report):
         raise AssertionError(f"preempt_path checks failed: {out}")
 
 
+# the tp path: two processes share the one card over gloo (see
+# phase_tp_path), each a rank of tp=2 on full-width qwen2-0.5b
+TP_PATH = dict(cache_layout="paged", attn_impl="paged", sampling="fused",
+               temperature=0.0, max_turns=2, max_turn_tokens=4,
+               max_context=96)
+TP_BATCH = 8
+
+
+class TPWorkers:
+    """The tp path's two rank processes (``chip_smoke.py --tp-worker``),
+    started at once: each joins the gloo group and makes the seeded
+    weights on the host, then waits until ``go`` is called (or an hour
+    passes) before it touches the card's kernels. ``stop`` kills what is
+    still running and removes their directory."""
+
+    def __init__(self, world: int = 2):
+        import tempfile
+        self.tmp = tempfile.mkdtemp()
+        store = os.path.join(self.tmp, "store")
+        self.go_path = os.path.join(self.tmp, "go")
+        self.logs = [os.path.join(self.tmp, f"rank{r}.log")
+                     for r in range(world)]
+        self.procs = []
+        for r in range(world):
+            with open(self.logs[r], "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--tp-worker",
+                     str(r), str(world), store, self.go_path], stdout=f,
+                    stderr=subprocess.STDOUT))
+
+    def go(self) -> None:
+        with open(self.go_path, "w") as f:
+            f.write("go")
+
+    def wait(self, timeout: float):
+        """Each rank's exit code and log, once all have exited."""
+        codes = []
+        for p in self.procs:
+            try:
+                codes.append(p.wait(timeout=timeout))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        return codes, [open(f).read() for f in self.logs]
+
+    def stop(self) -> None:
+        import shutil
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def _tp_counters():
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    reset = lambda: [m.reset_launches() for m in (da_ops, fa_ops, fs_ops,
+                                                  pa_ops)]
+    read = lambda: {"paged_attention": pa_ops.launches,
+                    "decode_attention": da_ops.launches,
+                    "fused_sample": fs_ops.launches,
+                    "fused_sample_partial": fs_ops.partial_launches,
+                    "flash_fwd": fa_ops.launches["fwd"]}
+    return reset, read
+
+
+def tp_worker(rank: int, world: int, store: str, go: str) -> int:
+    """One rank of phase_tp_path (``chip_smoke.py --tp-worker RANK WORLD
+    STORE GO``): joins the group, makes the weights, waits for the file
+    ``GO``, runs, and prints its results as one ``TPRESULT`` JSON line."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.resharding import MeshConfig, shard_params
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # two threads: the other phases run beside the wait below
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    # the same seeded weights on both ranks, made and kept on the host:
+    # each rank moves only its shards to the card
+    full32 = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32, device="cpu")
+    t_wait = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - t_wait > 3600:
+            return 1
+        time.sleep(0.1)
+    t_start = time.perf_counter()
+    one, two = MeshConfig("tp1", 1, 1), MeshConfig("tp2", 1, 2)
+    reset, read = _tp_counters()
+    B = TP_BATCH
+    gen = lambda: torch.Generator(device="cuda").manual_seed(1)
+    out = {"rank": rank}
+
+    def rollout(eng, params, tag, ref):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        if params is None:       # tp=1: the whole model on the card
+            params = {k: v.cuda() for k, v in held_params.items()}
+        exp, st = eng.run(params, B, B, ref_params=params if ref else None,
+                          generator=gen())
+        torch.cuda.synchronize()
+        out[tag] = dict(seconds=time.perf_counter() - t0, launches=read(),
+                        peak_bytes=torch.cuda.max_memory_allocated() - base,
+                        returned=st.episodes_returned,
+                        tokens=exp.tokens.cpu().tolist(),
+                        logprobs=exp.logprobs.cpu().tolist(),
+                        ref_logprobs=exp.ref_logprobs.cpu().tolist())
+        del params, exp
+        torch.cuda.empty_cache()
+
+    for kv in ("fp32", "bf16"):
+        held_params = (full32 if kv == "fp32" else
+                       {k: v.bfloat16() for k, v in full32.items()})
+        # the bf16 rollouts, which only report token agreement, take one
+        # turn and no folded reference
+        settings = dict(TP_PATH, **({} if kv == "fp32" else
+                                    {"max_turns": 1}))
+        eng = CompiledRolloutEngine(model, TicTacToe(), mesh_config=one,
+                                    kv_dtype=kv, **settings)
+        if eng.in_mesh:          # rank 1 takes no part at tp=1
+            rollout(eng, None, f"{kv}_tp1", kv == "fp32")
+        # the selector's switch: re-bind the engine to tp=2
+        eng.bind_mesh(two)
+        out[f"{kv}_tp"] = dict(heads=eng.tp.n_heads,
+                               kv_heads=eng.tp.n_kv_heads,
+                               vocab_local=eng.tp.vocab_local,
+                               vocab_offset=eng.tp.vocab_offset,
+                               d_ff_local=eng.tp.plan.d_ff_local)
+        rollout(eng, held_params, f"{kv}_tp2", kv == "fp32")
+        if kv == "bf16":
+            # the first decode step's logits after a 12-token prompt
+            # (prefill on the flash forward, decode on the paged kernel),
+            # the shards gathered, against tp=1 on rank 0
+            tok = torch.randint(0, cfg.vocab_size, (B, 13), device="cuda",
+                                generator=gen())
+            local = shard_params(held_params, eng.tp.plan, device="cuda")
+            reset()
+            with torch.no_grad():
+                c = transformer.init_cache(cfg, B, 32, layout="paged",
+                                           tp=eng.tp, device="cuda")
+                _, c = transformer.prefill(cfg, local, tok[:, :12], c,
+                                           attn_impl="paged", tp=eng.tp)
+                lg, _ = transformer.decode_step(cfg, local, tok[:, 12], c,
+                                                attn_impl="paged", tp=eng.tp)
+                lg = eng.tp.gather_row(lg.float())
+            out["logits_launches"] = read()
+            del local, c
+            if rank == 0:
+                g16 = {k: v.cuda() for k, v in held_params.items()}
+                with torch.no_grad():
+                    c = transformer.init_cache(cfg, B, 32, layout="paged",
+                                               device="cuda")
+                    _, c = transformer.prefill(cfg, g16, tok[:, :12], c,
+                                               attn_impl="paged")
+                    lg1, _ = transformer.decode_step(cfg, g16, tok[:, 12], c,
+                                                     attn_impl="paged")
+                out["bf16_logits"] = dict(
+                    max_abs_err=float((lg - lg1.float()).abs().max()),
+                    scale=float(lg1.float().abs().max()))
+                del g16, c
+        del eng
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    print("TPRESULT " + json.dumps(out), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp_path(torch, report, workers: TPWorkers):
+    """Full-width qwen2-0.5b (24 layers, 14/2 heads, d_ff 4,864, V=151,936)
+    at tp=2: two processes (``tp_worker``), each a rank with 7 q heads,
+    1 kv head, d_ff 2,432 and V=75,968, share the one H100 over gloo. NCCL
+    refuses two ranks on one device; gloo all-reduces and broadcasts CUDA
+    tensors by staging them through the host, which is all the tp rollout
+    calls. So this shows correctness and per-rank memory, not speed, and
+    the one-host-read-per-turn check (set_sync_debug_mode("error")) cannot
+    hold here: every all-reduce is a host round trip. The sync phases keep
+    that check on every other path.
+
+    Each rank binds the engine to tp=1 (rank 1 outside it takes no part)
+    and rank 0 rolls out the whole model; then both re-bind to tp=2 (the
+    selector's switch) and roll out on their shards: a paged rollout with
+    the folded reference and fused sampling, B=8, 2 turns of 4 tokens,
+    greedy, at fp32 params and KV; then at bf16, one turn without the
+    reference.
+    The workers start with the script and wait (``TPWorkers``), so their
+    start-up is not this phase's. Gates: at fp32 the tp=2 tokens equal
+    tp=1's on both ranks, the log-probs within 1e-4 (f32 sums in another
+    order) and the reference's within 1e-2 (it decodes on a bf16 cache in
+    both runs, as in JAX: K/V computed in another order can round to the
+    neighbouring bf16 value, 2^-8 of it); both ranks' launch counts
+    equal, paged and decode attention launches equal to tp=1's, the
+    partial sampler's launches equal to tp=1's one-launch sampler's and
+    no one-launch sampler at tp=2; the bf16 first decode step's logits
+    within 5% of their scale (the port's bf16 rule), with one flash
+    forward per layer in its prefill. Reported: bf16 token agreement
+    (ungated, as in spec_branch), each rank's peak memory against tp=1,
+    its launches and the seconds."""
+    t0 = time.perf_counter()
+    workers.go()
+    codes, texts = workers.wait(timeout=600)
+    if any(codes):
+        raise AssertionError("tp_path: a rank failed:\n" + "\n".join(
+            t[-3000:] for t in texts))
+    res = [json.loads(next(ln[9:] for ln in t.splitlines()
+                           if ln.startswith("TPRESULT ")))
+           for t in texts]
+    r0, r1 = res
+    T = lambda d, k: torch.tensor(d[k])
+    fp = r0["fp32_tp1"], r0["fp32_tp2"], r1["fp32_tp2"]
+    same_tokens = (fp[0]["tokens"] == fp[1]["tokens"] == fp[2]["tokens"])
+    lp_err, ref_err = (float((T(fp[0], k) - T(fp[1], k)).abs().max())
+                       for k in ("logprobs", "ref_logprobs"))
+    launches_ok = True
+    for kv in ("fp32", "bf16"):
+        a, b, c = (r0[f"{kv}_tp1"]["launches"], r0[f"{kv}_tp2"]["launches"],
+                   r1[f"{kv}_tp2"]["launches"])
+        ref_launches = b["paged_attention"] if kv == "fp32" else 0
+        launches_ok &= (b == c and b["paged_attention"] == a["paged_attention"]
+                        > 0 and b["decode_attention"] == a["decode_attention"]
+                        == ref_launches
+                        and b["fused_sample_partial"] == a["fused_sample"]
+                        > 0 and b["fused_sample"] == 0
+                        and a["fused_sample_partial"] == 0
+                        and b["paged_attention"] % 24 == 0)
+    bl = r0["bf16_logits"]
+    agree = sum(x == y for x, y in zip(r0["bf16_tp1"]["tokens"],
+                                       r0["bf16_tp2"]["tokens"]))
+    out = dict(
+        phase="tp_path", arch="qwen2-0.5b", world=2, backend="gloo",
+        batch=TP_BATCH, rank_shapes=r0["fp32_tp"],
+        fp32_tokens_equal=same_tokens, fp32_logprob_max_abs_err=lp_err,
+        fp32_ref_logprob_max_abs_err=ref_err,
+        bf16_logits=dict(bl, tolerance=0.05 * bl["scale"]),
+        bf16_rows_equal=agree, bf16_rows=TP_BATCH,
+        launches={f"rank{r}": {k: v["launches"] for k, v in x.items()
+                               if isinstance(v, dict) and "launches" in v}
+                  for r, x in enumerate(res)},
+        logits_launches=r0["logits_launches"],
+        peak_bytes={f"rank{r}": {k: v["peak_bytes"] for k, v in x.items()
+                                 if isinstance(v, dict) and "peak_bytes" in v}
+                    for r, x in enumerate(res)},
+        rollout_seconds={f"rank{r}": {k: v["seconds"] for k, v in x.items()
+                                      if isinstance(v, dict)
+                                      and "seconds" in v}
+                         for r, x in enumerate(res)},
+        worker_seconds=[x["seconds"] for x in res],
+        seconds=time.perf_counter() - t0)
+    out["peak_ratio_tp2_over_tp1"] = {
+        kv: [x[f"{kv}_tp2"]["peak_bytes"] / r0[f"{kv}_tp1"]["peak_bytes"]
+             for x in res] for kv in ("fp32", "bf16")}
+    emit(out)
+    report["fused_sample_partial"]["launches"] = \
+        r0["fp32_tp2"]["launches"]["fused_sample_partial"]
+    if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
+            and launches_ok
+            and bl["max_abs_err"] <= 0.05 * bl["scale"]
+            and r0["logits_launches"]["flash_fwd"] == 24
+            and all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
+                    for x in res for kv in ("fp32", "bf16"))):
+        raise AssertionError(f"tp_path checks failed: {out}")
+
+
 def phase_shared_train(torch, model, report):
     """One EarlTrainer step at full width on MultiArmedBandit (prompt_len
     95) with share_prefix=True and int8 pages, B=N=32, max_context 256,
@@ -2440,7 +2884,7 @@ def phase_shared_train(torch, model, report):
 SSM = dict(cache_layout="dense", sampling="fused", temperature=1.0,
            max_turns=4, max_turn_tokens=32, max_context=512)
 # the depth the ssm phases run mamba2-370m at (of its 48 layers)
-SSM_LAYERS = 12
+SSM_LAYERS = 8
 
 
 def _ssm_counters():
@@ -2461,7 +2905,7 @@ def _read_counters(ops_by_name):
 
 
 def phase_ssm_path(torch, model, params, report):
-    """mamba2-370m at its published widths, SSM_LAYERS = 12 of its 48
+    """mamba2-370m at its published widths, SSM_LAYERS = 8 of its 48
     layers (d=1024, 32 SSM heads x 64, state
     128, V=50280, bf16, random weights from a seeded generator) through
     CompiledRolloutEngine on TicTacToe on its recurrent cache
@@ -3352,11 +3796,18 @@ HYBRID = dict(cache_layout="dense", sampling="fused", temperature=1.0,
               max_turns=2, max_turn_tokens=32, max_context=256)
 
 
+# the depths hybrid_path and moe_train run at (of 38 and 32): their
+# gates are computed from the cut config
+HYBRID_LAYERS = 12
+MOE_LAYERS = 12
+
+
 def phase_hybrid_path(torch, report):
-    """Full-width zamba2-1.2b (38 Mamba2 layers, d=2048, 64 SSM heads x
-    64, state 64, one shared attention block of 32 heads x 64 after every
-    6th layer: 6 sites, V=32000, bf16, random weights from a seeded
-    generator) through CompiledRolloutEngine on TicTacToe on its own
+    """Full-width zamba2-1.2b (d=2048, 64 SSM heads x 64, state 64, one
+    shared attention block of 32 heads x 64 after every 6th layer,
+    V=32000, bf16, random weights from a seeded generator) at
+    HYBRID_LAYERS of its 38 Mamba2 layers (12: 2 sites) through
+    CompiledRolloutEngine on TicTacToe on its own
     cache (cache_layout="dense": the Mamba states and one KV ring per
     site), sampling="fused", the reference stream folded in, B=N=32,
     max_turns 2, max_turn_tokens 32, max_context 256. Every launch counter
@@ -3370,7 +3821,8 @@ def phase_hybrid_path(torch, report):
     from repro_torch.rl.engine import CompiledRolloutEngine
     from repro_torch.rl.envs import TicTacToe
 
-    model, params = _init_model(torch, get_config("zamba2-1.2b"))
+    model, params = _init_model(torch, dataclasses.replace(
+        get_config("zamba2-1.2b"), n_layers=HYBRID_LAYERS))
     sites = hybrid.n_attn_sites(model.cfg)
     engine = CompiledRolloutEngine(model, TicTacToe(), **HYBRID)
     turns = count_calls(engine, "turn_step")
@@ -3483,7 +3935,8 @@ def phase_hybrid_score(torch, model, params, exp, sites):
 
 def phase_moe_train(torch, report):
     """One folded sync EarlTrainer step of granite-moe-3b-a800m at its
-    published widths (32 layers, d=1536, 24/8 heads x 64, 40 experts of
+    published widths (MOE_LAYERS = 12 of its 32 layers, d=1536, 24/8
+    heads x 64, 40 experts of
     512 top-8, V=49155, bf16, random weights from seed 0 made on the
     card), at the train phase's settings (TicTacToe, B=N=32, max_turns 4,
     max_turn_tokens 32, max_context 256, KL 0.05, clip 0.2, remat
@@ -3503,7 +3956,8 @@ def phase_moe_train(torch, report):
     from repro_torch.optim.adamw import adamw
     from repro_torch.rl.envs import TicTacToe
 
-    cfg = get_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              n_layers=MOE_LAYERS)
     model = build_model(cfg)
     tr = EarlTrainer(model=model, env=TicTacToe(),
                      optimizer=adamw(3e-4, weight_decay=0.0), **TRAIN)
@@ -3779,118 +4233,133 @@ def main() -> int:
     _build.start_all()
     emit({"phase": "build_started", "sources": list(_build.KERNELS)})
 
-    report = {}
-    phase_kernels(torch, report)
-    phase_decode(torch, report)
-    phase_flash(torch, report)
-    phase_spec_verify(torch, report)
-    phase_ssd(torch, report)
-    _build.build_all()
-    emit({"phase": "build", "seconds": max(_build.build_seconds.values(),
-                                           default=0.0),
-          "until_all_loaded_s": time.perf_counter() - t_build,
-          "per_source_s": dict(_build.build_seconds)})
-    model, params = _init_model(torch, get_config("qwen2-0.5b"))
-    engine = phase_path(torch, model, params, report)
-    dense_engine = phase_dense_path(torch, model, params, report)
-    phase_branch(torch, model, params)
-    phase_macro_step(torch, engine, dense_engine, params)
-    del engine, dense_engine
-    # CUT_LAYERS of the 24 layers, as views of the same weights (the full
-    # depth took 180-250 s of the script in these phases)
-    from repro_torch.models import transformer
-    from repro_torch.models.registry import build_model
-    cut = build_model(dataclasses.replace(model.cfg, n_layers=CUT_LAYERS))
-    cut_params = transformer.draft_params_view(params, CUT_LAYERS)
-    spec_engine = phase_spec_path(torch, cut, cut_params, report)
-    phase_spec_branch(torch, cut, cut_params)
-    phase_spec_sync(torch, spec_engine, cut_params)
-    del spec_engine
-    phase_shared_path(torch, cut, cut_params, report)
-    phase_shared_spec(torch, cut, cut_params, report)
-    del cut_params
-    phase_preempt_path(torch, model, params, report)
-    del params
-    # the dispatcher's and the selector's distributed code runs in a
-    # process group of one rank (NCCL allows one rank per card)
-    import torch.distributed as dist
-    t0 = time.perf_counter()
-    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    emit({"phase": "process_group", "backend": dist.get_backend(),
-          "world_size": dist.get_world_size(),
-          "seconds": time.perf_counter() - t0})
+    # the tp path's two ranks start now and wait (phase_tp_path): their
+    # start-up and weight init hide under the kernel phases
+    tp_workers = TPWorkers()
     try:
-        trainer, params, opt_state, exp = phase_train(torch, model, report)
-        phase_dispatch(torch, exp, report)
-        phase_train_trace(torch, trainer, params, opt_state, exp)
-        phase_train_branch(torch, model, params, opt_state, exp)
-        del trainer, opt_state, exp
-        phase_async_train(torch, model, params, report)
+        report = {}
+        phase_kernels(torch, report)
+        phase_decode(torch, report)
+        phase_flash(torch, report)
+        phase_spec_verify(torch, report)
+        phase_ssd(torch, report)
+        phase_tp_kernels(torch, report)
+        _build.build_all()
+        emit({"phase": "build", "seconds": max(_build.build_seconds.values(),
+                                               default=0.0),
+              "until_all_loaded_s": time.perf_counter() - t_build,
+              "per_source_s": dict(_build.build_seconds)})
+        model, params = _init_model(torch, get_config("qwen2-0.5b"))
+        engine = phase_path(torch, model, params, report)
+        dense_engine = phase_dense_path(torch, model, params, report)
+        phase_branch(torch, model, params)
+        phase_macro_step(torch, engine, dense_engine, params)
+        del engine, dense_engine
+        # CUT_LAYERS of the 24 layers, as views of the same weights (the full
+        # depth took 180-250 s of the script in these phases)
+        from repro_torch.models import transformer
+        from repro_torch.models.registry import build_model
+        cut = build_model(dataclasses.replace(model.cfg, n_layers=CUT_LAYERS))
+        cut_params = transformer.draft_params_view(params, CUT_LAYERS)
+        spec_engine = phase_spec_path(torch, cut, cut_params, report)
+        phase_spec_branch(torch, cut, cut_params)
+        phase_spec_sync(torch, spec_engine, cut_params)
+        del spec_engine
+        phase_shared_path(torch, cut, cut_params, report)
+        phase_shared_spec(torch, cut, cut_params, report)
+        del cut_params
+        phase_preempt_path(torch, model, params, report)
         del params
+        phase_tp_path(torch, report, tp_workers)
+        # the dispatcher's and the selector's distributed code runs in a
+        # process group of one rank (NCCL allows one rank per card)
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        emit({"phase": "process_group", "backend": dist.get_backend(),
+              "world_size": dist.get_world_size(),
+              "seconds": time.perf_counter() - t0})
+        try:
+            trainer, params, opt_state, exp = phase_train(torch, model, report)
+            phase_dispatch(torch, exp, report)
+            phase_train_trace(torch, trainer, params, opt_state, exp)
+            phase_train_branch(torch, model, params, opt_state, exp)
+            del trainer, opt_state, exp
+            phase_async_train(torch, model, params, report)
+            del params
+        finally:
+            dist.destroy_process_group()
+        phase_spec_train(torch, cut, report)
+        phase_shared_train(torch, cut, report)
+        del model, cut
+
+        # mamba2-370m at SSM_LAYERS of its 48 layers (the full depth took
+        # 116 s of the script in its four phases, 24 layers 67 s on a slow
+        # host)
+        model, params = _init_model(torch, dataclasses.replace(
+            get_config("mamba2-370m"), n_layers=SSM_LAYERS))
+        ssm_engine, ssm_exp = phase_ssm_path(torch, model, params, report)
+        phase_ssm_score(torch, model, params, ssm_exp, report)
+        phase_ssm_sync(torch, ssm_engine, params)
+        del ssm_engine, ssm_exp, params
+        phase_ssm_train(torch, model, report)
+        del model
+
+        phase_hybrid_path(torch, report)
+        phase_moe_train(torch, report)
+
+        # full-width, full-depth whisper-large-v3 (32 encoder and 32 decoder
+        # layers, d=1280, 20/20 heads x 64, V=51866, 1,500 frames)
+        model, params = _init_model(torch, get_config("whisper-large-v3"))
+        phase_audio_serve(torch, model, params, report)
+        phase_audio_train(torch, model, params, report)
+        del model, params
+
+        kernels = []
+        for name, src, replaces in (
+                ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
+                 "src/repro/kernels/paged_attention/kernel.py:33"),
+                ("fused_sample", "src/repro_torch/csrc/fused_sample.cu",
+                 "src/repro/kernels/fused_sample/kernel.py:34"),
+                ("fused_sample_partial",
+                 "src/repro_torch/csrc/fused_sample.cu",
+                 "src/repro/kernels/fused_sample/kernel.py:34"),
+                ("flash_fwd", "src/repro_torch/csrc/flash_fwd.cuh",
+                 "src/repro/kernels/flash_attention/kernel.py:28"),
+                ("flash_dq", "src/repro_torch/csrc/flash_bwd.cuh",
+                 "src/repro/kernels/flash_attention/bwd_kernel.py:39"),
+                ("flash_dkv", "src/repro_torch/csrc/flash_bwd.cuh",
+                 "src/repro/kernels/flash_attention/bwd_kernel.py:63"),
+                ("decode_attention",
+                 "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:28"),
+                ("spec_verify", "src/repro_torch/csrc/spec_verify.cuh",
+                 "src/repro/kernels/spec_verify/kernel.py:44"),
+                ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:31")):
+            r = report[name]
+            extra = {k: v for k, v in r.items() if k.startswith("launches_")}
+            kernels.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": r["launches"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                "cases": {c: {k: v[k] for k in ("max_abs_err", "atol", "rtol",
+                                                "err_over_tol", "ms")}
+                          for c, v in r["cases"].items()}, **extra})
+        emit({"kernels": kernels})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
     finally:
-        dist.destroy_process_group()
-    phase_spec_train(torch, cut, report)
-    phase_shared_train(torch, cut, report)
-    del model, cut
-
-    # mamba2-370m at SSM_LAYERS of its 48 layers (the full depth took
-    # 116 s of the script in its four phases, 24 layers 67 s on a slow
-    # host)
-    model, params = _init_model(torch, dataclasses.replace(
-        get_config("mamba2-370m"), n_layers=SSM_LAYERS))
-    ssm_engine, ssm_exp = phase_ssm_path(torch, model, params, report)
-    phase_ssm_score(torch, model, params, ssm_exp, report)
-    phase_ssm_sync(torch, ssm_engine, params)
-    del ssm_engine, ssm_exp, params
-    phase_ssm_train(torch, model, report)
-    del model
-
-    phase_hybrid_path(torch, report)
-    phase_moe_train(torch, report)
-
-    # full-width, full-depth whisper-large-v3 (32 encoder and 32 decoder
-    # layers, d=1280, 20/20 heads x 64, V=51866, 1,500 frames)
-    model, params = _init_model(torch, get_config("whisper-large-v3"))
-    phase_audio_serve(torch, model, params, report)
-    phase_audio_train(torch, model, params, report)
-    del model, params
-
-    kernels = []
-    for name, src, replaces in (
-            ("paged_attention", "src/repro_torch/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention/kernel.py:33"),
-            ("fused_sample", "src/repro_torch/csrc/fused_sample.cu",
-             "src/repro/kernels/fused_sample/kernel.py:34"),
-            ("flash_fwd", "src/repro_torch/csrc/flash_fwd.cuh",
-             "src/repro/kernels/flash_attention/kernel.py:28"),
-            ("flash_dq", "src/repro_torch/csrc/flash_bwd.cuh",
-             "src/repro/kernels/flash_attention/bwd_kernel.py:39"),
-            ("flash_dkv", "src/repro_torch/csrc/flash_bwd.cuh",
-             "src/repro/kernels/flash_attention/bwd_kernel.py:63"),
-            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:28"),
-            ("spec_verify", "src/repro_torch/csrc/spec_verify.cuh",
-             "src/repro/kernels/spec_verify/kernel.py:44"),
-            ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-             "src/repro/kernels/ssd_scan/kernel.py:31")):
-        r = report[name]
-        extra = {k: v for k, v in r.items() if k.startswith("launches_")}
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "cases": {c: {k: v[k] for k in ("max_abs_err", "atol", "rtol",
-                                            "err_over_tol", "ms")}
-                      for c, v in r["cases"].items()}, **extra})
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+        tp_workers.stop()
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5]))
     sys.exit(main())

@@ -45,11 +45,20 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
         out[prefix] = tree
 
 
-def params_from_numpy(tree, device="cpu") -> Dict[str, torch.Tensor]:
-    """Nested JAX param tree of numpy leaves -> flat ``{path: Tensor}``."""
+def params_from_numpy(tree, device="cpu", *, plan=None,
+                      rank=None) -> Dict[str, torch.Tensor]:
+    """Nested JAX param tree of numpy leaves -> flat ``{path: Tensor}``.
+    With ``plan`` (a ``core.resharding.TPPlan``): one rank's local shards
+    under it (``rank``, the plan's own by default), a ``LocalParams`` that
+    the tensor-parallel engine runs on; both sides then compute on the
+    same weights."""
     flat: Dict[str, Any] = {}
     _flatten(tree, "", flat)
-    return {k: to_torch(v, device) for k, v in flat.items()}
+    if plan is None:
+        return {k: to_torch(v, device) for k, v in flat.items()}
+    from repro_torch.core.resharding import shard_params
+    return shard_params({k: to_torch(v) for k, v in flat.items()}, plan,
+                        rank, device)
 
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:

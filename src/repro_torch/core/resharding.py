@@ -12,14 +12,20 @@ them, in pure Python; ``placements`` gives the ``DTensor`` placements that
 execute the layout on a ``DeviceMesh``.
 
 Sharding rules keep the divisibility fallback: a tensor dim that does not
-divide by its mesh axis is replicated (qwen2's 14 heads on a 4-way model
-axis), and the event is recorded when a ``fallbacks`` list is given.
+divide by its mesh axis is replicated, and the event is recorded when a
+``fallbacks`` list is given. The test is on the flattened ``heads *
+head_dim`` column, as JAX's is, so a model axis can cut a head in half
+(qwen2-0.5b's 14 heads of 64 on a 4-way axis: 896 columns split into 224,
+3.5 heads a rank). ``tp_plan`` is the head-granular plan the tensor-
+parallel rollout runs on: it splits attention only by whole heads, and
+``shard_params`` gives a rank its local tensors under it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -278,6 +284,183 @@ def param_shardings(defs_or_model, mesh_cfg: MeshConfig, *, rules=None,
     return {k: logical_to_physical(d.shape, d.axes, mesh_cfg, rules,
                                    fsdp=fsdp, fallbacks=fallbacks)
             for k, d in defs.items()}
+
+
+@dataclass(frozen=True)
+class TPPlan:
+    """The head-granular tensor-parallel plan of one model on one
+    ``MeshConfig``, for ``rank`` (its ``index`` on the model axis; None
+    outside the mesh). Local counts are the same on every rank:
+
+      - ``attn`` "split": q heads over ``model`` (``n_heads % tp == 0``),
+        ``heads_local`` a rank; "replicated" otherwise (every rank runs
+        all heads and the o-proj needs no all-reduce).
+      - ``kv`` "split": kv heads over ``model`` (``n_kv_heads % tp ==
+        0``); "grouped": each rank holds the one kv head its q heads read
+        (q head ``h`` reads kv head ``h // group``: ``tp % n_kv_heads ==
+        0``); "replicated" with replicated attention.
+      - ``mlp_split`` when ``d_ff % tp == 0``; ``vocab_split`` when
+        ``vocab % tp == 0`` (the embedding rows, or the untied head's
+        columns, over ``model``).
+
+    ``layouts`` maps each param path to the ``NamedLayout`` its local
+    tensor is a shard of (what the data dispatcher moves into); a
+    "grouped" kv leaf is replicated there and ``shard_params`` then keeps
+    the rank's kv head. ``fallbacks`` records each part that replicates
+    where ``param_shardings`` would split, and why."""
+
+    mesh_config: MeshConfig
+    rank: int
+    index: Optional[int]
+    tp: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    attn: str
+    kv: str
+    mlp_split: bool
+    vocab_split: bool
+    layouts: Dict[str, NamedLayout] = field(default_factory=dict)
+    fallbacks: List[Tuple[str, str]] = field(default_factory=list)
+
+    @property
+    def heads_local(self) -> int:
+        return self.n_heads // self.tp if self.attn == "split" \
+            else self.n_heads
+
+    @property
+    def kv_local(self) -> int:
+        if self.kv == "split":
+            return self.n_kv_heads // self.tp
+        return 1 if self.kv == "grouped" else self.n_kv_heads
+
+    @property
+    def d_ff_local(self) -> int:
+        return self.d_ff // self.tp if self.mlp_split else self.d_ff
+
+    @property
+    def vocab_local(self) -> int:
+        return self.vocab_size // self.tp if self.vocab_split \
+            else self.vocab_size
+
+    def index_of(self, rank: int) -> Optional[int]:
+        """``rank``'s index on the model axis (None outside the mesh)."""
+        ranks = self.mesh_config.ranks()
+        hit = np.argwhere(ranks == rank)
+        return int(hit[0][-1]) if len(hit) else None
+
+    def vocab_offset(self, index: Optional[int] = None) -> int:
+        """First global vocab row of the shard at ``index`` (this rank's
+        by default)."""
+        index = self.index if index is None else index
+        return (index or 0) * self.vocab_local if self.vocab_split else 0
+
+    def kv_head(self, index: Optional[int] = None) -> int:
+        """Under ``kv="grouped"``: the global kv head the rank at
+        ``index`` holds."""
+        index = self.index if index is None else index
+        return (index or 0) * self.n_kv_heads // self.tp
+
+
+_KV_LEAVES = ("attn.wk", "attn.wv", "attn.bk", "attn.bv")
+
+
+def tp_plan(model_or_cfg, mesh_cfg: MeshConfig,
+            rank: Optional[int] = None) -> TPPlan:
+    """The head-granular tp plan of a dense-family model (a ``Model``,
+    whose ``defs`` name the leaves, or its ``ModelConfig``) on
+    ``mesh_cfg``, for ``rank`` (this process's by default). See
+    ``TPPlan`` for the rules."""
+    cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
+    if cfg.family != "dense":
+        raise ValueError(f"tp_plan covers the dense family; got "
+                         f"{cfg.family!r}")
+    from repro_torch.models import transformer
+    defs = getattr(model_or_cfg, "defs", None) or transformer.model_defs(cfg)
+    tp = mesh_cfg.tp
+    H, KV, F, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
+    fallbacks: List[Tuple[str, str]] = []
+    if tp == 1:
+        attn, kv = "replicated", "replicated"
+    elif H % tp:
+        attn, kv = "replicated", "replicated"
+        fallbacks.append(("attention", f"{H} q heads do not divide {tp} "
+                                       f"ways"))
+    elif KV % tp == 0:
+        attn, kv = "split", "split"
+    elif tp % KV == 0:
+        attn, kv = "split", "grouped"
+    else:
+        # a rank's q heads would read parts of two kv heads unevenly
+        attn, kv = "replicated", "replicated"
+        fallbacks.append(("attention", f"{H // tp} q heads a rank read "
+                                       f"{KV} kv heads unevenly"))
+    mlp_split = tp > 1 and F % tp == 0
+    vocab_split = tp > 1 and V % tp == 0
+    if tp > 1 and not mlp_split:
+        fallbacks.append(("mlp", f"d_ff {F} does not divide {tp} ways"))
+    if tp > 1 and not vocab_split:
+        fallbacks.append(("vocab", f"{V} rows do not divide {tp} ways"))
+    split = {"heads": attn == "split", "kv_heads": kv == "split",
+             "mlp": mlp_split, "vocab": vocab_split}
+    layouts = {path: NamedLayout(mesh_cfg, tuple(
+                   "model" if split.get(a or "", False) else None
+                   for a in d.axes))
+               for path, d in defs.items()}
+    rank = current_rank() if rank is None else rank
+    plan = TPPlan(mesh_cfg, rank, None, tp, H, KV, cfg.head_dim_, F, V,
+                  attn, kv, mlp_split, vocab_split, layouts, fallbacks)
+    return dataclasses.replace(plan, index=plan.index_of(rank))
+
+
+class LocalParams(dict):
+    """A rank's local param tensors under a ``TPPlan`` on
+    ``mesh_config``: what the tensor-parallel engine runs on, told apart
+    from a global tree of the same keys by its type."""
+
+    def __init__(self, tensors, mesh_config: MeshConfig):
+        super().__init__(tensors)
+        self.mesh_config = mesh_config
+
+
+def shard_params(params, plan: TPPlan, rank: Optional[int] = None,
+                 device=None) -> LocalParams:
+    """``rank``'s ``LocalParams`` (the plan's rank by default) of the global
+    flat ``params``, contiguous, on ``device`` (the params' own when
+    None): each leaf's ``NamedLayout.local_shard``, and under ``kv=
+    "grouped"`` the kv head the rank's q heads read (a ``local_shard`` of
+    the kv leaves over ``n_kv_heads`` ways). A rank outside the mesh gets
+    meta tensors of the global shapes."""
+    rank = plan.rank if rank is None else rank
+    return finish_shards({path: plan.layouts[path].local_shard(x, rank)
+                          for path, x in params.items()}, plan, rank,
+                         device)
+
+
+def finish_shards(tensors, plan: TPPlan, rank: Optional[int] = None,
+                  device=None) -> LocalParams:
+    """``LocalParams`` from each leaf's shard under ``plan.layouts`` (what
+    ``NamedLayout.local_shard`` or the data dispatcher gives ``rank``):
+    under ``kv="grouped"`` the kv leaves, whole there, keep the kv head
+    the rank's q heads read; every tensor contiguous on ``device`` (its
+    own when None); meta tensors pass as they are."""
+    rank = plan.rank if rank is None else rank
+    index = plan.index_of(rank)
+    kv_cfg = MeshConfig("kv", dp=1, tp=plan.n_kv_heads)
+    out = {}
+    for path, local in tensors.items():
+        if local.device.type == "meta":
+            out[path] = local
+            continue
+        if index is not None and plan.kv == "grouped" \
+                and path.endswith(_KV_LEAVES):
+            spec = (None,) * (local.dim() - 1) + ("model",)
+            local = NamedLayout(kv_cfg, spec).local_shard(
+                local, plan.kv_head(index))
+        out[path] = local.to(device or local.device).contiguous()
+    return LocalParams(out, plan.mesh_config)
 
 
 def batch_sharding(mesh_cfg: MeshConfig, ndim: int, *, batch_dim: int = 0,

@@ -27,6 +27,21 @@ engine's ``experience_shardings`` to those layouts, with
 off through ``dispatch_async``. The records carry ``selector_switch`` and
 ``dispatch`` as JAX's do.
 
+**Across ranks** (a process group of more than one rank), the trainer is
+SPMD: every rank runs ``run_step`` with the same arguments, and every
+collective is called by every rank of its group in the same order. The
+rollout runs on the selector's current rollout config (a tensor-parallel
+mesh or one rank; a rank outside it takes no part), the update on one
+rank, as JAX's ``UpdateStage`` runs on one device: the first rank of the
+update stage's config (rank 0 without a profiled selector). Only that
+rank's params and optimizer state are real. Before each rollout the
+update rank's params go to the rollout ranks in the tp plan's layouts
+(``core.resharding.tp_plan``) through the data dispatcher's direct
+executor (the reference params once per mesh), and the batch goes back
+to the update rank the same way. The rollout's stats and the update's
+metrics are broadcast, so every rank keeps the same records, selector
+EMA and switches. The async schedule is single-rank.
+
 As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
 a second time through the reference model on a dense cache. Speculation
@@ -54,9 +69,13 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.data_dispatcher import DataDispatcher
 from repro_torch.core.parallelism_selector import ParallelismSelector
+from repro_torch.core.resharding import (MeshConfig, NamedLayout,
+                                         current_rank, finish_shards,
+                                         tp_plan)
 from repro_torch.core.train_step import (make_ref_logprob_step,
                                          make_rl_train_step)
 from repro_torch.device import resolve_device
@@ -143,16 +162,33 @@ class StepRecord:
 # Stage implementations
 # ---------------------------------------------------------------------------
 
+def _broadcast(obj, src: int):
+    """``obj`` from rank ``src`` on every rank of the default group."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def _spmd() -> bool:
+    """Whether the trainer runs across ranks (a group of more than one)."""
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
 class RolloutStage:
     """Fig. 2 ①: runs the selector's rollout-stage hook, binds the engine
     to the stage's current MeshConfig, rolls out (with the reference pass
     folded in when ``ref_params`` is given) and feeds the context-length
-    monitor. Returns ``(exp, stats, switch_row)``."""
+    monitor. Returns ``(exp, stats, switch_row)``. ``place(params,
+    ref_params)``, when set, gives the params the bound engine runs on
+    (the SPMD trainer's handoff to the rollout ranks); across ranks the
+    stats come from the rollout mesh's first rank."""
 
     def __init__(self, engine,
-                 selector: Optional[ParallelismSelector] = None):
+                 selector: Optional[ParallelismSelector] = None,
+                 place: Optional[Callable] = None):
         self.engine = engine
         self.selector = selector
+        self.place = place
 
     def __call__(self, step: int, params, batch: int, *,
                  n_episodes: Optional[int] = None,
@@ -171,9 +207,14 @@ class RolloutStage:
             if (hasattr(self.engine, "bind_mesh")
                     and self.engine.mesh_config != cur):
                 self.engine.bind_mesh(cur)
+        if self.place is not None:
+            params, ref_params = self.place(params, ref_params)
         exp, stats = self.engine.run(params, batch, n_episodes, noise=noise,
                                      params_version=params_version,
                                      ref_params=ref_params)
+        if _spmd():
+            mesh = getattr(self.engine, "mesh_config", None)
+            stats = _broadcast(stats, mesh.device_offset if mesh else 0)
         if sel is not None:
             sel.observe(stats.mean_context_len)
         return exp, stats, switch
@@ -410,6 +451,8 @@ class EarlTrainer:
                            and self.speculation == "off")
         self._warned_ref_fallback = False
         self.rollout_stage = RolloutStage(self.rollout, self.selector)
+        if _spmd():
+            self._init_spmd(python)
         self.expprep_stage = ExpPrepStage(
             self.model, advantage=self.advantage,
             group_size=self.group_size, attn_impl=attn["expprep"])
@@ -423,6 +466,70 @@ class EarlTrainer:
             self.seed)
         if getattr(self.faults, "pool_pressure", 0) > 0:
             self._undersize_pool(self.faults.pool_pressure)
+
+    # -- across ranks ---------------------------------------------------
+    def _init_spmd(self, python: bool) -> None:
+        """The SPMD trainer's checks and the rollout stage's handoff."""
+        if python or self.pipeline != "sync":
+            raise NotImplementedError(
+                "across ranks the trainer runs the compiled engine under the "
+                "sync schedule; the python backend and the async pipeline "
+                "across ranks are not ported yet: they arrive with ROADMAP "
+                "Queue 1 item 14")
+        self._handoff = DataDispatcher()   # params out, the batch back
+        self._ref_placed = None
+        if self.rollout.mesh_config is None:
+            # no selector: the rollout runs where the update does
+            self.rollout.bind_mesh(self._update_mesh())
+        self.rollout_stage.place = self._place
+
+    def _update_rank(self) -> int:
+        """The rank the update runs on: the first of the update stage's
+        config (rank 0 without a profiled selector)."""
+        sel = self.selector
+        if sel is not None and sel.policy is not None:
+            return sel.current_for("update").device_offset
+        return 0
+
+    def _update_mesh(self) -> MeshConfig:
+        return MeshConfig("update", dp=1, tp=1,
+                          device_offset=self._update_rank())
+
+    def _to_rollout(self, params):
+        """The update rank's ``params`` to the bound rollout mesh, each rank
+        its local tensors under the tp plan (meta outside the mesh)."""
+        mesh = self.rollout.mesh_config
+        plan = tp_plan(self.model, mesh)
+        src_cfg = self._update_mesh()
+        mine = current_rank() == src_cfg.device_offset
+        src = {k: (v if mine else torch.empty(v.shape, dtype=v.dtype,
+                                              device="meta"))
+               for k, v in params.items()}
+        out = self._handoff.dispatch_direct(
+            src, plan.layouts,
+            src_shardings={k: NamedLayout(src_cfg) for k in src})
+        local = finish_shards(out, plan, device=self.device)
+        return local if mesh.tp > 1 else dict(local)
+
+    def _place(self, params, ref_params):
+        """RolloutStage's handoff: the policy's params every step, the
+        reference params once per (tree, mesh)."""
+        mesh = self.rollout.mesh_config
+        if ref_params is not None:
+            key = (ref_params, mesh)
+            if self._ref_placed is None or self._ref_placed[0][0] \
+                    is not ref_params or self._ref_placed[0][1] != mesh:
+                self._ref_placed = (key, self._to_rollout(ref_params))
+            ref_params = self._ref_placed[1]
+        return self._to_rollout(params), ref_params
+
+    def _to_update_rank(self, exp, src_shardings):
+        """The harvested batch to the update rank (every rank calls)."""
+        dst = ExperienceBatch(*(NamedLayout(self._update_mesh())
+                                for _ in exp))
+        out, _ = self._handoff.dispatch(exp, dst, strategy="direct",
+                                        src_shardings=src_shardings)
+        return out
 
     def _undersize_pool(self, fraction: float) -> None:
         """Injected pool pressure: the paged pool at ``fraction`` of its
@@ -579,6 +686,11 @@ class EarlTrainer:
         self._maybe_warn_ref_fallback(ref_params)
         t0 = time.perf_counter()
         self.check_fault("rollout", step)
+        if _spmd() and self.noise is None:
+            # the last rollout's ranks advanced the trainer's generator;
+            # every rank draws on from where they stopped
+            self._gen.set_state(_broadcast(
+                self._gen.get_state(), self.rollout.mesh_config.device_offset))
         exp, stats, switch = self.rollout_stage(
             step, params, self.batch_size, n_episodes=self.rollout_episodes,
             noise=self.rollout_noise(step), params_version=step,
@@ -592,22 +704,33 @@ class EarlTrainer:
         reuse_lp = (ref_params is params and self.top_p == 1.0
                     and (self.temperature <= 0.0
                          or self.temperature == 1.0))
-        exp = self.expprep_stage(exp, ref_params=ref_params,
-                                 ref_folded=self.ref_folded,
-                                 reuse_behavior_lp=reuse_lp)
+        spmd = _spmd()
+        if not spmd or self.rollout.in_mesh:
+            exp = self.expprep_stage(exp, ref_params=ref_params,
+                                     ref_folded=self.ref_folded,
+                                     reuse_behavior_lp=reuse_lp)
         self.check_fault("dispatch", step)
         exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
 
         # hook ②: the update stage's config is tracked apart from the
         # rollout's (the async schedule needs both at once); the update
-        # runs on this rank under every one-device config
+        # runs on one rank: this one alone, or the update rank across
+        # ranks, which the batch reaches through the dispatcher
         if self.selector is not None and self.selector.policy is not None:
             self.selector.maybe_switch(step, stage="update")
+        if spmd:
+            exp = self._to_update_rank(
+                exp, dst_shardings if dst_shardings is not None
+                else self.dispatch_stage.source_shardings(exp))
         t1 = time.perf_counter()
         self.check_fault("update", step)
-        params, opt_state, metrics = self.update_stage(params, opt_state,
-                                                       exp)
-        metrics = self.read_metrics(metrics)
+        metrics = None
+        if not spmd or current_rank() == self._update_rank():
+            params, opt_state, metrics = self.update_stage(params, opt_state,
+                                                           exp)
+            metrics = self.read_metrics(metrics)
+        if spmd:
+            metrics = _broadcast(metrics, self._update_rank())
         t2 = time.perf_counter()
         rec = self.make_record(step, stats, metrics, switch=switch,
                                dispatch_row=dispatch_row,

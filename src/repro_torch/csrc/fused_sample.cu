@@ -36,6 +36,16 @@
 //   the token is the plain version's bit for bit. No workspace, no
 //   atomics: the same inputs give the same bits on every launch.
 //   chip_smoke.py's cluster probe times k = 8, 4, 2 and 1 at B=32.
+//
+// Partial-state mode (`fused_sample_partial_launch`), for a vocab shard of
+//   the tensor-parallel rollout: the same streaming pass and the same
+//   cluster merge over the rank's (B, V_local) slice, but block 0 writes
+//   the merged state instead of finishing it: m and l (the online
+//   logsumexp), the best score of lg + noise, its earliest LOCAL index and
+//   lg there. kernels/fused_sample/ops.combine_partials merges the ranks'
+//   states by the same rule (max score, then the smallest global index;
+//   logsumexp from max m and the sum of l exp(m - M)): five numbers a row
+//   cross the ranks instead of the row's logits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -129,11 +139,22 @@ __device__ __forceinline__ void cluster_wait() {
 
 // grid k B along x, clusters of k: block r of row b is block b k + r and
 // reads [r slice, (r+1) slice).
-template <bool kVec>
+// Out: the token and log-prob, or (kPartial) the five-number state.
+struct Out {
+  int* tok;
+  float* lp;
+  float* m;
+  float* l;
+  float* bs;
+  int* bi;
+  float* bl;
+};
+
+template <bool kVec, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 4)
     fused_sample_kernel(const float* __restrict__ lg,
-                        const float* __restrict__ noise, int* __restrict__ tok,
-                        float* __restrict__ lp, int V, int k, int slice) {
+                        const float* __restrict__ noise, Out out, int V,
+                        int k, int slice) {
   __shared__ State part[32];
   __shared__ State recv[kMaxBlocks];
   // Announce that this block has started: no block writes into another's
@@ -203,22 +224,28 @@ __global__ void __launch_bounds__(kThreads, 4)
                        : State{-INFINITY, 0.f, -INFINITY, -INFINITY, INT_MAX};
     warp_merge(a);
     if (lane == 0) {
-      tok[b] = a.bi;
-      lp[b] = a.bl - (a.m + logf(a.l));
+      if (kPartial) {
+        out.m[b] = a.m;
+        out.l[b] = a.l;
+        out.bs[b] = a.bs;
+        out.bi[b] = a.bi;
+        out.bl[b] = a.bl;
+      } else {
+        out.tok[b] = a.bi;
+        out.lp[b] = a.bl - (a.m + logf(a.l));
+      }
     }
   }
 }
 
 }  // namespace
 
-// lg, noise: (B, V) f32 contiguous; tok: (B,) int32; lp: (B,) f32. Each
-// row is cut into k <= 8 slices of `slice` elements (none empty; a
-// multiple of 4 when V is, which the 16-byte loads need), one block each,
-// the k blocks of a row one cluster. Returns the cudaError_t of the launch
-// (0 = success).
-extern "C" int fused_sample_launch(const void* lg, const void* noise,
-                                   void* tok, void* lp, int B, int V, int k,
-                                   int slice, void* stream) {
+namespace {
+
+// The launch shared by both entry points. Returns the cudaError_t.
+template <bool kPartial>
+int launch(const void* lg, const void* noise, Out out, int B, int V, int k,
+           int slice, void* stream) {
   if (B == 0) return 0;
   if (V < 1 || k < 1 || k > kMaxBlocks || slice < 1 ||
       static_cast<long long>(slice) * k < V ||
@@ -242,12 +269,38 @@ extern "C" int fused_sample_launch(const void* lg, const void* noise,
   cfg.numAttrs = 1;
   const float* l = static_cast<const float*>(lg);
   const float* n = static_cast<const float*>(noise);
-  int* t = static_cast<int*>(tok);
-  float* p = static_cast<float*>(lp);
-  cudaError_t e = vec ? cudaLaunchKernelEx(&cfg, fused_sample_kernel<true>,
-                                           l, n, t, p, V, k, slice)
-                      : cudaLaunchKernelEx(&cfg, fused_sample_kernel<false>,
-                                           l, n, t, p, V, k, slice);
+  cudaError_t e =
+      vec ? cudaLaunchKernelEx(&cfg, fused_sample_kernel<true, kPartial>, l,
+                               n, out, V, k, slice)
+          : cudaLaunchKernelEx(&cfg, fused_sample_kernel<false, kPartial>, l,
+                               n, out, V, k, slice);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// lg, noise: (B, V) f32 contiguous; tok: (B,) int32; lp: (B,) f32. Each
+// row is cut into k <= 8 slices of `slice` elements (none empty; a
+// multiple of 4 when V is, which the 16-byte loads need), one block each,
+// the k blocks of a row one cluster. Returns the cudaError_t of the launch
+// (0 = success).
+extern "C" int fused_sample_launch(const void* lg, const void* noise,
+                                   void* tok, void* lp, int B, int V, int k,
+                                   int slice, void* stream) {
+  Out out{static_cast<int*>(tok), static_cast<float*>(lp), nullptr, nullptr,
+          nullptr, nullptr, nullptr};
+  return launch<false>(lg, noise, out, B, V, k, slice, stream);
+}
+
+// The partial-state mode over a (B, V) shard: m, l, bs, bl (B,) f32 and bi
+// (B,) int32, the index local to the shard. Same plan and checks.
+extern "C" int fused_sample_partial_launch(const void* lg, const void* noise,
+                                           void* m, void* l, void* bs,
+                                           void* bi, void* bl, int B, int V,
+                                           int k, int slice, void* stream) {
+  Out out{nullptr, nullptr, static_cast<float*>(m), static_cast<float*>(l),
+          static_cast<float*>(bs), static_cast<int*>(bi),
+          static_cast<float*>(bl)};
+  return launch<true>(lg, noise, out, B, V, k, slice, stream);
 }

@@ -7,6 +7,12 @@ when ``temperature <= 0``, else Gumbel-argmax over ``logits /
 temperature`` with an optional nucleus filter. Temperature, top-p and the
 noise are plain tensor work outside the kernel, as in JAX; the noise is an
 operand, so a caller can feed the JAX draws and reproduce its tokens.
+
+The tensor-parallel rollout samples from vocab shards:
+``fused_sample_partial`` launches the kernel's partial-state mode on a
+rank's ``(B, V_local)`` slice, and ``combine_partials`` merges the ranks'
+states into the whole row's token and log-prob (``fused_sample_tokens``
+with ``tp=``). ``partial_launches`` counts that mode's launches.
 """
 from __future__ import annotations
 
@@ -16,9 +22,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_sample.ref import NEG_INF, fused_sample_ref
+from repro_torch.kernels.fused_sample.ref import (NEG_INF, fused_sample_ref,
+                                                  fused_sample_partial_ref)
 
 launches = 0          # kernel launches since the last reset_launches()
+partial_launches = 0  # launches of the partial-state mode, likewise
 
 _MAX_BLOCKS = 8       # blocks per row: one cluster, the portable size
 _THREADS = 256        # threads per block (csrc/fused_sample.cu)
@@ -27,14 +35,23 @@ _MIN_SLICE = 2048     # elements a block streams at least (8 per thread)
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, partial_launches
+    launches = partial_launches = 0
 
 
 @functools.cache
 def _bind():
     fn = _build.load("fused_sample").fused_sample_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bind_partial():
+    fn = _build.load("fused_sample").fused_sample_partial_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -56,13 +73,7 @@ def cluster_plan(B: int, V: int, n_sm: int):
     return -(-V // slice_), slice_
 
 
-def fused_sample(lg, noise):
-    """lg, noise: (B, V) f32. Returns ``(tokens (B,) int32, logprobs (B,)
-    f32)``: ``argmax(lg + noise)`` (earliest index on ties) and ``lg[tok] -
-    logsumexp(lg)``. CPU tensors use ``ref.py``; CUDA tensors launch the
-    kernel."""
-    if lg.device.type == "cpu":
-        return fused_sample_ref(lg, noise)
+def _check_cuda_inputs(lg, noise):
     if lg.device.type != "cuda":
         raise ValueError(f"unsupported device {lg.device}")
     if lg.dtype != torch.float32 or noise.dtype != torch.float32:
@@ -75,9 +86,73 @@ def fused_sample(lg, noise):
         raise ValueError("logits and noise must share a device")
     if not (lg.is_contiguous() and noise.is_contiguous()):
         raise ValueError("logits and noise must be contiguous")
+
+
+def _plan_for(lg):
     B, V = lg.shape
-    return _launch(lg, noise, cluster_plan(B, V, _build.sm_count(
-        lg.device.index or 0)))
+    return cluster_plan(B, V, _build.sm_count(lg.device.index or 0))
+
+
+def fused_sample(lg, noise):
+    """lg, noise: (B, V) f32. Returns ``(tokens (B,) int32, logprobs (B,)
+    f32)``: ``argmax(lg + noise)`` (earliest index on ties) and ``lg[tok] -
+    logsumexp(lg)``. CPU tensors use ``ref.py``; CUDA tensors launch the
+    kernel."""
+    if lg.device.type == "cpu":
+        return fused_sample_ref(lg, noise)
+    _check_cuda_inputs(lg, noise)
+    return _launch(lg, noise, _plan_for(lg))
+
+
+def fused_sample_partial(lg, noise):
+    """The partial-state mode over a vocab shard ``lg, noise`` (B, V_local)
+    f32: per row ``(m, l, bs, bi, bl)``, f32 but ``bi`` int32 (the online
+    logsumexp state, the best score of ``lg + noise``, its earliest local
+    index and ``lg`` there). CPU tensors use ``ref.py``; CUDA tensors
+    launch the kernel."""
+    if lg.device.type == "cpu":
+        return fused_sample_partial_ref(lg, noise)
+    _check_cuda_inputs(lg, noise)
+    return _launch_partial(lg, noise, _plan_for(lg))
+
+
+def _launch_partial(lg, noise, plan):
+    """One counted launch of the partial-state mode under ``plan``."""
+    B, V = lg.shape
+    f32 = lambda: torch.empty((B,), dtype=torch.float32, device=lg.device)
+    m, l, bs, bl = f32(), f32(), f32(), f32()
+    bi = torch.empty((B,), dtype=torch.int32, device=lg.device)
+    stream = torch.cuda.current_stream(lg.device).cuda_stream
+    err = _bind_partial()(lg.data_ptr(), noise.data_ptr(), m.data_ptr(),
+                          l.data_ptr(), bs.data_ptr(), bi.data_ptr(),
+                          bl.data_ptr(), B, V, *plan, stream)
+    _build.check(err, "fused_sample_partial")
+    global partial_launches
+    with _build.LAUNCH_LOCK:
+        partial_launches += 1
+    return m, l, bs, bi, bl
+
+
+def combine_partials(m, l, bs, bi, bl, offset: int, reduce):
+    """Merge the vocab shards' partial states into the whole row's
+    ``(tokens (B,) int32, logprobs (B,) f32)``, the one-launch kernel's
+    rule: the greatest score wins, and among equal scores the smallest
+    GLOBAL index ``offset + bi`` (so the earliest index still wins a tie
+    that spans shards); the log-prob is ``bl`` of the winner less ``M +
+    log(sum l exp(m - M))`` with ``M`` the greatest ``m``. ``reduce(t,
+    op)`` all-reduces ``t`` over the shards with op "max", "min" or
+    "sum" (three calls: a MAX of (B, 2), a MIN of (B,), a SUM of (B,
+    2))."""
+    gi = bi.long() + offset
+    top = reduce(torch.stack([bs, m], dim=1), "max")
+    BS, M = top[:, 0], top[:, 1]
+    big = torch.iinfo(torch.int64).max
+    tok = reduce(torch.where(bs == BS, gi, big), "min")
+    # an empty shard (m = -inf) adds nothing to the sum
+    scale = torch.where(m == -torch.inf, 0.0, torch.exp(m - M))
+    sums = reduce(torch.stack([l * scale, torch.where(gi == tok, bl, 0.0)],
+                              dim=1), "sum")
+    return tok.to(torch.int32), sums[:, 1] - (M + torch.log(sums[:, 0]))
 
 
 def _launch(lg, noise, plan):
@@ -112,18 +187,34 @@ def apply_top_p(lg, top_p: float):
 
 
 def fused_sample_tokens(logits, temperature: float, *, top_p: float = 1.0,
-                        noise=None):
+                        noise=None, tp=None):
     """Sample next tokens from (B, V) logits in one kernel pass. Returns
     ``(tokens, logprobs)``. ``temperature <= 0`` is greedy with log-probs
     of the untempered logits (``noise`` and ``top_p`` unused); otherwise
     ``noise`` is the (B, V) Gumbel draw added to ``logits / temperature``
-    after the optional top-p filter."""
+    after the optional top-p filter.
+
+    ``tp`` (a ``models.tensor_parallel.TPContext`` whose vocab is split):
+    ``logits`` are the rank's (B, V_local) shard and ``noise`` the whole
+    (B, V) draw, of which the rank takes its columns; the kernel's
+    partial-state mode runs on the shard and ``combine_partials`` merges
+    the ranks' states, so every rank gets the tokens of the whole row.
+    ``top_p < 1`` needs the whole row sorted: the row is gathered exactly
+    (``TPContext.gather_row``) and sampled as on one rank."""
     lg = logits.float()
+    split = tp is not None and tp.vocab_split
+    if split and temperature > 0.0 and top_p < 1.0:
+        lg, split = tp.gather_row(lg), False
     if temperature <= 0.0:
-        return fused_sample(lg.contiguous(), torch.zeros_like(lg))
-    if noise is None:
-        raise ValueError("sampling at temperature > 0 needs a noise tensor")
-    lg = lg / temperature
-    if top_p < 1.0:
-        lg = apply_top_p(lg, top_p)
-    return fused_sample(lg.contiguous(), noise.float().contiguous())
+        z = torch.zeros_like(lg)
+    else:
+        if noise is None:
+            raise ValueError("sampling at temperature > 0 needs a noise "
+                             "tensor")
+        lg = lg / temperature
+        if top_p < 1.0:
+            lg = apply_top_p(lg, top_p)
+        z = (tp.shard_row(noise) if split else noise).float().contiguous()
+    if not split:
+        return fused_sample(lg.contiguous(), z)
+    return tp.sample_combine(*fused_sample_partial(lg.contiguous(), z))

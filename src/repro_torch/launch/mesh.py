@@ -23,7 +23,10 @@ def rollout_trainer_split(*, n_devices: Optional[int] = None,
     dp x tp with the requested TP degree, clamped to the side's share, so
     the two windows never overlap. Leftover ranks of a side stay idle. With
     one device (``n_devices`` defaults to the process group's size, 1
-    without one) both stages share rank 0.
+    without one) both stages share rank 0. A rollout side of one dp row
+    (``rollout_tp`` equal to its share, e.g. ``n_devices=4,
+    rollout_tp=2``) is a config the engine's tensor-parallel rollout takes;
+    more dp rows need the data-parallel rollout (ROADMAP Queue 1 item 13).
     """
     n = n_devices if n_devices is not None else world_size()
     if n <= 1:

@@ -8,6 +8,12 @@ Functions take the same layouts as the JAX ones: activations
 tensors for one layer. Normalisation, RoPE and softmax run in f32;
 matmuls run in the model dtype.
 
+Tensor parallelism (``tp=``, a ``models.tensor_parallel.TPContext``): the
+head counts a caller passes are the rank's local ones, the kernels run on
+those heads, and the o-proj's and the MLP's partial sums are all-reduced
+over the model axis when their dims are split; ``embed`` and ``unembed``
+are vocab-parallel. ``tp=None`` is one rank.
+
 Paged KV pools carry ONE trash page past the end: a layer's pool is
 ``(P + 1, ps, KV, hd)`` with ``P`` real pages, and the drop sentinel
 ``wpage == P`` names the trash page (JAX drops such writes with
@@ -118,6 +124,13 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, Sq, H, hd)
 
 
+def _o_proj(p, out, tp=None):
+    """The output projection of (B, S, H*hd) attention output: partial
+    sums over the rank's heads, all-reduced when attention is split."""
+    y = out @ p["wo"]
+    return y if tp is None else tp.attn_out(y)
+
+
 def causal_mask(Sq: int, Sk: int, *, q_offset: int = 0, window: int = 0,
                 device=None):
     """Additive f32 mask (1,1,Sq,Sk): q position i attends to k <= i +
@@ -132,7 +145,7 @@ def causal_mask(Sq: int, Sk: int, *, q_offset: int = 0, window: int = 0,
 
 def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                    positions=None, window: int = 0, cross_kv=None,
-                   attn_impl: str = "xla"):
+                   attn_impl: str = "xla", tp=None):
     """Full-sequence causal self-attention (training and the reference
     pass). x: (B,S,D) -> (B,S,D).
 
@@ -171,7 +184,7 @@ def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     else:
         raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                          f"{attn_impl!r}")
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+    return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp)
 
 
 class KVEntry(NamedTuple):
@@ -260,7 +273,8 @@ def init_kv(batch, s_max, n_kv_heads, head_dim, dtype=torch.bfloat16,
 
 
 def prefill_attention(p, x, kv: KVEntry, *, n_heads, n_kv_heads, head_dim,
-                      rope_theta, window: int = 0, attn_impl: str = "xla"):
+                      rope_theta, window: int = 0, attn_impl: str = "xla",
+                      tp=None):
     """Causal attention over the prompt x (B,S,D); writes its K/V into
     cache slots ``[0, S)`` of ``kv`` (B, s_max, KV, hd) IN PLACE.
     attn_impl: "xla" (``_sdpa``) or "flash" (the flash forward kernel)."""
@@ -283,12 +297,12 @@ def prefill_attention(p, x, kv: KVEntry, *, n_heads, n_kv_heads, head_dim,
     else:
         raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
                          f"{attn_impl!r}")
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], kv
+    return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp), kv
 
 
 def decode_attention(p, x, kv: KVEntry, pos, *, n_heads, n_kv_heads,
                      head_dim, rope_theta, window: int = 0,
-                     attn_impl: str = "xla", advance=None):
+                     attn_impl: str = "xla", advance=None, tp=None):
     """One-token decode against a dense ring-buffer cache. x: (B,1,D);
     kv.k/v: (B, s_max, KV, hd), written IN PLACE; pos: (B,) int absolute
     positions (or an int for every row). advance: optional (B,) bool —
@@ -338,8 +352,7 @@ def decode_attention(p, x, kv: KVEntry, pos, *, n_heads, n_kv_heads,
     else:
         raise ValueError(f"attn_impl must be 'pallas' or 'xla', got "
                          f"{attn_impl!r}")
-    out = out.reshape(B, 1, n_heads * head_dim)
-    return out @ p["wo"], kv
+    return _o_proj(p, out.reshape(B, 1, n_heads * head_dim), tp), kv
 
 
 def _gather_pool(kv: KVEntry, block_table, dtype):
@@ -364,7 +377,7 @@ def _gather_pool(kv: KVEntry, block_table, dtype):
 
 def paged_prefill_attention(p, x, kv: KVEntry, block_table, *, n_heads,
                             n_kv_heads, head_dim, rope_theta,
-                            attn_impl: str = "xla"):
+                            attn_impl: str = "xla", tp=None):
     """Causal attention over the prompt x (B,S,D); its K/V are written IN
     PLACE into the pool pages ``block_table[:, :ceil(S/ps)]`` (already
     mapped by ``transformer._paged_prefill``; unmapped entries drop into
@@ -387,12 +400,12 @@ def paged_prefill_attention(p, x, kv: KVEntry, block_table, *, n_heads,
     else:
         raise ValueError(f"attn_impl must be 'flash', 'paged' or 'xla', got "
                          f"{attn_impl!r}")
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], kv
+    return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp), kv
 
 
 def paged_chunk_attention(p, x, kv: KVEntry, block_table, start: int, *,
                           n_heads, n_kv_heads, head_dim, rope_theta,
-                          attn_impl: str = "xla"):
+                          attn_impl: str = "xla", tp=None):
     """Causal attention for a chunk of positions ``[start, start + S)``
     whose preceding context already lives in the pool: the per-row suffix
     pass of the shared-prefix prefill. The chunk's K/V are written IN PLACE
@@ -419,13 +432,13 @@ def paged_chunk_attention(p, x, kv: KVEntry, block_table, start: int, *,
     valid = (s_idx <= positions[:, :, None]) & mapped[:, None, :]
     mask = torch.where(valid, 0.0, NEG_INF).float()[:, None]
     out = _sdpa(q, kc, vc, mask)
-    return out.reshape(B, S, n_heads * head_dim) @ p["wo"], kv
+    return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp), kv
 
 
 def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
                            woff, scrub=None, cow_src=None, cow_dst=None,
                            n_heads, n_kv_heads, head_dim, rope_theta,
-                           attn_impl: str = "xla"):
+                           attn_impl: str = "xla", tp=None):
     """One-token decode against a paged KV pool. x: (B,1,D).
 
     kv.k/v: (P+1, ps, KV, hd) — this layer's pool, trash page at index P.
@@ -470,8 +483,7 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
     else:
         raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
                          f"{attn_impl!r}")
-    out = out.reshape(B, 1, n_heads * head_dim)
-    return out @ p["wo"], kv
+    return _o_proj(p, out.reshape(B, 1, n_heads * head_dim), tp), kv
 
 
 def spec_verify_chunk_attention(p, x, kv: KVEntry, block_table, pos, *,
@@ -538,11 +550,14 @@ def mlp_defs(d_model, d_ff, *, layers=None):
     }
 
 
-def mlp(p, x):
+def mlp(p, x, tp=None):
+    """SwiGLU; under ``tp`` the rank's ``d_ff`` slice, all-reduced after
+    ``w_down`` when it is split."""
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
     act = F.silu(gate.float()).to(x.dtype) * up
-    return act @ p["w_down"]
+    y = act @ p["w_down"]
+    return y if tp is None else tp.mlp_out(y)
 
 
 # ---------------------------------------------------------------------------
@@ -553,13 +568,21 @@ def embedding_defs(vocab, d_model):
     return pdef((vocab, d_model), ("vocab", "embed"), init="normal")
 
 
-def embed(emb, tokens):
+def embed(emb, tokens, tp=None):
+    """Rows of ``emb`` (V, D) for ``tokens``; under ``tp`` ``emb`` is the
+    rank's vocab shard and the lookup is vocab-parallel
+    (``TPContext.embed``)."""
+    if tp is not None:
+        return tp.embed(emb, tokens)
     return emb[tokens]
 
 
-def unembed(emb_or_head, x):
-    """x: (B,S,D) -> logits (B,S,V). Takes the (V,D) table (tied) or a
-    (D,V) head, told apart by shape as in the JAX package."""
-    if emb_or_head.shape[0] < emb_or_head.shape[1]:
-        return x @ emb_or_head
-    return x @ emb_or_head.T
+def unembed(emb_or_head, x, tied: Optional[bool] = None):
+    """x: (B,S,D) -> logits (B,S,V). Takes the (V,D) table (``tied``) or
+    a (D,V) head. ``tied=None`` tells them apart by shape, as the JAX
+    package does; a vocab shard can be square or narrower than D (the
+    smoke config at tp=4: (128, 128)), so the tensor-parallel path says
+    which it passes. Under tp the logits are the rank's vocab columns."""
+    if tied is None:
+        tied = emb_or_head.shape[0] >= emb_or_head.shape[1]
+    return x @ emb_or_head.T if tied else x @ emb_or_head

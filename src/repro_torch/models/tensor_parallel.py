@@ -1,0 +1,170 @@
+"""Tensor parallelism of the dense transformer's rollout (port-only; the
+JAX package gets it from GSPMD under the engine's mesh shardings).
+
+A ``TPContext`` is one rank's view of a ``core.resharding.TPPlan``: the
+model-axis process group, the tp size and this rank's index, its local
+head, kv-head, MLP and vocab counts, and its vocab offset. The model's
+functions take it as ``tp=`` (None: one rank, no collective):
+
+  - attention runs its kernel on the rank's heads; the o-proj's partial
+    sums are all-reduced when attention is split (none when replicated);
+  - the MLP all-reduces after ``w_down`` when ``d_ff`` is split;
+  - the embedding is vocab-parallel: rows outside the shard read zero,
+    then one all-reduce (exact: the other ranks add zeros);
+  - the head is vocab-parallel: logits stay ``(B, vocab_local)`` on each
+    rank, and sampling and token log-probs combine per-row partials
+    (a MAX, a MIN and a SUM all-reduce of a few numbers a row) instead
+    of gathering the row.
+
+Plain functions on tensors with no autograd: nothing on the tp path takes
+a gradient (the update runs on one rank, as JAX's ``UpdateStage`` does).
+Every collective here is called by every rank of the group in the same
+order: the rollout's control flow is replicated, and the values the
+collectives return are the same on every rank. bf16 sums are all-reduced
+in f32 and rounded once.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def model_group(mesh_cfg):
+    """This rank's model-axis process group of ``mesh_cfg`` (None outside
+    the mesh). Makes every model-axis group of the mesh the first time a
+    mesh with those rows is asked for: ``dist.new_group`` is collective
+    over the default group, so every rank calls this for the same meshes
+    in the same order; the groups are cached by their ranks."""
+    if mesh_cfg.tp == 1 or not dist.is_initialized():
+        return None
+    rows = mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).tolist()
+    me = dist.get_rank()
+    mine = None
+    for row in rows:
+        key = tuple(int(r) for r in row)
+        if key not in _GROUPS:
+            _GROUPS[key] = dist.new_group(list(key))
+        if me in key:
+            mine = _GROUPS[key]
+    return mine
+
+
+class TPContext:
+    """One rank's tensor-parallel view of ``plan`` over ``group`` (the
+    plan's model-axis group; ``model_group`` by default)."""
+
+    def __init__(self, plan, group=None):
+        if plan.index is None:
+            raise ValueError(f"rank {plan.rank} lies outside mesh "
+                             f"{plan.mesh_config.name!r}: it has no tp "
+                             f"context")
+        self.plan = plan
+        self.group = group if group is not None else model_group(
+            plan.mesh_config)
+        self.size = plan.tp
+        self.index = plan.index
+        self.n_heads = plan.heads_local
+        self.n_kv_heads = plan.kv_local
+        self.attn_split = plan.attn == "split"
+        self.mlp_split = plan.mlp_split
+        self.vocab_split = plan.vocab_split
+        self.vocab_size = plan.vocab_size
+        self.vocab_local = plan.vocab_local
+        self.vocab_offset = plan.vocab_offset()
+
+    # -- collectives -------------------------------------------------------
+    def all_reduce(self, x, op: str = "sum"):
+        """All-reduce ``x`` over the model axis (``op`` "sum", "max" or
+        "min"); bf16 and f16 sums in f32, rounded once. Returns a new
+        tensor (or ``x`` itself at tp=1)."""
+        if self.size == 1:
+            return x
+        low = x.dtype in (torch.bfloat16, torch.float16)
+        y = x.float() if low else x.clone()
+        y = y.contiguous()
+        dist.all_reduce(y, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX,
+                               "min": dist.ReduceOp.MIN}[op],
+                        group=self.group)
+        return y.to(x.dtype) if low else y
+
+    def all_reduce_sum(self, x):
+        return self.all_reduce(x, "sum")
+
+    def attn_out(self, y):
+        """The o-proj output: partial sums over the rank's heads."""
+        return self.all_reduce_sum(y) if self.attn_split else y
+
+    def mlp_out(self, y):
+        """The MLP output: partial sums over the rank's ``d_ff`` slice."""
+        return self.all_reduce_sum(y) if self.mlp_split else y
+
+    # -- vocab-parallel embedding and head ----------------------------------
+    def embed(self, emb, tokens):
+        """Rows of the rank's vocab shard ``emb`` (Vl, D) for global token
+        ids; ids outside the shard read zero, and the all-reduce adds the
+        owner's row to the others' zeros."""
+        if not self.vocab_split:
+            return emb[tokens]
+        local = tokens.long() - self.vocab_offset
+        mine = (local >= 0) & (local < self.vocab_local)
+        x = emb[local.clamp(0, self.vocab_local - 1)]
+        return self.all_reduce_sum(torch.where(mine[..., None], x,
+                                               torch.zeros_like(x)))
+
+    def _owned(self, tok):
+        local = tok.long() - self.vocab_offset
+        mine = (local >= 0) & (local < self.vocab_local)
+        return local.clamp(0, self.vocab_local - 1), mine
+
+    def token_logprob(self, logits, tok):
+        """(B, Vl) local logits + (B,) global ids -> (B,) f32 ``lg[tok] -
+        logsumexp(lg)`` over the whole row: a MAX all-reduce of the row
+        max, then one SUM all-reduce of the rescaled sums and of the
+        token's logit from its owner (``rl.algo.token_logprobs``'
+        arithmetic, whose max is the global one)."""
+        lg = logits.float()
+        if not self.vocab_split:
+            from repro_torch.rl.algo import token_logprobs
+            return token_logprobs(lg[:, None, :], tok[:, None])[:, 0]
+        m = self.all_reduce(lg.amax(dim=-1), "max")
+        local, mine = self._owned(tok)
+        t = torch.where(mine, lg.gather(-1, local[:, None])[:, 0] - m, 0.0)
+        s = torch.exp(lg - m[:, None]).sum(dim=-1)
+        red = self.all_reduce_sum(torch.stack([s, t], dim=1))
+        return red[:, 1] - torch.log(red[:, 0])
+
+    def gather_row(self, x):
+        """The whole (B, V) row on every rank, exactly: the shard in a
+        zero-padded buffer, all-reduced (adding zeros is exact)."""
+        if not self.vocab_split:
+            return x
+        full = x.new_zeros((x.shape[0], self.vocab_size))
+        full[:, self.vocab_offset:self.vocab_offset + self.vocab_local] = x
+        return self.all_reduce_sum(full)
+
+    def shard_row(self, x):
+        """This rank's columns of a (B, V) tensor (a noise draw)."""
+        if not self.vocab_split or x is None:
+            return x
+        lo = self.vocab_offset
+        return x[:, lo:lo + self.vocab_local].contiguous()
+
+    def sample_combine(self, m, l, bs, bi, bl):
+        """The fused sampler's per-rank partials -> ``(tokens, logprobs)``
+        of the whole row (``fused_sample.ops.combine_partials`` over this
+        group's all-reduces)."""
+        from repro_torch.kernels.fused_sample.ops import combine_partials
+        return combine_partials(m, l, bs, bi, bl, self.vocab_offset,
+                                self.all_reduce)
+
+
+def heads(cfg, tp: Optional[TPContext]):
+    """The (q heads, kv heads) a rank runs: the config's without tp."""
+    if tp is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    return tp.n_heads, tp.n_kv_heads

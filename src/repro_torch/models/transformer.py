@@ -9,6 +9,14 @@ tensors, and ``jax.checkpoint`` (``cfg.remat == "full"``) becomes
 ``torch.utils.checkpoint`` per layer. The KV tensors of both layouts are
 updated IN PLACE by prefill and each decode step; the block table,
 refcounts and positions are returned as new tensors.
+
+Tensor parallelism: ``forward``, ``prefill``, ``decode_step``,
+``init_cache`` and ``decode_scan_body`` take ``tp=`` (a
+``models.tensor_parallel.TPContext``; None is one rank). ``params`` are
+then the rank's local shards (``core.resharding.shard_params``), the
+caches hold the rank's kv heads, and the logits are its vocab columns.
+The block table, refcounts and positions stay the same on every rank:
+they are replicated, and the collectives never depend on them differing.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import paging
 from repro_torch.models.param import pdef
+from repro_torch.models.tensor_parallel import heads as _heads
 
 
 def block_defs(cfg: ModelConfig):
@@ -70,25 +79,30 @@ def layer_params(params, i: int, prefix: str = "layers"):
 
 
 def _block_apply(cfg: ModelConfig, p, x, *, window: int,
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", tp=None):
+    H, KV = _heads(cfg, tp)
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     h = L.self_attention(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        p["attn"], h, n_heads=H, n_kv_heads=KV,
         head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
-        attn_impl=attn_impl)
+        attn_impl=attn_impl, tp=tp)
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + L.mlp(p["mlp"], h)
+    return x + L.mlp(p["mlp"], h, tp)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra=None,
-            attn_impl: str = "xla"):
+            attn_impl: str = "xla", tp=None):
     """Full-sequence forward -> logits (B, S, V). With ``cfg.remat ==
     "full"`` and grad enabled, each layer keeps only its input for the
     backward and runs again inside it (with ``attn_impl="flash"`` that
-    recompute launches the forward kernel once more per layer)."""
+    recompute launches the forward kernel once more per layer). Under
+    ``tp`` (no autograd) the logits are the rank's vocab columns."""
     del extra
-    x = L.embed(params["embedding"], tokens)
+    if tp is not None and torch.is_grad_enabled():
+        raise ValueError("the tensor-parallel forward takes no gradient: "
+                         "run it under torch.no_grad()")
+    x = L.embed(params["embedding"], tokens, tp)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cfg.remat == "full" and torch.is_grad_enabled():
@@ -97,10 +111,8 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
                            use_reentrant=False)
         else:
             x = _block_apply(cfg, lp, x, window=cfg.sliding_window,
-                             attn_impl=attn_impl)
-    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    head = params.get("lm_head", params["embedding"])
-    return L.unembed(head, x)
+                             attn_impl=attn_impl, tp=tp)
+    return _chunk_logits(cfg, params, x, tp)
 
 
 class DecodeCache(NamedTuple):
@@ -138,7 +150,7 @@ KV_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, *, layout: str = "dense",
                page_size: int = 16, n_pages: Optional[int] = None,
-               kv_dtype: Optional[str] = None, device=None):
+               kv_dtype: Optional[str] = None, device=None, tp=None):
     """A zeroed decode cache. ``layout="dense"`` (the default, as in JAX):
     per-row ring buffers of ``s_max`` slots, ``min(s_max, window)`` for a
     sliding-window config. ``layout="paged"``: a page pool of ``n_pages``
@@ -146,7 +158,9 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     trash page. ``kv_dtype`` ("fp32" | "bf16" | "int8") overrides ``dtype``
     by name; "int8" (paged layout only) stores page values as int8 with f32
     scale pools of ``(n_layers, n_pages + 1, page_size, KV)`` beside them
-    (``paging.quantize_kv``)."""
+    (``paging.quantize_kv``). Under ``tp`` the KV tensors hold the rank's
+    kv heads."""
+    n_kv = _heads(cfg, tp)[1]
     if kv_dtype is not None:
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype must be one of {list(KV_DTYPES)}, "
@@ -162,7 +176,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     if layout == "dense":
         if cfg.sliding_window > 0:
             s_max = min(s_max, cfg.sliding_window)
-        shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+        shape = (cfg.n_layers, batch, s_max, n_kv, cfg.head_dim_)
         return DecodeCache(kv=L.KVEntry(zeros(shape), zeros(shape)), pos=pos)
     if layout != "paged":
         raise ValueError(f"layout must be 'dense' or 'paged', got "
@@ -174,8 +188,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     nps = paging.pages_per_slot(s_max, page_size)
     if n_pages is None:
         n_pages = batch * nps
-    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
-             cfg.head_dim_)
+    shape = (cfg.n_layers, n_pages + 1, page_size, n_kv, cfg.head_dim_)
     kv = L.KVEntry(zeros(shape), zeros(shape))
     if dtype == torch.int8:
         scale = lambda: torch.zeros(shape[:-1], dtype=torch.float32,
@@ -189,31 +202,36 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
         pos=pos)
 
 
-def _apply_layers(cfg: ModelConfig, x, layers, attend):
+def _apply_layers(cfg: ModelConfig, x, layers, attend, tp=None):
     """The decoder stack around an attention callable ``attend(i, attn
-    params, h) -> h``; returns the final-normed hidden state."""
+    params, h) -> h``; returns the residual stream after the last layer
+    (the final norm is the head's)."""
     for i, lp in enumerate(layers):
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         x = x + attend(i, lp["attn"], h)
         h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + L.mlp(lp["mlp"], h)
+        x = x + L.mlp(lp["mlp"], h, tp)
     return x
 
 
-def _chunk_logits(cfg: ModelConfig, params, x):
-    """Final norm and head over every position: (B,S,D) -> (B,S,V)."""
+def _chunk_logits(cfg: ModelConfig, params, x, tp=None):
+    """Final norm and head over every position: (B,S,D) -> (B,S,V) (the
+    rank's vocab columns under ``tp``). The head is tied exactly when
+    the params hold no ``lm_head``, which a vocab shard's shape cannot
+    tell."""
     x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    head = params.get("lm_head", params["embedding"])
-    return L.unembed(head, x)
+    tied = "lm_head" not in params
+    head = params["embedding"] if tied else params["lm_head"]
+    return L.unembed(head, x, tied=tied)
 
 
-def _logits(cfg: ModelConfig, params, x):
-    return _chunk_logits(cfg, params, x)[:, 0]
+def _logits(cfg: ModelConfig, params, x, tp=None):
+    return _chunk_logits(cfg, params, x, tp)[:, 0]
 
 
 def _paged_prefill(cfg: ModelConfig, params, tokens,
                    cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                   shared_prefix_len: int = 0):
+                   shared_prefix_len: int = 0, tp=None):
     """Prompt pass on the paged layout: the covering pages are allocated
     once (every layer shares the block table), then each layer writes its
     K/V into them in place.
@@ -234,14 +252,16 @@ def _paged_prefill(cfg: ModelConfig, params, tokens,
     shared_pages = min(int(shared_prefix_len), S - 1) // ps if B > 1 else 0
     shared_len = shared_pages * ps
     bt, refcount = cache.block_table, cache.refcount
-    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+    H, KV = _heads(cfg, tp)
+    akw = dict(n_heads=H, n_kv_heads=KV,
                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
-               attn_impl=attn_impl)
+               attn_impl=attn_impl, tp=tp)
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    emb = lambda t: L.embed(params["embedding"], t, tp)
 
     def layer_pass(x, table, attend):
         return _apply_layers(cfg, x, layers, lambda i, p, h: attend(
-            p, h, cache.kv.layer(i), table, **akw)[0])
+            p, h, cache.kv.layer(i), table, **akw)[0], tp)
 
     if shared_pages > 0:
         # the shared prefix ONCE (batch 1) into a fresh page run, forked
@@ -250,8 +270,8 @@ def _paged_prefill(cfg: ModelConfig, params, tokens,
         run, refcount = paging.alloc_pages(
             refcount, torch.ones((shared_pages,), dtype=torch.bool,
                                  device=dev))
-        layer_pass(L.embed(params["embedding"], tokens[:1, :shared_len]),
-                   run[None, :], L.paged_prefill_attention)
+        layer_pass(emb(tokens[:1, :shared_len]), run[None, :],
+                   L.paged_prefill_attention)
         refcount, bt = paging.fork_pages(
             refcount, bt, run, torch.ones((B,), dtype=torch.bool,
                                           device=dev))
@@ -265,19 +285,18 @@ def _paged_prefill(cfg: ModelConfig, params, tokens,
         bt[:, j] = torch.where(need & (pages < P), pages, bt[:, j])
     if shared_pages > 0:
         x = layer_pass(
-            L.embed(params["embedding"], tokens[:, shared_len:]), bt,
+            emb(tokens[:, shared_len:]), bt,
             lambda p, h, kv, table, **kw: L.paged_chunk_attention(
                 p, h, kv, table, shared_len, **kw))
     else:
-        x = layer_pass(L.embed(params["embedding"], tokens), bt,
-                       L.paged_prefill_attention)
-    return _logits(cfg, params, x[:, -1:]), PagedDecodeCache(
+        x = layer_pass(emb(tokens), bt, L.paged_prefill_attention)
+    return _logits(cfg, params, x[:, -1:], tp), PagedDecodeCache(
         kv=cache.kv, block_table=bt, refcount=refcount,
         pos=torch.full((B,), S, dtype=torch.int32, device=dev))
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
-            attn_impl: str = "xla", shared_prefix_len: int = 0):
+            attn_impl: str = "xla", shared_prefix_len: int = 0, tp=None):
     """Run the prompt (B, S) through the model into the cache (its KV
     tensors written in place). Returns ``(logits of the last position
     (B, V), cache)``. attn_impl: "xla" or "flash" (the paged layout also
@@ -288,25 +307,27 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
     if isinstance(cache, PagedDecodeCache):
         return _paged_prefill(cfg, params, tokens, cache,
                               attn_impl=attn_impl,
-                              shared_prefix_len=shared_prefix_len)
+                              shared_prefix_len=shared_prefix_len, tp=tp)
     if shared_prefix_len:
         raise ValueError("shared_prefix_len requires the paged cache layout "
                          "(dense rows have nothing to fork)")
     B, S = tokens.shape
-    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+    H, KV = _heads(cfg, tp)
+    akw = dict(n_heads=H, n_kv_heads=KV,
                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
-               window=cfg.sliding_window, attn_impl=attn_impl)
+               window=cfg.sliding_window, attn_impl=attn_impl, tp=tp)
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
     x = _apply_layers(
-        cfg, L.embed(params["embedding"], tokens), layers,
+        cfg, L.embed(params["embedding"], tokens, tp), layers,
         lambda i, p, h: L.prefill_attention(
-            p, h, cache.kv.layer(i), **akw)[0])
-    return _logits(cfg, params, x[:, -1:]), cache._replace(
+            p, h, cache.kv.layer(i), **akw)[0], tp)
+    return _logits(cfg, params, x[:, -1:], tp), cache._replace(
         pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device))
 
 
 def _dense_decode_step(cfg: ModelConfig, params, token, cache: DecodeCache,
-                       *, attn_impl: str = "xla", advance=None, layers=None):
+                       *, attn_impl: str = "xla", advance=None, layers=None,
+                       tp=None):
     """One decode step on the dense layout: rows with ``advance=False``
     write nothing and keep their position."""
     B = token.shape[0]
@@ -314,20 +335,22 @@ def _dense_decode_step(cfg: ModelConfig, params, token, cache: DecodeCache,
            if advance is None else advance)
     if layers is None:
         layers = [layer_params(params, i) for i in range(cfg.n_layers)]
-    akw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+    H, KV = _heads(cfg, tp)
+    akw = dict(n_heads=H, n_kv_heads=KV,
                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
-               window=cfg.sliding_window, attn_impl=attn_impl, advance=adv)
+               window=cfg.sliding_window, attn_impl=attn_impl, advance=adv,
+               tp=tp)
     x = _apply_layers(
-        cfg, L.embed(params["embedding"], token[:, None]), layers,
+        cfg, L.embed(params["embedding"], token[:, None], tp), layers,
         lambda i, p, h: L.decode_attention(
-            p, h, cache.kv.layer(i), cache.pos, **akw)[0])
-    return _logits(cfg, params, x), DecodeCache(
+            p, h, cache.kv.layer(i), cache.pos, **akw)[0], tp)
+    return _logits(cfg, params, x, tp), DecodeCache(
         kv=cache.kv, pos=cache.pos + adv.to(torch.int32))
 
 
 def _paged_decode_step(cfg: ModelConfig, params, token,
                        cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                       advance=None, layers=None, cow: bool = True):
+                       advance=None, layers=None, cow: bool = True, tp=None):
     """One decode step on the paged layout. The page allocator runs ONCE
     per token, outside the layer loop: every layer shares the block table.
     Rows with ``advance=False`` neither allocate nor write (their write
@@ -341,7 +364,7 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
     statically removes this guard, its allocator pass and its per-layer
     copies: only safe when no write can land in a shared page (no sharing,
     or page-aligned sharing whose writes start past the shared run)."""
-    x = L.embed(params["embedding"], token[:, None])
+    x = L.embed(params["embedding"], token[:, None], tp)
     B = token.shape[0]
     dev = token.device
     pos = cache.pos
@@ -375,21 +398,22 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
 
     if layers is None:
         layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    H, KV = _heads(cfg, tp)
     x = _apply_layers(
         cfg, x, layers,
         lambda i, p, h: L.paged_decode_attention(
             p, h, cache.kv.layer(i), bt, pos, wpage=wpage, woff=woff,
             scrub=scrub, cow_src=cow_src, cow_dst=cow_dst,
-            n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, attn_impl=attn_impl)[0])
-    return _logits(cfg, params, x), PagedDecodeCache(
+            n_heads=H, n_kv_heads=KV, head_dim=cfg.head_dim_,
+            rope_theta=cfg.rope_theta, attn_impl=attn_impl, tp=tp)[0], tp)
+    return _logits(cfg, params, x, tp), PagedDecodeCache(
         kv=cache.kv, block_table=bt, refcount=refcount,
         pos=pos + adv.to(torch.int32))
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, *, extra=None,
-                attn_impl: str = "xla", advance=None, cow: bool = True):
+                attn_impl: str = "xla", advance=None, cow: bool = True,
+                tp=None):
     """One decode step. token: (B,) int. Returns (logits (B,V), cache).
     advance: optional (B,) bool — rows with False are no-ops. The KV
     tensors of ``cache`` are written in place. attn_impl: "xla" on either
@@ -400,9 +424,9 @@ def decode_step(cfg: ModelConfig, params, token, cache, *, extra=None,
     if isinstance(cache, PagedDecodeCache):
         return _paged_decode_step(cfg, params, token, cache,
                                   attn_impl=attn_impl, advance=advance,
-                                  cow=cow)
+                                  cow=cow, tp=tp)
     return _dense_decode_step(cfg, params, token, cache,
-                              attn_impl=attn_impl, advance=advance)
+                              attn_impl=attn_impl, advance=advance, tp=tp)
 
 
 def spec_verify_step(cfg: ModelConfig, params, chunk,
@@ -525,19 +549,20 @@ def scan_body_over(step_fn):
 
 
 def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla",
-                     cow: bool = True):
+                     cow: bool = True, tp=None):
     """Decode body for in-loop generation, bound to the decode step of the
     cache it is given (per-layer param views are sliced once here, not
-    once per token). cow: the paged step's copy-on-write guard."""
+    once per token). cow: the paged step's copy-on-write guard. tp: the
+    rank's tensor-parallel context (``params`` its local shards)."""
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
 
     def step(token, advance, cache):
         if isinstance(cache, PagedDecodeCache):
             return _paged_decode_step(cfg, params, token, cache,
                                       attn_impl=attn_impl, advance=advance,
-                                      layers=layers, cow=cow)
+                                      layers=layers, cow=cow, tp=tp)
         return _dense_decode_step(cfg, params, token, cache,
                                   attn_impl=attn_impl, advance=advance,
-                                  layers=layers)
+                                  layers=layers, tp=tp)
 
     return scan_body_over(step)

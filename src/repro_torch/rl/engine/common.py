@@ -91,8 +91,12 @@ def fallback_actions(actions, last_tok, active, acted, n_actions: int):
     return torch.where(never, fb, actions)
 
 
-def token_lp(logits, tokens):
-    """(B, V) logits + (B,) token ids -> (B,) f32 log p(token)."""
+def token_lp(logits, tokens, tp=None):
+    """(B, V) logits + (B,) token ids -> (B,) f32 log p(token). Under
+    ``tp`` (a ``TPContext``) ``logits`` are the rank's vocab columns and
+    the log-sum-exp spans every rank's (``TPContext.token_logprob``)."""
+    if tp is not None:
+        return tp.token_logprob(logits, tokens)
     return token_logprobs(logits.float()[:, None, :], tokens[:, None])[:, 0]
 
 
@@ -145,13 +149,35 @@ def keyed_uniform(seed: int, kind: str, episode, step, width: int):
     return (bits.float() + 0.5) * (1.0 / (1 << 24))
 
 
-def sample_with_noise(logits, noise, temperature: float, top_p: float = 1.0):
+def sample_with_noise(logits, noise, temperature: float, top_p: float = 1.0,
+                      tp=None):
     """Sample from (B, V) logits with supplied Gumbel noise. Returns
     (tokens, logprobs). ``temperature <= 0`` is greedy (noise unused) with
     log-probs of the untempered logits; otherwise argmax of the tempered
     (and optionally top-p filtered) logits plus ``noise``, log-probs from
-    that filtered distribution."""
+    that filtered distribution.
+
+    Under ``tp`` whose vocab is split, ``logits`` are the rank's columns
+    and ``noise`` the whole draw: each rank takes the argmax of its
+    columns (earliest on ties), max and sums, merged as the fused
+    sampler's partials are (``TPContext.sample_combine``); ``top_p < 1``
+    gathers the row exactly and samples it as on one rank."""
     lg = logits.float()
+    if tp is not None and tp.vocab_split:
+        if temperature > 0.0 and top_p < 1.0:
+            return sample_with_noise(tp.gather_row(lg), noise, temperature,
+                                     top_p)
+        if temperature > 0.0:
+            lg = lg / temperature
+            sc = lg + tp.shard_row(noise).float()
+        else:
+            sc = lg
+        bi = torch.argmax(sc, dim=-1)
+        m = lg.amax(dim=-1)
+        take = lambda t: t.gather(1, bi[:, None])[:, 0]
+        return tp.sample_combine(
+            m, torch.exp(lg - m[:, None]).sum(dim=-1), take(sc),
+            bi.to(torch.int32), take(lg))
     if temperature <= 0.0:
         tok = torch.argmax(lg, dim=-1).to(torch.int32)
     else:

@@ -79,6 +79,23 @@ fed token from the reference logits before they advance: the harvested
 ``ref_logprobs`` are the ExpPrep reference log-probs, so the trainer needs
 no separate reference forward.
 
+**Tensor parallelism** (``mesh_config`` with tp above 1, dense family):
+every rank of the mesh runs the same macro-step on its local shards of
+the params (``core.resharding.tp_plan``/``shard_params``: whole heads,
+the MLP's and the vocab's slices) and its local kv heads in every cache,
+with the model's all-reduces over the mesh's model axis
+(``models/tensor_parallel.py``). Logits stay vocab-sharded: sampling
+merges per-row partial states (the fused kernel's partial-state mode, or
+the plain route's argmax, max and sums), the folded reference scores its
+tokens the same way, and each rank takes its columns of the ``(B, V)``
+noise draw, so a tp run samples what the one-rank run samples. Control
+flow, slots, block tables and the env are replicated: every rank computes
+the same, and the collectives return the same values on every rank. A
+rank outside the bound mesh takes no part: ``run`` returns a batch of
+meta tensors of the global shapes (the dispatcher's stand-in) and no
+stats. Speculation, int8 pages, prefix sharing, preemption and the other
+families at tp above 1 raise citing ROADMAP Queue 1 item 14.
+
 The episode store and the slot token buffers carry one trash row/column
 where JAX drops out-of-range writes (``slots.py``); the paged pools carry
 one trash page (``models/layers.py``).
@@ -170,10 +187,11 @@ class CompiledRolloutEngine:
     ``admit_watermark``), ``pool_growth`` ("off" or "double" with
     ``pool_growth_max``) and ``speculation`` ("off", "self" or "draft",
     with ``spec_k``, ``draft_layers`` and ``draft_model``) and
-    ``mesh_config``: a one-device ``MeshConfig`` on this process's rank
-    (``bind_mesh`` re-binds it on a selector switch); a config with dp or
-    pods above 1 raises ``NotImplementedError`` naming ROADMAP Queue 1 item
-    13, one with tp above 1 item 14. After each ``run``,
+    ``mesh_config``: a ``MeshConfig`` with dp = pods = 1 over ranks of
+    the process group (``bind_mesh`` re-binds it on a selector switch);
+    tp above 1 runs the tensor-parallel rollout of the dense family, and
+    a config with dp or pods above 1 raises ``NotImplementedError`` naming
+    ROADMAP Queue 1 item 13. After each ``run``,
     ``experience_shardings`` holds the harvested batch's layouts (an
     ``ExperienceBatch`` of ``NamedLayout``s, the batch over ``data``), the
     data dispatcher's source layouts. Unlike the JAX engine, the defaults
@@ -207,7 +225,6 @@ class CompiledRolloutEngine:
                 f"cache_layout='dense'")
         self._check_pool_options(cache_layout, kv_dtype, on_exhaust,
                                  pool_growth, share_prefix)
-        self._mesh_config = self._check_mesh(mesh_config)
         # the layouts of the last harvested batch (the dispatcher's source)
         self.experience_shardings: Optional[ExperienceBatch] = None
         if ACTION_BASE + env.n_actions > cfg.vocab_size:
@@ -270,6 +287,11 @@ class CompiledRolloutEngine:
             if speculation == "self" else
             draft_model.cfg if speculation == "draft" else None)
         self.device = resolve_device(device)
+        self._tp = None               # this rank's TPContext at tp > 1
+        self._in_mesh = True
+        self._held = {}               # "params"/"ref": (global, local)
+        self._mesh_config = None
+        self.bind_mesh(mesh_config)
 
     @staticmethod
     def _check_pool_options(cache_layout, kv_dtype, on_exhaust, pool_growth,
@@ -302,12 +324,11 @@ class CompiledRolloutEngine:
                                  f"({why})")
 
     # -- selector hook ① ----------------------------------------------------
-    @staticmethod
-    def _check_mesh(cfg):
-        """A one-device config on this rank; data and tensor parallelism
-        are later items."""
+    def _check_mesh(self, cfg):
+        """A config of dp = pods = 1 over ranks of the process group; tp
+        above 1 only where the tensor-parallel rollout is ported."""
         # the core package imports this engine (through its stages)
-        from repro_torch.core.resharding import current_rank
+        from repro_torch.core.resharding import current_rank, world_size
         if cfg is None:
             return None
         if cfg.dp > 1 or cfg.pods > 1:
@@ -315,13 +336,29 @@ class CompiledRolloutEngine:
                 f"mesh_config {cfg.name!r} (dp={cfg.dp}, pods={cfg.pods}): "
                 f"data-parallel rollout across ranks", "13")
         if cfg.tp > 1:
-            raise _unported(f"mesh_config {cfg.name!r} (tp={cfg.tp}): a "
-                            f"tensor-parallel model", "14")
-        if cfg.device_offset != current_rank():
+            for what, bad in (
+                    (f"family {self.model.cfg.family!r}",
+                     self.model.cfg.family != "dense"),
+                    (f"speculation={self.speculation!r}",
+                     self.speculation != "off"),
+                    ("kv_dtype='int8'", self.kv_dtype == "int8"),
+                    ("share_prefix", self.share_prefix),
+                    ("on_exhaust='preempt'", self.on_exhaust == "preempt"),
+                    (f"pool_growth={self.pool_growth!r}",
+                     self.pool_growth != "off")):
+                if bad:
+                    raise _unported(
+                        f"{what} at tp={cfg.tp} (mesh_config "
+                        f"{cfg.name!r}) in the tensor-parallel rollout",
+                        "14")
+        lo, hi = cfg.device_offset, cfg.device_offset + cfg.n_devices
+        if hi > world_size():
+            where = (f"rank {lo}" if cfg.n_devices == 1
+                     else f"ranks {lo}..{hi - 1}")
             raise ValueError(
-                f"mesh_config {cfg.name!r} places the rollout on rank "
-                f"{cfg.device_offset}; this process is rank "
-                f"{current_rank()}")
+                f"mesh_config {cfg.name!r} places the rollout on {where}; "
+                f"this process is rank {current_rank()} of a world of "
+                f"{world_size()}")
         return cfg
 
     @property
@@ -329,10 +366,66 @@ class CompiledRolloutEngine:
         """The MeshConfig the engine is bound to (None: this rank alone)."""
         return self._mesh_config
 
+    @property
+    def in_mesh(self) -> bool:
+        """Whether this rank takes part in the bound mesh's rollout."""
+        return self._in_mesh
+
+    @property
+    def tp(self):
+        """This rank's ``TPContext`` (None below tp=2)."""
+        return self._tp
+
     def bind_mesh(self, mesh_config) -> None:
         """Re-bind to another MeshConfig (a Parallelism Selector switch).
-        One device holds the same program under every one-device config."""
-        self._mesh_config = self._check_mesh(mesh_config)
+        At tp above 1 the engine takes the plan's model-axis group (a
+        collective over the default group: every rank binds the same
+        configs in the same order) and re-shards the params it holds when
+        the tp degree changes. A rank outside the mesh takes no part in
+        its rollouts."""
+        from repro_torch.core.resharding import current_rank, tp_plan
+        from repro_torch.models.tensor_parallel import TPContext, model_group
+        cfg = self._check_mesh(mesh_config)
+        old = self._mesh_config
+        self._mesh_config = cfg
+        self._in_mesh = cfg is None or bool(
+            (cfg.ranks() == current_rank()).any())
+        tp = None
+        if cfg is not None and cfg.tp > 1:
+            group = model_group(cfg)          # every rank: collective
+            if self._in_mesh:
+                tp = TPContext(tp_plan(self.model, cfg), group)
+        self._tp = tp
+        if cfg != old:
+            self._held = {k: (g, self._shard(g)) for k, (g, _) in
+                          self._held.items() if self._in_mesh}
+
+    def _shard(self, params):
+        from repro_torch.core.resharding import shard_params
+        if self._tp is None:
+            return params
+        return shard_params(params, self._tp.plan, device=self.device)
+
+    def _local_params(self, params, key: str = "params"):
+        """The tensors this rank runs on: ``params`` itself below tp=2, a
+        ``LocalParams`` of the bound mesh as it is, and the rank's shards
+        of a global tree (kept while the caller passes the same tree, and
+        re-sharded by ``bind_mesh``)."""
+        from repro_torch.core.resharding import LocalParams
+        if params is None or self._tp is None:
+            return params
+        if isinstance(params, LocalParams):
+            if params.mesh_config != self._mesh_config:
+                raise ValueError(
+                    f"these local params are shards on mesh "
+                    f"{params.mesh_config.name!r}; the engine is bound to "
+                    f"{self._mesh_config.name!r}")
+            return params
+        held = self._held.get(key)
+        if held is None or held[0] is not params:
+            held = (params, self._shard(params))
+            self._held[key] = held
+        return held[1]
 
     def min_pool_pages(self, batch: int) -> int:
         """Smallest pool for which ``on_exhaust="preempt"`` guarantees zero
@@ -405,7 +498,9 @@ class CompiledRolloutEngine:
         """The carry before the initial feed. ``noise`` supplies the env
         reset's draw (default: the engine's own draws)."""
         dev, T = self.device, self.max_context
-        V = self.model.cfg.vocab_size
+        V = (self._tp.vocab_local if self._tp is not None
+             else self.model.cfg.vocab_size)
+        tkw = {} if self._tp is None else {"tp": self._tp}
         live = torch.arange(B, device=dev) < N
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
         spec = self.speculation != "off"
@@ -427,10 +522,10 @@ class CompiledRolloutEngine:
                     B, T, self.shared_len, self.page_size)
             cache = self.model.init_cache(
                 B, T, layout="paged", page_size=self.page_size,
-                n_pages=n_pages, kv_dtype=self.kv_dtype, device=dev)
+                n_pages=n_pages, kv_dtype=self.kv_dtype, device=dev, **tkw)
         else:
             kw = {} if self.kv_dtype == "bf16" else {"kv_dtype": self.kv_dtype}
-            cache = self.model.init_cache(B, T, device=dev, **kw)
+            cache = self.model.init_cache(B, T, device=dev, **kw, **tkw)
         return slots.SlotCarry(
             cache=cache,
             logits=z((B, V), torch.float32),
@@ -455,7 +550,7 @@ class CompiledRolloutEngine:
             kv_shortfall=z((B,), torch.int32),
             # the reference cache is always dense in its default bf16,
             # whatever the policy's layout and dtype (as in JAX)
-            ref_cache=(self.model.init_cache(B, T, device=dev)
+            ref_cache=(self.model.init_cache(B, T, device=dev, **tkw)
                        if with_ref else None),
             ref_logits=z((B, V), torch.float32) if with_ref else None,
             ref_logprobs=z((B, T + 1), torch.float32) if with_ref else None,
@@ -482,6 +577,8 @@ class CompiledRolloutEngine:
         # every write lands past it (the guard stays in the model API for
         # callers that fork a partial page)
         kw = {"cow": False} if self.cache_layout == "paged" else {}
+        if self._tp is not None:
+            kw["tp"] = self._tp
         return self.model.decode_scan_body(params, attn_impl=self.attn_impl,
                                            **kw)
 
@@ -492,9 +589,10 @@ class CompiledRolloutEngine:
         if ref_params is None:
             raise ValueError("this carry holds a reference stream: pass "
                              "ref_params")
+        kw = {} if self._tp is None else {"tp": self._tp}
         return _RefStream(
             self.model.decode_scan_body(ref_params,
-                                        attn_impl=self.ref_attn_impl),
+                                        attn_impl=self.ref_attn_impl, **kw),
             c.ref_logits, c.ref_cache, c.ref_logprobs)
 
     def _draft_stream(self, params, draft_params,
@@ -516,14 +614,14 @@ class CompiledRolloutEngine:
             transformer.decode_scan_body(self._draft_cfg, d_params),
             c.draft_cache)
 
-    @staticmethod
-    def _ref_advance(ref: _RefStream, tok, mask, pos, rows,
+    def _ref_advance(self, ref: _RefStream, tok, mask, pos, rows,
                      cidx) -> _RefStream:
         """Score ``tok`` from the reference logits before they advance (0
         at position 0, where nothing predicts it, and for masked rows),
         then feed it to the reference stream."""
         ref.logprobs[rows, cidx] = torch.where(
-            mask & (pos > 0), common.token_lp(ref.logits, tok), 0.0)
+            mask & (pos > 0), common.token_lp(ref.logits, tok, tp=self._tp),
+            0.0)
         (logits, cache), _ = ref.decode((ref.logits, ref.cache),
                                         (tok, mask))
         return ref._replace(logits=logits, cache=cache)
@@ -570,12 +668,15 @@ class CompiledRolloutEngine:
         return carry
 
     def _sample(self, logits, noise):
+        """Tokens and log-probs from the carried logits (the rank's vocab
+        columns under tp) and the whole ``(B, V)`` noise draw."""
         if self.sampling == "fused":
             from repro_torch.kernels.fused_sample import ops as fs_ops
             return fs_ops.fused_sample_tokens(logits, self.temperature,
-                                              top_p=self.top_p, noise=noise)
+                                              top_p=self.top_p, noise=noise,
+                                              tp=self._tp)
         return common.sample_with_noise(logits, noise, self.temperature,
-                                        self.top_p)
+                                        self.top_p, tp=self._tp)
 
     def _write_prefix_tokens(self, tokens, obs, rows_mask):
         """The skipped shared-prefix columns of ``obs`` into ``rows_mask``
@@ -1098,6 +1199,13 @@ class CompiledRolloutEngine:
                 f"episode plus the initial observation feed of every slot, "
                 f"or the zero-drop guarantee cannot hold.")
         noise = noise if noise is not None else self.default_noise(generator)
+        if not self._in_mesh:
+            return self._outside(N)
+        # the reference is often the policy itself: one set of shards
+        local = self._local_params(params)
+        ref_params = (local if ref_params is params
+                      else self._local_params(ref_params, "ref"))
+        params = local
         carry = self.init_feed(
             params, self.init_carry(B, N, with_ref=ref_params is not None,
                                     noise=noise),
@@ -1152,6 +1260,16 @@ class CompiledRolloutEngine:
                 f"{h['preempted']} preemption(s)); the pool is likely "
                 f"below min_pool_pages({B}) = {self.min_pool_pages(B)}.")
         return self._finalize(carry, N, params_version, pool_grows)
+
+    def _outside(self, N: int):
+        """``run`` on a rank outside the bound mesh: no rollout, a batch of
+        meta tensors of the global shapes, and no stats."""
+        from repro_torch.launch.mesh import _batch_spec
+        from repro_torch.rl.experience import zeros_like_experience
+        exp = zeros_like_experience(N, self.max_context, device="meta")
+        self.experience_shardings = ExperienceBatch(
+            *(_batch_spec(self._mesh_config, x.shape) for x in exp))
+        return exp, None
 
     def _finalize(self, carry: slots.SlotCarry, N: int,
                   params_version: int = -1, pool_grows: int = 0):

@@ -26,6 +26,13 @@ The data dispatcher's tests run in a single-rank NCCL group: direct and
 centralized dispatch of a CUDA experience batch (bitwise, on the card),
 ``all_to_all_resplit`` and the distributed advantages on one rank, and
 the async handle behind a side-stream consumer.
+The tensor-parallel rollout's shapes: the attention kernels at one rank's
+heads of qwen2-0.5b at tp=2 (7 q heads on one kv head), the fused
+sampler's partial-state mode against its plain version and, combined over
+two vocab shards, against the one-launch kernel on the whole row; and a
+two-process tp=2 rollout over gloo sharing the card, at full width and two
+layers, against the one-rank rollout (what ``chip_smoke.py``'s tp_path
+holds at 24).
 """
 import dataclasses
 
@@ -78,6 +85,9 @@ PAGED_CASES = {
     "qwen2_heads": (4, 16, 65, 16, 14, 2, 64, [256, 1, 100, 0], False, ()),
     "int8_scales": (3, 4, 16, 8, 4, 2, 32, [25, 0, 13], True, ()),
     "big_pages_hd128": (2, 2, 8, 128, 8, 1, 128, [200, 129], False, ()),
+    # one rank of qwen2-0.5b at tp=2: 7 q heads on one kv head
+    "tp2_heads_kv1": (8, 16, 129, 16, 7, 1, 64,
+                      [256, 1, 100, 0, 17, 64, 200, 255], False, ()),
     # lens at a chunk boundary and one either side, a lens = 0 row
     "lens_at_chunk_edges": (6, 16, 97, 16, 14, 2, 64,
                             [64, 63, 65, 128, 0, 256], False, ()),
@@ -200,6 +210,8 @@ DECODE_CASES = {
     "granite_group3": (4, 256, 24, 8, 64, "fill"),
     "zamba2_group1": (4, 256, 32, 32, 64, "fill"),
     "hd160_group4": (2, 256, 32, 8, 160, "fill"),
+    # one rank of qwen2-0.5b at tp=2 (the folded reference's cache)
+    "tp2_one_kv_head": (8, 256, 7, 1, 64, "fill"),
 }
 
 
@@ -421,6 +433,133 @@ def test_fused_sample_misaligned_rows_take_scalar_loads(dev):
     torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, 2048), rtol=0)
 
 
+@pytest.mark.parametrize("V", [75968, 1000, 2501])
+@pytest.mark.parametrize("noise", ["zero", "gumbel"])
+def test_fused_sample_partial_mode_matches_plain_version(V, noise, dev):
+    """Each of the five outputs against ``fused_sample_partial_ref``: the
+    max, the best score, its index and its logit bitwise, the sum of
+    exponentials within the log-prob rule's roundings; V=2501 takes the
+    scalar loads."""
+    from repro_torch.kernels.fused_sample.ref import fused_sample_partial_ref
+    lg, nz = _sample_inputs(8, 8, V, noise, dev)
+    n0, p0 = fs_ops.launches, fs_ops.partial_launches
+    got = fs_ops.fused_sample_partial(lg, nz)
+    assert (fs_ops.launches, fs_ops.partial_launches) == (n0, p0 + 1)
+    want = fused_sample_partial_ref(lg, nz)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(got[i], want[i]), i
+    assert got[3].dtype == torch.int32 and int(got[3][0]) == 7
+    torch.testing.assert_close(got[1], want[1], atol=0,
+                               rtol=(V / 1024 + 60) * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("noise", ["zero", "gumbel"])
+def test_fused_sample_partials_combine_to_the_one_launch_kernel(noise, dev):
+    """qwen2's row over two vocab shards of 75,968 (tp=2), the ranks'
+    all-reduces run by two host threads: the combined tokens are the
+    one-launch kernel's, a tie across the shards broken to the earliest
+    index, log-probs within the one-launch rule."""
+    import threading
+    V, Vl = 151936, 75968
+    lg, nz = _sample_inputs(9, 8, V, noise, dev)
+    lg[1, 3] = lg[1, Vl + 3] = 60.0
+    nz[1] = 0.0
+    tok, lp = fs_ops.fused_sample(lg, nz)
+    parts = [fs_ops.fused_sample_partial(
+        lg[:, r * Vl:(r + 1) * Vl].contiguous(),
+        nz[:, r * Vl:(r + 1) * Vl].contiguous()) for r in (0, 1)]
+    barrier, slots, out = threading.Barrier(2), [None, None], [None, None]
+    ops = {"max": lambda a, b: torch.maximum(a, b),
+           "min": lambda a, b: torch.minimum(a, b), "sum": torch.add}
+
+    def work(r):
+        def reduce(t, op):
+            slots[r] = t
+            barrier.wait()
+            res = ops[op](*slots)
+            barrier.wait()
+            return res
+        out[r] = fs_ops.combine_partials(*parts[r], r * Vl, reduce)
+
+    threads = [threading.Thread(target=work, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for t, p in out:
+        assert torch.equal(t, tok) and int(t[1]) == 3
+        torch.testing.assert_close(p, lp, atol=_lp_atol(lp, V), rtol=0)
+
+
+TP_WORKER = """
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.core.resharding import MeshConfig
+from repro_torch.kernels.fused_sample import ops as fs_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.models.registry import build_model
+from repro_torch.rl.engine import CompiledRolloutEngine
+from repro_torch.rl.envs import TicTacToe
+rank = int(sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 2),
+                        rank=rank, world_size=2)
+model = build_model(dataclasses.replace(get_config("qwen2-0.5b"),
+                                        n_layers=2))
+full = {k: v.cpu() for k, v in model.init(
+    torch.Generator(device="cuda").manual_seed(0),
+    dtype=torch.float32).items()}
+eng = CompiledRolloutEngine(model, TicTacToe(), kv_dtype="fp32",
+                            temperature=0.0, max_turns=2, max_turn_tokens=4,
+                            max_context=64, mesh_config=MeshConfig("a", 1, 1))
+gen = lambda: torch.Generator(device="cuda").manual_seed(1)
+out = {}
+if eng.in_mesh:
+    g = {k: v.cuda() for k, v in full.items()}
+    out["tp1"] = eng.run(g, 4, 4, ref_params=g, generator=gen())[
+        0].tokens.tolist()
+eng.bind_mesh(MeshConfig("b", 1, 2))
+pa_ops.reset_launches()
+fs_ops.reset_launches()
+exp, st = eng.run(full, 4, 4, ref_params=full, generator=gen())
+out.update(tp2=exp.tokens.tolist(), paged=pa_ops.launches,
+           partial=fs_ops.partial_launches, fused=fs_ops.launches,
+           returned=st.episodes_returned)
+print("RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_tp2_rollout_over_gloo_matches_one_rank(dev, tmp_path):
+    """Two processes share the card over gloo (NCCL refuses two ranks on
+    one device): full-width qwen2-0.5b at two layers, fp32, greedy, the
+    engine re-bound from tp=1 to tp=2; both ranks' tokens equal rank 0's
+    tp=1 tokens, through the paged kernel and the partial sampler."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", TP_WORKER, str(r),
+                               store], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    res = [json.loads(next(ln[7:] for ln in o.splitlines()
+                           if ln.startswith("RESULT "))) for o in outs]
+    assert res[0]["tp2"] == res[1]["tp2"] == res[0]["tp1"]
+    for r in res:
+        assert r["returned"] == 4 and r["fused"] == 0
+        assert r["paged"] > 0 and r["paged"] % 2 == 0 and r["partial"] > 0
+    assert res[0]["paged"] == res[1]["paged"]
+
+
 @pytest.fixture
 def smoke(dev):
     model = build_model(get_smoke_config("qwen2-0.5b"))
@@ -464,6 +603,8 @@ FLASH_CASES = {
     # name: (B, S, Sk, H, KV, hd, causal, window)
     "s96_group2_hd32": (2, 96, 96, 4, 2, 32, True, 0),
     "update_heads_group7": (2, 256, 256, 14, 2, 64, True, 0),
+    # one rank of qwen2-0.5b at tp=2: 7 q heads on one kv head
+    "tp2_heads_7_1": (2, 256, 256, 7, 1, 64, True, 0),
     "ragged_s100": (1, 100, 100, 14, 2, 64, True, 0),
     "window_after_empty_slab": (1, 200, 200, 4, 2, 32, True, 40),
     "not_causal_hd128": (1, 130, 130, 8, 1, 128, False, 0),

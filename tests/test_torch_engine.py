@@ -172,10 +172,12 @@ def test_small_pool_counts_or_raises(models):
     ("mesh_config", MeshConfig("tp2", dp=1, tp=2), "item 14"),
 ])
 def test_unported_options_raise(models, option, value, item):
+    """dp above 1 is unported; tp above 1 runs the dense family's
+    tensor-parallel rollout, where int8 pages are still unported."""
     tmodel = models[2]
     with pytest.raises(NotImplementedError, match=item):
         CompiledRolloutEngine(tmodel, TicTacToe(), device="cpu",
-                              **{option: value})
+                              kv_dtype="int8", **{option: value})
 
 
 @pytest.mark.parametrize("layout,attn_impl", [("dense", "paged"),

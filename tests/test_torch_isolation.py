@@ -45,7 +45,8 @@ def test_scan_covers_the_package():
             "whisper_large_v3.py", "llama_3_2_vision_11b.py", "glm4_9b.py",
             "llama3_405b.py", "qwen2_5_72b.py", "encdec.py", "vlm.py",
             "pipeline.py", "torch_quickstart.py",
-            "torch_serve_batched.py"} <= names
+            "torch_serve_batched.py", "tensor_parallel.py",
+            "torch_train_tictactoe.py", "torch_dispatch_demo.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(

@@ -374,11 +374,15 @@ def test_trainer_rows_equal_jax(pipeline):
     (MeshConfig("tp2", dp=1, tp=2), "item 14"),
 ])
 def test_engine_mesh_config_beyond_one_device_raises(cfg, item):
+    """dp and pods above 1 are unported; tp above 1 runs the dense
+    family's tensor-parallel rollout (tests/test_torch_tp.py), where int8
+    pages are still unported."""
     model = build_model(get_smoke_config("qwen2-0.5b"))
     with pytest.raises(NotImplementedError, match=item):
         CompiledRolloutEngine(model, TicTacToe(), device="cpu",
-                              mesh_config=cfg)
-    eng = CompiledRolloutEngine(model, TicTacToe(), device="cpu")
+                              kv_dtype="int8", mesh_config=cfg)
+    eng = CompiledRolloutEngine(model, TicTacToe(), device="cpu",
+                                kv_dtype="int8")
     with pytest.raises(NotImplementedError, match=item):
         eng.bind_mesh(cfg)
     with pytest.raises(ValueError, match="rank 3"):

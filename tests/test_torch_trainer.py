@@ -189,11 +189,13 @@ def _selector_of(cfg):
     ("selector", _selector_of(MeshConfig("tp2", dp=1, tp=2)), "item 14"),
 ])
 def test_unported_options_raise(option, value, item):
-    """The selector is ported; a config it starts the engine on that needs
-    more than one device is not yet."""
+    """The selector is ported; a config it starts the engine on with dp
+    above 1 is not yet, nor int8 pages at tp above 1 (the tensor-parallel
+    rollout is tests/test_torch_tp.py's)."""
     with pytest.raises(NotImplementedError, match=item):
         EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
-                    env=TicTacToe(), device="cpu", **{option: value})
+                    env=TicTacToe(), device="cpu", kv_dtype="int8",
+                    **{option: value})
 
 
 SMOKE = dict(batch_size=4, max_turns=2, max_turn_tokens=3, max_context=96,
