@@ -153,8 +153,10 @@ Phases, in order; any failure raises and exits non-zero:
  19. shared_train — one EarlTrainer step on the bandit with sharing and
                int8 pages: the fallback warning once, ExpPrep's standalone
                pass (one flash forward per layer), exact launch counts.
-     The tensor-parallel rollout (the kernels at one rank's
-     shapes, 7/1 heads and V=75,968, are in the kernels phase):
+     The tensor-parallel rollout (the kernels at one rank's shapes, 7/1
+     heads and V=75,968, and the families' 12/4 and 16/16 heads,
+     V=25,140, 16,000 and granite's whole 49,155, are in the kernels
+     phase):
  19b. tp_path — full-width qwen2-0.5b (24 layers) at tp=2 in two
                processes that share the card over gloo (NCCL refuses two
                ranks on one device), started with the script and waiting
@@ -163,7 +165,10 @@ Phases, in order; any failure raises and exits non-zero:
                (B=8, greedy, paged, fused; fp32: 2 turns, the reference
                folded in; bf16: 1 turn): fp32 tokens equal, bf16
                first-step logits within 5%, launches and per-rank peak
-               memory.
+               memory. Then the same for granite-moe-3b-a800m (12 layers),
+               mamba2-370m (8) and zamba2-1.2b (12) at their published
+               widths on their dense caches (fp32 on f32 caches), with the
+               bytes each rank receives and keeps.
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
@@ -687,7 +692,12 @@ def phase_tp_kernels(torch, report):
     shards' states combined (``combine_partials``) against the one-launch
     kernel on the whole 151,936-wide row: tokens bitwise, log-probs within
     the one-launch rule, a tie across the shards broken to the earliest
-    index."""
+    index. The same for the families' rank shards at tp_path's B=8,
+    greedy (mamba2's 25,140 and zamba2's 16,000 of 50,280 and 32,000),
+    and the one-launch sampler on granite-moe's whole 49,155-wide row,
+    which every rank samples at tp=2 (its vocab does not divide). The
+    decode and flash kernels at the families' rank heads are in their own
+    phases (``*_granite_tp2``, ``*_zamba2_tp2``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.fused_sample.ref import (
@@ -731,57 +741,101 @@ def phase_tp_kernels(torch, report):
     emit({"phase": "kernels", "kernel": "paged_attention", "case": "bf16_tp2",
           **case})
 
-    V, Vl = 151936, 75968
-    lg = torch.randn((B, V), generator=g, device=dev) * 3.0
-    lg[0, 1000] = lg[0, Vl + 7] = 100.0     # a tie across the two shards
-    gum = -torch.log(-torch.log(
-        torch.rand((B, V), generator=g, device=dev).clamp_min(1e-38)))
-    gum[0] = 0.0
     cases = {}
-    for name, nz in (("zero_noise", torch.zeros_like(lg)), ("gumbel", gum)):
-        shards = [(lg[:, r * Vl:(r + 1) * Vl].contiguous(),
-                   nz[:, r * Vl:(r + 1) * Vl].contiguous()) for r in (0, 1)]
-        parts = [fs_ops.fused_sample_partial(*sh) for sh in shards]
-        refs = [fused_sample_partial_ref(*sh) for sh in shards]
-        torch.cuda.synchronize()
-        for got, want in zip(parts, refs):
-            for i, what in ((0, "m"), (2, "best score"), (3, "index"),
-                            (4, "logit")):
-                if not torch.equal(got[i], want[i]):
+
+    def partial_cases(tag, Bp, V, noises):
+        """The partial mode on each half of a (Bp, V) row, held against
+        ref.py, and the halves combined against the one-launch kernel on
+        the whole row; ``tag`` names the cases beside the noise."""
+        Vl = V // 2
+        lg = torch.randn((Bp, V), generator=g, device=dev) * 3.0
+        lg[0, 1000] = lg[0, Vl + 7] = 100.0  # a tie across the two shards
+        gum = -torch.log(-torch.log(
+            torch.rand((Bp, V), generator=g, device=dev).clamp_min(1e-38)))
+        gum[0] = 0.0
+        for noise in noises:
+            name = noise + tag
+            nz = torch.zeros_like(lg) if noise == "zero_noise" else gum
+            shards = [(lg[:, r * Vl:(r + 1) * Vl].contiguous(),
+                       nz[:, r * Vl:(r + 1) * Vl].contiguous())
+                      for r in (0, 1)]
+            parts = [fs_ops.fused_sample_partial(*sh) for sh in shards]
+            refs = [fused_sample_partial_ref(*sh) for sh in shards]
+            torch.cuda.synchronize()
+            for got, want in zip(parts, refs):
+                for i, what in ((0, "m"), (2, "best score"), (3, "index"),
+                                (4, "logit")):
+                    if not torch.equal(got[i], want[i]):
+                        raise AssertionError(f"fused_sample_partial {name}:"
+                                             f" {what} differs from ref.py")
+            # l sums Vl exponentials in another order: the log-prob rule's
+            # (V/1024 + 60) roundings, relative to l
+            lchk = held(torch, parts[0][1], refs[0][1], 0.0,
+                        (Vl / 1024 + 60) * 2.0 ** -24)
+            combined = combine_on_threads(torch, parts, [0, Vl])
+            tok, lp = fs_ops.fused_sample(lg, nz)
+            torch.cuda.synchronize()
+            atol = ((V / 1024 + 60) * 2.0 ** -24
+                    + 8 * 2.0 ** -23 * float(lp.abs().max()))
+            for t, p_ in combined:
+                if not torch.equal(t, tok) or int(t[0]) != 1000:
+                    raise AssertionError(f"fused_sample_partial {name}: the "
+                                         f"combined tokens differ from the "
+                                         f"one-launch kernel's")
+                chk = held(torch, p_, lp, atol, 0.0)
+                if not (chk["ok"] and lchk["ok"]):
                     raise AssertionError(f"fused_sample_partial {name}: "
-                                         f"{what} differs from ref.py")
-        # l sums Vl exponentials in another order: the log-prob rule's
-        # (V/1024 + 60) roundings, relative to l
-        lchk = held(torch, parts[0][1], refs[0][1], 0.0,
-                    (Vl / 1024 + 60) * 2.0 ** -24)
-        combined = combine_on_threads(torch, parts, [0, Vl])
-        tok, lp = fs_ops.fused_sample(lg, nz)
-        torch.cuda.synchronize()
-        atol = ((V / 1024 + 60) * 2.0 ** -24
-                + 8 * 2.0 ** -23 * float(lp.abs().max()))
-        for t, p_ in combined:
-            if not torch.equal(t, tok) or int(t[0]) != 1000:
-                raise AssertionError(f"fused_sample_partial {name}: the "
-                                     f"combined tokens differ from the "
-                                     f"one-launch kernel's")
-            chk = held(torch, p_, lp, atol, 0.0)
-            if not (chk["ok"] and lchk["ok"]):
-                raise AssertionError(f"fused_sample_partial {name}: "
-                                     f"{chk} {lchk}")
-        x, z = shards[0]
-        b_ms, b_by = bound(2 * B * Vl * 4 + B * 20, 4 * B * Vl)
-        cases[name] = dict(
-            chk, l_err_over_tol=lchk["err_over_tol"], tokens_equal=True,
-            V_local=Vl, plan=fs_ops.cluster_plan(B, Vl, _build.sm_count(0)),
-            ms=time_cold(torch, lambda: fs_ops.fused_sample_partial(x, z)),
-            plain_ms=time_cold(torch, lambda: fused_sample_partial_ref(x, z)),
-            one_launch_full_row_ms=time_cold(
-                torch, lambda: fs_ops.fused_sample(lg, nz)),
-            bound_ms=b_ms, bound_by=b_by)
-        emit({"phase": "kernels", "kernel": "fused_sample_partial",
-              "case": name, **cases[name]})
+                                         f"{chk} {lchk}")
+            x, z = shards[0]
+            b_ms, b_by = bound(2 * Bp * Vl * 4 + Bp * 20, 4 * Bp * Vl)
+            cases[name] = dict(
+                chk, l_err_over_tol=lchk["err_over_tol"], tokens_equal=True,
+                B=Bp, V_local=Vl,
+                plan=fs_ops.cluster_plan(Bp, Vl, _build.sm_count(0)),
+                ms=time_cold(torch, lambda: fs_ops.fused_sample_partial(x, z)),
+                plain_ms=time_cold(torch,
+                                   lambda: fused_sample_partial_ref(x, z)),
+                one_launch_full_row_ms=time_cold(
+                    torch, lambda: fs_ops.fused_sample(lg, nz)),
+                bound_ms=b_ms, bound_by=b_by)
+            emit({"phase": "kernels", "kernel": "fused_sample_partial",
+                  "case": name, **cases[name]})
+
+    # qwen2-0.5b's V=151,936 (75,968 a rank) at B=32; tp_path's families
+    # at its batch, greedy: mamba2's V=50,280 (25,140 a rank) and zamba2's
+    # V=32,000 (16,000 a rank)
+    partial_cases("", B, 151936, ("zero_noise", "gumbel"))
+    partial_cases("_v50280_b8", TP_BATCH, 50280, ("zero_noise",))
+    partial_cases("_v32000_b8", TP_BATCH, 32000, ("zero_noise",))
     # the tp path samples greedily: zero noise
     report["fused_sample_partial"] = dict(cases["zero_noise"], cases=cases)
+
+    # granite-moe's 49,155 rows do not divide 2 ways: at tp=2 every rank
+    # samples the whole row with the one-launch kernel, greedy, at B=8
+    V = 49155
+    lg = torch.randn((TP_BATCH, V), generator=g, device=dev) * 3.0
+    z = torch.zeros_like(lg)
+    tok, lp = fs_ops.fused_sample(lg, z)
+    tok_r, lp_r = fused_sample_ref(lg, z)
+    torch.cuda.synchronize()
+    if not torch.equal(tok, tok_r):
+        raise AssertionError("fused_sample zero_noise_v49155_b8: tokens "
+                             "differ")
+    chk = held(torch, lp, lp_r, ((V / 1024 + 60) * 2.0 ** -24
+                                 + 8 * 2.0 ** -23
+                                 * float(lp_r.abs().max())), 0.0)
+    if not chk["ok"]:
+        raise AssertionError(f"fused_sample zero_noise_v49155_b8: {chk}")
+    b_ms, b_by = bound(2 * TP_BATCH * V * 4 + TP_BATCH * 8,
+                       4 * TP_BATCH * V)
+    case = dict(chk, tokens_equal=True, B=TP_BATCH,
+                plan=fs_ops.cluster_plan(TP_BATCH, V, _build.sm_count(0)),
+                ms=time_cold(torch, lambda: fs_ops.fused_sample(lg, z)),
+                plain_ms=time_cold(torch, lambda: fused_sample_ref(lg, z)),
+                bound_ms=b_ms, bound_by=b_by)
+    report["fused_sample"]["cases"]["zero_noise_v49155_b8"] = case
+    emit({"phase": "kernels", "kernel": "fused_sample",
+          "case": "zero_noise_v49155_b8", **case})
 
 
 def one_rounding_errors(torch, q, k, v, do, out, L, out_r, grads_r,
@@ -869,7 +923,11 @@ def phase_flash(torch, report):
             ("bf16_whisper_s64", 16, 64, 20, 20, 64, bf16),
             ("bf16_vision", 4, 64, 32, 8, 128, bf16),
             # one rank of qwen2-0.5b at tp=2 (tp_path): 7 q heads, 1 kv
-            ("bf16_tp2", 8, 256, 7, 1, 64, bf16)):
+            ("bf16_tp2", 8, 256, 7, 1, 64, bf16),
+            # one rank of granite-moe (12/4) and of zamba2's sites (16/16)
+            # at tp=2, at tp_path's batch
+            ("bf16_granite_tp2", 8, 256, 12, 4, 64, bf16),
+            ("bf16_zamba2_tp2", 8, 256, 16, 16, 64, bf16)):
         pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
@@ -1246,6 +1304,21 @@ def phase_decode(torch, report):
     run_case("bf16_fill_tp2", q, k, v,
              (torch.arange(256, device=dev)[None, :] <= fill).contiguous(),
              BF16_FLOPS, 2.0 ** -7)
+    # one rank of the families at tp=2 (tp_path's dense caches: B=8, 96
+    # slots, fp32 and bf16): granite-moe's policy stream and folded
+    # reference at 12/4 heads, zamba2's sites at 16/16
+    Bt, St = TP_BATCH, TP_FAMILY_PATH["max_context"]
+    fill = torch.randint(1, St, (Bt, 1), generator=g, device=dev)
+    valid = (torch.arange(St, device=dev)[None, :] <= fill).contiguous()
+    for fam, Hc, KVc in (("granite", 12, 4), ("zamba2", 16, 16)):
+        for dname, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
+                                       2.0 ** -7),
+                                      ("fp32", torch.float32, F32_FLOPS,
+                                       0.0)):
+            q = torch.randn((Bt, Hc, hd), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((Bt, St, KVc, hd), generator=g,
+                                device=dev).to(dt) for _ in range(2))
+            run_case(f"{dname}_fill_{fam}_tp2", q, k, v, valid, peak, rtol)
     # the main path: the bf16 reference stream over a filling cache
     report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
 
@@ -1594,7 +1667,9 @@ def phase_macro_step(torch, engine, dense_engine, params):
     same engine with the folded reference stream (the train step's
     route): one macro-step to warm, the next under torch.profiler for
     decode attention's device time and launches (exactly one per layer
-    per decode step of the reference stream)."""
+    per decode step of the reference stream). Both traces record the
+    device's activity only: every number they give is a device event's,
+    and host-side events multiplied the traces' post-processing."""
     noise = engine.default_noise(torch.Generator(device="cuda").manual_seed(4))
     dc = dense_engine.init_feed(
         params, dense_engine.init_carry(32, 64, with_ref=True), params)
@@ -1634,8 +1709,7 @@ def phase_macro_step(torch, engine, dense_engine, params):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     pa_ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry = engine.turn_step(params, carry, 2, noise)
         torch.cuda.synchronize()
@@ -1678,8 +1752,7 @@ def phase_macro_step(torch, engine, dense_engine, params):
     rc = engine.turn_step(params, rc, 0, noise, ref_params=params)
     torch.cuda.synchronize()
     da_ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rc = engine.turn_step(params, rc, 1, noise, ref_params=params)
         torch.cuda.synchronize()
@@ -2577,6 +2650,30 @@ def _tp_counters():
     return reset, read
 
 
+# the tp path's families: each at the depth its one-card phases run
+# (MOE_LAYERS, SSM_LAYERS, HYBRID_LAYERS), on its own dense cache
+TP_FAMILY_PATH = dict(cache_layout="dense", sampling="fused",
+                      temperature=0.0, max_turns=2, max_turn_tokens=4,
+                      max_context=96)
+
+
+def _tp_families():
+    """(arch, depth) of each family tp_path runs after qwen2-0.5b."""
+    return (("granite-moe-3b-a800m", MOE_LAYERS), ("mamba2-370m", SSM_LAYERS),
+            ("zamba2-1.2b", HYBRID_LAYERS))
+
+
+def _f32_cache_model(torch, model):
+    """``model`` on f32 caches: the moe, ssm and hybrid caches take no
+    kv_dtype (as in JAX), so the fp32 rollouts swap ``init_cache``."""
+    from repro_torch.models import hybrid, mamba, moe
+    fam = {"moe": moe.init_cache, "ssm": mamba.init_cache,
+           "hybrid": hybrid.init_cache}[model.cfg.family]
+    return dataclasses.replace(
+        model, _init_cache=lambda cfg, b, s, dtype=None, *, device=None,
+        tp=None: fam(cfg, b, s, torch.float32, device=device, tp=tp))
+
+
 def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     """One rank of phase_tp_path (``chip_smoke.py --tp-worker RANK WORLD
     STORE GO``): joins the group, makes the weights, waits for the file
@@ -2603,11 +2700,18 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     # each rank moves only its shards to the card
     full32 = model.init(torch.Generator().manual_seed(0),
                         dtype=torch.float32, device="cpu")
+    # and each family's, in fp32 and bf16 (tp_family)
+    weights = {arch: _host_weights(torch, arch, depth)
+               for arch, depth in _tp_families()}
     t_wait = time.perf_counter()
     while not os.path.exists(go):
         if time.perf_counter() - t_wait > 3600:
             return 1
         time.sleep(0.1)
+    # the script waits for this phase: one thread, whose gloo all-reduces
+    # of CUDA tensors took 1.57 ms against 2.21 with torch's default
+    # threads (tools/gloo_allreduce_bench.py, PR 25)
+    torch.set_num_threads(1)
     t_start = time.perf_counter()
     one, two = MeshConfig("tp1", 1, 1), MeshConfig("tp2", 1, 2)
     reset, read = _tp_counters()
@@ -2615,25 +2719,30 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     gen = lambda: torch.Generator(device="cuda").manual_seed(1)
     out = {"rank": rank}
 
-    def rollout(eng, params, tag, ref):
+    def rollout(eng, params, ref, to_card):
+        """One run of ``eng`` on ``params`` (host tensors: the whole tree
+        copied to the card inside the run at tp=1, ``to_card``, and the
+        rank's shards by the engine at tp=2), its launches, seconds and
+        peak memory."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         reset()
         t0 = time.perf_counter()
-        if params is None:       # tp=1: the whole model on the card
-            params = {k: v.cuda() for k, v in held_params.items()}
+        if to_card:
+            params = {k: v.cuda() for k, v in params.items()}
         exp, st = eng.run(params, B, B, ref_params=params if ref else None,
                           generator=gen())
         torch.cuda.synchronize()
-        out[tag] = dict(seconds=time.perf_counter() - t0, launches=read(),
-                        peak_bytes=torch.cuda.max_memory_allocated() - base,
-                        returned=st.episodes_returned,
-                        tokens=exp.tokens.cpu().tolist(),
-                        logprobs=exp.logprobs.cpu().tolist(),
-                        ref_logprobs=exp.ref_logprobs.cpu().tolist())
+        res = dict(seconds=time.perf_counter() - t0, launches=read(),
+                   peak_bytes=torch.cuda.max_memory_allocated() - base,
+                   returned=st.episodes_returned,
+                   tokens=exp.tokens.cpu().tolist(),
+                   logprobs=exp.logprobs.cpu().tolist(),
+                   ref_logprobs=exp.ref_logprobs.cpu().tolist())
         del params, exp
         torch.cuda.empty_cache()
+        return res
 
     for kv in ("fp32", "bf16"):
         held_params = (full32 if kv == "fp32" else
@@ -2645,7 +2754,7 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         eng = CompiledRolloutEngine(model, TicTacToe(), mesh_config=one,
                                     kv_dtype=kv, **settings)
         if eng.in_mesh:          # rank 1 takes no part at tp=1
-            rollout(eng, None, f"{kv}_tp1", kv == "fp32")
+            out[f"{kv}_tp1"] = rollout(eng, held_params, kv == "fp32", True)
         # the selector's switch: re-bind the engine to tp=2
         eng.bind_mesh(two)
         out[f"{kv}_tp"] = dict(heads=eng.tp.n_heads,
@@ -2653,7 +2762,7 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
                                vocab_local=eng.tp.vocab_local,
                                vocab_offset=eng.tp.vocab_offset,
                                d_ff_local=eng.tp.plan.d_ff_local)
-        rollout(eng, held_params, f"{kv}_tp2", kv == "fp32")
+        out[f"{kv}_tp2"] = rollout(eng, held_params, kv == "fp32", False)
         if kv == "bf16":
             # the first decode step's logits after a 12-token prompt
             # (prefill on the flash forward, decode on the paged kernel),
@@ -2687,11 +2796,120 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
                 del g16, c
         del eng
         torch.cuda.empty_cache()
+    del full32, held_params
     out["seconds"] = time.perf_counter() - t_start
+    out["families"] = {}
+    for arch, depth in _tp_families():
+        t0 = time.perf_counter()
+        fam = tp_family(torch, arch, depth, weights.pop(arch), rank, rollout,
+                        reset, read, gen)
+        out["families"][arch] = dict(fam, seconds=time.perf_counter() - t0)
     print("TPRESULT " + json.dumps(out), flush=True)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def _host_weights(torch, arch, depth):
+    """``arch``'s seeded weights at ``depth`` layers on the host, fp32 and
+    bf16: the same on every rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    model = build_model(dataclasses.replace(get_config(arch),
+                                            n_layers=depth))
+    full32 = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32, device="cpu")
+    return full32, {k: v.bfloat16() for k, v in full32.items()}
+
+
+def tp_family(torch, arch, depth, weights, rank, rollout, reset, read, gen):
+    """One family's part of a tp_path rank (``tp_worker``): ``arch`` at
+    its published widths and ``depth`` layers, on ``weights`` (its fp32
+    and bf16 host tensors, ``_host_weights``); the fp32 rollouts (2 turns,
+    the folded reference) on f32 caches at tp=1 (rank 0) and, after
+    ``bind_mesh``, at tp=2; then the bf16 ones (1 turn) on the family's
+    bf16 caches; then the bf16 first decode step's logits after a
+    12-token prompt (prefill on the flash forward where the family has
+    attention, decode on the decode attention kernel), the shards
+    gathered, against tp=1 on rank 0, and rank 0's tp=1 f32 evaluation
+    of the same step (the bf16 runs' drift from it). Also the bytes the
+    rank receives under the plan (carried: ``in_proj`` and the conv travel
+    whole) and keeps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.resharding import (MeshConfig, shard_bytes,
+                                             shard_params, tp_plan)
+    from repro_torch.models.registry import build_model
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    model = build_model(cfg)
+    one, two = MeshConfig("tp1", 1, 1), MeshConfig("tp2", 1, 2)
+    B = TP_BATCH
+    full32, full16 = weights
+    plan = tp_plan(model, two)
+    carried, kept = shard_bytes(full32, plan)
+    out = dict(param_bytes=sum(v.nbytes for v in full32.values()),
+               carried_bytes=carried, kept_bytes=kept,
+               fallbacks=plan.fallbacks)
+    for kv in ("fp32", "bf16"):
+        fp32 = kv == "fp32"
+        held = full32 if fp32 else full16
+        m = _f32_cache_model(torch, model) if fp32 else model
+        settings = dict(TP_FAMILY_PATH, **({} if fp32 else
+                                           {"max_turns": 1}))
+        eng = CompiledRolloutEngine(m, TicTacToe(), mesh_config=one,
+                                    **settings)
+        if eng.in_mesh:          # rank 1 takes no part at tp=1
+            out[f"{kv}_tp1"] = rollout(eng, held, fp32, True)
+        eng.bind_mesh(two)
+        tp = eng.tp
+        out["tp"] = dict(heads=tp.n_heads, kv_heads=tp.n_kv_heads,
+                         experts=tp.experts_local, ssm_heads=tp.ssm_heads,
+                         vocab_local=tp.vocab_local,
+                         vocab_split=tp.vocab_split)
+        out[f"{kv}_tp2"] = rollout(eng, held, fp32, False)
+        if not fp32:
+            tok = torch.randint(0, cfg.vocab_size, (B, 13), device="cuda",
+                                generator=gen())
+            pre = "xla" if cfg.family == "ssm" else "flash"
+            local = shard_params(held, tp.plan, device="cuda")
+            reset()
+            with torch.no_grad():
+                c = model.init_cache(B, 32, device="cuda", tp=tp)
+                _, c = model.prefill(local, tok[:, :12], c, attn_impl=pre,
+                                     tp=tp)
+                lg, _ = model.decode_step(local, tok[:, 12], c,
+                                          attn_impl="pallas", tp=tp)
+                lg = tp.gather_row(lg.float())
+            out["logits_launches"] = read()
+            del local, c
+            if rank == 0:
+                lg1, lg32 = (_first_step_logits(torch, mm, params, tok, pre)
+                             for mm, params in (
+                                 (model, full16),
+                                 (_f32_cache_model(torch, model), full32)))
+                out["bf16_logits"] = dict(
+                    max_abs_err=float((lg - lg1).abs().max()),
+                    scale=float(lg1.abs().max()),
+                    tp1_drift_from_f32=float((lg1 - lg32).abs().max()),
+                    tp2_drift_from_f32=float((lg - lg32).abs().max()))
+        del eng, held
+        torch.cuda.empty_cache()
+    return out
+
+
+def _first_step_logits(torch, model, params, tok, pre):
+    """tp=1 logits (f32) of the decode step after a prefill of ``tok``'s
+    first 12 tokens, with ``params`` (host tensors) moved to the card."""
+    params = {k: v.cuda() for k, v in params.items()}
+    with torch.no_grad():
+        c = model.init_cache(tok.shape[0], 32, device="cuda")
+        _, c = model.prefill(params, tok[:, :12], c, attn_impl=pre)
+        lg, _ = model.decode_step(params, tok[:, 12], c, attn_impl="pallas")
+    del params, c
+    torch.cuda.empty_cache()
+    return lg.float()
 
 
 def phase_tp_path(torch, report, workers: TPWorkers):
@@ -2723,10 +2941,22 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     within 5% of their scale (the port's bf16 rule), with one flash
     forward per layer in its prefill. Reported: bf16 token agreement
     (ungated, as in spec_branch), each rank's peak memory against tp=1,
-    its launches and the seconds."""
+    its launches and the seconds.
+
+    Then the same ranks run the moe, ssm and hybrid families at their
+    published widths (``tp_family``): granite-moe-3b-a800m at MOE_LAYERS
+    (12/4 heads, 20 of 40 experts a rank; its 49,155 vocab rows stay whole
+    on each rank), mamba2-370m at SSM_LAYERS (16 of 32 SSM heads, V=25,140
+    a rank) and zamba2-1.2b at HYBRID_LAYERS (32 of 64 SSM heads, the
+    shared block at 16/16 heads and d_ff 4,096, V=16,000 a rank), each on
+    its dense cache: the fp32 rollouts on f32 caches with the folded
+    reference, then bf16, then the bf16 first-step logits. Their gates and
+    reports are ``tp_family_results``'s; each family also reports the
+    bytes a rank receives (mamba2's and zamba2's ``in_proj`` and conv
+    travel whole) and keeps."""
     t0 = time.perf_counter()
     workers.go()
-    codes, texts = workers.wait(timeout=600)
+    codes, texts = workers.wait(timeout=900)
     if any(codes):
         raise AssertionError("tp_path: a rank failed:\n" + "\n".join(
             t[-3000:] for t in texts))
@@ -2777,16 +3007,114 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     out["peak_ratio_tp2_over_tp1"] = {
         kv: [x[f"{kv}_tp2"]["peak_bytes"] / r0[f"{kv}_tp1"]["peak_bytes"]
              for x in res] for kv in ("fp32", "bf16")}
+    out["families"], families_ok = tp_family_results(torch, res)
     emit(out)
     report["fused_sample_partial"]["launches"] = \
         r0["fp32_tp2"]["launches"]["fused_sample_partial"]
     if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
-            and launches_ok
+            and launches_ok and families_ok
             and bl["max_abs_err"] <= 0.05 * bl["scale"]
             and r0["logits_launches"]["flash_fwd"] == 24
             and all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
                     for x in res for kv in ("fp32", "bf16"))):
         raise AssertionError(f"tp_path checks failed: {out}")
+
+
+def tp_family_results(torch, res):
+    """The families' part of tp_path from both ranks' results: each
+    family's gates and what is reported, and whether every gate held.
+    Gates: every episode returned; the fp32 tp=2 tokens equal tp=1's on
+    both ranks, the log-probs within 1e-4 and the folded reference's
+    within 1e-2; both ranks' launch counts equal and each kernel's equal
+    to tp=1's (the tp=2 samples are the partial mode's where the vocab is
+    split and the one-launch sampler's where it is replicated, as
+    granite's 49,155 rows are), decode attention launched where the
+    family has attention and no flash or paged launch in a rollout; the
+    bf16 first step's logits within 5% of their scale, with one flash
+    forward and one decode attention per attention layer (none for
+    mamba2). Where the tp=1 bf16 logits themselves lie further than 5% of
+    the scale from the f32 evaluation of the same weights, bf16's own
+    rounding noise is above the 5% rule (random zamba2-1.2b at 12 layers:
+    16.6% on the H100, and the tp=2 step, whose sums are ordered
+    otherwise, 5.6% from tp=1's): the tp=2 logits are then held no further
+    from tp=1's than bf16 moves tp=1's from the f32 evaluation."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid
+    T = lambda d, k: torch.tensor(d[k])
+    out, ok = {}, True
+    for arch, depth in _tp_families():
+        f0, f1 = (x["families"][arch] for x in res)
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        attn = (hybrid.n_attn_sites(cfg) if cfg.family == "hybrid"
+                else depth if cfg.family == "moe" else 0)
+        split = f0["tp"]["vocab_split"]
+        a, b, c = f0["fp32_tp1"], f0["fp32_tp2"], f1["fp32_tp2"]
+        same = a["tokens"] == b["tokens"] == c["tokens"]
+        lp_err, ref_err = (float((T(a, k) - T(b, k)).abs().max())
+                           for k in ("logprobs", "ref_logprobs"))
+        launches_ok = True
+        for kv in ("fp32", "bf16"):
+            t1, t2, t2b = (f0[f"{kv}_tp1"]["launches"],
+                           f0[f"{kv}_tp2"]["launches"],
+                           f1[f"{kv}_tp2"]["launches"])
+            unused = "fused_sample" if split else "fused_sample_partial"
+            launches_ok &= (
+                t2 == t2b
+                and t2["decode_attention"] == t1["decode_attention"]
+                and (t1["decode_attention"] > 0) == (attn > 0)
+                and t2["paged_attention"] == t1["paged_attention"] == 0
+                and t2["flash_fwd"] == t1["flash_fwd"] == 0
+                and t1["fused_sample_partial"] == 0 and t2[unused] == 0
+                and t2["fused_sample"] + t2["fused_sample_partial"]
+                == t1["fused_sample"] > 0)
+        ll = f0["logits_launches"]
+        bl = f0["bf16_logits"]
+        tol = 0.05 * bl["scale"]
+        noisy = bl["tp1_drift_from_f32"] > tol
+        logits_ok = (bl["max_abs_err"] <= tol or noisy and
+                     bl["max_abs_err"] <= bl["tp1_drift_from_f32"])
+        returned = all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
+                       for x in (f0, f1) for kv in ("fp32", "bf16")) and \
+            all(f0[f"{kv}_tp1"]["returned"] == TP_BATCH
+                for kv in ("fp32", "bf16"))
+        fam_ok = (same and lp_err <= 1e-4 and ref_err <= 1e-2 and launches_ok
+                  and returned and ll == f1["logits_launches"]
+                  and ll["flash_fwd"] == ll["decode_attention"] == attn
+                  and logits_ok)
+        ok &= fam_ok
+        out[arch] = dict(
+            n_layers=depth, rank_shapes=f0["tp"], fallbacks=f0["fallbacks"],
+            ok=fam_ok, returned_all=returned,
+            fp32_tokens_equal=same, fp32_logprob_max_abs_err=lp_err,
+            fp32_ref_logprob_max_abs_err=ref_err,
+            bf16_logits=dict(bl, tolerance=tol, bf16_noisier_than_tol=noisy,
+                             ok=logits_ok),
+            bf16_rows_equal=sum(x == y for x, y in zip(
+                f0["bf16_tp1"]["tokens"], f0["bf16_tp2"]["tokens"])),
+            bf16_rows=TP_BATCH,
+            launches={f"rank{r}": {k: v["launches"] for k, v in x.items()
+                                   if isinstance(v, dict)
+                                   and "launches" in v}
+                      for r, x in enumerate((f0, f1))},
+            logits_launches=ll,
+            peak_bytes={f"rank{r}": {k: v["peak_bytes"] for k, v in x.items()
+                                     if isinstance(v, dict)
+                                     and "peak_bytes" in v}
+                        for r, x in enumerate((f0, f1))},
+            peak_ratio_tp2_over_tp1={
+                kv: [x[f"{kv}_tp2"]["peak_bytes"]
+                     / f0[f"{kv}_tp1"]["peak_bytes"] for x in (f0, f1)]
+                for kv in ("fp32", "bf16")},
+            param_bytes=f0["param_bytes"],
+            carried_bytes=[f0["carried_bytes"], f1["carried_bytes"]],
+            kept_bytes=[f0["kept_bytes"], f1["kept_bytes"]],
+            kept_ratio=[x["kept_bytes"] / x["param_bytes"] for x in (f0, f1)],
+            rollout_seconds={f"rank{r}": {k: v["seconds"] for k, v in
+                                          x.items() if isinstance(v, dict)
+                                          and "seconds" in v}
+                             for r, x in enumerate((f0, f1))},
+            worker_seconds=[f0["seconds"], f1["seconds"]])
+    return out, ok
 
 
 def phase_shared_train(torch, model, report):

@@ -18,7 +18,8 @@ head_dim`` column, as JAX's is, so a model axis can cut a head in half
 (qwen2-0.5b's 14 heads of 64 on a 4-way axis: 896 columns split into 224,
 3.5 heads a rank). ``tp_plan`` is the head-granular plan the tensor-
 parallel rollout runs on: it splits attention only by whole heads, and
-``shard_params`` gives a rank its local tensors under it.
+``shard_params`` gives a rank its local tensors under it (the dense, moe,
+ssm and hybrid families).
 """
 from __future__ import annotations
 
@@ -294,20 +295,37 @@ class TPPlan:
 
       - ``attn`` "split": q heads over ``model`` (``n_heads % tp == 0``),
         ``heads_local`` a rank; "replicated" otherwise (every rank runs
-        all heads and the o-proj needs no all-reduce).
+        all heads and the o-proj needs no all-reduce), and for a family
+        without attention.
       - ``kv`` "split": kv heads over ``model`` (``n_kv_heads % tp ==
         0``); "grouped": each rank holds the one kv head its q heads read
         (q head ``h`` reads kv head ``h // group``: ``tp % n_kv_heads ==
         0``); "replicated" with replicated attention.
-      - ``mlp_split`` when ``d_ff % tp == 0``; ``vocab_split`` when
-        ``vocab % tp == 0`` (the embedding rows, or the untied head's
+      - ``mlp_split`` when the family has a dense MLP (dense, and the
+        hybrid's shared block) and ``d_ff % tp == 0``; ``vocab_split``
+        when ``vocab % tp == 0`` (the embedding rows, or the untied head's
         columns, over ``model``).
+      - moe: the router is replicated (every rank routes every token, so
+        the capacity slots and drops agree); ``experts`` "split": whole
+        experts over ``model`` (``n_experts % tp == 0``); "mlp": every
+        expert's ``d_ff_expert`` columns, as the dense MLP's, where only
+        that divides; "replicated" where neither does.
+      - ssm (and the hybrid's Mamba layers): ``ssm_split`` puts whole SSM
+        heads over ``model`` (``ssm.n_heads % tp == 0``); the B and C
+        groups split with them only where ``n_groups % tp == 0``, else
+        every rank keeps all of them. ``A_log``, ``D``, ``dt_bias``,
+        ``norm_w`` and ``out_proj``'s rows split by head. ``in_proj``
+        (``z | x | B | C | dt``) and the conv (``x | B | C``) are
+        concatenations whose rank part is not one slice: they travel
+        whole and ``finish_shards`` keeps the rank's columns
+        (``ssm_columns``).
 
     ``layouts`` maps each param path to the ``NamedLayout`` its local
     tensor is a shard of (what the data dispatcher moves into); a
-    "grouped" kv leaf is replicated there and ``shard_params`` then keeps
-    the rank's kv head. ``fallbacks`` records each part that replicates
-    where ``param_shardings`` would split, and why."""
+    "grouped" kv leaf and the concatenated SSM leaves are replicated there
+    and ``shard_params`` then cuts them. ``fallbacks`` records each part
+    that replicates (or splits another way) where ``param_shardings``
+    would split, and why."""
 
     mesh_config: MeshConfig
     rank: int
@@ -324,6 +342,14 @@ class TPPlan:
     vocab_split: bool
     layouts: Dict[str, NamedLayout] = field(default_factory=dict)
     fallbacks: List[Tuple[str, str]] = field(default_factory=list)
+    experts: str = "replicated"
+    n_experts: int = 0
+    d_ff_expert: int = 0
+    ssm_split: bool = False
+    ssm_heads: int = 0
+    ssm_head_dim: int = 0
+    ssm_groups: int = 0
+    ssm_state: int = 0
 
     @property
     def heads_local(self) -> int:
@@ -345,6 +371,30 @@ class TPPlan:
         return self.vocab_size // self.tp if self.vocab_split \
             else self.vocab_size
 
+    @property
+    def experts_local(self) -> int:
+        return self.n_experts // self.tp if self.experts == "split" \
+            else self.n_experts
+
+    @property
+    def d_ff_expert_local(self) -> int:
+        return self.d_ff_expert // self.tp if self.experts == "mlp" \
+            else self.d_ff_expert
+
+    @property
+    def ssm_groups_split(self) -> bool:
+        return self.ssm_split and self.ssm_groups % self.tp == 0
+
+    @property
+    def ssm_heads_local(self) -> int:
+        return self.ssm_heads // self.tp if self.ssm_split \
+            else self.ssm_heads
+
+    @property
+    def ssm_groups_local(self) -> int:
+        return self.ssm_groups // self.tp if self.ssm_groups_split \
+            else self.ssm_groups
+
     def index_of(self, rank: int) -> Optional[int]:
         """``rank``'s index on the model axis (None outside the mesh)."""
         ranks = self.mesh_config.ranks()
@@ -357,61 +407,143 @@ class TPPlan:
         index = self.index if index is None else index
         return (index or 0) * self.vocab_local if self.vocab_split else 0
 
+    def expert_offset(self, index: Optional[int] = None) -> int:
+        """First global expert of the rank at ``index`` (this rank's by
+        default)."""
+        index = self.index if index is None else index
+        return ((index or 0) * self.experts_local
+                if self.experts == "split" else 0)
+
     def kv_head(self, index: Optional[int] = None) -> int:
         """Under ``kv="grouped"``: the global kv head the rank at
         ``index`` holds."""
         index = self.index if index is None else index
         return (index or 0) * self.n_kv_heads // self.tp
 
+    def ssm_columns(self, index: Optional[int] = None, *,
+                    proj: bool = True) -> torch.Tensor:
+        """The columns the rank at ``index`` keeps of a concatenated SSM
+        leaf: its heads' ``x`` columns and its groups' ``B`` and ``C`` of
+        the conv's ``x | B | C`` (``proj=False``), and also its heads'
+        ``z`` and ``dt`` of ``in_proj``'s ``z | x | B | C | dt``."""
+        index = (self.index if index is None else index) or 0
+        P, N = self.ssm_head_dim, self.ssm_state
+        H, G = self.ssm_heads_local, self.ssm_groups_local
+        di, gn = self.ssm_heads * P, self.ssm_groups * N
+        h0 = index * H if self.ssm_split else 0
+        g0 = index * G if self.ssm_groups_split else 0
+        x = torch.arange(h0 * P, (h0 + H) * P)
+        bc = torch.arange(g0 * N, (g0 + G) * N)
+        conv = [x, bc + di, bc + di + gn]
+        if not proj:
+            return torch.cat(conv)
+        return torch.cat([x] + [t + di for t in conv]
+                         + [torch.arange(h0, h0 + H) + 2 * di + 2 * gn])
+
+    def kept_fraction(self, path: str) -> float:
+        """The share of the leaf ``path``'s carried shard (its
+        ``layouts`` shard) that ``finish_shards`` keeps."""
+        if self.kv == "grouped" and path.endswith(_KV_LEAVES):
+            return 1.0 / self.n_kv_heads
+        if self.ssm_split and path.endswith(_SSM_CAT_LEAVES):
+            proj = path.endswith("in_proj")
+            di = self.ssm_heads * self.ssm_head_dim
+            whole = (di + 2 * self.ssm_groups * self.ssm_state
+                     + (di + self.ssm_heads if proj else 0))
+            return len(self.ssm_columns(proj=proj)) / whole
+        return 1.0
+
 
 _KV_LEAVES = ("attn.wk", "attn.wv", "attn.bk", "attn.bv")
+# concatenations whose rank part is not one slice: carried whole
+_SSM_CAT_LEAVES = ("mixer.in_proj", "mixer.conv_w", "mixer.conv_b")
+# replicated whatever their axes say: every rank routes every token
+_REPLICATED_LEAVES = ("moe.router",)
+_TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _attention_rule(H: int, KV: int, tp: int, fallbacks: list):
+    if tp == 1 or H == 0:
+        return "replicated", "replicated"
+    if H % tp:
+        fallbacks.append(("attention", f"{H} q heads do not divide {tp} "
+                                       f"ways"))
+        return "replicated", "replicated"
+    if KV % tp == 0:
+        return "split", "split"
+    if tp % KV == 0:
+        return "split", "grouped"
+    # a rank's q heads would read parts of two kv heads unevenly
+    fallbacks.append(("attention", f"{H // tp} q heads a rank read {KV} kv "
+                                   f"heads unevenly"))
+    return "replicated", "replicated"
+
+
+def _experts_rule(E: int, F: int, tp: int, fallbacks: list) -> str:
+    if tp == 1 or E == 0:
+        return "replicated"
+    if E % tp == 0:
+        return "split"
+    if F % tp == 0:
+        fallbacks.append(("experts", f"{E} experts do not divide {tp} ways:"
+                                     f" each expert's d_ff_expert {F} "
+                                     f"splits instead"))
+        return "mlp"
+    fallbacks.append(("experts", f"neither {E} experts nor d_ff_expert {F}"
+                                 f" divide {tp} ways"))
+    return "replicated"
 
 
 def tp_plan(model_or_cfg, mesh_cfg: MeshConfig,
             rank: Optional[int] = None) -> TPPlan:
-    """The head-granular tp plan of a dense-family model (a ``Model``,
-    whose ``defs`` name the leaves, or its ``ModelConfig``) on
-    ``mesh_cfg``, for ``rank`` (this process's by default). See
-    ``TPPlan`` for the rules."""
+    """The head-granular tp plan of a model of the dense, moe, ssm or
+    hybrid family (a ``Model``, whose ``defs`` name the leaves, or its
+    ``ModelConfig``) on ``mesh_cfg``, for ``rank`` (this process's by
+    default). See ``TPPlan`` for the rules."""
     cfg = getattr(model_or_cfg, "cfg", model_or_cfg)
-    if cfg.family != "dense":
-        raise ValueError(f"tp_plan covers the dense family; got "
-                         f"{cfg.family!r}")
-    from repro_torch.models import transformer
-    defs = getattr(model_or_cfg, "defs", None) or transformer.model_defs(cfg)
+    if cfg.family not in _TP_FAMILIES:
+        raise ValueError(f"tp_plan covers the {', '.join(_TP_FAMILIES)} "
+                         f"families; got {cfg.family!r}")
+    defs = getattr(model_or_cfg, "defs", None)
+    if defs is None:
+        from repro_torch.models.registry import build_model
+        defs = build_model(cfg).defs
     tp = mesh_cfg.tp
-    H, KV, F, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
+    fam = cfg.family
+    H, KV, V = cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size
+    F = cfg.d_ff if fam in ("dense", "hybrid") else 0
     fallbacks: List[Tuple[str, str]] = []
-    if tp == 1:
-        attn, kv = "replicated", "replicated"
-    elif H % tp:
-        attn, kv = "replicated", "replicated"
-        fallbacks.append(("attention", f"{H} q heads do not divide {tp} "
-                                       f"ways"))
-    elif KV % tp == 0:
-        attn, kv = "split", "split"
-    elif tp % KV == 0:
-        attn, kv = "split", "grouped"
-    else:
-        # a rank's q heads would read parts of two kv heads unevenly
-        attn, kv = "replicated", "replicated"
-        fallbacks.append(("attention", f"{H // tp} q heads a rank read "
-                                       f"{KV} kv heads unevenly"))
-    mlp_split = tp > 1 and F % tp == 0
-    vocab_split = tp > 1 and V % tp == 0
-    if tp > 1 and not mlp_split:
+    attn, kv = _attention_rule(H if fam != "ssm" else 0, KV, tp, fallbacks)
+    mlp_split = tp > 1 and F > 0 and F % tp == 0
+    if tp > 1 and F > 0 and not mlp_split:
         fallbacks.append(("mlp", f"d_ff {F} does not divide {tp} ways"))
+    E, Fe = (cfg.moe.n_experts, cfg.moe.d_ff_expert) if fam == "moe" \
+        else (0, 0)
+    experts = _experts_rule(E, Fe, tp, fallbacks)
+    s = cfg.ssm if fam in ("ssm", "hybrid") else None
+    ssm_split = s is not None and tp > 1 and s.n_heads % tp == 0
+    if s is not None and tp > 1 and not ssm_split:
+        fallbacks.append(("ssm", f"{s.n_heads} SSM heads do not divide {tp}"
+                                 f" ways"))
+    vocab_split = tp > 1 and V % tp == 0
     if tp > 1 and not vocab_split:
         fallbacks.append(("vocab", f"{V} rows do not divide {tp} ways"))
     split = {"heads": attn == "split", "kv_heads": kv == "split",
-             "mlp": mlp_split, "vocab": vocab_split}
+             "mlp": mlp_split, "vocab": vocab_split,
+             "experts": experts == "split", "expert_mlp": experts == "mlp",
+             "ssm_heads": ssm_split, "ssm_inner": ssm_split}
+    whole = _SSM_CAT_LEAVES + _REPLICATED_LEAVES
     layouts = {path: NamedLayout(mesh_cfg, tuple(
-                   "model" if split.get(a or "", False) else None
+                   "model" if split.get(a or "", False)
+                   and not path.endswith(whole) else None
                    for a in d.axes))
                for path, d in defs.items()}
     rank = current_rank() if rank is None else rank
-    plan = TPPlan(mesh_cfg, rank, None, tp, H, KV, cfg.head_dim_, F, V,
-                  attn, kv, mlp_split, vocab_split, layouts, fallbacks)
+    plan = TPPlan(
+        mesh_cfg, rank, None, tp, H, KV, cfg.head_dim_ if H else 0, F, V,
+        attn, kv, mlp_split, vocab_split, layouts, fallbacks, experts, E,
+        Fe, ssm_split, *((s.n_heads, s.head_dim, s.n_groups, s.state_size)
+                         if s is not None else (0, 0, 0, 0)))
     return dataclasses.replace(plan, index=plan.index_of(rank))
 
 
@@ -448,7 +580,6 @@ def finish_shards(tensors, plan: TPPlan, rank: Optional[int] = None,
     own when None); meta tensors pass as they are."""
     rank = plan.rank if rank is None else rank
     index = plan.index_of(rank)
-    kv_cfg = MeshConfig("kv", dp=1, tp=plan.n_kv_heads)
     out = {}
     for path, local in tensors.items():
         if local.device.type == "meta":
@@ -456,11 +587,35 @@ def finish_shards(tensors, plan: TPPlan, rank: Optional[int] = None,
             continue
         if index is not None and plan.kv == "grouped" \
                 and path.endswith(_KV_LEAVES):
+            kv_cfg = MeshConfig("kv", dp=1, tp=plan.n_kv_heads)
             spec = (None,) * (local.dim() - 1) + ("model",)
             local = NamedLayout(kv_cfg, spec).local_shard(
                 local, plan.kv_head(index))
+        if index is not None and plan.ssm_split \
+                and path.endswith(_SSM_CAT_LEAVES):
+            cols = plan.ssm_columns(index,
+                                    proj=path.endswith("in_proj"))
+            local = local.index_select(-1, cols.to(local.device))
         out[path] = local.to(device or local.device).contiguous()
     return LocalParams(out, plan.mesh_config)
+
+
+def shard_bytes(params, plan: TPPlan, rank: Optional[int] = None):
+    """``(carried, kept)``: the bytes of the global flat ``params`` that
+    ``rank`` (the plan's by default) receives under ``plan.layouts`` (what
+    the data dispatcher moves to it) and the bytes of its ``LocalParams``
+    after ``finish_shards``. They differ by the leaves that travel whole
+    (the grouped kv leaves and the concatenated SSM leaves)."""
+    rank = plan.rank if rank is None else rank
+    carried = kept = 0
+    for path, x in params.items():
+        idx = plan.layouts[path].devices_indices_map(x.shape).get(rank)
+        if idx is None:
+            continue
+        n = x[idx].numel() * x.element_size()
+        carried += n
+        kept += round(n * plan.kept_fraction(path))
+    return carried, kept
 
 
 def batch_sharding(mesh_cfg: MeshConfig, ndim: int, *, batch_dim: int = 0,

@@ -13,6 +13,12 @@ Mamba layers run the plain chunked form (``forward`` passes the mixer no
 scan kernel does not take), so no pass of this family launches the SSD
 scan. ``prefill`` and ``decode_step`` write the cache tensors IN PLACE
 (in the cache's dtype); positions are returned as new tensors.
+
+Tensor parallelism (``tp=``, a ``models.tensor_parallel.TPContext``):
+``init_cache``, ``prefill``, ``decode_step`` and ``decode_scan_body`` run
+the Mamba layers on the rank's SSM heads (``models/mamba.py``) and the
+shared block as the dense family's tp attention and MLP, with each site's
+KV ring at the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -25,7 +31,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.param import pdef
-from repro_torch.models.transformer import layer_params, scan_body_over
+from repro_torch.models.tensor_parallel import heads as _heads
+from repro_torch.models.transformer import (_chunk_logits, layer_params,
+                                            scan_body_over)
 
 
 def _group_bounds(cfg: ModelConfig):
@@ -86,10 +94,11 @@ def shared_params(params):
     return out
 
 
-def _attn_kw(cfg: ModelConfig, attn_impl: str):
-    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
-                window=cfg.sliding_window, attn_impl=attn_impl)
+def _attn_kw(cfg: ModelConfig, attn_impl: str, tp=None):
+    H, KV = _heads(cfg, tp)
+    return dict(n_heads=H, n_kv_heads=KV, head_dim=cfg.head_dim_,
+                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                attn_impl=attn_impl, tp=tp)
 
 
 def _shared_attn_apply(cfg, p, x, *, attn_impl="xla"):
@@ -99,18 +108,13 @@ def _shared_attn_apply(cfg, p, x, *, attn_impl="xla"):
     return x + L.mlp(p["mlp"], h)
 
 
-def _site_tail(cfg, p, x, attend):
+def _site_tail(cfg, p, x, attend, tp=None):
     """The shared block around a cached attention ``attend(attn params, h)
     -> h`` (prefill or decode at one site)."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     x = x + attend(p["attn"], h)
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + L.mlp(p["mlp"], h)
-
-
-def _logits(cfg: ModelConfig, params, x):
-    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    return L.unembed(params.get("lm_head", params["embedding"]), x)
+    return x + L.mlp(p["mlp"], h, tp)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra=None,
@@ -132,7 +136,7 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
                 x = M._block_apply(cfg, lp, x)
         if has_attn:
             x = _shared_attn_apply(cfg, shared, x, attn_impl=attn_impl)
-    return _logits(cfg, params, x)
+    return _chunk_logits(cfg, params, x)
 
 
 class HybridCache(NamedTuple):
@@ -142,58 +146,60 @@ class HybridCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, *, device=None):
+               dtype=torch.bfloat16, *, device=None, tp=None):
+    """The Mamba layers' recurrent cache and one KV ring per site (the
+    rank's SSM heads and kv heads under ``tp``)."""
     sites = n_attn_sites(cfg)
-    shape = (sites, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+    shape = (sites, batch, s_max, _heads(cfg, tp)[1], cfg.head_dim_)
     return HybridCache(
-        mamba=M.init_cache(cfg, batch, s_max, dtype, device=device),
+        mamba=M.init_cache(cfg, batch, s_max, dtype, device=device, tp=tp),
         attn_kv=L.KVEntry(torch.zeros(shape, dtype=dtype, device=device),
                           torch.zeros(shape, dtype=dtype, device=device)),
         pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache: HybridCache, *,
-            extra=None, attn_impl: str = "xla"):
+            extra=None, attn_impl: str = "xla", tp=None):
     """Run the prompt (B, S) from the cache's state: each Mamba layer in
     the chunked form from its SSM state (conv tail and final state written
     into the cache), each site's K/V into its own ring (in group order).
     Returns (logits of the last position (B, V), cache). attn_impl: "xla"
     or "flash" at the sites."""
     del extra
-    x = L.embed(params["embedding"], tokens)
+    x = L.embed(params["embedding"], tokens, tp)
     mc = cache.mamba
     shared = shared_params(params)
-    akw = _attn_kw(cfg, attn_impl)
+    akw = _attn_kw(cfg, attn_impl, tp)
     site = 0
     for l0, l1, has_attn in _group_bounds(cfg):
         for i in range(l0, l1):
             lp = layer_params(params, i)
             h = L.rms_norm(x, lp["ln"], cfg.rms_eps)
             out, final = M.mamba_mixer(cfg, lp["mixer"], h,
-                                       initial_state=mc.ssm[i])
-            mc.conv[i].copy_(M._conv_tail(cfg, lp["mixer"], h))
+                                       initial_state=mc.ssm[i], tp=tp)
+            mc.conv[i].copy_(M._conv_tail(cfg, lp["mixer"], h, tp))
             mc.ssm[i].copy_(final)
             x = x + out
         if has_attn:
             kv = cache.attn_kv.layer(site)
             x = _site_tail(cfg, shared, x, lambda p, h: L.prefill_attention(
-                p, h, kv, **akw)[0])
+                p, h, kv, **akw)[0], tp)
             site += 1
     B, S = tokens.shape
     posv = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
-    return _logits(cfg, params, x[:, -1:])[:, 0], HybridCache(
+    return _chunk_logits(cfg, params, x[:, -1:], tp)[:, 0], HybridCache(
         mamba=mc._replace(pos=posv), attn_kv=cache.attn_kv, pos=posv)
 
 
 def decode_step(cfg: ModelConfig, params, token, cache: HybridCache, *,
                 extra=None, attn_impl: str = "xla", advance=None,
-                layers=None):
+                layers=None, tp=None):
     """One step. token: (B,) int. Rows with ``advance=False`` keep their
     conv and SSM states, site K/V and position. attn_impl: "xla" or
     "pallas" (the split-K decode kernel, once per site). ``layers``: the
     per-layer param views, when the caller has already sliced them."""
     del extra
-    x = L.embed(params["embedding"], token[:, None])
+    x = L.embed(params["embedding"], token[:, None], tp)
     B = token.shape[0]
     pos = cache.pos
     adv = (torch.ones((B,), dtype=torch.bool, device=token.device)
@@ -202,15 +208,15 @@ def decode_step(cfg: ModelConfig, params, token, cache: HybridCache, *,
         layers = [layer_params(params, i) for i in range(cfg.n_layers)]
     mc = cache.mamba
     shared = shared_params(params)
-    akw = dict(_attn_kw(cfg, attn_impl), advance=adv)
+    akw = dict(_attn_kw(cfg, attn_impl, tp), advance=adv)
     site = 0
     for l0, l1, has_attn in _group_bounds(cfg):
         for i in range(l0, l1):
             lp = layers[i]
             h = L.rms_norm(x, lp["ln"], cfg.rms_eps)
             conv_l, ssm_l = mc.conv[i], mc.ssm[i]
-            out, new_conv, new_ssm = M.mamba_mixer_decode(cfg, lp["mixer"],
-                                                          h, conv_l, ssm_l)
+            out, new_conv, new_ssm = M.mamba_mixer_decode(
+                cfg, lp["mixer"], h, conv_l, ssm_l, tp)
             conv_l.copy_(torch.where(adv[:, None, None], new_conv, conv_l))
             ssm_l.copy_(torch.where(adv[:, None, None, None], new_ssm,
                                     ssm_l))
@@ -218,14 +224,15 @@ def decode_step(cfg: ModelConfig, params, token, cache: HybridCache, *,
         if has_attn:
             kv = cache.attn_kv.layer(site)
             x = _site_tail(cfg, shared, x, lambda p, h: L.decode_attention(
-                p, h, kv, pos, **akw)[0])
+                p, h, kv, pos, **akw)[0], tp)
             site += 1
     new_pos = pos + adv.to(torch.int32)
-    return _logits(cfg, params, x)[:, 0], HybridCache(
+    return _chunk_logits(cfg, params, x, tp)[:, 0], HybridCache(
         mamba=mc._replace(pos=new_pos), attn_kv=cache.attn_kv, pos=new_pos)
 
 
-def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
+def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla",
+                     tp=None):
     """Decode body for in-loop generation: ``decode_step`` wrapped by
     ``transformer.scan_body_over``, as JAX's ``Model`` wraps families
     without a native body (per-layer param views sliced once here)."""
@@ -233,4 +240,4 @@ def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
     return scan_body_over(
         lambda token, advance, cache: decode_step(
             cfg, params, token, cache, attn_impl=attn_impl, advance=advance,
-            layers=layers))
+            layers=layers, tp=tp))

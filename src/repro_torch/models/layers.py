@@ -127,8 +127,9 @@ def _sdpa(q, k, v, mask):
 def _o_proj(p, out, tp=None):
     """The output projection of (B, S, H*hd) attention output: partial
     sums over the rank's heads, all-reduced when attention is split."""
-    y = out @ p["wo"]
-    return y if tp is None else tp.attn_out(y)
+    if tp is None:
+        return out @ p["wo"]
+    return tp.row_parallel(out, p["wo"], tp.attn_split)
 
 
 def causal_mask(Sq: int, Sk: int, *, q_offset: int = 0, window: int = 0,
@@ -556,8 +557,9 @@ def mlp(p, x, tp=None):
     gate = x @ p["w_gate"]
     up = x @ p["w_up"]
     act = F.silu(gate.float()).to(x.dtype) * up
-    y = act @ p["w_down"]
-    return y if tp is None else tp.mlp_out(y)
+    if tp is None:
+        return act @ p["w_down"]
+    return tp.row_parallel(act, p["w_down"], tp.mlp_split)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,15 @@ whose size does not grow with the context. As in the port's transformer,
 ``prefill`` and ``decode_step`` write the cache tensors IN PLACE (in the
 cache's dtype); ``pos`` is returned as a new tensor. Every dtype cast of
 the JAX functions is kept, so the fp32 model matches JAX at fp32.
+
+Tensor parallelism (``tp=``, a ``models.tensor_parallel.TPContext``):
+``init_cache``, ``prefill``, ``decode_step`` and ``decode_scan_body`` run
+the mixer on the rank's SSM heads (``TPPlan.ssm_split``): its columns of
+``in_proj`` and of the conv (``TPPlan.ssm_columns``), a conv state of its
+``x`` channels and B/C groups and an SSM state of its heads. The gated
+RMSNorm spans the whole ``d_inner``, so its f32 sum of squares is
+all-reduced before the scale (``TPContext.rms_norm``), and ``out_proj``'s
+partial sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.param import pdef
-from repro_torch.models.transformer import layer_params, scan_body_over
+from repro_torch.models.tensor_parallel import ssm_heads as _ssm_heads
+from repro_torch.models.transformer import (_chunk_logits, layer_params,
+                                            scan_body_over)
 
 
 def softplus(x):
@@ -123,11 +134,14 @@ def ssd_decode_step(state, x, dt, A, B, C):
 # Mamba2 layer
 # ---------------------------------------------------------------------------
 
-def _dims(cfg: ModelConfig):
+def _dims(cfg: ModelConfig, tp=None):
+    """(ssm config, d_inner, conv channels, in_proj width): the rank's
+    under ``tp``."""
     s = cfg.ssm
-    d_inner = s.n_heads * s.head_dim
-    conv_ch = d_inner + 2 * s.n_groups * s.state_size
-    proj_out = 2 * d_inner + 2 * s.n_groups * s.state_size + s.n_heads
+    H, G = _ssm_heads(cfg, tp)
+    d_inner = H * s.head_dim
+    conv_ch = d_inner + 2 * G * s.state_size
+    proj_out = 2 * d_inner + 2 * G * s.state_size + H
     return s, d_inner, conv_ch, proj_out
 
 
@@ -150,8 +164,8 @@ def mamba_layer_defs(cfg: ModelConfig, *, layers=None):
     }
 
 
-def _split_proj(cfg, proj):
-    _, d_inner, conv_ch, _ = _dims(cfg)
+def _split_proj(cfg, proj, tp=None):
+    _, d_inner, conv_ch, _ = _dims(cfg, tp)
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:d_inner + conv_ch]
     dt = proj[..., d_inner + conv_ch:]
@@ -169,30 +183,35 @@ def _causal_conv(xbc, w, b):
     return F.silu((out + b).float()).to(xbc.dtype)
 
 
-def _gated_out(cfg, p, y, z):
-    """The mixer's tail: gate with silu(z), RMSNorm, out projection."""
-    y = L.rms_norm(y * F.silu(z.float()).to(y.dtype), p["norm_w"],
-                   cfg.rms_eps)
-    return y @ p["out_proj"]
+def _gated_out(cfg, p, y, z, tp=None):
+    """The mixer's tail: gate with silu(z), RMSNorm, out projection. Under
+    ``tp`` the norm spans every rank's columns and the projection's
+    partial sums are all-reduced."""
+    y = y * F.silu(z.float()).to(y.dtype)
+    if tp is None:
+        return L.rms_norm(y, p["norm_w"], cfg.rms_eps) @ p["out_proj"]
+    return tp.row_parallel(tp.rms_norm(y, p["norm_w"], cfg.rms_eps),
+                           p["out_proj"], tp.ssm_split)
 
 
 def mamba_mixer(cfg: ModelConfig, p, x, *, initial_state=None,
-                attn_impl: str = "xla"):
+                attn_impl: str = "xla", tp=None):
     """Full-sequence Mamba2 mixer. x: (B,S,D) -> (out, final_state).
     attn_impl="pallas" runs the SSD scan kernel (``kernels/ssd_scan``; its
     plain version for CPU tensors) on a pass from zero state, as JAX's
     ``:181``; anything else, or an ``initial_state``, runs
-    ``ssd_chunked``."""
-    s, d_inner, conv_ch, _ = _dims(cfg)
+    ``ssd_chunked``. Under ``tp`` the rank's heads (``initial_state`` and
+    the final state are its heads')."""
+    s, d_inner, conv_ch, _ = _dims(cfg, tp)
+    H, G = _ssm_heads(cfg, tp)
     Bsz, S, _ = x.shape
     proj = x @ p["in_proj"]
-    z, xbc, dt = _split_proj(cfg, proj)
+    z, xbc, dt = _split_proj(cfg, proj, tp)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    gn = s.n_groups * s.state_size
-    xs = xbc[..., :d_inner].reshape(Bsz, S, s.n_heads, s.head_dim)
-    Bmat = xbc[..., d_inner:d_inner + gn].reshape(Bsz, S, s.n_groups,
-                                                  s.state_size)
-    Cmat = xbc[..., d_inner + gn:].reshape(Bsz, S, s.n_groups, s.state_size)
+    gn = G * s.state_size
+    xs = xbc[..., :d_inner].reshape(Bsz, S, H, s.head_dim)
+    Bmat = xbc[..., d_inner:d_inner + gn].reshape(Bsz, S, G, s.state_size)
+    Cmat = xbc[..., d_inner + gn:].reshape(Bsz, S, G, s.state_size)
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     if attn_impl == "pallas" and initial_state is None:
@@ -202,16 +221,19 @@ def mamba_mixer(cfg: ModelConfig, p, x, *, initial_state=None,
         y, final = ssd_chunked(xs, dt, A, Bmat, Cmat, s.chunk_size,
                                initial_state=initial_state)
     y = y + xs * p["D"][None, None, :, None].to(y.dtype)
-    return _gated_out(cfg, p, y.reshape(Bsz, S, d_inner), z), final
+    return _gated_out(cfg, p, y.reshape(Bsz, S, d_inner), z, tp), final
 
 
-def mamba_mixer_decode(cfg: ModelConfig, p, x, conv_state, ssm_state):
+def mamba_mixer_decode(cfg: ModelConfig, p, x, conv_state, ssm_state,
+                       tp=None):
     """One-token mixer. x: (B,1,D); conv_state: (B, W-1, conv_ch).
-    Returns (out (B,1,D), new conv window, new ssm state)."""
-    s, d_inner, conv_ch, _ = _dims(cfg)
+    Returns (out (B,1,D), new conv window, new ssm state). Under ``tp``
+    the rank's heads: its conv channels and SSM state."""
+    s, d_inner, conv_ch, _ = _dims(cfg, tp)
+    H, G = _ssm_heads(cfg, tp)
     Bsz = x.shape[0]
     proj = (x @ p["in_proj"])[:, 0]                          # (B,E)
-    z, xbc, dt = _split_proj(cfg, proj)
+    z, xbc, dt = _split_proj(cfg, proj, tp)
     # causal conv over [conv_state ; xbc], in the promoted dtype as JAX's
     window = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # (B,W,C)
     ct = torch.promote_types(window.dtype, p["conv_w"].dtype)
@@ -219,23 +241,22 @@ def mamba_mixer_decode(cfg: ModelConfig, p, x, conv_state, ssm_state):
                              p["conv_w"].to(ct)) + p["conv_b"])
     xbc_c = F.silu(conv_out.float()).to(x.dtype)
     new_conv_state = window[:, 1:]
-    gn = s.n_groups * s.state_size
-    xs = xbc_c[..., :d_inner].reshape(Bsz, s.n_heads, s.head_dim)
-    Bmat = xbc_c[..., d_inner:d_inner + gn].reshape(Bsz, s.n_groups,
-                                                    s.state_size)
-    Cmat = xbc_c[..., d_inner + gn:].reshape(Bsz, s.n_groups, s.state_size)
+    gn = G * s.state_size
+    xs = xbc_c[..., :d_inner].reshape(Bsz, H, s.head_dim)
+    Bmat = xbc_c[..., d_inner:d_inner + gn].reshape(Bsz, G, s.state_size)
+    Cmat = xbc_c[..., d_inner + gn:].reshape(Bsz, G, s.state_size)
     dt = softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     y, new_ssm = ssd_decode_step(ssm_state, xs, dt, A, Bmat, Cmat)
     y = y + xs * p["D"][None, :, None].to(y.dtype)
-    out = _gated_out(cfg, p, y.reshape(Bsz, d_inner), z)
+    out = _gated_out(cfg, p, y.reshape(Bsz, d_inner), z, tp)
     return out[:, None], new_conv_state, new_ssm
 
 
-def _conv_tail(cfg, p_layer, x):
+def _conv_tail(cfg, p_layer, x, tp=None):
     """Recompute the pre-conv xbc tail for the decode conv cache."""
     W = cfg.ssm.conv_width
-    _, xbc, _ = _split_proj(cfg, x[:, -(W - 1):] @ p_layer["in_proj"])
+    _, xbc, _ = _split_proj(cfg, x[:, -(W - 1):] @ p_layer["in_proj"], tp)
     return xbc                                              # (B, W-1, conv_ch)
 
 
@@ -269,9 +290,6 @@ def _block_apply(cfg, layer_p, x, *, attn_impl: str = "xla"):
     return x + out
 
 
-def _logits(cfg: ModelConfig, params, x):
-    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    return L.unembed(params.get("lm_head", params["embedding"]), x)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra=None,
@@ -289,7 +307,7 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
                            use_reentrant=False)
         else:
             x = _block_apply(cfg, lp, x, attn_impl=attn_impl)
-    return _logits(cfg, params, x)
+    return _chunk_logits(cfg, params, x)
 
 
 class MambaCache(NamedTuple):
@@ -299,51 +317,52 @@ class MambaCache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, *, device=None):
+               dtype=torch.bfloat16, *, device=None, tp=None):
     """A zeroed recurrent cache. ``s_max`` is unused: the state is O(1) in
-    sequence length, the SSM advantage."""
-    _, _, conv_ch, _ = _dims(cfg)
+    sequence length, the SSM advantage. Under ``tp``: the rank's conv
+    channels and SSM heads."""
+    s, _, conv_ch, _ = _dims(cfg, tp)
     del s_max
-    s = cfg.ssm
     return MambaCache(
         conv=torch.zeros((cfg.n_layers, batch, s.conv_width - 1, conv_ch),
                          dtype=dtype, device=device),
-        ssm=torch.zeros((cfg.n_layers, batch, s.n_heads, s.head_dim,
-                         s.state_size), dtype=torch.float32, device=device),
+        ssm=torch.zeros((cfg.n_layers, batch, _ssm_heads(cfg, tp)[0],
+                         s.head_dim, s.state_size), dtype=torch.float32,
+                        device=device),
         pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache: MambaCache, *,
-            extra=None, attn_impl: str = "xla"):
+            extra=None, attn_impl: str = "xla", tp=None):
     """Run the prompt (B, S) through the model from the cache's state (the
     chunked form with ``initial_state``; no kernel, as in JAX), writing the
     conv tails and final states into ``cache`` in place. Returns (logits
     of the last position (B, V), cache)."""
     del extra, attn_impl
-    x = L.embed(params["embedding"], tokens)
+    x = L.embed(params["embedding"], tokens, tp)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = L.rms_norm(x, lp["ln"], cfg.rms_eps)
         out, final = mamba_mixer(cfg, lp["mixer"], h,
-                                 initial_state=cache.ssm[i])
-        cache.conv[i].copy_(_conv_tail(cfg, lp["mixer"], h))
+                                 initial_state=cache.ssm[i], tp=tp)
+        cache.conv[i].copy_(_conv_tail(cfg, lp["mixer"], h, tp))
         cache.ssm[i].copy_(final)
         x = x + out
     B, S = tokens.shape
-    return _logits(cfg, params, x[:, -1:])[:, 0], cache._replace(
+    return _chunk_logits(cfg, params, x[:, -1:], tp)[:, 0], cache._replace(
         pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device))
 
 
 def decode_step(cfg: ModelConfig, params, token, cache: MambaCache, *,
                 extra=None, attn_impl: str = "xla", advance=None,
-                layers=None):
+                layers=None, tp=None):
     """One recurrent step. token: (B,) int. Rows with ``advance=False``
     keep their conv and ssm state and position. The cache tensors are
     written in place. ``attn_impl`` is accepted and ignored (there is no
     attention), as in JAX. ``layers``: the per-layer param views, when the
     caller has already sliced them."""
     del extra, attn_impl
-    x = L.embed(params["embedding"], token[:, None])
+    x = L.embed(params["embedding"], token[:, None], tp)
     B = token.shape[0]
     adv = (torch.ones((B,), dtype=torch.bool, device=token.device)
            if advance is None else advance)
@@ -353,15 +372,16 @@ def decode_step(cfg: ModelConfig, params, token, cache: MambaCache, *,
         h = L.rms_norm(x, lp["ln"], cfg.rms_eps)
         conv_l, ssm_l = cache.conv[i], cache.ssm[i]
         out, new_conv, new_ssm = mamba_mixer_decode(cfg, lp["mixer"], h,
-                                                    conv_l, ssm_l)
+                                                    conv_l, ssm_l, tp)
         conv_l.copy_(torch.where(adv[:, None, None], new_conv, conv_l))
         ssm_l.copy_(torch.where(adv[:, None, None, None], new_ssm, ssm_l))
         x = x + out
-    return _logits(cfg, params, x)[:, 0], cache._replace(
+    return _chunk_logits(cfg, params, x, tp)[:, 0], cache._replace(
         pos=cache.pos + adv.to(torch.int32))
 
 
-def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
+def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla",
+                     tp=None):
     """Decode body for in-loop generation: ``decode_step`` wrapped by
     ``transformer.scan_body_over`` (per-layer param views are sliced once
     here, not once per token)."""
@@ -369,4 +389,4 @@ def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
     return scan_body_over(
         lambda token, advance, cache: decode_step(
             cfg, params, token, cache, attn_impl=attn_impl, advance=advance,
-            layers=layers))
+            layers=layers, tp=tp))

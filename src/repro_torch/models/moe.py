@@ -24,6 +24,15 @@ The expert products are plain einsums/matmuls, as JAX's are (no Pallas
 kernel in either package); attention takes the dense family's kernels.
 As in the port's transformer, ``prefill`` and ``decode_step`` write the
 KV ring IN PLACE and return ``pos`` as a new tensor.
+
+Tensor parallelism (``tp=``, a ``models.tensor_parallel.TPContext``):
+``init_cache``, ``prefill``, ``decode_step`` and ``decode_scan_body`` run
+attention on the rank's heads, as the transformer's, and the expert layer
+on the rank's experts (``TPPlan.experts``). The router is replicated, so
+every rank routes the whole group, gets the same capacity slots and drops
+the same tokens; it fills and runs only its experts' buffers, and the
+combine's partial sums, in f32, are all-reduced and rounded once
+(``TPContext.partial_sum``).
 """
 from __future__ import annotations
 
@@ -37,7 +46,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.param import pdef
-from repro_torch.models.transformer import layer_params, scan_body_over
+from repro_torch.models.tensor_parallel import heads as _heads
+from repro_torch.models.transformer import (_chunk_logits, layer_params,
+                                            scan_body_over)
 
 
 def moe_mlp_defs(cfg: ModelConfig, *, layers=None):
@@ -66,17 +77,20 @@ MOE_GROUP_TOKENS = 512     # GShard group size: capacity tensors are
                            # O(T^2 * E) per group, so T must stay bounded
 
 
-def moe_mlp(cfg: ModelConfig, p, x):
+def moe_mlp(cfg: ModelConfig, p, x, tp=None):
     """x: (B, S, D) -> (out (B,S,D), aux_loss scalar).
 
     Tokens are regrouped into ``MOE_GROUP_TOKENS``-sized dispatch groups
     when ``B*S`` divides into them (a group then spans batch rows, padding
     tokens included, and they count toward an expert's capacity), else
-    into one group per row of ``S``."""
+    into one group per row of ``S``. Under ``tp`` ``p`` holds the rank's
+    experts and the output is summed over the ranks."""
     B_, S_, D_ = x.shape
     Tg = MOE_GROUP_TOKENS if (B_ * S_) % MOE_GROUP_TOKENS == 0 else S_
     x = x.reshape(B_ * S_ // Tg, Tg, D_)
-    out, aux = _moe_mlp_grouped(cfg, p, x)
+    out, aux = _moe_mlp_grouped(cfg, p, x, tp)
+    if _split(tp):
+        out = tp.partial_sum(out, x.dtype)
     return out.reshape(B_, S_, D_), aux
 
 
@@ -119,51 +133,78 @@ def _route(cfg: ModelConfig, p, x):
     return gate_vals, gate_idx, slot, in_cap, C, aux
 
 
-def _moe_mlp_grouped(cfg: ModelConfig, p, x):
+def _moe_mlp_grouped(cfg: ModelConfig, p, x, tp=None):
     if cfg.moe_dispatch == "scatter":
-        return _moe_mlp_grouped_scatter(cfg, p, x)
-    return _moe_mlp_grouped_onehot(cfg, p, x)
+        return _moe_mlp_grouped_scatter(cfg, p, x, tp)
+    return _moe_mlp_grouped_onehot(cfg, p, x, tp)
 
 
-def _experts(p, xe, dtype):
-    """The expert SwiGLU on capacity buffers: (G,E,C,D) -> (G,E,C,D)."""
+def _split(tp) -> bool:
+    """Whether the expert layer's output is a partial sum over the ranks
+    (computed in f32, then summed and rounded once)."""
+    return tp is not None and tp.moe_split
+
+
+def _local_experts(cfg: ModelConfig, tp):
+    """(first global expert, expert count) of the rank's expert weights:
+    all of them without tp."""
+    if tp is None:
+        return 0, cfg.moe.n_experts
+    return tp.expert_offset, tp.experts_local
+
+
+def _experts(p, xe, dtype, tp=None):
+    """The expert SwiGLU on capacity buffers: (G,E,C,D) -> (G,E,C,D);
+    in f32 where ``w_down``'s contraction is the rank's ``d_ff_expert``
+    slice (a partial sum)."""
     gate = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
     up = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
     act = F.silu(gate.float()).to(dtype) * up
+    if tp is not None and tp.expert_mlp_split:
+        return torch.einsum("gecf,efd->gecd", act.float(),
+                            p["w_down"].float())
     return torch.einsum("gecf,efd->gecd", act, p["w_down"])
 
 
-def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x):
+def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x, tp=None):
     """x: (G, T, D) grouped tokens -> (out (G,T,D), aux_loss scalar).
 
     Scatter/gather dispatch: tokens are added into their (expert,
     capacity-slot) buffers and gathered back by flat slot index; dropped
     tokens write a clamped slot with zero contribution (masked on both
     sides). The same semantics as the one-hot dispatch at no dispatch
-    products."""
-    m = cfg.moe
+    products. Under ``tp`` the buffers are the rank's experts' and the
+    other experts' tokens are masked as dropped ones are (the caller sums
+    the ranks' partial outputs)."""
     G, T, D = x.shape
-    E, K = m.n_experts, m.top_k
+    e0, E = _local_experts(cfg, tp)
     gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x)
+    if tp is not None:
+        in_cap = in_cap & (gate_idx >= e0) & (gate_idx < e0 + E)
+        gate_idx = (gate_idx - e0).clamp(0, E - 1)
 
     f_idx = gate_idx * C + torch.clamp(slot, max=C - 1)      # (G,T,K)
     contrib = x[:, :, None, :] * in_cap[..., None].to(x.dtype)  # (G,T,K,D)
     xe_flat = torch.zeros((G, E * C, D), dtype=x.dtype, device=x.device)
     gi = torch.arange(G, device=x.device)[:, None, None]
     xe_flat = xe_flat.index_put((gi, f_idx), contrib, accumulate=True)
-    ye = _experts(p, xe_flat.reshape(G, E, C, D), x.dtype)   # (G,E,C,D)
+    ye = _experts(p, xe_flat.reshape(G, E, C, D), x.dtype, tp)
 
     y_tok = ye.reshape(G, E * C, D)[gi, f_idx]               # (G,T,K,D)
     w = (gate_vals * in_cap).to(x.dtype)                     # (G,T,K)
+    if _split(tp):
+        w, y_tok = w.float(), y_tok.float()
     out = torch.einsum("gtk,gtkd->gtd", w, y_tok)
     return out, aux.float()
 
 
-def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x):
+def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x, tp=None):
     """GShard einsum formulation with a fused flat-slot one-hot (the JAX
     package's default dispatch and its numeric oracle). The one-hot is
     built in the model dtype by a scatter (``F.one_hot`` would be int64,
-    four times its size)."""
+    four times its size). Under ``tp`` the rank keeps its experts'
+    columns of the combine (the caller sums the ranks' partial
+    outputs)."""
     m = cfg.moe
     G, T, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -175,19 +216,25 @@ def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x):
     combine = torch.einsum("gtk,gtkz->gtz", gate_vals.to(x.dtype),
                            z_oh).reshape(G, T, E, C)
     del z_oh
+    if tp is not None:
+        e0, El = _local_experts(cfg, tp)
+        combine = combine[:, :, e0:e0 + El]
     dispatch = (combine > 0).to(x.dtype)
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch, x)         # (G,E,C,D)
-    ye = _experts(p, xe, x.dtype)                            # (G,E,C,D)
+    ye = _experts(p, xe, x.dtype, tp)                        # (G,E,C,D)
+    if _split(tp):
+        combine, ye = combine.float(), ye.float()
     out = torch.einsum("gtec,gecd->gtd", combine, ye)
     return out, aux.float()
 
 
-def moe_mlp_dense(cfg: ModelConfig, p, x):
+def moe_mlp_dense(cfg: ModelConfig, p, x, tp=None):
     """Exact (drop-free) top-k combine: every expert runs on every token
     and the one-hot gate selects. Used at decode, where token counts are
     tiny: it costs E/top_k redundant products but never drops a live
-    generation token.
+    generation token. Under ``tp`` the rank runs its experts on its
+    columns of the combine, and one all-reduce sums the ranks.
 
     x: (B, T, D) -> (out, aux)."""
     m = cfg.moe
@@ -197,6 +244,8 @@ def moe_mlp_dense(cfg: ModelConfig, p, x):
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     combine = torch.einsum("btk,btke->bte", gate_vals,
                            F.one_hot(gate_idx, m.n_experts).float())
+    e0, E = _local_experts(cfg, tp)
+    combine = combine[..., e0:e0 + E]
     # every expert on every token: (E, B*T, F) products that broadcast the
     # tokens over the stacked expert weights (an einsum over "btd,edf"
     # would copy each weight into a (D, E*F) layout on every call)
@@ -205,9 +254,17 @@ def moe_mlp_dense(cfg: ModelConfig, p, x):
     gate = torch.matmul(xt, p["w_gate"])                     # (E,BT,F)
     up = torch.matmul(xt, p["w_up"])
     act = F.silu(gate.float()).to(x.dtype) * up
-    ye = torch.matmul(act, p["w_down"])                      # (E,BT,D)
-    out = torch.einsum("ne,end->nd", combine.reshape(B * T, -1).to(x.dtype),
-                       ye)
+    combine = combine.reshape(B * T, -1).to(x.dtype)
+    if _split(tp):
+        # the rank's partial sum in f32, summed and rounded once
+        w_down = p["w_down"]
+        ye = (torch.matmul(act.float(), w_down.float())
+              if tp.expert_mlp_split else torch.matmul(act, w_down))
+        out = tp.partial_sum(torch.einsum("ne,end->nd", combine.float(),
+                                          ye.float()), x.dtype)
+    else:
+        ye = torch.matmul(act, p["w_down"])                  # (E,BT,D)
+        out = torch.einsum("ne,end->nd", combine, ye)
     return (out.reshape(B, T, D),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -243,10 +300,11 @@ def model_defs(cfg: ModelConfig):
     return defs
 
 
-def _attn_kw(cfg: ModelConfig, attn_impl: str):
-    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
-                window=cfg.sliding_window, attn_impl=attn_impl)
+def _attn_kw(cfg: ModelConfig, attn_impl: str, tp=None):
+    H, KV = _heads(cfg, tp)
+    return dict(n_heads=H, n_kv_heads=KV, head_dim=cfg.head_dim_,
+                rope_theta=cfg.rope_theta, window=cfg.sliding_window,
+                attn_impl=attn_impl, tp=tp)
 
 
 def _block_apply(cfg: ModelConfig, p, x, *, attn_impl: str = "xla"):
@@ -257,9 +315,6 @@ def _block_apply(cfg: ModelConfig, p, x, *, attn_impl: str = "xla"):
     return x + out, aux
 
 
-def _logits(cfg: ModelConfig, params, x):
-    x = L.rms_norm(x, params["ln_f"], cfg.rms_eps)
-    return L.unembed(params.get("lm_head", params["embedding"]), x)
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra=None,
@@ -281,7 +336,7 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
             x, aux = _block_apply(cfg, lp, x, attn_impl=attn_impl)
         auxes.append(aux)
     aux_loss = torch.stack(auxes).mean() * cfg.moe.router_aux_weight
-    return _logits(cfg, params, x), {"aux_loss": aux_loss}
+    return _chunk_logits(cfg, params, x), {"aux_loss": aux_loss}
 
 
 class MoECache(NamedTuple):
@@ -292,12 +347,12 @@ class MoECache(NamedTuple):
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, *, device=None):
+               dtype=torch.bfloat16, *, device=None, tp=None):
     """A zeroed dense KV ring: ``s_max`` slots, ``min(s_max, window)``
-    for a sliding-window config."""
+    for a sliding-window config; the rank's kv heads under ``tp``."""
     if cfg.sliding_window > 0:
         s_max = min(s_max, cfg.sliding_window)
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+    shape = (cfg.n_layers, batch, s_max, _heads(cfg, tp)[1], cfg.head_dim_)
     return MoECache(
         kv=L.KVEntry(torch.zeros(shape, dtype=dtype, device=device),
                      torch.zeros(shape, dtype=dtype, device=device)),
@@ -305,28 +360,28 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache: MoECache, *,
-            extra=None, attn_impl: str = "xla"):
+            extra=None, attn_impl: str = "xla", tp=None):
     """Run the prompt (B, S) into the cache (KV written in place; the MoE
     layers dispatch with capacity). Returns ``(logits of the last
     position (B, V), cache)``. attn_impl: "xla" or "flash"."""
     del extra
-    x = L.embed(params["embedding"], tokens)
-    akw = _attn_kw(cfg, attn_impl)
+    x = L.embed(params["embedding"], tokens, tp)
+    akw = _attn_kw(cfg, attn_impl, tp)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         x = x + L.prefill_attention(lp["attn"], h, cache.kv.layer(i),
                                     **akw)[0]
         h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + moe_mlp(cfg, lp["moe"], h)[0]
+        x = x + moe_mlp(cfg, lp["moe"], h, tp)[0]
     B, S = tokens.shape
-    return _logits(cfg, params, x[:, -1:])[:, 0], cache._replace(
+    return _chunk_logits(cfg, params, x[:, -1:], tp)[:, 0], cache._replace(
         pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device))
 
 
 def decode_step(cfg: ModelConfig, params, token, cache: MoECache, *,
                 extra=None, attn_impl: str = "xla", advance=None,
-                layers=None):
+                layers=None, tp=None):
     """One decode step. token: (B,) int. Rows with ``advance=False`` write
     nothing and keep their position. The MoE layers run the drop-free
     ``moe_mlp_dense``. attn_impl: "xla" or "pallas" (the split-K decode
@@ -338,19 +393,20 @@ def decode_step(cfg: ModelConfig, params, token, cache: MoECache, *,
            if advance is None else advance)
     if layers is None:
         layers = [layer_params(params, i) for i in range(cfg.n_layers)]
-    akw = dict(_attn_kw(cfg, attn_impl), advance=adv)
-    x = L.embed(params["embedding"], token[:, None])         # (B,1,D)
+    akw = dict(_attn_kw(cfg, attn_impl, tp), advance=adv)
+    x = L.embed(params["embedding"], token[:, None], tp)     # (B,1,D)
     for i, lp in enumerate(layers):
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         x = x + L.decode_attention(lp["attn"], h, cache.kv.layer(i),
                                    cache.pos, **akw)[0]
         h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
-        x = x + moe_mlp_dense(cfg, lp["moe"], h)[0]
-    return _logits(cfg, params, x)[:, 0], MoECache(
+        x = x + moe_mlp_dense(cfg, lp["moe"], h, tp)[0]
+    return _chunk_logits(cfg, params, x, tp)[:, 0], MoECache(
         kv=cache.kv, pos=cache.pos + adv.to(torch.int32))
 
 
-def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
+def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla",
+                     tp=None):
     """Decode body for in-loop generation: ``decode_step`` wrapped by
     ``transformer.scan_body_over``, as JAX's ``Model`` wraps families
     without a native body (per-layer param views sliced once here)."""
@@ -358,4 +414,4 @@ def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla"):
     return scan_body_over(
         lambda token, advance, cache: decode_step(
             cfg, params, token, cache, attn_impl=attn_impl, advance=advance,
-            layers=layers))
+            layers=layers, tp=tp))

@@ -1,16 +1,28 @@
-"""Tensor parallelism of the dense transformer's rollout (port-only; the
-JAX package gets it from GSPMD under the engine's mesh shardings).
+"""Tensor parallelism of the rollout of the dense, moe, ssm and hybrid
+families (port-only; the JAX package gets it from GSPMD under the
+engine's mesh shardings).
 
 A ``TPContext`` is one rank's view of a ``core.resharding.TPPlan``: the
 model-axis process group, the tp size and this rank's index, its local
-head, kv-head, MLP and vocab counts, and its vocab offset. The model's
+head, kv-head, MLP, expert, SSM-head and vocab counts, and its expert
+and vocab offsets. The model's
 functions take it as ``tp=`` (None: one rank, no collective):
 
   - attention runs its kernel on the rank's heads; the o-proj's partial
     sums are all-reduced when attention is split (none when replicated);
   - the MLP all-reduces after ``w_down`` when ``d_ff`` is split;
+  - a partial sum is computed in f32 and rounded once after the
+    all-reduce (``row_parallel``), so a bf16 rank adds no rounding that
+    the one-rank product does not make;
   - the embedding is vocab-parallel: rows outside the shard read zero,
     then one all-reduce (exact: the other ranks add zeros);
+  - the moe layer runs the rank's experts (whole experts, or each
+    expert's ``d_ff_expert`` slice) on a router every rank computes whole,
+    so every rank routes, and drops, the same tokens; one all-reduce after
+    the combine;
+  - the Mamba mixer runs the rank's SSM heads: the gated RMSNorm over the
+    whole ``d_inner`` all-reduces its f32 sum of squares, and
+    ``out_proj``'s partial sums are all-reduced;
   - the head is vocab-parallel: logits stay ``(B, vocab_local)`` on each
     rank, and sampling and token log-probs combine per-row partials
     (a MAX, a MIN and a SUM all-reduce of a few numbers a row) instead
@@ -31,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 _GROUPS: Dict[Tuple[int, ...], object] = {}
+_GROUPS_WORLD = None      # the default group the cached groups belong to
 
 
 def model_group(mesh_cfg):
@@ -38,9 +51,17 @@ def model_group(mesh_cfg):
     the mesh). Makes every model-axis group of the mesh the first time a
     mesh with those rows is asked for: ``dist.new_group`` is collective
     over the default group, so every rank calls this for the same meshes
-    in the same order; the groups are cached by their ranks."""
+    in the same order. The groups are cached by their ranks for the
+    default group that made them: a new default group (a world started
+    after ``destroy_process_group``) starts a new cache, so it never gets
+    the groups of a destroyed world."""
+    global _GROUPS_WORLD
     if mesh_cfg.tp == 1 or not dist.is_initialized():
         return None
+    world = dist.group.WORLD
+    if world is not _GROUPS_WORLD:
+        _GROUPS.clear()
+        _GROUPS_WORLD = world
     rows = mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).tolist()
     me = dist.get_rank()
     mine = None
@@ -75,6 +96,17 @@ class TPContext:
         self.vocab_size = plan.vocab_size
         self.vocab_local = plan.vocab_local
         self.vocab_offset = plan.vocab_offset()
+        # moe: the rank's experts (all of them, each on its d_ff_expert
+        # slice, under experts="mlp"), from global expert expert_offset
+        self.moe_split = plan.experts != "replicated"
+        self.expert_mlp_split = plan.experts == "mlp"
+        self.experts_local = plan.experts_local
+        self.expert_offset = plan.expert_offset()
+        # ssm: the rank's SSM heads and the B/C groups they read
+        self.ssm_split = plan.ssm_split
+        self.ssm_heads = plan.ssm_heads_local
+        self.ssm_groups = plan.ssm_groups_local
+        self.d_inner = plan.ssm_heads * plan.ssm_head_dim
 
     # -- collectives -------------------------------------------------------
     def all_reduce(self, x, op: str = "sum"):
@@ -95,13 +127,34 @@ class TPContext:
     def all_reduce_sum(self, x):
         return self.all_reduce(x, "sum")
 
-    def attn_out(self, y):
-        """The o-proj output: partial sums over the rank's heads."""
-        return self.all_reduce_sum(y) if self.attn_split else y
+    def row_parallel(self, x, w, split: bool):
+        """``x @ w`` (the o-proj, ``w_down``, ``out_proj``), whose
+        contraction dim is the rank's slice when ``split``: the rank's
+        partial product in f32 (products of bf16 values are exact in f32,
+        as in a bf16 matmul's f32 accumulation), summed over the ranks and
+        rounded once to ``x``'s dtype, as the one-rank product is rounded
+        once. The plain product when not split."""
+        if not split:
+            return x @ w
+        return self.partial_sum(x.float() @ w.float(), x.dtype)
 
-    def mlp_out(self, y):
-        """The MLP output: partial sums over the rank's ``d_ff`` slice."""
-        return self.all_reduce_sum(y) if self.mlp_split else y
+    def partial_sum(self, y, dtype):
+        """The ranks' partial sums ``y`` (f32) summed and rounded once to
+        ``dtype``."""
+        return self.all_reduce_sum(y).to(dtype)
+
+    def rms_norm(self, x, w, eps: float):
+        """``layers.rms_norm`` of a row split over the ranks (the gated
+        norm over the whole ``d_inner``): the f32 sum of squares of the
+        rank's columns is all-reduced before the scale, so every rank
+        normalises by the whole row; ``w`` is the rank's slice."""
+        if not self.ssm_split:
+            from repro_torch.models.layers import rms_norm
+            return rms_norm(x, w, eps)
+        xf = x.float()
+        ss = self.all_reduce_sum(xf.square().sum(dim=-1, keepdim=True))
+        out = xf * torch.rsqrt(ss / self.d_inner + eps)
+        return (out * w.float()).to(x.dtype)
 
     # -- vocab-parallel embedding and head ----------------------------------
     def embed(self, emb, tokens):
@@ -161,6 +214,14 @@ class TPContext:
         from repro_torch.kernels.fused_sample.ops import combine_partials
         return combine_partials(m, l, bs, bi, bl, self.vocab_offset,
                                 self.all_reduce)
+
+
+def ssm_heads(cfg, tp: Optional[TPContext]):
+    """The (SSM heads, B/C groups) a rank runs: the config's without
+    tp."""
+    if tp is None:
+        return cfg.ssm.n_heads, cfg.ssm.n_groups
+    return tp.ssm_heads, tp.ssm_groups
 
 
 def heads(cfg, tp: Optional[TPContext]):

@@ -79,11 +79,12 @@ fed token from the reference logits before they advance: the harvested
 ``ref_logprobs`` are the ExpPrep reference log-probs, so the trainer needs
 no separate reference forward.
 
-**Tensor parallelism** (``mesh_config`` with tp above 1, dense family):
-every rank of the mesh runs the same macro-step on its local shards of
-the params (``core.resharding.tp_plan``/``shard_params``: whole heads,
-the MLP's and the vocab's slices) and its local kv heads in every cache,
-with the model's all-reduces over the mesh's model axis
+**Tensor parallelism** (``mesh_config`` with tp above 1; the dense, moe,
+ssm and hybrid families): every rank of the mesh runs the same
+macro-step on its local shards of the params (``core.resharding.
+tp_plan``/``shard_params``: whole heads, whole experts, whole SSM heads,
+the MLP's and the vocab's slices) and its local kv heads and SSM heads in
+every cache, with the model's all-reduces over the mesh's model axis
 (``models/tensor_parallel.py``). Logits stay vocab-sharded: sampling
 merges per-row partial states (the fused kernel's partial-state mode, or
 the plain route's argmax, max and sums), the folded reference scores its
@@ -93,8 +94,8 @@ flow, slots, block tables and the env are replicated: every rank computes
 the same, and the collectives return the same values on every rank. A
 rank outside the bound mesh takes no part: ``run`` returns a batch of
 meta tensors of the global shapes (the dispatcher's stand-in) and no
-stats. Speculation, int8 pages, prefix sharing, preemption and the other
-families at tp above 1 raise citing ROADMAP Queue 1 item 14.
+stats. Speculation, int8 pages, prefix sharing, preemption and pool
+growth at tp above 1 raise citing ROADMAP Queue 1 item 14.
 
 The episode store and the slot token buffers carry one trash row/column
 where JAX drops out-of-range writes (``slots.py``); the paged pools carry
@@ -189,7 +190,8 @@ class CompiledRolloutEngine:
     with ``spec_k``, ``draft_layers`` and ``draft_model``) and
     ``mesh_config``: a ``MeshConfig`` with dp = pods = 1 over ranks of
     the process group (``bind_mesh`` re-binds it on a selector switch);
-    tp above 1 runs the tensor-parallel rollout of the dense family, and
+    tp above 1 runs the tensor-parallel rollout of the dense, moe, ssm
+    and hybrid families, and
     a config with dp or pods above 1 raises ``NotImplementedError`` naming
     ROADMAP Queue 1 item 13. After each ``run``,
     ``experience_shardings`` holds the harvested batch's layouts (an
@@ -337,8 +339,6 @@ class CompiledRolloutEngine:
                 f"data-parallel rollout across ranks", "13")
         if cfg.tp > 1:
             for what, bad in (
-                    (f"family {self.model.cfg.family!r}",
-                     self.model.cfg.family != "dense"),
                     (f"speculation={self.speculation!r}",
                      self.speculation != "off"),
                     ("kv_dtype='int8'", self.kv_dtype == "int8"),

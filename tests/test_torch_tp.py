@@ -23,8 +23,8 @@ port's one-rank run:
   included;
 - a two-rank ``EarlTrainer`` whose selector switches tp=1 -> tp=2 at step
   1, its records against the one-rank trainer's within 1e-5;
-- the options still unported at tp above 1 (citing 14) and dp (citing
-  13).
+- the options still unported at tp above 1 and the python backend and
+  the async pipeline across ranks (citing 14), and dp (citing 13).
 """
 import os
 import subprocess
@@ -514,11 +514,24 @@ TP2 = MeshConfig("tp2", dp=1, tp=2)
     ("qwen2-0.5b", dict(share_prefix=True), "14"),
     ("qwen2-0.5b", dict(on_exhaust="preempt"), "14"),
     ("qwen2-0.5b", dict(pool_growth="double"), "14"),
-    ("mamba2-370m", dict(cache_layout="dense"), "14"),
-    ("granite-moe-3b-a800m", dict(cache_layout="dense"), "14"),
+    # the families run at tp above 1 (tests/test_torch_tp_families.py);
+    # across ranks the trainer still refuses the python backend and the
+    # async pipeline
+    ("mamba2-370m", dict(rollout_backend="python"), "14"),
+    ("granite-moe-3b-a800m", dict(pipeline="async", max_policy_lag=1),
+     "14"),
 ])
-def test_unported_at_tp_above_one(arch, kw, item):
+def test_unported_at_tp_above_one(arch, kw, item, monkeypatch):
     model = build_model(get_smoke_config(arch))
+    if "rollout_backend" in kw or "pipeline" in kw:
+        from repro_torch.core import stages
+        # the trainer's check across ranks, in a process of its own: the
+        # group of several ranks is stood in for
+        monkeypatch.setattr(stages, "_spmd", lambda: True)
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            stages.EarlTrainer(model=model, env=TicTacToe(), device="cpu",
+                               **kw)
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         CompiledRolloutEngine(model, TicTacToe(), device="cpu",
                               mesh_config=TP2, **kw)

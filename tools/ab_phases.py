@@ -10,7 +10,10 @@ builds full-width qwen2-0.5b on random bf16 weights from seed 0 and calls
 the named phase functions with the arguments their parameters name
 (``torch``, ``model``, ``params``, ``report``: ``phase_path(torch, model,
 params, report)``, ``phase_train(torch, model, report)``,
-``phase_spec_branch(torch, model, params)``, ...). ``--order A`` runs
+``phase_spec_branch(torch, model, params)``, and ``engine`` and
+``dense_engine``, the path's and dense_path's engines, for
+``phase_macro_step``). Each phase's wall seconds follow its lines as a
+``{"phase": "<name>_wall"}`` line. ``--order A`` runs
 OTHER_ROOT alone, as a bisect over several trees does. Every JSON line a
 phase emits is printed again with ``tree`` ("A"/"B") and ``run`` (its
 place in the order) added. Needs one CUDA device; A's kernel build reuses B's shared
@@ -27,6 +30,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,12 +53,25 @@ def child(root: str, phases: list) -> None:
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         dtype=torch.bfloat16)
     report = collections.defaultdict(dict)
+    args = {"torch": torch, "model": model, "params": params,
+            "report": report}
     for name in phases:
         fn = getattr(smoke, f"phase_{name}")
+        names = inspect.signature(fn).parameters
+        if "engine" in names and "engine" not in args:
+            from repro_torch.rl.engine import CompiledRolloutEngine
+            from repro_torch.rl.envs import TicTacToe
+            args["engine"] = CompiledRolloutEngine(model, TicTacToe(),
+                                                   **smoke.PATH)
+            args["dense_engine"] = CompiledRolloutEngine(
+                model, TicTacToe(), **dict(smoke.PATH, cache_layout="dense",
+                                           attn_impl="pallas"))
         # phases take (torch, model[, params][, report]), by their names
-        args = {"torch": torch, "model": model, "params": params,
-                "report": report}
-        fn(*(args[p] for p in inspect.signature(fn).parameters))
+        t0 = time.perf_counter()
+        fn(*(args[p] for p in names))
+        torch.cuda.synchronize()
+        smoke.emit({"phase": f"{name}_wall",
+                    "seconds": time.perf_counter() - t0})
 
 
 def main() -> int:
