@@ -681,6 +681,124 @@ def combine_on_threads(torch, parts, offsets):
     return out
 
 
+def _tp_pool(torch, g, B, NP, ps, KV, hd, kvdt, fill):
+    """A random pool of ``B * NP`` pages and a trash page, its block
+    table mapping each row's first pages up to ``fill`` (B,) tokens, and
+    f32 scales (absmax / 127 of random vectors) for an int8 pool."""
+    dev = "cuda"
+    P = B * NP + 1
+    perm = torch.randperm(P - 1, generator=g, device=dev)[:B * NP]
+    bt = torch.where(torch.arange(NP, device=dev)[None, :]
+                     < ((fill + ps - 1) // ps)[:, None],
+                     perm.reshape(B, NP).to(torch.int32), -1).contiguous()
+    if kvdt == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (P, ps, KV, hd), generator=g,
+                                device=dev).to(torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((P, ps, KV), generator=g, device=dev) / 127
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.randn((P, ps, KV, hd), generator=g,
+                              device=dev).to(kvdt) for _ in range(2))
+        ks = vs = None
+    return kp, vp, ks, vs, bt
+
+
+def tp_pool_cases(torch, report, g):
+    """The paged-pool kernels at one rank's heads of full-width qwen2-0.5b
+    at tp=2 (7 q heads, 1 kv head, hd 64, 16-token pages), on the shapes
+    tp_path's option runs give them: spec-verify at K=4 on B=8 rows of the
+    speculative run's 96-token context (NP=6) on fp32, bf16 and int8
+    pools, and paged attention on B=8 rows of the pool run's int8 pool
+    (256 tokens, NP=16). Each is held against ref.py by its rule (2^-18 of
+    the output scale plus 2^-7 relative for bf16 q, 0 relative for f32),
+    each verify query also bitwise against the paged kernel at its length,
+    and timed beside its bound (each live K/V element and scale read once;
+    4 hd flops per valid (query head, key) pair at the peak rate of q's
+    type) and the plain version. No single PyTorch call computes either:
+    the library time is null."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.kernels.spec_verify import ops as sv_ops
+    from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+
+    dev = "cuda"
+    B, H, KV, hd, ps = TP_BATCH, 7, 1, 64, 16
+    K, NP = 4, 6
+    for dname, qdt, kvdt, rtol in (
+            ("fp32", torch.float32, torch.float32, 0.0),
+            ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7),
+            ("int8", torch.float32, torch.int8, 0.0)):
+        pos = torch.randint(0, NP * ps - K + 1, (B,), generator=g,
+                            device=dev).to(torch.int32)
+        kp, vp, ks, vs, bt = _tp_pool(torch, g, B, NP, ps, KV, hd, kvdt,
+                                      pos + K)
+        q = torch.randn((B, K, H, hd), generator=g, device=dev).to(qdt)
+        out = sv_ops.spec_verify_attention(q, kp, vp, bt, pos, k_scales=ks,
+                                           v_scales=vs)
+        ref = spec_verify_attention_ref(q, kp, vp, bt, pos, ks, vs)
+        torch.cuda.synchronize()
+        name = f"{dname}_tp2_k4"
+        chk = held(torch, out, ref,
+                   2.0 ** -18 * float(ref.float().abs().max()), rtol)
+        diff_q = [j for j in range(K) if not torch.equal(
+            out[:, j], pa_ops.paged_decode_attention(
+                q[:, j].contiguous(), kp, vp, bt, pos + j + 1,
+                k_scales=ks, v_scales=vs))]
+        if not chk["ok"] or diff_q:
+            raise AssertionError(f"spec_verify {name}: {chk}, queries "
+                                 f"{diff_q} differ from the paged kernel")
+        live = int((pos + K).sum())
+        pairs = H * int(sum(int(p) * K + K * (K + 1) // 2
+                            for p in pos.tolist()))
+        nbytes = (2 * live * KV * hd * kp.element_size()
+                  + (2 * live * KV * 4 if ks is not None else 0)
+                  + 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4)
+        b_ms, b_by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS
+                           if qdt == torch.bfloat16 else F32_FLOPS)
+        case = dict(
+            chk, paged_kernel_bitwise=True, B=B, H=H, KV=KV, K=K, NP=NP,
+            ms=time_cold(torch, lambda: sv_ops.spec_verify_attention(
+                q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)),
+            plain_ms=time_cold(torch, lambda: spec_verify_attention_ref(
+                q, kp, vp, bt, pos, ks, vs)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=4 * hd * pairs,
+            plan=pa_ops.split_plan(B * KV, NP, ps, _build.sm_count(0)))
+        report["spec_verify"]["cases"][name] = case
+        emit({"phase": "kernels", "kernel": "spec_verify", "case": name,
+              **case})
+
+    NP = 16
+    lens = torch.randint(1, NP * ps + 1, (B,), generator=g,
+                         device=dev).to(torch.int32)
+    kp, vp, ks, vs, bt = _tp_pool(torch, g, B, NP, ps, KV, hd, torch.int8,
+                                  lens)
+    q = torch.randn((B, H, hd), generator=g, device=dev)
+    out = pa_ops.paged_decode_attention(q, kp, vp, bt, lens, k_scales=ks,
+                                        v_scales=vs)
+    ref = paged_decode_attention_ref(q, kp, vp, bt, lens, ks, vs)
+    torch.cuda.synchronize()
+    chk = held(torch, out, ref, 2.0 ** -18 * float(ref.float().abs().max()),
+               0.0)
+    if not chk["ok"]:
+        raise AssertionError(f"paged_attention int8_tp2: {chk}")
+    n_valid = int(lens.sum())
+    nbytes = (2 * n_valid * KV * (hd + 4) + 2 * q.numel() * 4
+              + bt.numel() * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, 4 * n_valid * H * hd, F32_FLOPS)
+    case = dict(chk, H=H, KV=KV, B=B, NP=NP,
+                ms=time_cold(torch, lambda: pa_ops.paged_decode_attention(
+                    q, kp, vp, bt, lens, k_scales=ks, v_scales=vs)),
+                plain_ms=time_cold(torch, lambda: paged_decode_attention_ref(
+                    q, kp, vp, bt, lens, ks, vs)),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                plan=pa_ops.split_plan(B * KV, NP, ps, _build.sm_count(0)))
+    report["paged_attention"]["cases"]["int8_tp2"] = case
+    emit({"phase": "kernels", "kernel": "paged_attention", "case": "int8_tp2",
+          **case})
+
+
 def phase_tp_kernels(torch, report):
     """The kernels at one rank's shapes of full-width qwen2-0.5b at tp=2
     (tp_path): paged attention at 7 q heads on one kv head (group 7, B=32,
@@ -697,7 +815,9 @@ def phase_tp_kernels(torch, report):
     and the one-launch sampler on granite-moe's whole 49,155-wide row,
     which every rank samples at tp=2 (its vocab does not divide). The
     decode and flash kernels at the families' rank heads are in their own
-    phases (``*_granite_tp2``, ``*_zamba2_tp2``)."""
+    phases (``*_granite_tp2``, ``*_zamba2_tp2``). The option runs' shapes
+    (spec-verify on fp32, bf16 and int8 pools, paged attention on an int8
+    pool) are ``tp_pool_cases``'."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.fused_sample.ref import (
@@ -740,6 +860,7 @@ def phase_tp_kernels(torch, report):
     report["paged_attention"]["cases"]["bf16_tp2"] = case
     emit({"phase": "kernels", "kernel": "paged_attention", "case": "bf16_tp2",
           **case})
+    tp_pool_cases(torch, report, g)
 
     cases = {}
 
@@ -2602,6 +2723,7 @@ class TPWorkers:
         self.tmp = tempfile.mkdtemp()
         store = os.path.join(self.tmp, "store")
         self.go_path = os.path.join(self.tmp, "go")
+        self.t_go = None           # when go() was first called
         self.logs = [os.path.join(self.tmp, f"rank{r}.log")
                      for r in range(world)]
         self.procs = []
@@ -2613,6 +2735,8 @@ class TPWorkers:
                     stderr=subprocess.STDOUT))
 
     def go(self) -> None:
+        if self.t_go is None:
+            self.t_go = time.perf_counter()
         with open(self.go_path, "w") as f:
             f.write("go")
 
@@ -2640,14 +2764,146 @@ def _tp_counters():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.spec_verify import ops as sv_ops
     reset = lambda: [m.reset_launches() for m in (da_ops, fa_ops, fs_ops,
-                                                  pa_ops)]
+                                                  pa_ops, sv_ops)]
     read = lambda: {"paged_attention": pa_ops.launches,
                     "decode_attention": da_ops.launches,
                     "fused_sample": fs_ops.launches,
                     "fused_sample_partial": fs_ops.partial_launches,
-                    "flash_fwd": fa_ops.launches["fwd"]}
+                    "flash_fwd": fa_ops.launches["fwd"],
+                    "flash_dq": fa_ops.launches["dq"],
+                    "flash_dkv": fa_ops.launches["dkv"],
+                    "spec_verify": sv_ops.launches}
     return reset, read
+
+
+# the counters of a rollout's stats that tp_path's option runs compare
+TP_STATS = ("spec_proposed", "spec_accepted", "spec_rounds", "preemptions",
+            "requeue_depth", "pool_grows", "shared_prefix_len",
+            "kv_dropped_writes", "pages_in_use", "page_capacity")
+# tp_path's option runs at full width and CUT_LAYERS: (a) speculation on
+# TicTacToe, greedy, fp32 params and KV, 2 turns of 8 tokens; (b) the
+# SHARED bandit (96 shared tokens) at B=8 and N=16 on int8 pages with
+# sharing, then also with preemption and pool growth from a pool of
+# TP_POOL_PAGES: min_pool_pages(8) at the bandit's 102-token prompt (six
+# shared pages and one private page a slot), which cannot hold 8 slots'
+# turns of 32 tokens (three private pages each), so the governor preempts
+# and the pool grows; (c) two steps of the SPMD trainer under the async
+# pipeline, 1 turn of 4 tokens, with the update on rank 0 and the reference
+# pass folded in. Its KL term is off (the trainer's default): the folded
+# reference decodes on a bf16 cache, where K/V computed in another order at
+# tp=2 can round to the neighbouring bf16 value (tp_path's reference rule,
+# 1e-2), which step 1's KL of 18 on random weights turned into 4.6e-5 of
+# loss on an H100. One TicTacToe turn ends no game, so the rewards, the
+# advantages and the loss are 0 in both runs; the batches' log-probs carry
+# the signal
+TP_SPEC = dict(cache_layout="paged", attn_impl="paged", sampling="reference",
+               temperature=0.0, max_turns=2, max_turn_tokens=8,
+               max_context=96, kv_dtype="fp32")
+TP_SPEC_ON = dict(speculation="self", spec_k=4, draft_layers=6)
+TP_EPISODES = 16
+TP_POOL_PAGES = 16
+TP_ASYNC = dict(batch_size=TP_BATCH, max_turns=1, max_turn_tokens=4,
+                max_context=96, kv_dtype="fp32", temperature=0.0,
+                kl_coef=0.0, pipeline="async", max_policy_lag=1, seed=0)
+
+
+def pool_bytes(eng, pages: int) -> int:
+    """The bytes of the engine's paged pool at ``pages`` pages (its trash
+    page included) on this rank: the rank's kv heads of every layer, K and
+    V, with the f32 scales of an int8 pool."""
+    cfg = eng.model.cfg
+    kv = eng.tp.n_kv_heads if eng.tp is not None else cfg.n_kv_heads
+    esz = {"int8": 1, "bf16": 2, "fp32": 4}[eng.kv_dtype]
+    per_token = 2 * kv * (cfg.head_dim_ * esz
+                          + (4 if eng.kv_dtype == "int8" else 0))
+    return (pages + 1) * eng.page_size * cfg.n_layers * per_token
+
+
+def tp_selector(tp2: int):
+    """A profiled selector of "tp1" (one rank) and "tp2" (``tp2`` ranks
+    from rank 0); "tp2" wins above one token of context, so the rollout
+    switches at step 1 (``tests/test_torch_tp.py``'s)."""
+    from repro_torch.core.parallelism_selector import (
+        ContextBuckets, ParallelismSelector, ProfileEntry)
+    from repro_torch.core.resharding import MeshConfig
+    sel = ParallelismSelector(
+        [MeshConfig("tp1", 1, 1), MeshConfig("tp2", 1, tp2)],
+        lambda c, ctx: ProfileEntry(
+            c, ctx, 2.0 if (c.name == "tp2") == (ctx > 1) else 1.0, True),
+        ContextBuckets((1,)))
+    sel.profile()
+    return sel
+
+
+def tp_options(torch, model, params, rollout, rank, two):
+    """tp_path's option runs (a) and (b) on one rank: first the tp=1
+    references, each on one rank alone (rank 0 the pressured pool run,
+    rank 1 the others, side by side), then each run at tp=2, the
+    speculative run's spec-off twin at tp=2 only. Returns this rank's
+    results; the tp=1 ones under ``<name>_tp1``."""
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import MultiArmedBandit, TicTacToe
+    bandit = lambda: MultiArmedBandit(prompt_len=95)
+    pool = dict(SHARED, kv_dtype="int8", share_prefix=True)
+    runs = (("spec", TicTacToe, dict(TP_SPEC, **TP_SPEC_ON), TP_BATCH),
+            ("spec_off", TicTacToe, TP_SPEC, TP_BATCH),
+            ("pool", bandit, pool, TP_EPISODES),
+            ("pool_preempt", bandit,
+             dict(pool, on_exhaust="preempt", pool_growth="double",
+                  cache_pages=TP_POOL_PAGES), TP_EPISODES))
+    out = {}
+    alone = MeshConfig(f"tp1-rank{rank}", 1, 1, device_offset=rank)
+    for name, env, kw, n in runs:
+        if name != "spec_off" and (name == "pool_preempt") == (rank == 0):
+            eng = CompiledRolloutEngine(model, env(), mesh_config=alone,
+                                        **kw)
+            out[f"{name}_tp1"] = rollout(eng, params, False, True, n=n)
+            del eng
+    for name, env, kw, n in runs:
+        eng = CompiledRolloutEngine(model, env(), mesh_config=two, **kw)
+        out[f"{name}_tp2"] = rollout(eng, params, False, False, n=n)
+        del eng
+    return out
+
+
+def tp_async(torch, model, params, rank: int, spmd: bool) -> dict:
+    """tp_path's run (c): two steps of ``EarlTrainer`` under the async
+    pipeline (TP_ASYNC) on ``params`` (host tensors): across the two ranks
+    (``spmd``: the rollout on the selector's mesh, tp=1 at step 0 and tp=2
+    at step 1, the update on rank 0, whose params alone are real; rank 1
+    passes meta tensors) or on rank 0 alone, the reference. Returns the
+    batches' tokens the update was given, the policy lags, the losses,
+    the switch rows, the launches and the seconds."""
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.rl.envs import TicTacToe
+    reset, read = _tp_counters()
+    tr = EarlTrainer(model=model, env=TicTacToe(),
+                     selector=tp_selector(2 if spmd else 1), **TP_ASYNC)
+    rec = _RecordingUpdate(tr.update_stage)
+    tr.update_stage = rec
+    p = ({k: v.cuda() for k, v in params.items()} if rank == 0 else
+         {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+          for k, v in params.items()})
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    _, _, hist = tr.train(2, params=p, opt_state=tr.optimizer.init(p),
+                          ref_params=p)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, launches=read(),
+               tokens=[b.tokens.cpu().tolist() for b in rec.batches],
+               logprobs=[b.logprobs.cpu().tolist() for b in rec.batches],
+               ref_logprobs=[b.ref_logprobs.cpu().tolist()
+                             for b in rec.batches],
+               lags=[r.policy_lag for r in hist],
+               losses=[r.loss for r in hist],
+               switches=[r.selector_switch for r in hist])
+    del tr, rec, p, hist
+    torch.cuda.empty_cache()
+    return out
 
 
 # the tp path's families: each at the depth its one-card phases run
@@ -2719,11 +2975,11 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     gen = lambda: torch.Generator(device="cuda").manual_seed(1)
     out = {"rank": rank}
 
-    def rollout(eng, params, ref, to_card):
+    def rollout(eng, params, ref, to_card, n=B):
         """One run of ``eng`` on ``params`` (host tensors: the whole tree
         copied to the card inside the run at tp=1, ``to_card``, and the
-        rank's shards by the engine at tp=2), its launches, seconds and
-        peak memory."""
+        rank's shards by the engine at tp=2) over ``n`` episodes, its
+        launches, counters, seconds, pool bytes and peak memory."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -2731,12 +2987,15 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         t0 = time.perf_counter()
         if to_card:
             params = {k: v.cuda() for k, v in params.items()}
-        exp, st = eng.run(params, B, B, ref_params=params if ref else None,
+        exp, st = eng.run(params, B, n, ref_params=params if ref else None,
                           generator=gen())
         torch.cuda.synchronize()
         res = dict(seconds=time.perf_counter() - t0, launches=read(),
                    peak_bytes=torch.cuda.max_memory_allocated() - base,
                    returned=st.episodes_returned,
+                   counters={c: int(getattr(st, c)) for c in TP_STATS},
+                   pool_bytes=(pool_bytes(eng, st.page_capacity)
+                               if eng.cache_layout == "paged" else 0),
                    tokens=exp.tokens.cpu().tolist(),
                    logprobs=exp.logprobs.cpu().tolist(),
                    ref_logprobs=exp.ref_logprobs.cpu().tolist())
@@ -2796,17 +3055,31 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
                 del g16, c
         del eng
         torch.cuda.empty_cache()
-    del full32, held_params
+    del held_params
     out["seconds"] = time.perf_counter() - t_start
+    # the option runs (a)-(c) at CUT_LAYERS, views of the same weights
+    cut = build_model(dataclasses.replace(cfg, n_layers=CUT_LAYERS))
+    cut32 = transformer.draft_params_view(full32, CUT_LAYERS)
+    t0 = time.perf_counter()
+    out["options"] = tp_options(torch, cut, cut32, rollout, rank, two)
+    out["options_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["async"] = tp_async(torch, cut, cut32, rank, spmd=True)
+    out["async_seconds"] = time.perf_counter() - t0
     out["families"] = {}
     for arch, depth in _tp_families():
         t0 = time.perf_counter()
         fam = tp_family(torch, arch, depth, weights.pop(arch), rank, rollout,
                         reset, read, gen)
         out["families"][arch] = dict(fam, seconds=time.perf_counter() - t0)
-    print("TPRESULT " + json.dumps(out), flush=True)
     dist.barrier()
     dist.destroy_process_group()
+    if rank == 0:
+        # (c)'s reference: the same two steps on this rank alone, outside
+        # any process group
+        out["async_one"] = tp_async(torch, cut, cut32, rank, spmd=False)
+    del full32, cut32
+    print("TPRESULT " + json.dumps(out), flush=True)
     return 0
 
 
@@ -2930,7 +3203,11 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     greedy, at fp32 params and KV; then at bf16, one turn without the
     reference.
     The workers start with the script and wait (``TPWorkers``), so their
-    start-up is not this phase's. Gates: at fp32 the tp=2 tokens equal
+    start-up is not this phase's; the script lets them go just before
+    preempt_path, which runs beside them, so ``seconds`` is the
+    wait left after preempt_path and ``since_go_s`` the ranks' whole span
+    (their runs' seconds are read beside preempt_path's work). Gates: at
+    fp32 the tp=2 tokens equal
     tp=1's on both ranks, the log-probs within 1e-4 (f32 sums in another
     order) and the reference's within 1e-2 (it decodes on a bf16 cache in
     both runs, as in JAX: K/V computed in another order can round to the
@@ -2953,7 +3230,17 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     reference, then bf16, then the bf16 first-step logits. Their gates and
     reports are ``tp_family_results``'s; each family also reports the
     bytes a rank receives (mamba2's and zamba2's ``in_proj`` and conv
-    travel whole) and keeps."""
+    travel whole) and keeps.
+
+    Between the two, the option runs at full width and CUT_LAYERS
+    (``tp_options``, ``tp_async``), each at tp=1 (rank 0) and tp=2: (a)
+    speculation (``"self"``, K=4, 6 draft layers) on TicTacToe with its
+    spec-off twin at tp=2; (b) the SHARED bandit at B=8, N=16 on int8
+    pages with sharing, then also with preemption and pool growth from
+    TP_POOL_PAGES pages; (c) two async steps of the SPMD trainer (the
+    rollout switching to tp=2 at step 1, the update on rank 0) against
+    the same two steps on rank 0 alone. Their gates and reports are
+    ``tp_option_results``'s."""
     t0 = time.perf_counter()
     workers.go()
     codes, texts = workers.wait(timeout=900)
@@ -3003,21 +3290,131 @@ def phase_tp_path(torch, report, workers: TPWorkers):
                                       and "seconds" in v}
                          for r, x in enumerate(res)},
         worker_seconds=[x["seconds"] for x in res],
-        seconds=time.perf_counter() - t0)
+        seconds=time.perf_counter() - t0,
+        since_go_s=time.perf_counter() - workers.t_go)
     out["peak_ratio_tp2_over_tp1"] = {
         kv: [x[f"{kv}_tp2"]["peak_bytes"] / r0[f"{kv}_tp1"]["peak_bytes"]
              for x in res] for kv in ("fp32", "bf16")}
     out["families"], families_ok = tp_family_results(torch, res)
+    out["options"], options_ok = tp_option_results(torch, res)
     emit(out)
     report["fused_sample_partial"]["launches"] = \
         r0["fp32_tp2"]["launches"]["fused_sample_partial"]
+    opt = r0["options"]
+    report["spec_verify"]["launches_tp2_spec"] = \
+        opt["spec_tp2"]["launches"]["spec_verify"]
+    report["paged_attention"]["launches_tp2_pool_int8"] = \
+        opt["pool_tp2"]["launches"]["paged_attention"]
     if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
-            and launches_ok and families_ok
+            and launches_ok and families_ok and options_ok
             and bl["max_abs_err"] <= 0.05 * bl["scale"]
             and r0["logits_launches"]["flash_fwd"] == 24
             and all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
                     for x in res for kv in ("fp32", "bf16"))):
         raise AssertionError(f"tp_path checks failed: {out}")
+
+
+def tp_option_results(torch, res):
+    """The option runs' part of tp_path (``tp_options``, ``tp_async``)
+    from both ranks' results: the gates, what is reported, and whether
+    every gate held.
+
+    (a) spec: the tp=2 tokens on both ranks equal tp=1's speculative run's
+    and tp=2's spec-off run's; the log-probs within 1e-4 of tp=1's (f32
+    sums in another order, tp_path's rule); the spec counters (proposed,
+    accepted, rounds) and the spec-verify launches equal on both ranks and
+    to tp=1's, one launch a layer a verify round.
+    (b) pool, pool_preempt: every episode returned and no dropped write;
+    the tp=2 tokens on both ranks equal tp=1's same run; preemptions,
+    pool growths and the shared prefix equal on both ranks and to tp=1's,
+    with at least one preemption and one growth in pool_preempt; paged
+    attention launched on both ranks as often as at tp=1. Reported: each
+    rank's pool bytes against tp=1's.
+    (c) async: both ranks keep the one-rank run's policy lags [0, 1]; the
+    update rank's batches' tokens equal the one-rank run's, their
+    log-probs within 1e-4 and their folded reference log-probs within
+    1e-2 (tp_path's rules); the losses within 1e-5 of the one-rank run's;
+    rank 1 ran no update (no flash backward launch), rank 0 two, and the
+    rollout switched to tp2 at step 1."""
+    T = lambda d, k: torch.tensor(d[k])
+    o0, o1 = (x["options"] for x in res)
+    out, ok = {}, True
+    for name in ("spec", "pool", "pool_preempt"):
+        a = o0.get(f"{name}_tp1") or o1[f"{name}_tp1"]
+        b, c = o0[f"{name}_tp2"], o1[f"{name}_tp2"]
+        same = a["tokens"] == b["tokens"] == c["tokens"]
+        lp_err = float((T(a, "logprobs") - T(b, "logprobs")).abs().max())
+        counters_equal = a["counters"] == b["counters"] == c["counters"]
+        la, lb, lc = a["launches"], b["launches"], c["launches"]
+        row = dict(tokens_equal=same, logprob_max_abs_err=lp_err,
+                   counters=b["counters"], counters_equal=counters_equal,
+                   launches={"tp1": la, "rank0": lb, "rank1": lc},
+                   seconds={"tp1": a["seconds"], "rank0": b["seconds"],
+                            "rank1": c["seconds"]},
+                   peak_bytes={"tp1": a["peak_bytes"],
+                               "rank0": b["peak_bytes"],
+                               "rank1": c["peak_bytes"]})
+        if name == "spec":
+            off0, off1 = o0["spec_off_tp2"], o1["spec_off_tp2"]
+            rounds_layers = lb["spec_verify"] % CUT_LAYERS == 0
+            row.update(spec_off_tokens_equal=(
+                off0["tokens"] == off1["tokens"] == b["tokens"]),
+                spec_off_seconds=[off0["seconds"], off1["seconds"]])
+            row_ok = (same and row["spec_off_tokens_equal"]
+                      and lp_err <= 1e-4 and counters_equal
+                      and lb["spec_verify"] == lc["spec_verify"]
+                      == la["spec_verify"] > 0 and rounds_layers
+                      and b["counters"]["spec_rounds"] > 0)
+        else:
+            returned = all(x["returned"] == TP_EPISODES for x in (a, b, c))
+            pressured = (b["counters"]["preemptions"] > 0
+                         and b["counters"]["pool_grows"] > 0)
+            row.update(returned_all=returned,
+                       pool_bytes={"tp1": a["pool_bytes"],
+                                   "rank0": b["pool_bytes"],
+                                   "rank1": c["pool_bytes"]},
+                       pool_bytes_ratio=[x["pool_bytes"] / a["pool_bytes"]
+                                         for x in (b, c)])
+            if name == "pool_preempt":
+                row.update(pool_pages=TP_POOL_PAGES, pressured=pressured)
+            row_ok = (same and returned and counters_equal
+                      and b["counters"]["kv_dropped_writes"] == 0
+                      and b["counters"]["shared_prefix_len"] == 96
+                      and lb["paged_attention"] == lc["paged_attention"]
+                      == la["paged_attention"] > 0
+                      and (pressured or name == "pool"))
+        row["ok"] = row_ok
+        ok &= row_ok
+        out[name] = row
+    one = res[0]["async_one"]
+    a0, a1 = (x["async"] for x in res)
+    loss_err = max(abs(x - y) for x, y in zip(a0["losses"], one["losses"]))
+    lp_err, ref_err = (float((T(a0, k) - T(one, k)).abs().max())
+                       for k in ("logprobs", "ref_logprobs"))
+    sw = a0["switches"]
+    row_ok = (a0["lags"] == a1["lags"] == one["lags"] == [0, 1]
+              and a0["tokens"] == one["tokens"] and len(a0["tokens"]) == 2
+              and a1["tokens"] == [] and loss_err <= 1e-5
+              and lp_err <= 1e-4 and ref_err <= 1e-2
+              and a0["losses"] == a1["losses"]
+              and a1["launches"]["flash_dq"] == 0
+              and a0["launches"]["flash_dq"]
+              == one["launches"]["flash_dq"] > 0
+              and sw[1] is not None and sw[1]["to"] == "tp2")
+    out["async"] = dict(
+        ok=row_ok, lags=a0["lags"], tokens_equal=a0["tokens"] == one["tokens"],
+        loss_max_abs_err=loss_err, losses=a0["losses"],
+        logprob_max_abs_err=lp_err, ref_logprob_max_abs_err=ref_err,
+        switches=sw, launches={"rank0": a0["launches"],
+                               "rank1": a1["launches"],
+                               "one_rank": one["launches"]},
+        seconds={"rank0": a0["seconds"], "rank1": a1["seconds"],
+                 "one_rank": one["seconds"]})
+    ok &= row_ok
+    out["seconds"] = {f"rank{r}": {"options": x["options_seconds"],
+                                   "async": x["async_seconds"]}
+                      for r, x in enumerate(res)}
+    return out, ok
 
 
 def tp_family_results(torch, res):
@@ -4596,6 +4993,10 @@ def main() -> int:
         phase_shared_path(torch, cut, cut_params, report)
         phase_shared_spec(torch, cut, cut_params, report)
         del cut_params
+        # tp_path's ranks run beside preempt_path: both are host-bound (the
+        # eager loop, gloo's staging), each process keeps its own cores,
+        # and the card holds both; preempt_path's gates are not timed
+        tp_workers.go()
         phase_preempt_path(torch, model, params, report)
         del params
         phase_tp_path(torch, report, tp_workers)

@@ -286,12 +286,15 @@ def _comm_device(leaves: List[_Leaf]) -> torch.device:
 class _Exchange:
     """One round of point-to-point transfers posted together: the pieces
     this rank sends, and the buffers it receives into with where each
-    goes."""
+    goes. Gloo moves host memory: under it a device piece is sent from a
+    host copy and received into a host buffer that ``wait`` copies back."""
 
     def __init__(self):
         self.ops: list = []
-        # (buffer, leaf, region): where wait() copies each received piece
-        self.recvs: List[Tuple[torch.Tensor, Optional[_Leaf], Tuple]] = []
+        # (buffer, host buffer, leaf, region): where wait() copies each
+        # received piece
+        self.recvs: List[Tuple[torch.Tensor, torch.Tensor, Optional[_Leaf],
+                               Tuple]] = []
         self.sent = self.received = 0
         self.works: list = []
 
@@ -303,9 +306,15 @@ class _Exchange:
                 "initialized process group "
                 "(torch.distributed.init_process_group)")
 
+    @staticmethod
+    def _staged(t: torch.Tensor) -> bool:
+        return t.device.type != "cpu" and dist.get_backend() == "gloo"
+
     def send(self, piece: torch.Tensor, to: int) -> None:
         self._need_group()
         piece = piece.contiguous()
+        if self._staged(piece):
+            piece = piece.cpu()
         self.ops.append(dist.P2POp(dist.isend, piece, to))
         self.sent += piece.numel() * piece.element_size()
 
@@ -314,8 +323,10 @@ class _Exchange:
         """Receive into ``buf``; with ``leaf``, ``wait`` copies it into
         ``region`` of the leaf's output."""
         self._need_group()
-        self.ops.append(dist.P2POp(dist.irecv, buf, frm))
-        self.recvs.append((buf, leaf, region))
+        host = (torch.empty(buf.shape, dtype=buf.dtype)
+                if self._staged(buf) else buf)
+        self.ops.append(dist.P2POp(dist.irecv, host, frm))
+        self.recvs.append((buf, host, leaf, region))
         self.received += buf.numel() * buf.element_size()
 
     def post(self) -> "_Exchange":
@@ -329,7 +340,9 @@ class _Exchange:
         for w in self.works:
             w.wait()
         self.works = []
-        for buf, lf, region in self.recvs:
+        for buf, host, lf, region in self.recvs:
+            if host is not buf:
+                buf.copy_(host)
             if lf is not None:
                 lf.out[_cut(region, lf.want)] = buf
         self.recvs = []

@@ -44,7 +44,25 @@ A checkpoint saved at step ``s`` means "``s`` steps completed"; resume
 (``resume=True`` or the crash restart) continues at step ``s``. The async
 schedule saves inside the worker right after the update: the single
 worker orders the save before the next update, so the saved pair is
-consistent.
+consistent. Once an update has raised, no update queued behind it runs or
+saves (they would start from params that lack the failed update), so after
+a failed update k the newest checkpoint is step k's or older, and the
+restart re-runs step k and the later steps in order.
+
+**Across ranks** (the SPMD trainer), both schedules run on every rank.
+Only the update rank saves checkpoints; a resume or a restart reads the
+step the update rank finds and broadcasts, and every rank restores it (the
+generator state included). Under ``"async"`` the rollout runs on every
+rank's main thread on the selector's mesh, and the update on the update
+rank's worker thread (and side stream). Every collective stays on the main
+thread, in step order, on every rank: the params out to the rollout ranks,
+the generator state, the stats, the dispatch and the batch to the update
+rank, and each resolve's broadcast of the update's status and metrics
+(gloo collectives issued from two threads on one group can interleave).
+The worker does rank-local work only. The other ranks mirror the resolves,
+so a failed update reaches every rank at its resolve, before any rank
+blocks in a later collective, and every rank restarts from the same
+checkpoint.
 """
 from __future__ import annotations
 
@@ -58,6 +76,7 @@ import torch
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
+from repro_torch.core.resharding import current_rank
 
 
 def _print_record(rec) -> None:
@@ -93,7 +112,7 @@ class PipelineSchedule:
         opt_state, history)``."""
         start = 0
         if self.resume and self.checkpoint_dir:
-            s = latest_step(self.checkpoint_dir)
+            s = self._latest_saved()
             if s is not None:
                 params, opt_state, start = self._restore(s, params,
                                                          opt_state)
@@ -115,6 +134,19 @@ class PipelineSchedule:
                 and done > 0 and done % self.checkpoint_every == 0):
             save_checkpoint(self.checkpoint_dir, done,
                             self._ckpt_tree(params, opt_state, rng))
+
+    def _saves(self) -> bool:
+        """Whether this rank writes checkpoints: across ranks only the
+        update rank's params and optimizer state are real."""
+        tr = self.trainer
+        return not tr.spmd or current_rank() == tr._update_rank()
+
+    def _latest_saved(self):
+        """The newest saved step (None without one), as the update rank
+        finds it, on every rank."""
+        tr = self.trainer
+        s = latest_step(self.checkpoint_dir) if self.checkpoint_dir else None
+        return tr.broadcast(s, tr._update_rank()) if tr.spmd else s
 
     def _restore(self, step: int, params, opt_state):
         """Load checkpoint ``step`` into the shapes of the given state and
@@ -144,8 +176,9 @@ class PipelineSchedule:
                     time.sleep(self.retry_backoff_s * (2 ** attempt))
             if verbose:
                 _print_record(rec)
-            self._maybe_save(step + 1, params, opt_state,
-                             tr._gen.get_state())
+            if self._saves():
+                self._maybe_save(step + 1, params, opt_state,
+                                 tr._gen.get_state())
         return params, opt_state, tr.history
 
     # -- asynchronous one-step-off pipeline ---------------------------------
@@ -158,8 +191,7 @@ class PipelineSchedule:
                                             opt_state, ref_params,
                                             dst_shardings, verbose)
             except Exception:
-                s = (latest_step(self.checkpoint_dir)
-                     if self.checkpoint_dir else None)
+                s = self._latest_saved()
                 if attempt >= self.max_retries or s is None:
                     raise
                 # restart from the last saved state: the worker may have
@@ -173,13 +205,17 @@ class PipelineSchedule:
     def _run_async_once(self, n_steps, start, params, opt_state,
                         ref_params, dst_shardings, verbose):
         tr = self.trainer
+        spmd = tr.spmd
         L = max(0, int(self.max_policy_lag))
         versions: Dict[int, Any] = {start: params}  # update count -> params
         futures: Dict[int, Any] = {}             # step -> in-flight update
         pending: Dict[int, dict] = {}            # step -> rollout-side row
         # the worker owns the live (params, opt_state); one worker, so the
-        # updates apply strictly in step order
-        state = {"params": params, "opt_state": opt_state}
+        # updates apply strictly in step order. ``failed`` is set by the
+        # first update that raises: the updates queued behind it would run
+        # on params that lack it, so each checks it before it starts (one
+        # worker: none can fail while another runs) and none runs or saves
+        state = {"params": params, "opt_state": opt_state, "failed": False}
         cuda = tr.device.type == "cuda"
         if cuda:
             main = torch.cuda.current_stream(tr.device)
@@ -187,7 +223,12 @@ class PipelineSchedule:
                 self.side_stream = torch.cuda.Stream(device=tr.device)
             side = self.side_stream
 
-        def submit(pool, k, exp, src_shardings):
+        def _check_not_failed(k):
+            if state["failed"]:
+                raise RuntimeError(f"update {k} not run: an earlier update "
+                                   f"of this pipeline failed")
+
+        def submit(pool, k, exp, src_shardings, dst_shardings):
             # the generator AT SUBMIT TIME: rollout k has drawn, rollout
             # k+1 has not, which is where a resume at step k+1 restarts
             rng_after_k = tr._gen.get_state()
@@ -199,6 +240,13 @@ class PipelineSchedule:
                 ready.record(main)
 
             def work():
+                try:
+                    return update()
+                except BaseException:
+                    state["failed"] = True
+                    raise
+
+            def update():
                 t0 = time.perf_counter()
                 with (torch.cuda.stream(side) if cuda
                       else contextlib.nullcontext()):
@@ -208,6 +256,7 @@ class PipelineSchedule:
                         # must not be reused before the side stream is done
                         for t in exp:
                             t.record_stream(side)
+                    _check_not_failed(k)
                     tr.check_fault("dispatch", k)
                     exp_d, handle = tr.dispatch_stage(
                         exp, dst_shardings, src_shardings=src_shardings,
@@ -234,11 +283,38 @@ class PipelineSchedule:
                 return p2, metrics, dispatch_row, time.perf_counter() - t0
             futures[k] = pool.submit(work)
 
+        def resolve_spmd(k, row):
+            """Step k's update across ranks: its rank waits for it and
+            broadcasts the status first, then the metrics; every rank
+            raises when it failed. Returns what ``work`` returns, a stand-in
+            for the params on the other ranks."""
+            fut, err, out = futures.pop(k), None, None
+            if fut is not None:
+                try:
+                    out = fut.result()
+                except Exception as e:       # raised below, on every rank
+                    err = e
+            msg = None if err is None else f"{type(err).__name__}: {err}"
+            status, metrics, upd_wall = tr.broadcast(
+                (msg,) + ((None, None) if out is None
+                          else (out[1], out[3])), row["rank"])
+            if err is not None:
+                raise err
+            if status is not None:
+                raise RuntimeError(f"the update of step {k} failed on rank "
+                                   f"{row['rank']}: {status}")
+            p2 = out[0] if out is not None else tr.stand_in(params)
+            return p2, metrics, row["dispatch_row"], upd_wall
+
         def resolve(k):
             """Finalize step k: wait for its update, publish the new params
             version, record the step."""
-            p2, metrics, dispatch_row, upd_wall = futures.pop(k).result()
-            if cuda:
+            row = pending.pop(k)
+            if spmd:
+                p2, metrics, dispatch_row, upd_wall = resolve_spmd(k, row)
+            else:
+                p2, metrics, dispatch_row, upd_wall = futures.pop(k).result()
+            if cuda and (not spmd or current_rank() == row["rank"]):
                 # p2 was made on the side stream and is complete: the
                 # worker's metric read waited for it, and result() returned
                 # after that read. A rollout on the main stream may read it
@@ -247,7 +323,6 @@ class PipelineSchedule:
                 for t in p2.values():
                     t.record_stream(main)
             versions[k + 1] = p2
-            row = pending.pop(k)
             rec = tr.make_record(
                 k, row["stats"], metrics, switch=row["switch"],
                 dispatch_row=dispatch_row,
@@ -274,33 +349,48 @@ class PipelineSchedule:
                 t0 = time.perf_counter()
                 tr.check_fault("rollout", k)
                 tr._maybe_warn_ref_fallback(ref_params)
+                tr.sync_generator()
                 exp, stats, switch = tr.rollout_stage(
                     k, behavior, tr.batch_size,
                     n_episodes=tr.rollout_episodes,
                     noise=tr.rollout_noise(k), params_version=v,
                     ref_params=ref_params if tr.ref_folded else None)
-                exp = tr.expprep_stage(
-                    exp, ref_params=ref_params, ref_folded=tr.ref_folded,
-                    # the reference IS the behaviour version that sampled
-                    # the batch, and sampling recorded unbiased log-probs
-                    reuse_behavior_lp=(
-                        ref_params is behavior and tr.top_p == 1.0
-                        and (tr.temperature <= 0.0
-                             or tr.temperature == 1.0)))
-                # the source layouts now: the next rollout overwrites the
-                # engine's before the worker runs
-                src = (tr.dispatch_stage.source_shardings(exp)
-                       if dst_shardings is not None else None)
-                # hook ②: tracked apart from the rollout's config (both
-                # stages are live at once)
-                if tr.selector is not None and tr.selector.policy is not None:
-                    tr.selector.maybe_switch(k, stage="update")
+                if tr.rolls_out():
+                    exp = tr.expprep_stage(
+                        exp, ref_params=ref_params, ref_folded=tr.ref_folded,
+                        # the reference IS the behaviour version that
+                        # sampled the batch, and sampling recorded unbiased
+                        # log-probs
+                        reuse_behavior_lp=(
+                            ref_params is behavior and tr.top_p == 1.0
+                            and (tr.temperature <= 0.0
+                                 or tr.temperature == 1.0)))
+                dispatch_row = None
+                if spmd:
+                    # the dispatch, hook ② and the batch to the update rank
+                    # here, on the main thread: the worker runs no
+                    # collective
+                    exp, dispatch_row = tr.handoff(k, exp, dst_shardings)
+                    src = dst = None
+                else:
+                    # the source layouts now: the next rollout overwrites
+                    # the engine's before the worker runs
+                    src = (tr.dispatch_stage.source_shardings(exp)
+                           if dst_shardings is not None else None)
+                    dst = dst_shardings
+                    # hook ②: tracked apart from the rollout's config (both
+                    # stages are live at once)
+                    tr._update_hook(k)
                 pending[k] = {
                     "stats": stats, "switch": switch, "t0": t0,
                     "rollout_wall_s": time.perf_counter() - t0,
-                    "policy_lag": k - v,
+                    "policy_lag": k - v, "dispatch_row": dispatch_row,
+                    "rank": tr._update_rank() if spmd else None,
                 }
-                submit(pool, k, exp, src)
+                if not spmd or current_rank() == pending[k]["rank"]:
+                    submit(pool, k, exp, src, dst)
+                else:
+                    futures[k] = None        # mirrored at its resolve
 
             while futures:                   # drain the pipeline
                 resolve(min(futures))
@@ -308,10 +398,11 @@ class PipelineSchedule:
             # never leave the worker thread or an update in flight: cancel
             # what has not started, wait out what has, and read the
             # exceptions of the finished ones so nothing warns at exit
-            for f in futures.values():
+            live = [f for f in futures.values() if f is not None]
+            for f in live:
                 f.cancel()
             pool.shutdown(wait=True, cancel_futures=True)
-            for f in futures.values():
+            for f in live:
                 if f.done() and not f.cancelled():
                     f.exception()
 

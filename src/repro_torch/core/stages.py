@@ -40,7 +40,14 @@ update rank's params go to the rollout ranks in the tp plan's layouts
 executor (the reference params once per mesh), and the batch goes back
 to the update rank the same way. The rollout's stats and the update's
 metrics are broadcast, so every rank keeps the same records, selector
-EMA and switches. The async schedule is single-rank.
+EMA and switches. Other ranks hold meta tensors of the params' shapes
+after the first update (a new tree each step, as the update rank's is).
+As in JAX, the python engine is never bound to a mesh: it rolls out on the
+update rank with that rank's whole params, its stats are broadcast from
+there, and no params handoff runs for it. The async schedule runs the
+rollout on the main thread of every rank and the update on the update
+rank's worker thread; every collective stays on the main thread
+(``core/scheduler.py``).
 
 As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
@@ -87,7 +94,7 @@ from repro_torch.rl.algo import (group_relative_advantages,
 from repro_torch.rl.engine import CompiledRolloutEngine, RolloutStats
 from repro_torch.rl.engine.common import check_no_modality_inputs
 from repro_torch.rl.engine.compiled import NoiseFn
-from repro_torch.rl.experience import ExperienceBatch
+from repro_torch.rl.experience import ExperienceBatch, zeros_like_experience
 from repro_torch.rl.rollout import RolloutEngine
 from repro_torch.utils.faults import undersize_pool
 
@@ -189,6 +196,11 @@ class RolloutStage:
         self.engine = engine
         self.selector = selector
         self.place = place
+        # across ranks, for an engine that is never bound to a mesh (the
+        # python one): the rank it rolls out on, asked before each rollout;
+        # the others get a meta batch of the global shapes
+        self.home: Optional[Callable[[], int]] = None
+        self.home_rank: Optional[int] = None
 
     def __call__(self, step: int, params, batch: int, *,
                  n_episodes: Optional[int] = None,
@@ -209,12 +221,22 @@ class RolloutStage:
                 self.engine.bind_mesh(cur)
         if self.place is not None:
             params, ref_params = self.place(params, ref_params)
-        exp, stats = self.engine.run(params, batch, n_episodes, noise=noise,
-                                     params_version=params_version,
-                                     ref_params=ref_params)
-        if _spmd():
-            mesh = getattr(self.engine, "mesh_config", None)
-            stats = _broadcast(stats, mesh.device_offset if mesh else 0)
+        run = lambda: self.engine.run(params, batch, n_episodes, noise=noise,
+                                      params_version=params_version,
+                                      ref_params=ref_params)
+        if self.home is not None:
+            self.home_rank = self.home()
+            if current_rank() == self.home_rank:
+                exp, stats = run()
+            else:
+                exp, stats = zeros_like_experience(
+                    batch, self.engine.max_context, device="meta"), None
+            stats = _broadcast(stats, self.home_rank)
+        else:
+            exp, stats = run()
+            if _spmd():
+                mesh = getattr(self.engine, "mesh_config", None)
+                stats = _broadcast(stats, mesh.device_offset if mesh else 0)
         if sel is not None:
             sel.observe(stats.mean_context_len)
         return exp, stats, switch
@@ -468,16 +490,22 @@ class EarlTrainer:
             self._undersize_pool(self.faults.pool_pressure)
 
     # -- across ranks ---------------------------------------------------
+    @property
+    def spmd(self) -> bool:
+        """Whether the trainer runs across ranks."""
+        return _spmd()
+
+    broadcast = staticmethod(_broadcast)
+
     def _init_spmd(self, python: bool) -> None:
-        """The SPMD trainer's checks and the rollout stage's handoff."""
-        if python or self.pipeline != "sync":
-            raise NotImplementedError(
-                "across ranks the trainer runs the compiled engine under the "
-                "sync schedule; the python backend and the async pipeline "
-                "across ranks are not ported yet: they arrive with ROADMAP "
-                "Queue 1 item 14")
+        """The rollout stage's handoff across ranks: the compiled engine is
+        bound to a mesh and takes its params through ``_place``; the python
+        engine, never bound (as in JAX), rolls out on the update rank."""
         self._handoff = DataDispatcher()   # params out, the batch back
         self._ref_placed = None
+        if python:
+            self.rollout_stage.home = self._update_rank
+            return
         if self.rollout.mesh_config is None:
             # no selector: the rollout runs where the update does
             self.rollout.bind_mesh(self._update_mesh())
@@ -494,6 +522,65 @@ class EarlTrainer:
     def _update_mesh(self) -> MeshConfig:
         return MeshConfig("update", dp=1, tp=1,
                           device_offset=self._update_rank())
+
+    def _rollout_root(self) -> int:
+        """The rank whose rollout the others follow: the bound mesh's first
+        rank, or the update rank for the python engine."""
+        mesh = getattr(self.rollout, "mesh_config", None)
+        return mesh.device_offset if mesh is not None else self._update_rank()
+
+    def rolls_out(self) -> bool:
+        """Whether this rank took part in the last rollout (every rank of
+        a one-rank world)."""
+        if not _spmd():
+            return True
+        if self.rollout_stage.home is not None:
+            return current_rank() == self.rollout_stage.home_rank
+        return self.rollout.in_mesh
+
+    def sync_generator(self) -> None:
+        """Across ranks, before a rollout: the last rollout's ranks advanced
+        the trainer's generator, so every rank draws on from where the
+        rollout's first rank stopped (a no-op on one rank or with injected
+        noise)."""
+        if _spmd() and self.noise is None:
+            self._gen.set_state(_broadcast(self._gen.get_state(),
+                                           self._rollout_root()))
+
+    def stand_in(self, params):
+        """What a rank other than the update rank holds for the params
+        after an update: meta tensors of their shapes, a new tree each
+        time, so ``ref_params is params`` tests alike on every rank."""
+        return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in params.items()}
+
+    def _batch_layouts(self, exp):
+        """Where the harvested batch lies across ranks: the engine's
+        layouts, or the rank the python engine rolled out on."""
+        src = self.dispatch_stage.source_shardings(exp)
+        if src is None:
+            home = MeshConfig("rollout", dp=1, tp=1,
+                              device_offset=self.rollout_stage.home_rank)
+            src = ExperienceBatch(*(NamedLayout(home) for _ in exp))
+        return src
+
+    def _update_hook(self, step: int) -> None:
+        """Hook ②: the update stage's config is tracked apart from the
+        rollout's (the async schedule needs both at once)."""
+        if self.selector is not None and self.selector.policy is not None:
+            self.selector.maybe_switch(step, stage="update")
+
+    def handoff(self, step: int, exp, dst_shardings):
+        """Across ranks (every rank calls, on the main thread): the batch
+        through the dispatch stage to ``dst_shardings`` when given, hook ②,
+        then the batch to the update rank. Returns ``(exp,
+        dispatch_row)``."""
+        src = self._batch_layouts(exp)
+        exp, row = self.dispatch_stage(exp, dst_shardings, src_shardings=src)
+        self._update_hook(step)
+        exp = self._to_update_rank(
+            exp, dst_shardings if dst_shardings is not None else src)
+        return exp, row
 
     def _to_rollout(self, params):
         """The update rank's ``params`` to the bound rollout mesh, each rank
@@ -686,11 +773,7 @@ class EarlTrainer:
         self._maybe_warn_ref_fallback(ref_params)
         t0 = time.perf_counter()
         self.check_fault("rollout", step)
-        if _spmd() and self.noise is None:
-            # the last rollout's ranks advanced the trainer's generator;
-            # every rank draws on from where they stopped
-            self._gen.set_state(_broadcast(
-                self._gen.get_state(), self.rollout.mesh_config.device_offset))
+        self.sync_generator()
         exp, stats, switch = self.rollout_stage(
             step, params, self.batch_size, n_episodes=self.rollout_episodes,
             noise=self.rollout_noise(step), params_version=step,
@@ -705,23 +788,18 @@ class EarlTrainer:
                     and (self.temperature <= 0.0
                          or self.temperature == 1.0))
         spmd = _spmd()
-        if not spmd or self.rollout.in_mesh:
+        if self.rolls_out():
             exp = self.expprep_stage(exp, ref_params=ref_params,
                                      ref_folded=self.ref_folded,
                                      reuse_behavior_lp=reuse_lp)
         self.check_fault("dispatch", step)
-        exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
-
-        # hook ②: the update stage's config is tracked apart from the
-        # rollout's (the async schedule needs both at once); the update
-        # runs on one rank: this one alone, or the update rank across
-        # ranks, which the batch reaches through the dispatcher
-        if self.selector is not None and self.selector.policy is not None:
-            self.selector.maybe_switch(step, stage="update")
+        # the update runs on one rank: this one alone, or the update rank
+        # across ranks, which the batch reaches through the dispatcher
         if spmd:
-            exp = self._to_update_rank(
-                exp, dst_shardings if dst_shardings is not None
-                else self.dispatch_stage.source_shardings(exp))
+            exp, dispatch_row = self.handoff(step, exp, dst_shardings)
+        else:
+            exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
+            self._update_hook(step)
         t1 = time.perf_counter()
         self.check_fault("update", step)
         metrics = None
@@ -731,6 +809,8 @@ class EarlTrainer:
             metrics = self.read_metrics(metrics)
         if spmd:
             metrics = _broadcast(metrics, self._update_rank())
+            if current_rank() != self._update_rank():
+                params = self.stand_in(params)
         t2 = time.perf_counter()
         rec = self.make_record(step, stats, metrics, switch=switch,
                                dispatch_row=dispatch_row,

@@ -490,7 +490,7 @@ def paged_decode_attention(p, x, kv: KVEntry, block_table, pos, *, wpage,
 def spec_verify_chunk_attention(p, x, kv: KVEntry, block_table, pos, *,
                                 wpage, woff, scrub=None, cow_src=None,
                                 cow_dst=None, n_heads, n_kv_heads, head_dim,
-                                rope_theta, attn_impl: str = "xla"):
+                                rope_theta, attn_impl: str = "xla", tp=None):
     """Speculative-verify attention for a chunk of K candidate tokens.
     x: (B,K,D) hidden states at absolute positions ``pos[b] .. pos[b]+K-1``;
     the committed pool context ends at ``pos``.
@@ -533,8 +533,7 @@ def spec_verify_chunk_attention(p, x, kv: KVEntry, block_table, pos, *,
     else:
         raise ValueError(f"attn_impl must be 'paged' or 'xla', got "
                          f"{attn_impl!r}")
-    out = out.reshape(B, K, n_heads * head_dim)
-    return out @ p["wo"], kv
+    return _o_proj(p, out.reshape(B, K, n_heads * head_dim), tp), kv
 
 
 # ---------------------------------------------------------------------------

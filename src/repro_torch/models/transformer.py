@@ -11,7 +11,7 @@ updated IN PLACE by prefill and each decode step; the block table,
 refcounts and positions are returned as new tensors.
 
 Tensor parallelism: ``forward``, ``prefill``, ``decode_step``,
-``init_cache`` and ``decode_scan_body`` take ``tp=`` (a
+``spec_verify_step``, ``init_cache`` and ``decode_scan_body`` take ``tp=`` (a
 ``models.tensor_parallel.TPContext``; None is one rank). ``params`` are
 then the rank's local shards (``core.resharding.shard_params``), the
 caches hold the rank's kv heads, and the logits are its vocab columns.
@@ -431,7 +431,7 @@ def decode_step(cfg: ModelConfig, params, token, cache, *, extra=None,
 
 def spec_verify_step(cfg: ModelConfig, params, chunk,
                      cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                     advance=None, eff_k=None, cow: bool = True):
+                     advance=None, eff_k=None, cow: bool = True, tp=None):
     """Score a (B, K) chunk of candidate tokens against the full model in
     one batched pass on the paged layout: the verify half of speculative
     decoding. ``chunk[:, 0]`` is the token sequential decode would commit
@@ -453,11 +453,14 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
     attn_impl: "paged" (the spec-verify kernel) or "xla". cow: as in
     ``_paged_decode_step`` — only the chunk's FIRST page can be a shared
     page (later chunk pages are freshly allocated), so a row whose copy is
-    blocked drops its writes into that page only.
+    blocked drops its writes into that page only. tp: the rank's
+    tensor-parallel context: the kernel runs on the rank's q and kv heads,
+    the o-proj and the MLP all-reduce, and the logits are the rank's vocab
+    columns; the write plan is replicated.
     """
     B, K = chunk.shape
     dev = chunk.device
-    x = L.embed(params["embedding"], chunk)                  # (B,K,D)
+    x = L.embed(params["embedding"], chunk, tp)              # (B,K,D)
     pos = cache.pos
     adv = (torch.ones((B,), dtype=torch.bool, device=dev)
            if advance is None else advance)
@@ -505,15 +508,15 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
     woff = cpos % ps
 
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    H, KV = _heads(cfg, tp)
     x = _apply_layers(
         cfg, x, layers,
         lambda i, p, h: L.spec_verify_chunk_attention(
             p, h, cache.kv.layer(i), bt, pos, wpage=wpage, woff=woff,
             scrub=scrub, cow_src=cow_src, cow_dst=cow_dst,
-            n_heads=cfg.n_heads,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim_,
-            rope_theta=cfg.rope_theta, attn_impl=attn_impl)[0])
-    return _chunk_logits(cfg, params, x), PagedDecodeCache(
+            n_heads=H, n_kv_heads=KV, head_dim=cfg.head_dim_,
+            rope_theta=cfg.rope_theta, attn_impl=attn_impl, tp=tp)[0], tp)
+    return _chunk_logits(cfg, params, x, tp), PagedDecodeCache(
         kv=cache.kv, block_table=bt, refcount=refcount, pos=pos)
 
 

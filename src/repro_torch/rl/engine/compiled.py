@@ -94,8 +94,15 @@ flow, slots, block tables and the env are replicated: every rank computes
 the same, and the collectives return the same values on every rank. A
 rank outside the bound mesh takes no part: ``run`` returns a batch of
 meta tensors of the global shapes (the dispatcher's stand-in) and no
-stats. Speculation, int8 pages, prefix sharing, preemption and pool
-growth at tp above 1 raise citing ROADMAP Queue 1 item 14.
+stats. The paged pool's options hold at tp above 1: int8 pages keep their
+per-kv-head scales beside the rank's kv heads; the shared prefix run, the
+block tables, the refcounts and the governor's, admission's and growth's
+decisions are replicated, and pool growth grows each rank's shards. Under
+speculation the draft decodes on the rank's shards (``"self"``: the view
+of the rank's policy shards; ``"draft"``: the draft model's own tp plan)
+into a dense cache of the rank's kv heads, the verify chunk runs on the
+rank's heads, every judged token is the vocab-partial combine, and the
+round loop's flag is reduced over the model axis.
 
 The episode store and the slot token buffers carry one trash row/column
 where JAX drops out-of-range writes (``slots.py``); the paged pools carry
@@ -138,6 +145,7 @@ class _DraftStream(NamedTuple):
     """The speculative draft: its dense decode body and its cache."""
     decode: Callable
     cache: Any                 # dense bf16 decode cache of the draft
+    vocab: int                 # its logits' columns (the rank's under tp)
 
 
 def _reset_cache_rows(cache, refill):
@@ -284,14 +292,16 @@ class CompiledRolloutEngine:
         self.speculation = speculation
         self.spec_k = spec_k
         self.draft_layers = draft_layers
+        self.draft_model = draft_model if speculation == "draft" else None
         self._draft_cfg = (
             dataclasses.replace(cfg, n_layers=draft_layers)
             if speculation == "self" else
             draft_model.cfg if speculation == "draft" else None)
         self.device = resolve_device(device)
         self._tp = None               # this rank's TPContext at tp > 1
+        self._draft_tp = None         # the draft's ("draft": its own plan)
         self._in_mesh = True
-        self._held = {}               # "params"/"ref": (global, local)
+        self._held = {}               # "params"/"ref"/"draft": (global, local)
         self._mesh_config = None
         self.bind_mesh(mesh_config)
 
@@ -327,8 +337,7 @@ class CompiledRolloutEngine:
 
     # -- selector hook ① ----------------------------------------------------
     def _check_mesh(self, cfg):
-        """A config of dp = pods = 1 over ranks of the process group; tp
-        above 1 only where the tensor-parallel rollout is ported."""
+        """A config of dp = pods = 1 over ranks of the process group."""
         # the core package imports this engine (through its stages)
         from repro_torch.core.resharding import current_rank, world_size
         if cfg is None:
@@ -337,20 +346,6 @@ class CompiledRolloutEngine:
             raise _unported(
                 f"mesh_config {cfg.name!r} (dp={cfg.dp}, pods={cfg.pods}): "
                 f"data-parallel rollout across ranks", "13")
-        if cfg.tp > 1:
-            for what, bad in (
-                    (f"speculation={self.speculation!r}",
-                     self.speculation != "off"),
-                    ("kv_dtype='int8'", self.kv_dtype == "int8"),
-                    ("share_prefix", self.share_prefix),
-                    ("on_exhaust='preempt'", self.on_exhaust == "preempt"),
-                    (f"pool_growth={self.pool_growth!r}",
-                     self.pool_growth != "off")):
-                if bad:
-                    raise _unported(
-                        f"{what} at tp={cfg.tp} (mesh_config "
-                        f"{cfg.name!r}) in the tensor-parallel rollout",
-                        "14")
         lo, hi = cfg.device_offset, cfg.device_offset + cfg.n_devices
         if hi > world_size():
             where = (f"rank {lo}" if cfg.n_devices == 1
@@ -390,27 +385,32 @@ class CompiledRolloutEngine:
         self._mesh_config = cfg
         self._in_mesh = cfg is None or bool(
             (cfg.ranks() == current_rank()).any())
-        tp = None
+        tp = draft_tp = None
         if cfg is not None and cfg.tp > 1:
             group = model_group(cfg)          # every rank: collective
             if self._in_mesh:
-                tp = TPContext(tp_plan(self.model, cfg), group)
-        self._tp = tp
+                tp = draft_tp = TPContext(tp_plan(self.model, cfg), group)
+                if self.draft_model is not None:
+                    draft_tp = TPContext(tp_plan(self.draft_model, cfg),
+                                         group)
+        self._tp, self._draft_tp = tp, draft_tp
         if cfg != old:
-            self._held = {k: (g, self._shard(g)) for k, (g, _) in
+            self._held = {k: (g, self._shard(g, k)) for k, (g, _) in
                           self._held.items() if self._in_mesh}
 
-    def _shard(self, params):
+    def _shard(self, params, key: str = "params"):
         from repro_torch.core.resharding import shard_params
-        if self._tp is None:
+        tp = self._draft_tp if key == "draft" else self._tp
+        if tp is None:
             return params
-        return shard_params(params, self._tp.plan, device=self.device)
+        return shard_params(params, tp.plan, device=self.device)
 
     def _local_params(self, params, key: str = "params"):
         """The tensors this rank runs on: ``params`` itself below tp=2, a
         ``LocalParams`` of the bound mesh as it is, and the rank's shards
         of a global tree (kept while the caller passes the same tree, and
-        re-sharded by ``bind_mesh``)."""
+        re-sharded by ``bind_mesh``); ``key="draft"`` shards by the draft
+        model's plan."""
         from repro_torch.core.resharding import LocalParams
         if params is None or self._tp is None:
             return params
@@ -423,7 +423,7 @@ class CompiledRolloutEngine:
             return params
         held = self._held.get(key)
         if held is None or held[0] is not params:
-            held = (params, self._shard(params))
+            held = (params, self._shard(params, key))
             self._held[key] = held
         return held[1]
 
@@ -557,7 +557,7 @@ class CompiledRolloutEngine:
             # the draft's cache is always dense in its default bf16 (a
             # truncated stack or a small model; as in JAX)
             draft_cache=(transformer.init_cache(self._draft_cfg, B, T,
-                                                device=dev)
+                                                device=dev, tp=self._draft_tp)
                          if spec else None),
             spec_proposed=z((), torch.int32) if spec else None,
             spec_accepted=z((), torch.int32) if spec else None,
@@ -610,9 +610,11 @@ class CompiledRolloutEngine:
                              "(the draft_model's weights)")
         else:
             d_params = draft_params
+        tp = self._draft_tp
         return _DraftStream(
-            transformer.decode_scan_body(self._draft_cfg, d_params),
-            c.draft_cache)
+            transformer.decode_scan_body(self._draft_cfg, d_params, tp=tp),
+            c.draft_cache,
+            self._draft_cfg.vocab_size if tp is None else tp.vocab_local)
 
     def _ref_advance(self, ref: _RefStream, tok, mask, pos, rows,
                      cidx) -> _RefStream:
@@ -638,8 +640,8 @@ class CompiledRolloutEngine:
         T = self.max_context
         B = pos.shape[0]
         rows = torch.arange(B, device=pos.device)
-        d_logits = (torch.zeros((B, self.model.cfg.vocab_size),
-                                dtype=torch.float32, device=pos.device)
+        d_logits = (torch.zeros((B, draft.vocab), dtype=torch.float32,
+                                device=pos.device)
                     if draft is not None else None)
         for j in range(obs.shape[1]):
             m = mask & ~skip if j < n_skip else mask
@@ -730,12 +732,16 @@ class CompiledRolloutEngine:
             logits=logits, cache=cache, tokens=tokens, pos=pos,
             prefix_pages=prefix_pages), ref, draft)
 
-    @staticmethod
-    def _more_rounds(pending) -> bool:
+    def _more_rounds(self, pending) -> bool:
         """Whether any row still writes after a verify round: THE host read
         of the round. JAX's round loop is a ``lax.while_loop`` whose test
-        runs on the device; eager PyTorch must read it back."""
-        return bool(pending.any())
+        runs on the device; eager PyTorch must read it back. Under tp the
+        flag is a MAX over the model axis, so every rank leaves the loop
+        after the same round."""
+        flag = pending.any()
+        if self._tp is not None:
+            flag = self._tp.all_reduce(flag.to(torch.int32), "max")
+        return bool(flag)
 
     def _spec_gen_turn(self, params, draft: _DraftStream, logits, cache,
                        tokens, gen_mask, logprobs, pos, active, m: int,
@@ -760,7 +766,9 @@ class CompiledRolloutEngine:
         else:
             noise_at = lambda t: None                       # greedy
         sample = lambda lg, t: common.sample_with_noise(
-            lg, noise_at(t), self.temperature, self.top_p)
+            lg, noise_at(t), self.temperature, self.top_p, tp=self._tp)
+        d_sample = lambda lg, t: common.sample_with_noise(
+            lg, noise_at(t), self.temperature, self.top_p, tp=self._draft_tp)
         dcache = draft.cache
         acted = ~active
         actions = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -782,13 +790,13 @@ class CompiledRolloutEngine:
                 (d_logits, dcache), _ = draft.decode(
                     (d_logits, dcache), (cur, write & (jj < ek)))
                 if jj < K - 1:
-                    cur, _ = sample(d_logits, tl + jj + 1)
+                    cur, _ = d_sample(d_logits, tl + jj + 1)
                     toks.append(cur)
             chunk = torch.stack(toks, dim=1)                # (B, K)
             vlogits, cache = transformer.spec_verify_step(
                 self.model.cfg, params, chunk, cache,
                 attn_impl=self.attn_impl, advance=write, eff_k=ek,
-                cow=False)                      # as in ``_decode``
+                cow=False, tp=self._tp)         # cow: as in ``_decode``
             # chunk[:, j] commits iff it is the token sequential decode
             # samples from vlogits[:, j-1] with that step's noise row
             match, commits = write, i32(write)
@@ -1205,6 +1213,7 @@ class CompiledRolloutEngine:
         local = self._local_params(params)
         ref_params = (local if ref_params is params
                       else self._local_params(ref_params, "ref"))
+        draft_params = self._local_params(draft_params, "draft")
         params = local
         carry = self.init_feed(
             params, self.init_carry(B, N, with_ref=ref_params is not None,

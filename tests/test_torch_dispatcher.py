@@ -68,6 +68,7 @@ def run_jax_subprocess(code: str, *args: str, devices: int = 8) -> str:
 
 GLOO_PRELUDE = """
 import json, sys
+from datetime import timedelta
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -75,7 +76,7 @@ torch.set_num_threads(1)
 RANK, WORLD = int(sys.argv[1]), int(sys.argv[2])
 ARG = json.loads(sys.argv[4])
 dist.init_process_group("gloo", store=dist.FileStore(sys.argv[3], WORLD),
-                        rank=RANK, world_size=WORLD)
+                        rank=RANK, world_size=WORLD, **PG_TIMEOUT)
 
 
 def emit(obj):
@@ -95,15 +96,19 @@ os._exit(0)
 """
 
 
-def run_gloo(code: str, world: int, workdir, arg=None, timeout: int = 300):
+def run_gloo(code: str, world: int, workdir, arg=None, timeout: int = 300,
+             pg_timeout=None):
     """Run ``code`` on ``world`` gloo ranks, one process each, meeting
     through a FileStore in ``workdir``. Returns each rank's ``emit``ted
-    objects, by rank."""
+    objects, by rank. ``pg_timeout`` (seconds) bounds every collective of
+    the group, so a hang fails instead of waiting out ``timeout``."""
     workdir = str(workdir)
     script = os.path.join(workdir, f"gloo_{world}.py")
+    pg = ("{}" if pg_timeout is None
+          else f"dict(timeout=timedelta(seconds={pg_timeout}))")
     with open(script, "w") as f:
-        f.write(GLOO_PRELUDE + textwrap.dedent(code)
-                + GLOO_EPILOGUE)
+        f.write(GLOO_PRELUDE.replace("PG_TIMEOUT", pg)
+                + textwrap.dedent(code) + GLOO_EPILOGUE)
     store = os.path.join(workdir, f"store_{world}")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")

@@ -167,15 +167,17 @@ def test_small_pool_counts_or_raises(models):
                               **kw).run(tparams, B, N)
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("mesh_config", MeshConfig("dp2", dp=2, tp=1), "item 13"),
-    ("mesh_config", MeshConfig("tp2", dp=1, tp=2), "item 14"),
+@pytest.mark.parametrize("option,value,error,item", [
+    ("mesh_config", MeshConfig("dp2", dp=2, tp=1), NotImplementedError,
+     "item 13"),
+    ("mesh_config", MeshConfig("tp2", dp=1, tp=2), ValueError, "ranks 0..1"),
 ])
-def test_unported_options_raise(models, option, value, item):
-    """dp above 1 is unported; tp above 1 runs the dense family's
-    tensor-parallel rollout, where int8 pages are still unported."""
+def test_unported_options_raise(models, option, value, error, item):
+    """dp above 1 is unported; tp above 1 runs the tensor-parallel
+    rollout, int8 pages included (tests/test_torch_tp_options.py): in this
+    world of one rank a tp=2 config stops at the world check."""
     tmodel = models[2]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         CompiledRolloutEngine(tmodel, TicTacToe(), device="cpu",
                               kv_dtype="int8", **{option: value})
 

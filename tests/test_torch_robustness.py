@@ -12,12 +12,14 @@ port (port of ``tests/test_robustness.py``'s harness and recovery tests).
   the uninterrupted run bitwise, on the trainer's own generator (so the
   saved generator state is what is tested). An async crash at lag 0
   restarts from the checkpoint and ends bitwise equal to a clean run; at
-  lag 1 it recovers the step count; without a checkpoint it propagates
-  and leaves no worker thread.
+  lag 1 it recovers the step count; at lag 2 the updates queued behind a
+  failed one neither run nor save, so the restart resumes at the failed
+  step; without a checkpoint it propagates and leaves no worker thread.
 - The CLI runs the async pipeline and an injected fault with retries and
   checkpoints for two smoke steps on the CPU.
 """
 import json
+import os
 import threading
 
 import numpy as np
@@ -334,6 +336,39 @@ def test_async_crash_with_lag_recovers_step_count(model, tmp_path):
     # the restart at step 2 rolls out on the restored version
     assert [r.policy_lag for r in hist] == [0, 1, 0, 1, 1]
     assert latest_step(d) == 5
+
+
+def test_async_failed_update_stops_the_updates_queued_behind_it(model,
+                                                                 tmp_path):
+    """At lag 2 the updates of steps 3 and 4 are queued behind the failing
+    update of step 2 when it raises, whatever the timing: none of them may
+    run or save, or the restart would resume from params that lack update
+    2. The newest checkpoint is then step 2's (the state after updates 0
+    and 1)."""
+    d = str(tmp_path / "ck")
+    faults = tfaults.FaultInjector.parse(["update@2"])
+    tr = _trainer(model, pipeline="async", lag=2, faults=faults,
+                  max_retries=0, retry_backoff_s=0.0, checkpoint_dir=d,
+                  checkpoint_every=1)
+    with pytest.raises(tfaults.FaultInjected):
+        tr.train(5)
+    assert latest_step(d) == 2
+    assert sorted(os.listdir(d)) == ["step_00000001", "step_00000002"]
+
+    # with a retry the restart resumes at step 2 on version 2: rollout k
+    # samples with version max(start, k - 2), so steps 0 and 1 ran at lags
+    # 0 and 1 (versions 0, 0), and steps 2, 3, 4 after the restart at
+    # start = 2 run on version 2 at lags 0, 1, 2
+    d2 = str(tmp_path / "ck2")
+    faults = tfaults.FaultInjector.parse(["update@2"])
+    tr = _trainer(model, pipeline="async", lag=2, faults=faults,
+                  max_retries=1, retry_backoff_s=0.0, checkpoint_dir=d2,
+                  checkpoint_every=1)
+    _, _, hist = tr.train(5)
+    assert faults.fired("update") == 1
+    assert [r.step for r in hist] == [0, 1, 2, 3, 4]
+    assert [r.policy_lag for r in hist] == [0, 1, 0, 1, 2]
+    assert latest_step(d2) == 5
 
 
 def test_async_crash_without_checkpoint_propagates(model):

@@ -368,22 +368,24 @@ def test_trainer_rows_equal_jax(pipeline):
 # The engine's mesh binding
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("cfg,item", [
-    (MeshConfig("dp2", dp=2, tp=1), "item 13"),
-    (MeshConfig("pods2", dp=1, tp=1, pods=2), "item 13"),
-    (MeshConfig("tp2", dp=1, tp=2), "item 14"),
+@pytest.mark.parametrize("cfg,error,item", [
+    (MeshConfig("dp2", dp=2, tp=1), NotImplementedError, "item 13"),
+    (MeshConfig("pods2", dp=1, tp=1, pods=2), NotImplementedError,
+     "item 13"),
+    (MeshConfig("tp2", dp=1, tp=2), ValueError, "ranks 0..1"),
 ])
-def test_engine_mesh_config_beyond_one_device_raises(cfg, item):
-    """dp and pods above 1 are unported; tp above 1 runs the dense
-    family's tensor-parallel rollout (tests/test_torch_tp.py), where int8
-    pages are still unported."""
+def test_engine_mesh_config_beyond_one_device_raises(cfg, error, item):
+    """dp and pods above 1 are unported; tp above 1 runs the
+    tensor-parallel rollout, int8 pages included
+    (tests/test_torch_tp_options.py), and a tp=2 config does not fit this
+    world of one rank."""
     model = build_model(get_smoke_config("qwen2-0.5b"))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         CompiledRolloutEngine(model, TicTacToe(), device="cpu",
                               kv_dtype="int8", mesh_config=cfg)
     eng = CompiledRolloutEngine(model, TicTacToe(), device="cpu",
                                 kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         eng.bind_mesh(cfg)
     with pytest.raises(ValueError, match="rank 3"):
         eng.bind_mesh(MeshConfig("far", 1, 1, device_offset=3))

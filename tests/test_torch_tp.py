@@ -23,8 +23,10 @@ port's one-rank run:
   included;
 - a two-rank ``EarlTrainer`` whose selector switches tp=1 -> tp=2 at step
   1, its records against the one-rank trainer's within 1e-5;
-- the options still unported at tp above 1 and the python backend and
-  the async pipeline across ranks (citing 14), and dp (citing 13).
+- the paged-pool options at tp above 1 pass the option check (they run
+  in ``tests/test_torch_tp_options.py``), the trainer builds the python
+  backend and the async pipeline across ranks, no module of the port
+  cites ROADMAP item 14, and dp still cites 13.
 """
 import os
 import subprocess
@@ -502,39 +504,57 @@ def test_partial_combine_matches_fused_sample_ref(R, case):
 
 
 # ---------------------------------------------------------------------------
-# What still raises
+# What the checks take, and what still raises
 # ---------------------------------------------------------------------------
 
 TP2 = MeshConfig("tp2", dp=1, tp=2)
 
 
-@pytest.mark.parametrize("arch,kw,item", [
-    ("qwen2-0.5b", dict(speculation="self", sampling="reference"), "14"),
-    ("qwen2-0.5b", dict(kv_dtype="int8"), "14"),
-    ("qwen2-0.5b", dict(share_prefix=True), "14"),
-    ("qwen2-0.5b", dict(on_exhaust="preempt"), "14"),
-    ("qwen2-0.5b", dict(pool_growth="double"), "14"),
-    # the families run at tp above 1 (tests/test_torch_tp_families.py);
-    # across ranks the trainer still refuses the python backend and the
-    # async pipeline
-    ("mamba2-370m", dict(rollout_backend="python"), "14"),
-    ("granite-moe-3b-a800m", dict(pipeline="async", max_policy_lag=1),
-     "14"),
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2-0.5b", dict(speculation="self", sampling="reference")),
+    ("qwen2-0.5b", dict(kv_dtype="int8")),
+    ("qwen2-0.5b", dict(share_prefix=True)),
+    ("qwen2-0.5b", dict(on_exhaust="preempt")),
+    ("qwen2-0.5b", dict(pool_growth="double")),
+    # across ranks the trainer takes the python backend and the async
+    # pipeline
+    ("mamba2-370m", dict(rollout_backend="python")),
+    ("granite-moe-3b-a800m", dict(pipeline="async", max_policy_lag=1)),
 ])
-def test_unported_at_tp_above_one(arch, kw, item, monkeypatch):
+def test_options_pass_the_checks_at_tp_above_one(arch, kw, monkeypatch):
+    """The engine's option check takes the paged-pool options at tp=2:
+    the engine stops at the world check (this process is a world of one);
+    the trainer across ranks builds the python backend (never bound, it
+    rolls out on the update rank) and the async pipeline (bound to the
+    update rank's mesh, with the params handoff)."""
     model = build_model(get_smoke_config(arch))
     if "rollout_backend" in kw or "pipeline" in kw:
         from repro_torch.core import stages
-        # the trainer's check across ranks, in a process of its own: the
-        # group of several ranks is stood in for
+        # the trainer across ranks, in a process of its own: the group of
+        # several ranks is stood in for
         monkeypatch.setattr(stages, "_spmd", lambda: True)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            stages.EarlTrainer(model=model, env=TicTacToe(), device="cpu",
-                               **kw)
+        tr = stages.EarlTrainer(model=model, env=TicTacToe(), device="cpu",
+                                **kw)
+        st = tr.rollout_stage
+        if "rollout_backend" in kw:
+            assert st.place is None and st.home() == 0
+            assert not hasattr(tr.rollout, "bind_mesh")
+        else:
+            assert st.place is not None and st.home is None
+            assert tr.rollout.mesh_config.device_offset == 0
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match="ranks 0..1"):
         CompiledRolloutEngine(model, TicTacToe(), device="cpu",
                               mesh_config=TP2, **kw)
+
+
+def test_no_module_of_the_port_cites_item_14():
+    root = os.path.join(REPO, "src", "repro_torch")
+    for path, _, files in os.walk(root):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(path, f)) as fh:
+                    assert "item 14" not in fh.read(), os.path.join(path, f)
 
 
 def test_dp_above_one_still_cites_13(smoke):
