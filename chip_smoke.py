@@ -168,7 +168,14 @@ Phases, in order; any failure raises and exits non-zero:
                memory. Then the same for granite-moe-3b-a800m (12 layers),
                mamba2-370m (8) and zamba2-1.2b (12) at their published
                widths on their dense caches (fp32 on f32 caches), with the
-               bytes each rank receives and keeps.
+               bytes each rank receives and keeps. Between them, the
+               data-parallel rollout at dp=2 (each rank 4 of the 8 slots
+               on its half of the pool): fp32 tokens, counters and
+               launches equal the dp=1 run's, bf16 first-step logits at a
+               rank's 4 rows within 5% of all 8 rows', int8 pages at 12
+               layers, and two SPMD trainer steps switching dp2 -> tp2
+               against one rank (the kernels at a data row's shapes are in
+               the kernels phase).
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
@@ -799,6 +806,107 @@ def tp_pool_cases(torch, report, g):
           **case})
 
 
+def dp_cases(torch, report, g):
+    """The decode-side kernels at one data row of full-width qwen2-0.5b at
+    dp=2 (tp_path's dp runs: 4 of B=8 rows, 14 q heads on 2 kv heads, hd
+    64, a 96-token context): paged attention on the row's half pool (4 x 6
+    pages and its trash page) at fp32, bf16 and int8, the decode kernel
+    on the folded reference's bf16 cache, and the one-launch sampler on
+    the row's 4 rows of the 151,936-wide vocabulary. Each is held against
+    ref.py by its phase's rule and timed beside its bound and the plain
+    version (and SDPA for the decode kernel)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.fused_sample import ops as fs_ops
+    from repro_torch.kernels.fused_sample.ref import fused_sample_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+
+    dev = "cuda"
+    B, H, KV, hd, ps, NP, S = TP_BATCH // 2, 14, 2, 64, 16, 6, 96
+    lens = torch.randint(1, S + 1, (B,), generator=g,
+                         device=dev).to(torch.int32)
+    n_valid = int(lens.sum())
+    for dname, qdt, kvdt, rtol, peak in (
+            ("fp32", torch.float32, torch.float32, 0.0, F32_FLOPS),
+            ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7, BF16_FLOPS),
+            ("int8", torch.float32, torch.int8, 0.0, F32_FLOPS)):
+        kp, vp, ks, vs, bt = _tp_pool(torch, g, B, NP, ps, KV, hd, kvdt,
+                                      lens)
+        q = torch.randn((B, H, hd), generator=g, device=dev).to(qdt)
+        call = lambda: pa_ops.paged_decode_attention(
+            q, kp, vp, bt, lens, k_scales=ks, v_scales=vs)
+        plain = lambda: paged_decode_attention_ref(q, kp, vp, bt, lens, ks,
+                                                   vs)
+        out, ref = call(), plain()
+        torch.cuda.synchronize()
+        chk = held(torch, out, ref,
+                   2.0 ** -18 * float(ref.float().abs().max()), rtol)
+        if not chk["ok"]:
+            raise AssertionError(f"paged_attention {dname}_dp2: {chk}")
+        nbytes = (2 * n_valid * KV * (hd * kp.element_size()
+                                      + (4 if ks is not None else 0))
+                  + 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4)
+        b_ms, b_by = bound(nbytes, 4 * n_valid * H * hd, peak)
+        case = dict(chk, H=H, KV=KV, B=B, NP=NP, pool_pages=kp.shape[0],
+                    ms=time_cold(torch, call), plain_ms=time_cold(torch, plain),
+                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        report["paged_attention"]["cases"][f"{dname}_dp2"] = case
+        emit({"phase": "kernels", "kernel": "paged_attention",
+              "case": f"{dname}_dp2", **case})
+
+    q = torch.randn((B, H, hd), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    valid = torch.arange(S, device=dev)[None, :] < lens[:, None]
+    out = da_ops.decode_attention(q, k, v, valid)
+    ref = decode_attention_ref(q, k, v, valid)
+    torch.cuda.synchronize()
+    chk = held(torch, out, ref, 2.0 ** -18 * float(ref.float().abs().max()),
+               2.0 ** -7)
+    if not chk["ok"]:
+        raise AssertionError(f"decode_attention bf16_dp2: {chk}")
+    nbytes = 2 * n_valid * KV * hd * 2 + 2 * q.numel() * 2 + B * S
+    b_ms, b_by = bound(nbytes, 4 * H * hd * n_valid, BF16_FLOPS)
+    am = valid[:, None, None, :]
+    case = dict(chk, B=B, S=S, H=H, KV=KV,
+                ms=time_cold(torch, lambda: da_ops.decode_attention(
+                    q, k, v, valid)),
+                plain_ms=time_cold(torch, lambda: decode_attention_ref(
+                    q, k, v, valid)),
+                library_ms=time_cold(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                        attn_mask=am, enable_gqa=True)),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    report["decode_attention"]["cases"]["bf16_dp2"] = case
+    emit({"phase": "kernels", "kernel": "decode_attention",
+          "case": "bf16_dp2", **case})
+
+    V = 151936
+    lg = torch.randn((B, V), generator=g, device=dev) * 3.0
+    gum = -torch.log(-torch.log(
+        torch.rand((B, V), generator=g, device=dev).clamp_min(1e-38)))
+    tok, lp = fs_ops.fused_sample(lg, gum)
+    tok_r, lp_r = fused_sample_ref(lg, gum)
+    torch.cuda.synchronize()
+    atol = ((V / 1024 + 60) * 2.0 ** -24
+            + 8 * 2.0 ** -23 * float(lp_r.abs().max()))
+    chk = held(torch, lp, lp_r, atol, 0.0)
+    if not (chk["ok"] and torch.equal(tok, tok_r)):
+        raise AssertionError(f"fused_sample gumbel_dp2: {chk}")
+    b_ms, b_by = bound(2 * B * V * 4 + B * 8, 4 * B * V)
+    case = dict(chk, tokens_equal=True, B=B,
+                ms=time_cold(torch, lambda: fs_ops.fused_sample(lg, gum)),
+                plain_ms=time_cold(torch, lambda: fused_sample_ref(lg, gum)),
+                bound_ms=b_ms, bound_by=b_by)
+    report["fused_sample"]["cases"]["gumbel_dp2"] = case
+    emit({"phase": "kernels", "kernel": "fused_sample", "case": "gumbel_dp2",
+          **case})
+
+
 def phase_tp_kernels(torch, report):
     """The kernels at one rank's shapes of full-width qwen2-0.5b at tp=2
     (tp_path): paged attention at 7 q heads on one kv head (group 7, B=32,
@@ -817,7 +925,8 @@ def phase_tp_kernels(torch, report):
     decode and flash kernels at the families' rank heads are in their own
     phases (``*_granite_tp2``, ``*_zamba2_tp2``). The option runs' shapes
     (spec-verify on fp32, bf16 and int8 pools, paged attention on an int8
-    pool) are ``tp_pool_cases``'."""
+    pool) are ``tp_pool_cases``', and those of tp_path's dp runs (a data
+    row's 4 rows on its half pool) ``dp_cases``'."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_sample import ops as fs_ops
     from repro_torch.kernels.fused_sample.ref import (
@@ -861,6 +970,7 @@ def phase_tp_kernels(torch, report):
     emit({"phase": "kernels", "kernel": "paged_attention", "case": "bf16_tp2",
           **case})
     tp_pool_cases(torch, report, g)
+    dp_cases(torch, report, g)
 
     cases = {}
 
@@ -2906,6 +3016,141 @@ def tp_async(torch, model, params, rank: int, spmd: bool) -> dict:
     return out
 
 
+# the dp runs of tp_path's ranks (tp_dp, dp_train): full-width qwen2-0.5b
+# at dp=2 with TP_PATH's settings, each rank a data row of 4 of TP_BATCH's
+# slots on its half of the pool. (d) is two steps of the SPMD trainer at
+# CUT_LAYERS whose selector switches dp2 -> tp2 at step 1, sampled with
+# injected draws, the KL term off (tp_async's reason): five turns of four
+# tokens, so that games end, and sampled, because greedy random weights
+# repeat one illegal move in every game (all returns -1, so every
+# advantage and the loss are 0)
+DP2 = ("dp2", 2, 1)
+DP_DEVICE = "cuda"        # the dp runs' device (a CPU rehearsal sets "cpu")
+DP_INT8 = dict(TP_PATH, kv_dtype="int8")
+DP_TRAIN = dict(batch_size=TP_BATCH, max_turns=5, max_turn_tokens=4,
+                max_context=96, kv_dtype="fp32", temperature=1.0,
+                kl_coef=0.0, seed=0)
+
+
+def dp_tp_selector(world: int):
+    """A profiled selector of "dp2" (``world`` data rows) and "tp2" (a
+    ``world``-rank tp group), one-device configs of the same names on one
+    rank; "dp2" wins the bucket below one token of context, "tp2" above,
+    so the rollout switches at step 1."""
+    from repro_torch.core.parallelism_selector import (
+        ContextBuckets, ParallelismSelector, ProfileEntry)
+    from repro_torch.core.resharding import MeshConfig
+    sel = ParallelismSelector(
+        [MeshConfig("dp2", world, 1), MeshConfig("tp2", 1, world)],
+        lambda c, ctx: ProfileEntry(
+            c, ctx, 2.0 if (c.name == "dp2") == (ctx <= 1) else 1.0, True),
+        ContextBuckets((1,)))
+    sel.profile()
+    return sel
+
+
+def dp_noise(torch):
+    """(d)'s injected draws: Gumbel draws of the global batch (the
+    sampler's and the opponent's), keyed by (step, kind, macro-step,
+    index) from seeded host generators, the same on every rank."""
+    from repro_torch.rl.engine.common import gumbel_from_uniform
+
+    def step_noise(step):
+        def noise(kind, m, index, shape):
+            g = torch.Generator().manual_seed(
+                (step * 1000 + m * 10 + index) * 2 + (kind == "env"))
+            u = torch.rand(shape, generator=g).clamp_min(1e-30)
+            return gumbel_from_uniform(u).to(DP_DEVICE)
+        return noise
+    return step_noise
+
+
+def tp_dp(torch, model, full32, cut, cut32, rollout, rank, gen, reset,
+          read):
+    """tp_path's dp runs (a)-(c) on one rank (``tp_worker``, after its tp
+    runs): (a) full-width qwen2-0.5b at dp=2, paged, fp32 params and KV,
+    the folded reference, fused sampling, greedy, B=8 (each rank 4 slots);
+    (b) the same at bf16, one turn without the reference, and the first
+    decode step's logits after a 12-token prompt on the rank's 4 rows
+    against all 8 rows on the rank; (c) int8 pages at dp=2 at CUT_LAYERS,
+    fp32 params, against the same run at dp=1 on rank 1 alone. Each run
+    holds the whole params on the card (``rollout``'s ``to_card``). (c)'s
+    dp=1 run is ``tp_worker``'s, on rank 1 while rank 0 runs tp=1."""
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.models import transformer
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import TicTacToe
+    dp2 = MeshConfig(*DP2)
+    out = {}
+    eng = CompiledRolloutEngine(model, TicTacToe(), mesh_config=dp2,
+                                kv_dtype="fp32", **TP_PATH)
+    out["fp32_dp2"] = rollout(eng, full32, True, True)
+    full16 = {k: v.bfloat16() for k, v in full32.items()}
+    eng = CompiledRolloutEngine(model, TicTacToe(), mesh_config=dp2,
+                                kv_dtype="bf16", **dict(TP_PATH,
+                                                        max_turns=1))
+    out["bf16_dp2"] = rollout(eng, full16, False, True)
+    del eng
+    # the first decode step at the rank's rows (prefill on the flash
+    # forward, decode on the paged kernel) against all rows
+    cfg, B = model.cfg, TP_BATCH
+    tok = torch.randint(0, cfg.vocab_size, (B, 13), device=DP_DEVICE,
+                        generator=gen())
+    g16 = {k: v.to(DP_DEVICE) for k, v in full16.items()}
+    mine = slice(rank * B // 2, (rank + 1) * B // 2)
+    lg = {}
+    reset()
+    with torch.no_grad():
+        for name, rows in (("rank", tok[mine]), ("all", tok)):
+            c = transformer.init_cache(cfg, rows.shape[0], 32, layout="paged",
+                                       device=DP_DEVICE)
+            _, c = transformer.prefill(cfg, g16, rows[:, :12], c,
+                                       attn_impl="paged")
+            lg[name], _ = transformer.decode_step(cfg, g16, rows[:, 12], c,
+                                                  attn_impl="paged")
+    ref = lg["all"][mine].float()
+    out["bf16_logits"] = dict(
+        max_abs_err=float((lg["rank"].float() - ref).abs().max()),
+        scale=float(ref.abs().max()), launches=read())
+    del g16, full16, c, lg, ref
+    torch.cuda.empty_cache()
+    eng = CompiledRolloutEngine(cut, TicTacToe(), mesh_config=dp2, **DP_INT8)
+    out["int8_dp2"] = rollout(eng, cut32, True, True)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_train(torch, model, params, rank: int, spmd: bool) -> dict:
+    """tp_path's dp run (d): two steps of ``EarlTrainer`` (DP_TRAIN) on
+    ``params`` (host tensors) whose selector switches dp2 -> tp2 at step 1:
+    across the two ranks (``spmd``; the update on rank 0, whose params
+    alone are real) or on this rank alone, the reference. Returns the
+    records, the launches and the seconds."""
+    from repro_torch.core.stages import EarlTrainer
+    from repro_torch.rl.envs import TicTacToe
+    reset, read = _tp_counters()
+    tr = EarlTrainer(model=model, env=TicTacToe(),
+                     selector=dp_tp_selector(2 if spmd else 1),
+                     noise=dp_noise(torch), **DP_TRAIN)
+    p = ({k: v.to(DP_DEVICE) for k, v in params.items()}
+         if rank == 0 or not spmd else
+         {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+          for k, v in params.items()})
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    _, _, hist = tr.train(2, params=p, opt_state=tr.optimizer.init(p))
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, launches=read(),
+               records=[dict(loss=r.loss, kl=r.kl, ret=r.mean_return,
+                             ctx=r.mean_context_len, turn=r.mean_turn_len,
+                             sw=r.selector_switch) for r in hist])
+    del tr, p, hist
+    torch.cuda.empty_cache()
+    return out
+
+
 # the tp path's families: each at the depth its one-card phases run
 # (MOE_LAYERS, SSM_LAYERS, HYBRID_LAYERS), on its own dense cache
 TP_FAMILY_PATH = dict(cache_layout="dense", sampling="fused",
@@ -2990,12 +3235,17 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         exp, st = eng.run(params, B, n, ref_params=params if ref else None,
                           generator=gen())
         torch.cuda.synchronize()
+        # a data row's pool: its share of the global page count
+        rows = eng.data_rows.n if eng.data_rows is not None else 1
         res = dict(seconds=time.perf_counter() - t0, launches=read(),
                    peak_bytes=torch.cuda.max_memory_allocated() - base,
                    returned=st.episodes_returned,
                    counters={c: int(getattr(st, c)) for c in TP_STATS},
-                   pool_bytes=(pool_bytes(eng, st.page_capacity)
+                   pool_bytes=(pool_bytes(eng, st.page_capacity // rows)
                                if eng.cache_layout == "paged" else 0),
+                   page_bytes=(pool_bytes(eng, 0)
+                               if eng.cache_layout == "paged" else 0),
+                   layout=repr(eng.experience_shardings.tokens.spec),
                    tokens=exp.tokens.cpu().tolist(),
                    logprobs=exp.logprobs.cpu().tolist(),
                    ref_logprobs=exp.ref_logprobs.cpu().tolist())
@@ -3003,6 +3253,10 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         torch.cuda.empty_cache()
         return res
 
+    # the option runs (a)-(c) and the dp runs (c)-(d) at CUT_LAYERS, views
+    # of the same weights
+    cut = build_model(dataclasses.replace(cfg, n_layers=CUT_LAYERS))
+    cut32 = transformer.draft_params_view(full32, CUT_LAYERS)
     for kv in ("fp32", "bf16"):
         held_params = (full32 if kv == "fp32" else
                        {k: v.bfloat16() for k, v in full32.items()})
@@ -3014,6 +3268,12 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
                                     kv_dtype=kv, **settings)
         if eng.in_mesh:          # rank 1 takes no part at tp=1
             out[f"{kv}_tp1"] = rollout(eng, held_params, kv == "fp32", True)
+        elif kv == "fp32":
+            # meanwhile rank 1 runs the dp runs' (c) at dp=1, alone
+            alone = MeshConfig("dp1-rank1", 1, 1, device_offset=rank)
+            out["int8_dp1"] = rollout(CompiledRolloutEngine(
+                cut, TicTacToe(), mesh_config=alone, **DP_INT8), cut32, True,
+                True)
         # the selector's switch: re-bind the engine to tp=2
         eng.bind_mesh(two)
         out[f"{kv}_tp"] = dict(heads=eng.tp.n_heads,
@@ -3057,15 +3317,19 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         torch.cuda.empty_cache()
     del held_params
     out["seconds"] = time.perf_counter() - t_start
-    # the option runs (a)-(c) at CUT_LAYERS, views of the same weights
-    cut = build_model(dataclasses.replace(cfg, n_layers=CUT_LAYERS))
-    cut32 = transformer.draft_params_view(full32, CUT_LAYERS)
+    t0 = time.perf_counter()
+    out["dp"] = tp_dp(torch, model, full32, cut, cut32, rollout, rank, gen,
+                      reset, read)
+    out["dp_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["options"] = tp_options(torch, cut, cut32, rollout, rank, two)
     out["options_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["async"] = tp_async(torch, cut, cut32, rank, spmd=True)
     out["async_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dp_train"] = dp_train(torch, cut, cut32, rank, spmd=True)
+    out["dp_train_seconds"] = time.perf_counter() - t0
     out["families"] = {}
     for arch, depth in _tp_families():
         t0 = time.perf_counter()
@@ -3074,10 +3338,12 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         out["families"][arch] = dict(fam, seconds=time.perf_counter() - t0)
     dist.barrier()
     dist.destroy_process_group()
+    # the references of (c) and (d): the same two steps on one rank alone,
+    # outside any process group, (c)'s on rank 0 and (d)'s on rank 1
     if rank == 0:
-        # (c)'s reference: the same two steps on this rank alone, outside
-        # any process group
         out["async_one"] = tp_async(torch, cut, cut32, rank, spmd=False)
+    else:
+        out["dp_train_one"] = dp_train(torch, cut, cut32, rank, spmd=False)
     del full32, cut32
     print("TPRESULT " + json.dumps(out), flush=True)
     return 0
@@ -3232,7 +3498,13 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     bytes a rank receives (mamba2's and zamba2's ``in_proj`` and conv
     travel whole) and keeps.
 
-    Between the two, the option runs at full width and CUT_LAYERS
+    Between the two, the dp runs (``tp_dp``, ``dp_train``; gates and
+    reports in ``tp_dp_results``): full-width qwen2-0.5b at dp=2, each rank
+    a data row of 4 of the 8 slots on its half of the pool, at fp32 with
+    the folded reference against the dp=1 run above, at bf16 for one turn,
+    int8 pages at CUT_LAYERS against dp=1 on rank 0, and two SPMD trainer
+    steps at CUT_LAYERS switching dp2 -> tp2 against rank 0 alone. And
+    the option runs at full width and CUT_LAYERS
     (``tp_options``, ``tp_async``), each at tp=1 (rank 0) and tp=2: (a)
     speculation (``"self"``, K=4, 6 draft layers) on TicTacToe with its
     spec-off twin at tp=2; (b) the SHARED bandit at B=8, N=16 on int8
@@ -3297,6 +3569,7 @@ def phase_tp_path(torch, report, workers: TPWorkers):
              for x in res] for kv in ("fp32", "bf16")}
     out["families"], families_ok = tp_family_results(torch, res)
     out["options"], options_ok = tp_option_results(torch, res)
+    out["dp"], dp_ok = tp_dp_results(torch, res)
     emit(out)
     report["fused_sample_partial"]["launches"] = \
         r0["fp32_tp2"]["launches"]["fused_sample_partial"]
@@ -3305,8 +3578,10 @@ def phase_tp_path(torch, report, workers: TPWorkers):
         opt["spec_tp2"]["launches"]["spec_verify"]
     report["paged_attention"]["launches_tp2_pool_int8"] = \
         opt["pool_tp2"]["launches"]["paged_attention"]
+    report["paged_attention"]["launches_dp2_rank"] = \
+        r0["dp"]["fp32_dp2"]["launches"]["paged_attention"]
     if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
-            and launches_ok and families_ok and options_ok
+            and launches_ok and families_ok and options_ok and dp_ok
             and bl["max_abs_err"] <= 0.05 * bl["scale"]
             and r0["logits_launches"]["flash_fwd"] == 24
             and all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
@@ -3413,6 +3688,117 @@ def tp_option_results(torch, res):
     ok &= row_ok
     out["seconds"] = {f"rank{r}": {"options": x["options_seconds"],
                                    "async": x["async_seconds"]}
+                      for r, x in enumerate(res)}
+    return out, ok
+
+
+def tp_dp_results(torch, res):
+    """The dp runs' part of tp_path (``tp_dp``, ``dp_train``) from both
+    ranks' results: the gates, what is reported, and whether every gate
+    held. Rank r holds episodes [4r, 4r + 4) of the dp=1 run's 8.
+
+    (a) fp32_dp2: each rank's tokens equal the dp=1 run's rows (rank 0's
+    ``fp32_tp1``), log-probs within 1e-4 (f32 GEMMs at 4 rows against 8
+    may sum in another order), the folded reference's within 1e-2
+    (tp_path's rule); episodes returned, pages in use and page capacity
+    equal dp=1's; each rank's paged, decode-attention and one-launch
+    sampler launches equal dp=1's (every row runs the same macro-steps);
+    the batch over ``data``; each rank's pool bytes at most half of
+    dp=1's plus one page.
+    (b) bf16_dp2: every episode returned; the first decode step's logits
+    at the rank's 4 rows within 5% of their scale of all 8 rows' (the
+    port's bf16 rule). Reported: token agreement with dp=1's bf16 run.
+    (c) int8_dp2 at CUT_LAYERS: tokens and TP_STATS counters equal dp=1's
+    int8 run's (rank 1's), log-probs within 2e-4 (the int8 rule of tp_path's option
+    runs), pool bytes (scales included) at most half of dp=1's plus one
+    page, paged launches equal dp=1's.
+    (d) dp_train: the records (loss, KL, return, context and turn
+    length, the switch row) equal on both ranks and within 1e-5 of the
+    one-rank trainer's (rank 1's, after the group is gone), some loss not
+    zero, the rollout switched dp2 -> tp2 at step 1, rank 1 ran no update
+    in the SPMD run (no flash backward launch) and rank 0 as many as the
+    one-rank run.
+    Reported: each run's seconds and each rank's peak memory against
+    dp=1's."""
+    T = torch.tensor
+    h = TP_BATCH // 2
+    r0 = res[0]
+    d = [x["dp"] for x in res]
+    mine = lambda rows, r: rows[r * h:(r + 1) * h]
+    err = lambda a, b: float((T(a) - T(b)).abs().max())
+    out, ok = {}, True
+    for name, one, lp_tol in (("fp32_dp2", r0["fp32_tp1"], 1e-4),
+                              ("int8_dp2", res[1]["int8_dp1"], 2e-4)):
+        runs = [x[name] for x in d]
+        tokens = all(x["tokens"] == mine(one["tokens"], r)
+                     for r, x in enumerate(runs))
+        lp = max(err(x["logprobs"], mine(one["logprobs"], r))
+                 for r, x in enumerate(runs))
+        ref = max(err(x["ref_logprobs"], mine(one["ref_logprobs"], r))
+                  for r, x in enumerate(runs))
+        counters = all(x["counters"] == one["counters"]
+                       and x["returned"] == one["returned"] == TP_BATCH
+                       for x in runs)
+        keys = (("paged_attention",) if name == "int8_dp2" else
+                ("paged_attention", "decode_attention", "fused_sample"))
+        launches = all(x["launches"][k] == one["launches"][k] > 0
+                       for x in runs for k in keys)
+        pool = all(x["pool_bytes"] <= 0.5 * one["pool_bytes"]
+                   + x["page_bytes"] for x in runs)
+        layout = all(x["layout"] == "('data', None)"
+                     and len(x["tokens"]) == h for x in runs)
+        row_ok = (tokens and lp <= lp_tol and counters and launches
+                  and pool and layout
+                  and (name == "int8_dp2" or ref <= 1e-2))
+        out[name] = dict(
+            ok=row_ok, tokens_equal=tokens, logprob_max_abs_err=lp,
+            ref_logprob_max_abs_err=ref, counters=runs[0]["counters"],
+            counters_equal=counters, launches_equal=launches,
+            layout=runs[0]["layout"],
+            pool_bytes={"dp1": one["pool_bytes"],
+                        "rank0": runs[0]["pool_bytes"],
+                        "rank1": runs[1]["pool_bytes"]},
+            pool_ratio=[x["pool_bytes"] / one["pool_bytes"] for x in runs],
+            launches={"dp1": one["launches"], "rank0": runs[0]["launches"],
+                      "rank1": runs[1]["launches"]},
+            peak_ratio=[x["peak_bytes"] / one["peak_bytes"] for x in runs],
+            seconds={"dp1": one["seconds"], "rank0": runs[0]["seconds"],
+                     "rank1": runs[1]["seconds"]})
+        ok &= row_ok
+    b16 = [x["bf16_dp2"] for x in d]
+    bl = [x["bf16_logits"] for x in d]
+    row_ok = (all(x["returned"] == TP_BATCH for x in b16)
+              and all(x["max_abs_err"] <= 0.05 * x["scale"] for x in bl))
+    out["bf16_dp2"] = dict(
+        ok=row_ok, logits=bl, rows_equal=sum(
+            a == b for r, x in enumerate(b16)
+            for a, b in zip(x["tokens"], mine(r0["bf16_tp1"]["tokens"], r))),
+        rows=TP_BATCH, peak_ratio=[x["peak_bytes"] / r0["bf16_tp1"][
+            "peak_bytes"] for x in b16],
+        seconds=[x["seconds"] for x in b16])
+    ok &= row_ok
+    one = res[1]["dp_train_one"]
+    two = [x["dp_train"] for x in res]
+    rec = lambda x, k: [r[k] for r in x["records"]]
+    errs = {k: max(abs(a - b) for a, b in zip(rec(two[0], k), rec(one, k)))
+            for k in ("loss", "kl", "ret", "ctx", "turn")}
+    sw = rec(two[0], "sw")
+    row_ok = (two[0]["records"] == two[1]["records"]
+              and all(e <= 1e-5 for e in errs.values())
+              and sw == rec(one, "sw") and sw[0] is None
+              and sw[1] is not None and sw[1]["from"] == "dp2"
+              and sw[1]["to"] == "tp2" and any(rec(one, "loss"))
+              and two[1]["launches"]["flash_dq"] == 0
+              and two[0]["launches"]["flash_dq"]
+              == one["launches"]["flash_dq"] > 0)
+    out["train"] = dict(ok=row_ok, max_abs_err=errs,
+                        losses=rec(two[0], "loss"), switches=sw,
+                        seconds={"rank0": two[0]["seconds"],
+                                 "rank1": two[1]["seconds"],
+                                 "one_rank": one["seconds"]})
+    ok &= row_ok
+    out["seconds"] = {f"rank{r}": {"dp": x["dp_seconds"],
+                                   "train": x["dp_train_seconds"]}
                       for r, x in enumerate(res)}
     return out, ok
 

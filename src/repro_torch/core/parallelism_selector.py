@@ -18,7 +18,12 @@ RL training (paper Fig. 1). The selector:
 The selector holds one current config per stage (``current_for("rollout")``
 / ``current_for("update")``): the async schedule overlaps Rollout(k+1)
 with Update(k), and one stage's switch must not move the other's.
-``current`` stays the rollout stage's config.
+``current`` stays the rollout stage's config. A candidate may be any
+``MeshConfig`` of the process group: the rollout engine re-binds to tp,
+dp, pods and dp x tp meshes and re-shards its params on a switch, so the
+paper's trade on two ranks, ``MeshConfig("dp2", 2, 1)`` against
+``MeshConfig("tp2", 1, 2)``, runs as JAX's ``bench_parallelism`` profiles
+it.
 
 ``measure_fn`` is any ``(config, context_len) -> ProfileEntry``: a wall-
 clock timing on the devices, or a model. JAX's cost-model measure reads

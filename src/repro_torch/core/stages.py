@@ -30,23 +30,27 @@ off through ``dispatch_async``. The records carry ``selector_switch`` and
 **Across ranks** (a process group of more than one rank), the trainer is
 SPMD: every rank runs ``run_step`` with the same arguments, and every
 collective is called by every rank of its group in the same order. The
-rollout runs on the selector's current rollout config (a tensor-parallel
-mesh or one rank; a rank outside it takes no part), the update on one
-rank, as JAX's ``UpdateStage`` runs on one device: the first rank of the
-update stage's config (rank 0 without a profiled selector). Only that
-rank's params and optimizer state are real. Before each rollout the
-update rank's params go to the rollout ranks in the tp plan's layouts
+rollout runs on the selector's current rollout config (a
+tensor-parallel, data-parallel or dp x tp mesh, or one rank; a rank
+outside it takes no part), the update on one rank, as JAX's
+``UpdateStage`` runs on one device: the first rank of the update stage's
+config (rank 0 without a profiled selector). Only that rank's params and
+optimizer state are real. Before each rollout the update rank's params
+go to the rollout ranks in the tp plan's layouts
 (``core.resharding.tp_plan``) through the data dispatcher's direct
-executor (the reference params once per mesh), and the batch goes back
-to the update rank the same way. The rollout's stats and the update's
-metrics are broadcast, so every rank keeps the same records, selector
-EMA and switches. Other ranks hold meta tensors of the params' shapes
-after the first update (a new tree each step, as the update rank's is).
-As in JAX, the python engine is never bound to a mesh: it rolls out on the
-update rank with that rank's whole params, its stats are broadcast from
-there, and no params handoff runs for it. The async schedule runs the
-rollout on the main thread of every rank and the update on the update
-rank's worker thread; every collective stays on the main thread
+executor (the reference params once per mesh: whole heads within a data
+row, the same shards on every row), and the batch goes back to the
+update rank the same way, from the rows each rank holds of a
+data-parallel rollout's batch (ExpPrep's advantages read the global
+rewards first). The rollout's stats and the update's metrics are
+broadcast, so every rank keeps the same records, selector EMA and
+switches. Other ranks hold meta tensors of the params' shapes after the
+first update (a new tree each step, as the update rank's is). As in JAX,
+the python engine is never bound to a mesh: it rolls out on the update
+rank with that rank's whole params, its stats are broadcast from there,
+and no params handoff runs for it. The async schedule runs the rollout
+on the main thread of every rank and the update on the update rank's
+worker thread; every collective stays on the main thread
 (``core/scheduler.py``).
 
 As in the JAX trainer, the reference log-probs come from the rollout
@@ -244,15 +248,19 @@ class RolloutStage:
 
 class ExpPrepStage:
     """Fig. 2 ②: advantage estimation, and the standalone reference pass
-    for rollouts that did not fold it (``ref_folded=False``)."""
+    for rollouts that did not fold it (``ref_folded=False``). The
+    advantages are the global batch's: a rank that holds its rows of a
+    data-parallel rollout's batch reads every row's rewards through the
+    engine's ``gather_batch``."""
 
     def __init__(self, model, *, advantage: str = "reinforce",
-                 group_size: int = 4, attn_impl: str = "xla"):
+                 group_size: int = 4, attn_impl: str = "xla", engine=None):
         if advantage not in ("reinforce", "group"):
             raise ValueError(f"advantage must be 'reinforce' or 'group', "
                              f"got {advantage!r}")
         self.advantage = advantage
         self.group_size = group_size
+        self.engine = engine
         self._ref_step = make_ref_logprob_step(model, attn_impl=attn_impl)
 
     def __call__(self, exp: ExperienceBatch, *, ref_params=None,
@@ -268,11 +276,15 @@ class ExpPrepStage:
             else:
                 exp = exp.with_(ref_logprobs=self._ref_step(ref_params,
                                                             exp.tokens))
+        rewards, mine = exp.rewards, slice(None)
+        gather = getattr(self.engine, "gather_batch", None)
+        if gather is not None:
+            rewards, mine = gather(rewards)
         if self.advantage == "group":
-            adv = group_relative_advantages(exp.rewards, self.group_size)
+            adv = group_relative_advantages(rewards, self.group_size)
         else:
-            adv = reinforce_advantages(exp.rewards)
-        return exp.with_(advantages=adv)
+            adv = reinforce_advantages(rewards)
+        return exp.with_(advantages=adv[mine])
 
 
 class DispatchStage:
@@ -477,7 +489,8 @@ class EarlTrainer:
             self._init_spmd(python)
         self.expprep_stage = ExpPrepStage(
             self.model, advantage=self.advantage,
-            group_size=self.group_size, attn_impl=attn["expprep"])
+            group_size=self.group_size, attn_impl=attn["expprep"],
+            engine=self.rollout)
         self.dispatch_stage = DispatchStage(
             self.dispatcher, self.rollout, strategy=self.dispatch_strategy)
         self.update_stage = UpdateStage(

@@ -1,8 +1,8 @@
 """Mesh splits and layout assembly (port of the part of
 ``repro/launch/mesh.py`` the dispatcher and the selector use):
-``rollout_trainer_split``, ``_batch_spec`` and ``cache_shardings``. The production meshes, ``input_specs`` and
-``stage_shardings`` belong to the dry run and are not ported (ROADMAP
-Queue 1 item 12)."""
+``rollout_trainer_split``, ``_batch_spec`` and ``cache_shardings``. The
+production meshes, ``input_specs`` and ``stage_shardings`` belong to the
+dry run and are not ported (ROADMAP Queue 1 item 12)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -23,10 +23,11 @@ def rollout_trainer_split(*, n_devices: Optional[int] = None,
     dp x tp with the requested TP degree, clamped to the side's share, so
     the two windows never overlap. Leftover ranks of a side stay idle. With
     one device (``n_devices`` defaults to the process group's size, 1
-    without one) both stages share rank 0. A rollout side of one dp row
-    (``rollout_tp`` equal to its share, e.g. ``n_devices=4,
-    rollout_tp=2``) is a config the engine's tensor-parallel rollout takes;
-    more dp rows need the data-parallel rollout (ROADMAP Queue 1 item 13).
+    without one) both stages share rank 0. The engine takes every rollout
+    side: one dp row of ``rollout_tp`` ranks (e.g. ``n_devices=4,
+    rollout_tp=2``) runs the tensor-parallel rollout, several rows (the
+    default ``n_devices=4`` gives ``rollout-2x1``) the data-parallel one,
+    and both at once for dp x tp.
     """
     n = n_devices if n_devices is not None else world_size()
     if n <= 1:
@@ -78,6 +79,14 @@ def cache_shardings(cache, mesh_cfg: MeshConfig, *, seq_len: int,
     ``v_scale`` (L, pages, page_size, KV): pages -> data, kv heads ->
     model; ``block_table`` rows -> data; ``refcount`` replicates. Returns
     the cache's structure with a ``NamedLayout`` per tensor.
+
+    The port's pool carries a trash page past its ``n_pages`` (where JAX
+    drops a write, the port writes there). In a data-parallel rollout each
+    of the D data rows holds a pool of its own, ``n_pages / D`` pages and
+    its own trash page, and allocates from it alone; the global pool is
+    those pools laid end to end, ``n_pages + D`` pages, so the page axis
+    splits over data with each rank's slice its own pool, trash page
+    included, and each block table's entries index its row's pool.
     """
     del seq_len, n_kv_heads          # JAX's signature; the rules read shapes
     sizes = mesh_cfg.axis_sizes()

@@ -34,6 +34,11 @@ Every collective here is called by every rank of the group in the same
 order: the rollout's control flow is replicated, and the values the
 collectives return are the same on every rank. bf16 sums are all-reduced
 in f32 and rounded once.
+
+On a mesh of several data rows (dp or pods above 1) each row is a tp
+group of its own (``model_group``); ``data_group`` joins the ranks of one
+model index across the rows, over which the data-parallel rollout
+exchanges its turn's counters and its harvest.
 """
 from __future__ import annotations
 
@@ -46,32 +51,49 @@ _GROUPS: Dict[Tuple[int, ...], object] = {}
 _GROUPS_WORLD = None      # the default group the cached groups belong to
 
 
-def model_group(mesh_cfg):
-    """This rank's model-axis process group of ``mesh_cfg`` (None outside
-    the mesh). Makes every model-axis group of the mesh the first time a
-    mesh with those rows is asked for: ``dist.new_group`` is collective
-    over the default group, so every rank calls this for the same meshes
-    in the same order. The groups are cached by their ranks for the
+def _group_of(lines):
+    """This rank's group among ``lines`` (lists of ranks), making every
+    line's group the first time its ranks are asked for: ``dist.new_group``
+    is collective over the default group, so every rank asks for the same
+    lines in the same order. The groups are cached by their ranks for the
     default group that made them: a new default group (a world started
     after ``destroy_process_group``) starts a new cache, so it never gets
-    the groups of a destroyed world."""
+    the groups of a destroyed world. None when this rank is in no line."""
     global _GROUPS_WORLD
-    if mesh_cfg.tp == 1 or not dist.is_initialized():
-        return None
     world = dist.group.WORLD
     if world is not _GROUPS_WORLD:
         _GROUPS.clear()
         _GROUPS_WORLD = world
-    rows = mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).tolist()
     me = dist.get_rank()
     mine = None
-    for row in rows:
-        key = tuple(int(r) for r in row)
+    for line in lines:
+        key = tuple(int(r) for r in line)
         if key not in _GROUPS:
             _GROUPS[key] = dist.new_group(list(key))
         if me in key:
             mine = _GROUPS[key]
     return mine
+
+
+def model_group(mesh_cfg):
+    """This rank's model-axis process group of ``mesh_cfg`` (None outside
+    the mesh): one group per data row (each (pod, data) coordinate), its
+    ``tp`` ranks. Collective, as ``_group_of`` says: every rank calls this
+    for the same meshes in the same order."""
+    if mesh_cfg.tp == 1 or not dist.is_initialized():
+        return None
+    return _group_of(mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).tolist())
+
+
+def data_group(mesh_cfg):
+    """This rank's data-axis process group of ``mesh_cfg`` (None outside
+    the mesh, or with one data row): the ranks of every data row (each
+    (pod, data) coordinate) that share this rank's model index, one
+    group per model index. The data-parallel rollout's exchanges run over
+    it. Collective, as ``model_group``."""
+    if mesh_cfg.pods * mesh_cfg.dp == 1 or not dist.is_initialized():
+        return None
+    return _group_of(mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).T.tolist())
 
 
 class TPContext:

@@ -104,6 +104,30 @@ into a dense cache of the rank's kv heads, the verify chunk runs on the
 rank's heads, every judged token is the vocab-partial combine, and the
 round loop's flag is reduced over the model axis.
 
+**Data parallelism** (``mesh_config`` with dp or pods above 1, and dp x
+tp; every family, both layouts): the mesh's D = dp x pods data rows each
+run a window of the global slots, row d slots ``[d B/D, (d+1) B/D)``,
+with their own pool (``n_pages / D`` pages and their own trash page) or
+dense cache rows; the ranks of one row are a tp group at tp above 1.
+Every row asks its ``NoiseFn`` for the global batch's draws and takes
+its rows, so the schedule is the one-rank engine's. The turn's one
+collective is an all-gather over the rows (``models.tensor_parallel.
+data_group``) of each row's finished count, pool occupancy and new
+dropped writes, after the harvest: the refill gives a finished slot the
+next episode id in the global slot order (the finished slots of the rows
+before it), and ``launched``, ``returned``, ``pages_peak`` and
+``kv_dropped`` are global on every row, so every row stops after the
+same macro-step. At the end of ``run`` ONE all-reduce of the episode
+stores' bytes gives every row all ``N`` episodes (each was harvested on
+one row; the others hold zeros there), the stats are global, and each
+rank keeps its rows of the batch where the data rows divide ``N`` (JAX's
+``_batch_spec``; ``experience_shardings`` says so). Where the rows do not
+divide B, every row runs all B slots, as JAX's layouts replicate such a
+batch, and nothing is exchanged. Prefix sharing, preemption, pool growth,
+a pool below full provisioning and speculation depend on JAX's global
+page allocator and governor: at D above 1 they raise naming ROADMAP
+Queue 1 item 13.
+
 The episode store and the slot token buffers carry one trash row/column
 where JAX drops out-of-range writes (``slots.py``); the paged pools carry
 one trash page (``models/layers.py``).
@@ -114,7 +138,9 @@ import dataclasses
 import math
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.models import paging as pool_paging
@@ -146,6 +172,73 @@ class _DraftStream(NamedTuple):
     decode: Callable
     cache: Any                 # dense bf16 decode cache of the draft
     vocab: int                 # its logits' columns (the rank's under tp)
+
+
+class DataRows:
+    """This rank's place among the D = dp x pods data rows of a mesh (each
+    row a tp group at tp above 1) and its data-axis group across them
+    (``models.tensor_parallel.data_group``): the data-parallel rollout's
+    slot windows and exchanges."""
+
+    def __init__(self, mesh_cfg, group):
+        from repro_torch.core.resharding import current_rank
+        self.n = mesh_cfg.pods * mesh_cfg.dp
+        rows = mesh_cfg.ranks().reshape(self.n, mesh_cfg.tp)
+        self.index = int(np.argwhere(rows == current_rank())[0][0])
+        self.group = group
+
+    def window(self, batch: int):
+        """This row's ``(lo, hi, batch)`` of ``batch`` global slots; None
+        where the rows do not divide ``batch``: every row then runs all of
+        them (JAX's layouts replicate a batch that does not divide)."""
+        if batch % self.n:
+            return None
+        b = batch // self.n
+        return self.index * b, (self.index + 1) * b, batch
+
+    def gather(self, x):
+        """``(n, *x.shape)``: every row's ``x``, row by row, by ONE
+        all-reduce of a zero-padded buffer (adding zeros is exact)."""
+        buf = x.new_zeros((self.n,) + tuple(x.shape))
+        buf[self.index] = x
+        return self.all_reduce_sum(buf)
+
+    def all_reduce_sum(self, x):
+        """``x`` summed over the rows (in place; returned)."""
+        dist.all_reduce(x, group=self.group)
+        return x
+
+
+def _exchange_store(store: slots.EpisodeStore, N: int, rows: DataRows):
+    """Every row's harvest in every row's store: each episode id was
+    harvested on one row and the others hold zero bytes there, so ONE
+    all-reduce of the stores' bytes (as int32 words, whose sums carry
+    nothing across bytes) gives each row all ``N`` episodes bitwise. The
+    4-byte leaves go first, so every leaf starts at a word boundary.
+    Returns an ``EpisodeStore`` of ``N`` rows (no trash row)."""
+    order = sorted(range(len(store)), key=lambda i: -store[i].element_size())
+    leaves = [store[i][:N].contiguous() for i in order]
+    flat = torch.cat([x.reshape(-1).view(torch.uint8) for x in leaves])
+    flat = torch.nn.functional.pad(flat, (0, -flat.numel() % 4))
+    flat = rows.all_reduce_sum(flat.view(torch.int32)).view(torch.uint8)
+    out, off = [None] * len(store), 0
+    for i, x in zip(order, leaves):
+        n = x.numel() * x.element_size()
+        out[i] = flat[off:off + n].view(x.dtype).view(x.shape)
+        off += n
+    return slots.EpisodeStore(*out)
+
+
+def _local_noise(noise: NoiseFn, window) -> NoiseFn:
+    """``noise`` asked for the global batch's draws, this data row's rows
+    taken (``window`` = (lo, hi, B); ``noise`` itself when None)."""
+    if window is None:
+        return noise
+    lo, hi, B = window
+
+    def draw(kind, m, index, shape):
+        return noise(kind, m, index, (B,) + tuple(shape[1:]))[lo:hi]
+    return draw
 
 
 def _reset_cache_rows(cache, refill):
@@ -196,17 +289,19 @@ class CompiledRolloutEngine:
     ``admit_watermark``), ``pool_growth`` ("off" or "double" with
     ``pool_growth_max``) and ``speculation`` ("off", "self" or "draft",
     with ``spec_k``, ``draft_layers`` and ``draft_model``) and
-    ``mesh_config``: a ``MeshConfig`` with dp = pods = 1 over ranks of
-    the process group (``bind_mesh`` re-binds it on a selector switch);
-    tp above 1 runs the tensor-parallel rollout of the dense, moe, ssm
-    and hybrid families, and
-    a config with dp or pods above 1 raises ``NotImplementedError`` naming
-    ROADMAP Queue 1 item 13. After each ``run``,
-    ``experience_shardings`` holds the harvested batch's layouts (an
-    ``ExperienceBatch`` of ``NamedLayout``s, the batch over ``data``), the
-    data dispatcher's source layouts. Unlike the JAX engine, the defaults
-    are the production path: the kernels on the card, and their plain
-    versions for CPU tensors.
+    ``mesh_config``: a ``MeshConfig`` over ranks of the process group
+    (``bind_mesh`` re-binds it on a selector switch); tp above 1 runs the
+    tensor-parallel rollout of the dense, moe, ssm and hybrid families,
+    dp or pods above 1 the data-parallel rollout (dp x tp both), where
+    ``share_prefix``, ``on_exhaust="preempt"``, ``pool_growth``, a
+    ``cache_pages`` below full provisioning and ``speculation`` raise
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 13. After each
+    ``run``, ``experience_shardings`` holds the harvested batch's layouts
+    (an ``ExperienceBatch`` of ``NamedLayout``s, the batch over the
+    (pod, data) axes where they divide it, JAX's ``_batch_spec``), the
+    data dispatcher's source layouts: a rank holds its shard of each.
+    Unlike the JAX engine, the defaults are the production path: the
+    kernels on the card, and their plain versions for CPU tensors.
     """
 
     def __init__(self, model, env, *, max_turns: int = 4,
@@ -300,6 +395,7 @@ class CompiledRolloutEngine:
         self.device = resolve_device(device)
         self._tp = None               # this rank's TPContext at tp > 1
         self._draft_tp = None         # the draft's ("draft": its own plan)
+        self._rows = None             # this rank's DataRows at dp x pods > 1
         self._in_mesh = True
         self._held = {}               # "params"/"ref"/"draft": (global, local)
         self._mesh_config = None
@@ -337,15 +433,23 @@ class CompiledRolloutEngine:
 
     # -- selector hook ① ----------------------------------------------------
     def _check_mesh(self, cfg):
-        """A config of dp = pods = 1 over ranks of the process group."""
+        """A config over ranks of the process group; at dp x pods above 1
+        without the options whose semantics are JAX's global page
+        allocator's and governor's."""
         # the core package imports this engine (through its stages)
         from repro_torch.core.resharding import current_rank, world_size
         if cfg is None:
             return None
-        if cfg.dp > 1 or cfg.pods > 1:
-            raise _unported(
-                f"mesh_config {cfg.name!r} (dp={cfg.dp}, pods={cfg.pods}): "
-                f"data-parallel rollout across ranks", "13")
+        if cfg.dp * cfg.pods > 1:
+            for what, on in (("share_prefix", self.share_prefix),
+                             ("on_exhaust='preempt'",
+                              self.on_exhaust == "preempt"),
+                             ("pool_growth", self.pool_growth != "off"),
+                             ("speculation", self.speculation != "off")):
+                if on:
+                    raise _unported(
+                        f"{what} in a data-parallel rollout (mesh_config "
+                        f"{cfg.name!r}, dp={cfg.dp}, pods={cfg.pods})", "13")
         lo, hi = cfg.device_offset, cfg.device_offset + cfg.n_devices
         if hi > world_size():
             where = (f"rank {lo}" if cfg.n_devices == 1
@@ -371,21 +475,28 @@ class CompiledRolloutEngine:
         """This rank's ``TPContext`` (None below tp=2)."""
         return self._tp
 
+    @property
+    def data_rows(self):
+        """This rank's ``DataRows`` on the bound mesh (None on one data
+        row)."""
+        return self._rows
+
     def bind_mesh(self, mesh_config) -> None:
         """Re-bind to another MeshConfig (a Parallelism Selector switch).
-        At tp above 1 the engine takes the plan's model-axis group (a
-        collective over the default group: every rank binds the same
-        configs in the same order) and re-shards the params it holds when
-        the tp degree changes. A rank outside the mesh takes no part in
-        its rollouts."""
+        At tp above 1 the engine takes the plan's model-axis group, and at
+        dp x pods above 1 its data-axis group (collectives over the
+        default group: every rank binds the same configs in the same
+        order), and re-shards the params it holds when the tp degree
+        changes. A rank outside the mesh takes no part in its rollouts."""
         from repro_torch.core.resharding import current_rank, tp_plan
-        from repro_torch.models.tensor_parallel import TPContext, model_group
+        from repro_torch.models.tensor_parallel import (TPContext, data_group,
+                                                        model_group)
         cfg = self._check_mesh(mesh_config)
         old = self._mesh_config
         self._mesh_config = cfg
         self._in_mesh = cfg is None or bool(
             (cfg.ranks() == current_rank()).any())
-        tp = draft_tp = None
+        tp = draft_tp = rows = None
         if cfg is not None and cfg.tp > 1:
             group = model_group(cfg)          # every rank: collective
             if self._in_mesh:
@@ -393,7 +504,11 @@ class CompiledRolloutEngine:
                 if self.draft_model is not None:
                     draft_tp = TPContext(tp_plan(self.draft_model, cfg),
                                          group)
-        self._tp, self._draft_tp = tp, draft_tp
+        if cfg is not None and cfg.dp * cfg.pods > 1:
+            group = data_group(cfg)           # every rank: collective
+            if self._in_mesh:
+                rows = DataRows(cfg, group)
+        self._tp, self._draft_tp, self._rows = tp, draft_tp, rows
         if cfg != old:
             self._held = {k: (g, self._shard(g, k)) for k, (g, _) in
                           self._held.items() if self._in_mesh}
@@ -495,26 +610,33 @@ class CompiledRolloutEngine:
 
     def init_carry(self, B: int, N: int, with_ref: bool = False,
                    noise: Optional[NoiseFn] = None) -> slots.SlotCarry:
-        """The carry before the initial feed. ``noise`` supplies the env
-        reset's draw (default: the engine's own draws)."""
+        """The carry before the initial feed: ``B`` global slots, of which
+        a data row holds its window. ``noise`` supplies the env reset's
+        draw (default: the engine's own draws)."""
         dev, T = self.device, self.max_context
         V = (self._tp.vocab_local if self._tp is not None
              else self.model.cfg.vocab_size)
         tkw = {} if self._tp is None else {"tp": self._tp}
-        live = torch.arange(B, device=dev) < N
+        window = self._rows.window(B) if self._rows is not None else None
+        lo, hi = (0, B) if window is None else window[:2]
+        n_rows = 1 if window is None else self._rows.n
+        slot = torch.arange(lo, hi, device=dev)
+        Bg, B = B, hi - lo
+        live = slot < N
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
         spec = self.speculation != "off"
         preempt = self.on_exhaust == "preempt"
-        noise = noise if noise is not None else self.default_noise()
+        noise = _local_noise(noise if noise is not None
+                             else self.default_noise(), window)
         if preempt:
             # episode-keyed initial state: slot i starts episode i with the
             # draw a later re-admission of episode i makes
-            rn = self._reset_noise(noise, torch.arange(B, device=dev),
-                                   z((B,), torch.int32), B)
+            rn = self._reset_noise(noise, slot, z((B,), torch.int32), B)
         else:
             rn = self._reset_noise(noise, -1, 0, B)
         if self.cache_layout == "paged":
-            n_pages = self.cache_pages
+            n_pages = (self.cache_pages // n_rows
+                       if self.cache_pages is not None else None)
             if n_pages is None and self.shared_pages > 0:
                 # sharing-aware full provisioning: the shared run is one
                 # allocation, not one per slot
@@ -539,9 +661,8 @@ class CompiledRolloutEngine:
             truncated=z((B,), torch.bool),
             n_turns=z((B,), torch.int32),
             turn_lengths=z((B, self.max_turns), torch.int32),
-            episode=torch.where(live, torch.arange(B, device=dev), N).to(
-                torch.int32),
-            launched=torch.full((), min(B, N), dtype=torch.int32,
+            episode=torch.where(live, slot, N).to(torch.int32),
+            launched=torch.full((), min(Bg, N), dtype=torch.int32,
                                 device=dev),
             returned=z((), torch.int32),
             store=slots.init_store(N, T, self.max_turns, dev),
@@ -568,6 +689,7 @@ class CompiledRolloutEngine:
             preempted=z((), torch.int32) if preempt else None,
             requeue=z((N,), torch.bool) if preempt else None,
             requeue_peak=z((), torch.int32) if preempt else None,
+            window=window,
         )
 
     # -- pieces of the macro-step --------------------------------------------
@@ -928,7 +1050,9 @@ class CompiledRolloutEngine:
         """One macro-step (one turn for every slot). Enqueues device work
         only, with no host read, unless speculation is on (one flag per
         verify round) or prefix sharing is (the turn's one read, before the
-        feed; ``SlotCarry.host`` carries what it read)."""
+        feed; ``SlotCarry.host`` carries what it read). On a data row it
+        runs the row's slots and makes the turn's one exchange across the
+        rows, after the harvest."""
         env, T, olen = self.env, self.max_context, self.env.obs_len
         mtt, mturns = self.max_turn_tokens, self.max_turns
         n_actions, V = env.n_actions, self.model.cfg.vocab_size
@@ -938,6 +1062,7 @@ class CompiledRolloutEngine:
         dev = c.pos.device
         rows = torch.arange(B, device=dev)
         preempt = self.on_exhaust == "preempt"
+        noise = _local_noise(noise, c.window)
         decode = self._decode(params)
         ref = self._ref_stream(ref_params, c)
         draft = self._draft_stream(params, draft_params, c)
@@ -997,14 +1122,13 @@ class CompiledRolloutEngine:
         # 2b. pool telemetry after generation (peak: nothing released yet);
         #     the drop counter accumulates per-slot shortfall growth. The
         #     dense layout has no pool: its counters stay 0.
-        pages_peak, kv_dropped, kv_shortfall = (c.pages_peak, c.kv_dropped,
-                                                c.kv_shortfall)
+        occ = new_drops = torch.zeros((), dtype=torch.int32, device=dev)
+        kv_shortfall = c.kv_shortfall
         if paging.is_paged(cache):
             occ, _ = paging.pool_stats(cache)
-            pages_peak = torch.maximum(pages_peak, occ)
             drop_now = paging.dropped_tokens(cache, self.page_size)
-            kv_dropped = kv_dropped + (drop_now - kv_shortfall).clamp_min(
-                0).sum(dtype=torch.int32)
+            new_drops = (drop_now - kv_shortfall).clamp_min(0).sum(
+                dtype=torch.int32)
             kv_shortfall = drop_now
 
         # 3. action fallback + turn accounting
@@ -1040,7 +1164,14 @@ class CompiledRolloutEngine:
             logprobs=logprobs[:, :T], rewards=rewards_row, pos=pos,
             truncated=truncated, n_turns=n_turns, turn_lengths=turn_lengths,
             ref_logprobs=ref.logprobs[:, :T] if ref is not None else None)
-        returned = c.returned + finished.sum(dtype=torch.int32)
+
+        # 5b. the turn's one exchange across data rows: the finished slots
+        #     of the rows before this one, and the global counts
+        before, n_fin, occ, new_drops = self._across_rows(
+            c.window, finished.sum(dtype=torch.int32), occ, new_drops)
+        returned = c.returned + n_fin
+        pages_peak = torch.maximum(c.pages_peak, occ.to(torch.int32))
+        kv_dropped = c.kv_dropped + new_drops
 
         # 6. slot refill: release pages or zero dense rows, fork the shared
         #    prefix, reset rows (masked, unconditional). Preempt mode plans
@@ -1050,8 +1181,8 @@ class CompiledRolloutEngine:
             cache, refill, new_ids, launched, requeue = self._admit(
                 c, cache, victims, finished, active, state2.done, pos)
         else:
-            refill, new_ids, launched = slots.refill_plan(finished,
-                                                          c.launched, N)
+            refill, new_ids, launched = slots.refill_plan(
+                finished, c.launched, N, before, n_fin)
         r1 = refill[:, None]
         cache = _reset_cache_rows(cache, refill)
         if ref is not None:
@@ -1126,6 +1257,21 @@ class CompiledRolloutEngine:
             spec_accepted=spec[1], spec_rounds=spec[2], requeue=requeue,
             host=host), ref, draft)
 
+    def _across_rows(self, window, n_fin, occ, new_drops):
+        """The turn's one collective on a data row (``window``): every
+        row's finished count, pool occupancy and new dropped writes,
+        all-gathered. Returns the finished slots of the rows before this
+        one and the global finished count, occupancy and new drops; on one
+        row, ``(0, the row's own)``."""
+        if window is None:
+            return 0, n_fin, occ, new_drops
+        rows = self._rows
+        g = rows.gather(torch.stack([t.to(torch.int32)
+                                     for t in (n_fin, occ, new_drops)]))
+        tot = g.sum(dim=0, dtype=torch.int32)
+        return (g[:rows.index, 0].sum(dtype=torch.int32), tot[0], tot[1],
+                tot[2])
+
     @staticmethod
     def _host_read(returned, kv_dropped, preempted, free, *flags) -> dict:
         """THE host read of a turn: the run loop's counters (and, under
@@ -1146,7 +1292,9 @@ class CompiledRolloutEngine:
         sampling and the env's own for "env" and "reset". Under preemption
         the episode-keyed "env"/"reset" draws hash the episode coordinates
         from a seed taken once from ``generator``
-        (``common.keyed_uniform``)."""
+        (``common.keyed_uniform``). A data-parallel rollout asks for the
+        global batch's draws on every row, so equally seeded generators
+        on every rank give the one-rank run's draws."""
         env = self.env
         seed = None
         if self.on_exhaust == "preempt":
@@ -1206,6 +1354,7 @@ class CompiledRolloutEngine:
                 f"pages for batch {B}): the pool must hold one full-context "
                 f"episode plus the initial observation feed of every slot, "
                 f"or the zero-drop guarantee cannot hold.")
+        self._check_rows_pool(B)
         noise = noise if noise is not None else self.default_noise(generator)
         if not self._in_mesh:
             return self._outside(N)
@@ -1270,6 +1419,44 @@ class CompiledRolloutEngine:
                 f"below min_pool_pages({B}) = {self.min_pool_pages(B)}.")
         return self._finalize(carry, N, params_version, pool_grows)
 
+    def _check_rows_pool(self, B: int) -> None:
+        """A pool across data rows: full provisioning, split evenly. Below
+        it, which row runs short would be JAX's global allocator's to
+        decide (item 13's second part)."""
+        cfg = self._mesh_config
+        if (cfg is None or cfg.dp * cfg.pods == 1
+                or self.cache_layout != "paged" or self.cache_pages is None):
+            return
+        need = pool_paging.pool_pages_needed(B, self.max_context,
+                                             self.page_size)
+        if self.cache_pages < need:
+            raise _unported(
+                f"cache_pages={self.cache_pages} below full provisioning "
+                f"({need} pages for batch {B}) in a data-parallel rollout "
+                f"(mesh_config {cfg.name!r})", "13")
+        D = cfg.dp * cfg.pods
+        if B % D == 0 and self.cache_pages % D:
+            raise ValueError(f"cache_pages={self.cache_pages} does not split "
+                             f"over the {D} data rows of {cfg.name!r}")
+
+    def gather_batch(self, x):
+        """``x``, a leaf of the last harvested batch as this rank holds it,
+        over the whole batch dim, and the slice of this rank's rows in it:
+        where the batch lies split over data rows, ONE all-reduce over
+        them (each row's rows in a zero buffer; adding zeros is exact),
+        else ``x`` and all of it. ExpPrep's advantages read the global
+        rewards through it."""
+        from repro_torch.core.resharding import current_rank
+        if self._rows is None \
+                or self.experience_shardings.rewards.shards(0) == 1:
+            return x, slice(None)
+        lay = self.experience_shardings.rewards
+        N = x.shape[0] * lay.shards(0)
+        sl = lay.devices_indices_map((N,))[current_rank()][0]
+        buf = x.new_zeros((N,) + tuple(x.shape[1:]))
+        buf[sl] = x
+        return self._rows.all_reduce_sum(buf), sl
+
     def _outside(self, N: int):
         """``run`` on a rank outside the bound mesh: no rollout, a batch of
         meta tensors of the global shapes, and no stats."""
@@ -1282,7 +1469,13 @@ class CompiledRolloutEngine:
 
     def _finalize(self, carry: slots.SlotCarry, N: int,
                   params_version: int = -1, pool_grows: int = 0):
+        """The batch and the stats; on data rows, after the run's one
+        exchange, global stats and this rank's rows of the batch."""
         s = carry.store
+        n_rows = 1
+        if carry.window is not None:
+            s = _exchange_store(s, N, self._rows)
+            n_rows = self._rows.n
         rewards = s.rewards[:N]
         exp = ExperienceBatch(
             tokens=s.tokens[:N], gen_mask=s.gen_mask[:N],
@@ -1303,7 +1496,7 @@ class CompiledRolloutEngine:
             episodes_returned=int(carry.returned),
             params_version=params_version,
             pages_in_use=int(carry.pages_peak),
-            page_capacity=(carry.cache.n_pages
+            page_capacity=(carry.cache.n_pages * n_rows
                            if paging.is_paged(carry.cache) else 0),
             kv_dropped_writes=int(carry.kv_dropped),
             shared_prefix_len=self.shared_len,
@@ -1313,4 +1506,7 @@ class CompiledRolloutEngine:
             spec_proposed=opt(carry.spec_proposed),
             spec_accepted=opt(carry.spec_accepted),
             spec_rounds=opt(carry.spec_rounds))
+        if self._rows is not None:
+            exp = ExperienceBatch(*(lay.local_shard(x) for x, lay in
+                                    zip(exp, self.experience_shardings)))
         return exp, stats

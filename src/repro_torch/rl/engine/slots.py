@@ -7,6 +7,11 @@ the freed slot, keeping the batch full. Everything stays on the device.
 The store carries one trash row (index ``N``) that harvest writes of
 unfinished slots land in (JAX drops them with ``mode="drop"``); readers
 take ``store.tokens[:N]`` and so on, as ``CompiledRolloutEngine`` does.
+
+In a data-parallel rollout each data row runs its window of the global
+slots: its store has rows for all ``N`` episode ids (and its own trash
+row) but holds only the episodes its slots finished, and the engine
+exchanges the stores once at the end of the run.
 """
 from __future__ import annotations
 
@@ -75,6 +80,11 @@ class SlotCarry(NamedTuple):
     # the turn's host read when the macro-step made it itself (prefix
     # sharing reads before its feed): the run loop's counters as ints
     host: Any = None
+    # a data row's window of the global slots, (lo, hi, B) as ints: the
+    # carry's rows are global slots [lo, hi) of B (None: all of them).
+    # ``launched``, ``returned``, ``pages_peak`` and ``kv_dropped`` are
+    # then global, the same on every row
+    window: Any = None
 
 
 def init_store(n_episodes: int, max_context: int, max_turns: int,
@@ -98,9 +108,10 @@ def harvest(store: EpisodeStore, *, finished, episode, tokens, gen_mask,
             logprobs, rewards, pos, truncated, n_turns, turn_lengths,
             ref_logprobs=None) -> EpisodeStore:
     """Write finished slot rows into the store at their episode id, in
-    place. Unfinished rows target the trash row ``N``. ``tokens`` /
-    ``gen_mask`` / ``logprobs`` / ``ref_logprobs`` are (B, T) views (the
-    slot buffers without their trash column)."""
+    place (on a data row, the rows it finished). Unfinished rows target
+    the trash row ``N``. ``tokens`` / ``gen_mask`` / ``logprobs`` /
+    ``ref_logprobs`` are (B, T) views (the slot buffers without their
+    trash column)."""
     N = store.tokens.shape[0] - 1
     idx = (torch.where(finished, episode, N).long(),)
     pairs = [(store.tokens, tokens), (store.gen_mask, gen_mask),
@@ -114,14 +125,22 @@ def harvest(store: EpisodeStore, *, finished, episode, tokens, gen_mask,
     return store
 
 
-def refill_plan(finished, launched, n_episodes: int):
-    """Assign fresh episode ids to freed slots. Returns ``(refill_mask,
-    new_ids, launched')``; finished slots beyond the remaining budget go
-    idle."""
-    order = torch.cumsum(finished.to(torch.int32), 0, dtype=torch.int32) - 1
+def refill_plan(finished, launched, n_episodes: int, before=0, total=None):
+    """Assign fresh episode ids to freed slots in the global slot order.
+    Returns ``(refill_mask, new_ids, launched')``; finished slots beyond
+    the remaining budget go idle. On a data row of a data-parallel
+    rollout ``finished`` is the row's slots, ``before`` the finished slots
+    of the rows before it and ``total`` the finished slots of every row
+    (0-d tensors; ``launched`` is global): the row's k-th finished slot
+    takes id ``launched + before + k``, as the global cumsum gives it."""
+    order = before + torch.cumsum(finished.to(torch.int32), 0,
+                                  dtype=torch.int32) - 1
     new_ids = launched + order
     refill = finished & (new_ids < n_episodes)
-    launched = launched + refill.sum(dtype=torch.int32)
+    if total is None:
+        total = finished.sum(dtype=torch.int32)
+    launched = launched + torch.minimum(
+        total, (n_episodes - launched).clamp_min(0)).to(launched.dtype)
     return refill, torch.where(refill, new_ids, 0), launched
 
 

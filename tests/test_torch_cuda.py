@@ -32,7 +32,11 @@ sampler's partial-state mode against its plain version and, combined over
 two vocab shards, against the one-launch kernel on the whole row; and a
 two-process tp=2 rollout over gloo sharing the card, at full width and two
 layers, against the one-rank rollout (what ``chip_smoke.py``'s tp_path
-holds at 24).
+holds at 24). The data-parallel rollout's shapes: each kernel at one data
+row of qwen2-0.5b at dp=2 (B=8): 4 rows of 14 q heads on 2 kv heads, half
+a pool with its trash page (f32, bf16 and int8), the decode kernel's
+96-token cache, the sampler's 4 rows of 151,936, and the flash kernels at
+the update's 8 rows of 96.
 """
 import dataclasses
 
@@ -98,6 +102,11 @@ PAGED_CASES = {
     "np128_s2048": (2, 128, 256, 16, 14, 2, 64, [2048, 1500], False, ()),
     "int8_chunks": (4, 16, 65, 16, 14, 2, 64, [256, 65, 0, 129], True,
                     ((0, 8, 12),)),
+    # one data row of qwen2-0.5b at dp=2 (B=8, 96-token context): its 4
+    # slots on its half of the pool, 4 x 6 pages and its trash page
+    "dp2_half_pool": (4, 6, 25, 16, 14, 2, 64, [96, 40, 17, 1], False, ()),
+    "dp2_half_pool_int8": (4, 6, 25, 16, 14, 2, 64, [96, 40, 17, 1], True,
+                           ()),
 }
 
 
@@ -212,6 +221,8 @@ DECODE_CASES = {
     "hd160_group4": (2, 256, 32, 8, 160, "fill"),
     # one rank of qwen2-0.5b at tp=2 (the folded reference's cache)
     "tp2_one_kv_head": (8, 256, 7, 1, 64, "fill"),
+    # one data row of qwen2-0.5b at dp=2 (the folded reference's cache)
+    "dp2_rank_rows": (4, 96, 14, 2, 64, "fill"),
 }
 
 
@@ -351,6 +362,20 @@ def test_fused_sample_kernel_matches_plain_version(V, noise, dev):
     tok_r, lp_r = fused_sample_ref(lg, nz)
     assert torch.equal(tok, tok_r) and int(tok[0]) == 7
     torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, V), rtol=0)
+
+
+@pytest.mark.parametrize("noise", ["zero", "gumbel"])
+def test_fused_sample_at_a_data_row(noise, dev):
+    """One data row of qwen2-0.5b at dp=2: its 4 rows of the 151,936-wide
+    vocabulary, one launch, against the plain version."""
+    lg, nz = _sample_inputs(5, 4, 151936, noise, dev)
+    n0 = fs_ops.launches
+    tok, lp = fs_ops.fused_sample(lg, nz)
+    assert fs_ops.launches == n0 + 1
+    tok_r, lp_r = fused_sample_ref(lg, nz)
+    assert torch.equal(tok, tok_r)
+    torch.testing.assert_close(lp, lp_r, atol=_lp_atol(lp_r, 151936),
+                               rtol=0)
 
 
 def _plan(B, V, dev):
@@ -605,6 +630,8 @@ FLASH_CASES = {
     "update_heads_group7": (2, 256, 256, 14, 2, 64, True, 0),
     # one rank of qwen2-0.5b at tp=2: 7 q heads on one kv head
     "tp2_heads_7_1": (2, 256, 256, 7, 1, 64, True, 0),
+    # the update after a dp=2 rollout of B=8 at a 96-token context
+    "dp2_update": (8, 96, 96, 14, 2, 64, True, 0),
     "ragged_s100": (1, 100, 100, 14, 2, 64, True, 0),
     "window_after_empty_slab": (1, 200, 200, 4, 2, 32, True, 40),
     "not_causal_hd128": (1, 130, 130, 8, 1, 128, False, 0),

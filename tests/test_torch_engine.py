@@ -168,18 +168,32 @@ def test_small_pool_counts_or_raises(models):
 
 
 @pytest.mark.parametrize("option,value,error,item", [
-    ("mesh_config", MeshConfig("dp2", dp=2, tp=1), NotImplementedError,
-     "item 13"),
+    ("mesh_config", MeshConfig("dp2", dp=2, tp=1), ValueError, "ranks 0..1"),
     ("mesh_config", MeshConfig("tp2", dp=1, tp=2), ValueError, "ranks 0..1"),
+    ("share_prefix", dict(share_prefix=True), NotImplementedError,
+     "item 13"),
+    ("on_exhaust", dict(on_exhaust="preempt"), NotImplementedError,
+     "item 13"),
+    ("pool_growth", dict(pool_growth="double"), NotImplementedError,
+     "item 13"),
+    ("speculation", dict(speculation="self", sampling="reference"),
+     NotImplementedError, "item 13"),
 ])
 def test_unported_options_raise(models, option, value, error, item):
-    """dp above 1 is unported; tp above 1 runs the tensor-parallel
-    rollout, int8 pages included (tests/test_torch_tp_options.py): in this
-    world of one rank a tp=2 config stops at the world check."""
+    """dp and tp above 1 run the data-parallel and the tensor-parallel
+    rollouts, int8 pages included (tests/test_torch_dp.py,
+    tests/test_torch_tp_options.py): in this world of one rank a config
+    of two ranks stops at the world check. At dp above 1 four pool
+    options still wait for item 13's second part, and are refused before
+    the world check, naming the option (the fifth, a pool below full
+    provisioning, is refused at ``run``: tests/test_torch_dp.py)."""
     tmodel = models[2]
-    with pytest.raises(error, match=item):
+    kw = ({option: value} if option == "mesh_config"
+          else dict(value, mesh_config=MeshConfig("dp2", dp=2, tp=1)))
+    with pytest.raises(error, match=item) as e:
         CompiledRolloutEngine(tmodel, TicTacToe(), device="cpu",
-                              kv_dtype="int8", **{option: value})
+                              kv_dtype="int8", **kw)
+    assert option in str(e.value) or option == "mesh_config"
 
 
 @pytest.mark.parametrize("layout,attn_impl", [("dense", "paged"),

@@ -369,16 +369,15 @@ def test_trainer_rows_equal_jax(pipeline):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("cfg,error,item", [
-    (MeshConfig("dp2", dp=2, tp=1), NotImplementedError, "item 13"),
-    (MeshConfig("pods2", dp=1, tp=1, pods=2), NotImplementedError,
-     "item 13"),
+    (MeshConfig("dp2", dp=2, tp=1), ValueError, "ranks 0..1"),
+    (MeshConfig("pods2", dp=1, tp=1, pods=2), ValueError, "ranks 0..1"),
     (MeshConfig("tp2", dp=1, tp=2), ValueError, "ranks 0..1"),
 ])
 def test_engine_mesh_config_beyond_one_device_raises(cfg, error, item):
-    """dp and pods above 1 are unported; tp above 1 runs the
-    tensor-parallel rollout, int8 pages included
-    (tests/test_torch_tp_options.py), and a tp=2 config does not fit this
-    world of one rank."""
+    """dp and pods above 1 run the data-parallel rollout
+    (tests/test_torch_dp.py), tp above 1 the tensor-parallel one, int8
+    pages included (tests/test_torch_tp_options.py); a config of two ranks
+    does not fit this world of one rank."""
     model = build_model(get_smoke_config("qwen2-0.5b"))
     with pytest.raises(error, match=item):
         CompiledRolloutEngine(model, TicTacToe(), device="cpu",

@@ -26,7 +26,8 @@ port's one-rank run:
 - the paged-pool options at tp above 1 pass the option check (they run
   in ``tests/test_torch_tp_options.py``), the trainer builds the python
   backend and the async pipeline across ranks, no module of the port
-  cites ROADMAP item 14, and dp still cites 13.
+  cites ROADMAP item 14, and dp x tp still cites 13 for the pool options
+  that wait on its second part.
 """
 import os
 import subprocess
@@ -557,10 +558,19 @@ def test_no_module_of_the_port_cites_item_14():
                     assert "item 14" not in fh.read(), os.path.join(path, f)
 
 
-def test_dp_above_one_still_cites_13(smoke):
-    with pytest.raises(NotImplementedError, match="item 13"):
+@pytest.mark.parametrize("kw", [
+    dict(share_prefix=True), dict(on_exhaust="preempt"),
+    dict(pool_growth="double"),
+    dict(speculation="self", sampling="reference")])
+def test_dp_above_one_still_cites_13(smoke, kw):
+    """dp x tp runs (tests/test_torch_dp.py); the pool options whose
+    semantics are JAX's global allocator's and governor's still cite 13
+    there, naming the option."""
+    with pytest.raises(NotImplementedError, match="item 13") as e:
         CompiledRolloutEngine(smoke, TicTacToe(), device="cpu",
-                              mesh_config=MeshConfig("d2t2", dp=2, tp=2))
+                              mesh_config=MeshConfig("d2t2", dp=2, tp=2),
+                              **kw)
+    assert next(iter(kw)) in str(e.value)
 
 
 def test_tp_mesh_beyond_the_world_raises(smoke):

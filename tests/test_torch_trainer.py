@@ -185,16 +185,16 @@ def _selector_of(cfg):
 
 
 @pytest.mark.parametrize("option,value,error,item", [
-    ("selector", _selector_of(MeshConfig("dp2", dp=2, tp=1)),
-     NotImplementedError, "item 13"),
+    ("selector", _selector_of(MeshConfig("dp2", dp=2, tp=1)), ValueError,
+     "ranks 0..1"),
     ("selector", _selector_of(MeshConfig("tp2", dp=1, tp=2)), ValueError,
      "ranks 0..1"),
 ])
 def test_unported_options_raise(option, value, error, item):
-    """The selector is ported; a config it starts the engine on with dp
-    above 1 is not yet. int8 pages at tp above 1 are (the tensor-parallel
-    rollout's options are tests/test_torch_tp_options.py's): in this world
-    of one rank a tp=2 config stops at the world check."""
+    """The selector is ported, and so are the configs it starts the engine
+    on with dp or tp above 1, int8 pages included (tests/test_torch_dp.py,
+    tests/test_torch_tp_options.py): in this world of one rank a config of
+    two ranks stops at the world check."""
     with pytest.raises(error, match=item):
         EarlTrainer(model=build_model(get_smoke_config("qwen2-0.5b")),
                     env=TicTacToe(), device="cpu", kv_dtype="int8",
