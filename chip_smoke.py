@@ -710,29 +710,23 @@ def _tp_pool(torch, g, B, NP, ps, KV, hd, kvdt, fill):
     return kp, vp, ks, vs, bt
 
 
-def tp_pool_cases(torch, report, g):
-    """The paged-pool kernels at one rank's heads of full-width qwen2-0.5b
-    at tp=2 (7 q heads, 1 kv head, hd 64, 16-token pages), on the shapes
-    tp_path's option runs give them: spec-verify at K=4 on B=8 rows of the
-    speculative run's 96-token context (NP=6) on fp32, bf16 and int8
-    pools, and paged attention on B=8 rows of the pool run's int8 pool
-    (256 tokens, NP=16). Each is held against ref.py by its rule (2^-18 of
-    the output scale plus 2^-7 relative for bf16 q, 0 relative for f32),
-    each verify query also bitwise against the paged kernel at its length,
-    and timed beside its bound (each live K/V element and scale read once;
-    4 hd flops per valid (query head, key) pair at the peak rate of q's
-    type) and the plain version. No single PyTorch call computes either:
-    the library time is null."""
+def spec_verify_cases(torch, report, g, B, H, KV, suffix):
+    """Spec-verify at K=4 on ``B`` rows of a 96-token context (NP=6
+    16-token pages; hd 64) with ``H``/``KV`` heads, on fp32, bf16 and
+    int8 pools: each held against ref.py by its rule (2^-18 of the output
+    scale plus 2^-7 relative for bf16 q, 0 relative for f32), each verify
+    query also bitwise against the paged kernel at its length, and timed
+    beside its bound (each live K/V element and scale read once; 4 hd
+    flops per valid (query head, key) pair at the peak rate of q's type)
+    and the plain version. Registered as ``<dtype>_<suffix>_k4``. No
+    single PyTorch call computes it: the library time is null."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.paged_attention.ref import (
-        paged_decode_attention_ref)
     from repro_torch.kernels.spec_verify import ops as sv_ops
     from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
 
     dev = "cuda"
-    B, H, KV, hd, ps = TP_BATCH, 7, 1, 64, 16
-    K, NP = 4, 6
+    hd, ps, K, NP = 64, 16, 4, 6
     for dname, qdt, kvdt, rtol in (
             ("fp32", torch.float32, torch.float32, 0.0),
             ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7),
@@ -746,7 +740,7 @@ def tp_pool_cases(torch, report, g):
                                            v_scales=vs)
         ref = spec_verify_attention_ref(q, kp, vp, bt, pos, ks, vs)
         torch.cuda.synchronize()
-        name = f"{dname}_tp2_k4"
+        name = f"{dname}_{suffix}_k4"
         chk = held(torch, out, ref,
                    2.0 ** -18 * float(ref.float().abs().max()), rtol)
         diff_q = [j for j in range(K) if not torch.equal(
@@ -766,6 +760,7 @@ def tp_pool_cases(torch, report, g):
                            if qdt == torch.bfloat16 else F32_FLOPS)
         case = dict(
             chk, paged_kernel_bitwise=True, B=B, H=H, KV=KV, K=K, NP=NP,
+            pool_pages=kp.shape[0],
             ms=time_cold(torch, lambda: sv_ops.spec_verify_attention(
                 q, kp, vp, bt, pos, k_scales=ks, v_scales=vs)),
             plain_ms=time_cold(torch, lambda: spec_verify_attention_ref(
@@ -775,6 +770,24 @@ def tp_pool_cases(torch, report, g):
         report["spec_verify"]["cases"][name] = case
         emit({"phase": "kernels", "kernel": "spec_verify", "case": name,
               **case})
+
+
+def tp_pool_cases(torch, report, g):
+    """The paged-pool kernels at one rank's heads of full-width qwen2-0.5b
+    at tp=2 (7 q heads, 1 kv head, hd 64, 16-token pages), on the shapes
+    tp_path's option runs give them: spec-verify at K=4 on B=8 rows of the
+    speculative run's 96-token context (``spec_verify_cases``) and paged
+    attention on B=8 rows of the pool run's int8 pool (256 tokens,
+    NP=16), held against ref.py by the same rule and timed beside its
+    bound and the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_decode_attention_ref)
+
+    dev = "cuda"
+    B, H, KV, hd, ps = TP_BATCH, 7, 1, 64, 16
+    spec_verify_cases(torch, report, g, B, H, KV, "tp2")
 
     NP = 16
     lens = torch.randint(1, NP * ps + 1, (B,), generator=g,
@@ -810,11 +823,13 @@ def dp_cases(torch, report, g):
     """The decode-side kernels at one data row of full-width qwen2-0.5b at
     dp=2 (tp_path's dp runs: 4 of B=8 rows, 14 q heads on 2 kv heads, hd
     64, a 96-token context): paged attention on the row's half pool (4 x 6
-    pages and its trash page) at fp32, bf16 and int8, the decode kernel
-    on the folded reference's bf16 cache, and the one-launch sampler on
-    the row's 4 rows of the 151,936-wide vocabulary. Each is held against
-    ref.py by its phase's rule and timed beside its bound and the plain
-    version (and SDPA for the decode kernel)."""
+    pages and its trash page) at fp32, bf16 and int8, spec-verify at K=4
+    on the same half pools (the speculative dp option run's verify
+    chunks; ``spec_verify_cases``), the decode kernel on the folded
+    reference's bf16 cache, and the one-launch sampler on the row's 4 rows
+    of the 151,936-wide vocabulary. Each is held against ref.py by its
+    phase's rule and timed beside its bound and the plain version (and
+    SDPA for the decode kernel)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -856,6 +871,7 @@ def dp_cases(torch, report, g):
         report["paged_attention"]["cases"][f"{dname}_dp2"] = case
         emit({"phase": "kernels", "kernel": "paged_attention",
               "case": f"{dname}_dp2", **case})
+    spec_verify_cases(torch, report, g, B, H, KV, "dp2")
 
     q = torch.randn((B, H, hd), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).bfloat16()
@@ -3121,6 +3137,34 @@ def tp_dp(torch, model, full32, cut, cut32, rollout, rank, gen, reset,
     return out
 
 
+def dp_options(torch, model, params, rollout):
+    """tp_path's dp option runs on one rank (``tp_worker``, after
+    ``tp_options``, whose tp=1 runs of the same configs are their dp=1
+    references): at dp=2 and CUT_LAYERS, each rank a data row of half the
+    slots, (a) speculation ``"self"`` (TP_SPEC_ON: K=4, 6 draft layers)
+    on TicTacToe, fp32, greedy, B=8, 2 turns of 8 tokens; (b) the shared
+    bandit (96 shared tokens) at B=8, N=16 on int8 pages with sharing,
+    preemption and pool growth from TP_POOL_PAGES pages. Both run on the
+    global page count: the round loop's flag over both rows, and the
+    governor, admission and growth on the global batch."""
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.rl.engine import CompiledRolloutEngine
+    from repro_torch.rl.envs import MultiArmedBandit, TicTacToe
+    dp2 = MeshConfig(*DP2)
+    pool = dict(SHARED, kv_dtype="int8", share_prefix=True,
+                on_exhaust="preempt", pool_growth="double",
+                cache_pages=TP_POOL_PAGES)
+    out = {}
+    for name, env, kw, n in (
+            ("spec", TicTacToe(), dict(TP_SPEC, **TP_SPEC_ON), TP_BATCH),
+            ("pool_preempt", MultiArmedBandit(prompt_len=95), pool,
+             TP_EPISODES)):
+        eng = CompiledRolloutEngine(model, env, mesh_config=dp2, **kw)
+        out[f"{name}_dp2"] = rollout(eng, params, False, True, n=n)
+        del eng
+    return out
+
+
 def dp_train(torch, model, params, rank: int, spmd: bool) -> dict:
     """tp_path's dp run (d): two steps of ``EarlTrainer`` (DP_TRAIN) on
     ``params`` (host tensors) whose selector switches dp2 -> tp2 at step 1:
@@ -3235,14 +3279,14 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
         exp, st = eng.run(params, B, n, ref_params=params if ref else None,
                           generator=gen())
         torch.cuda.synchronize()
-        # a data row's pool: its share of the global page count
-        rows = eng.data_rows.n if eng.data_rows is not None else 1
+        # this rank's own pool: a data row's share of the global one
         res = dict(seconds=time.perf_counter() - t0, launches=read(),
                    peak_bytes=torch.cuda.max_memory_allocated() - base,
                    returned=st.episodes_returned,
                    counters={c: int(getattr(st, c)) for c in TP_STATS},
-                   pool_bytes=(pool_bytes(eng, st.page_capacity // rows)
+                   pool_bytes=(pool_bytes(eng, eng.rank_pool_pages)
                                if eng.cache_layout == "paged" else 0),
+                   pool_pages=eng.rank_pool_pages,
                    page_bytes=(pool_bytes(eng, 0)
                                if eng.cache_layout == "paged" else 0),
                    layout=repr(eng.experience_shardings.tokens.spec),
@@ -3324,6 +3368,9 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     t0 = time.perf_counter()
     out["options"] = tp_options(torch, cut, cut32, rollout, rank, two)
     out["options_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dp_options"] = dp_options(torch, cut, cut32, rollout)
+    out["dp_options_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["async"] = tp_async(torch, cut, cut32, rank, spmd=True)
     out["async_seconds"] = time.perf_counter() - t0
@@ -3503,8 +3550,11 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     a data row of 4 of the 8 slots on its half of the pool, at fp32 with
     the folded reference against the dp=1 run above, at bf16 for one turn,
     int8 pages at CUT_LAYERS against dp=1 on rank 0, and two SPMD trainer
-    steps at CUT_LAYERS switching dp2 -> tp2 against rank 0 alone. And
-    the option runs at full width and CUT_LAYERS
+    steps at CUT_LAYERS switching dp2 -> tp2 against rank 0 alone; after
+    the option runs, their (a) and (b)'s pressured run again at dp=2
+    (``dp_options``, gated by ``dp_option_results``) against their tp=1
+    runs, on the global page count. And the option runs at full width and
+    CUT_LAYERS
     (``tp_options``, ``tp_async``), each at tp=1 (rank 0) and tp=2: (a)
     speculation (``"self"``, K=4, 6 draft layers) on TicTacToe with its
     spec-off twin at tp=2; (b) the SHARED bandit at B=8, N=16 on int8
@@ -3570,6 +3620,7 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     out["families"], families_ok = tp_family_results(torch, res)
     out["options"], options_ok = tp_option_results(torch, res)
     out["dp"], dp_ok = tp_dp_results(torch, res)
+    out["dp_options"], dp_options_ok = dp_option_results(torch, res)
     emit(out)
     report["fused_sample_partial"]["launches"] = \
         r0["fp32_tp2"]["launches"]["fused_sample_partial"]
@@ -3580,8 +3631,11 @@ def phase_tp_path(torch, report, workers: TPWorkers):
         opt["pool_tp2"]["launches"]["paged_attention"]
     report["paged_attention"]["launches_dp2_rank"] = \
         r0["dp"]["fp32_dp2"]["launches"]["paged_attention"]
+    report["spec_verify"]["launches_dp2_spec"] = \
+        r0["dp_options"]["spec_dp2"]["launches"]["spec_verify"]
     if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
             and launches_ok and families_ok and options_ok and dp_ok
+            and dp_options_ok
             and bl["max_abs_err"] <= 0.05 * bl["scale"]
             and r0["logits_launches"]["flash_fwd"] == 24
             and all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
@@ -3800,6 +3854,80 @@ def tp_dp_results(torch, res):
     out["seconds"] = {f"rank{r}": {"dp": x["dp_seconds"],
                                    "train": x["dp_train_seconds"]}
                       for r, x in enumerate(res)}
+    return out, ok
+
+
+def dp_option_results(torch, res):
+    """The dp option runs' part of tp_path (``dp_options``) from both
+    ranks' results, against their dp=1 references (``tp_options``' tp=1
+    runs of the same configs: (a)'s on rank 1, (b)'s on rank 0): the
+    gates, what is reported, and whether every gate held. Rank r holds
+    episodes [r n/2, (r+1) n/2) of the dp=1 run's n.
+
+    (a) spec: each rank's tokens its rows of dp=1's, log-probs within
+    1e-5; the TP_STATS counters (rounds, proposed and accepted among
+    them: every row runs the global round count, and the rows' counters
+    are summed) equal dp=1's, with at least one round; every episode
+    returned; each rank's spec-verify launches equal dp=1's (one a layer
+    a verify round).
+    (b) pool_preempt: each rank's tokens its rows of dp=1's, log-probs
+    within 2e-4 (int8 pages: a value stored from K/V computed at another
+    row count can land a step away, as in tp_dp's (c)); the TP_STATS counters
+    (preemptions, growths, peak pages, the global page capacity, no
+    dropped write) equal dp=1's, with at least one preemption and one
+    growth; every episode returned; each rank's paged-attention launches
+    equal dp=1's.
+    Both: each rank's own pool holds min(the global pool, what its half
+    of the slots can map) pages. Reported: each rank's pool bytes against
+    dp=1's, the seconds."""
+    from repro_torch.models.paging import pool_pages_needed_shared
+    T = torch.tensor
+    out, ok = {}, True
+    for name, one, n, tol, kernel, ctx, shared, ps in (
+            ("spec", res[1]["options"]["spec_tp1"], TP_BATCH, 1e-5,
+             "spec_verify", TP_SPEC["max_context"], 0, 16),
+            ("pool_preempt", res[0]["options"]["pool_preempt_tp1"],
+             TP_EPISODES, 2e-4, "paged_attention", SHARED["max_context"],
+             96, SHARED["page_size"])):
+        runs = [x["dp_options"][f"{name}_dp2"] for x in res]
+        h = n // 2
+        mine = lambda rows, r: rows[r * h:(r + 1) * h]
+        tokens = all(x["tokens"] == mine(one["tokens"], r)
+                     for r, x in enumerate(runs))
+        lp = max(float((T(x["logprobs"]) - T(mine(one["logprobs"], r)))
+                       .abs().max()) for r, x in enumerate(runs))
+        c = one["counters"]
+        counters = all(x["counters"] == c and x["returned"] == n
+                       for x in runs) and one["returned"] == n
+        pressured = (c["spec_rounds"] > 0 if name == "spec" else
+                     c["preemptions"] > 0 and c["pool_grows"] > 0
+                     and c["kv_dropped_writes"] == 0)
+        launches = all(x["launches"][kernel] == one["launches"][kernel] > 0
+                       for x in runs)
+        full = pool_pages_needed_shared(TP_BATCH // 2, ctx, shared, ps)
+        pools = all(x["pool_pages"] == min(c["page_capacity"], full)
+                    for x in runs)
+        row_ok = (tokens and lp <= tol and counters and pressured
+                  and launches and pools)
+        out[name] = dict(
+            ok=row_ok, tokens_equal=tokens, logprob_max_abs_err=lp,
+            logprob_tolerance=tol, counters=c, counters_equal=counters,
+            pressured=pressured, launches_equal=launches,
+            launches={"dp1": one["launches"], "rank0": runs[0]["launches"],
+                      "rank1": runs[1]["launches"]},
+            pool_pages={"dp1": one["pool_pages"],
+                        "rank0": runs[0]["pool_pages"],
+                        "rank1": runs[1]["pool_pages"],
+                        "row_full": full, "global": c["page_capacity"]},
+            pool_bytes={"dp1": one["pool_bytes"],
+                        "rank0": runs[0]["pool_bytes"],
+                        "rank1": runs[1]["pool_bytes"]},
+            pool_ratio=[x["pool_bytes"] / one["pool_bytes"] for x in runs],
+            peak_ratio=[x["peak_bytes"] / one["peak_bytes"] for x in runs],
+            seconds={"dp1": one["seconds"], "rank0": runs[0]["seconds"],
+                     "rank1": runs[1]["seconds"]})
+        ok &= row_ok
+    out["seconds"] = [x["dp_options_seconds"] for x in res]
     return out, ok
 
 

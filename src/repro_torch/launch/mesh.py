@@ -82,11 +82,16 @@ def cache_shardings(cache, mesh_cfg: MeshConfig, *, seq_len: int,
 
     The port's pool carries a trash page past its ``n_pages`` (where JAX
     drops a write, the port writes there). In a data-parallel rollout each
-    of the D data rows holds a pool of its own, ``n_pages / D`` pages and
-    its own trash page, and allocates from it alone; the global pool is
-    those pools laid end to end, ``n_pages + D`` pages, so the page axis
-    splits over data with each rank's slice its own pool, trash page
-    included, and each block table's entries index its row's pool.
+    of the D data rows holds a pool of its own and its own trash page:
+    ``min(n_pages, the row's full provisioning)`` pages, the row's full
+    provisioning being ``pool_pages_needed_shared`` of its B/D slots (its
+    own copy of the shared prefix run included), which is ``n_pages / D``
+    at full provisioning and up to all ``n_pages`` under pressure. The
+    allocator's decisions follow JAX's one global count of ``n_pages``
+    (``rl/engine/compiled.py``); the pages themselves stay on the row. The
+    pools laid end to end form the page axis, which splits over data with
+    each rank's slice its own pool, trash page included, and each block
+    table's entries index its row's pool.
     """
     del seq_len, n_kv_heads          # JAX's signature; the rules read shapes
     sizes = mesh_cfg.axis_sizes()

@@ -55,25 +55,37 @@ def _i32_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x.to(torch.int32), 0, dtype=torch.int32)
 
 
-def alloc_pages(refcount: torch.Tensor, need: torch.Tensor):
+def alloc_pages(refcount: torch.Tensor, need: torch.Tensor, grant=None):
     """Grab one free page (refcount 0) for every row with ``need=True``.
 
     refcount: (P,) int32; need: (B,) bool. Returns ``(pages, refcount')``:
     the r-th needing row receives the r-th free page (its refcount becomes
     1); rows with ``need=False`` or beyond the free supply get the sentinel
     ``P``. Rank-match by cumulative sums: no loop, no host read.
+
+    ``grant``: on a data row of a data-parallel rollout, a callable
+    ``(need, refcount) -> (offset, free)`` (0-d tensors, the same exchange
+    on every row) giving the needing rows of the data rows before this one
+    and the free count of the whole (global) pool. A needing row is then
+    granted a page iff its rank over the global batch, ``offset`` plus its
+    rank here, is below ``free``: JAX's rank rule over its one pool. The
+    page itself comes from this row's own pool, which holds enough free
+    pages for every grant the global count allows.
     """
     P = refcount.shape[0]
     dev = refcount.device
     free = refcount == 0
     rank = _i32_cumsum(need) - 1                            # (B,) alloc rank
     free_rank = _i32_cumsum(free) - 1                       # (P,)
-    total_free = free.sum(dtype=torch.int32)
+    if grant is None:
+        offset, total_free = 0, free.sum(dtype=torch.int32)
+    else:
+        offset, total_free = grant(need, refcount)
     # rank_to_page[r] = pool index of the r-th free page (slot P = trash)
     rank_to_page = torch.full((P + 1,), P, dtype=torch.int32, device=dev)
     rank_to_page.scatter_(0, torch.where(free, free_rank, P).long(),
                           torch.arange(P, dtype=torch.int32, device=dev))
-    ok = need & (rank < total_free)
+    ok = need & (rank + offset < total_free)
     pages = torch.where(ok, rank_to_page[rank.clamp(0, P - 1)], P)
     rc = torch.cat([refcount, refcount.new_zeros(1)])
     rc.scatter_(0, pages.long(), 1)
@@ -116,7 +128,7 @@ def fork_pages(refcount: torch.Tensor, block_table: torch.Tensor,
 
 
 def cow_pages(refcount: torch.Tensor, block_table: torch.Tensor,
-              entry: torch.Tensor, rows: torch.Tensor):
+              entry: torch.Tensor, rows: torch.Tensor, grant=None):
     """Copy-on-write: privatize the page behind ``block_table[r,
     entry[r]]`` for every row with ``rows=True`` about to write into a
     SHARED page (refcount > 1) — allocate a fresh page, remap the entry and
@@ -127,7 +139,8 @@ def cow_pages(refcount: torch.Tensor, block_table: torch.Tensor,
     (B,) are the page pairs whose data the caller copies per layer
     (sentinel ``P`` = no copy); ``blocked`` marks rows that needed a
     private copy and found the pool exhausted: their write must be dropped,
-    or it would land in every sibling's page."""
+    or it would land in every sibling's page. ``grant``: the copies'
+    allocation on a data row (``alloc_pages``)."""
     B, NP = block_table.shape
     P = refcount.shape[0]
     ridx = torch.arange(B, device=block_table.device)
@@ -135,7 +148,7 @@ def cow_pages(refcount: torch.Tensor, block_table: torch.Tensor,
     cur = block_table[ridx, ent]                            # (B,)
     shared = (cur >= 0) & (refcount[cur.clamp(0, P - 1).long()] > 1)
     need = rows & shared
-    new_pages, refcount = alloc_pages(refcount, need)
+    new_pages, refcount = alloc_pages(refcount, need, grant)
     ok = need & (new_pages < P)
     blocked = need & ~ok
     block_table = block_table.clone()

@@ -350,7 +350,8 @@ def _dense_decode_step(cfg: ModelConfig, params, token, cache: DecodeCache,
 
 def _paged_decode_step(cfg: ModelConfig, params, token,
                        cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                       advance=None, layers=None, cow: bool = True, tp=None):
+                       advance=None, layers=None, cow: bool = True, tp=None,
+                       grant=None):
     """One decode step on the paged layout. The page allocator runs ONCE
     per token, outside the layer loop: every layer shares the block table.
     Rows with ``advance=False`` neither allocate nor write (their write
@@ -363,7 +364,9 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
     finds no free page for its copy drops its write. ``cow=False``
     statically removes this guard, its allocator pass and its per-layer
     copies: only safe when no write can land in a shared page (no sharing,
-    or page-aligned sharing whose writes start past the shared run)."""
+    or page-aligned sharing whose writes start past the shared run).
+    ``grant``: the allocations' global rank rule on a data row of a
+    data-parallel rollout (``paging.alloc_pages``)."""
     x = L.embed(params["embedding"], token[:, None], tp)
     B = token.shape[0]
     dev = token.device
@@ -376,7 +379,7 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
     pidx = (pos // ps).clamp(0, cache.block_table.shape[1] - 1).long()
     cur = cache.block_table[rows, pidx]
     need = adv & (cur < 0)
-    pages, refcount = paging.alloc_pages(cache.refcount, need)
+    pages, refcount = paging.alloc_pages(cache.refcount, need, grant)
     fresh = need & (pages < P)
     bt = cache.block_table.clone()
     bt[rows, pidx] = torch.where(fresh, pages, cur)
@@ -384,7 +387,7 @@ def _paged_decode_step(cfg: ModelConfig, params, token,
     w_ok = adv
     if cow:
         cow_src, cow_dst, blocked, refcount, bt = paging.cow_pages(
-            refcount, bt, pidx, adv & (bt[rows, pidx] >= 0))
+            refcount, bt, pidx, adv & (bt[rows, pidx] >= 0), grant)
         w_ok = adv & ~blocked
     wpage = bt[rows, pidx]                                  # (B,) may be -1
     w_ok = w_ok & (wpage >= 0)
@@ -431,7 +434,8 @@ def decode_step(cfg: ModelConfig, params, token, cache, *, extra=None,
 
 def spec_verify_step(cfg: ModelConfig, params, chunk,
                      cache: PagedDecodeCache, *, attn_impl: str = "xla",
-                     advance=None, eff_k=None, cow: bool = True, tp=None):
+                     advance=None, eff_k=None, cow: bool = True, tp=None,
+                     grant=None):
     """Score a (B, K) chunk of candidate tokens against the full model in
     one batched pass on the paged layout: the verify half of speculative
     decoding. ``chunk[:, 0]`` is the token sequential decode would commit
@@ -456,7 +460,8 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
     blocked drops its writes into that page only. tp: the rank's
     tensor-parallel context: the kernel runs on the rank's q and kv heads,
     the o-proj and the MLP all-reduce, and the logits are the rank's vocab
-    columns; the write plan is replicated.
+    columns; the write plan is replicated. grant: the allocations'
+    global rank rule on a data row (``paging.alloc_pages``).
     """
     B, K = chunk.shape
     dev = chunk.device
@@ -480,7 +485,7 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
         pidx = (pidx0 + d).clamp(0, NP - 1)
         cur = bt[rows, pidx]
         need = adv & (ek > 0) & (d <= lastd) & (cur < 0)
-        pages, refcount = paging.alloc_pages(refcount, need)
+        pages, refcount = paging.alloc_pages(refcount, need, grant)
         fresh = need & (pages < P)
         bt[rows, pidx] = torch.where(fresh, pages, cur)
         if d == 0:
@@ -488,7 +493,8 @@ def spec_verify_step(cfg: ModelConfig, params, chunk,
     cow_src = cow_dst = None
     if cow:
         cow_src, cow_dst, blocked, refcount, bt = paging.cow_pages(
-            refcount, bt, pidx0, adv & (ek > 0) & (bt[rows, pidx0] >= 0))
+            refcount, bt, pidx0, adv & (ek > 0) & (bt[rows, pidx0] >= 0),
+            grant)
     # a freshly mapped first page mid-row (recovery from pool exhaustion)
     # is scrubbed, as in _paged_decode_step; later chunk pages always map
     # at offset 0
@@ -552,18 +558,20 @@ def scan_body_over(step_fn):
 
 
 def decode_scan_body(cfg: ModelConfig, params, *, attn_impl: str = "xla",
-                     cow: bool = True, tp=None):
+                     cow: bool = True, tp=None, grant=None):
     """Decode body for in-loop generation, bound to the decode step of the
     cache it is given (per-layer param views are sliced once here, not
     once per token). cow: the paged step's copy-on-write guard. tp: the
-    rank's tensor-parallel context (``params`` its local shards)."""
+    rank's tensor-parallel context (``params`` its local shards). grant:
+    the paged step's global rank rule on a data row."""
     layers = [layer_params(params, i) for i in range(cfg.n_layers)]
 
     def step(token, advance, cache):
         if isinstance(cache, PagedDecodeCache):
             return _paged_decode_step(cfg, params, token, cache,
                                       attn_impl=attn_impl, advance=advance,
-                                      layers=layers, cow=cow, tp=tp)
+                                      layers=layers, cow=cow, tp=tp,
+                                      grant=grant)
         return _dense_decode_step(cfg, params, token, cache,
                                   attn_impl=attn_impl, advance=advance,
                                   layers=layers, tp=tp)

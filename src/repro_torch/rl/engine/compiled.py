@@ -105,28 +105,67 @@ rank's heads, every judged token is the vocab-partial combine, and the
 round loop's flag is reduced over the model axis.
 
 **Data parallelism** (``mesh_config`` with dp or pods above 1, and dp x
-tp; every family, both layouts): the mesh's D = dp x pods data rows each
-run a window of the global slots, row d slots ``[d B/D, (d+1) B/D)``,
-with their own pool (``n_pages / D`` pages and their own trash page) or
-dense cache rows; the ranks of one row are a tp group at tp above 1.
-Every row asks its ``NoiseFn`` for the global batch's draws and takes
-its rows, so the schedule is the one-rank engine's. The turn's one
-collective is an all-gather over the rows (``models.tensor_parallel.
-data_group``) of each row's finished count, pool occupancy and new
-dropped writes, after the harvest: the refill gives a finished slot the
-next episode id in the global slot order (the finished slots of the rows
-before it), and ``launched``, ``returned``, ``pages_peak`` and
-``kv_dropped`` are global on every row, so every row stops after the
-same macro-step. At the end of ``run`` ONE all-reduce of the episode
-stores' bytes gives every row all ``N`` episodes (each was harvested on
-one row; the others hold zeros there), the stats are global, and each
-rank keeps its rows of the batch where the data rows divide ``N`` (JAX's
-``_batch_spec``; ``experience_shardings`` says so). Where the rows do not
-divide B, every row runs all B slots, as JAX's layouts replicate such a
-batch, and nothing is exchanged. Prefix sharing, preemption, pool growth,
-a pool below full provisioning and speculation depend on JAX's global
-page allocator and governor: at D above 1 they raise naming ROADMAP
-Queue 1 item 13.
+tp; every family, both layouts, every pool option): the mesh's D = dp x
+pods data rows each run a window of the global slots, row d slots
+``[d B/D, (d+1) B/D)``, on their own dense cache rows or their own paged
+pool; the ranks of one row are a tp group at tp above 1. Every row asks
+its ``NoiseFn`` for the global batch's draws and takes its rows (draws
+keyed by episode are the row's own), so the schedule is the one-rank
+engine's.
+
+The paged pool is JAX's one global pool as a COUNT, its pages kept
+local: what decides the tokens is which writes land, stall, drop or get
+preempted, not which page holds a slot's K/V (attention reads through
+the block table). The global pool has ``cache_pages`` pages (full
+provisioning by default; grown by pool growth; ``page_capacity``
+reports it). A row's own pool holds ``min(global pool, the row's full
+provisioning)`` pages and its trash page, the row's full provisioning
+being ``pool_pages_needed_shared`` of its B/D slots (its own copy of the
+shared run included): it never needs more, and every grant the global
+count allows finds a page there. The global pages in use are the rows'
+private pages plus the shared run ONCE (each row decodes the run through
+its first slot at batch 1, and pins and forks its own copy), so
+``pages_peak`` and the free count the allocator, the governor, admission
+and growth read are JAX's. The collectives a turn makes over the rows
+(``models.tensor_parallel.data_group``), by mode:
+
+  - always ONE all-gather after the harvest (``_across_rows``): each
+    row's finished count, private pages in use, new dropped writes and
+    continuing slots, so the refill gives a finished slot the next
+    episode id in the global slot order and ``launched``, ``returned``,
+    ``pages_peak`` and ``kv_dropped`` are global on every row, and under
+    sharing every row takes the global batch's feed branch;
+  - preempt mode: that gather also carries each row's free slots,
+    reserved pages and survivors after its finished slots released their
+    pages, so every row plans JAX's admission on the global batch and
+    takes its slots (a re-queued episode can land on another row); and
+    ONE more gather before the turn writes (``_govern``): each slot's
+    eligibility, position, demand, private pages and episode, so every
+    row runs the governor on the global batch with the global free count
+    and keeps its rows of the run set and the victims;
+  - a pool below the global batch's full provisioning outside preempt
+    mode (``"count"``/``"raise"``, growth from a small pool): ONE
+    all-gather per allocation (a decode step, a verify chunk's page,
+    ``_grant``) of the rows' need masks and private pages, so a slot
+    gets a page iff its rank over the global batch is below the global
+    free count (JAX's ``alloc_pages``). At full provisioning, or under
+    the governor (which admits only what fits), no write can fail and no
+    step adds a collective;
+  - pool growth: ONE all-reduce of the rows' private pages before the
+    turn's host read (the watermark test's global free count); every row
+    grows in the same turn, its pool to ``min(grown global, its full
+    provisioning)``;
+  - speculation: the round loop's flag is a MAX over the model axis and
+    then the data rows, one per verify round, so every row runs JAX's
+    global round count (masked no-op rounds where its slots are done).
+
+At the end of ``run`` ONE all-reduce of the episode stores' bytes gives
+every row all ``N`` episodes (each was harvested on one row; the others
+hold zeros there) and sums the rows' speculative counters; the stats are
+global, and each rank keeps its rows of the batch where the data rows
+divide ``N`` (JAX's ``_batch_spec``; ``experience_shardings`` says so).
+Where the rows do not divide B, every row runs all B slots on the whole
+pool, as JAX's layouts replicate such a batch, and nothing is exchanged.
 
 The episode store and the slot token buffers carry one trash row/column
 where JAX drops out-of-range writes (``slots.py``); the paged pools carry
@@ -152,11 +191,6 @@ from repro_torch.rl.envs.base import TOK_PAD, blend_rows
 from repro_torch.rl.experience import ExperienceBatch
 
 NoiseFn = Callable[[str, int, int, tuple], torch.Tensor]
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: it arrives with "
-                               f"ROADMAP Queue 1 item {item}")
 
 
 class _RefStream(NamedTuple):
@@ -203,40 +237,62 @@ class DataRows:
         buf[self.index] = x
         return self.all_reduce_sum(buf)
 
+    def gather_slots(self, slots, counts):
+        """ONE gather of this row's per-slot ``slots`` (each (b,): bool or
+        int) and 0-d ``counts``, as int32. Returns the global batch's
+        ``slots`` (each (n b,), in the global slot order) and every row's
+        ``counts`` ((n, len(counts)))."""
+        parts = [torch.stack(counts).to(torch.int32)]
+        if slots:
+            parts.insert(0, torch.stack(slots).to(torch.int32).reshape(-1))
+        b = slots[0].shape[0] if slots else 0
+        g = self.gather(torch.cat(parts))
+        per = g[:, :len(slots) * b].reshape(self.n, len(slots), b)
+        return ([per[:, i].reshape(-1) for i in range(len(slots))],
+                g[:, len(slots) * b:])
+
     def all_reduce_sum(self, x):
         """``x`` summed over the rows (in place; returned)."""
         dist.all_reduce(x, group=self.group)
         return x
 
 
-def _exchange_store(store: slots.EpisodeStore, N: int, rows: DataRows):
+def _exchange_store(store: slots.EpisodeStore, N: int, rows: DataRows,
+                    sums: torch.Tensor):
     """Every row's harvest in every row's store: each episode id was
     harvested on one row and the others hold zero bytes there, so ONE
     all-reduce of the stores' bytes (as int32 words, whose sums carry
     nothing across bytes) gives each row all ``N`` episodes bitwise. The
-    4-byte leaves go first, so every leaf starts at a word boundary.
-    Returns an ``EpisodeStore`` of ``N`` rows (no trash row)."""
+    4-byte leaves go first, so every leaf starts at a word boundary; the
+    row's int32 ``sums`` ride at the end and come back summed over the
+    rows. Returns an ``EpisodeStore`` of ``N`` rows (no trash row) and the
+    summed ``sums``."""
     order = sorted(range(len(store)), key=lambda i: -store[i].element_size())
     leaves = [store[i][:N].contiguous() for i in order]
     flat = torch.cat([x.reshape(-1).view(torch.uint8) for x in leaves])
     flat = torch.nn.functional.pad(flat, (0, -flat.numel() % 4))
-    flat = rows.all_reduce_sum(flat.view(torch.int32)).view(torch.uint8)
+    words = rows.all_reduce_sum(torch.cat([flat.view(torch.int32), sums]))
+    flat = words[:flat.numel() // 4].view(torch.uint8)
     out, off = [None] * len(store), 0
     for i, x in zip(order, leaves):
         n = x.numel() * x.element_size()
         out[i] = flat[off:off + n].view(x.dtype).view(x.shape)
         off += n
-    return slots.EpisodeStore(*out)
+    return slots.EpisodeStore(*out), words[flat.numel() // 4:]
 
 
 def _local_noise(noise: NoiseFn, window) -> NoiseFn:
     """``noise`` asked for the global batch's draws, this data row's rows
-    taken (``window`` = (lo, hi, B); ``noise`` itself when None)."""
+    taken (``window`` = (lo, hi, B); ``noise`` itself when None). Draws
+    keyed by episode (preempt mode: ``m`` and ``index`` are tensors of the
+    row's slots) are the row's own already, and pass through."""
     if window is None:
         return noise
     lo, hi, B = window
 
     def draw(kind, m, index, shape):
+        if isinstance(m, torch.Tensor):
+            return noise(kind, m, index, shape)
         return noise(kind, m, index, (B,) + tuple(shape[1:]))[lo:hi]
     return draw
 
@@ -292,14 +348,15 @@ class CompiledRolloutEngine:
     ``mesh_config``: a ``MeshConfig`` over ranks of the process group
     (``bind_mesh`` re-binds it on a selector switch); tp above 1 runs the
     tensor-parallel rollout of the dense, moe, ssm and hybrid families,
-    dp or pods above 1 the data-parallel rollout (dp x tp both), where
-    ``share_prefix``, ``on_exhaust="preempt"``, ``pool_growth``, a
-    ``cache_pages`` below full provisioning and ``speculation`` raise
-    ``NotImplementedError`` naming ROADMAP Queue 1 item 13. After each
-    ``run``, ``experience_shardings`` holds the harvested batch's layouts
-    (an ``ExperienceBatch`` of ``NamedLayout``s, the batch over the
-    (pod, data) axes where they divide it, JAX's ``_batch_spec``), the
-    data dispatcher's source layouts: a rank holds its shard of each.
+    dp or pods above 1 the data-parallel rollout (dp x tp both), with
+    every option: the pool is JAX's one global page count over the data
+    rows' own pools (the module docstring gives each mode's collectives
+    a turn; ``rank_pool_pages`` is this rank's own pool after a run).
+    After each ``run``, ``experience_shardings`` holds the harvested
+    batch's layouts (an ``ExperienceBatch`` of ``NamedLayout``s, the batch
+    over the (pod, data) axes where they divide it, JAX's
+    ``_batch_spec``), the data dispatcher's source layouts: a rank holds
+    its shard of each.
     Unlike the JAX engine, the defaults are the production path: the
     kernels on the card, and their plain versions for CPU tensors.
     """
@@ -396,6 +453,7 @@ class CompiledRolloutEngine:
         self._tp = None               # this rank's TPContext at tp > 1
         self._draft_tp = None         # the draft's ("draft": its own plan)
         self._rows = None             # this rank's DataRows at dp x pods > 1
+        self.rank_pool_pages = 0      # this rank's own pool in the last run
         self._in_mesh = True
         self._held = {}               # "params"/"ref"/"draft": (global, local)
         self._mesh_config = None
@@ -433,23 +491,11 @@ class CompiledRolloutEngine:
 
     # -- selector hook ① ----------------------------------------------------
     def _check_mesh(self, cfg):
-        """A config over ranks of the process group; at dp x pods above 1
-        without the options whose semantics are JAX's global page
-        allocator's and governor's."""
+        """A config over ranks of the process group."""
         # the core package imports this engine (through its stages)
         from repro_torch.core.resharding import current_rank, world_size
         if cfg is None:
             return None
-        if cfg.dp * cfg.pods > 1:
-            for what, on in (("share_prefix", self.share_prefix),
-                             ("on_exhaust='preempt'",
-                              self.on_exhaust == "preempt"),
-                             ("pool_growth", self.pool_growth != "off"),
-                             ("speculation", self.speculation != "off")):
-                if on:
-                    raise _unported(
-                        f"{what} in a data-parallel rollout (mesh_config "
-                        f"{cfg.name!r}, dp={cfg.dp}, pods={cfg.pods})", "13")
         lo, hi = cfg.device_offset, cfg.device_offset + cfg.n_devices
         if hi > world_size():
             where = (f"rank {lo}" if cfg.n_devices == 1
@@ -619,7 +665,6 @@ class CompiledRolloutEngine:
         tkw = {} if self._tp is None else {"tp": self._tp}
         window = self._rows.window(B) if self._rows is not None else None
         lo, hi = (0, B) if window is None else window[:2]
-        n_rows = 1 if window is None else self._rows.n
         slot = torch.arange(lo, hi, device=dev)
         Bg, B = B, hi - lo
         live = slot < N
@@ -634,14 +679,14 @@ class CompiledRolloutEngine:
             rn = self._reset_noise(noise, slot, z((B,), torch.int32), B)
         else:
             rn = self._reset_noise(noise, -1, 0, B)
+        pool_pages = 0
         if self.cache_layout == "paged":
-            n_pages = (self.cache_pages // n_rows
-                       if self.cache_pages is not None else None)
-            if n_pages is None and self.shared_pages > 0:
-                # sharing-aware full provisioning: the shared run is one
-                # allocation, not one per slot
-                n_pages = pool_paging.pool_pages_needed_shared(
-                    B, T, self.shared_len, self.page_size)
+            # the global pool (JAX's one pool; full provisioning is
+            # sharing-aware: the shared run is one allocation, not one per
+            # slot) and this row's own pages of it
+            pool_pages = (self.cache_pages if self.cache_pages is not None
+                          else self._full_pages(Bg))
+            n_pages = self._row_pages(pool_pages, window, B)
             cache = self.model.init_cache(
                 B, T, layout="paged", page_size=self.page_size,
                 n_pages=n_pages, kv_dtype=self.kv_dtype, device=dev, **tkw)
@@ -690,19 +735,70 @@ class CompiledRolloutEngine:
             requeue=z((N,), torch.bool) if preempt else None,
             requeue_peak=z((), torch.int32) if preempt else None,
             window=window,
+            pool_pages=pool_pages,
         )
 
+    def _full_pages(self, batch: int) -> int:
+        """Exhaustion-free pool pages for ``batch`` slots (the shared run
+        once under sharing)."""
+        return pool_paging.pool_pages_needed_shared(
+            batch, self.max_context, self.shared_len, self.page_size)
+
+    def _row_pages(self, pool_pages: int, window, b: int) -> int:
+        """A data row's own pool for a global pool of ``pool_pages``: no
+        more than the global pool, nor than its ``b`` slots can map (its
+        own copy of the shared run included), so every grant the global
+        count allows finds a page here. The whole pool where the row runs
+        every slot (``window`` None)."""
+        if window is None:
+            return pool_pages
+        return min(pool_pages, self._full_pages(b))
+
     # -- pieces of the macro-step --------------------------------------------
-    def _decode(self, params):
+    def _decode(self, params, grant=None):
         # the copy-on-write guard is dropped statically: without sharing no
         # page reaches refcount > 1, and the shared run is whole pages, so
         # every write lands past it (the guard stays in the model API for
         # callers that fork a partial page)
         kw = {"cow": False} if self.cache_layout == "paged" else {}
+        if grant is not None:
+            kw["grant"] = grant
         if self._tp is not None:
             kw["tp"] = self._tp
         return self.model.decode_scan_body(params, attn_impl=self.attn_impl,
                                            **kw)
+
+    @staticmethod
+    def _run_pages(c: slots.SlotCarry):
+        """0-d int32: the pages of the shared prefix run this row holds (0
+        without sharing). Every data row holds its own copy; the global
+        pool counts the run once, as JAX's ``pages_in_use`` counts a
+        forked page."""
+        if c.prefix_pages is None:
+            return torch.zeros((), dtype=torch.int32, device=c.pos.device)
+        return (c.prefix_pages >= 0).sum(dtype=torch.int32)
+
+    def _grant(self, c: slots.SlotCarry):
+        """The allocations' global rank rule (``models.paging.alloc_pages``
+        ``grant``) on a data row whose writes can fail: a paged pool below
+        the global batch's full provisioning, outside preempt mode (whose
+        governor admits only what fits, so no write fails there). Each call
+        all-gathers the rows' need masks and private pages: ONE collective
+        per allocation (a decode step, a verify chunk's page). None where
+        no write can fail, or on one row."""
+        if (c.window is None or self.on_exhaust == "preempt"
+                or not paging.is_paged(c.cache)
+                or c.pool_pages >= self._full_pages(c.window[2])):
+            return None
+        rows, pool, n_run = self._rows, c.pool_pages, self._run_pages(c)
+
+        def grant(need, refcount):
+            used = pool_paging.pages_in_use(refcount) - n_run
+            (need_g,), used_g = rows.gather_slots([need], [used])
+            b = need.shape[0]
+            offset = need_g[:rows.index * b].sum(dtype=torch.int32)
+            return offset, pool - used_g.sum(dtype=torch.int32) - n_run
+        return grant
 
     def _ref_stream(self, ref_params, c: slots.SlotCarry):
         """The carry's reference stream, or None when it has none."""
@@ -819,7 +915,6 @@ class CompiledRolloutEngine:
         the macro-step loop). With sharing, the common prefix is decoded
         through slot 0 only, its pages pinned and forked into every live
         slot, and then every slot feeds its own suffix."""
-        decode = self._decode(params)
         ref = self._ref_stream(ref_params, carry)
         draft = self._draft_stream(params, draft_params, carry)
         obs = self.env.encode_obs(carry.env_state)
@@ -827,11 +922,17 @@ class CompiledRolloutEngine:
                                       carry.tokens, carry.pos)
         live, S = carry.live, self.shared_len
         prefix_pages = carry.prefix_pages
+        kv_shortfall = carry.kv_shortfall
         if self.shared_pages > 0:
+            # the run through the row's first slot at batch 1: on a data
+            # row even when that slot is idle (a re-admitted episode may
+            # land on the row), allocated from the row's own pool alone
+            # (every row holds the same run; the global count holds it
+            # once)
             row0 = torch.arange(live.shape[0], device=live.device) == 0
             logits, cache, tokens, pos, ref, draft = self._feed_obs(
-                decode, logits, cache, tokens, pos, obs[:, :S], row0 & live,
-                ref, draft)
+                self._decode(params), logits, cache, tokens, pos, obs[:, :S],
+                row0 & (live | (carry.window is not None)), ref, draft)
             prefix_pages = cache.block_table[0, :self.shared_pages].clone()
             # the engine-held pin (an unmapped entry adds 0)
             pinned = prefix_pages >= 0
@@ -840,6 +941,11 @@ class CompiledRolloutEngine:
                 pinned.to(cache.refcount.dtype)))
             cache = paging.fork_prefix(cache, prefix_pages, live & ~row0, S)
             pos = torch.where(live, S, pos)
+            # an idle first slot's run pages a pool too small for the run
+            # could not map are no drops of an episode
+            kv_shortfall = torch.where(
+                live, kv_shortfall, paging.dropped_tokens(cache,
+                                                          self.page_size))
             if draft is not None:
                 # the draft's dense cache cannot fork pool pages: other
                 # rows skip the prefix with zero draft K/V behind their fill
@@ -848,26 +954,34 @@ class CompiledRolloutEngine:
                     pos=torch.where(live, S, draft.cache.pos)))
             tokens = self._write_prefix_tokens(tokens, obs, live)
             obs = obs[:, S:]
+        carry = carry._replace(prefix_pages=prefix_pages)
         logits, cache, tokens, pos, ref, draft = self._feed_obs(
-            decode, logits, cache, tokens, pos, obs, live, ref, draft)
+            self._decode(params, self._grant(carry)), logits, cache, tokens,
+            pos, obs, live, ref, draft)
         return self._with_streams(carry._replace(
             logits=logits, cache=cache, tokens=tokens, pos=pos,
-            prefix_pages=prefix_pages), ref, draft)
+            kv_shortfall=kv_shortfall), ref, draft)
 
     def _more_rounds(self, pending) -> bool:
         """Whether any row still writes after a verify round: THE host read
         of the round. JAX's round loop is a ``lax.while_loop`` whose test
-        runs on the device; eager PyTorch must read it back. Under tp the
-        flag is a MAX over the model axis, so every rank leaves the loop
-        after the same round."""
-        flag = pending.any()
+        runs on the device; eager PyTorch must read it back. The flag is a
+        MAX over the whole mesh (the model axis under tp, then the data
+        rows), so every rank leaves the loop after the global batch's last
+        round, JAX's round count: a row whose slots are done runs masked
+        no-op rounds meanwhile (rows that each run every slot agree
+        already)."""
+        flag = pending.any().to(torch.int32)
         if self._tp is not None:
-            flag = self._tp.all_reduce(flag.to(torch.int32), "max")
+            flag = self._tp.all_reduce(flag, "max")
+        if self._rows is not None:
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                            group=self._rows.group)
         return bool(flag)
 
     def _spec_gen_turn(self, params, draft: _DraftStream, logits, cache,
                        tokens, gen_mask, logprobs, pos, active, m: int,
-                       noise: NoiseFn):
+                       noise: NoiseFn, grant=None):
         """One turn of speculative generation: verify rounds until no row
         writes (JAX's ``spec_gen_turn``, ``compiled.py:369-505``). Every
         round commits at least one token per writing row, so a turn runs at
@@ -918,7 +1032,8 @@ class CompiledRolloutEngine:
             vlogits, cache = transformer.spec_verify_step(
                 self.model.cfg, params, chunk, cache,
                 attn_impl=self.attn_impl, advance=write, eff_k=ek,
-                cow=False, tp=self._tp)         # cow: as in ``_decode``
+                cow=False, tp=self._tp,         # cow: as in ``_decode``
+                grant=grant)
             # chunk[:, j] commits iff it is the token sequential decode
             # samples from vlogits[:, j-1] with that step's noise row
             match, commits = write, i32(write)
@@ -971,64 +1086,92 @@ class CompiledRolloutEngine:
         """The pressure governor (preempt mode), before anything generates:
         which slots may write this turn, and which are evicted (their
         private pages released, their episode re-queued). Stalled slots
-        keep their pages and their fed observation. Returns ``(carry,
-        run_mask, victims)``."""
+        keep their pages and their fed observation. On a data row it runs
+        on the global batch, after ONE gather of every row's slots and
+        private pages, with the whole pool's free count, and keeps its own
+        rows of the plan: the victims and the requeue are JAX's, the same
+        on every row. Returns ``(carry, run_mask, victims)``."""
         mtt, olen, ps = self.max_turn_tokens, self.env.obs_len, self.page_size
         T, N = self.max_context, c.requeue.shape[0]
-        bt = c.cache.block_table
+        bt, refcount = c.cache.block_table, c.cache.refcount
         elig = (c.live & (c.pos + mtt + olen <= T)
                 & (c.n_turns < self.max_turns))
         tgt = (c.pos + mtt + olen).clamp(max=bt.shape[1] * ps)
         mapped = (bt >= 0).sum(dim=1, dtype=torch.int32)
         demand = torch.where(elig, ((tgt + ps - 1) // ps - mapped).clamp_min(
             0), 0)
-        run_mask, victims = paging.pressure_plan(
-            c.cache.refcount, bt, elig, c.pos, demand)
+        freeable = paging.slot_private_pages(refcount, bt)
+        n_run = self._run_pages(c)
+        used = pool_paging.pages_in_use(refcount) - n_run
+        episode = c.episode
+        if c.window is not None:
+            (elig, pos, demand, freeable, episode), used = \
+                self._rows.gather_slots(
+                    [elig, c.pos, demand, freeable, episode], [used])
+            elig = elig.bool()
+        else:
+            pos = c.pos
+        run_mask, victims = paging.pressure_plan_counts(
+            c.pool_pages - used.sum() - n_run, freeable, elig, pos, demand)
         hit = torch.zeros((N + 1,), dtype=torch.bool, device=bt.device)
-        hit.scatter_(0, torch.where(victims, c.episode, N).long(),
+        hit.scatter_(0, torch.where(victims, episode, N).long(),
                      torch.ones_like(victims))
         requeue = c.requeue | hit[:N]
+        n_victims = victims.sum(dtype=torch.int32)
+        if c.window is not None:
+            lo, hi = c.window[:2]
+            run_mask, victims = run_mask[lo:hi], victims[lo:hi]
         c = c._replace(
             cache=paging.release_slot_pages(c.cache, victims),
             live=c.live & ~victims, truncated=c.truncated & ~victims,
             episode=torch.where(victims, N, c.episode).to(torch.int32),
-            preempted=c.preempted + victims.sum(dtype=torch.int32),
+            preempted=c.preempted + n_victims,
             requeue=requeue,
             requeue_peak=torch.maximum(c.requeue_peak,
                                        requeue.sum(dtype=torch.int32)))
         return c, run_mask, victims
 
-    def _admit(self, c: slots.SlotCarry, cache, victims, finished, active,
-               done, pos):
-        """The watermark-gated refill plan of preempt mode: every finished
-        slot releases its pages first, re-queued episodes are admitted
-        before fresh ones, and admission leaves ``admit_watermark`` free
-        pages beyond what the continuing slots' obs feeds can take.
-        Returns ``(cache, refill, new_ids, launched, requeue)``."""
+    def _reserved(self, cache, cont, pos):
+        """Pages the continuing slots' obs feeds can still take (preempt
+        mode's admission keeps them free)."""
         olen, ps = self.env.obs_len, self.page_size
-        N = c.requeue.shape[0]
-        cache = paging.release_slot_pages(cache, finished)
         bt = cache.block_table
-        free_now = (cache.refcount == 0).sum(dtype=torch.int32)
         mapped = (bt >= 0).sum(dim=1, dtype=torch.int32)
-        cont = active & ~done & ~finished
         tgt = (pos + olen).clamp(max=bt.shape[1] * ps)
-        reserved = torch.where(
+        return torch.where(
             cont, ((tgt + ps - 1) // ps - mapped).clamp_min(0), 0).sum(
                 dtype=torch.int32)
-        per_admit = -(-(olen - self.shared_len) // ps)
+
+    def _admit(self, c: slots.SlotCarry, free_slots, used, reserved, surv,
+               n_run):
+        """The watermark-gated refill plan of preempt mode, after every
+        finished slot released its pages: re-queued episodes are admitted
+        before fresh ones, and admission leaves ``admit_watermark`` free
+        pages beyond what the continuing slots' obs feeds can take
+        (``reserved``). ``free_slots`` (B,), the private pages in ``used``,
+        ``reserved`` and the survivors ``surv`` are the global batch's (on
+        a data row, from the turn's exchange), so every row plans JAX's
+        admission and takes its own slots of it; a re-queued episode can
+        land on another row than the one that evicted it. Returns
+        ``(refill, new_ids, launched, requeue, admitted)``."""
+        N = c.requeue.shape[0]
+        per_admit = -(-(self.env.obs_len - self.shared_len) // self.page_size)
+        free_now = c.pool_pages - used - n_run
         quota = ((free_now - reserved - self.admit_watermark)
                  // per_admit).clamp_min(0)
         # deadlock breaker: with no survivor but work left, every unpinned
         # page is free, so admit at least one episode (min_pool_pages
         # guarantees it fits)
-        surv = (c.live & ~finished).any()
         work_left = (c.launched < N) | c.requeue.any()
-        quota = torch.where(~surv & work_left, quota.clamp_min(1), quota)
-        free_slots = finished | (~c.live & ~victims)
+        quota = torch.where((surv == 0) & work_left, quota.clamp_min(1),
+                            quota)
         refill, new_ids, launched, requeue = slots.admission_plan(
             free_slots, c.requeue, c.launched, N, quota)
-        return cache, refill, new_ids, launched, requeue
+        admitted = refill.sum(dtype=torch.int32)
+        if c.window is not None:
+            lo, hi = c.window[:2]
+            refill, new_ids = refill[lo:hi], new_ids[lo:hi]
+        return refill, new_ids, launched, requeue, admitted
 
     def _feed_pages(self, cache, pos, feed_mask, refill):
         """Pages the obs feed is about to allocate: each feeding row's
@@ -1051,8 +1194,8 @@ class CompiledRolloutEngine:
         only, with no host read, unless speculation is on (one flag per
         verify round) or prefix sharing is (the turn's one read, before the
         feed; ``SlotCarry.host`` carries what it read). On a data row it
-        runs the row's slots and makes the turn's one exchange across the
-        rows, after the harvest."""
+        runs the row's slots and makes the turn's exchanges across the
+        rows (the module docstring lists them by mode)."""
         env, T, olen = self.env, self.max_context, self.env.obs_len
         mtt, mturns = self.max_turn_tokens, self.max_turns
         n_actions, V = env.n_actions, self.model.cfg.vocab_size
@@ -1063,7 +1206,8 @@ class CompiledRolloutEngine:
         rows = torch.arange(B, device=dev)
         preempt = self.on_exhaust == "preempt"
         noise = _local_noise(noise, c.window)
-        decode = self._decode(params)
+        grant = self._grant(c)
+        decode = self._decode(params, grant)
         ref = self._ref_stream(ref_params, c)
         draft = self._draft_stream(params, draft_params, c)
         i32 = lambda t: t.to(torch.int32)
@@ -1090,7 +1234,7 @@ class CompiledRolloutEngine:
             (logits, cache, draft, tokens, gen_mask, logprobs, pos, acted,
              actions, last_tok, tl, d_spec) = self._spec_gen_turn(
                 params, draft, logits, cache, tokens, gen_mask, logprobs,
-                pos, active, m, noise)
+                pos, active, m, noise, grant)
             spec = tuple(a + b for a, b in zip(spec, d_spec))
         else:
             acted = ~active
@@ -1166,11 +1310,24 @@ class CompiledRolloutEngine:
             ref_logprobs=ref.logprobs[:, :T] if ref is not None else None)
 
         # 5b. the turn's one exchange across data rows: the finished slots
-        #     of the rows before this one, and the global counts
-        before, n_fin, occ, new_drops = self._across_rows(
-            c.window, finished.sum(dtype=torch.int32), occ, new_drops)
+        #     of the rows before this one, and the global counts (pages
+        #     less the shared run, which the global pool holds once). In
+        #     preempt mode every finished slot has released its pages
+        #     first, and the exchange carries the admission's inputs too.
+        cont = active & ~state2.done & ~finished
+        n_run = self._run_pages(c)
+        counts = [finished.sum(), occ - n_run, new_drops, cont.any()]
+        flags = []
+        if preempt:
+            cache = paging.release_slot_pages(cache, finished)
+            counts += [pool_paging.pages_in_use(cache.refcount) - n_run,
+                       self._reserved(cache, cont, pos),
+                       (c.live & ~finished).any()]
+            flags = [finished | (~c.live & ~victims)]
+        before, counts, flags = self._across_rows(c.window, counts, flags)
+        n_fin, occ, new_drops, n_cont = counts[:4]
         returned = c.returned + n_fin
-        pages_peak = torch.maximum(c.pages_peak, occ.to(torch.int32))
+        pages_peak = torch.maximum(c.pages_peak, occ + n_run)
         kv_dropped = c.kv_dropped + new_drops
 
         # 6. slot refill: release pages or zero dense rows, fork the shared
@@ -1178,11 +1335,12 @@ class CompiledRolloutEngine:
         #    the refill with the admission watermark.
         requeue = c.requeue
         if preempt:
-            cache, refill, new_ids, launched, requeue = self._admit(
-                c, cache, victims, finished, active, state2.done, pos)
+            refill, new_ids, launched, requeue, n_refill = self._admit(
+                c, flags[0], *counts[4:], n_run)
         else:
             refill, new_ids, launched = slots.refill_plan(
                 finished, c.launched, N, before, n_fin)
+            n_refill = launched - c.launched
         r1 = refill[:, None]
         cache = _reset_cache_rows(cache, refill)
         if ref is not None:
@@ -1217,7 +1375,6 @@ class CompiledRolloutEngine:
         #    rows skip the shared columns, and the turn's one host read
         #    decides JAX's lax.cond: no feed, the refilled rows' suffix
         #    only (the common case under churn), or the full observation.
-        cont = active & ~state2.done & ~finished
         feed_mask = cont | refill
         obs = torch.where(r1, env.encode_obs(state3), res.obs_tokens)
         host = None
@@ -1227,12 +1384,14 @@ class CompiledRolloutEngine:
                 draft)
         else:
             tokens = self._write_prefix_tokens(tokens, obs, refill)
-            free = ((cache.refcount == 0).sum(dtype=torch.int32)
-                    - self._feed_pages(cache, pos, feed_mask, refill))
+            # the branch is the global batch's (n_cont, n_refill: every
+            # row feeds as many steps), so is growth's free count
+            free = (self._free_after(c, cache, self._feed_pages(
+                cache, pos, feed_mask, refill))
+                if self.pool_growth == "double" else n_cont * 0)
             host = self._host_read(
-                returned, kv_dropped,
-                c.preempted if preempt else None, free.clamp_min(0),
-                cont.any(), feed_mask.any())
+                returned, kv_dropped, c.preempted if preempt else None,
+                free, n_cont > 0, (n_cont > 0) | (n_refill > 0))
             if host["any_cont"]:
                 logits, cache, tokens, pos, ref, draft = self._feed_obs(
                     decode, logits, cache, tokens, pos, obs, feed_mask, ref,
@@ -1257,20 +1416,31 @@ class CompiledRolloutEngine:
             spec_accepted=spec[1], spec_rounds=spec[2], requeue=requeue,
             host=host), ref, draft)
 
-    def _across_rows(self, window, n_fin, occ, new_drops):
-        """The turn's one collective on a data row (``window``): every
-        row's finished count, pool occupancy and new dropped writes,
-        all-gathered. Returns the finished slots of the rows before this
-        one and the global finished count, occupancy and new drops; on one
-        row, ``(0, the row's own)``."""
+    def _across_rows(self, window, counts, flags):
+        """The turn's gather after the harvest on a data row
+        (``window``): every row's 0-d ``counts`` (the first its finished
+        slots) and its slots' ``flags`` (each (b,) bool). Returns the finished
+        slots of the rows before this one, the global counts (int32) and
+        the global batch's flags; on one row, ``(0, its own, its own)``."""
+        counts = [t.to(torch.int32) for t in counts]
         if window is None:
-            return 0, n_fin, occ, new_drops
+            return 0, counts, flags
         rows = self._rows
-        g = rows.gather(torch.stack([t.to(torch.int32)
-                                     for t in (n_fin, occ, new_drops)]))
-        tot = g.sum(dim=0, dtype=torch.int32)
-        return (g[:rows.index, 0].sum(dtype=torch.int32), tot[0], tot[1],
-                tot[2])
+        flags, g = rows.gather_slots(flags, counts)
+        return (g[:rows.index, 0].sum(dtype=torch.int32),
+                list(g.sum(dim=0, dtype=torch.int32)),
+                [f.bool() for f in flags])
+
+    def _free_after(self, c: slots.SlotCarry, cache, extra=0):
+        """The global pool's free pages once ``extra`` more pages of this
+        row are mapped, at least 0: what pool growth's watermark test
+        reads. On a data row, ONE all-reduce of the rows' private
+        pages."""
+        n_run = self._run_pages(c)
+        used = pool_paging.pages_in_use(cache.refcount) - n_run + extra
+        if c.window is not None:
+            used = self._rows.all_reduce_sum(used)
+        return (c.pool_pages - used - n_run).clamp_min(0)
 
     @staticmethod
     def _host_read(returned, kv_dropped, preempted, free, *flags) -> dict:
@@ -1354,7 +1524,6 @@ class CompiledRolloutEngine:
                 f"pages for batch {B}): the pool must hold one full-context "
                 f"episode plus the initial observation feed of every slot, "
                 f"or the zero-drop guarantee cannot hold.")
-        self._check_rows_pool(B)
         noise = noise if noise is not None else self.default_noise(generator)
         if not self._in_mesh:
             return self._outside(N)
@@ -1384,13 +1553,13 @@ class CompiledRolloutEngine:
             # sharing), plus one per speculative verify round
             h = carry.host if carry.host is not None else self._host_read(
                 carry.returned, carry.kv_dropped, carry.preempted,
-                (carry.cache.refcount == 0).sum(dtype=torch.int32)
-                if paging.is_paged(carry.cache) else carry.returned * 0)
+                self._free_after(carry, carry.cache) if grow
+                else carry.returned * 0)
             if self.on_exhaust == "raise" and h["kv_dropped"] > 0:
                 raise RuntimeError(
                     f"KV page pool exhausted during rollout: "
                     f"{h['kv_dropped']} dropped KV write(s) by macro-step "
-                    f"{m} (pool {carry.cache.n_pages} pages); grow "
+                    f"{m} (pool {carry.pool_pages} pages); grow "
                     f"cache_pages (see models.paging.pool_pages_needed"
                     f"[_shared]), set pool_growth='double', use "
                     f"on_exhaust='preempt' to trade throughput for "
@@ -1399,13 +1568,17 @@ class CompiledRolloutEngine:
             if grow:
                 # grow when the pool showed distress this turn: a dropped
                 # write, a preemption, or free pages under the watermark
-                cap = carry.cache.n_pages
+                # (global counts: every data row grows in the same turn,
+                # its own pool to its share of the grown global pool)
+                cap = carry.pool_pages
                 if cap < grow_cap and (
                         h["kv_dropped"] > last_dropped
                         or h["preempted"] > last_preempted
                         or h["free"] < self.admit_watermark):
-                    carry = carry._replace(cache=paging.grow_pool(
-                        carry.cache, min(2 * cap, grow_cap)))
+                    new = min(2 * cap, grow_cap)
+                    carry = carry._replace(pool_pages=new, cache=(
+                        paging.grow_pool(carry.cache, self._row_pages(
+                            new, carry.window, carry.pos.shape[0]))))
                     pool_grows += 1
                 last_dropped, last_preempted = h["kv_dropped"], h["preempted"]
             if h["returned"] >= N:
@@ -1414,30 +1587,10 @@ class CompiledRolloutEngine:
             raise RuntimeError(
                 f"preemption governor failed to drain the rollout: "
                 f"{h['returned']}/{N} episodes returned after {max_macro} "
-                f"macro-steps (pool {carry.cache.n_pages} pages, "
+                f"macro-steps (pool {carry.pool_pages} pages, "
                 f"{h['preempted']} preemption(s)); the pool is likely "
                 f"below min_pool_pages({B}) = {self.min_pool_pages(B)}.")
         return self._finalize(carry, N, params_version, pool_grows)
-
-    def _check_rows_pool(self, B: int) -> None:
-        """A pool across data rows: full provisioning, split evenly. Below
-        it, which row runs short would be JAX's global allocator's to
-        decide (item 13's second part)."""
-        cfg = self._mesh_config
-        if (cfg is None or cfg.dp * cfg.pods == 1
-                or self.cache_layout != "paged" or self.cache_pages is None):
-            return
-        need = pool_paging.pool_pages_needed(B, self.max_context,
-                                             self.page_size)
-        if self.cache_pages < need:
-            raise _unported(
-                f"cache_pages={self.cache_pages} below full provisioning "
-                f"({need} pages for batch {B}) in a data-parallel rollout "
-                f"(mesh_config {cfg.name!r})", "13")
-        D = cfg.dp * cfg.pods
-        if B % D == 0 and self.cache_pages % D:
-            raise ValueError(f"cache_pages={self.cache_pages} does not split "
-                             f"over the {D} data rows of {cfg.name!r}")
 
     def gather_batch(self, x):
         """``x``, a leaf of the last harvested batch as this rank holds it,
@@ -1472,10 +1625,18 @@ class CompiledRolloutEngine:
         """The batch and the stats; on data rows, after the run's one
         exchange, global stats and this rank's rows of the batch."""
         s = carry.store
-        n_rows = 1
+        spec = (carry.spec_proposed, carry.spec_accepted, carry.spec_rounds)
         if carry.window is not None:
-            s = _exchange_store(s, N, self._rows)
-            n_rows = self._rows.n
+            # the speculative counters are each row's own: summed over the
+            # rows in the store's exchange
+            z = torch.zeros((), dtype=torch.int32, device=carry.pos.device)
+            s, sums = _exchange_store(s, N, self._rows, torch.stack(
+                [t if t is not None else z for t in spec]))
+            spec = tuple(x if t is not None else None
+                         for x, t in zip(sums, spec))
+        # this rank's own pool, a data row's share of the global one
+        self.rank_pool_pages = (carry.cache.n_pages
+                                if paging.is_paged(carry.cache) else 0)
         rewards = s.rewards[:N]
         exp = ExperienceBatch(
             tokens=s.tokens[:N], gen_mask=s.gen_mask[:N],
@@ -1496,16 +1657,14 @@ class CompiledRolloutEngine:
             episodes_returned=int(carry.returned),
             params_version=params_version,
             pages_in_use=int(carry.pages_peak),
-            page_capacity=(carry.cache.n_pages * n_rows
-                           if paging.is_paged(carry.cache) else 0),
+            page_capacity=carry.pool_pages,
             kv_dropped_writes=int(carry.kv_dropped),
             shared_prefix_len=self.shared_len,
             preemptions=opt(carry.preempted),
             requeue_depth=opt(carry.requeue_peak),
             pool_grows=pool_grows,
-            spec_proposed=opt(carry.spec_proposed),
-            spec_accepted=opt(carry.spec_accepted),
-            spec_rounds=opt(carry.spec_rounds))
+            spec_proposed=opt(spec[0]), spec_accepted=opt(spec[1]),
+            spec_rounds=opt(spec[2]))
         if self._rows is not None:
             exp = ExperienceBatch(*(lay.local_shard(x) for x, lay in
                                     zip(exp, self.experience_shardings)))

@@ -60,14 +60,33 @@ def pressure_plan(refcount, block_table, eligible, pos, demand):
     eligible: (B,) bool; pos, demand: (B,) int (demand 0 for ineligible
     rows). Returns ``(run, victims)`` bool masks. Stable argsorts and
     cumulative sums, as JAX's; no host read."""
-    B = pos.shape[0]
+    return pressure_plan_counts(
+        (refcount == 0).sum(), slot_private_pages(refcount, block_table),
+        eligible, pos, demand)
+
+
+def slot_private_pages(refcount, block_table):
+    """(B,) int32: the pages each slot alone maps (refcount 1), which its
+    release frees; shared prefix pages free nothing."""
     P = refcount.shape[0]
+    page_rc = refcount[block_table.clamp(0, P - 1).long()]
+    return ((block_table >= 0) & (page_rc == 1)).sum(dim=1,
+                                                      dtype=torch.int32)
+
+
+def pressure_plan_counts(free, freeable, eligible, pos, demand):
+    """``pressure_plan`` on the pool's free count ``free`` (0-d) and each
+    slot's private pages ``freeable`` (B,): a data-parallel rollout runs it
+    on the global batch's gathered rows and the whole pool's free count,
+    the same on every data row."""
+    B = pos.shape[0]
     dev = pos.device
     pos = pos.long()
     demand = demand.long()
+    free = free.long()
+    freeable = freeable.long()
     big = torch.iinfo(torch.int64).max
     ar = torch.arange(B, device=dev)
-    free = (refcount == 0).sum()
 
     def ranks(order):
         r = torch.empty_like(order)
@@ -88,8 +107,6 @@ def pressure_plan(refcount, block_table, eligible, pos, demand):
     # (the cheapest slot), longest context first, each freeing its private
     # pages
     survivor = eligible & (rank_asc == 0)
-    page_rc = refcount[block_table.clamp(0, P - 1).long()]
-    freeable = ((block_table >= 0) & (page_rc == 1)).sum(dim=1)
     vcand = eligible & ~survivor
     desc = torch.argsort(torch.where(vcand, -pos, big), stable=True)
     rank_desc = ranks(desc)

@@ -82,9 +82,14 @@ class SlotCarry(NamedTuple):
     host: Any = None
     # a data row's window of the global slots, (lo, hi, B) as ints: the
     # carry's rows are global slots [lo, hi) of B (None: all of them).
-    # ``launched``, ``returned``, ``pages_peak`` and ``kv_dropped`` are
-    # then global, the same on every row
+    # ``launched``, ``returned``, ``pages_peak``, ``kv_dropped`` and the
+    # preempt mode's counters and requeue are then global, the same on
+    # every row
     window: Any = None
+    # the global paged pool's page count, an int (JAX's ``n_pages``; grown
+    # by pool growth): the whole pool on one row, of which a data row's
+    # ``cache`` holds its own pages (0 on the dense layout)
+    pool_pages: Any = 0
 
 
 def init_store(n_episodes: int, max_context: int, max_turns: int,

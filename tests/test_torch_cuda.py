@@ -932,6 +932,13 @@ SPEC_CASES = {
     "max_rows_hd256": (1, 16, 64, 64, 16, 8, 1, 256, [900], False, ()),
     "int8_chunks": (4, 4, 16, 65, 16, 14, 2, 64, [250, 61, 0, 130], True,
                     ()),
+    # one data row of qwen2-0.5b at dp=2: 4 rows on its half pool (4 x 6
+    # pages and its trash page) of a 96-token context, fp32 / bf16 (by
+    # qdtype) and int8 pools
+    "dp2_data_row_k4": (4, 4, 6, 25, 16, 14, 2, 64, [92, 40, 17, 0], False,
+                        ()),
+    "dp2_data_row_k4_int8": (4, 4, 6, 25, 16, 14, 2, 64, [92, 40, 17, 0],
+                             True, ()),
 }
 
 

@@ -29,8 +29,10 @@ and against the port's one-rank run:
   groups there; the plan at dp2 x tp2 (the tp2 shards on every row); the
   default four-rank async split (``rollout-2x1`` / ``trainer-2x1``) runs
   two steps against the one-rank async trainer;
-- the five options that still raise at dp above 1, and the per-rank pools
-  that ``cache_shardings`` places with their trash pages.
+- a pool below full provisioning at dp=2 against the one-rank run, the
+  pool options passing the option check above one data row (they run in
+  ``tests/test_torch_dp_options.py``), and the per-rank pools that
+  ``cache_shardings`` places with their trash pages.
 """
 import os
 import subprocess
@@ -274,12 +276,12 @@ if WORLD == 2:
         r = rollout(m, "qwen2-0.5b", "tictactoe", "paged", "fused", 2,
                     kv_dtype="int8")
         res["int8-" + m.name] = r
-    # a pool below full provisioning waits for item 13's second part
-    try:
-        rollout(dp2, "qwen2-0.5b", "tictactoe", "paged", "fused", 2,
-                cache_pages=8)
-    except NotImplementedError as e:
-        res["below_full"] = str(e)
+    # a pool below full provisioning, on the global page count
+    for m, key in ((dp2, "below_full"), (one, "below_full_one")):
+        r = rollout(m, "qwen2-0.5b", "tictactoe", "paged", "fused", 2,
+                    cache_pages=6)
+        if "outside" not in r:
+            res[key] = r
 emit({"runs": res})
 params = params_from_numpy(dict(np.load(ARG["params"]["qwen2-0.5b"])))
 if WORLD == 2:
@@ -557,16 +559,37 @@ def smoke():
     dict(speculation="self", sampling="reference")])
 @pytest.mark.parametrize("mesh", ["dp2", "pods2"])
 def test_options_still_cite_13_above_one_data_row(smoke, kw, mesh):
-    with pytest.raises(NotImplementedError, match="item 13") as e:
+    """Above one data row the option check takes every pool option (they
+    run in tests/test_torch_dp_options.py): in this world of one rank the
+    engine stops at the world check, which names the mesh."""
+    with pytest.raises(ValueError, match="ranks 0..1") as e:
         CompiledRolloutEngine(smoke, TicTacToe(), device="cpu",
                               mesh_config=MeshConfig(**MESHES[mesh]), **kw)
-    assert next(iter(kw)) in str(e.value)
+    assert f"mesh_config {mesh!r}" in str(e.value)
 
 
 def test_pool_below_full_provisioning_cites_13(runs):
-    for rank in runs[0][2]:
-        msg = rank["runs"]["below_full"]
-        assert "item 13" in msg and "cache_pages=8" in msg, msg
+    """A pool below full provisioning runs at dp=2 on JAX's global page
+    count: it drops the one-rank run's writes, and its tokens and counters
+    are the one-rank run's."""
+    port = runs[0][2]
+    one = port[0]["runs"]["below_full_one"]
+    held = _held([r["runs"]["below_full"] for r in port], "dp2")
+    assert held["tokens"] == one["tokens"]
+    for rank in port:
+        assert rank["runs"]["below_full"]["stats"] == one["stats"]
+    assert dict(zip(STATS, one["stats"]))["kv_dropped_writes"] > 0
+
+
+def test_no_module_of_the_port_cites_item_13():
+    """Every pool option runs across data rows: no module of the port
+    refuses one citing ROADMAP item 13."""
+    root = os.path.join(REPO, "src", "repro_torch")
+    for path, _, files in os.walk(root):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(path, f)) as fh:
+                    assert "item 13" not in fh.read(), os.path.join(path, f)
 
 
 def test_cache_shardings_places_each_rank_pool_with_its_trash_page(smoke):

@@ -170,30 +170,26 @@ def test_small_pool_counts_or_raises(models):
 @pytest.mark.parametrize("option,value,error,item", [
     ("mesh_config", MeshConfig("dp2", dp=2, tp=1), ValueError, "ranks 0..1"),
     ("mesh_config", MeshConfig("tp2", dp=1, tp=2), ValueError, "ranks 0..1"),
-    ("share_prefix", dict(share_prefix=True), NotImplementedError,
-     "item 13"),
-    ("on_exhaust", dict(on_exhaust="preempt"), NotImplementedError,
-     "item 13"),
-    ("pool_growth", dict(pool_growth="double"), NotImplementedError,
-     "item 13"),
+    ("share_prefix", dict(share_prefix=True), ValueError, "ranks 0..1"),
+    ("on_exhaust", dict(on_exhaust="preempt"), ValueError, "ranks 0..1"),
+    ("pool_growth", dict(pool_growth="double"), ValueError, "ranks 0..1"),
     ("speculation", dict(speculation="self", sampling="reference"),
-     NotImplementedError, "item 13"),
+     ValueError, "ranks 0..1"),
 ])
 def test_unported_options_raise(models, option, value, error, item):
     """dp and tp above 1 run the data-parallel and the tensor-parallel
-    rollouts, int8 pages included (tests/test_torch_dp.py,
-    tests/test_torch_tp_options.py): in this world of one rank a config
-    of two ranks stops at the world check. At dp above 1 four pool
-    options still wait for item 13's second part, and are refused before
-    the world check, naming the option (the fifth, a pool below full
-    provisioning, is refused at ``run``: tests/test_torch_dp.py)."""
+    rollouts with every paged-pool option (tests/test_torch_dp.py,
+    tests/test_torch_dp_options.py, tests/test_torch_tp_options.py): in
+    this world of one rank a config of two ranks stops at the world check,
+    which names the mesh, whatever option it carries."""
     tmodel = models[2]
     kw = ({option: value} if option == "mesh_config"
           else dict(value, mesh_config=MeshConfig("dp2", dp=2, tp=1)))
     with pytest.raises(error, match=item) as e:
         CompiledRolloutEngine(tmodel, TicTacToe(), device="cpu",
                               kv_dtype="int8", **kw)
-    assert option in str(e.value) or option == "mesh_config"
+    name = kw["mesh_config"].name
+    assert f"mesh_config {name!r}" in str(e.value)
 
 
 @pytest.mark.parametrize("layout,attn_impl", [("dense", "paged"),

@@ -563,14 +563,15 @@ def test_no_module_of_the_port_cites_item_14():
     dict(pool_growth="double"),
     dict(speculation="self", sampling="reference")])
 def test_dp_above_one_still_cites_13(smoke, kw):
-    """dp x tp runs (tests/test_torch_dp.py); the pool options whose
-    semantics are JAX's global allocator's and governor's still cite 13
-    there, naming the option."""
-    with pytest.raises(NotImplementedError, match="item 13") as e:
+    """dp x tp runs with every pool option (tests/test_torch_dp.py,
+    tests/test_torch_dp_options.py): the option check takes each one, and
+    in this world of one rank the engine stops at the world check, which
+    names the mesh."""
+    with pytest.raises(ValueError, match="ranks 0..3") as e:
         CompiledRolloutEngine(smoke, TicTacToe(), device="cpu",
                               mesh_config=MeshConfig("d2t2", dp=2, tp=2),
                               **kw)
-    assert next(iter(kw)) in str(e.value)
+    assert "mesh_config 'd2t2'" in str(e.value)
 
 
 def test_tp_mesh_beyond_the_world_raises(smoke):
