@@ -173,9 +173,14 @@ Phases, in order; any failure raises and exits non-zero:
                on its half of the pool): fp32 tokens, counters and
                launches equal the dp=1 run's, bf16 first-step logits at a
                rank's 4 rows within 5% of all 8 rows', int8 pages at 12
-               layers, and two SPMD trainer steps switching dp2 -> tp2
-               against one rank (the kernels at a data row's shapes are in
-               the kernels phase).
+               layers, two SPMD trainer steps switching dp2 -> tp2
+               against one rank (the update replicated on both ranks), and
+               the update step alone at dp=2 on 24 layers in bf16 (each
+               rank 4 of 8 rows of 256 tokens, the gradients summed over
+               the ranks) against rank 0's one-rank update: loss, summed
+               gradients, both ranks' new params bitwise equal, flash
+               launches and peak memory (the kernels at a data row's
+               shapes are in the kernels phase).
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
@@ -1130,8 +1135,9 @@ def phase_flash(torch, report):
     cores' balance; at granite-moe's heads (24/8, group 3) in bf16, and at
     stablelm-12b's (32/8, hd 160) in bf16 and fp32, both at B=32, S=256;
     at whisper-large-v3's (20/20, group 1) in bf16 at B=16, S=256 and
-    S=64, and at llama-3.2-vision-11b's (32/8, hd 128) in bf16 at B=4,
-    S=64. Each is held against ``ref.py`` and timed beside its
+    S=64, at llama-3.2-vision-11b's (32/8, hd 128) in bf16 at B=4,
+    S=64, at one rank's heads of the tp=2 rollouts, and at one rank's rows
+    of tp_path's dp=2 update (B=4, S=256, 14/2). Each is held against ``ref.py`` and timed beside its
     bound, the plain version and torch's scaled_dot_product_attention
     (forward, or its autograd backward, which computes dq, dk and dv in
     one call). At the update's bf16 shape every case also reports the
@@ -1174,7 +1180,10 @@ def phase_flash(torch, report):
             # one rank of granite-moe (12/4) and of zamba2's sites (16/16)
             # at tp=2, at tp_path's batch
             ("bf16_granite_tp2", 8, 256, 12, 4, 64, bf16),
-            ("bf16_zamba2_tp2", 8, 256, 16, 16, 64, bf16)):
+            ("bf16_zamba2_tp2", 8, 256, 16, 16, 64, bf16),
+            # one rank's rows of tp_path's data-parallel update at dp=2
+            # (run (e): 4 of 8 rows of 256 tokens)
+            ("bf16_update_dp2", 4, 256, 14, 2, 64, bf16)):
         pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
@@ -2916,8 +2925,8 @@ TP_STATS = ("spec_proposed", "spec_accepted", "spec_rounds", "preemptions",
 # shared pages and one private page a slot), which cannot hold 8 slots'
 # turns of 32 tokens (three private pages each), so the governor preempts
 # and the pool grows; (c) two steps of the SPMD trainer under the async
-# pipeline, 1 turn of 4 tokens, with the update on rank 0 and the reference
-# pass folded in. Its KL term is off (the trainer's default): the folded
+# pipeline, 1 turn of 4 tokens, with the update on both ranks and the
+# reference pass folded in. Its KL term is off (the trainer's default): the folded
 # reference decodes on a bf16 cache, where K/V computed in another order at
 # tp=2 can round to the neighbouring bf16 value (tp_path's reference rule,
 # 1e-2), which step 1's KL of 18 on random weights turned into 4.6e-5 of
@@ -2999,10 +3008,13 @@ def tp_async(torch, model, params, rank: int, spmd: bool) -> dict:
     """tp_path's run (c): two steps of ``EarlTrainer`` under the async
     pipeline (TP_ASYNC) on ``params`` (host tensors): across the two ranks
     (``spmd``: the rollout on the selector's mesh, tp=1 at step 0 and tp=2
-    at step 1, the update on rank 0, whose params alone are real; rank 1
-    passes meta tensors) or on rank 0 alone, the reference. Returns the
-    batches' tokens the update was given, the policy lags, the losses,
-    the switch rows, the launches and the seconds."""
+    at step 1, the update on both ranks of the update stage's tp=2 config
+    from step 0 (hook ② reads step 0's context), replicated over the model
+    axis; the given params are real on rank 0 alone, rank 1 passes meta
+    tensors) or on rank 0 alone, the reference. Returns the batches'
+    tokens the update was given, the policy lags, the losses, the switch
+    rows, the launches, the seconds and (``spmd``) whether both ranks'
+    final params are bitwise equal."""
     from repro_torch.core.stages import EarlTrainer
     from repro_torch.rl.envs import TicTacToe
     reset, read = _tp_counters()
@@ -3016,7 +3028,7 @@ def tp_async(torch, model, params, rank: int, spmd: bool) -> dict:
     torch.cuda.synchronize()
     reset()
     t0 = time.perf_counter()
-    _, _, hist = tr.train(2, params=p, opt_state=tr.optimizer.init(p),
+    p, _, hist = tr.train(2, params=p, opt_state=tr.optimizer.init(p),
                           ref_params=p)
     torch.cuda.synchronize()
     out = dict(seconds=time.perf_counter() - t0, launches=read(),
@@ -3026,7 +3038,8 @@ def tp_async(torch, model, params, rank: int, spmd: bool) -> dict:
                              for b in rec.batches],
                lags=[r.policy_lag for r in hist],
                losses=[r.loss for r in hist],
-               switches=[r.selector_switch for r in hist])
+               switches=[r.selector_switch for r in hist],
+               params_equal=_same_on_ranks(torch, p) if spmd else None)
     del tr, rec, p, hist
     torch.cuda.empty_cache()
     return out
@@ -3167,10 +3180,13 @@ def dp_options(torch, model, params, rollout):
 
 def dp_train(torch, model, params, rank: int, spmd: bool) -> dict:
     """tp_path's dp run (d): two steps of ``EarlTrainer`` (DP_TRAIN) on
-    ``params`` (host tensors) whose selector switches dp2 -> tp2 at step 1:
-    across the two ranks (``spmd``; the update on rank 0, whose params
-    alone are real) or on this rank alone, the reference. Returns the
-    records, the launches and the seconds."""
+    ``params`` (host tensors) whose selector switches the rollout dp2 ->
+    tp2 at step 1: across the two ranks (``spmd``; the update on both
+    ranks of the update stage's tp2 config from step 0, replicated over
+    the model axis; the given params are real on rank 0 alone) or on this
+    rank alone, the reference. Returns the records, the launches, the
+    seconds and (``spmd``) whether both ranks' final params are bitwise
+    equal."""
     from repro_torch.core.stages import EarlTrainer
     from repro_torch.rl.envs import TicTacToe
     reset, read = _tp_counters()
@@ -3184,13 +3200,136 @@ def dp_train(torch, model, params, rank: int, spmd: bool) -> dict:
     torch.cuda.synchronize()
     reset()
     t0 = time.perf_counter()
-    _, _, hist = tr.train(2, params=p, opt_state=tr.optimizer.init(p))
+    p, _, hist = tr.train(2, params=p, opt_state=tr.optimizer.init(p))
     torch.cuda.synchronize()
     out = dict(seconds=time.perf_counter() - t0, launches=read(),
                records=[dict(loss=r.loss, kl=r.kl, ret=r.mean_return,
                              ctx=r.mean_context_len, turn=r.mean_turn_len,
-                             sw=r.selector_switch) for r in hist])
+                             sw=r.selector_switch) for r in hist],
+               params_equal=_same_on_ranks(torch, p) if spmd else None)
     del tr, p, hist
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_on_ranks(torch, tree) -> bool:
+    """Whether rank 1's tensors of ``tree`` equal rank 0's bitwise: rank 1
+    sends each tensor's bytes to rank 0 through the host, and rank 0
+    broadcasts the answer (both ranks of tp_path call)."""
+    import torch.distributed as dist
+    same = True
+    for k in sorted(tree):
+        v = tree[k].detach().contiguous().view(-1).view(torch.uint8).cpu()
+        if dist.get_rank() == 1:
+            dist.send(v, 0)
+        else:
+            got = torch.empty_like(v)
+            dist.recv(got, 1)
+            same &= torch.equal(got, v)
+    box = [same]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+# tp_path's run (e): the update step alone, data-parallel over the update
+# mesh dp=2 (each rank 4 of TP_BATCH rows, the gradients summed over the
+# ranks in f32), on full-width qwen2-0.5b at all 24 layers in bf16, with
+# every loss term and metric on (PPO clip, KL, truncated IS), on one
+# batch of UPDATE_DP_SEQ tokens a row made from a seed, against rank 0's
+# one-rank update of all 8 rows (tests/test_torch_update_dp.py is its CPU
+# twin against JAX's two-device UpdateStage)
+UPDATE_DP_SEQ = 256
+UPDATE_DP = dict(clip_eps=0.2, kl_coef=0.05, is_rho_max=2.0)
+
+
+def update_batch(torch, vocab: int, device):
+    """Run (e)'s ``ExperienceBatch``: TP_BATCH rows of UPDATE_DP_SEQ
+    random tokens, 40% of them in the loss, with behaviour and reference
+    log-probs there, from a seeded host generator."""
+    from repro_torch.rl.experience import ExperienceBatch
+    g = torch.Generator().manual_seed(7)
+    B, T = TP_BATCH, UPDATE_DP_SEQ
+    gen = torch.rand((B, T), generator=g) < 0.4
+    lp = lambda: torch.where(gen, -torch.rand((B, T), generator=g) * 8 - 4,
+                             0.0)
+    rewards = torch.randint(-1, 2, (B,), generator=g).float()
+    batch = ExperienceBatch(
+        tokens=torch.randint(0, vocab, (B, T), generator=g,
+                             dtype=torch.int32),
+        gen_mask=gen, loss_mask=gen, logprobs=lp(), ref_logprobs=lp(),
+        rewards=rewards, returns=rewards,
+        advantages=rewards - rewards.mean(),
+        context_len=torch.full((B,), T, dtype=torch.int32),
+        truncated=torch.zeros((B,), dtype=torch.bool))
+    return ExperienceBatch(*(x.to(device) for x in batch))
+
+
+def update_dp(torch, model, full32, rank: int) -> dict:
+    """tp_path's run (e) on one rank (both call): the dp=2 update step on
+    this rank's 4 rows (the gradients and metrics summed over the ranks'
+    update group), then, on rank 0, the one-rank update of all 8 rows.
+    Returns each run's seconds, flash launches, peak bytes above the
+    params and loss, whether both ranks' new params are bitwise equal,
+    and (rank 0) each leaf's largest gradient error between the dp=2 run,
+    the one-rank run and an f32 evaluation of the same bf16 weights on
+    the same rows, absolute and over the f32 leaf's largest |g|."""
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.core.train_step import make_rl_train_step
+    from repro_torch.models.tensor_parallel import update_group
+    from repro_torch.optim.adamw import adamw, apply_updates
+    from repro_torch.rl.experience import ExperienceBatch
+    reset, read = _tp_counters()
+    opt = adamw(1e-3, weight_decay=0.0)
+    step = make_rl_train_step(model, opt, attn_impl="flash", **UPDATE_DP)
+    params = {k: v.to(DP_DEVICE, torch.bfloat16) for k, v in full32.items()}
+    batch = update_batch(torch, model.cfg.vocab_size, DP_DEVICE)
+    h = TP_BATCH // 2
+    group = update_group(MeshConfig(*DP2))
+
+    def run(rows, g):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        (loss, metrics), grads = step.grads_of(params, rows, group=g)
+        updates, _ = opt.update(grads, opt.init(params), params)
+        new = apply_updates(params, updates)
+        torch.cuda.synchronize()
+        res = dict(seconds=time.perf_counter() - t0, launches=read(),
+                   peak_bytes=torch.cuda.max_memory_allocated() - base,
+                   loss=float(loss),
+                   metrics={k: float(v) for k, v in metrics.items()})
+        return res, grads, new
+
+    mine = ExperienceBatch(*(x[rank * h:(rank + 1) * h] for x in batch))
+    dp, grads, new = run(mine, group)
+    t0 = time.perf_counter()
+    dp["params_equal"] = _same_on_ranks(torch, new)
+    dp["compare_seconds"] = time.perf_counter() - t0
+    out = {"dp": dp}
+    del new
+    if rank == 0:
+        one, grads_one, new = run(batch, None)
+        del new
+        # an f32 evaluation of the same bf16 weights on the same rows: how
+        # far each bf16 run's gradients lie from it, leaf by leaf
+        p32 = {k: v.float() for k, v in params.items()}
+        _, g32 = step.grads_of(p32, batch)
+        del p32
+        pairs = {"dp_vs_one": (grads, grads_one), "dp_vs_f32": (grads, g32),
+                 "one_vs_f32": (grads_one, g32)}
+        absolute = {n: {k: float((a[k].float() - b[k].float()).abs().max())
+                        for k in b} for n, (a, b) in pairs.items()}
+        errs = {n: {k: e / float(g32[k].abs().max().clamp_min(1e-30))
+                    for k, e in d.items()} for n, d in absolute.items()}
+        del g32
+        worst = {n: max(e, key=e.get) for n, e in errs.items()}
+        out.update(one=one, grad_abs=absolute, grad_errs=errs, grad_worst={
+            n: [k, errs[n][k]] for n, k in worst.items()},
+            remat=model.cfg.remat)
+        del grads_one
+    del grads, params
     torch.cuda.empty_cache()
     return out
 
@@ -3377,6 +3516,9 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     t0 = time.perf_counter()
     out["dp_train"] = dp_train(torch, cut, cut32, rank, spmd=True)
     out["dp_train_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["update_dp"] = update_dp(torch, model, full32, rank)
+    out["update_dp_seconds"] = time.perf_counter() - t0
     out["families"] = {}
     for arch, depth in _tp_families():
         t0 = time.perf_counter()
@@ -3549,8 +3691,9 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     reports in ``tp_dp_results``): full-width qwen2-0.5b at dp=2, each rank
     a data row of 4 of the 8 slots on its half of the pool, at fp32 with
     the folded reference against the dp=1 run above, at bf16 for one turn,
-    int8 pages at CUT_LAYERS against dp=1 on rank 0, and two SPMD trainer
-    steps at CUT_LAYERS switching dp2 -> tp2 against rank 0 alone; after
+    int8 pages at CUT_LAYERS against dp=1 on rank 0, two SPMD trainer
+    steps at CUT_LAYERS switching dp2 -> tp2 against rank 0 alone, and the
+    update step at dp=2 (run (e), below); after
     the option runs, their (a) and (b)'s pressured run again at dp=2
     (``dp_options``, gated by ``dp_option_results``) against their tp=1
     runs, on the global page count. And the option runs at full width and
@@ -3560,9 +3703,13 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     spec-off twin at tp=2; (b) the SHARED bandit at B=8, N=16 on int8
     pages with sharing, then also with preemption and pool growth from
     TP_POOL_PAGES pages; (c) two async steps of the SPMD trainer (the
-    rollout switching to tp=2 at step 1, the update on rank 0) against
-    the same two steps on rank 0 alone. Their gates and reports are
-    ``tp_option_results``'s."""
+    rollout switching to tp=2 at step 1, the update on both ranks of the
+    update stage's tp=2 config, replicated) against the same two steps on
+    rank 0 alone. Their gates and reports are ``tp_option_results``'s.
+    Last of the dp runs, (e) the update step alone at dp=2 on full-width
+    qwen2-0.5b in bf16, each rank 4 of 8 rows of 256 tokens, the
+    gradients summed over the ranks, against rank 0's one-rank update
+    (``update_dp``, gated by ``update_dp_results``)."""
     t0 = time.perf_counter()
     workers.go()
     codes, texts = workers.wait(timeout=900)
@@ -3633,6 +3780,9 @@ def phase_tp_path(torch, report, workers: TPWorkers):
         r0["dp"]["fp32_dp2"]["launches"]["paged_attention"]
     report["spec_verify"]["launches_dp2_spec"] = \
         r0["dp_options"]["spec_dp2"]["launches"]["spec_verify"]
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        report[k]["launches_dp2_update"] = [
+            x["update_dp"]["dp"]["launches"][k] for x in res]
     if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
             and launches_ok and families_ok and options_ok and dp_ok
             and dp_options_ok
@@ -3663,8 +3813,11 @@ def tp_option_results(torch, res):
     update rank's batches' tokens equal the one-rank run's, their
     log-probs within 1e-4 and their folded reference log-probs within
     1e-2 (tp_path's rules); the losses within 1e-5 of the one-rank run's;
-    rank 1 ran no update (no flash backward launch), rank 0 two, and the
-    rollout switched to tp2 at step 1."""
+    both ranks ran the two updates of the update stage's tp2 config
+    (replicated over the model axis): rank 1 saw rank 0's batches, each
+    launched the flash backward as often as the one-rank run, and their
+    final params are bitwise equal; the rollout switched to tp2 at step
+    1."""
     T = lambda d, k: torch.tensor(d[k])
     o0, o1 = (x["options"] for x in res)
     out, ok = {}, True
@@ -3723,16 +3876,17 @@ def tp_option_results(torch, res):
     sw = a0["switches"]
     row_ok = (a0["lags"] == a1["lags"] == one["lags"] == [0, 1]
               and a0["tokens"] == one["tokens"] and len(a0["tokens"]) == 2
-              and a1["tokens"] == [] and loss_err <= 1e-5
+              and a1["tokens"] == a0["tokens"] and loss_err <= 1e-5
               and lp_err <= 1e-4 and ref_err <= 1e-2
               and a0["losses"] == a1["losses"]
-              and a1["launches"]["flash_dq"] == 0
-              and a0["launches"]["flash_dq"]
+              and a0["params_equal"] is True
+              and a1["launches"]["flash_dq"] == a0["launches"]["flash_dq"]
               == one["launches"]["flash_dq"] > 0
               and sw[1] is not None and sw[1]["to"] == "tp2")
     out["async"] = dict(
         ok=row_ok, lags=a0["lags"], tokens_equal=a0["tokens"] == one["tokens"],
         loss_max_abs_err=loss_err, losses=a0["losses"],
+        params_equal=a0["params_equal"],
         logprob_max_abs_err=lp_err, ref_logprob_max_abs_err=ref_err,
         switches=sw, launches={"rank0": a0["launches"],
                                "rank1": a1["launches"],
@@ -3769,9 +3923,11 @@ def tp_dp_results(torch, res):
     (d) dp_train: the records (loss, KL, return, context and turn
     length, the switch row) equal on both ranks and within 1e-5 of the
     one-rank trainer's (rank 1's, after the group is gone), some loss not
-    zero, the rollout switched dp2 -> tp2 at step 1, rank 1 ran no update
-    in the SPMD run (no flash backward launch) and rank 0 as many as the
-    one-rank run.
+    zero, the rollout switched dp2 -> tp2 at step 1, both ranks ran the
+    updates of the update stage's tp2 config (replicated over the model
+    axis: each launched the flash backward as often as the one-rank run)
+    and their final params are bitwise equal.
+    (e) update_dp (``update_dp_results``).
     Reported: each run's seconds and each rank's peak memory against
     dp=1's."""
     T = torch.tensor
@@ -3842,19 +3998,73 @@ def tp_dp_results(torch, res):
               and sw == rec(one, "sw") and sw[0] is None
               and sw[1] is not None and sw[1]["from"] == "dp2"
               and sw[1]["to"] == "tp2" and any(rec(one, "loss"))
-              and two[1]["launches"]["flash_dq"] == 0
-              and two[0]["launches"]["flash_dq"]
+              and two[0]["params_equal"] is True
+              and two[1]["launches"]["flash_dq"]
+              == two[0]["launches"]["flash_dq"]
               == one["launches"]["flash_dq"] > 0)
     out["train"] = dict(ok=row_ok, max_abs_err=errs,
+                        params_equal=two[0]["params_equal"],
                         losses=rec(two[0], "loss"), switches=sw,
                         seconds={"rank0": two[0]["seconds"],
                                  "rank1": two[1]["seconds"],
                                  "one_rank": one["seconds"]})
     ok &= row_ok
+    out["update"], row_ok = update_dp_results(res)
+    ok &= row_ok
     out["seconds"] = {f"rank{r}": {"dp": x["dp_seconds"],
-                                   "train": x["dp_train_seconds"]}
+                                   "train": x["dp_train_seconds"],
+                                   "update": x["update_dp_seconds"]}
                       for r, x in enumerate(res)}
     return out, ok
+
+
+def update_dp_results(res):
+    """Run (e) (``update_dp``) from both ranks' results: the gates, what
+    is reported, and whether every gate held. The dp=2 loss (the ranks'
+    shares summed) within 1e-5 of the one-rank run's, relative; both
+    ranks' new params bitwise equal; each rank's flash launches equal the
+    one-rank run's: dq and dk/dv once a layer (24), the forward once more
+    a layer under full remat (the backward runs each layer again). The
+    summed bf16 gradients lie, leaf by leaf, no further from the one-rank
+    run's than the one-rank run's lie from an f32 evaluation of the same
+    weights and rows (bf16's own noise at this width and depth: a missing
+    or misscaled sum moves a leaf by half or all of its scale). Reported:
+    each leaf's largest error over its largest |g| for the three pairs,
+    each run's seconds (the budget is 30 s a rank), each rank's peak bytes
+    above the params against the one-rank run's, and the seconds of the
+    bitwise comparison (not in the budget)."""
+    r0 = res[0]["update_dp"]
+    one = r0["one"]
+    dp = [x["update_dp"]["dp"] for x in res]
+    loss_err = abs(dp[0]["loss"] - one["loss"]) / abs(one["loss"])
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    launches = {f"rank{r}": {k: x["launches"][k] for k in flash}
+                for r, x in enumerate(dp)}
+    launches["one_rank"] = {k: one["launches"][k] for k in flash}
+    fwd = 24 * (2 if r0["remat"] == "full" else 1)
+    errs = r0["grad_abs"]
+    within_noise = {k: errs["dp_vs_one"][k] <= errs["one_vs_f32"][k]
+                    for k in errs["dp_vs_one"]}
+    row_ok = (loss_err <= 1e-5 and all(within_noise.values())
+              and all(x["params_equal"] is True for x in dp)
+              and dp[0]["loss"] == dp[1]["loss"]
+              and all(x == {"flash_fwd": fwd, "flash_dq": 24,
+                            "flash_dkv": 24} for x in launches.values()))
+    return dict(
+        ok=row_ok, batch=TP_BATCH, seq=UPDATE_DP_SEQ, loss=dp[0]["loss"],
+        loss_one_rank=one["loss"], loss_rel_err=loss_err,
+        grad_err_over_scale=r0["grad_errs"], grad_worst=r0["grad_worst"],
+        grads_within_bf16_noise=within_noise,
+        params_equal=dp[0]["params_equal"], launches=launches,
+        metrics=dp[0]["metrics"], metrics_one_rank=one["metrics"],
+        peak_bytes={"rank0": dp[0]["peak_bytes"],
+                    "rank1": dp[1]["peak_bytes"],
+                    "one_rank": one["peak_bytes"]},
+        peak_ratio=[x["peak_bytes"] / one["peak_bytes"] for x in dp],
+        seconds={"rank0": dp[0]["seconds"], "rank1": dp[1]["seconds"],
+                 "one_rank": one["seconds"]},
+        within_budget=all(x["seconds"] <= 30 for x in dp),
+        compare_seconds=[x["compare_seconds"] for x in dp]), row_ok
 
 
 def dp_option_results(torch, res):
@@ -4417,9 +4627,9 @@ class _RecordingUpdate:
     def __init__(self, stage):
         self.stage, self.batches, self.metrics = stage, [], []
 
-    def __call__(self, params, opt_state, exp):
+    def __call__(self, params, opt_state, exp, **kw):
         self.batches.append(exp)
-        out = self.stage(params, opt_state, exp)
+        out = self.stage(params, opt_state, exp, **kw)
         self.metrics.append(out[2])
         return out
 

@@ -18,7 +18,11 @@ RL training (paper Fig. 1). The selector:
 The selector holds one current config per stage (``current_for("rollout")``
 / ``current_for("update")``): the async schedule overlaps Rollout(k+1)
 with Update(k), and one stage's switch must not move the other's.
-``current`` stays the rollout stage's config. A candidate may be any
+``current`` stays the rollout stage's config. Across ranks the update
+runs on every rank of the update stage's config, data-parallel over its
+data rows and replicated over its model axis, as GSPMD runs JAX's; on a
+hook ② switch the trainer moves the params and optimizer state to the
+new config (``EarlTrainer.place_state``). A candidate may be any
 ``MeshConfig`` of the process group: the rollout engine re-binds to tp,
 dp, pods and dp x tp meshes and re-shards its params on a switch, so the
 paper's trade on two ranks, ``MeshConfig("dp2", 2, 1)`` against

@@ -50,19 +50,25 @@ a failed update k the newest checkpoint is step k's or older, and the
 restart re-runs step k and the later steps in order.
 
 **Across ranks** (the SPMD trainer), both schedules run on every rank.
-Only the update rank saves checkpoints; a resume or a restart reads the
-step the update rank finds and broadcasts, and every rank restores it (the
-generator state included). Under ``"async"`` the rollout runs on every
-rank's main thread on the selector's mesh, and the update on the update
-rank's worker thread (and side stream). Every collective stays on the main
-thread, in step order, on every rank: the params out to the rollout ranks,
-the generator state, the stats, the dispatch and the batch to the update
-rank, and each resolve's broadcast of the update's status and metrics
-(gloo collectives issued from two threads on one group can interleave).
-The worker does rank-local work only. The other ranks mirror the resolves,
-so a failed update reaches every rank at its resolve, before any rank
-blocks in a later collective, and every rank restarts from the same
-checkpoint.
+The update runs on every rank of the update mesh (``EarlTrainer.
+update_mesh``). Its first rank saves the checkpoints; a resume or a
+restart reads the step that rank finds and broadcasts, every update rank
+restores the state from its files and every rank the generator state.
+Under ``"async"`` the rollout runs on every rank's main thread on the
+selector's mesh, and the update on each update rank's worker thread (and
+side stream). The worker's only collectives are the update's gradient and
+metric sums over the update mesh's data rows, on groups of their own
+(``models.tensor_parallel.update_group``) that the main thread made when
+the mesh was bound, in step order. Every other collective stays on the
+main thread, in step order, on every rank: the params out to the rollout
+ranks, the generator state, the stats, the dispatch, the batch and the
+state to the update mesh, and each resolve's gather of the update's
+status and metrics (gloo collectives issued from two threads on one
+group can interleave). A switch of the update mesh resolves the old
+mesh's in-flight updates before the state moves. The other ranks mirror
+the resolves, so a failed update on any update rank reaches every rank
+at its resolve, before any rank blocks in a later collective, and every
+rank restarts from the same checkpoint.
 """
 from __future__ import annotations
 
@@ -73,10 +79,12 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.core.resharding import current_rank
+from repro_torch.core.stages import UpdateParams
 
 
 def _print_record(rec) -> None:
@@ -136,28 +144,48 @@ class PipelineSchedule:
                             self._ckpt_tree(params, opt_state, rng))
 
     def _saves(self) -> bool:
-        """Whether this rank writes checkpoints: across ranks only the
-        update rank's params and optimizer state are real."""
+        """Whether this rank writes checkpoints: across ranks the update
+        mesh's first rank (its params and optimizer state are every
+        update rank's)."""
         tr = self.trainer
-        return not tr.spmd or current_rank() == tr._update_rank()
+        return not tr.spmd or current_rank() == tr.update_mesh(
+        ).device_offset
 
     def _latest_saved(self):
-        """The newest saved step (None without one), as the update rank
-        finds it, on every rank."""
+        """The newest saved step (None without one), as the update mesh's
+        first rank finds it, on every rank."""
         tr = self.trainer
         s = latest_step(self.checkpoint_dir) if self.checkpoint_dir else None
-        return tr.broadcast(s, tr._update_rank()) if tr.spmd else s
+        return (tr.broadcast(s, tr.update_mesh().device_offset) if tr.spmd
+                else s)
 
     def _restore(self, step: int, params, opt_state):
         """Load checkpoint ``step`` into the shapes of the given state and
-        set the trainer generator to the saved position."""
+        set the trainer generator to the saved position. Across ranks
+        every rank of the update mesh reads the state onto its device
+        (an ``UpdateParams`` of the mesh) and the others take meta
+        tensors; every rank reads the generator state."""
         tr = self.trainer
+        holds = tr.in_update_mesh()
+        dev = tr.device if holds else torch.device("meta")
+        # shapes and dtypes only: zero-stride views hold no memory
+        like = lambda t: {k: torch.empty((), dtype=v.dtype,
+                                         device=dev).expand(v.shape)
+                          for k, v in t.items()}
         st = restore_checkpoint(
             self.checkpoint_dir, step,
-            self._ckpt_tree(params, opt_state, tr._gen.get_state()),
-            map_location=tr.device)
+            {"params": like(params),
+             "opt_state": {"step": torch.empty(
+                               (), dtype=opt_state.step.dtype, device=dev),
+                           "mu": like(opt_state.mu),
+                           "nu": like(opt_state.nu)},
+             "rng": tr._gen.get_state()},
+            map_location=tr.device if holds else "cpu")
         tr._gen.set_state(st["rng"])
-        return st["params"], type(opt_state)(**st["opt_state"]), step
+        params = st["params"]
+        if tr.spmd:
+            params = UpdateParams(params, tr.update_mesh())
+        return params, type(opt_state)(**st["opt_state"]), step
 
     # -- synchronous ----------------------------------------------------------
     def _run_sync(self, n_steps, start, params, opt_state, ref_params,
@@ -228,10 +256,14 @@ class PipelineSchedule:
                 raise RuntimeError(f"update {k} not run: an earlier update "
                                    f"of this pipeline failed")
 
-        def submit(pool, k, exp, src_shardings, dst_shardings):
+        def submit(pool, k, exp, src_shardings, dst_shardings, mesh=None,
+                   group=None):
             # the generator AT SUBMIT TIME: rollout k has drawn, rollout
             # k+1 has not, which is where a resume at step k+1 restarts
             rng_after_k = tr._gen.get_state()
+            # across ranks: the update mesh's first rank saves, and every
+            # update rank's new params are an UpdateParams of ``mesh``
+            saves = self._saves()
             ready = None
             if cuda:
                 # the batch is made on the main stream (rollout, ExpPrep):
@@ -263,7 +295,10 @@ class PipelineSchedule:
                         asynchronous=True)
                     tr.check_fault("update", k)
                     p, o = state["params"], state["opt_state"]
-                    p2, o2, metrics = tr.update_stage(p, o, exp_d)
+                    p2, o2, metrics = tr.update_stage(p, o, exp_d,
+                                                      group=group)
+                    if mesh is not None:
+                        p2 = UpdateParams(p2, mesh)
                     dispatch_row = None
                     if handle is not None:
                         # the update is enqueued against the handoff;
@@ -279,15 +314,17 @@ class PipelineSchedule:
                     state["params"], state["opt_state"] = p2, o2
                     # on the side stream too: its copies to the host need
                     # not queue behind the rollout's kernels
-                    self._maybe_save(k + 1, p2, o2, rng_after_k)
+                    if saves:
+                        self._maybe_save(k + 1, p2, o2, rng_after_k)
                 return p2, metrics, dispatch_row, time.perf_counter() - t0
             futures[k] = pool.submit(work)
 
         def resolve_spmd(k, row):
-            """Step k's update across ranks: its rank waits for it and
-            broadcasts the status first, then the metrics; every rank
-            raises when it failed. Returns what ``work`` returns, a stand-in
-            for the params on the other ranks."""
+            """Step k's update across ranks: each update rank waits for its
+            update, and one gather on the main thread gives every rank
+            each update rank's status, metrics and wall time; every rank
+            raises when any failed. Returns what ``work`` returns, a
+            stand-in for the params outside the update mesh."""
             fut, err, out = futures.pop(k), None, None
             if fut is not None:
                 try:
@@ -295,15 +332,21 @@ class PipelineSchedule:
                 except Exception as e:       # raised below, on every rank
                     err = e
             msg = None if err is None else f"{type(err).__name__}: {err}"
-            status, metrics, upd_wall = tr.broadcast(
-                (msg,) + ((None, None) if out is None
-                          else (out[1], out[3])), row["rank"])
+            got = [None] * dist.get_world_size()
+            dist.all_gather_object(got, (msg,) + (
+                (None, None) if out is None else (out[1], out[3])))
             if err is not None:
                 raise err
-            if status is not None:
-                raise RuntimeError(f"the update of step {k} failed on rank "
-                                   f"{row['rank']}: {status}")
-            p2 = out[0] if out is not None else tr.stand_in(params)
+            for rank in row["mesh"].ranks().ravel().tolist():
+                if got[rank][0] is not None:
+                    raise RuntimeError(f"the update of step {k} failed on "
+                                       f"rank {rank}: {got[rank][0]}")
+            _, metrics, upd_wall = got[row["mesh"].device_offset]
+            p2 = (out[0] if out is not None
+                  else tr.stand_in(params, row["mesh"]))
+            if out is None:
+                # the live state outside the mesh: where it lies now
+                state["params"] = p2
             return p2, metrics, row["dispatch_row"], upd_wall
 
         def resolve(k):
@@ -314,7 +357,7 @@ class PipelineSchedule:
                 p2, metrics, dispatch_row, upd_wall = resolve_spmd(k, row)
             else:
                 p2, metrics, dispatch_row, upd_wall = futures.pop(k).result()
-            if cuda and (not spmd or current_rank() == row["rank"]):
+            if cuda and (not spmd or row["inside"]):
                 # p2 was made on the side stream and is complete: the
                 # worker's metric read waited for it, and result() returned
                 # after that read. A rollout on the main stream may read it
@@ -349,6 +392,7 @@ class PipelineSchedule:
                 t0 = time.perf_counter()
                 tr.check_fault("rollout", k)
                 tr._maybe_warn_ref_fallback(ref_params)
+                tr.note_dst(dst_shardings)
                 tr.sync_generator()
                 exp, stats, switch = tr.rollout_stage(
                     k, behavior, tr.batch_size,
@@ -367,11 +411,23 @@ class PipelineSchedule:
                                  or tr.temperature == 1.0)))
                 dispatch_row = None
                 if spmd:
-                    # the dispatch, hook ② and the batch to the update rank
-                    # here, on the main thread: the worker runs no
-                    # collective
+                    # the dispatch, hook ② and the batch to the update mesh
+                    # here, on the main thread
                     exp, dispatch_row = tr.handoff(k, exp, dst_shardings)
                     src = dst = None
+                    mesh = tr.update_mesh()
+                    live = state["params"]
+                    if not (isinstance(live, UpdateParams)
+                            and live.mesh_config == mesh):
+                        # the state moves to the update mesh (the first
+                        # update, or hook ② switched it): after the old
+                        # mesh's in-flight updates, which own it
+                        while futures:
+                            resolve(min(futures))
+                        state["params"], state["opt_state"] = \
+                            tr.place_state(state["params"],
+                                           state["opt_state"])
+                    group = tr.update_group()
                 else:
                     # the source layouts now: the next rollout overwrites
                     # the engine's before the worker runs
@@ -381,14 +437,15 @@ class PipelineSchedule:
                     # hook ②: tracked apart from the rollout's config (both
                     # stages are live at once)
                     tr._update_hook(k)
+                    mesh = group = None
                 pending[k] = {
                     "stats": stats, "switch": switch, "t0": t0,
                     "rollout_wall_s": time.perf_counter() - t0,
                     "policy_lag": k - v, "dispatch_row": dispatch_row,
-                    "rank": tr._update_rank() if spmd else None,
+                    "mesh": mesh, "inside": tr.in_update_mesh(),
                 }
-                if not spmd or current_rank() == pending[k]["rank"]:
-                    submit(pool, k, exp, src, dst)
+                if pending[k]["inside"]:
+                    submit(pool, k, exp, src, dst, mesh, group)
                 else:
                     futures[k] = None        # mirrored at its resolve
 

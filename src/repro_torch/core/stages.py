@@ -32,26 +32,36 @@ SPMD: every rank runs ``run_step`` with the same arguments, and every
 collective is called by every rank of its group in the same order. The
 rollout runs on the selector's current rollout config (a
 tensor-parallel, data-parallel or dp x tp mesh, or one rank; a rank
-outside it takes no part), the update on one rank, as JAX's
-``UpdateStage`` runs on one device: the first rank of the update stage's
-config (rank 0 without a profiled selector). Only that rank's params and
-optimizer state are real. Before each rollout the update rank's params
-go to the rollout ranks in the tp plan's layouts
-(``core.resharding.tp_plan``) through the data dispatcher's direct
-executor (the reference params once per mesh: whole heads within a data
-row, the same shards on every row), and the batch goes back to the
-update rank the same way, from the rows each rank holds of a
-data-parallel rollout's batch (ExpPrep's advantages read the global
+outside it takes no part). The update runs on every rank of the update
+mesh, as GSPMD runs JAX's ``UpdateStage`` where its inputs lie: the
+update stage's config (``current_for("update")`` of a profiled
+selector), else the one mesh that ``dst_shardings`` names, else rank 0.
+The batch reaches it in JAX's ``_batch_spec`` layouts, its rows split
+over the data rows where they divide and replicated where they do not;
+each rank computes on its rows and the gradients are summed over the
+data rows (``core/train_step.py``), so every rank of the mesh takes the
+same AdamW step and holds the same params and optimizer state
+(``UpdateParams``). The params given to ``train`` need be real only on
+the update mesh's first rank; before the first update, and when hook ②
+switches the update mesh, the params and optimizer state move to it
+through the data dispatcher's direct executor, on the main thread.
+Before each rollout the params go from the first rank of the mesh they
+lie on to the rollout ranks in the tp plan's layouts
+(``core.resharding.tp_plan``; the reference params once per mesh: whole
+heads within a data row, the same shards on every row), and the batch
+goes to the update mesh the same way, from the rows each rank holds of
+a data-parallel rollout's batch (ExpPrep's advantages read the global
 rewards first). The rollout's stats and the update's metrics are
 broadcast, so every rank keeps the same records, selector EMA and
-switches. Other ranks hold meta tensors of the params' shapes after the
-first update (a new tree each step, as the update rank's is). As in JAX,
-the python engine is never bound to a mesh: it rolls out on the update
-rank with that rank's whole params, its stats are broadcast from there,
-and no params handoff runs for it. The async schedule runs the rollout
-on the main thread of every rank and the update on the update rank's
-worker thread; every collective stays on the main thread
-(``core/scheduler.py``).
+switches. Ranks outside the update mesh hold meta tensors of the params'
+shapes after an update (a new tree each step). As in JAX, the python
+engine is never bound to a mesh: it rolls out on the first rank of the
+params' mesh with that rank's whole params, its stats are broadcast
+from there, and no params handoff runs for it. The async schedule runs
+the rollout on the main thread of every rank and the update on each
+update rank's worker thread, whose gradient sums use groups of their
+own (``models.tensor_parallel.update_group``); every other collective
+stays on the main thread (``core/scheduler.py``).
 
 As in the JAX trainer, the reference log-probs come from the rollout
 (``ref_folded``, ``stages.py:397-399``): the engine decodes every fed token
@@ -86,12 +96,14 @@ from repro_torch.core.data_dispatcher import DataDispatcher
 from repro_torch.core.parallelism_selector import ParallelismSelector
 from repro_torch.core.resharding import (MeshConfig, NamedLayout,
                                          current_rank, finish_shards,
-                                         tp_plan)
+                                         replicated, tp_plan)
 from repro_torch.core.train_step import (make_ref_logprob_step,
                                          make_rl_train_step)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import _batch_spec
 from repro_torch.models.paging import (pool_pages_needed,
                                        pool_pages_needed_shared)
+from repro_torch.models.tensor_parallel import update_group
 from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.rl.algo import (group_relative_advantages,
                                  reinforce_advantages)
@@ -101,6 +113,7 @@ from repro_torch.rl.engine.compiled import NoiseFn
 from repro_torch.rl.experience import ExperienceBatch, zeros_like_experience
 from repro_torch.rl.rollout import RolloutEngine
 from repro_torch.utils.faults import undersize_pool
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 # per model family, the trainer's attn_impl -> each stream's attention:
 # the policy's decode on either cache layout, the folded reference decode
@@ -201,9 +214,9 @@ class RolloutStage:
         self.selector = selector
         self.place = place
         # across ranks, for an engine that is never bound to a mesh (the
-        # python one): the rank it rolls out on, asked before each rollout;
-        # the others get a meta batch of the global shapes
-        self.home: Optional[Callable[[], int]] = None
+        # python one): the rank it rolls out on, asked of the params before
+        # each rollout; the others get a meta batch of the global shapes
+        self.home: Optional[Callable[[Any], int]] = None
         self.home_rank: Optional[int] = None
 
     def __call__(self, step: int, params, batch: int, *,
@@ -229,7 +242,7 @@ class RolloutStage:
                                       params_version=params_version,
                                       ref_params=ref_params)
         if self.home is not None:
-            self.home_rank = self.home()
+            self.home_rank = self.home(params)
             if current_rank() == self.home_rank:
                 exp, stats = run()
             else:
@@ -324,6 +337,18 @@ class DispatchStage:
         return exp, rep.row()
 
 
+class UpdateParams(dict):
+    """A params tree of an update mesh across ranks: the same tensors on
+    each rank of ``mesh_config`` (the update keeps them bitwise equal),
+    meta tensors of their shapes on the other ranks. The trainer reads
+    from it where the tree lies: the rollout handoff sends from the
+    mesh's first rank, and a switch of the update mesh moves it."""
+
+    def __init__(self, tensors, mesh_config: MeshConfig):
+        super().__init__(tensors)
+        self.mesh_config = mesh_config
+
+
 class UpdateStage:
     """Fig. 2 Model Update: the policy-gradient step. Params are not
     updated in place: the reference params may alias them, and under the
@@ -339,8 +364,11 @@ class UpdateStage:
                                         is_rho_max=is_rho_max,
                                         attn_impl=attn_impl)
 
-    def __call__(self, params, opt_state, exp: ExperienceBatch):
-        return self._step(params, opt_state, exp)
+    def __call__(self, params, opt_state, exp: ExperienceBatch,
+                 group=None):
+        """``group``: the update's data-axis group when ``exp`` is this
+        rank's rows of a batch split over it (``core/train_step.py``)."""
+        return self._step(params, opt_state, exp, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +513,12 @@ class EarlTrainer:
                            and self.speculation == "off")
         self._warned_ref_fallback = False
         self.rollout_stage = RolloutStage(self.rollout, self.selector)
+        # across ranks: the mesh the last dst_shardings named, the rank
+        # that holds the params given to train (set at the first step),
+        # and whether the last batch handed to the update split its rows
+        self._dst_mesh: Optional[MeshConfig] = None
+        self._given_root: Optional[int] = None
+        self._rows_split = False
         if _spmd():
             self._init_spmd(python)
         self.expprep_stage = ExpPrepStage(
@@ -513,34 +547,63 @@ class EarlTrainer:
     def _init_spmd(self, python: bool) -> None:
         """The rollout stage's handoff across ranks: the compiled engine is
         bound to a mesh and takes its params through ``_place``; the python
-        engine, never bound (as in JAX), rolls out on the update rank."""
+        engine, never bound (as in JAX), rolls out on the first rank of the
+        params' mesh."""
         self._handoff = DataDispatcher()   # params out, the batch back
         self._ref_placed = None
         if python:
-            self.rollout_stage.home = self._update_rank
+            self.rollout_stage.home = self._root_of
             return
         if self.rollout.mesh_config is None:
             # no selector: the rollout runs where the update does
-            self.rollout.bind_mesh(self._update_mesh())
+            self.rollout.bind_mesh(self.update_mesh())
         self.rollout_stage.place = self._place
 
-    def _update_rank(self) -> int:
-        """The rank the update runs on: the first of the update stage's
-        config (rank 0 without a profiled selector)."""
+    def update_mesh(self) -> MeshConfig:
+        """The mesh the update runs on: the update stage's config of a
+        profiled selector, else the one mesh every leaf of the last
+        ``dst_shardings`` lies on (JAX's GSPMD runs the step where its
+        inputs lie), else rank 0."""
         sel = self.selector
         if sel is not None and sel.policy is not None:
-            return sel.current_for("update").device_offset
-        return 0
+            return sel.current_for("update")
+        if self._dst_mesh is not None:
+            return self._dst_mesh
+        return MeshConfig("update", dp=1, tp=1)
 
-    def _update_mesh(self) -> MeshConfig:
-        return MeshConfig("update", dp=1, tp=1,
-                          device_offset=self._update_rank())
+    def in_update_mesh(self) -> bool:
+        """Whether this rank runs the update (every rank of one)."""
+        return not _spmd() or current_rank() in self.update_mesh().ranks()
+
+    def note_dst(self, dst_shardings) -> None:
+        """Before each rollout, on every rank: the mesh ``dst_shardings``
+        names when all of its leaves share one (see ``update_mesh``), and,
+        the first time, the rank that holds the params given to ``train``:
+        the update mesh's first rank."""
+        meshes = ({lay.mesh_config for lay in tree_leaves(dst_shardings)}
+                  if dst_shardings is not None else set())
+        self._dst_mesh = meshes.pop() if len(meshes) == 1 else None
+        if self._given_root is None:
+            self._given_root = self.update_mesh().device_offset
+
+    def _root_of(self, params=None) -> int:
+        """The first rank of the mesh ``params`` lie on: an
+        ``UpdateParams``' own, or the one that holds the given params (the
+        update mesh's first rank before the first step)."""
+        if isinstance(params, UpdateParams):
+            return params.mesh_config.device_offset
+        if self._given_root is not None:
+            return self._given_root
+        return self.update_mesh().device_offset
 
     def _rollout_root(self) -> int:
         """The rank whose rollout the others follow: the bound mesh's first
-        rank, or the update rank for the python engine."""
+        rank, or the rank the python engine last rolled out on."""
         mesh = getattr(self.rollout, "mesh_config", None)
-        return mesh.device_offset if mesh is not None else self._update_rank()
+        if mesh is not None:
+            return mesh.device_offset
+        home = self.rollout_stage.home_rank
+        return home if home is not None else self._root_of()
 
     def rolls_out(self) -> bool:
         """Whether this rank took part in the last rollout (every rank of
@@ -560,12 +623,14 @@ class EarlTrainer:
             self._gen.set_state(_broadcast(self._gen.get_state(),
                                            self._rollout_root()))
 
-    def stand_in(self, params):
-        """What a rank other than the update rank holds for the params
-        after an update: meta tensors of their shapes, a new tree each
-        time, so ``ref_params is params`` tests alike on every rank."""
-        return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-                for k, v in params.items()}
+    def stand_in(self, params, mesh: MeshConfig) -> "UpdateParams":
+        """What a rank outside the update mesh ``mesh`` holds for the
+        params after an update: meta tensors of their shapes, a new tree
+        each time, so ``ref_params is params`` tests alike on every
+        rank."""
+        return UpdateParams(
+            {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in params.items()}, mesh)
 
     def _batch_layouts(self, exp):
         """Where the harvested batch lies across ranks: the engine's
@@ -586,21 +651,24 @@ class EarlTrainer:
     def handoff(self, step: int, exp, dst_shardings):
         """Across ranks (every rank calls, on the main thread): the batch
         through the dispatch stage to ``dst_shardings`` when given, hook ②,
-        then the batch to the update rank. Returns ``(exp,
-        dispatch_row)``."""
+        then the batch to the update mesh. Returns ``(exp,
+        dispatch_row)``; ``update_group()`` then says how the update sums
+        over its rows."""
         src = self._batch_layouts(exp)
         exp, row = self.dispatch_stage(exp, dst_shardings, src_shardings=src)
         self._update_hook(step)
-        exp = self._to_update_rank(
+        exp = self._to_update_mesh(
             exp, dst_shardings if dst_shardings is not None else src)
         return exp, row
 
     def _to_rollout(self, params):
-        """The update rank's ``params`` to the bound rollout mesh, each rank
-        its local tensors under the tp plan (meta outside the mesh)."""
+        """``params`` from the first rank of their mesh to the bound
+        rollout mesh, each rank its local tensors under the tp plan (meta
+        outside the mesh)."""
         mesh = self.rollout.mesh_config
         plan = tp_plan(self.model, mesh)
-        src_cfg = self._update_mesh()
+        src_cfg = MeshConfig("update", dp=1, tp=1,
+                             device_offset=self._root_of(params))
         mine = current_rank() == src_cfg.device_offset
         src = {k: (v if mine else torch.empty(v.shape, dtype=v.dtype,
                                               device="meta"))
@@ -623,13 +691,58 @@ class EarlTrainer:
             ref_params = self._ref_placed[1]
         return self._to_rollout(params), ref_params
 
-    def _to_update_rank(self, exp, src_shardings):
-        """The harvested batch to the update rank (every rank calls)."""
-        dst = ExperienceBatch(*(NamedLayout(self._update_mesh())
-                                for _ in exp))
+    def _to_update_mesh(self, exp, src_shardings):
+        """The harvested batch to the update mesh in ``_batch_spec``
+        layouts: rows over (pod, data) where they divide, else replicated,
+        and replicated over model (every rank calls)."""
+        mesh = self.update_mesh()
+        dst = ExperienceBatch(*(
+            _batch_spec(mesh, tuple(x.shape) if x.is_meta
+                        else lay.global_shape(x.shape))
+            for x, lay in zip(exp, tree_leaves(src_shardings))))
+        self._rows_split = dst.tokens.shards(0) > 1
         out, _ = self._handoff.dispatch(exp, dst, strategy="direct",
                                         src_shardings=src_shardings)
-        return out
+        # gloo hands a rank that held nothing its rows on the host
+        return ExperienceBatch(*(x if x.is_meta else x.to(self.device)
+                                 for x in out))
+
+    def update_group(self):
+        """The group the update on this rank sums over: the update mesh's
+        data rows (``update_group``) when the last handed-off batch is
+        split over them, else None (every rank computes the whole batch,
+        as GSPMD's replicated program does)."""
+        if not _spmd() or not self._rows_split:
+            return None
+        return update_group(self.update_mesh())
+
+    def place_state(self, params, opt_state):
+        """The params and optimizer state onto the update mesh, replicated
+        on its ranks (every rank calls, on the main thread): from the rank
+        that holds the given params, or from the mesh an ``UpdateParams``
+        lies on after hook ② switched the update stage. Each block comes
+        from its lowest holder (the direct executor). A no-op when they lie
+        there already. Makes the update mesh's ``update_group``s, which
+        are collective. Returns ``(UpdateParams, opt_state)``."""
+        mesh = self.update_mesh()
+        update_group(mesh)
+        if isinstance(params, UpdateParams) and params.mesh_config == mesh:
+            return params, opt_state
+        src = (params.mesh_config if isinstance(params, UpdateParams)
+               else MeshConfig("given", dp=1, tp=1,
+                               device_offset=self._given_root))
+        state = (dict(params), opt_state)
+        if current_rank() not in src.ranks():
+            state = tree_map(lambda v: torch.empty(
+                v.shape, dtype=v.dtype, device="meta"), state)
+        params, opt_state = self._handoff.dispatch_direct(
+            state, tree_map(lambda _: replicated(mesh), state),
+            src_shardings=tree_map(lambda _: replicated(src), state))
+        # gloo hands a rank that held nothing its pieces on the host
+        params, opt_state = tree_map(
+            lambda v: v if v.is_meta else v.to(self.device),
+            (params, opt_state))
+        return UpdateParams(params, mesh), opt_state
 
     def _undersize_pool(self, fraction: float) -> None:
         """Injected pool pressure: the paged pool at ``fraction`` of its
@@ -786,6 +899,7 @@ class EarlTrainer:
         self._maybe_warn_ref_fallback(ref_params)
         t0 = time.perf_counter()
         self.check_fault("rollout", step)
+        self.note_dst(dst_shardings)
         self.sync_generator()
         exp, stats, switch = self.rollout_stage(
             step, params, self.batch_size, n_episodes=self.rollout_episodes,
@@ -806,24 +920,27 @@ class EarlTrainer:
                                      ref_folded=self.ref_folded,
                                      reuse_behavior_lp=reuse_lp)
         self.check_fault("dispatch", step)
-        # the update runs on one rank: this one alone, or the update rank
-        # across ranks, which the batch reaches through the dispatcher
+        # the update runs on this rank alone, or across ranks on every rank
+        # of the update mesh, which the batch, the params and the optimizer
+        # state reach through the dispatcher
         if spmd:
             exp, dispatch_row = self.handoff(step, exp, dst_shardings)
+            params, opt_state = self.place_state(params, opt_state)
         else:
             exp, dispatch_row = self.dispatch_stage(exp, dst_shardings)
             self._update_hook(step)
         t1 = time.perf_counter()
         self.check_fault("update", step)
-        metrics = None
-        if not spmd or current_rank() == self._update_rank():
-            params, opt_state, metrics = self.update_stage(params, opt_state,
-                                                           exp)
+        metrics, group = None, self.update_group()
+        if self.in_update_mesh():
+            params, opt_state, metrics = self.update_stage(
+                params, opt_state, exp, group=group)
             metrics = self.read_metrics(metrics)
         if spmd:
-            metrics = _broadcast(metrics, self._update_rank())
-            if current_rank() != self._update_rank():
-                params = self.stand_in(params)
+            mesh = self.update_mesh()
+            metrics = _broadcast(metrics, mesh.device_offset)
+            params = (UpdateParams(params, mesh) if self.in_update_mesh()
+                      else self.stand_in(params, mesh))
         t2 = time.perf_counter()
         rec = self.make_record(step, stats, metrics, switch=switch,
                                dispatch_row=dispatch_row,

@@ -7,10 +7,22 @@ run eagerly. Gradients come from ``torch.autograd.grad`` of the loss with
 respect to the param leaves; params are never modified in place (see
 ``optim/adamw.py``). Every step takes ``extra``, the audio and vlm
 families' modality inputs (``Model.make_extras``).
+
+The LM and Model Update steps take an optional ``group``: the data-axis
+process group of an update whose batch rows are split over its ranks
+(``models.tensor_parallel.update_group``), as GSPMD runs JAX's jitted
+step on a batch laid over ``data``. Each rank computes on its rows, and
+the step equals the global batch's: the token denominators are the
+global counts, the moe aux loss is shared by the global batch's dispatch
+groups, and the gradients are summed over the group in f32 and rounded
+once to the param dtype before the optimizer (so the global-norm clip
+sees the global gradients, and every rank takes the same step). The loss
+and metrics are summed the same way.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.optim.adamw import Optimizer, apply_updates
 from repro_torch.rl.algo import policy_gradient_loss, token_logprobs
@@ -18,20 +30,74 @@ from repro_torch.rl.experience import ExperienceBatch
 
 
 def lm_loss(model, params, tokens, labels, *, extra=None,
-            attn_impl: str = "xla"):
+            attn_impl: str = "xla", group=None):
     """Masked next-token cross-entropy: positions with ``labels < 0`` are
     ignored; ``-sum(lp * mask) / max(sum(mask), 1)`` through
     ``token_logprobs``, plus the moe family's aux loss. Returns ``(loss,
-    {"lm_loss", "n_tokens"})``."""
+    {"lm_loss", "n_tokens"})``. With ``group`` (the module docstring's)
+    the denominator and ``n_tokens`` are the global count, and the loss
+    is this rank's share."""
     logits, aux = model.forward(params, tokens, extra=extra,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl,
+                                data_shards=_shards(group))
     mask = (labels >= 0).float()
     tok_lp = token_logprobs(logits, labels.clamp(min=0))
-    denom = mask.sum().clamp(min=1.0)
+    n_tokens = mask.sum()
+    if group is not None:
+        dist.all_reduce(n_tokens, group=group)
+    denom = n_tokens.clamp(min=1.0)
     loss = -(tok_lp * mask).sum() / denom
     if "aux_loss" in aux:
         loss = loss + aux["aux_loss"]
     return loss, {"lm_loss": loss, "n_tokens": denom}
+
+
+def _shards(group) -> int:
+    """The number of ranks the batch rows are split over."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+# f32 elements a gradient all-reduce carries at most (a larger leaf goes
+# alone): few calls, each a bounded staging buffer
+_BUCKET = 1 << 26
+
+
+def sum_grads(grads, group):
+    """``grads`` summed over ``group``: each leaf in f32, in buckets of
+    at most ``_BUCKET`` elements, rounded once to its own dtype. The same
+    tensors when ``group`` is None."""
+    if group is None:
+        return grads
+    out, bucket, size = {}, [], 0
+
+    def flush():
+        flat = torch.cat([grads[k].float().reshape(-1) for k in bucket])
+        dist.all_reduce(flat, group=group)
+        pieces = flat.split([grads[k].numel() for k in bucket])
+        for k, piece in zip(bucket, pieces):
+            out[k] = piece.view(grads[k].shape).to(grads[k].dtype)
+
+    for k, g in grads.items():
+        if bucket and size + g.numel() > _BUCKET:
+            flush()
+            bucket, size = [], 0
+        bucket.append(k)
+        size += g.numel()
+    flush()
+    return out
+
+
+def _sum_metrics(metrics, group, keep=()):
+    """The 0-dim ``metrics`` summed over ``group`` in one all-reduce, but
+    those named in ``keep`` (already global)."""
+    if group is None:
+        return metrics
+    names = [k for k in metrics if k not in keep]
+    if not names:
+        return metrics
+    flat = torch.stack([metrics[k].float() for k in names])
+    dist.all_reduce(flat, group=group)
+    return dict(metrics, **dict(zip(names, flat.unbind())))
 
 
 def _grads(loss_fn, params):
@@ -48,11 +114,11 @@ def _grads(loss_fn, params):
 
 def make_lm_train_step(model, optimizer: Optimizer, *,
                        attn_impl: str = "xla", microbatch: int = 0):
-    """``(params, opt_state, tokens, labels, extra=None) -> (params,
-    opt_state, metrics)``: cross-entropy and one optimizer step. tokens,
-    labels: (B, S) int; the caller shifts the labels (JAX's docstring
-    promises an internal shift when they are None, which its code does
-    not do; neither does this port).
+    """``(params, opt_state, tokens, labels, extra=None, group=None) ->
+    (params, opt_state, metrics)``: cross-entropy and one optimizer step.
+    tokens, labels: (B, S) int; the caller shifts the labels (JAX's
+    docstring promises an internal shift when they are None, which its
+    code does not do; neither does this port).
 
     ``microbatch > 1`` with ``B % microbatch == 0`` accumulates the
     gradients of ``microbatch`` slices in f32, one after another (live
@@ -60,22 +126,33 @@ def make_lm_train_step(model, optimizer: Optimizer, *,
     ``microbatch`` and takes one optimizer step; the loss is then the mean
     of the slices' means and the metrics are ``{"lm_loss", "loss"}``.
     Otherwise the whole batch makes one gradient and the metrics are
-    ``lm_loss``'s plus ``"loss"``. Metrics are 0-dim device tensors."""
+    ``lm_loss``'s plus ``"loss"``. Metrics are 0-dim device tensors.
 
-    def grads_of(p, tokens, labels, extra):
+    With ``group`` (the module docstring's) B is the global batch's rows,
+    these ``tokens`` one rank's share of them; the microbatch slices are
+    the global batch's, each whole on one rank, so ``microbatch`` must be
+    a multiple of the group's size (else ``ValueError``)."""
+
+    def grads_of(p, tokens, labels, extra, group=None):
         return _grads(lambda leaves: lm_loss(
             model, leaves, tokens, labels, extra=extra,
-            attn_impl=attn_impl), p)
+            attn_impl=attn_impl, group=group), p)
 
-    def train_step(params, opt_state, tokens, labels, extra=None):
+    def train_step(params, opt_state, tokens, labels, extra=None,
+                   group=None):
+        D = _shards(group)
         B = tokens.shape[0]
-        if microbatch > 1 and B % microbatch == 0:
-            mb = B // microbatch
+        if microbatch > 1 and (B * D) % microbatch == 0:
+            if microbatch % D:
+                raise ValueError(
+                    f"{microbatch} microbatches of a batch split over {D} "
+                    f"ranks: a slice would straddle two ranks")
+            mb = B // (microbatch // D)
             grads = {k: torch.zeros(v.shape, dtype=torch.float32,
                                     device=v.device)
                      for k, v in params.items()}
             loss = None
-            for i in range(microbatch):
+            for i in range(microbatch // D):
                 sl = slice(i * mb, (i + 1) * mb)
                 ex = (None if extra is None
                       else {k: v[sl] for k, v in extra.items()})
@@ -83,11 +160,18 @@ def make_lm_train_step(model, optimizer: Optimizer, *,
                 for k in grads:
                     grads[k] += g[k].float()
                 loss = l_i.float() if loss is None else loss + l_i
+            grads = sum_grads(grads, group)
+            loss = _sum_metrics({"loss": loss}, group)["loss"]
             grads = {k: g / microbatch for k, g in grads.items()}
             loss = loss / microbatch
             metrics = {"lm_loss": loss}
         else:
-            (loss, metrics), grads = grads_of(params, tokens, labels, extra)
+            (loss, metrics), grads = grads_of(params, tokens, labels, extra,
+                                              group)
+            grads = sum_grads(grads, group)
+            metrics = _sum_metrics(dict(metrics, loss=loss), group,
+                                   keep=("n_tokens",))
+            loss = metrics.pop("loss")
         updates, opt_state2 = optimizer.update(grads, opt_state, params)
         params2 = apply_updates(params, updates)
         metrics = dict(metrics)
@@ -100,17 +184,22 @@ def make_lm_train_step(model, optimizer: Optimizer, *,
 def make_rl_train_step(model, optimizer: Optimizer, *, clip_eps: float = 0.0,
                        kl_coef: float = 0.0, is_rho_max: float = 0.0,
                        attn_impl: str = "xla"):
-    """The Model Update stage: ``(params, opt_state, batch) -> (params,
-    opt_state, metrics)``, a policy-gradient step over an
-    ``ExperienceBatch``. Predictions at position t score token t+1, so the
-    per-token tensors are shifted by one inside. ``attn_impl``: "xla" or
-    "flash" (the flash-attention kernels, forward and backward). Metrics
-    are 0-dim device tensors; reading them is the caller's host sync."""
+    """The Model Update stage: ``(params, opt_state, batch, extra=None,
+    group=None) -> (params, opt_state, metrics)``, a policy-gradient step
+    over an ``ExperienceBatch``. Predictions at position t score token
+    t+1, so the per-token tensors are shifted by one inside.
+    ``attn_impl``: "xla" or "flash" (the flash-attention kernels, forward
+    and backward). ``group``: the module docstring's (``batch`` is this
+    rank's rows). Metrics are 0-dim device tensors; reading them is the
+    caller's host sync. ``train_step.grads_of(params, batch, extra=None,
+    group=None)`` returns ``((loss, metrics), grads)``, the gradients the
+    optimizer is given."""
 
-    def train_step(params, opt_state, batch: ExperienceBatch, extra=None):
+    def grads_of(params, batch: ExperienceBatch, extra=None, group=None):
         def loss_fn(leaves):
             logits, aux = model.forward(leaves, batch.tokens, extra=extra,
-                                        attn_impl=attn_impl)
+                                        attn_impl=attn_impl,
+                                        data_shards=_shards(group))
             lp = token_logprobs(logits[:, :-1], batch.tokens[:, 1:])
             del logits
             loss, metrics = policy_gradient_loss(
@@ -122,18 +211,26 @@ def make_rl_train_step(model, optimizer: Optimizer, *, clip_eps: float = 0.0,
                 kl_coef=kl_coef,
                 behavior_logprobs=(batch.logprobs[:, 1:] if is_rho_max > 0
                                    else None),
-                is_rho_max=is_rho_max)
+                is_rho_max=is_rho_max, group=group)
             if "aux_loss" in aux:
                 loss = loss + aux["aux_loss"]
                 metrics["aux_loss"] = aux["aux_loss"]
             return loss, metrics
 
         (loss, metrics), grads = _grads(loss_fn, params)
+        grads = sum_grads(grads, group)
+        metrics = _sum_metrics(dict(metrics, loss=loss), group)
+        return (metrics.pop("loss"), metrics), grads
+
+    def train_step(params, opt_state, batch: ExperienceBatch, extra=None,
+                   group=None):
+        (loss, metrics), grads = grads_of(params, batch, extra, group)
         updates, opt_state2 = optimizer.update(grads, opt_state, params)
         params2 = apply_updates(params, updates)
         metrics["loss"] = loss
         return params2, opt_state2, metrics
 
+    train_step.grads_of = grads_of
     return train_step
 
 

@@ -77,20 +77,37 @@ MOE_GROUP_TOKENS = 512     # GShard group size: capacity tensors are
                            # O(T^2 * E) per group, so T must stay bounded
 
 
-def moe_mlp(cfg: ModelConfig, p, x, tp=None):
+def moe_mlp(cfg: ModelConfig, p, x, tp=None, *, data_shards: int = 1):
     """x: (B, S, D) -> (out (B,S,D), aux_loss scalar).
 
     Tokens are regrouped into ``MOE_GROUP_TOKENS``-sized dispatch groups
     when ``B*S`` divides into them (a group then spans batch rows, padding
     tokens included, and they count toward an expert's capacity), else
     into one group per row of ``S``. Under ``tp`` ``p`` holds the rank's
-    experts and the output is summed over the ranks."""
+    experts and the output is summed over the ranks.
+
+    ``data_shards`` > 1: ``x`` is one rank's rows of a batch split over
+    that many ranks (a data-parallel update). The groups are the global
+    batch's, chosen from its ``B*S`` tokens, and the aux loss is this
+    rank's share of their mean (its mean over its own groups, divided by
+    ``data_shards``). A 512-token group that would straddle two ranks is
+    refused with a ``ValueError``."""
     B_, S_, D_ = x.shape
-    Tg = MOE_GROUP_TOKENS if (B_ * S_) % MOE_GROUP_TOKENS == 0 else S_
+    Tg = (MOE_GROUP_TOKENS
+          if (B_ * data_shards * S_) % MOE_GROUP_TOKENS == 0 else S_)
+    if (B_ * S_) % Tg:
+        raise ValueError(
+            f"the update splits {B_ * data_shards} rows of {S_} tokens over "
+            f"{data_shards} ranks: the global batch forms "
+            f"{MOE_GROUP_TOKENS}-token dispatch groups, and a rank's "
+            f"{B_ * S_} tokens do not divide into them, so a group would "
+            f"straddle two ranks")
     x = x.reshape(B_ * S_ // Tg, Tg, D_)
     out, aux = _moe_mlp_grouped(cfg, p, x, tp)
     if _split(tp):
         out = tp.partial_sum(out, x.dtype)
+    if data_shards > 1:
+        aux = aux / data_shards
     return out.reshape(B_, S_, D_), aux
 
 
@@ -307,23 +324,26 @@ def _attn_kw(cfg: ModelConfig, attn_impl: str, tp=None):
                 attn_impl=attn_impl, tp=tp)
 
 
-def _block_apply(cfg: ModelConfig, p, x, *, attn_impl: str = "xla"):
+def _block_apply(cfg: ModelConfig, p, x, *, attn_impl: str = "xla",
+                 data_shards: int = 1):
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     x = x + L.self_attention(p["attn"], h, **_attn_kw(cfg, attn_impl))
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    out, aux = moe_mlp(cfg, p["moe"], h)
+    out, aux = moe_mlp(cfg, p["moe"], h, data_shards=data_shards)
     return x + out, aux
 
 
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra=None,
-            attn_impl: str = "xla"):
+            attn_impl: str = "xla", data_shards: int = 1):
     """Full-sequence forward -> ``(logits (B,S,V), {"aux_loss": ...})``,
     the aux loss ``mean over layers * router_aux_weight``. attn_impl:
     "xla" or "flash" (the flash-attention kernels). With ``cfg.remat ==
     "full"`` and grad enabled, each layer keeps only its input for the
-    backward and runs again inside it (routing and dispatch included)."""
+    backward and runs again inside it (routing and dispatch included).
+    ``data_shards``: ``moe_mlp``'s (``tokens`` are one rank's rows of a
+    batch split over that many ranks)."""
     del extra
     x = L.embed(params["embedding"], tokens)
     auxes = []
@@ -331,9 +351,10 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
         lp = layer_params(params, i)
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, aux = checkpoint(_block_apply, cfg, lp, x, attn_impl=attn_impl,
-                                use_reentrant=False)
+                                data_shards=data_shards, use_reentrant=False)
         else:
-            x, aux = _block_apply(cfg, lp, x, attn_impl=attn_impl)
+            x, aux = _block_apply(cfg, lp, x, attn_impl=attn_impl,
+                                  data_shards=data_shards)
         auxes.append(aux)
     aux_loss = torch.stack(auxes).mean() * cfg.moe.router_aux_weight
     return _chunk_logits(cfg, params, x), {"aux_loss": aux_loss}

@@ -50,16 +50,22 @@ class Model:
         device = generator.device if device is None else device
         return init_params(self.defs, generator, device, dtype)
 
-    def forward(self, params, tokens, *, extra=None, attn_impl="xla"):
+    def forward(self, params, tokens, *, extra=None, attn_impl="xla",
+                data_shards=1):
         """Full-sequence forward: ``(logits (B,S,V), aux)``. ``aux`` is
         the moe family's ``{"aux_loss": ...}`` (the router's load-balance
         loss) and ``{}`` for the others. ``attn_impl``: "xla" (the plain
         paths), "flash" (the flash-attention kernels: dense, moe, the
         hybrid's attention sites, the audio decoder's and the vlm's self
         layers) or "pallas" (ssm: the SSD scan kernel). ``extra``: the
-        audio and vlm families' modality inputs (``make_extras``)."""
+        audio and vlm families' modality inputs (``make_extras``).
+        ``data_shards``: the number of ranks a data-parallel update splits
+        the batch rows over (``tokens`` are this rank's): the moe family
+        groups its tokens and shares its aux loss by the global batch
+        (``moe.moe_mlp``); the other families' rows are independent."""
+        kw = {"data_shards": data_shards} if self.has_aux else {}
         out = self._forward(self.cfg, params, tokens, extra=extra,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, **kw)
         return out if self.has_aux else (out, {})
 
     def init_cache(self, batch, s_max, dtype=torch.bfloat16, **layout_kw):

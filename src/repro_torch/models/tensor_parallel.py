@@ -29,7 +29,9 @@ functions take it as ``tp=`` (None: one rank, no collective):
     of gathering the row.
 
 Plain functions on tensors with no autograd: nothing on the tp path takes
-a gradient (the update runs on one rank, as JAX's ``UpdateStage`` does).
+a gradient. The update does not split heads: as GSPMD runs JAX's
+``UpdateStage``, it runs whole on every rank of a model-axis row, its
+batch rows split over the data rows (``update_group``).
 Every collective here is called by every rank of the group in the same
 order: the rollout's control flow is replicated, and the values the
 collectives return are the same on every rank. bf16 sums are all-reduced
@@ -38,7 +40,9 @@ in f32 and rounded once.
 On a mesh of several data rows (dp or pods above 1) each row is a tp
 group of its own (``model_group``); ``data_group`` joins the ranks of one
 model index across the rows, over which the data-parallel rollout
-exchanges its turn's counters and its harvest.
+exchanges its turn's counters and its harvest. ``update_group`` joins
+the same ranks in groups of their own, over which the update sums its
+gradients.
 """
 from __future__ import annotations
 
@@ -47,18 +51,19 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-_GROUPS: Dict[Tuple[int, ...], object] = {}
+_GROUPS: Dict[Tuple, object] = {}
 _GROUPS_WORLD = None      # the default group the cached groups belong to
 
 
-def _group_of(lines):
+def _group_of(lines, tag: str = ""):
     """This rank's group among ``lines`` (lists of ranks), making every
     line's group the first time its ranks are asked for: ``dist.new_group``
     is collective over the default group, so every rank asks for the same
-    lines in the same order. The groups are cached by their ranks for the
-    default group that made them: a new default group (a world started
-    after ``destroy_process_group``) starts a new cache, so it never gets
-    the groups of a destroyed world. None when this rank is in no line."""
+    lines in the same order. The groups are cached by ``tag`` and their
+    ranks for the default group that made them: a new default group (a
+    world started after ``destroy_process_group``) starts a new cache, so
+    it never gets the groups of a destroyed world. None when this rank is
+    in no line."""
     global _GROUPS_WORLD
     world = dist.group.WORLD
     if world is not _GROUPS_WORLD:
@@ -67,10 +72,11 @@ def _group_of(lines):
     me = dist.get_rank()
     mine = None
     for line in lines:
-        key = tuple(int(r) for r in line)
+        ranks = [int(r) for r in line]
+        key = (tag, *ranks)
         if key not in _GROUPS:
-            _GROUPS[key] = dist.new_group(list(key))
-        if me in key:
+            _GROUPS[key] = dist.new_group(ranks)
+        if me in ranks:
             mine = _GROUPS[key]
     return mine
 
@@ -94,6 +100,20 @@ def data_group(mesh_cfg):
     if mesh_cfg.pods * mesh_cfg.dp == 1 or not dist.is_initialized():
         return None
     return _group_of(mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).T.tolist())
+
+
+def update_group(mesh_cfg):
+    """This rank's group for the update's sums over the data rows of
+    ``mesh_cfg``: the ranks of ``data_group``'s, in groups of their own,
+    because the async schedule's worker thread sums over them while the
+    main thread's rollout may call ``data_group``'s (gloo collectives
+    from two threads on one group can interleave). None outside the mesh
+    or with one data row. Collective, as ``model_group``: make it on the
+    main thread."""
+    if mesh_cfg.pods * mesh_cfg.dp == 1 or not dist.is_initialized():
+        return None
+    return _group_of(mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).T.tolist(),
+                     "update")
 
 
 class TPContext:

@@ -80,7 +80,8 @@ def policy_gradient_loss(logprobs, advantages, gen_mask, *,
                          old_logprobs=None, clip_eps: float = 0.0,
                          ref_logprobs=None, kl_coef: float = 0.0,
                          entropy_logits=None, entropy_coef: float = 0.0,
-                         behavior_logprobs=None, is_rho_max: float = 0.0):
+                         behavior_logprobs=None, is_rho_max: float = 0.0,
+                         group=None):
     """Masked token-level policy-gradient loss.
 
     logprobs: (B,T) current-policy log-probs of the taken tokens.
@@ -89,10 +90,18 @@ def policy_gradient_loss(logprobs, advantages, gen_mask, *,
     old_logprobs + clip_eps > 0 -> PPO clipped surrogate; else REINFORCE.
     ref_logprobs + kl_coef > 0 -> k3 KL penalty against the reference.
     behavior_logprobs + is_rho_max > 0 -> truncated importance weights.
+    group: the data-axis process group of an update whose batch rows are
+    split over its ranks (these are this rank's rows): the denominator is
+    the global token count, all-reduced before the loss, and the loss and
+    every metric are this rank's share, whose sum over the group is the
+    global batch's.
     Returns (loss, metrics dict of 0-dim tensors).
     """
     mask = gen_mask.float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    n_tokens = mask.sum()
+    if group is not None:
+        dist.all_reduce(n_tokens, group=group)
+    denom = torch.clamp(n_tokens, min=1.0)
     if advantages.dim() == 1:
         advantages = advantages[:, None]
     adv = advantages.float().detach()

@@ -36,7 +36,9 @@ holds at 24). The data-parallel rollout's shapes: each kernel at one data
 row of qwen2-0.5b at dp=2 (B=8): 4 rows of 14 q heads on 2 kv heads, half
 a pool with its trash page (f32, bf16 and int8), the decode kernel's
 96-token cache, the sampler's 4 rows of 151,936, and the flash kernels at
-the update's 8 rows of 96.
+the update's 8 rows of 96 and at one rank's 4 rows of 256 of a
+data-parallel update. And that update across two processes over gloo,
+at two layers, against one rank (``chip_smoke.py``'s tp_path run (e)).
 """
 import dataclasses
 
@@ -585,6 +587,121 @@ def test_tp2_rollout_over_gloo_matches_one_rank(dev, tmp_path):
     assert res[0]["paged"] == res[1]["paged"]
 
 
+UPDATE_WORKER = """
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.core.resharding import MeshConfig
+from repro_torch.core.train_step import make_rl_train_step
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.registry import build_model
+from repro_torch.models.tensor_parallel import update_group
+from repro_torch.optim.adamw import adamw, apply_updates
+from repro_torch.rl.experience import ExperienceBatch
+rank = int(sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 2),
+                        rank=rank, world_size=2)
+model = build_model(dataclasses.replace(get_config("qwen2-0.5b"),
+                                        n_layers=2))
+dtype = getattr(torch, sys.argv[3])
+params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                    dtype=dtype)
+g = torch.Generator().manual_seed(7)
+B, T = 8, 256
+gen = torch.rand((B, T), generator=g) < 0.4
+lp = lambda: torch.where(gen, -torch.rand((B, T), generator=g) * 8 - 4, 0.0)
+rewards = torch.randint(-1, 2, (B,), generator=g).float()
+batch = ExperienceBatch(
+    tokens=torch.randint(0, model.cfg.vocab_size, (B, T), generator=g,
+                         dtype=torch.int32),
+    gen_mask=gen, loss_mask=gen, logprobs=lp(), ref_logprobs=lp(),
+    rewards=rewards, returns=rewards, advantages=rewards - rewards.mean(),
+    context_len=torch.full((B,), T, dtype=torch.int32),
+    truncated=torch.zeros((B,), dtype=torch.bool))
+batch = ExperienceBatch(*(x.cuda() for x in batch))
+opt = adamw(1e-3, weight_decay=0.0)
+step = make_rl_train_step(model, opt, attn_impl="flash", clip_eps=0.2,
+                          kl_coef=0.05, is_rho_max=2.0)
+
+
+def run(rows, group):
+    fa_ops.reset_launches()
+    (loss, _), grads = step.grads_of(params, rows, group=group)
+    updates, _ = opt.update(grads, opt.init(params), params)
+    return float(loss), grads, apply_updates(params, updates), dict(
+        fa_ops.launches)
+
+
+mine = ExperienceBatch(*(x[rank * 4:(rank + 1) * 4] for x in batch))
+loss, grads, new, launches = run(mine, update_group(MeshConfig("dp2", 2, 1)))
+out = dict(loss=loss, launches=launches)
+same = True
+for k in sorted(new):
+    v = new[k].contiguous().view(-1).view(torch.uint8).cpu()
+    if rank == 1:
+        dist.send(v, 0)
+    else:
+        got = torch.empty_like(v)
+        dist.recv(got, 1)
+        same &= torch.equal(got, v)
+if rank == 0:
+    loss1, grads1, _, _ = run(batch, None)
+    # an f32 evaluation of the same weights and rows
+    _, g32 = step.grads_of({k: v.float() for k, v in params.items()}, batch)
+    err = lambda a, b, k: float((a[k].float() - b[k].float()).abs().max())
+    out.update(params_equal=same, loss_one=loss1, grads={
+        k: dict(dp_vs_one=err(grads, grads1, k),
+                one_vs_f32=err(grads1, g32, k),
+                scale=float(g32[k].abs().max())) for k in g32})
+print("RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_update_dp2_over_gloo_matches_one_rank(dtype, dev, tmp_path):
+    """The update step data-parallel over two processes that share the
+    card over gloo (chip_smoke.py's tp_path run (e), at two layers):
+    full-width qwen2-0.5b, each rank 4 of 8 rows of 256 tokens, the
+    gradients summed over the ranks, against rank 0's one-rank update of
+    all 8: the loss within 1e-5 relative, both ranks' new params bitwise
+    equal, and each rank launched the flash forward, dq and dk/dv once a
+    layer (the forward once more under full remat). The summed gradients:
+    in fp32 within 2e-3 of each leaf's largest |g|; in bf16 no further,
+    leaf by leaf, from the one-rank run's than the one-rank run's lie from
+    an f32 evaluation of the same weights (bf16's own noise, which at
+    full width is above 2e-3 of a leaf's scale)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", UPDATE_WORKER, str(r),
+                               store, dtype], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    r0, r1 = (json.loads(next(ln[7:] for ln in o.splitlines()
+                              if ln.startswith("RESULT "))) for o in outs)
+    assert r0["loss"] == r1["loss"]
+    assert abs(r0["loss"] - r0["loss_one"]) <= 1e-5 * abs(r0["loss_one"])
+    for k, e in r0["grads"].items():
+        bound = (2e-3 * e["scale"] if dtype == "float32"
+                 else e["one_vs_f32"])
+        assert e["dp_vs_one"] <= bound, (k, e)
+    assert r0["params_equal"] is True
+    fwd = 2 * (2 if get_config("qwen2-0.5b").remat == "full" else 1)
+    for r in (r0, r1):
+        assert r["launches"] == {"fwd": fwd, "dq": 2, "dkv": 2}, r
+
+
 @pytest.fixture
 def smoke(dev):
     model = build_model(get_smoke_config("qwen2-0.5b"))
@@ -632,6 +749,8 @@ FLASH_CASES = {
     "tp2_heads_7_1": (2, 256, 256, 7, 1, 64, True, 0),
     # the update after a dp=2 rollout of B=8 at a 96-token context
     "dp2_update": (8, 96, 96, 14, 2, 64, True, 0),
+    # one rank's rows of the data-parallel update at dp=2 (4 of 8 rows)
+    "dp2_update_rank": (4, 256, 256, 14, 2, 64, True, 0),
     "ragged_s100": (1, 100, 100, 14, 2, 64, True, 0),
     "window_after_empty_slab": (1, 200, 200, 4, 2, 32, True, 40),
     "not_causal_hd128": (1, 130, 130, 8, 1, 128, False, 0),

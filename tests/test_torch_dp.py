@@ -27,8 +27,9 @@ and against the port's one-rank run:
   trainer's; the sync trainer on dp2 x tp2 (the params handoff sends
   each rank its row's shards) and each rank's model- and data-axis
   groups there; the plan at dp2 x tp2 (the tp2 shards on every row); the
-  default four-rank async split (``rollout-2x1`` / ``trainer-2x1``) runs
-  two steps against the one-rank async trainer;
+  default four-rank async split (``rollout-2x1`` / ``trainer-2x1``, the
+  update data-parallel on ranks 2-3) runs two steps against the one-rank
+  async trainer;
 - a pool below full provisioning at dp=2 against the one-rank run, the
   pool options passing the option check above one data row (they run in
   ``tests/test_torch_dp_options.py``), and the per-rank pools that
@@ -492,8 +493,9 @@ def test_trainer_switches_between_dp2_and_tp2(runs, first):
 
 def test_default_four_rank_async_split_runs(runs):
     """``rollout_trainer_split(n_devices=4)``: the rollout at dp=2 on ranks
-    0-1, the update on rank 2 (the first of ``trainer-2x1``), two async
-    steps whose records equal the one-rank async trainer's."""
+    0-1, the update at dp=2 on ranks 2-3 (``trainer-2x1``; the given
+    params are real on rank 2 alone), two async steps whose records equal
+    the one-rank async trainer's."""
     outs = [r["split"] for r in runs[0][4]]
     assert all(o[:2] == ["rollout-2x1", "trainer-2x1"] for o in outs)
     assert all(o[2] == outs[0][2] for o in outs)

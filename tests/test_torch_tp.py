@@ -526,8 +526,9 @@ def test_options_pass_the_checks_at_tp_above_one(arch, kw, monkeypatch):
     """The engine's option check takes the paged-pool options at tp=2:
     the engine stops at the world check (this process is a world of one);
     the trainer across ranks builds the python backend (never bound, it
-    rolls out on the update rank) and the async pipeline (bound to the
-    update rank's mesh, with the params handoff)."""
+    rolls out on the first rank of the params' mesh: rank 0 before the
+    first step) and the async pipeline (bound to the update mesh, rank 0
+    without a selector, with the params handoff)."""
     model = build_model(get_smoke_config(arch))
     if "rollout_backend" in kw or "pipeline" in kw:
         from repro_torch.core import stages

@@ -14,9 +14,9 @@ a rank, ``test_torch_dispatcher.run_gloo``):
   rank -> tp=2) and rolls out the same tokens;
 - the python backend, the async pipeline and an async ``update@2`` fault
   with checkpoints across two ranks (the rollout at tp=2 after the
-  selector's switch, the update on rank 0): records equal to the one-rank
-  run's (tokens the update saw and policy lags bitwise, losses within
-  1e-5) on both ranks.
+  selector's switch, the update on both ranks of its tp=2 config,
+  replicated): records equal to the one-rank run's (tokens the update saw
+  and policy lags bitwise, losses within 1e-5) on both ranks.
 
 Every world starts its process group with a 120 s timeout, so a hang
 fails instead of eating the suite's limit.
@@ -195,8 +195,8 @@ def trainer_run(params, tp2, steps, **kw):
                      noise=step_noise, **train, **kw)
     seen = []
     inner = tr.update_stage
-    tr.update_stage = lambda p, o, e: (seen.append(e.tokens.tolist()),
-                                       inner(p, o, e))[1]
+    tr.update_stage = lambda p, o, e, **kw: (seen.append(e.tokens.tolist()),
+                                             inner(p, o, e, **kw))[1]
     _, _, hist = tr.train(steps, params=params,
                           opt_state=tr.optimizer.init(params),
                           ref_params=params)
@@ -370,16 +370,19 @@ def _assert_records_equal(two, one):
 
 @pytest.mark.parametrize("case", list(TRAINERS))
 def test_trainer_across_two_ranks_matches_one_rank(runs, case):
-    """Both ranks keep the one-rank run's records; the update rank (0)
-    saw the one-rank run's batches, rank 1 ran no update. The selector
-    switches the rollout to tp=2 at step 1: the python engine stays
-    unbound and rolls out on rank 0, and the switch row is recorded."""
+    """Both ranks keep the one-rank run's records. Hook ② moves the
+    update to the selector's tp=2 config from step 0 (the EMA it reads
+    already holds step 0's rollout), where it runs on both ranks,
+    replicated over the model axis as GSPMD runs JAX's: each saw the
+    one-rank run's batches. The selector switches the rollout to tp=2 at
+    step 1: the python engine stays unbound and rolls out on rank 0, and
+    the switch row is recorded."""
     port, _, one = runs
     r0 = port[2][0][case]
     for rank in port[2]:
         _assert_records_equal(rank[case]["records"], one[case]["records"])
     assert r0["tokens"] == one[case]["tokens"]
-    assert port[2][1][case]["tokens"] == []
+    assert port[2][1][case]["tokens"] == r0["tokens"]
     recs = r0["records"]
     assert recs[1]["sw"]["from"] == "tp1" and recs[1]["sw"]["to"] == "tp2"
     lags = [r["lag"] for r in recs]

@@ -17,6 +17,13 @@ matmul on the card followed by, per mode:
 
 Prints one JSON line of milliseconds per iteration for each rank and
 thread setting.
+
+    python3 tools/gloo_allreduce_bench.py --bucket 67108864 --iters 4
+
+times instead the all-reduce of one bucket of that many f32 elements on
+the card (the data-parallel update's gradient sum, ``core/train_step.
+sum_grads``), ``cuda`` against ``staged``, with one thread a rank, and
+prints the milliseconds and GB/s of each.
 """
 import json
 import os
@@ -58,7 +65,50 @@ def worker(rank: int, store: str, threads: int) -> None:
     dist.destroy_process_group()
 
 
+def bucket_worker(rank: int, store: str, n: int, iters: int) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    x = torch.randn(n, device="cuda")
+    res = {}
+    for mode in ("cuda", "staged"):
+        for _ in range(2):               # the first round warms up
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                if mode == "cuda":
+                    dist.all_reduce(x)
+                else:
+                    c = x.cpu()
+                    dist.all_reduce(c)
+                    x = c.to("cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / iters * 1e3
+            res[mode] = {"ms": ms, "GB_per_s": n * 4 / ms / 1e6}
+    print(json.dumps({"rank": rank, "elements": n, "bucket": res}),
+          flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--bucket-worker"]:
+        bucket_worker(*(int(a) if i != 1 else a
+                        for i, a in enumerate(sys.argv[2:6])))
+        return 0
+    if sys.argv[1:2] == ["--bucket"]:
+        n, iters = int(sys.argv[2]), int(sys.argv[4])
+        with tempfile.TemporaryDirectory() as tmp:
+            store = os.path.join(tmp, "store")
+            procs = [subprocess.Popen([sys.executable, __file__,
+                                       "--bucket-worker", str(r), store,
+                                       str(n), str(iters)])
+                     for r in (0, 1)]
+            return 1 if any(p.wait() for p in procs) else 0
     if len(sys.argv) > 1:
         worker(int(sys.argv[1]), sys.argv[2], int(sys.argv[3]))
         return 0
