@@ -144,6 +144,24 @@ Phases, in order; any failure raises and exits non-zero:
                per verify round; greedy tokens bitwise equal to the
                non-speculative shared int8 run, and every committed token
                of both the greedy choice of a teacher-forced plain forward.
+ 17b. cost_model — the H100 roofline of utils/roofline over utils/cost's
+               count of a trace on fake tensors, against the card: the
+               prefill (flash) of the path's 32 rows of TicTacToe's
+               12-token prompt and an LM update step (flash, full remat,
+               AdamW) at B=4 x 256, on the path's full-width weights,
+               warmed once and timed as a median of five by CUDA events;
+               a subprocess started with the script (the card hidden from
+               it) traces the same two programs and profiles a
+               ParallelismSelector of [1, dp2, tp2] x buckets (4096,
+               32768) through make_cost_model_measure at full width.
+               Gates: predicted step time <= the measured median, the
+               predicted peak less the arguments within 15% of the bytes
+               the step allocated on the card, traced launches equal to
+               the card's per kernel.
+               It runs after shared_spec: the path phases before it
+               report peak_mem_gib as the peak since the process
+               started, and its resets of the peak would cut that
+               window short.
  18. preempt_path — TicTacToe under on_exhaust="preempt" at the path's
                sizes (B=32, 64 episodes, 16-token pages, turns of 32
                tokens), greedy, int8, admit_watermark 64: preemptions in a
@@ -273,9 +291,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-F32_FLOPS = 67e12             # H100 SXM, f32 outside the tensor cores
-BF16_FLOPS = 989e12           # H100 SXM, bf16 dense tensor cores
 N_TIMED = 50
 T_START = time.perf_counter()
 
@@ -288,13 +303,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
-    """Least ms for the work: bytes over HBM bandwidth or operations over
-    the peak rate of the inputs' type, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
+def bound(work, f32: bool = True):
+    """``(ms, by)``: the least time for ``work`` = ``(bytes, flops)``, a
+    kernel's ``ops.work`` count, on the H100's data-sheet rates
+    (``utils/roofline.kernel_bound_ms``): bytes over the HBM rate or
+    operations over the peak rate of the inputs' type (``f32``: outside
+    the tensor cores), whichever is larger."""
+    from repro_torch.utils.roofline import kernel_bound_ms
+    return kernel_bound_ms(*work, f32=f32)
 
 
 def time_cold(torch, fn, n: int = N_TIMED) -> float:
@@ -444,13 +460,10 @@ def phase_kernels(torch, report):
                  & (bt >= 0)[:, :, None].expand(B, NPc, ps).reshape(
                      B, NPc * ps))
         n_valid = int(valid.sum())
-        esz = kp.element_size()
-        nbytes = (2 * n_valid * KV * hd * esz
-                  + (2 * n_valid * KV * 4 if ks is not None else 0)
-                  + 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4)
-        flops = 4 * n_valid * (H // KV) * KV * hd
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS
-                           if q.dtype == torch.bfloat16 else F32_FLOPS)
+        nbytes, flops = pa_ops.work(B, H, KV, hd, NPc, ps, q.element_size(),
+                                    kp.element_size(), ks is not None,
+                                    n_valid)
+        b_ms, b_by = bound((nbytes, flops), q.dtype != torch.bfloat16)
         case = dict(
             chk,
             ms=time_cold(torch, lambda: pa_ops.paged_decode_attention(
@@ -573,7 +586,7 @@ def phase_kernels(torch, report):
         chk = held(torch, lp, lp_r, atol, 0.0)
         if not chk["ok"]:
             raise AssertionError(f"fused_sample {name}: {chk}")
-        b_ms, b_by = bound(2 * B * V * 4 + B * 8, 4 * B * V)
+        b_ms, b_by = bound(fs_ops.work(B, V))
         case = dict(chk, tokens_equal=True,
                     ms=time_cold(torch, lambda: fs_ops.fused_sample(x, nz)),
                     plain_ms=time_cold(torch,
@@ -623,7 +636,7 @@ def phase_kernels(torch, report):
     chk = held(torch, lp, lp_r, atol, 0.0)
     if not chk["ok"]:
         raise AssertionError(f"fused_sample gumbel_v50280: {chk}")
-    b_ms, b_by = bound(2 * B * V2 * 4 + B * 8, 4 * B * V2)
+    b_ms, b_by = bound(fs_ops.work(B, V2))
     cases["gumbel_v50280"] = dict(
         chk, tokens_equal=True,
         plan=fs_ops.cluster_plan(B, V2, _build.sm_count(0)),
@@ -650,7 +663,7 @@ def phase_kernels(torch, report):
         chk = held(torch, lp, lp_r, atol, 0.0)
         if not chk["ok"]:
             raise AssertionError(f"fused_sample {name}: {chk}")
-        b_ms, b_by = bound(2 * B * V3 * 4 + B * 8, 4 * B * V3)
+        b_ms, b_by = bound(fs_ops.work(B, V3))
         cases[name] = dict(
             chk, tokens_equal=True,
             plan=fs_ops.cluster_plan(B, V3, _build.sm_count(0)),
@@ -758,11 +771,10 @@ def spec_verify_cases(torch, report, g, B, H, KV, suffix):
         live = int((pos + K).sum())
         pairs = H * int(sum(int(p) * K + K * (K + 1) // 2
                             for p in pos.tolist()))
-        nbytes = (2 * live * KV * hd * kp.element_size()
-                  + (2 * live * KV * 4 if ks is not None else 0)
-                  + 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4)
-        b_ms, b_by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS
-                           if qdt == torch.bfloat16 else F32_FLOPS)
+        nbytes, flops = sv_ops.work(B, K, H, KV, hd, NP, ps,
+                                    q.element_size(), kp.element_size(),
+                                    ks is not None, live, pairs)
+        b_ms, b_by = bound((nbytes, flops), qdt != torch.bfloat16)
         case = dict(
             chk, paged_kernel_bitwise=True, B=B, H=H, KV=KV, K=K, NP=NP,
             pool_pages=kp.shape[0],
@@ -808,10 +820,9 @@ def tp_pool_cases(torch, report, g):
                0.0)
     if not chk["ok"]:
         raise AssertionError(f"paged_attention int8_tp2: {chk}")
-    n_valid = int(lens.sum())
-    nbytes = (2 * n_valid * KV * (hd + 4) + 2 * q.numel() * 4
-              + bt.numel() * 4 + B * 4)
-    b_ms, b_by = bound(nbytes, 4 * n_valid * H * hd, F32_FLOPS)
+    nbytes, flops = pa_ops.work(B, H, KV, hd, NP, ps, 4, 1, True,
+                                int(lens.sum()))
+    b_ms, b_by = bound((nbytes, flops))
     case = dict(chk, H=H, KV=KV, B=B, NP=NP,
                 ms=time_cold(torch, lambda: pa_ops.paged_decode_attention(
                     q, kp, vp, bt, lens, k_scales=ks, v_scales=vs)),
@@ -849,10 +860,10 @@ def dp_cases(torch, report, g):
     lens = torch.randint(1, S + 1, (B,), generator=g,
                          device=dev).to(torch.int32)
     n_valid = int(lens.sum())
-    for dname, qdt, kvdt, rtol, peak in (
-            ("fp32", torch.float32, torch.float32, 0.0, F32_FLOPS),
-            ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7, BF16_FLOPS),
-            ("int8", torch.float32, torch.int8, 0.0, F32_FLOPS)):
+    for dname, qdt, kvdt, rtol in (
+            ("fp32", torch.float32, torch.float32, 0.0),
+            ("bf16", torch.bfloat16, torch.bfloat16, 2.0 ** -7),
+            ("int8", torch.float32, torch.int8, 0.0)):
         kp, vp, ks, vs, bt = _tp_pool(torch, g, B, NP, ps, KV, hd, kvdt,
                                       lens)
         q = torch.randn((B, H, hd), generator=g, device=dev).to(qdt)
@@ -866,10 +877,10 @@ def dp_cases(torch, report, g):
                    2.0 ** -18 * float(ref.float().abs().max()), rtol)
         if not chk["ok"]:
             raise AssertionError(f"paged_attention {dname}_dp2: {chk}")
-        nbytes = (2 * n_valid * KV * (hd * kp.element_size()
-                                      + (4 if ks is not None else 0))
-                  + 2 * q.numel() * q.element_size() + bt.numel() * 4 + B * 4)
-        b_ms, b_by = bound(nbytes, 4 * n_valid * H * hd, peak)
+        nbytes, flops = pa_ops.work(B, H, KV, hd, NP, ps, q.element_size(),
+                                    kp.element_size(), ks is not None,
+                                    n_valid)
+        b_ms, b_by = bound((nbytes, flops), qdt != torch.bfloat16)
         case = dict(chk, H=H, KV=KV, B=B, NP=NP, pool_pages=kp.shape[0],
                     ms=time_cold(torch, call), plain_ms=time_cold(torch, plain),
                     bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
@@ -889,8 +900,8 @@ def dp_cases(torch, report, g):
                2.0 ** -7)
     if not chk["ok"]:
         raise AssertionError(f"decode_attention bf16_dp2: {chk}")
-    nbytes = 2 * n_valid * KV * hd * 2 + 2 * q.numel() * 2 + B * S
-    b_ms, b_by = bound(nbytes, 4 * H * hd * n_valid, BF16_FLOPS)
+    nbytes, flops = da_ops.work(B, H, KV, hd, S, 2, 2, n_valid)
+    b_ms, b_by = bound((nbytes, flops), False)
     am = valid[:, None, None, :]
     case = dict(chk, B=B, S=S, H=H, KV=KV,
                 ms=time_cold(torch, lambda: da_ops.decode_attention(
@@ -918,7 +929,7 @@ def dp_cases(torch, report, g):
     chk = held(torch, lp, lp_r, atol, 0.0)
     if not (chk["ok"] and torch.equal(tok, tok_r)):
         raise AssertionError(f"fused_sample gumbel_dp2: {chk}")
-    b_ms, b_by = bound(2 * B * V * 4 + B * 8, 4 * B * V)
+    b_ms, b_by = bound(fs_ops.work(B, V))
     case = dict(chk, tokens_equal=True, B=B,
                 ms=time_cold(torch, lambda: fs_ops.fused_sample(lg, gum)),
                 plain_ms=time_cold(torch, lambda: fused_sample_ref(lg, gum)),
@@ -976,10 +987,9 @@ def phase_tp_kernels(torch, report):
                2.0 ** -7)
     if not chk["ok"]:
         raise AssertionError(f"paged_attention bf16_tp2: {chk}")
-    n_valid = int(lens.sum())
-    nbytes = (2 * n_valid * KV * hd * 2 + 2 * q.numel() * 2
-              + bt.numel() * 4 + B * 4)
-    b_ms, b_by = bound(nbytes, 4 * n_valid * H * hd, BF16_FLOPS)
+    nbytes, flops = pa_ops.work(B, H, KV, hd, NP, ps, 2, 2, False,
+                                int(lens.sum()))
+    b_ms, b_by = bound((nbytes, flops), False)
     case = dict(chk, H=H, KV=KV, B=B, NP=NP,
                 ms=time_cold(torch, lambda: pa_ops.paged_decode_attention(
                     q, kp, vp, bt, lens)),
@@ -1039,7 +1049,7 @@ def phase_tp_kernels(torch, report):
                     raise AssertionError(f"fused_sample_partial {name}: "
                                          f"{chk} {lchk}")
             x, z = shards[0]
-            b_ms, b_by = bound(2 * Bp * Vl * 4 + Bp * 20, 4 * Bp * Vl)
+            b_ms, b_by = bound(fs_ops.work(Bp, Vl, partial=True))
             cases[name] = dict(
                 chk, l_err_over_tol=lchk["err_over_tol"], tokens_equal=True,
                 B=Bp, V_local=Vl,
@@ -1078,8 +1088,7 @@ def phase_tp_kernels(torch, report):
                                  * float(lp_r.abs().max())), 0.0)
     if not chk["ok"]:
         raise AssertionError(f"fused_sample zero_noise_v49155_b8: {chk}")
-    b_ms, b_by = bound(2 * TP_BATCH * V * 4 + TP_BATCH * 8,
-                       4 * TP_BATCH * V)
+    b_ms, b_by = bound(fs_ops.work(TP_BATCH, V))
     case = dict(chk, tokens_equal=True, B=TP_BATCH,
                 plan=fs_ops.cluster_plan(TP_BATCH, V, _build.sm_count(0)),
                 ms=time_cold(torch, lambda: fs_ops.fused_sample(lg, z)),
@@ -1156,9 +1165,9 @@ def phase_flash(torch, report):
     # within 2^-14 s, because each sums up to 7 x S products of terms
     # that cancel in dS = P(dP - D). bf16 outputs add one bf16 ulp of
     # each element (rtol 2^-7).
-    bf16 = (torch.bfloat16, BF16_FLOPS, 2.0 ** -7)
-    f32 = (torch.float32, F32_FLOPS, 0.0)
-    for name, B, S, H, KV, hd, (dt, peak, rtol) in (
+    bf16 = (torch.bfloat16, False, 2.0 ** -7)
+    f32 = (torch.float32, True, 0.0)
+    for name, B, S, H, KV, hd, (dt, is_f32, rtol) in (
             ("bf16", 32, 256, 14, 2, 64, bf16),
             ("fp32", 32, 256, 14, 2, 64, f32),
             ("bf16_s2048", 4, 2048, 14, 2, 64, bf16),
@@ -1184,7 +1193,6 @@ def phase_flash(torch, report):
             # one rank's rows of tp_path's data-parallel update at dp=2
             # (run (e): 4 of 8 rows of 256 tokens)
             ("bf16_update_dp2", 4, 256, 14, 2, 64, bf16)):
-        pairs = B * H * S * (S + 1) // 2        # causal (query, key) pairs
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
@@ -1217,11 +1225,6 @@ def phase_flash(torch, report):
         do_t = do.transpose(1, 2)
         lib_bwd = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
                                               retain_graph=True)
-        e = q.element_size()
-        qb, kvb, lb = B * S * H * hd * e, B * S * KV * hd * e, B * H * S * 4
-        work = {"flash_fwd": (2 * qb + 2 * kvb + lb, 4 * hd * pairs),
-                "flash_dq": (3 * qb + 2 * kvb + 2 * lb, 6 * hd * pairs),
-                "flash_dkv": (2 * qb + 4 * kvb + 2 * lb, 8 * hd * pairs)}
         times = {
             "flash_fwd": (
                 lambda: fa_ops.flash_attention_fwd(q, k, v, True, 0),
@@ -1251,7 +1254,9 @@ def phase_flash(torch, report):
             if not ok:
                 raise AssertionError(f"{kname} {name}: {case}")
             kern, plain, lib = times[kname]
-            b_ms, b_by = bound(*work[kname], peak)
+            nbytes, flops = fa_ops.work(kname[len("flash_"):], B, S, S, H,
+                                        KV, hd, q.element_size())
+            b_ms, b_by = bound((nbytes, flops), is_f32)
             case["ms"] = time_cold(torch, kern)
             if kname == "flash_fwd":
                 case["plain_ms"] = time_cold(torch, plain)
@@ -1262,8 +1267,8 @@ def phase_flash(torch, report):
                     lib_bwd_ms = time_cold(torch, lib)
                 case["plain_ms"], case["library_ms"] = plain_bwd_ms, \
                     lib_bwd_ms
-            case.update(bound_ms=b_ms, bound_by=b_by, bytes=work[kname][0],
-                        flops=work[kname][1])
+            case.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                        flops=flops)
             cases[kname][name] = case
             emit({"phase": "kernels", "kernel": kname, "case": name, **case})
         del out_r, L_r, dq_r, dk_r, dv_r, o_lib
@@ -1378,13 +1383,10 @@ def phase_spec_verify(torch, report):
             if diff_q:
                 raise AssertionError(f"spec_verify {name}: queries {diff_q} "
                                      f"differ from the paged kernel")
-            esz = kp.element_size()
-            nbytes = (2 * live * KV * hd * esz
-                      + (2 * live * KV * 4 if ks is not None else 0)
-                      + 2 * q.numel() * q.element_size() + bt.numel() * 4
-                      + B * 4)
-            b_ms, b_by = bound(nbytes, 4 * hd * pairs, BF16_FLOPS
-                               if qdt == torch.bfloat16 else F32_FLOPS)
+            nbytes, flops = sv_ops.work(B, K, H, KV, hd, NP, ps,
+                                        q.element_size(), kp.element_size(),
+                                        ks is not None, live, pairs)
+            b_ms, b_by = bound((nbytes, flops), qdt != torch.bfloat16)
             case = dict(
                 chk, paged_kernel_bitwise=True,
                 ms=time_cold(torch, lambda: sv_ops.spec_verify_attention(
@@ -1465,7 +1467,7 @@ def phase_decode(torch, report):
     # Tolerances as for paged attention: f32 outputs within 32 f32 ulps of
     # the case's output scale s = max|ref| (atol 2^-18 s); bf16 adds one
     # bf16 ulp of each element (rtol 2^-7).
-    def run_case(name, q, k, v, valid, peak, rtol):
+    def run_case(name, q, k, v, valid, is_f32, rtol):
         out = da_ops.decode_attention(q, k, v, valid)
         ref = decode_attention_ref(q, k, v, valid)
         torch.cuda.synchronize()
@@ -1473,18 +1475,15 @@ def phase_decode(torch, report):
                    2.0 ** -18 * float(ref.float().abs().max()), rtol)
         if not chk["ok"]:
             raise AssertionError(f"decode_attention {name}: {chk}")
-        # The least work: K and V of each row's valid keys (a row with no
-        # valid key needs only all of V, for its mean), q, the output and
-        # the mask; 4 hd flops per valid (query head, key) pair, and one
-        # add per V element of a row with no valid key.
+        # The least work (``da_ops.work``) over this mask's valid keys
         Bq, Sk = valid.shape
         _, _, kvh, d = k.shape
         n_valid = valid.sum(1)
         n_keys, n_empty = int(n_valid.sum()), int((n_valid == 0).sum())
-        nbytes = ((2 * n_keys + n_empty * Sk) * kvh * d * k.element_size()
-                  + 2 * q.numel() * q.element_size() + Bq * Sk)
-        flops = 4 * q.shape[1] * d * n_keys + n_empty * Sk * kvh * d
-        b_ms, b_by = bound(nbytes, flops, peak)
+        nbytes, flops = da_ops.work(Bq, q.shape[1], kvh, d, Sk,
+                                    q.element_size(), k.element_size(),
+                                    n_keys, n_empty)
+        b_ms, b_by = bound((nbytes, flops), is_f32)
         am = valid[:, None, None, :]
         case = dict(
             chk,
@@ -1506,15 +1505,15 @@ def phase_decode(torch, report):
         emit({"phase": "kernels", "kernel": "decode_attention",
               "case": name, **case})
 
-    for dname, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
-                                   2.0 ** -7),
-                                  ("fp32", torch.float32, F32_FLOPS, 0.0)):
+    for dname, dt, is_f32, rtol in (("bf16", torch.bfloat16, False,
+                                     2.0 ** -7),
+                                    ("fp32", torch.float32, True, 0.0)):
         q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
         k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
                 for _ in range(2))
         for mname, valid in masks.items():
-            run_case(f"{dname}_{mname}", q, k, v, valid.contiguous(), peak,
-                     rtol)
+            run_case(f"{dname}_{mname}", q, k, v, valid.contiguous(),
+                     is_f32, rtol)
     # a long context, S=2048 in bf16 under a random fill, where each block
     # walks eight tiles
     S = 2048
@@ -1524,7 +1523,7 @@ def phase_decode(torch, report):
             for _ in range(2))
     run_case("bf16_fill_s2048", q, k, v,
              (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
-             BF16_FLOPS, 2.0 ** -7)
+             False, 2.0 ** -7)
     # the dense caches of granite-moe-3b-a800m (24/8 heads: group 3) and
     # of zamba2-1.2b's attention sites (32/32: group 1), bf16, at S=256
     S = 256
@@ -1536,7 +1535,7 @@ def phase_decode(torch, report):
                             device=dev).bfloat16() for _ in range(2))
         run_case(name, q, k, v,
                  (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
-                 BF16_FLOPS, 2.0 ** -7)
+                 False, 2.0 ** -7)
     # audio_serve's decode (whisper-large-v3: B=16, 20/20 heads, a 96-slot
     # ring filled past its 64-token prompt) and the llama-3.2-vision-11b
     # card test's (B=4, 32/8 heads x 128, 128 slots)
@@ -1550,7 +1549,7 @@ def phase_decode(torch, report):
                             device=dev).bfloat16() for _ in range(2))
         run_case(name, q, k, v,
                  (torch.arange(S, device=dev)[None, :] <= fill).contiguous(),
-                 BF16_FLOPS, 2.0 ** -7)
+                 False, 2.0 ** -7)
     # one rank of qwen2-0.5b at tp=2 (tp_path's folded reference): 7 q
     # heads on one kv head, B=32, S=256
     fill = torch.randint(1, 256, (B, 1), generator=g, device=dev)
@@ -1559,7 +1558,7 @@ def phase_decode(torch, report):
             for _ in range(2))
     run_case("bf16_fill_tp2", q, k, v,
              (torch.arange(256, device=dev)[None, :] <= fill).contiguous(),
-             BF16_FLOPS, 2.0 ** -7)
+             False, 2.0 ** -7)
     # one rank of the families at tp=2 (tp_path's dense caches: B=8, 96
     # slots, fp32 and bf16): granite-moe's policy stream and folded
     # reference at 12/4 heads, zamba2's sites at 16/16
@@ -1567,35 +1566,17 @@ def phase_decode(torch, report):
     fill = torch.randint(1, St, (Bt, 1), generator=g, device=dev)
     valid = (torch.arange(St, device=dev)[None, :] <= fill).contiguous()
     for fam, Hc, KVc in (("granite", 12, 4), ("zamba2", 16, 16)):
-        for dname, dt, peak, rtol in (("bf16", torch.bfloat16, BF16_FLOPS,
-                                       2.0 ** -7),
-                                      ("fp32", torch.float32, F32_FLOPS,
-                                       0.0)):
+        for dname, dt, is_f32, rtol in (("bf16", torch.bfloat16, False,
+                                         2.0 ** -7),
+                                        ("fp32", torch.float32, True,
+                                         0.0)):
             q = torch.randn((Bt, Hc, hd), generator=g, device=dev).to(dt)
             k, v = (torch.randn((Bt, St, KVc, hd), generator=g,
                                 device=dev).to(dt) for _ in range(2))
-            run_case(f"{dname}_fill_{fam}_tp2", q, k, v, valid, peak, rtol)
+            run_case(f"{dname}_fill_{fam}_tp2", q, k, v, valid, is_f32,
+                     rtol)
     # the main path: the bf16 reference stream over a filling cache
     report["decode_attention"] = dict(cases["bf16_fill"], cases=cases)
-
-
-def ssd_work(b, s, h, g, p, n, q, esz):
-    """(bytes, flops) of one SSD scan: x and y, dt, A, B and C each read
-    or written once, and the final f32 state (dA is the wrapper's dt * A,
-    not an input); per (row, group, chunk) of L real positions the causal
-    half of the Gram C B^T (2 L(L+1)/2 n), formed once since B and C are
-    per group; per (row, head, chunk) W x over the same pairs (2 L(L+1)/2
-    p) and the state update (2 L p n), and the carried-state term (2 L p
-    n) in every chunk but the first, which starts from zero state."""
-    nbytes = (2 * b * s * h * p * esz + b * s * h * 4 + h * 4
-              + 2 * b * s * g * n * esz + b * h * p * n * 4)
-    gram = per_head = 0
-    for c0 in range(0, s, q):
-        L = min(q, s - c0)
-        pairs = L * (L + 1) // 2
-        gram += 2 * pairs * n
-        per_head += 2 * pairs * p + (4 if c0 else 2) * L * p * n
-    return nbytes, b * (g * gram + h * per_head)
 
 
 def phase_ssd(torch, report):
@@ -1623,6 +1604,7 @@ def phase_ssd(torch, report):
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.utils.roofline import H100
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(13)
@@ -1662,9 +1644,9 @@ def phase_ssd(torch, report):
                     plain_err_vs_f64=float((yr.double() - y64).abs().max()),
                     kernel_err_vs_f64=float((y.double() - y64).abs().max()))
                 del y64
-            peak = BF16_FLOPS if bf else F32_FLOPS
-            nbytes, flops = ssd_work(b, s, h, gg, p, n, q, x.element_size())
-            b_ms, b_by = bound(nbytes, flops, peak)
+            nbytes, flops = ssd_ops.work(b, s, h, gg, p, n, q,
+                                         x.element_size())
+            b_ms, b_by = bound((nbytes, flops), not bf)
             case = dict(
                 max_abs_err=max(cy["max_abs_err"], cf["max_abs_err"]),
                 atol=[cy["atol"], cf["atol"]], rtol=cy["rtol"],
@@ -1675,7 +1657,7 @@ def phase_ssd(torch, report):
                 plain_ms=time_cold(torch, lambda: ssd_ref(x, dt, A, Bm, Cm,
                                                           q)),
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
-                f32_fma_floor_ms=flops / F32_FLOPS * 1e3,
+                f32_fma_floor_ms=flops / H100.f32_flops * 1e3,
                 plan=ssd_ops.plan(dt_, p, n, q, h // gg, b * h,
                                   _build.sm_count(0),
                                   ssd_ops._tma_ready(x, Bm, Cm)),
@@ -5651,6 +5633,206 @@ def phase_audio_train(torch, model, params, report):
         report[k_]["launches_audio_train"] = counts[k_]
 
 
+# ---------------------------------------------------------------------------
+# The selector's cost model against the card
+# ---------------------------------------------------------------------------
+
+# the path's rows and TicTacToe's 12-token prompt into a cache of the
+# path's max_context; the LM update at B=4 x 256 tokens
+COST_PREFILL = dict(batch=32, prompt=12, s_max=256)
+COST_LM = dict(batch=4, seq=256)
+COST_CANDIDATES = (("1", 1, 1), ("dp2", 2, 1), ("tp2", 1, 2))
+COST_BUCKETS = (4096, 32768)
+COST_REPEATS = 5
+
+
+def cost_model_steps(torch, model, device):
+    """The cost_model phase's two programs, ``{name: (fn, make_args)}``:
+    the prefill (flash) of ``COST_PREFILL`` and the LM update step (flash,
+    the config's full remat, AdamW) of ``COST_LM``. ``make_args(params,
+    zeros)`` builds the inputs on ``device`` around ``params``; ``zeros``
+    makes a tensor (``torch.zeros`` on the card, ``torch.empty`` of fakes
+    in the trace, where values do not exist). The AdamW state has full f32
+    moments, as after a first step."""
+    from repro_torch.core.train_step import (make_lm_train_step,
+                                             make_prefill_step)
+    from repro_torch.optim.adamw import OptState, adamw
+    pf, lm = COST_PREFILL, COST_LM
+
+    def prefill_args(params, zeros):
+        return (params, zeros((pf["batch"], pf["prompt"]), torch.int32),
+                model.init_cache(pf["batch"], pf["s_max"], device=device))
+
+    def lm_args(params, zeros):
+        moments = lambda: {k: zeros(p.shape, torch.float32)
+                           for k, p in params.items()}
+        toks = zeros((lm["batch"], lm["seq"]), torch.int32)
+        return (params, OptState(step=zeros((), torch.int32),
+                                 mu=moments(), nu=moments()), toks, toks)
+
+    return {"prefill": (make_prefill_step(model, attn_impl="flash"),
+                        prefill_args),
+            "lm_step": (make_lm_train_step(model, adamw(3e-4),
+                                           attn_impl="flash"), lm_args)}
+
+
+def cost_model_trace(out_path: str) -> int:
+    """``chip_smoke.py --cost-model-trace OUT``: in a process of its own,
+    with the card hidden, trace the cost_model phase's two programs at full
+    width (qwen2-0.5b, bf16) on fake tensors (``utils/cost.full_cost``),
+    score them on the H100's roofline, and profile a ParallelismSelector of
+    ``COST_CANDIDATES`` x ``COST_BUCKETS`` through
+    ``make_cost_model_measure`` (the prefill of the path's 32 rows at each
+    bucket's context, on a fake world); writes one JSON object to
+    ``out_path``."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.parallelism_selector import (
+        ContextBuckets, ParallelismSelector, make_cost_model_measure)
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.launch.dryrun import prefill_stage
+    from repro_torch.models.param import abstract_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils import roofline
+    from repro_torch.utils.cost import fake_mode, full_cost, trace_device
+
+    model = build_model(get_config("qwen2-0.5b"))
+    dev = trace_device()
+    out = {"device": dev, "programs": {}}
+    for name, (fn, make_args) in cost_model_steps(torch, model,
+                                                  dev).items():
+        with fake_mode():
+            params = abstract_params(model.defs, device=dev)
+            args = make_args(params, lambda shape, dt: torch.empty(
+                shape, dtype=dt, device=dev))
+        t1 = time.perf_counter()
+        fc = full_cost(fn, *args)
+        rep = roofline.analyze(
+            name, chips=1, cost_analysis={"flops": fc.flops,
+                                          "bytes accessed": fc.bytes_accessed},
+            collective_bytes=fc.collective_bytes, model_flops=0.0,
+            peak_memory_bytes=fc.peak_bytes)
+        out["programs"][name] = dict(
+            flops=fc.flops, bytes=fc.bytes_accessed, peak_bytes=fc.peak_bytes,
+            argument_bytes=fc.argument_bytes, kernels=fc.kernels,
+            step_time_s=rep.step_time_s, bottleneck=rep.bottleneck,
+            trace_s=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    batch = COST_PREFILL["batch"]
+    sel = ParallelismSelector(
+        [MeshConfig(*c) for c in COST_CANDIDATES],
+        make_cost_model_measure(prefill_stage(model, batch),
+                                hbm_bytes=roofline.H100.hbm_bytes,
+                                seq_tokens_fn=lambda ctx: batch * ctx),
+        ContextBuckets(COST_BUCKETS))
+    pol = sel.profile()
+    out["selector"] = dict(
+        table={pol.buckets.label(b): c.name for b, c in pol.table.items()},
+        entries=[dict(config=e.config.name, context=e.context_len,
+                      tgs=e.tgs, feasible=e.feasible,
+                      peak_gib=e.peak_bytes / 2 ** 30,
+                      step_time_s=e.step_time_s) for e in pol.entries],
+        seconds=time.perf_counter() - t1)
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class CostModelTrace:
+    """``cost_model_trace`` in a subprocess started at once (the card
+    hidden from it: it needs none), collected by ``result``."""
+
+    def __init__(self):
+        import tempfile
+        self.tmp = tempfile.mkdtemp()
+        self.out = os.path.join(self.tmp, "trace.json")
+        self.log = os.path.join(self.tmp, "trace.log")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--cost-model-trace", self.out], stdout=f,
+                stderr=subprocess.STDOUT, env=env)
+
+    def result(self, timeout: float = 600.0) -> dict:
+        code = self.proc.wait(timeout=timeout)
+        if code != 0:
+            raise AssertionError(f"cost_model trace exited {code}:\n"
+                                 f"{open(self.log).read()[-4000:]}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_cost_model(torch, model, params, trace: CostModelTrace, report):
+    """The roofline of ``utils/roofline`` over ``utils/cost``'s count
+    against the card: the prefill and the LM update step of
+    ``cost_model_steps`` on full-width qwen2-0.5b (the path's bf16
+    weights), each warmed once and timed as a median of five, beside the
+    trace of the same programs on fake tensors in ``CostModelTrace``'s
+    process. Gates: the predicted step time is at most the measured
+    median (a ratio below 1 would mean the count misses work); the
+    predicted peak less the arguments lies within 15% of the measured
+    bytes above what was allocated before the step; the traced launches
+    equal the card's, per kernel. Also prints the policy table the
+    subprocess's selector profiled at full width."""
+    from repro_torch.utils.cost import measure_step
+    t0 = time.perf_counter()
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(31)
+    V = model.cfg.vocab_size
+
+    def zeros(shape, dt):
+        if dt == torch.int32 and len(shape) == 2:      # token ids
+            return torch.randint(0, V, shape, generator=g, device=dev,
+                                 dtype=dt)
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    measured = {}
+    for name, (fn, make_args) in cost_model_steps(torch, model,
+                                                  dev).items():
+        args = make_args(params, zeros)
+        measured[name] = measure_step(fn, args, _all_counters(),
+                                      COST_REPEATS)
+        del args
+    t_card = time.perf_counter() - t0
+    traced = trace.result()
+    rows, ok = {}, True
+    for name, m in measured.items():
+        tr = traced["programs"][name]
+        predicted_s, measured_s = tr["step_time_s"], m["ms"] / 1e3
+        alloc = tr["peak_bytes"] - tr["argument_bytes"]
+        row = dict(
+            predicted_s=predicted_s, measured_s=measured_s,
+            measured_over_predicted=measured_s / predicted_s,
+            bottleneck=tr["bottleneck"], flops=tr["flops"], bytes=tr["bytes"],
+            predicted_alloc_bytes=alloc, measured_alloc_bytes=m["peak_bytes"],
+            alloc_rel_err=alloc / m["peak_bytes"] - 1.0,
+            traced_launches=tr["kernels"], card_launches=m["launches"],
+            ms_all=m["ms_all"], trace_s=tr["trace_s"])
+        row["ok"] = (predicted_s <= measured_s
+                     and abs(row["alloc_rel_err"]) <= 0.15
+                     and tr["kernels"] == m["launches"])
+        ok &= row["ok"]
+        rows[name] = row
+        emit({"phase": "cost_model", "program": name, **row})
+    emit({"phase": "cost_model", "selector": traced["selector"],
+          "trace_process_s": traced["seconds"], "card_s": t_card,
+          "phase_s": time.perf_counter() - t0})
+    report["cost_model"] = rows
+    if not ok:
+        raise AssertionError(f"cost_model gates: {rows}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5683,8 +5865,10 @@ def main() -> int:
     emit({"phase": "build_started", "sources": list(_build.KERNELS)})
 
     # the tp path's two ranks start now and wait (phase_tp_path): their
-    # start-up and weight init hide under the kernel phases
+    # start-up and weight init hide under the kernel phases, as the cost
+    # model's trace (phase_cost_model) does
     tp_workers = TPWorkers()
+    cost_trace = CostModelTrace()
     try:
         report = {}
         phase_kernels(torch, report)
@@ -5717,6 +5901,9 @@ def main() -> int:
         phase_shared_path(torch, cut, cut_params, report)
         phase_shared_spec(torch, cut, cut_params, report)
         del cut_params
+        # after the path phases, whose peak_mem_gib is the peak since the
+        # process started: this phase resets the peak before each step
+        phase_cost_model(torch, model, params, cost_trace, report)
         # tp_path's ranks run beside preempt_path: both are host-bound (the
         # eager loop, gloo's staging), each process keeps its own cores,
         # and the card holds both; preempt_path's gates are not timed
@@ -5808,6 +5995,7 @@ def main() -> int:
                                      "count": torch.cuda.device_count()}})
     finally:
         tp_workers.stop()
+        cost_trace.stop()
     return 0
 
 
@@ -5815,4 +6003,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                            sys.argv[5]))
+    if sys.argv[1:2] == ["--cost-model-trace"]:
+        sys.exit(cost_model_trace(sys.argv[2]))
     sys.exit(main())

@@ -30,20 +30,25 @@ paper's trade on two ranks, ``MeshConfig("dp2", 2, 1)`` against
 it.
 
 ``measure_fn`` is any ``(config, context_len) -> ProfileEntry``: a wall-
-clock timing on the devices, or a model. JAX's cost-model measure reads
-XLA's compiled HLO and moves with the HLO tooling (ROADMAP Queue 1 item
-12). ``device_memory_bytes`` gives the feasibility budget a measure
-compares its peak memory against.
+clock timing on the devices, or the cost model of
+``make_cost_model_measure``, which traces the stage program one rank of
+the candidate runs on fake tensors (``utils/cost``), scores it with the
+H100's roofline (``utils/roofline``) and marks it infeasible where its
+peak memory exceeds the card's (``device_memory_bytes``): the paper's
+out-of-memory cell (Fig. 3, TP4 x 32K x 128 responses), found without a
+device.
 """
 from __future__ import annotations
 
 import bisect
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.resharding import MeshConfig
+from repro_torch.utils.roofline import H100
 
 # NVIDIA H100 80 GB: the published memory size, the budget where no card
 # can be asked (device_memory_bytes)
@@ -218,3 +223,59 @@ class ParallelismSelector:
             "to": target.name,
         })
         return old, target
+
+
+# ---------------------------------------------------------------------------
+# Cost-model measure function (profiling without a device)
+# ---------------------------------------------------------------------------
+
+def make_cost_model_measure(stage_fn: Callable[[MeshConfig, int], tuple],
+                            *, hbm_bytes: Optional[float] = None,
+                            seq_tokens_fn: Callable[[int], float] = None,
+                            hw=H100) -> MeasureFn:
+    """A ``MeasureFn`` from ``stage_fn(config, context_len) -> (fn,
+    args)``, the stage program of the candidate's first rank and its
+    local inputs (JAX's ``lower_fn``). Each measure makes this process
+    rank 0 of a fake world of the candidate's ranks (``utils/cost.
+    start_fake_world``; a real process group refuses: measure in a process
+    of its own), calls ``stage_fn`` inside a fake mode, traces ``fn(*args)``
+    with ``full_cost`` and scores TGS with ``hw``'s roofline: tokens /
+    devices / step time, each collective serializing ``config.tp`` ring
+    hops. The candidate is infeasible where the traced peak exceeds
+    ``hbm_bytes`` (``device_memory_bytes()`` by default); an exception
+    while tracing gives a zero-TGS infeasible entry and a warning.
+
+    seq_tokens_fn(context_len) -> tokens processed per step (global); the
+    TGS numerator. Defaults to context_len.
+    """
+    from repro_torch.utils import roofline
+    from repro_torch.utils.cost import fake_mode, full_cost, start_fake_world
+
+    def measure(config: MeshConfig, context_len: int) -> ProfileEntry:
+        start_fake_world(config.device_offset + config.n_devices)
+        try:
+            with fake_mode():
+                fn, args = stage_fn(config, context_len)
+                fc = full_cost(fn, *args)
+        except Exception as e:             # unshardable / tracing error
+            warnings.warn(f"cost model: {config.name} at {context_len} "
+                          f"tokens did not trace ({e!r}); scored "
+                          f"infeasible")
+            return ProfileEntry(config, context_len, 0.0, False)
+        rep = roofline.analyze(
+            f"{config.name}@{context_len}", chips=config.n_devices,
+            cost_analysis={"flops": fc.flops,
+                           "bytes accessed": fc.bytes_accessed},
+            collective_bytes=fc.collective_bytes, model_flops=0.0,
+            collective_count=fc.collective_count, ring_size=config.tp,
+            hw=hw, peak_memory_bytes=fc.peak_bytes)
+        t = rep.step_time_s
+        tokens = (seq_tokens_fn(context_len) if seq_tokens_fn
+                  else float(context_len))
+        tgs = tokens / max(config.n_devices, 1) / max(t, 1e-12)
+        budget = device_memory_bytes() if hbm_bytes is None else hbm_bytes
+        return ProfileEntry(config, context_len, tgs,
+                            feasible=fc.peak_bytes <= budget,
+                            peak_bytes=fc.peak_bytes, step_time_s=t)
+
+    return measure

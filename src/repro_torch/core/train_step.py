@@ -248,29 +248,35 @@ def make_ref_logprob_step(model, *, attn_impl: str = "xla"):
     return ref_step
 
 
-def make_serve_step(model, *, attn_impl: str = "xla"):
+def make_serve_step(model, *, attn_impl: str = "xla", tp=None):
     """One new token per row against a filled cache: ``(params, token,
     cache, extra=None) -> (next_tok (B,) int32, logits (B, V), cache)``,
     greedy (argmax). ``attn_impl``: the decode step's ("pallas", the
-    split-K decode kernel, or "xla")."""
+    split-K decode kernel, or "xla"). ``tp``: a rank's
+    ``models.tensor_parallel.TPContext`` (the params are its shards, the
+    cache holds its kv heads, the logits are its vocab shard, and the
+    argmax the shard's)."""
+    kw = {} if tp is None else {"tp": tp}
 
     def serve_step(params, token, cache, extra=None):
         with torch.no_grad():
             logits, cache2 = model.decode_step(params, token, cache,
                                                extra=extra,
-                                               attn_impl=attn_impl)
+                                               attn_impl=attn_impl, **kw)
         return logits.argmax(dim=-1).to(torch.int32), logits, cache2
 
     return serve_step
 
 
-def make_prefill_step(model, *, attn_impl: str = "xla"):
+def make_prefill_step(model, *, attn_impl: str = "xla", tp=None):
     """``(params, tokens, cache, extra=None) -> (last-position logits,
-    cache)``. ``attn_impl``: the prefill's ("flash" or "xla")."""
+    cache)``. ``attn_impl``: the prefill's ("flash" or "xla"). ``tp``: as
+    ``make_serve_step``'s."""
+    kw = {} if tp is None else {"tp": tp}
 
     def prefill_step(params, tokens, cache, extra=None):
         with torch.no_grad():
             return model.prefill(params, tokens, cache, extra=extra,
-                                 attn_impl=attn_impl)
+                                 attn_impl=attn_impl, **kw)
 
     return prefill_step

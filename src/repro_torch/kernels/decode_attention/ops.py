@@ -9,6 +9,10 @@ that one thread-block cluster merges inside the launch, so a call is one
 launch and needs no workspace. CPU tensors go to the plain version in
 ``ref.py``; CUDA tensors launch the kernel or raise — there is no fallback
 between the two.
+
+Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: the
+wrapper returns outputs of the right shapes and dtypes and reports its
+kernel's ``work`` to the cost counter, leaving the launch counter alone.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.utils.cost import is_fake, report_kernel
 
 launches = 0          # wrapper calls that launched the kernel since reset
 
@@ -60,6 +65,19 @@ def split_plan(n_pairs: int, S: int, n_sm: int):
     return chunk, -(-S // chunk)
 
 
+def work(B: int, H: int, KV: int, hd: int, S: int, q_esz: int, kv_esz: int,
+         n_keys=None, n_empty: int = 0):
+    """``(bytes, flops)`` of one launch: K and V of the ``n_keys`` valid
+    (row, key) pairs (all ``B * S`` by default; a row with no valid key
+    reads all of V for its mean), q, the output and the (B, S) mask each
+    once; 4·hd flops per valid (query head, key) pair and one add per V
+    element of an empty row."""
+    n_keys = B * S if n_keys is None else n_keys
+    nbytes = ((2 * n_keys + n_empty * S) * KV * hd * kv_esz
+              + 2 * B * H * hd * q_esz + B * S)
+    return nbytes, 4 * H * hd * n_keys + n_empty * S * KV * hd
+
+
 def _check_cuda_inputs(q, k, v, valid):
     B, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or \
@@ -95,6 +113,13 @@ def decode_attention(q, k, v, valid):
     """q: (B,H,hd) one query per row; k,v: (B,S,KV,hd) (f32 or bf16, read
     by stride); valid: (B,S) bool. Returns (B,H,hd) in q's dtype; a row
     with no valid key gets the mean of V over S, as ``ref.py``."""
+    if is_fake(q):
+        _check_cuda_inputs(q, k, v, valid)
+        B, H, hd = q.shape
+        report_kernel("decode_attention", *work(
+            B, H, k.shape[2], hd, k.shape[1], q.element_size(),
+            k.element_size()))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, valid)
     if q.device.type != "cuda":

@@ -19,6 +19,11 @@ tensors go to the plain versions in ``ref.py``; CUDA tensors launch the
 kernels or raise — there is no fallback between the two. Under ``torch.utils.checkpoint`` the forward runs again inside the
 backward, and that recompute launches (and counts) the forward kernel a
 second time.
+
+Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: each
+wrapper returns outputs of the right shapes and dtypes and reports its
+kernel's ``work`` to the cost counter, leaving the launch counters alone;
+the backward reports its dq and dk/dv kernels as two launches.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref)
+from repro_torch.utils.cost import is_fake, report_kernel
 
 # kernel launches since the last reset_launches(), per kernel
 launches = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -68,7 +74,9 @@ def _check_shapes(q, k, v):
                          f"{tuple(q.shape)} (batch, head_dim, H % KV == 0)")
 
 
-def _check_cuda(causal, window, *tensors):
+def _check_args(causal, window, *tensors):
+    """What the kernels refuse of their arguments' dtypes, shapes, devices
+    and layouts (a fake trace refuses it too)."""
     q, k = tensors[0], tensors[1]
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
                                           for t in tensors):
@@ -87,9 +95,45 @@ def _check_cuda(causal, window, *tensors):
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
-        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+
+
+def _check_aligned(*tensors):
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError("bfloat16 inputs must start on a 16-byte "
                              "boundary: the kernels load them by TMA")
+
+
+def valid_pairs(S: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one (row, head) attends under ``ref.py``'s
+    ``allowed_mask``: query i takes key j when j <= i (causal) and j > i -
+    window (window > 0)."""
+    if causal:
+        w = window if 0 < window < S else S
+        return w * (w + 1) // 2 + (S - w) * w
+    m = max(S - window, 0) if window > 0 else 0
+    return S * Sk - m * (m + 1) // 2
+
+
+def work(kernel: str, B: int, S: int, Sk: int, H: int, KV: int, hd: int,
+         esz: int, causal: bool = True, window: int = 0):
+    """``(bytes, flops)`` of one launch of ``kernel`` ("fwd", "dq" or
+    "dkv") at q (B,S,H,hd) and k, v (B,Sk,KV,hd) of ``esz``-byte elements:
+    each input read once and each output written once (q, k, v, O and the
+    f32 L; the backward also dO and D, and writes dq or dk and dv), and
+    4, 6 and 8·hd flops per attended (query head, key) pair."""
+    pairs = B * H * valid_pairs(S, Sk, causal, window)
+    qb, kvb, lb = B * S * H * hd * esz, B * Sk * KV * hd * esz, B * H * S * 4
+    return {"fwd": (2 * qb + 2 * kvb + lb, 4 * hd * pairs),
+            "dq": (3 * qb + 2 * kvb + 2 * lb, 6 * hd * pairs),
+            "dkv": (2 * qb + 4 * kvb + 2 * lb, 8 * hd * pairs)}[kernel]
+
+
+def _report(kernel, q, k, causal, window):
+    B, S, H, hd = q.shape
+    report_kernel(f"flash_{kernel}", *work(kernel, B, S, k.shape[1], H,
+                                           k.shape[2], hd, q.element_size(),
+                                           causal, window))
 
 
 def _device_of(q):
@@ -109,9 +153,16 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
     dtype, L (B,H,S) f32)`` — the forward kernel, or ``ref.py`` on the
     CPU."""
     _check_shapes(q, k, v)
+    if is_fake(q):
+        _check_args(causal, window, q, k, v)
+        B, S, H, _ = q.shape
+        _report("fwd", q, k, causal, window)
+        return torch.empty_like(q), q.new_empty((B, H, S),
+                                                dtype=torch.float32)
     if _device_of(q) == "cpu":
         return attention_fwd_ref(q, k, v, causal, window)
-    _check_cuda(causal, window, q, k, v)
+    _check_args(causal, window, q, k, v)
+    _check_aligned(q, k, v)
     B, S, H, _ = q.shape
     out = torch.empty_like(q)
     L = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -131,6 +182,10 @@ def flash_attention_dq(q, k, v, dout, L, D, causal: bool = True,
     """The dq kernel on CUDA tensors (D = rowsum(dO∘O), (B,H,S) f32).
     CPU tensors take ``flash_attention_bwd``'s plain version instead."""
     dq = torch.empty_like(q)
+    if is_fake(q):
+        _check_bwd(q, k, v, dout, L, D, causal, window)
+        _report("dq", q, k, causal, window)
+        return dq
     _launch_bwd("flash_attention_dq_launch", "dq", q, k, v, dout, L, D,
                 [dq], causal, window)
     return dq
@@ -140,24 +195,33 @@ def flash_attention_dkv(q, k, v, dout, L, D, causal: bool = True,
                         window: int = 0):
     """The dk/dv kernel on CUDA tensors; returns ``(dk, dv)``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if is_fake(q):
+        _check_bwd(q, k, v, dout, L, D, causal, window)
+        _report("dkv", q, k, causal, window)
+        return dk, dv
     _launch_bwd("flash_attention_dkv_launch", "dkv", q, k, v, dout, L, D,
                 [dk, dv], causal, window)
     return dk, dv
 
 
-def _launch_bwd(fn_name, counter, q, k, v, dout, L, D, outs, causal,
-                window):
+def _check_bwd(q, k, v, dout, L, D, causal, window):
     _check_shapes(q, k, v)
-    if _device_of(q) != "cuda":
-        raise ValueError("the dq and dk/dv kernels take CUDA tensors; CPU "
-                         "tensors go through flash_attention_bwd")
-    _check_cuda(causal, window, q, k, v, dout)
+    _check_args(causal, window, q, k, v, dout)
     B, S, H, _ = q.shape
     for t in (L, D):
         if t.dtype != torch.float32 or t.shape != (B, H, S) or \
                 not t.is_contiguous() or t.device != q.device:
             raise ValueError("L and D must be contiguous float32 (B,H,S) "
                              "on q's device")
+
+
+def _launch_bwd(fn_name, counter, q, k, v, dout, L, D, outs, causal,
+                window):
+    if _device_of(q) != "cuda":
+        raise ValueError("the dq and dk/dv kernels take CUDA tensors; CPU "
+                         "tensors go through flash_attention_bwd")
+    _check_bwd(q, k, v, dout, L, D, causal, window)
+    _check_aligned(q, k, v, dout)
     fn = _bind(_lib("flash_attention_bwd", q.shape[3]), fn_name,
                6 + len(outs))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
@@ -176,7 +240,7 @@ def flash_attention_bwd(q, k, v, out, dout, L, causal: bool = True,
     expression, then the dq kernel and the dk/dv kernel (or ``ref.py`` on
     the CPU)."""
     _check_shapes(q, k, v)
-    if _device_of(q) == "cpu":
+    if _device_of(q) == "cpu" and not is_fake(q):
         return attention_bwd_ref(q, k, v, out, dout, L, causal, window)
     dout = dout.contiguous()
     D = torch.einsum("bshd,bshd->bhs", dout.float(), out.float()).contiguous()

@@ -13,6 +13,10 @@ The tensor-parallel rollout samples from vocab shards:
 rank's ``(B, V_local)`` slice, and ``combine_partials`` merges the ranks'
 states into the whole row's token and log-prob (``fused_sample_tokens``
 with ``tp=``). ``partial_launches`` counts that mode's launches.
+
+Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: each
+wrapper returns outputs of the right shapes and dtypes and reports the
+kernel's ``work`` to the cost counter, leaving the launch counters alone.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_sample.ref import (NEG_INF, fused_sample_ref,
                                                   fused_sample_partial_ref)
+from repro_torch.utils.cost import is_fake, report_kernel
 
 launches = 0          # kernel launches since the last reset_launches()
 partial_launches = 0  # launches of the partial-state mode, likewise
@@ -73,9 +78,23 @@ def cluster_plan(B: int, V: int, n_sm: int):
     return -(-V // slice_), slice_
 
 
+def work(B: int, V: int, partial: bool = False):
+    """``(bytes, flops)`` of one launch: the f32 logits and noise read
+    once, the outputs written once (a token and a log-prob a row, or the
+    partial mode's five words a row); 4 flops per element (the add, the
+    compare, the online max and the exp-sum)."""
+    return 2 * B * V * 4 + B * (20 if partial else 8), 4 * B * V
+
+
 def _check_cuda_inputs(lg, noise):
     if lg.device.type != "cuda":
         raise ValueError(f"unsupported device {lg.device}")
+    _check_args(lg, noise)
+
+
+def _check_args(lg, noise):
+    """What the kernel refuses of its arguments' dtypes, shapes and
+    layouts (a fake trace refuses it too)."""
     if lg.dtype != torch.float32 or noise.dtype != torch.float32:
         raise TypeError(f"logits and noise must be float32, got {lg.dtype} "
                         f"/ {noise.dtype}")
@@ -98,6 +117,12 @@ def fused_sample(lg, noise):
     f32)``: ``argmax(lg + noise)`` (earliest index on ties) and ``lg[tok] -
     logsumexp(lg)``. CPU tensors use ``ref.py``; CUDA tensors launch the
     kernel."""
+    if is_fake(lg):
+        _check_args(lg, noise)
+        B, V = lg.shape
+        report_kernel("fused_sample", *work(B, V))
+        return (lg.new_empty((B,), dtype=torch.int32),
+                lg.new_empty((B,), dtype=torch.float32))
     if lg.device.type == "cpu":
         return fused_sample_ref(lg, noise)
     _check_cuda_inputs(lg, noise)
@@ -110,6 +135,13 @@ def fused_sample_partial(lg, noise):
     logsumexp state, the best score of ``lg + noise``, its earliest local
     index and ``lg`` there). CPU tensors use ``ref.py``; CUDA tensors
     launch the kernel."""
+    if is_fake(lg):
+        _check_args(lg, noise)
+        B, V = lg.shape
+        report_kernel("fused_sample_partial", *work(B, V, partial=True))
+        f32 = lambda: lg.new_empty((B,), dtype=torch.float32)
+        return (f32(), f32(), f32(), lg.new_empty((B,), dtype=torch.int32),
+                f32())
     if lg.device.type == "cpu":
         return fused_sample_partial_ref(lg, noise)
     _check_cuda_inputs(lg, noise)

@@ -8,6 +8,10 @@ workspace. ``split_plan`` picks the chunks; the spec-verify wrapper uses
 it too, which keeps each verify query bitwise equal to this kernel. CPU
 tensors go to the plain version in ``ref.py``; CUDA tensors launch the
 kernel or raise — there is no fallback between the two.
+
+Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: the
+wrapper returns outputs of the right shapes and dtypes and reports its
+kernel's ``work`` to the cost counter, leaving the launch counter alone.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
+from repro_torch.utils.cost import is_fake, report_kernel
 
 launches = 0          # kernel launches since the last reset_launches()
 
@@ -64,6 +69,20 @@ def split_plan(n_pairs: int, NP: int, ps: int, n_sm: int):
                max(1, -(-_BLOCKS_PER_SM * n_sm // n_pairs)))
     chunk = -(-NP // want)
     return chunk, -(-NP // chunk)
+
+
+def work(B: int, H: int, KV: int, hd: int, NP: int, ps: int, q_esz: int,
+         kv_esz: int, quant: bool, n_valid=None):
+    """``(bytes, flops)`` of one launch: K and V (and their f32 scales
+    on an int8 pool) of the ``n_valid`` live (row, position) pairs (all
+    ``B * NP * ps`` mapped positions by default), q, the output, the block
+    table and the lengths each once; 4·hd flops per live (query head,
+    position) pair."""
+    n_valid = B * NP * ps if n_valid is None else n_valid
+    nbytes = (2 * n_valid * KV * hd * kv_esz
+              + (2 * n_valid * KV * 4 if quant else 0)
+              + 2 * B * H * hd * q_esz + B * NP * 4 + B * 4)
+    return nbytes, 4 * n_valid * H * hd
 
 
 def check_aligned(k_pages, v_pages) -> None:
@@ -119,7 +138,6 @@ def _check_cuda_inputs(q, k_pages, v_pages, block_table, lens, k_scales,
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
-    check_aligned(k_pages, v_pages)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
@@ -128,6 +146,15 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
     page pool (f32, bf16, or int8 with (P,ps,KV) f32 ``k_scales`` /
     ``v_scales``); block_table: (B,NP) int32 (-1 = unmapped); lens: (B,)
     int32 live tokens per row. Returns (B,H,hd) in q's dtype."""
+    if is_fake(q):
+        _check_cuda_inputs(q, k_pages, v_pages, block_table, lens,
+                           k_scales, v_scales)
+        B, H, hd = q.shape
+        _, ps, KV, _ = k_pages.shape
+        report_kernel("paged_attention", *work(
+            B, H, KV, hd, block_table.shape[1], ps, q.element_size(),
+            k_pages.element_size(), k_pages.dtype == torch.int8))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_table,
                                           lens, k_scales, v_scales)
@@ -135,6 +162,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, lens, *,
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, block_table, lens, k_scales,
                        v_scales)
+    check_aligned(k_pages, v_pages)
     B, _, _ = q.shape
     _, ps, KV, _ = k_pages.shape
     return _launch(q, k_pages, v_pages, block_table, lens, k_scales,

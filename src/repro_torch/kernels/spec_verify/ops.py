@@ -15,6 +15,10 @@ memory under any plan, because the merge reuses the tiles' bytes: the
 plan is never narrowed for the verify kernel, and no shape is refused for
 it. CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch
 the kernel or raise — there is no fallback between the two.
+
+Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: the
+wrapper returns outputs of the right shapes and dtypes and reports its
+kernel's ``work`` to the cost counter, leaving the launch counter alone.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ops import (check_aligned,
                                                      split_plan)
 from repro_torch.kernels.spec_verify.ref import spec_verify_attention_ref
+from repro_torch.utils.cost import is_fake, report_kernel
 
 launches = 0          # kernel launches since the last reset_launches()
 
@@ -51,6 +56,24 @@ def _bind(kv_code: int):
                    + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def work(B: int, K: int, H: int, KV: int, hd: int, NP: int, ps: int,
+         q_esz: int, kv_esz: int, quant: bool, live=None, pairs=None):
+    """``(bytes, flops)`` of one launch that reads ``live`` (row,
+    position) pairs of the pool and attends ``pairs`` (query head, key)
+    pairs: K and V (and their f32 scales on an int8 pool) of the live
+    positions, q, the output, the block table and ``pos`` each once, and
+    4·hd flops per attended pair. By default every row sits at the
+    largest base position, ``NP * ps - K``: all ``NP * ps`` positions
+    live, query j attending ``pos + j + 1`` keys."""
+    pos = NP * ps - K
+    live = B * NP * ps if live is None else live
+    pairs = B * H * (pos * K + K * (K + 1) // 2) if pairs is None else pairs
+    nbytes = (2 * live * KV * hd * kv_esz + (2 * live * KV * 4 if quant
+                                             else 0)
+              + 2 * B * K * H * hd * q_esz + B * NP * 4 + B * 4)
+    return nbytes, 4 * hd * pairs
 
 
 def _check_cuda_inputs(q, k_pages, v_pages, block_table, pos, k_scales,
@@ -98,7 +121,6 @@ def _check_cuda_inputs(q, k_pages, v_pages, block_table, pos, k_scales,
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
-    check_aligned(k_pages, v_pages)
 
 
 def spec_verify_attention(q, k_pages, v_pages, block_table, pos, *,
@@ -111,6 +133,15 @@ def spec_verify_attention(q, k_pages, v_pages, block_table, pos, *,
     attends pool positions ``<= pos[b]+j``. Returns (B,K,H,hd) in q's
     dtype; each query is bitwise the paged kernel's output at ``lens =
     pos + j + 1`` on the card."""
+    if is_fake(q):
+        _check_cuda_inputs(q, k_pages, v_pages, block_table, pos,
+                           k_scales, v_scales)
+        B, K, H, hd = q.shape
+        _, ps, KV, _ = k_pages.shape
+        report_kernel("spec_verify", *work(
+            B, K, H, KV, hd, block_table.shape[1], ps, q.element_size(),
+            k_pages.element_size(), k_pages.dtype == torch.int8))
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return spec_verify_attention_ref(q, k_pages, v_pages, block_table,
                                          pos, k_scales, v_scales)
@@ -118,6 +149,7 @@ def spec_verify_attention(q, k_pages, v_pages, block_table, pos, *,
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_inputs(q, k_pages, v_pages, block_table, pos, k_scales,
                        v_scales)
+    check_aligned(k_pages, v_pages)
     B = q.shape[0]
     _, ps, KV, _ = k_pages.shape
     return _launch(q, k_pages, v_pages, block_table, pos, k_scales,

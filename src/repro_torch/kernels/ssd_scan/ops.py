@@ -20,6 +20,10 @@ kernel or raise — there is no fallback between the two. The kernel starts
 from zero state (JAX asserts ``initial_state is None``) and has no backward
 (the JAX kernel has no VJP): an ``initial_state``, or an input that
 requires grad while grad mode is on, raises on either device.
+
+Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: the
+wrapper returns outputs of the right shapes and dtypes and reports its
+kernel's ``work`` to the cost counter, leaving the launch counter alone.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
+from repro_torch.utils.cost import is_fake, report_kernel
 
 launches = 0          # wrapper calls that launched the kernel since reset
 
@@ -75,6 +80,26 @@ def smem_bytes(route: int, p: int, n: int, q: int, ht: int) -> int:
                 + ht * (p // 64) * 3 * tb + 8 * 4 + 12 * ht * q)
     return 4 * (ht * p * (n + 1) + 2 * _TILE * (n + 1)
                 + ht * _TILE * (p + 1) + _TILE * (_TILE + 1) + 3 * ht * q)
+
+
+def work(b: int, s: int, h: int, g: int, p: int, n: int, q: int, esz: int):
+    """``(bytes, flops)`` of one SSD scan over ``s`` real positions in
+    chunks of ``q``: x and y, dt, A, B and C each read or written once,
+    and the final f32 state (dA is the wrapper's dt * A, not an input);
+    per (row, group, chunk) of L real positions the causal half of the
+    Gram C B^T (2 L(L+1)/2 n), formed once since B and C are per group;
+    per (row, head, chunk) W x over the same pairs (2 L(L+1)/2 p) and the
+    state update (2 L p n), and the carried-state term (2 L p n) in every
+    chunk but the first, which starts from zero state."""
+    nbytes = (2 * b * s * h * p * esz + b * s * h * 4 + h * 4
+              + 2 * b * s * g * n * esz + b * h * p * n * 4)
+    gram = per_head = 0
+    for c0 in range(0, s, q):
+        L = min(q, s - c0)
+        pairs = L * (L + 1) // 2
+        gram += 2 * pairs * n
+        per_head += 2 * pairs * p + (4 if c0 else 2) * L * p * n
+    return nbytes, b * (g * gram + h * per_head)
 
 
 def _tma_ready(*views) -> bool:
@@ -157,6 +182,15 @@ def ssd_scan(x, dt, A, B, C, chunk_size: int, initial_state=None):
         raise RuntimeError("the SSD scan kernel has no backward (the JAX "
                            "kernel has no VJP): run the model's chunked "
                            "form (attn_impl='xla') under autograd")
+    if is_fake(x):
+        b, s, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        _check_cuda_inputs(x, dt, A, B, C, min(chunk_size, s))
+        report_kernel("ssd_scan", *work(b, s, h, g, p, n,
+                                        min(chunk_size, s),
+                                        x.element_size()))
+        return (torch.empty_like(x),
+                x.new_empty((b, h, p, n), dtype=torch.float32))
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, B, C, chunk_size)
     if x.device.type != "cuda":

@@ -1,14 +1,57 @@
-"""Mesh splits and layout assembly (port of the part of
-``repro/launch/mesh.py`` the dispatcher and the selector use):
-``rollout_trainer_split``, ``_batch_spec`` and ``cache_shardings``. The
-production meshes, ``input_specs`` and ``stage_shardings`` belong to the
-dry run and are not ported (ROADMAP Queue 1 item 12)."""
+"""Production meshes, mesh splits, input specs and layout assembly (port
+of ``repro/launch/mesh.py``).
+
+``make_production_mesh`` builds the target topology on a fake world
+(``utils/cost.start_fake_world``): single-pod (16, 16) = 256 ranks with
+("data", "model") axes, and the 2-pod (2, 16, 16) = 512-rank variant
+with a leading "pod" axis that extends data parallelism.
+
+``input_specs(arch, shape_name)`` returns fake tensors (shapes, dtypes,
+no data) for every global input of the stage program that shape runs
+(train, prefill or decode), so the 80-program dry run never allocates.
+
+``stage_shardings`` maps those inputs onto a mesh with the port's own
+layouts: the prefill and decode params by the head-granular ``tp_plan``
+(its ``fallbacks`` say where it departs from JAX's flat-column
+``param_shardings``), the train step's params and moments replicated on
+every rank (the update runs whole on each rank of a model-axis row, its
+rows split over the data rows, as GSPMD runs JAX's), batches over (pod,
+data) by ``_batch_spec``, and caches by ``cache_shardings``.
+``rollout_trainer_split`` partitions the ranks for the async schedule.
+"""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import replace
+from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.core.resharding import MeshConfig, NamedLayout, world_size
-from repro_torch.utils.tree import tree_map_with_names
+import torch
+
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
+                                      get_config, with_sliding_window)
+from repro_torch.core.resharding import (MeshConfig, NamedLayout, replicated,
+                                         tp_plan, world_size)
+from repro_torch.utils.tree import tree_map, tree_map_with_names
+
+# Sub-quadratic long-context policy: the attention families decode
+# long_500k with a sliding window over the cache.
+LONG_CONTEXT_WINDOW = 8192
+
+
+def production_mesh_config(*, multi_pod: bool = False) -> MeshConfig:
+    return MeshConfig(name="2x16x16" if multi_pod else "16x16",
+                      dp=16, tp=16, pods=2 if multi_pod else 1)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """The production ``DeviceMesh`` (16, 16) or (2, 16, 16) on a fake
+    world of 256 or 512 ranks, this process rank 0 (``utils/cost.
+    start_fake_world``: a fake world of another size is replaced, a real
+    one refuses). ``device_type``: the fake tensors' (``utils/cost.
+    trace_device()`` by default)."""
+    from repro_torch.utils.cost import start_fake_world, trace_device
+    cfg = production_mesh_config(multi_pod=multi_pod)
+    start_fake_world(cfg.n_devices)
+    return cfg.make_mesh(device_type or trace_device())
 
 
 def rollout_trainer_split(*, n_devices: Optional[int] = None,
@@ -45,6 +88,78 @@ def rollout_trainer_split(*, n_devices: Optional[int] = None,
     rollout = side("rollout", n_roll, rollout_tp, 0)
     trainer = side("trainer", n_train, trainer_tp, n_roll)
     return rollout, trainer
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The batch axes ("pod", "data") of a ``MeshConfig`` or a
+    ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = mesh.axis_names()
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def arch_config_for_shape(arch_id: str, shape: InputShape) -> ModelConfig:
+    """The arch config, with the long-context policy: the attention
+    families decode long_500k with a sliding window (the ssm and hybrid
+    families run it natively, their state O(1) in context)."""
+    cfg = get_config(arch_id)
+    if (shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid")
+            and cfg.sliding_window == 0):
+        cfg = with_sliding_window(cfg, LONG_CONTEXT_WINDOW)
+    return cfg
+
+
+def full_opt_state(params):
+    """AdamW's state after a step, as fakes: the step and f32 moments of
+    each param's shape (``adamw``'s ``init`` holds zero-stride views until
+    the first update writes full moments)."""
+    from repro_torch.optim.adamw import OptState
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                device=p.device)
+    dev = next(iter(params.values())).device
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                    mu=tree_map(f32, params), nu=tree_map(f32, params))
+
+
+def input_specs(arch_id: str, shape_name: str, device=None,
+                remat: Optional[str] = None) -> Dict[str, Any]:
+    """Every global input of the (arch, shape) stage program, as fake
+    tensors in the active ``FakeTensorMode`` (or a new one):
+
+        train:   {params, opt_state, tokens, labels, extra}
+        prefill: {params, tokens, cache, extra}
+        decode:  {params, token, cache, extra}
+
+    plus ``kind`` and ``model``. ``device``: the fakes' (``utils/cost.
+    trace_device()`` by default); ``remat`` overrides the config's."""
+    from repro_torch.models.param import abstract_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.cost import fake_mode, trace_device
+    device = device or trace_device()
+    shape = INPUT_SHAPES[shape_name]
+    cfg = arch_config_for_shape(arch_id, shape)
+    if remat is not None:
+        cfg = replace(cfg, remat=remat)
+    model = build_model(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    with fake_mode():
+        params = abstract_params(model.defs, device=device)
+        extra = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                 for k, v in model.input_extras(B).items()} or None
+        tokens = lambda *s: torch.empty(s, dtype=torch.int32, device=device)
+        out = {"kind": shape.kind, "model": model, "params": params,
+               "extra": extra}
+        if shape.kind == "train":
+            out.update(opt_state=full_opt_state(params),
+                       tokens=tokens(B, S), labels=tokens(B, S))
+        elif shape.kind == "prefill":
+            out.update(tokens=tokens(B, S),
+                       cache=model.init_cache(B, S, device=device))
+        else:
+            out.update(token=tokens(B),
+                       cache=model.init_cache(B, S, device=device))
+    return out
 
 
 def _batch_spec(mesh_cfg: MeshConfig, shape_or_ndim, *, batch_dim: int = 0
@@ -142,3 +257,55 @@ def cache_shardings(cache, mesh_cfg: MeshConfig, *, seq_len: int,
         return NamedLayout(mesh_cfg, tuple(spec))
 
     return tree_map_with_names(one, cache)
+
+
+def stage_shardings(specs: Dict[str, Any], mesh_cfg: MeshConfig, *,
+                    fallbacks=None) -> Dict[str, Any]:
+    """The port's layouts of ``input_specs``' tensors on ``mesh_cfg``
+    (the same keys but "kind" and "model", plus "plan"):
+
+      - train: params and the moments replicated (every rank runs the
+        whole update; its batch rows split over the data rows);
+      - prefill and decode: params by ``tp_plan`` (the dense, moe, ssm and
+        hybrid families; "plan" holds it) and replicated for the audio and
+        vlm families, which run no tensor parallelism;
+      - tokens, labels, token and extra by ``_batch_spec``; the cache by
+        ``cache_shardings``.
+
+    ``fallbacks`` (a list) receives each departure from JAX's flat-column
+    layouts: the plan's own, and the families it does not cover. The
+    port shards no param over the data axis, so JAX's ``fsdp`` and
+    ``rules`` options have no counterpart."""
+    model = specs["model"]
+    fallbacks = [] if fallbacks is None else fallbacks
+    rep = lambda tree: tree_map(lambda _: replicated(mesh_cfg), tree)
+    out: Dict[str, Any] = {"plan": None}
+    kind = specs["kind"]
+    if kind == "train":
+        out["params"] = rep(specs["params"])
+        out["opt_state"] = rep(specs["opt_state"])
+        if mesh_cfg.tp > 1:
+            fallbacks.append(("update", f"params and moments replicated "
+                                        f"over model ({mesh_cfg.tp} ranks)"))
+        for k in ("tokens", "labels"):
+            out[k] = _batch_spec(mesh_cfg, specs[k].shape)
+    else:
+        if model.cfg.family in ("audio", "vlm"):
+            out["params"] = rep(specs["params"])
+            if mesh_cfg.tp > 1:
+                fallbacks.append(("family", f"{model.cfg.family}: no tp "
+                                            f"plan, replicated over model"))
+        else:
+            plan = tp_plan(model, mesh_cfg, rank=mesh_cfg.device_offset)
+            out["plan"] = plan
+            out["params"] = dict(plan.layouts)
+            fallbacks.extend(plan.fallbacks)
+        tok = "tokens" if kind == "prefill" else "token"
+        out[tok] = _batch_spec(mesh_cfg, specs[tok].shape)
+        out["cache"] = cache_shardings(specs["cache"], mesh_cfg, seq_len=0,
+                                       n_kv_heads=model.cfg.n_kv_heads)
+    if specs.get("extra"):
+        out["extra"] = {k: _batch_spec(mesh_cfg, v.shape)
+                        for k, v in specs["extra"].items()}
+    out["fallbacks"] = fallbacks
+    return out

@@ -4,6 +4,9 @@ Models declare parameters as a flat ``{dotted.path: ParamDef}`` dict whose
 keys are the JAX param tree's paths joined with dots (``layers.attn.wq``),
 so a bridged JAX tree and a port-initialised one carry the same keys and
 shapes. Layer parameters keep the stacked leading ``layers`` axis.
+``init_params`` materialises the dict; ``abstract_params`` gives fake
+tensors of the same shapes (no allocation, for ``utils/cost`` and the dry
+run); ``logical_specs`` the logical axes.
 """
 from __future__ import annotations
 
@@ -55,3 +58,19 @@ def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
                             dtype=torch.float32).mul_(std).to(dtype)
         out[name] = t
     return out
+
+
+def logical_specs(defs: Dict[str, ParamDef]) -> Dict[str, tuple]:
+    """The logical axes of each parameter, keyed as ``defs``."""
+    return {k: d.axes for k, d in defs.items()}
+
+
+def abstract_params(defs: Dict[str, ParamDef], dtype=torch.bfloat16,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """Fake tensors shaped as ``init_params``' output (JAX's
+    ``ShapeDtypeStruct`` tree): made in the active ``FakeTensorMode``, or
+    in a new one, so no memory is allocated on ``device``."""
+    from repro_torch.utils.cost import fake_mode
+    with fake_mode():
+        return {k: torch.empty(d.shape, dtype=dtype, device=device)
+                for k, d in defs.items()}

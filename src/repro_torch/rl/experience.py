@@ -35,6 +35,24 @@ class ExperienceBatch(NamedTuple):
         return self._replace(**kw)
 
 
+_FIELD_DTYPES = (torch.int32, torch.bool, torch.bool, torch.float32,
+                 torch.float32, torch.float32, torch.float32, torch.float32,
+                 torch.int32, torch.bool)
+
+
+def experience_specs(batch: int, seq: int, device="cuda") -> ExperienceBatch:
+    """An ``ExperienceBatch`` of fake tensors of ``batch`` rows and
+    ``seq`` positions (JAX's ``ShapeDtypeStruct`` tree for dry runs): made
+    in the active ``FakeTensorMode``, or a new one; nothing is
+    allocated."""
+    from repro_torch.utils.cost import fake_mode
+    with fake_mode():
+        return ExperienceBatch(*(
+            torch.empty((batch, seq) if i < 5 else (batch,), dtype=dt,
+                        device=device)
+            for i, dt in enumerate(_FIELD_DTYPES)))
+
+
 def zeros_like_experience(batch: int, seq: int,
                           device=None) -> ExperienceBatch:
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)

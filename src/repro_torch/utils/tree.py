@@ -89,6 +89,24 @@ def tree_unflatten(template, leaves):
     return tree_map_with_names(lambda name, _: by_name[name], template)
 
 
+def tree_map_with_path(fn: Callable, tree):
+    """``fn(key, leaf)`` over the leaves with '/'-joined keys (JAX's
+    ``tree_map_with_path`` helper)."""
+    return tree_map_with_names(fn, tree)
+
+
+def tree_param_count(tree) -> int:
+    """Total number of elements across all leaves."""
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_zeros_like(tree, dtype=None):
+    """Zeros of each leaf's shape, in ``dtype`` (the leaf's own when
+    None), on the leaf's device."""
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
+                                          device=x.device), tree)
+
+
 def tree_size_bytes(tree) -> int:
     """Total bytes across all leaves: each tensor's elements times its
     dtype's item size (meta tensors count their shape)."""

@@ -1609,10 +1609,10 @@ class _StreamRecordingUpdate:
     def __init__(self, stage):
         self.stage, self.tokens, self.streams = stage, [], []
 
-    def __call__(self, params, opt_state, exp):
+    def __call__(self, params, opt_state, exp, **kw):
         self.tokens.append(exp.tokens.clone())
         self.streams.append(torch.cuda.current_stream())
-        return self.stage(params, opt_state, exp)
+        return self.stage(params, opt_state, exp, **kw)
 
 
 def test_async_lag0_on_the_side_stream_equals_sync(dev):
@@ -1772,3 +1772,63 @@ def test_dispatch_handle_after_side_stream_consumer(dev, nccl_world_of_one):
     assert torch.equal(y, exp.logprobs * 2 + exp.rewards[:, None])
     h.result()
     assert len(d.log) == 1
+
+
+# ---------------------------------------------------------------------------
+# The cost model against the card (chip_smoke.py's cost_model phase at the
+# smoke size)
+# ---------------------------------------------------------------------------
+
+def test_cost_model_gates_at_the_smoke_size(dev):
+    """The smoke qwen2's prefill (flash) of 4 x 12 tokens and its LM update
+    step (flash, full remat, AdamW with full f32 moments) at 4 x 64, on
+    the card and traced on fake tensors by ``utils/cost.full_cost``: the
+    H100 roofline's step time is at most the measured median, the traced
+    peak less the arguments within 15% of the bytes the step allocated
+    above those before it, and the traced kernel launches equal the
+    wrappers' counters."""
+    from repro_torch.core.train_step import (make_lm_train_step,
+                                             make_prefill_step)
+    from repro_torch.optim.adamw import OptState, adamw
+    from repro_torch.utils import roofline
+    from repro_torch.utils.cost import full_cost, measure_step
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), remat="full")
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(g, dtype=torch.bfloat16)
+    moments = lambda: {k: torch.zeros(p.shape, dtype=torch.float32,
+                                      device="cuda")
+                       for k, p in params.items()}
+    toks = lambda B, S: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                      device="cuda", dtype=torch.int32)
+    lm = toks(4, 64)
+    programs = {
+        "prefill": (make_prefill_step(model, attn_impl="flash"),
+                    (params, toks(4, 12),
+                     model.init_cache(4, 64, device="cuda"))),
+        "lm_step": (make_lm_train_step(model, adamw(3e-4),
+                                       attn_impl="flash"),
+                    (params, OptState(torch.zeros((), dtype=torch.int32,
+                                                  device="cuda"),
+                                      moments(), moments()), lm, lm))}
+
+    def read():
+        return {"flash_fwd": fa_ops.launches["fwd"],
+                "flash_dq": fa_ops.launches["dq"],
+                "flash_dkv": fa_ops.launches["dkv"]}
+
+    for name, (fn, args) in programs.items():
+        fa_ops.reset_launches()
+        m = measure_step(fn, args, read)
+        ms, peak, launches = m["ms"], m["peak_bytes"], m["launches"]
+        fa_ops.reset_launches()
+        fc = full_cost(fn, *args)
+        assert not any(read().values()), "the trace moved a launch counter"
+        rep = roofline.analyze(name, chips=1, cost_analysis={
+            "flops": fc.flops, "bytes accessed": fc.bytes_accessed},
+            collective_bytes=0.0, model_flops=0.0)
+        assert rep.step_time_s <= ms / 1e3, (name, rep.step_time_s, ms)
+        alloc = fc.peak_bytes - fc.argument_bytes
+        assert abs(alloc / peak - 1.0) <= 0.15, (name, alloc, peak)
+        assert fc.kernels == launches, (name, fc.kernels, launches)

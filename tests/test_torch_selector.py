@@ -1,6 +1,5 @@
 """The port's Parallelism Selector against JAX's (port of
-``tests/test_selector.py``, but its cost-model test, which moves with the
-HLO tooling to ROADMAP Queue 1 item 12; of
+``tests/test_selector.py``; of
 ``test_core_system.py::test_selector_hook_fires_in_loop``; and of
 ``test_pipeline.py::TestPerStageSelector``).
 
@@ -15,6 +14,12 @@ HLO tooling to ROADMAP Queue 1 item 12; of
 - The engine: a one-device ``mesh_config`` binds; data and tensor
   parallelism raise naming their ROADMAP items; re-binding between two
   one-device configs leaves fp32 greedy tokens bitwise unchanged.
+- The cost-model measure (``make_cost_model_measure``, JAX's
+  ``TestCostModelMeasureIntegration``): the smoke qwen2's prefill traced
+  on a fake world of 8 profiles a full policy table; a candidate whose
+  traced peak exceeds the budget is infeasible and the policy takes the
+  other; a ``stage_fn`` that raises scores zero. In a process of its own:
+  a process holds one default process group.
 """
 import jax
 import jax.numpy as jnp
@@ -410,3 +415,87 @@ def test_bind_mesh_keeps_greedy_tokens_bitwise():
     assert eng.experience_shardings.tokens.mesh_config == b
     assert torch.equal(exp_a.tokens, exp_b.tokens)
     assert torch.equal(exp_a.logprobs, exp_b.logprobs)
+
+
+# ---------------------------------------------------------------------------
+# The cost-model measure (a fake world in a process of its own)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cost_model_profiles():
+    from test_torch_cost import run_fake
+    (out,) = run_fake("""
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.parallelism_selector import (
+    ContextBuckets, ParallelismSelector, ProfileEntry,
+    make_cost_model_measure)
+from repro_torch.core.resharding import MeshConfig
+from repro_torch.launch.dryrun import prefill_stage
+from repro_torch.models.registry import build_model
+
+model = build_model(get_smoke_config("qwen2-0.5b"))
+stage = prefill_stage(model, 8)
+rows = lambda pol: [dict(config=e.config.name, ctx=e.context_len,
+                         tgs=e.tgs, feasible=e.feasible,
+                         peak=e.peak_bytes, step=e.step_time_s)
+                    for e in pol.entries]
+out = {}
+# JAX's integration test: tp2 (dp=4) and tp4 (dp=2) on a world of 8
+sel = ParallelismSelector([MeshConfig("tp2", dp=4, tp=2),
+                           MeshConfig("tp4", dp=2, tp=4)],
+                          make_cost_model_measure(stage),
+                          ContextBuckets((64,)))
+pol = sel.profile()
+out["full"] = dict(table={b: c.name for b, c in pol.table.items()},
+                   entries=rows(pol))
+# one rank holding all 8 rows against tp2: the budget is tp2's largest
+# traced peak
+cands = [MeshConfig("one", dp=1, tp=1), MeshConfig("tp2", dp=4, tp=2)]
+free = ParallelismSelector(cands, make_cost_model_measure(stage),
+                           ContextBuckets((64,))).profile()
+budget = max(e.peak_bytes for e in free.entries if e.config.name == "tp2")
+tight = ParallelismSelector(
+    cands, make_cost_model_measure(stage, hbm_bytes=budget),
+    ContextBuckets((64,))).profile()
+out["budget"] = dict(budget=budget, free=rows(free),
+                     free_table={b: c.name for b, c in free.table.items()},
+                     tight=rows(tight),
+                     tight_table={b: c.name for b, c in tight.table.items()})
+
+def broken(config, ctx):
+    raise ValueError("no program for this mesh")
+
+e = make_cost_model_measure(broken)(MeshConfig("tp2", dp=4, tp=2), 64)
+out["broken"] = dict(tgs=e.tgs, feasible=e.feasible, peak=e.peak_bytes,
+                     ctx=e.context_len, config=e.config.name)
+emit(out)
+""")
+    return out
+
+
+def test_cost_model_measure_profiles_a_full_table(cost_model_profiles):
+    """Every entry traced for real: a full table, four feasible entries,
+    each with a positive TGS and peak."""
+    full = cost_model_profiles["full"]
+    assert set(full["table"]) == {"0", "1"}
+    assert len(full["entries"]) == 4
+    for e in full["entries"]:
+        assert e["feasible"] and e["tgs"] > 0 and e["peak"] > 0, e
+
+
+def test_cost_model_measure_marks_an_oom_candidate(cost_model_profiles):
+    """Unbudgeted, the one-rank candidate (no collectives, all 8 rows)
+    wins every bucket; under tp2's largest peak as the budget it is out of
+    memory everywhere and the policy takes tp2."""
+    b = cost_model_profiles["budget"]
+    assert set(b["free_table"].values()) == {"one"}
+    one_peaks = [e["peak"] for e in b["free"] if e["config"] == "one"]
+    assert min(one_peaks) > b["budget"]
+    for e in b["tight"]:
+        assert e["feasible"] == (e["config"] == "tp2"), e
+    assert set(b["tight_table"].values()) == {"tp2"}
+
+
+def test_cost_model_measure_scores_a_failed_trace_zero(cost_model_profiles):
+    assert cost_model_profiles["broken"] == dict(
+        tgs=0.0, feasible=False, peak=0.0, ctx=64, config="tp2")
