@@ -25,7 +25,13 @@ Phases, in order; any failure raises and exits non-zero:
                against torch's scaled_dot_product_attention and its
                autograd backward (library_ms; the port never calls it);
                the bf16 update shape reports the error one bf16 rounding
-               of P / dS would give in place of the kernels' split.
+               of P / dS would give in place of the kernels' split. The
+               forward also at a query offset (a model rank's rows of a
+               sequence split over the model axis): bf16 and fp32 at hd
+               64 and 128, an offset off the 64-row tile, a window, and
+               seq_path's four ranks' shares of a 16,384-token prompt
+               (B=1, 4,096 rows, 14/2 heads), timed beside their bound at
+               the offset and SDPA with a boolean mask.
      The decode attention kernel is held at the dense cache's shapes
                (B=32, S=256, 14/2 heads, hd 64) in bf16 and fp32 under
                four masks (a random fill, a wrapped ring with a window,
@@ -199,6 +205,17 @@ Phases, in order; any failure raises and exits non-zero:
                gradients, both ranks' new params bitwise equal, flash
                launches and peak memory (the kernels at a data row's
                shapes are in the kernels phase).
+ 19c. seq_path — sequence-parallel attention: full-width qwen2-0.5b (14
+               q heads on 4 ranks: attention replicated) at tp=4 in four
+               gloo processes sharing the card, which go once tp_path's
+               ranks have exited, beside preempt_path: one 16,384-token
+               prompt (B=1) through the paged prefill with the flash
+               kernels, the split off and on: cache and last-position
+               logits bitwise equal, the logits within 5% of one rank's
+               tp=1 prefill (or tp=1's own distance from fp32), exactly 24
+               forward launches a rank at 4,096 rows from its offset, the
+               ranks' counted FLOPs (2r+1)/16 of the replicated rank's,
+               each rank's forward ms at its inputs.
      The ssm slice (mamba2):
      kernels: ssd_scan — (in phase 3) the SSD scan kernel against ref.py
                (the model's chunked form) at the ssm_score shape (B=32,
@@ -287,6 +304,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -343,23 +361,33 @@ def kernel_profile(torch, fn, symbols, n: int = 20) -> dict:
     device microseconds, and the span from the first one's start to the
     last one's end (the span less the kernels' sum is the time the call
     spends on the device between its launches). Medians over the calls,
-    which the spins separate by about half a millisecond. The trace must
-    hold exactly ``n`` calls; one that lost kernel events (the card's
-    tracer has dropped a few on an H100) is taken again, three times at
-    most."""
+    which the spins separate by about half a millisecond. Each trace
+    follows a warm-up pass of the same ``n`` calls whose events the
+    profiler's schedule drops, as ssm_score's does. The card's tracer
+    drops a kernel's events now and then (one or two calls of 20 on an
+    H100, in three traces in a row more than once): a trace that lost
+    any is taken again, three times at most, and then the fullest is kept
+    if it holds at least ``n // 2`` calls. Only the calls with the most
+    common number of launches enter the medians, so a call that lost
+    one of its launches does not; ``calls_traced`` says how many did."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    best = []
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                flush.zero_()
-                torch.cuda._sleep(1_000_000)
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    flush.zero_()
+                    torch.cuda._sleep(1_000_000)
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         evs = sorted(((e.time_range.start, e.time_range.end, e.name)
                       for e in prof.events()
                       if e.device_type == DeviceType.CUDA
@@ -369,17 +397,25 @@ def kernel_profile(torch, fn, symbols, n: int = 20) -> dict:
             if not calls or ev[0] - calls[-1][-1][1] > 100.0:
                 calls.append([])
             calls[-1].append(ev)
+        if len(calls) > n:
+            raise AssertionError(f"kernel_profile: {len(calls)} calls of "
+                                 f"{symbols} in the trace, expected {n}")
+        if len(calls) > len(best):
+            best = calls
         if len(calls) == n:
             break
-    if len(calls) != n:
-        raise AssertionError(f"kernel_profile: {len(calls)} calls of "
-                             f"{symbols} in the trace, expected {n}")
+    whole = statistics.mode(len(c) for c in best) if best else 0
+    calls = [c for c in best if len(c) == whole]
+    if len(calls) < n // 2:
+        raise AssertionError(f"kernel_profile: {len(best)} calls of "
+                             f"{symbols} in the fullest of three traces, "
+                             f"{len(calls)} of them whole, expected {n}")
     med = statistics.median
     per_sym = {sym: med(sum(e - s0 for s0, e, nm in c if sym in nm)
                         for c in calls) for sym in symbols}
     span = med(c[-1][1] - c[0][0] for c in calls)
     return dict(launches_per_call=med(len(c) for c in calls),
-                device_us=per_sym, span_us=span,
+                calls_traced=len(calls), device_us=per_sym, span_us=span,
                 between_launches_us=med((c[-1][1] - c[0][0])
                                         - sum(e - s0 for s0, e, _ in c)
                                         for c in calls))
@@ -1151,7 +1187,8 @@ def phase_flash(torch, report):
     (forward, or its autograd backward, which computes dq, dk and dv in
     one call). At the update's bf16 shape every case also reports the
     error one bf16 rounding of its f32 A operands would give
-    (``one_rounding_errors``)."""
+    (``one_rounding_errors``). Then the forward at a query offset
+    (``offset_cases``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -1272,8 +1309,94 @@ def phase_flash(torch, report):
             cases[kname][name] = case
             emit({"phase": "kernels", "kernel": kname, "case": name, **case})
         del out_r, L_r, dq_r, dk_r, dv_r, o_lib
+    offset_cases(torch, cases["flash_fwd"], g)
     for kname, by_case in cases.items():
         report[kname] = dict(by_case["bf16"], cases=by_case)
+
+
+def offset_cases(torch, cases, g):
+    """The forward at a query offset (``models/layers.seq_parallel``): a
+    model rank's S_q query rows of a sequence of Sk keys, from position
+    ``q_offset``, causal: bf16 and fp32 at hd 64 (14/2 heads) and 128
+    (32/8) at an offset that is not a multiple of the kernel's 64-row q
+    tile (300) and one that is (512), a window of 300 from offset 700, and
+    seq_path's shares of a 16,384-token prompt (B=1, 4,096 rows, 14/2
+    heads, hd 64) at the four tp=4 ranks' offsets. Each is held against
+    ``ref.py`` (O and L, the update shape's tolerances; O's scale s is
+    the largest Σ_j p_ij |v_j| / l_i, see below) and timed beside
+    its bound from ``ops.work`` at that offset, the plain version and
+    scaled_dot_product_attention with the boolean mask of
+    ``ref.allowed_mask`` at that offset (the library time). The plain and
+    library calls at 16,384 keys are timed over 10 calls: one plain call
+    moves several GB.
+
+    O's scale: an output row O_i = Σ_j p_ij v_j / l_i is a
+    softmax-weighted mean of V's rows, and two f32 evaluations of it
+    differ by the rounding of that sum, which scales with Σ_j p_ij |v_j| /
+    l_i (the same attention of |V|), not with |O_i|. A whole sequence's
+    first row is v[0] itself, so there the two meet; a rank's rows from an
+    offset average thousands of keys, |O| falls to about 0.08 at 16,384
+    while Σ p |v| / l stays near mean |v| (about 0.8), and 2^-18 max|O| is
+    then below one f32 rounding of such a sum (on an H100 the fp32 route's
+    rows of the last rank differed from ref.py by 1.4e-6 at max|O| 0.086).
+    So s is the largest element of ``attention_fwd_ref(q, k, |v|)`` in
+    f32; each case also reports its ratio under s = max|O|
+    (``err_over_tol_o``, not gated) and the scale itself (``o_scale``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (allowed_mask,
+                                                         attention_fwd_ref)
+    dev = "cuda"
+    bf16 = (torch.bfloat16, False, 2.0 ** -7)
+    f32 = (torch.float32, True, 0.0)
+    for name, B, Sq, Sk, H, KV, hd, off, window, (dt, is_f32, rtol) in (
+            ("bf16_off300", 4, 256, 1024, 14, 2, 64, 300, 0, bf16),
+            ("fp32_off300", 4, 256, 1024, 14, 2, 64, 300, 0, f32),
+            ("bf16_hd128_off512", 4, 256, 1024, 32, 8, 128, 512, 0, bf16),
+            ("fp32_hd128_off512", 4, 256, 1024, 32, 8, 128, 512, 0, f32),
+            ("bf16_off700_w300", 4, 256, 1024, 14, 2, 64, 700, 300, bf16),
+            *((f"bf16_seq_tp4_r{r}", 1, 4096, SEQ_TOKENS, 14, 2, 64,
+               4096 * r, 0, bf16) for r in range(SEQ_WORLD))):
+        q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, Sk, KV, hd), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        kern = lambda: fa_ops.flash_attention_fwd(q, k, v, True, window, off)
+        plain = lambda: attention_fwd_ref(q, k, v, True, window, off)
+        out, L = kern()
+        out_r, L_r = plain()
+        torch.cuda.synchronize()
+        scale = lambda t: float(t.float().abs().max())
+        o_scale = scale(attention_fwd_ref(q.float(), k.float(),
+                                          v.float().abs(), True, window,
+                                          off)[0])
+        chk = [held(torch, out, out_r, 2.0 ** -18 * o_scale, rtol),
+               held(torch, L, L_r, 2.0 ** -18 * scale(L_r), 0.0)]
+        by_o = held(torch, out, out_r, 2.0 ** -18 * scale(out_r), rtol)
+        del out, L, out_r, L_r
+        case = dict(B=B, S=Sq, Sk=Sk, H=H, KV=KV, hd=hd, q_offset=off,
+                    window=window,
+                    max_abs_err=max(c["max_abs_err"] for c in chk),
+                    atol=[c["atol"] for c in chk], rtol=rtol,
+                    err_over_tol=max(c["err_over_tol"] for c in chk),
+                    err_over_tol_o=by_o["err_over_tol"], o_scale=o_scale)
+        if not all(c["ok"] for c in chk):
+            raise AssertionError(f"flash_fwd {name}: {case}")
+        mask = allowed_mask(Sq, Sk, True, window, dev, off)
+        lib = lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        n = N_TIMED if Sk <= 1024 else 10
+        nbytes, flops = fa_ops.work("fwd", B, Sq, Sk, H, KV, hd,
+                                    q.element_size(), True, window, off)
+        b_ms, b_by = bound((nbytes, flops), is_f32)
+        case.update(ms=time_cold(torch, kern), plain_ms=time_cold(
+            torch, plain, n), library_ms=time_cold(torch, lib, n),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        cases[name] = case
+        emit({"phase": "kernels", "kernel": "flash_fwd", "case": name,
+              **case})
+        del q, k, v, mask
+        torch.cuda.empty_cache()
 
 
 def phase_spec_verify(torch, report):
@@ -2829,13 +2952,15 @@ TP_BATCH = 8
 
 
 class TPWorkers:
-    """The tp path's two rank processes (``chip_smoke.py --tp-worker``),
-    started at once: each joins the gloo group and makes the seeded
-    weights on the host, then waits until ``go`` is called (or an hour
-    passes) before it touches the card's kernels. ``stop`` kills what is
-    still running and removes their directory."""
+    """The rank processes of a gloo group that shares the card
+    (``chip_smoke.py --tp-worker``: tp_path's two ranks; ``--seq-worker``:
+    seq_path's four), started at once: each joins the group (tp_path's
+    also make their seeded weights on the host), then waits until ``go``
+    is called (or an hour passes) before it touches the card's kernels.
+    ``stop`` kills what is still running, with any process a rank started,
+    and removes their directory."""
 
-    def __init__(self, world: int = 2):
+    def __init__(self, world: int = 2, flag: str = "--tp-worker"):
         import tempfile
         self.tmp = tempfile.mkdtemp()
         store = os.path.join(self.tmp, "store")
@@ -2847,7 +2972,7 @@ class TPWorkers:
         for r in range(world):
             with open(self.logs[r], "w") as f:
                 self.procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--tp-worker",
+                    [sys.executable, os.path.abspath(__file__), flag,
                      str(r), str(world), store, self.go_path], stdout=f,
                     stderr=subprocess.STDOUT))
 
@@ -2856,6 +2981,16 @@ class TPWorkers:
             self.t_go = time.perf_counter()
         with open(self.go_path, "w") as f:
             f.write("go")
+
+    def go_after(self, other: "TPWorkers") -> None:
+        """Let these ranks go once every rank of ``other`` has exited: a
+        thread polls them (and gives up if these ranks were stopped)."""
+        def wait():
+            while any(p.poll() is None for p in other.procs):
+                time.sleep(0.5)
+            if os.path.isdir(self.tmp):
+                self.go()
+        threading.Thread(target=wait, daemon=True).start()
 
     def wait(self, timeout: float):
         """Each rank's exit code and log, once all have exited."""
@@ -2869,9 +3004,10 @@ class TPWorkers:
 
     def stop(self) -> None:
         import shutil
+        from repro_torch.kernels._build import kill_tree
         for p in self.procs:
             if p.poll() is None:
-                p.kill()
+                kill_tree(p.pid)
                 p.wait()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -3520,6 +3656,152 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     return 0
 
 
+# seq_path: qwen2-0.5b's 14 q heads do not divide 4 model ranks, so the tp
+# plan replicates attention and a prompt of SEQ_TOKENS (JAX's threshold,
+# layers.SEQ_PARALLEL_MIN_S) splits its queries over the ranks
+SEQ_WORLD = 4
+SEQ_TOKENS = 16384
+
+
+def seq_worker(rank: int, world: int, store: str, go: str) -> int:
+    """One rank of phase_seq_path (``chip_smoke.py --seq-worker RANK WORLD
+    STORE GO``): joins the gloo group, waits for the file ``GO``, makes
+    qwen2-0.5b's weights from seed 0 on the host (tp_path's, in bf16),
+    runs, and prints its results as one ``SEQRESULT`` JSON line.
+
+    The rank's paged prefill of one SEQ_TOKENS-token prompt at tp=4 with
+    the flash kernels, twice: first with the split off (the module's
+    threshold set above the prompt in this process: attention replicated,
+    every rank all rows), then on (each rank its 4,096 rows at its
+    offset, gathered before the o-proj). Each run: the forward's
+    launches, the (S_q, Sk, q_offset) of each call and the FLOPs
+    ``ops.work`` counts for them, seconds and peak bytes; then whether
+    the split run's cache (every layer's K/V, the block table) and its
+    gathered last-position logits are bitwise the replicated run's. In
+    turns, one rank at a time, each times the forward at its first
+    layer's inputs of both runs (median of 20 cold calls). After the
+    group ends, rank 0 runs the whole model at tp=1 in bf16 and in fp32
+    (fp32 params and cache, the f32 SIMT kernel): the split run's logits
+    against tp=1's, and tp=1's own distance from fp32."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.resharding import MeshConfig, shard_params, tp_plan
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.tensor_parallel import TPContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    t_wait = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - t_wait > 3600:
+            return 1
+        time.sleep(0.1)
+    t_start = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    full32 = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32, device="cpu")
+    params = {k: v.bfloat16() for k, v in full32.items()}
+    if rank:
+        del full32
+    tok = torch.randint(0, cfg.vocab_size, (1, SEQ_TOKENS),
+                        generator=torch.Generator().manual_seed(3)).cuda()
+    plan = tp_plan(model, MeshConfig(f"tp{world}", 1, world))
+    tp = TPContext(plan)
+    local = shard_params(params, plan, device="cuda")
+    out = {"rank": rank, "index": tp.index, "attn": plan.attn,
+           "fallbacks": plan.fallbacks,
+           "init_seconds": time.perf_counter() - t_start}
+    fwd = fa_ops.flash_attention_fwd
+    calls, first = [], []
+
+    def recorded(q, k, v, causal=True, window=0, q_offset=0):
+        calls.append((q.shape[1], k.shape[1], int(q_offset)))
+        if not first:
+            first.append((q, k, v, int(q_offset)))
+        return fwd(q, k, v, causal, window, q_offset)
+
+    fa_ops.flash_attention_fwd = recorded
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+    def prefill(split: bool):
+        layers.SEQ_PARALLEL_MIN_S = SEQ_TOKENS if split else SEQ_TOKENS + 1
+        calls.clear()
+        first.clear()
+        fa_ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            c = transformer.init_cache(cfg, 1, SEQ_TOKENS, layout="paged",
+                                       tp=tp, device="cuda")
+            lg, c = transformer.prefill(cfg, local, tok, c,
+                                        attn_impl="flash", tp=tp)
+            lg = tp.gather_row(lg.float())
+        torch.cuda.synchronize()
+        res = dict(seconds=time.perf_counter() - t0,
+                   launches=fa_ops.launches["fwd"],
+                   shapes=sorted(set(calls)),
+                   flops=sum(fa_ops.work("fwd", 1, sq, sk, H, KV, hd, 2,
+                                         True, 0, off)[1]
+                             for sq, sk, off in calls),
+                   peak_bytes=torch.cuda.max_memory_allocated() - base)
+        return res, lg, c, first[0]
+
+    out["replicated"], lg_rep, c_rep, qkv_rep = prefill(False)
+    out["split"], lg_spl, c_spl, qkv_spl = prefill(True)
+    layers.SEQ_PARALLEL_MIN_S = SEQ_TOKENS
+    out["cache_bitwise"] = all(torch.equal(a, b) for a, b in (
+        (c_rep.kv.k, c_spl.kv.k), (c_rep.kv.v, c_spl.kv.v),
+        (c_rep.block_table, c_spl.block_table)))
+    out["logits_bitwise"] = torch.equal(lg_rep, lg_spl)
+    del c_rep, c_spl, lg_rep
+    torch.cuda.empty_cache()
+    # the forward at this rank's first-layer inputs, one rank at a time
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            for key, (q, k, v, off) in (("split", qkv_spl),
+                                        ("replicated", qkv_rep)):
+                out[key]["kernel_ms"] = time_cold(
+                    torch, lambda: fwd(q, k, v, True, 0, off), 20)
+    del qkv_rep, qkv_spl, local
+    out["seconds"] = time.perf_counter() - t_start
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        def one_rank(p, kv_dtype):
+            p = {k: v.cuda() for k, v in p.items()}
+            with torch.no_grad():
+                c = transformer.init_cache(cfg, 1, SEQ_TOKENS, layout="paged",
+                                           kv_dtype=kv_dtype, device="cuda")
+                lg, _ = transformer.prefill(cfg, p, tok, c, attn_impl="flash")
+            del p, c
+            torch.cuda.empty_cache()
+            return lg.float()
+
+        lg1 = one_rank(params, "bf16")
+        lg32 = one_rank(full32, "fp32")
+        out["tp1"] = dict(
+            max_abs_err=float((lg_spl - lg1).abs().max()),
+            scale=float(lg1.abs().max()),
+            tp1_from_f32=float((lg1 - lg32).abs().max()),
+            split_from_f32=float((lg_spl - lg32).abs().max()),
+            greedy_equal=bool((lg_spl.argmax(-1) == lg1.argmax(-1)).all()))
+        out["tp1_seconds"] = time.perf_counter() - t_start - out["seconds"]
+    print("SEQRESULT " + json.dumps(out), flush=True)
+    return 0
+
+
 def _host_weights(torch, arch, depth):
     """``arch``'s seeded weights at ``depth`` layers on the host, fp32 and
     bf16: the same on every rank."""
@@ -3773,6 +4055,86 @@ def phase_tp_path(torch, report, workers: TPWorkers):
             and all(x[f"{kv}_tp2"]["returned"] == TP_BATCH
                     for x in res for kv in ("fp32", "bf16"))):
         raise AssertionError(f"tp_path checks failed: {out}")
+
+
+def phase_seq_path(torch, report, workers: TPWorkers):
+    """Sequence-parallel attention (``models/layers.seq_parallel``) at
+    full width: qwen2-0.5b (24 layers, 14/2 heads, bf16 weights from seed
+    0) at tp=4, four gloo processes sharing the card (``seq_worker``),
+    one SEQ_TOKENS-token prompt (B=1) through the paged prefill with the
+    flash kernels, with the split off and on. The ranks start with the
+    script and go once tp_path's ranks have exited (``go_after``), beside
+    preempt_path; ``seconds`` is the wait left here and ``since_go_s``
+    the group's whole span.
+
+    Gates: the split run's cache (every layer's K/V and the block table)
+    and last-position logits bitwise the replicated run's on every rank;
+    its logits within tp_path's rule of one rank's tp=1 prefill (5% of the
+    logit scale, or tp=1's own distance from fp32 where that is larger);
+    every rank exactly 24 forward launches in each run, the split run's
+    all at 4,096 rows from the rank's offset over 16,384 keys, the
+    replicated run's at 16,384 rows; the ranks' counted forward FLOPs
+    summing to the replicated rank's, rank r's share of them (2r+1)/16
+    within 1e-3 (the causal pairs of a contiguous split). Reported: each
+    rank's FLOPs, its forward's cold ms at its inputs against the
+    replicated forward's, seconds and peak bytes."""
+    t0 = time.perf_counter()
+    workers.go()
+    codes, texts = workers.wait(timeout=600)
+    if any(codes):
+        raise AssertionError("seq_path: a rank failed:\n" + "\n".join(
+            t[-3000:] for t in texts))
+    res = [json.loads(next(ln[10:] for ln in t.splitlines()
+                           if ln.startswith("SEQRESULT ")))
+           for t in texts]
+    n = SEQ_TOKENS // SEQ_WORLD
+    full = res[0]["replicated"]["flops"]
+    shares = [x["split"]["flops"] / full for x in res]
+    t1 = res[0]["tp1"]
+    tol = max(0.05 * t1["scale"], t1["tp1_from_f32"])
+    out = dict(
+        phase="seq_path", arch="qwen2-0.5b", world=SEQ_WORLD,
+        backend="gloo", batch=1, tokens=SEQ_TOKENS,
+        attention=res[0]["attn"], fallbacks=res[0]["fallbacks"],
+        cache_bitwise=[x["cache_bitwise"] for x in res],
+        logits_bitwise=[x["logits_bitwise"] for x in res],
+        launches={k: [x[k]["launches"] for x in res]
+                  for k in ("split", "replicated")},
+        shapes={k: [x[k]["shapes"] for x in res]
+                for k in ("split", "replicated")},
+        flops={k: [x[k]["flops"] for x in res]
+               for k in ("split", "replicated")},
+        flop_shares=shares,
+        kernel_ms={k: [x[k]["kernel_ms"] for x in res]
+                   for k in ("split", "replicated")},
+        prefill_seconds={k: [x[k]["seconds"] for x in res]
+                         for k in ("split", "replicated")},
+        peak_bytes={k: [x[k]["peak_bytes"] for x in res]
+                    for k in ("split", "replicated")},
+        tp1=dict(t1, tolerance=tol),
+        worker_seconds=[x["seconds"] for x in res],
+        init_seconds=[x["init_seconds"] for x in res],
+        tp1_seconds=res[0]["tp1_seconds"],
+        seconds=time.perf_counter() - t0,
+        since_go_s=time.perf_counter() - workers.t_go)
+    emit(out)
+    report["flash_fwd"]["launches_seq_tp4"] = out["launches"]["split"]
+    ok = (all(out["cache_bitwise"]) and all(out["logits_bitwise"])
+          and [x["index"] for x in res] == list(range(SEQ_WORLD))
+          and res[0]["attn"] == "replicated"
+          and out["launches"]["split"] == [24] * SEQ_WORLD
+          and out["launches"]["replicated"] == [24] * SEQ_WORLD
+          and all(x["split"]["shapes"] == [[n, SEQ_TOKENS, r * n]]
+                  for r, x in enumerate(res))
+          and all(x["replicated"]["shapes"] == [[SEQ_TOKENS, SEQ_TOKENS, 0]]
+                  for x in res)
+          and sum(x["split"]["flops"] for x in res) == full
+          and all(x["replicated"]["flops"] == full for x in res)
+          and all(abs(sh - (2 * r + 1) / 16) <= 1e-3
+                  for r, sh in enumerate(shares))
+          and t1["max_abs_err"] <= tol)
+    if not ok:
+        raise AssertionError(f"seq_path checks failed: {out}")
 
 
 def tp_option_results(torch, res):
@@ -5767,8 +6129,9 @@ class CostModelTrace:
 
     def stop(self) -> None:
         import shutil
+        from repro_torch.kernels._build import kill_tree
         if self.proc.poll() is None:
-            self.proc.kill()
+            kill_tree(self.proc.pid)
             self.proc.wait()
         shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -5860,16 +6223,23 @@ def main() -> int:
     # every nvcc starts now; each kernel phase below waits for its own
     # sources only, so the kernels that are built run while the others
     # compile
-    t_build = time.perf_counter()
-    _build.start_all()
-    emit({"phase": "build_started", "sources": list(_build.KERNELS)})
-
-    # the tp path's two ranks start now and wait (phase_tp_path): their
-    # start-up and weight init hide under the kernel phases, as the cost
-    # model's trace (phase_cost_model) does
-    tp_workers = TPWorkers()
-    cost_trace = CostModelTrace()
+    # whatever the script starts is stopped when it ends, passed or failed:
+    # the builds still running, the ranks, the cost model's trace
+    stops = [_build.stop_all]
     try:
+        t_build = time.perf_counter()
+        _build.start_all()
+        emit({"phase": "build_started", "sources": list(_build.KERNELS)})
+
+        # the tp path's two ranks start now and wait (phase_tp_path): their
+        # start-up and weight init hide under the kernel phases, as the cost
+        # model's trace (phase_cost_model) does
+        tp_workers = TPWorkers()
+        stops.append(tp_workers.stop)
+        seq_workers = TPWorkers(SEQ_WORLD, "--seq-worker")
+        stops.append(seq_workers.stop)
+        cost_trace = CostModelTrace()
+        stops.append(cost_trace.stop)
         report = {}
         phase_kernels(torch, report)
         phase_decode(torch, report)
@@ -5908,9 +6278,13 @@ def main() -> int:
         # eager loop, gloo's staging), each process keeps its own cores,
         # and the card holds both; preempt_path's gates are not timed
         tp_workers.go()
+        # seq_path's four ranks go once tp_path's have exited, beside the
+        # rest of preempt_path
+        seq_workers.go_after(tp_workers)
         phase_preempt_path(torch, model, params, report)
         del params
         phase_tp_path(torch, report, tp_workers)
+        phase_seq_path(torch, report, seq_workers)
         # the dispatcher's and the selector's distributed code runs in a
         # process group of one rank (NCCL allows one rank per card)
         import torch.distributed as dist
@@ -5994,8 +6368,8 @@ def main() -> int:
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
     finally:
-        tp_workers.stop()
-        cost_trace.stop()
+        for stop in reversed(stops):
+            stop()
     return 0
 
 
@@ -6003,6 +6377,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                            sys.argv[5]))
+    if sys.argv[1:2] == ["--seq-worker"]:
+        sys.exit(seq_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                            sys.argv[5]))
     if sys.argv[1:2] == ["--cost-model-trace"]:
         sys.exit(cost_model_trace(sys.argv[2]))
     sys.exit(main())

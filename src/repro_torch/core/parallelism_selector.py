@@ -234,25 +234,28 @@ def make_cost_model_measure(stage_fn: Callable[[MeshConfig, int], tuple],
                             seq_tokens_fn: Callable[[int], float] = None,
                             hw=H100) -> MeasureFn:
     """A ``MeasureFn`` from ``stage_fn(config, context_len) -> (fn,
-    args)``, the stage program of the candidate's first rank and its
-    local inputs (JAX's ``lower_fn``). Each measure makes this process
-    rank 0 of a fake world of the candidate's ranks (``utils/cost.
-    start_fake_world``; a real process group refuses: measure in a process
-    of its own), calls ``stage_fn`` inside a fake mode, traces ``fn(*args)``
-    with ``full_cost`` and scores TGS with ``hw``'s roofline: tokens /
-    devices / step time, each collective serializing ``config.tp`` ring
-    hops. The candidate is infeasible where the traced peak exceeds
-    ``hbm_bytes`` (``device_memory_bytes()`` by default); an exception
-    while tracing gives a zero-TGS infeasible entry and a warning.
+    args)``, the stage program of the candidate's ``launch/mesh.
+    traced_rank`` and its local inputs (JAX's ``lower_fn``). Each measure
+    makes this process that rank of a fake world of the candidate's ranks
+    (``utils/cost.start_fake_world``; a real process group refuses: measure
+    in a process of its own), calls ``stage_fn`` inside a fake mode,
+    traces ``fn(*args)`` with ``full_cost`` and scores TGS with ``hw``'s
+    roofline: tokens / devices / step time, each collective serializing
+    ``config.tp`` ring hops. The candidate is infeasible where the traced
+    peak exceeds ``hbm_bytes`` (``device_memory_bytes()`` by default); an
+    exception while tracing gives a zero-TGS infeasible entry and a
+    warning.
 
     seq_tokens_fn(context_len) -> tokens processed per step (global); the
     TGS numerator. Defaults to context_len.
     """
+    from repro_torch.launch.mesh import traced_rank
     from repro_torch.utils import roofline
     from repro_torch.utils.cost import fake_mode, full_cost, start_fake_world
 
     def measure(config: MeshConfig, context_len: int) -> ProfileEntry:
-        start_fake_world(config.device_offset + config.n_devices)
+        start_fake_world(config.device_offset + config.n_devices,
+                         rank=traced_rank(config))
         try:
             with fake_mode():
                 fn, args = stage_fn(config, context_len)

@@ -462,12 +462,24 @@ _REPLICATED_LEAVES = ("moe.router",)
 _TP_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
+# The shortest sequence whose queries split over the model axis where the
+# plan replicates attention (``models/layers.seq_parallel``): JAX's
+# threshold, below which its reshards cost more than the split of the
+# scores saves.
+SEQ_PARALLEL_MIN_S = 16384
+
+
 def _attention_rule(H: int, KV: int, tp: int, fallbacks: list):
+    """Replicated attention splits its queries by sequence from
+    ``SEQ_PARALLEL_MIN_S`` tokens (``models/layers.seq_parallel``); the
+    fallback says so."""
+    seq = (f": replicated, its queries split by sequence from "
+           f"{SEQ_PARALLEL_MIN_S} tokens")
     if tp == 1 or H == 0:
         return "replicated", "replicated"
     if H % tp:
         fallbacks.append(("attention", f"{H} q heads do not divide {tp} "
-                                       f"ways"))
+                                       f"ways{seq}"))
         return "replicated", "replicated"
     if KV % tp == 0:
         return "split", "split"
@@ -475,7 +487,7 @@ def _attention_rule(H: int, KV: int, tp: int, fallbacks: list):
         return "split", "grouped"
     # a rank's q heads would read parts of two kv heads unevenly
     fallbacks.append(("attention", f"{H // tp} q heads a rank read {KV} kv "
-                                   f"heads unevenly"))
+                                   f"heads unevenly{seq}"))
     return "replicated", "replicated"
 
 

@@ -21,15 +21,17 @@ using namespace fa_fwd;
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and O share it).
-// head_dim 32, 64 or 128. Returns the cudaError_t of the launch.
+// head_dim 32, 64 or 128; q_off is the position of query row 0
+// (flash_fwd.cuh). Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, void* L,
                                           int B, int S, int Sk, int H, int KV,
                                           int hd, int causal, int window,
-                                          int dtype, void* stream) {
+                                          int dtype, int q_off,
+                                          void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (KV < 1 || H % KV != 0 || Sk < 1)
+  if (KV < 1 || H % KV != 0 || Sk < 1 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FA_FWD_DISPATCH(q, k, v, o, L, B, S, Sk, H, KV, causal, window, s)
+  FA_FWD_DISPATCH(q, k, v, o, L, B, S, Sk, H, KV, causal, window, q_off, s)
 }

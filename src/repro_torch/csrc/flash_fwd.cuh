@@ -9,8 +9,9 @@
 //
 // Computes: for each row b, query head h and query position i,
 //   O[b,i,h] = softmax_j(scale * q[b,i,h] . k[b,j,h/group]) v[b,j,h/group]
-//   over the keys j allowed by the mask (j < Sk; j <= i when causal;
-//   j > i - window when window > 0), and L[b,h,i] = m + log l, the
+//   over the keys j allowed by the mask (j < Sk; j <= q_off + i when
+//   causal; j > q_off + i - window when window > 0), and L[b,h,i] = m +
+//   log l, the
 //   row's softmax normaliser that the backward recomputes P from. Masked
 //   scores are the finite NEG_INF = -1e30 of the JAX kernel: a slab with no
 //   allowed key adds p = exp(0) = 1 until an allowed key arrives, and then
@@ -19,7 +20,11 @@
 //   allowed keys inside the walked range, so the result is the same.
 //   Inputs are read in the model layout (B,S,H,hd) and (B,Sk,KV,hd) by
 //   stride; O is written in that layout, L as (B,H,S) f32. O takes q's
-//   dtype (f32 or bf16).
+//   dtype (f32 or bf16). q_off is the position of query row 0: 0 for a
+//   whole sequence, r * S for model rank r's rows of a sequence split over
+//   the model axis (`models/layers.seq_parallel`), where the S queries
+//   attend to all Sk >= q_off + S keys. It may be any value: a q tile's
+//   mask, key range and full-slab test all take positions, not rows.
 //
 // What bounds it: at the update's shapes (B=32, S=256, 14/2 heads, hd 64,
 //   bf16) the causal forward does 3.8e9 flops on 34 MB, 112 flops a byte:
@@ -84,10 +89,12 @@ constexpr int kThreads = 256; // 16 x 16
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 
-// The mask of `_fa_kernel`, plus the ragged edges the TPU grid never had.
-__device__ __forceinline__ bool allowed(int qp, int kp, int S, int Sk,
-                                        int causal, int window) {
-  if (qp >= S || kp >= Sk) return false;
+// The mask of `_fa_kernel`, plus the ragged edges the TPU grid never had:
+// query row qi (position q_off + qi) against key kp.
+__device__ __forceinline__ bool allowed(int qi, int kp, int S, int Sk,
+                                        int causal, int window, int q_off) {
+  if (qi >= S || kp >= Sk) return false;
+  const int qp = q_off + qi;
   if (causal && kp > qp) return false;
   if (window > 0 && kp <= qp - window) return false;
   return true;
@@ -98,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
     fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o,
                   float* __restrict__ Lout, int S, int Sk, int H, int KV,
-                  int causal, int window, float scale) {
+                  int causal, int window, int q_off, float scale) {
   constexpr int P = HD + 1;     // padded row stride of the q/k/v tiles
   constexpr int PS = kBK + 1;   // padded row stride of the score tile
   constexpr int CJ = HD / 16;   // output columns per thread
@@ -129,8 +136,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // the slabs holding an allowed key of some row of this tile
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(Sk, q_off + q_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int j0 = lo / kBK, j1 = (hi + kBK - 1) / kBK;
 
   float m_run = kNegInf, l_run = 0.f;
@@ -180,8 +187,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < 4; ++c) {
         const int r = ty + 16 * a, cc = tx + 16 * c;
         p_s[r * PS + cc] =
-            allowed(q0 + r, k0 + cc, S, Sk, causal, window) ? sc[a][c]
-                                                            : kNegInf;
+            allowed(q0 + r, k0 + cc, S, Sk, causal, window, q_off)
+                ? sc[a][c]
+                : kNegInf;
       }
     __syncthreads();
 
@@ -263,7 +271,8 @@ __global__ void __launch_bounds__(128, HD >= 128 ? 2 : 5)
                         const __grid_constant__ CUtensorMap tm_v,
                         const __grid_constant__ CUtensorMap tm_o,
                         float* __restrict__ Lout, int S, int Sk, int H,
-                        int group, int causal, int window, float scale) {
+                        int group, int causal, int window, int q_off,
+                        float scale) {
   using namespace fa_sm90;
   constexpr int kTile = Tile<HD>::kBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -278,9 +287,10 @@ __global__ void __launch_bounds__(128, HD >= 128 ? 2 : 5)
   const int tid = threadIdx.x;
   const int w = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
 
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int hi = causal ? min(Sk, q_last + 1) : Sk;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  // positions of the tile's first and last rows
+  const int p0 = q_off + q0, p_last = q_off + min(q0 + kBQ, S) - 1;
+  const int hi = causal ? min(Sk, p_last + 1) : Sk;
+  const int lo = window > 0 ? max(0, p0 - window + 1) : 0;
   const int j0 = lo / kBK;
   const int n_slabs = (hi + kBK - 1) / kBK - j0;
 
@@ -313,8 +323,8 @@ __global__ void __launch_bounds__(128, HD >= 128 ? 2 : 5)
   int key_lo[2], key_hi[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int qp = q0 + 16 * w + g + 8 * i;
-    key_hi[i] = (qp < S ? (causal ? min(qp, Sk - 1) : Sk - 1) : -1) - 2 * t;
+    const int qi = q0 + 16 * w + g + 8 * i, qp = q_off + qi;
+    key_hi[i] = (qi < S ? (causal ? min(qp, Sk - 1) : Sk - 1) : -1) - 2 * t;
     key_lo[i] = (window > 0 ? qp - window + 1 : 0) - 2 * t;
   }
   // Scores in log2 units: p = exp2(s * scale * log2(e) - m).
@@ -344,8 +354,8 @@ __global__ void __launch_bounds__(128, HD >= 128 ? 2 : 5)
     // A slab whose every (row, key) is allowed skips the mask (block
     // uniform); otherwise masked scores become NEG_INF in log2 units.
     const bool full = q0 + kBQ <= S && k0 + kBK <= Sk &&
-                      (!causal || k0 + kBK - 1 <= q0) &&
-                      (window <= 0 || k0 > q0 + kBQ - 1 - window);
+                      (!causal || k0 + kBK - 1 <= p0) &&
+                      (window <= 0 || k0 > p0 + kBQ - 1 - window);
     float c = sl2;
     if (!full) {
 #pragma unroll
@@ -424,7 +434,7 @@ __global__ void __launch_bounds__(128, HD >= 128 ? 2 : 5)
 template <int HD>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
                 void* L, int B, int S, int Sk, int H, int KV, int causal,
-                int window, cudaStream_t stream) {
+                int window, int q_off, cudaStream_t stream) {
   constexpr int P = HD + 1;
   const size_t smem =
       (static_cast<size_t>(kBQ) * P + 2 * kBK * P + kBQ * (kBK + 1) +
@@ -438,7 +448,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(L), S, Sk, H, KV, causal, window,
+      static_cast<float*>(L), S, Sk, H, KV, causal, window, q_off,
       1.0f / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -446,7 +456,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* L, int B, int S, int Sk, int H, int KV, int causal,
-                 int window, cudaStream_t stream) {
+                 int window, int q_off, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   if (!fa_sm90::make_tile_map<HD>(&tq, q, B, S, H) ||
       !fa_sm90::make_tile_map<HD>(&tk, k, B, Sk, KV) ||
@@ -462,7 +472,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(H, B, (S + kBQ - 1) / kBQ);
   kern<<<grid, 128, smem, stream>>>(
       tq, tk, tv, to, static_cast<float*>(L), S,
-      Sk, H, H / KV, causal, window, 1.0f / sqrtf(static_cast<float>(HD)));
+      Sk, H, H / KV, causal, window, q_off,
+      1.0f / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 

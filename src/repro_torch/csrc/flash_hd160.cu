@@ -17,22 +17,24 @@
 #include "flash_fwd.cuh"
 
 // dtype codes: 0 = float32, 1 = bfloat16; head_dim 160 only. Each returns
-// the cudaError_t of its launch.
+// the cudaError_t of its launch. The forward's q_off is the position of
+// query row 0 (flash_fwd.cuh).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, void* L,
                                           int B, int S, int Sk, int H, int KV,
                                           int hd, int causal, int window,
-                                          int dtype, void* stream) {
+                                          int dtype, int q_off,
+                                          void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (hd != 160 || KV < 1 || H % KV != 0 || Sk < 1)
+  if (hd != 160 || KV < 1 || H % KV != 0 || Sk < 1 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return fa_fwd::launch_simt<160>(q, k, v, o, L, B, S, Sk, H, KV, causal,
-                                    window, s);
+                                    window, q_off, s);
   if (dtype == 1)
     return fa_fwd::launch_wgmma<160>(q, k, v, o, L, B, S, Sk, H, KV, causal,
-                                     window, s);
+                                     window, q_off, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

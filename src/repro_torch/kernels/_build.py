@@ -17,6 +17,8 @@ loads under a lock, and each wrapper bumps its launch counter under
 all at once) and returns; a later ``load`` of a source waits for its own
 build only, so a caller can run the kernels that are ready while the
 others compile. ``build_seconds`` keeps each source's nvcc wall time.
+``stop_all`` kills the builds still running (each nvcc with the compiler
+stages it started), for a caller that gives up before it loads them.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import functools
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 import time
@@ -115,6 +118,43 @@ def _start_build(name: str, nvcc: str):
     return _Job(name, cmd, tmp, out)
 
 
+def _children(pid: int):
+    """Pids whose parent is ``pid``, read from /proc."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the fields after the command name: state, then the parent's pid
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == pid:
+            out.append(int(d))
+    return out
+
+
+def kill_tree(pid: int) -> None:
+    """SIGKILL process ``pid`` and every process below it. Each process is
+    stopped before its children are listed, so none starts another that
+    the walk would miss (nvcc runs cicc and ptxas as children)."""
+    seen, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        try:
+            os.kill(p, signal.SIGSTOP)
+        except ProcessLookupError:
+            continue
+        seen.append(p)
+        todo.extend(_children(p))
+    for p in seen:
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
 def _require_cuda() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError(
@@ -133,6 +173,19 @@ def start_all() -> None:
                 job = _start_build(n, nvcc)
                 if job is not None:
                     _pending[n] = job
+
+
+def stop_all() -> None:
+    """Kill every build that ``start_all`` started and no ``load`` has
+    collected, and remove its partial output."""
+    with _load_lock:
+        jobs = list(_pending.values())
+        _pending.clear()
+    for job in jobs:
+        if job.proc.poll() is None:
+            kill_tree(job.proc.pid)
+        job._waiter.join()
+        job.tmp.unlink(missing_ok=True)
 
 
 def build_all() -> float:

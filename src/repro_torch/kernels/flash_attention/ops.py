@@ -20,6 +20,12 @@ kernels or raise — there is no fallback between the two. Under ``torch.utils.c
 backward, and that recompute launches (and counts) the forward kernel a
 second time.
 
+The forward takes ``q_offset``, the position of query row 0: a model
+rank's rows of a sequence split over the model axis
+(``models/layers.seq_parallel``) attend to the whole K/V from there. The
+backward kernels take no offset yet: ``flash_attention`` refuses an
+offset where autograd would record the call.
+
 Fake tensors (``utils/cost.full_cost``'s trace) launch nothing: each
 wrapper returns outputs of the right shapes and dtypes and reports its
 kernel's ``work`` to the cost counter, leaving the launch counters alone;
@@ -55,9 +61,9 @@ def reset_launches() -> None:
 
 
 @functools.cache
-def _bind(lib: str, fn_name: str, n_ptrs: int):
+def _bind(lib: str, fn_name: str, n_ptrs: int, n_ints: int):
     fn = getattr(_build.load(lib), fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -74,9 +80,9 @@ def _check_shapes(q, k, v):
                          f"{tuple(q.shape)} (batch, head_dim, H % KV == 0)")
 
 
-def _check_args(causal, window, *tensors):
-    """What the kernels refuse of their arguments' dtypes, shapes, devices
-    and layouts (a fake trace refuses it too)."""
+def _check_args(causal, window, *tensors, q_offset: int = 0):
+    """What the kernels refuse of their arguments' dtypes, shapes, devices,
+    layouts and query offset (a fake trace refuses it too)."""
     q, k = tensors[0], tensors[1]
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
                                           for t in tensors):
@@ -85,10 +91,13 @@ def _check_args(causal, window, *tensors):
     if q.shape[3] not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got "
                          f"{q.shape[3]}")
-    if (causal or window > 0) and q.shape[1] > k.shape[1]:
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if (causal or window > 0) and q_offset + q.shape[1] > k.shape[1]:
         raise ValueError(f"a causal or windowed query past the last key "
-                         f"(S={q.shape[1]} > Sk={k.shape[1]}) would be fully "
-                         f"masked; the kernel takes S <= Sk")
+                         f"(q_offset + S = {q_offset} + {q.shape[1]} > "
+                         f"Sk={k.shape[1]}) would be fully masked; the "
+                         f"kernel takes q_offset + S <= Sk")
     for t in tensors:
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, got "
@@ -104,36 +113,59 @@ def _check_aligned(*tensors):
                              "boundary: the kernels load them by TMA")
 
 
-def valid_pairs(S: int, Sk: int, causal: bool, window: int) -> int:
+def valid_pairs(S: int, Sk: int, causal: bool, window: int,
+                q_offset: int = 0) -> int:
     """(query, key) pairs one (row, head) attends under ``ref.py``'s
-    ``allowed_mask``: query i takes key j when j <= i (causal) and j > i -
-    window (window > 0)."""
+    ``allowed_mask``: query i, at position p = q_offset + i, takes key j
+    when j <= p (causal) and j > p - window (window > 0). Each count is
+    the one over positions ``[0, q_offset + S)`` less the one over ``[0,
+    q_offset)``."""
     if causal:
-        w = window if 0 < window < S else S
-        return w * (w + 1) // 2 + (S - w) * w
-    m = max(S - window, 0) if window > 0 else 0
-    return S * Sk - m * (m + 1) // 2
+        def upto(n):            # the pairs of positions [0, n)
+            w = window if 0 < window < n else n
+            return w * (w + 1) // 2 + (n - w) * w
+        return upto(q_offset + S) - upto(q_offset)
+
+    def masked(n):              # keys the window takes from [0, n)
+        m = max(n - window, 0) if window > 0 else 0
+        return m * (m + 1) // 2
+    return S * Sk - masked(q_offset + S) + masked(q_offset)
+
+
+def key_span(S: int, Sk: int, causal: bool, window: int,
+             q_offset: int = 0) -> int:
+    """Keys that any of the S queries from position ``q_offset`` attends:
+    ``[lo, hi)``, hi = q_offset + S when causal (else Sk) and lo =
+    q_offset - window + 1 when window > 0 (else 0), the slabs the kernels
+    walk; the rest are never read."""
+    hi = min(Sk, q_offset + S) if causal else Sk
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    return max(hi - lo, 0)
 
 
 def work(kernel: str, B: int, S: int, Sk: int, H: int, KV: int, hd: int,
-         esz: int, causal: bool = True, window: int = 0):
+         esz: int, causal: bool = True, window: int = 0, q_offset: int = 0):
     """``(bytes, flops)`` of one launch of ``kernel`` ("fwd", "dq" or
-    "dkv") at q (B,S,H,hd) and k, v (B,Sk,KV,hd) of ``esz``-byte elements:
-    each input read once and each output written once (q, k, v, O and the
-    f32 L; the backward also dO and D, and writes dq or dk and dv), and
-    4, 6 and 8·hd flops per attended (query head, key) pair."""
-    pairs = B * H * valid_pairs(S, Sk, causal, window)
-    qb, kvb, lb = B * S * H * hd * esz, B * Sk * KV * hd * esz, B * H * S * 4
-    return {"fwd": (2 * qb + 2 * kvb + lb, 4 * hd * pairs),
-            "dq": (3 * qb + 2 * kvb + 2 * lb, 6 * hd * pairs),
-            "dkv": (2 * qb + 4 * kvb + 2 * lb, 8 * hd * pairs)}[kernel]
+    "dkv") at q (B,S,H,hd) and k, v (B,Sk,KV,hd) of ``esz``-byte elements,
+    the queries from position ``q_offset``: each input read once (k and v
+    over ``key_span``) and each output written once (q, k, v, O and the
+    f32 L; the backward also dO and D, and writes dq or dk and dv over all
+    Sk), and 4, 6 and 8·hd flops per attended (query head, key) pair."""
+    pairs = B * H * valid_pairs(S, Sk, causal, window, q_offset)
+    qb, lb = B * S * H * hd * esz, B * H * S * 4
+    kvb = B * Sk * KV * hd * esz
+    kvr = B * key_span(S, Sk, causal, window, q_offset) * KV * hd * esz
+    return {"fwd": (2 * qb + 2 * kvr + lb, 4 * hd * pairs),
+            "dq": (3 * qb + 2 * kvr + 2 * lb, 6 * hd * pairs),
+            "dkv": (2 * qb + 2 * kvr + 2 * kvb + 2 * lb, 8 * hd * pairs)
+            }[kernel]
 
 
-def _report(kernel, q, k, causal, window):
+def _report(kernel, q, k, causal, window, q_offset=0):
     B, S, H, hd = q.shape
     report_kernel(f"flash_{kernel}", *work(kernel, B, S, k.shape[1], H,
                                            k.shape[2], hd, q.element_size(),
-                                           causal, window))
+                                           causal, window, q_offset))
 
 
 def _device_of(q):
@@ -143,34 +175,38 @@ def _device_of(q):
 
 
 def _dims(q, k, causal, window):
+    """The int arguments that the C entry points share; the forward's
+    take the query offset after them."""
     B, S, H, hd = q.shape
     return [B, S, k.shape[1], H, k.shape[2], hd, int(bool(causal)),
             int(window), _DTYPE_CODES[q.dtype]]
 
 
-def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd); k,v: (B,Sk,KV,hd). Returns ``(out (B,S,H,hd) in q's
-    dtype, L (B,H,S) f32)`` — the forward kernel, or ``ref.py`` on the
-    CPU."""
+def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """q: (B,S,H,hd); k,v: (B,Sk,KV,hd); query i at position ``q_offset
+    + i``. Returns ``(out (B,S,H,hd) in q's dtype, L (B,H,S) f32)`` — the
+    forward kernel, or ``ref.py`` on the CPU."""
     _check_shapes(q, k, v)
+    q_offset = int(q_offset)
     if is_fake(q):
-        _check_args(causal, window, q, k, v)
+        _check_args(causal, window, q, k, v, q_offset=q_offset)
         B, S, H, _ = q.shape
-        _report("fwd", q, k, causal, window)
+        _report("fwd", q, k, causal, window, q_offset)
         return torch.empty_like(q), q.new_empty((B, H, S),
                                                 dtype=torch.float32)
     if _device_of(q) == "cpu":
-        return attention_fwd_ref(q, k, v, causal, window)
-    _check_args(causal, window, q, k, v)
+        return attention_fwd_ref(q, k, v, causal, window, q_offset)
+    _check_args(causal, window, q, k, v, q_offset=q_offset)
     _check_aligned(q, k, v)
     B, S, H, _ = q.shape
     out = torch.empty_like(q)
     L = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    ints = _dims(q, k, causal, window) + [q_offset]
     err = _bind(_lib("flash_attention", q.shape[3]),
-                "flash_attention_fwd_launch", 5)(
+                "flash_attention_fwd_launch", 5, len(ints))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        L.data_ptr(), *_dims(q, k, causal, window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        L.data_ptr(), *ints, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_fwd")
     with _build.LAUNCH_LOCK:
         launches["fwd"] += 1
@@ -222,12 +258,12 @@ def _launch_bwd(fn_name, counter, q, k, v, dout, L, D, outs, causal,
                          "tensors go through flash_attention_bwd")
     _check_bwd(q, k, v, dout, L, D, causal, window)
     _check_aligned(q, k, v, dout)
+    ints = _dims(q, k, causal, window)
     fn = _bind(_lib("flash_attention_bwd", q.shape[3]), fn_name,
-               6 + len(outs))
+               6 + len(outs), len(ints))
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
              L.data_ptr(), D.data_ptr(), *(t.data_ptr() for t in outs),
-             *_dims(q, k, causal, window),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             *ints, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, fn_name)
     with _build.LAUNCH_LOCK:
         launches[counter] += 1
@@ -252,8 +288,8 @@ class FlashAttention(torch.autograd.Function):
     """Flash attention with its own backward (the JAX ``custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, L = flash_attention_fwd(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, L = flash_attention_fwd(q, k, v, causal, window, q_offset)
         ctx.save_for_backward(q, k, v, out, L)
         ctx.causal, ctx.window = causal, window
         return out
@@ -263,10 +299,20 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, L = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, L, ctx.causal,
                                          ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """q: (B,S,H,hd); k,v: (B,Sk,KV,hd) with H % KV == 0 -> (B,S,H,hd).
-    Differentiable in q, k and v."""
-    return FlashAttention.apply(q, k, v, causal, int(window))
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """q: (B,S,H,hd); k,v: (B,Sk,KV,hd) with H % KV == 0 -> (B,S,H,hd),
+    query i at position ``q_offset + i``. Differentiable in q, k and v at
+    ``q_offset == 0``; an offset is refused where autograd would record
+    the call (the backward kernels take none yet)."""
+    if q_offset and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            f"flash_attention at q_offset={q_offset} takes no gradient: the "
+            f"dq and dk/dv kernels take no query offset yet (ROADMAP item "
+            f"20, second part: the update's attention split over the model "
+            f"axis); run it under torch.no_grad()")
+    return FlashAttention.apply(q, k, v, causal, int(window), int(q_offset))

@@ -21,9 +21,11 @@ def _compute_dtype(dtype):
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def allowed_mask(S: int, Sk: int, causal: bool, window: int, device=None):
-    """(S, Sk) bool: query i may attend to key j."""
-    qpos = torch.arange(S, device=device)[:, None]
+def allowed_mask(S: int, Sk: int, causal: bool, window: int, device=None,
+                 q_offset: int = 0):
+    """(S, Sk) bool: query i, at position ``q_offset + i``, may attend to
+    key j."""
+    qpos = torch.arange(S, device=device)[:, None] + q_offset
     kpos = torch.arange(Sk, device=device)[None, :]
     ok = torch.ones((S, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -33,7 +35,7 @@ def allowed_mask(S: int, Sk: int, causal: bool, window: int, device=None):
     return ok
 
 
-def _scores(q, k, causal, window):
+def _scores(q, k, causal, window, q_offset: int = 0):
     """q: (B,S,H,hd), k: (B,Sk,KV,hd) -> scaled scores (B,KV,G,S,Sk) in
     the compute dtype, the allowed mask, and q reshaped (B,S,KV,G,hd)."""
     B, S, H, hd = q.shape
@@ -41,15 +43,19 @@ def _scores(q, k, causal, window):
     cd = _compute_dtype(q.dtype)
     qf = q.to(cd).reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qf, k.to(cd)) / math.sqrt(hd)
-    return s, allowed_mask(S, Sk, causal, window, q.device), qf
+    return s, allowed_mask(S, Sk, causal, window, q.device, q_offset), qf
 
 
-def attention_fwd_ref(q, k, v, causal: bool = True, window: int = 0):
+def attention_fwd_ref(q, k, v, causal: bool = True, window: int = 0,
+                      q_offset: int = 0):
     """q: (B,S,H,hd); k,v: (B,Sk,KV,hd) with H % KV == 0. Returns
     ``(out (B,S,H,hd) in q's dtype, L (B,H,S))``, L = m + log l the
-    row's softmax normaliser in the compute dtype."""
+    row's softmax normaliser in the compute dtype. Query i sits at
+    position ``q_offset + i`` (a model rank's rows of a sequence split
+    over the model axis); the result is those rows of the whole
+    sequence's."""
     B, S, H, hd = q.shape
-    s, ok, _ = _scores(q, k, causal, window)
+    s, ok, _ = _scores(q, k, causal, window, q_offset)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)

@@ -3,9 +3,13 @@
     python -m repro_torch.launch.dryrun [--arch A] [--shape S]
         [--multi-pod | --both-meshes] [--attn-impl xla] [--out DIR]
 
-Every (architecture x input shape x mesh) stage program is traced as rank
-0 of the production mesh, (16, 16) on 256 ranks or (2, 16, 16) on 512,
-on fake tensors and a fake process group (``utils/cost``): no device and
+Every (architecture x input shape x mesh) stage program is traced as the
+first data row's last model rank of the production mesh (``launch/mesh.
+traced_rank``: rank 15 of (16, 16) on 256 ranks or of (2, 16, 16) on
+512), the rank whose program sets the step where a long prefill's queries
+split over the model axis (``models/layers.seq_parallel``; every other
+program's model ranks are alike), on fake tensors and a fake process
+group (``utils/cost``): no device and
 no memory is needed, and each rank's program is the one the port runs,
 on the port's own layouts (``launch/mesh.stage_shardings``): the train
 step whole on every rank with its rows split over the data rows, prefill
@@ -39,7 +43,8 @@ from repro_torch.core.train_step import (make_lm_train_step,
                                          make_prefill_step, make_serve_step)
 from repro_torch.launch.mesh import (_batch_spec, input_specs,
                                      make_production_mesh,
-                                     production_mesh_config, stage_shardings)
+                                     production_mesh_config, stage_shardings,
+                                     traced_rank)
 from repro_torch.models.tensor_parallel import TPContext, update_group
 from repro_torch.optim.adamw import adamw
 from repro_torch.utils import roofline
@@ -93,13 +98,13 @@ def _cache_departures(cache, layouts, local, rank: int) -> list:
 def serving_program(model, kind: str, mesh_cfg: MeshConfig, params,
                     tokens, s_max: int, attn_impl: str, plan=None):
     """``(fn, args)``: the prefill (``kind`` "prefill", ``tokens``
-    (B, S)) or decode ("decode", ``tokens`` (B,)) step of the first rank of
-    ``mesh_cfg`` on a fresh cache of ``s_max`` positions, from the global
-    fake ``params`` and ``tokens``: the rank's ``plan`` shards (whole
-    params without a plan), its rows of the batch (``_batch_spec``), the
-    cache the engine makes for them, and its ``TPContext`` (collective:
-    the model-axis groups are made here)."""
-    rank = mesh_cfg.device_offset
+    (B, S)) or decode ("decode", ``tokens`` (B,)) step of ``plan``'s rank
+    (``traced_rank`` without a plan) on a fresh cache of ``s_max``
+    positions, from the global fake ``params`` and ``tokens``: the rank's
+    ``plan`` shards (whole params without a plan), its rows of the batch
+    (``_batch_spec``), the cache the engine makes for them, and its
+    ``TPContext`` (collective: the model-axis groups are made here)."""
+    rank = traced_rank(mesh_cfg) if plan is None else plan.rank
     tp = None if plan is None or mesh_cfg.tp == 1 else TPContext(plan)
     if plan is not None:
         params = tree_map(_fresh, dict(shard_params(params, plan, rank)))
@@ -115,8 +120,8 @@ def prefill_stage(model, batch: int, *, attn_impl: str = "flash",
                   dtype=torch.bfloat16):
     """A ``stage_fn`` for ``core/parallelism_selector.
     make_cost_model_measure``: ``(config, context_len) -> (fn, args)``,
-    the prefill of ``batch`` prompts of ``context_len`` tokens on the
-    first rank of ``config`` (``serving_program`` under ``tp_plan``), on
+    the prefill of ``batch`` prompts of ``context_len`` tokens on
+    ``traced_rank(config)`` (``serving_program`` under ``tp_plan``), on
     fake ``dtype`` params."""
     from repro_torch.core.resharding import tp_plan
     from repro_torch.models.param import abstract_params
@@ -126,7 +131,7 @@ def prefill_stage(model, batch: int, *, attn_impl: str = "flash",
         params = abstract_params(model.defs, dtype, device)
         tokens = torch.empty((batch, context_len), dtype=torch.int32,
                              device=device)
-        plan = tp_plan(model, config, rank=config.device_offset)
+        plan = tp_plan(model, config, rank=traced_rank(config))
         return serving_program(model, "prefill", config, params, tokens,
                                context_len, attn_impl, plan)
 
@@ -135,17 +140,18 @@ def prefill_stage(model, batch: int, *, attn_impl: str = "flash",
 
 def build_stage(arch_id: str, shape_name: str, mesh_cfg: MeshConfig, *,
                 remat=None, microbatch=0, attn_impl=None):
-    """``(fn, args, meta)``: the first rank's stage program and its local
-    inputs, fake tensors in the active fake mode, on a process group that
-    holds ``mesh_cfg``'s ranks (collective: the tp and update groups are
-    made here). ``meta``: kind, config, model, route, the layouts'
-    ``fallbacks``, the rank's param bytes."""
+    """``(fn, args, meta)``: the stage program of ``mesh_cfg``'s
+    ``traced_rank`` and its local inputs, fake tensors in the active fake
+    mode, on a process group that holds ``mesh_cfg``'s ranks, this process
+    that rank (collective: the tp and update groups are made here).
+    ``meta``: kind, config, model, route, the layouts' ``fallbacks``, the
+    rank's param bytes."""
     specs = input_specs(arch_id, shape_name, remat=remat)
     model, kind = specs["model"], specs["kind"]
     cfg = model.cfg
     fallbacks: list = []
     sh = stage_shardings(specs, mesh_cfg, fallbacks=fallbacks)
-    rank = mesh_cfg.device_offset
+    rank = traced_rank(mesh_cfg)
     attn = attn_impl_for(kind, cfg.family, attn_impl)
     extra = specs.get("extra")
     ex = (None if not extra else
@@ -189,8 +195,8 @@ def model_flops_for(cfg, kind: str, shape) -> float:
 
 def run_one(arch_id: str, shape_name: str, *, multi_pod: bool,
             remat=None, microbatch=0, attn_impl=None, verbose=True) -> dict:
-    """Trace one (arch, shape, mesh) stage program as the mesh's first rank
-    and return its row."""
+    """Trace one (arch, shape, mesh) stage program as the mesh's
+    ``traced_rank`` and return its row."""
     mesh_name = "2x16x16" if multi_pod else "16x16"
     mesh_cfg = production_mesh_config(multi_pod=multi_pod)
     make_production_mesh(multi_pod=multi_pod)

@@ -42,15 +42,25 @@ def production_mesh_config(*, multi_pod: bool = False) -> MeshConfig:
                       dp=16, tp=16, pods=2 if multi_pod else 1)
 
 
+def traced_rank(mesh_cfg: MeshConfig) -> int:
+    """The rank whose program a trace of ``mesh_cfg`` counts: the first
+    data row's last model rank. Where the model ranks run one program
+    each on shards of one size, any rank would do; where a long sequence's
+    queries split over the model axis (``models/layers.seq_parallel``),
+    the last rank holds the last rows, which attend to the most keys under
+    the causal mask, so its program sets the step."""
+    return int(mesh_cfg.ranks().reshape(-1, mesh_cfg.tp)[0, -1])
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     """The production ``DeviceMesh`` (16, 16) or (2, 16, 16) on a fake
-    world of 256 or 512 ranks, this process rank 0 (``utils/cost.
-    start_fake_world``: a fake world of another size is replaced, a real
-    one refuses). ``device_type``: the fake tensors' (``utils/cost.
-    trace_device()`` by default)."""
+    world of 256 or 512 ranks, this process its ``traced_rank`` (``utils/
+    cost.start_fake_world``: a fake world of another size or rank is
+    replaced, a real one refuses). ``device_type``: the fake tensors'
+    (``utils/cost.trace_device()`` by default)."""
     from repro_torch.utils.cost import start_fake_world, trace_device
     cfg = production_mesh_config(multi_pod=multi_pod)
-    start_fake_world(cfg.n_devices)
+    start_fake_world(cfg.n_devices, rank=traced_rank(cfg))
     return cfg.make_mesh(device_type or trace_device())
 
 
@@ -275,7 +285,8 @@ def stage_shardings(specs: Dict[str, Any], mesh_cfg: MeshConfig, *,
     ``fallbacks`` (a list) receives each departure from JAX's flat-column
     layouts: the plan's own, and the families it does not cover. The
     port shards no param over the data axis, so JAX's ``fsdp`` and
-    ``rules`` options have no counterpart."""
+    ``rules`` options have no counterpart. "plan" is the mesh's
+    ``traced_rank``'s."""
     model = specs["model"]
     fallbacks = [] if fallbacks is None else fallbacks
     rep = lambda tree: tree_map(lambda _: replicated(mesh_cfg), tree)
@@ -296,7 +307,7 @@ def stage_shardings(specs: Dict[str, Any], mesh_cfg: MeshConfig, *,
                 fallbacks.append(("family", f"{model.cfg.family}: no tp "
                                             f"plan, replicated over model"))
         else:
-            plan = tp_plan(model, mesh_cfg, rank=mesh_cfg.device_offset)
+            plan = tp_plan(model, mesh_cfg, rank=traced_rank(mesh_cfg))
             out["plan"] = plan
             out["params"] = dict(plan.layouts)
             fallbacks.extend(plan.fallbacks)

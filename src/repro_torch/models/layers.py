@@ -12,7 +12,9 @@ Tensor parallelism (``tp=``, a ``models.tensor_parallel.TPContext``): the
 head counts a caller passes are the rank's local ones, the kernels run on
 those heads, and the o-proj's and the MLP's partial sums are all-reduced
 over the model axis when their dims are split; ``embed`` and ``unembed``
-are vocab-parallel. ``tp=None`` is one rank.
+are vocab-parallel. ``tp=None`` is one rank. Where the plan replicates
+attention, a long sequence's queries split over the model axis instead
+(``seq_parallel``, JAX's ``_maybe_seq_parallel``).
 
 Paged KV pools carry ONE trash page past the end: a layer's pool is
 ``(P + 1, ps, KV, hd)`` with ``P`` real pages, and the drop sentinel
@@ -32,6 +34,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+# the threshold of ``seq_parallel``, defined beside the plan whose
+# fallbacks state it; this module's binding is the one the gate reads
+from repro_torch.core.resharding import SEQ_PARALLEL_MIN_S
 from repro_torch.models import paging
 from repro_torch.models.param import pdef
 
@@ -144,6 +149,45 @@ def causal_mask(Sq: int, Sk: int, *, q_offset: int = 0, window: int = 0,
     return torch.where(ok, 0.0, NEG_INF).float()[None, None]
 
 
+def seq_parallel(tp, S: int) -> bool:
+    """Whether a causal self-attention of ``S`` queries splits its queries
+    over the model axis (the port's ``_maybe_seq_parallel``, JAX's
+    ``models/layers.py``): at tp above 1 where ``tp``'s plan replicates
+    attention, S >= ``SEQ_PARALLEL_MIN_S`` and tp divides S. The plan
+    replicates attention where the q heads do not divide the model axis
+    (JAX's case: qwen2's 14 heads on 4 or 16 ranks) and also where a
+    rank's q heads would read their kv heads unevenly (the port's own
+    fallback, ``core/resharding._attention_rule``): both split by
+    sequence. Model rank r then takes the contiguous rows ``[r S/tp, (r+1)
+    S/tp)`` (JAX's ``constrain(q, "batch", "model", ...)``) against the
+    whole K/V (``_causal_attention``)."""
+    return (tp is not None and tp.size > 1 and not tp.attn_split
+            and S >= SEQ_PARALLEL_MIN_S and S % tp.size == 0)
+
+
+def _causal_attention(q, k, v, *, window: int, flash: bool, tp=None):
+    """Causal self-attention of q (B,S,H,hd) over k, v (B,S,KV,hd): the
+    flash forward kernel (``flash``) or ``_sdpa`` with ``causal_mask``.
+    Under ``seq_parallel`` this rank attends with its S/tp query rows
+    only, at their offset, and the rows are gathered over the model axis:
+    each row's arithmetic is the replicated run's."""
+    S = q.shape[1]
+    split = seq_parallel(tp, S)
+    off = 0
+    if split:
+        n = S // tp.size
+        off = tp.index * n
+        q = q[:, off:off + n].contiguous()
+    if flash:
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                     q_offset=off)
+    else:
+        out = _sdpa(q, k, v, causal_mask(q.shape[1], S, q_offset=off,
+                                         window=window, device=q.device))
+    return tp.gather_seq(out) if split else out
+
+
 def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                    positions=None, window: int = 0, cross_kv=None,
                    attn_impl: str = "xla", tp=None):
@@ -153,7 +197,8 @@ def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     attn_impl: "xla" runs the plain ``_sdpa`` with ``causal_mask``;
     "flash" runs the flash-attention kernels (``kernels/flash_attention``,
     forward and backward; their plain versions for CPU tensors) — the
-    port's name for what the JAX package calls "pallas" here.
+    port's name for what the JAX package calls "pallas" here. Under
+    ``seq_parallel`` the rank attends with its share of the queries.
 
     cross_kv: optional ``(k, v)``, each (B, Sk, KV, hd) — attend to those
     instead of self-derived k/v (encoder-decoder cross-attention and the
@@ -171,20 +216,16 @@ def self_attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                            device=x.device)
         out = _sdpa(q.reshape(B, S, n_heads, head_dim), k, v, mask)
         return out.reshape(B, S, n_heads * head_dim) @ p["wo"]
+    if attn_impl not in ("flash", "xla"):
+        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
+                         f"{attn_impl!r}")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    if attn_impl == "flash":
-        from repro_torch.kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
-    elif attn_impl == "xla":
-        out = _sdpa(q, k, v, causal_mask(S, S, window=window,
-                                         device=x.device))
-    else:
-        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
-                         f"{attn_impl!r}")
+    out = _causal_attention(q, k, v, window=window,
+                            flash=attn_impl == "flash", tp=tp)
     return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp)
 
 
@@ -278,26 +319,24 @@ def prefill_attention(p, x, kv: KVEntry, *, n_heads, n_kv_heads, head_dim,
                       tp=None):
     """Causal attention over the prompt x (B,S,D); writes its K/V into
     cache slots ``[0, S)`` of ``kv`` (B, s_max, KV, hd) IN PLACE.
-    attn_impl: "xla" (``_sdpa``) or "flash" (the flash forward kernel)."""
+    attn_impl: "xla" (``_sdpa``) or "flash" (the flash forward kernel).
+    Under ``seq_parallel`` the rank attends with its share of the queries
+    and still writes the whole cache."""
     B, S, _ = x.shape
     if S > kv.k.shape[1]:
         raise ValueError(f"prompt of {S} tokens does not fit a cache of "
                          f"{kv.k.shape[1]} slots")
+    if attn_impl not in ("flash", "xla"):
+        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
+                         f"{attn_impl!r}")
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     kv.k[:, :S] = k.to(kv.k.dtype)
     kv.v[:, :S] = v.to(kv.v.dtype)
-    if attn_impl == "flash":
-        from repro_torch.kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
-    elif attn_impl == "xla":
-        out = _sdpa(q, k, v, causal_mask(S, S, window=window,
-                                         device=x.device))
-    else:
-        raise ValueError(f"attn_impl must be 'flash' or 'xla', got "
-                         f"{attn_impl!r}")
+    out = _causal_attention(q, k, v, window=window,
+                            flash=attn_impl == "flash", tp=tp)
     return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp), kv
 
 
@@ -384,8 +423,12 @@ def paged_prefill_attention(p, x, kv: KVEntry, block_table, *, n_heads,
     mapped by ``transformer._paged_prefill``; unmapped entries drop into
     the trash page). The attention itself is the dense prefill's:
     attn_impl "flash" or "paged" runs the flash forward kernel, "xla"
-    ``_sdpa`` with the causal mask."""
+    ``_sdpa`` with the causal mask. Under ``seq_parallel`` the rank
+    attends with its share of the queries and still writes every page."""
     B, S, _ = x.shape
+    if attn_impl not in ("flash", "paged", "xla"):
+        raise ValueError(f"attn_impl must be 'flash', 'paged' or 'xla', got "
+                         f"{attn_impl!r}")
     P, ps = kv.k.shape[0] - 1, kv.k.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
@@ -393,14 +436,8 @@ def paged_prefill_attention(p, x, kv: KVEntry, block_table, *, n_heads,
     k = apply_rope(k, positions, rope_theta)
     pages = block_table[:, :-(-S // ps)]
     _scatter_pool(kv, torch.where(pages >= 0, pages, P), k, v)
-    if attn_impl in ("flash", "paged"):
-        from repro_torch.kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=0)
-    elif attn_impl == "xla":
-        out = _sdpa(q, k, v, causal_mask(S, S, device=x.device))
-    else:
-        raise ValueError(f"attn_impl must be 'flash', 'paged' or 'xla', got "
-                         f"{attn_impl!r}")
+    out = _causal_attention(q, k, v, window=0, flash=attn_impl != "xla",
+                            tp=tp)
     return _o_proj(p, out.reshape(B, S, n_heads * head_dim), tp), kv
 
 

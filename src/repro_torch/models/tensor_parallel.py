@@ -10,6 +10,9 @@ functions take it as ``tp=`` (None: one rank, no collective):
 
   - attention runs its kernel on the rank's heads; the o-proj's partial
     sums are all-reduced when attention is split (none when replicated);
+    replicated attention over a long sequence splits its queries instead
+    (``layers.seq_parallel``): each rank's rows, then one all-gather of
+    the rows before the o-proj (``gather_seq``);
   - the MLP all-reduces after ``w_down`` when ``d_ff`` is split;
   - a partial sum is computed in f32 and rounded once after the
     all-reduce (``row_parallel``), so a bf16 rank adds no rounding that
@@ -168,6 +171,18 @@ class TPContext:
 
     def all_reduce_sum(self, x):
         return self.all_reduce(x, "sum")
+
+    def gather_seq(self, x, dim: int = 1):
+        """The whole sequence from every rank's contiguous slice ``x`` of
+        it along ``dim`` (all slices one length, rank order): one
+        all-gather over the model axis. Exact: it moves values, adds
+        none."""
+        if self.size == 1:
+            return x
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
 
     def row_parallel(self, x, w, split: bool):
         """``x @ w`` (the o-proj, ``w_down``, ``out_proj``), whose

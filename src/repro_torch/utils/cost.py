@@ -27,7 +27,7 @@ issues:
 
 An eager trace runs every iteration of every loop, so there are no
 while-loop trip counts to correct. The counts are one rank's: a program
-traced as rank 0 of a fake world of N ranks (``start_fake_world``) holds that
+traced as rank r of a fake world of N ranks (``start_fake_world``) holds that
 rank's shards and issues its collectives. Bytes are not XLA's: XLA counts
 the operands of fused instructions, the eager program each operation.
 """
@@ -341,19 +341,20 @@ def trace_device() -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 
-def start_fake_world(n: int) -> None:
-    """Make this process rank 0 of a fake process group of ``n`` ranks:
-    collectives return at once and move nothing, so one process traces
-    rank 0's program of an ``n``-rank mesh. A process holds one default
-    group: a fake world of another size is replaced, and a real world
-    (gloo, NCCL) refuses (trace in a process of its own)."""
+def start_fake_world(n: int, rank: int = 0) -> None:
+    """Make this process rank ``rank`` of a fake process group of ``n``
+    ranks: collectives return at once and move nothing, so one process
+    traces that rank's program of an ``n``-rank mesh. A process holds one
+    default group: a fake world of another size or rank is replaced, and a
+    real world (gloo, NCCL) refuses (trace in a process of its own)."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         if dist.get_backend() != "fake":
             raise RuntimeError(
                 f"a {dist.get_backend()!r} process group is running: trace "
                 f"on a fake world in a process of its own")
-        if dist.get_world_size() == n:
+        if dist.get_world_size() == n and dist.get_rank() == rank:
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)

@@ -39,6 +39,11 @@ a pool with its trash page (f32, bf16 and int8), the decode kernel's
 the update's 8 rows of 96 and at one rank's 4 rows of 256 of a
 data-parallel update. And that update across two processes over gloo,
 at two layers, against one rank (``chip_smoke.py``'s tp_path run (e)).
+Sequence-parallel attention: the flash forward at a query offset against
+its plain version (``chip_smoke.py``'s offset cases and ragged edges),
+rows at whole-tile offsets bitwise the whole sequence's, and a
+three-process prefill over gloo of the smoke qwen2 (4 q heads on 3 ranks)
+with the split's threshold lowered, bitwise the replicated prefill's.
 """
 import dataclasses
 
@@ -784,8 +789,8 @@ def _flash_inputs(seed, B, S, H, KV, hd, dtype, device, Sk=None):
             for sh in shapes]
 
 
-def _held(out, ref, rel, dtype):
-    s = float(ref.float().abs().max())
+def _held(out, ref, rel, dtype, scale=None):
+    s = float((ref if scale is None else scale).float().abs().max())
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(out.float(), ref.float(), atol=rel * s,
                                rtol=rtol)
@@ -973,6 +978,156 @@ def test_flash_wrapper_refuses_misaligned_bf16(dev):
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.flash_attention_fwd(shifted, k, v)
+
+
+FLASH_OFFSET_CASES = {
+    # name: (B, S, Sk, H, KV, hd, window, q_offset): a model rank's S query
+    # rows of a sequence of Sk keys from position q_offset
+    # (models/layers.seq_parallel); chip_smoke.py's offset cases
+    "off300_hd64": (4, 256, 1024, 14, 2, 64, 0, 300),
+    "off512_hd128": (4, 256, 1024, 32, 8, 128, 0, 512),
+    "off700_window300": (4, 256, 1024, 14, 2, 64, 300, 700),
+    "seq_tp4_last_rank": (1, 4096, 16384, 14, 2, 64, 0, 12288),
+    # ragged rows, an offset one short of a tile, hd 32 and 160
+    "off63_ragged_s100_hd32": (2, 100, 200, 4, 2, 32, 0, 63),
+    "off65_window40": (2, 130, 300, 6, 2, 64, 40, 65),
+    "off96_hd160": (2, 128, 256, 8, 2, 160, 0, 96),
+    "off_to_the_last_key": (1, 64, 320, 14, 2, 64, 0, 256),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_OFFSET_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_at_an_offset_matches_plain_version(name, dtype, dev):
+    """O within 2^-18 s at s the largest Σ_j p_ij |v_j| / l_i, the
+    attention of |V| (chip_smoke.py's ``offset_cases`` says why: rows from
+    an offset average thousands of keys, so max|O| falls below the scale
+    of the sums whose rounding sets the error; at offset 0 the first row
+    is v[0] and the two scales meet); L at its own."""
+    B, S, Sk, H, KV, hd, window, off = FLASH_OFFSET_CASES[name]
+    q, k, v, _ = _flash_inputs(3, B, S, H, KV, hd, dtype, dev, Sk)
+    n0 = fa_ops.launches["fwd"]
+    out, L = fa_ops.flash_attention_fwd(q, k, v, True, window, off)
+    assert fa_ops.launches["fwd"] == n0 + 1
+    out_r, L_r = attention_fwd_ref(q, k, v, True, window, off)
+    sums = attention_fwd_ref(q.float(), k.float(), v.float().abs(), True,
+                             window, off)[0]
+    torch.cuda.synchronize()
+    _held(out, out_r, 2.0 ** -18, dtype, scale=sums)
+    _held(L, L_r, 2.0 ** -18, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_forward_rows_at_tile_offsets_equal_the_whole_run(dtype,
+                                                                window, dev):
+    """Three ranks' rows of 192 (offsets 0, 64, 128: whole 64-row q tiles)
+    each bitwise the rows of the whole sequence's forward: a tile walks the
+    same key slabs, masked the same way, at either offset."""
+    q, k, v, _ = _flash_inputs(4, 2, 192, 14, 2, 64, dtype, dev)
+    out, L = fa_ops.flash_attention_fwd(q, k, v, True, window)
+    for r in range(3):
+        rows = q[:, 64 * r:64 * (r + 1)].contiguous()
+        o, l = fa_ops.flash_attention_fwd(rows, k, v, True, window, 64 * r)
+        assert torch.equal(o, out[:, 64 * r:64 * (r + 1)])
+        assert torch.equal(l, L[:, :, 64 * r:64 * (r + 1)])
+
+
+def test_flash_offset_refused_past_the_last_key_and_under_autograd(dev):
+    q, k, v, _ = _flash_inputs(5, 1, 64, 4, 2, 32, torch.bfloat16, dev, 128)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa_ops.flash_attention_fwd(q, k, v, True, 0, 65)
+    with pytest.raises(ValueError, match="item 20, second part"):
+        fa_ops.flash_attention(q.requires_grad_(True), k, v, True, 0, 64)
+
+
+SEQ_WORKER = """
+import json, sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.resharding import MeshConfig, shard_params, tp_plan
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import layers, transformer
+from repro_torch.models.registry import build_model
+from repro_torch.models.tensor_parallel import TPContext
+rank = int(sys.argv[1])
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 3),
+                        rank=rank, world_size=3)
+model = build_model(get_smoke_config("qwen2-0.5b"))
+cfg = model.cfg
+full = model.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+tp = TPContext(tp_plan(model, MeshConfig("tp3", 1, 3)))
+tok = torch.randint(0, cfg.vocab_size, (2, 96),
+                    generator=torch.Generator().manual_seed(1)).cuda()
+shapes = []
+fwd = fa_ops.flash_attention_fwd
+
+
+def recorded(q, k, v, causal=True, window=0, q_offset=0):
+    shapes.append([q.shape[1], int(q_offset)])
+    return fwd(q, k, v, causal, window, q_offset)
+
+
+fa_ops.flash_attention_fwd = recorded
+out = {"attn": tp.plan.attn, "index": tp.index}
+for dt in ("float32", "bfloat16"):
+    local = shard_params({k: v.to(getattr(torch, dt)) for k, v in
+                          full.items()}, tp.plan, device="cuda")
+    runs = {}
+    for split in (False, True):
+        layers.SEQ_PARALLEL_MIN_S = 96 if split else 16384
+        shapes.clear()
+        fa_ops.reset_launches()
+        for layout in ("dense", "paged"):
+            with torch.no_grad():
+                c = model.init_cache(2, 128, layout=layout, tp=tp,
+                                     kv_dtype="fp32" if dt == "float32"
+                                     else "bf16", device="cuda")
+                lg, c = model.prefill(local, tok, c, attn_impl="flash",
+                                      tp=tp)
+            runs[(split, layout)] = (lg, c.kv.k, c.kv.v)
+        out[f"{dt}_{split}"] = dict(launches=fa_ops.launches["fwd"],
+                                    shapes=shapes[:])
+    out[f"{dt}_bitwise"] = all(
+        torch.equal(a, b) for layout in ("dense", "paged")
+        for a, b in zip(runs[(True, layout)], runs[(False, layout)]))
+print("RESULT " + json.dumps(out), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def test_seq_parallel_prefill_over_gloo_matches_replicated(dev, tmp_path):
+    """Three processes share the card over gloo: the smoke qwen2 (4 q
+    heads on 3 ranks: attention replicated) with the split's threshold
+    lowered to a 96-token prompt, the dense and paged prefills through the
+    flash forward at fp32 and bf16: every rank's cache and logits bitwise
+    the replicated run's, one forward a layer a layout, at 32 rows from
+    the rank's offset."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", SEQ_WORKER, str(r),
+                               store], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(3)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    res = [json.loads(next(ln[7:] for ln in o.splitlines()
+                           if ln.startswith("RESULT "))) for o in outs]
+    for r, x in enumerate(res):
+        assert x["attn"] == "replicated" and x["index"] == r
+        for dt in ("float32", "bfloat16"):
+            assert x[f"{dt}_bitwise"]
+            assert x[f"{dt}_True"]["launches"] == 4
+            assert x[f"{dt}_True"]["shapes"] == [[32, 32 * r]] * 4
+            assert x[f"{dt}_False"]["shapes"] == [[96, 0]] * 4
 
 
 def test_smoke_trainer_steps_launch_every_kernel_exactly(dev):

@@ -172,7 +172,7 @@ def test_stage_shardings_on_the_two_pod_mesh(arch, shape):
     else:
         plan = sh["plan"]
         assert sh["params"] == plan.layouts and plan.tp == 16
-        assert plan.index == 0
+        assert plan.index == 15          # mesh.traced_rank: rank 15
         for f in plan.fallbacks:
             assert f in fallbacks
         # the dense cache (layers, B, S, KV, hd): rows over (pod, data)

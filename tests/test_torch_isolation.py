@@ -5,6 +5,8 @@ kernel loader raises without nvcc or CUDA."""
 import ast
 import pathlib
 import re
+import subprocess
+import time
 
 import pytest
 import torch
@@ -100,3 +102,52 @@ def test_loader_raises_without_cuda(monkeypatch):
         _build.load("fused_sample")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _build.build_all()
+
+
+def _alive(pid):
+    """True while ``pid`` is a process that is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return False
+    return stat[stat.rindex(")") + 2] != "Z"
+
+
+def _tree(pid):
+    return [pid] + [d for c in _build._children(pid) for d in _tree(c)]
+
+
+def _wait_for_tree(pid, size):
+    """The pids below and at ``pid`` once ``size`` of them have started."""
+    for _ in range(100):
+        tree = _tree(pid)
+        if len(tree) >= size:
+            return tree
+        time.sleep(0.05)
+    raise AssertionError(f"{len(tree)} processes started, expected {size}")
+
+
+def test_kill_tree_kills_every_descendant():
+    p = subprocess.Popen(["bash", "-c", "sleep 300 & bash -c 'sleep 301 & "
+                          "sleep 302' & wait"])
+    tree = _wait_for_tree(p.pid, 5)
+    _build.kill_tree(p.pid)
+    p.wait()
+    time.sleep(0.2)
+    assert [pid for pid in tree if _alive(pid)] == []
+
+
+def test_stop_all_kills_the_builds_still_running(monkeypatch, tmp_path):
+    """A caller that fails before it loads the kernels leaves no compiler
+    running and no partial library behind."""
+    tmp = tmp_path / "x.123.tmp"
+    tmp.write_bytes(b"partial")
+    job = _build._Job("x", ["bash", "-c", "sleep 300 & sleep 301 & wait"],
+                      tmp, tmp_path / "x.so")
+    monkeypatch.setitem(_build._pending, "x", job)
+    tree = _wait_for_tree(job.proc.pid, 3)
+    _build.stop_all()
+    time.sleep(0.2)
+    assert [pid for pid in tree if _alive(pid)] == []
+    assert "x" not in _build._pending and not tmp.exists()

@@ -406,7 +406,9 @@ def test_plan_full_width_tp4_departs_from_param_shardings():
     assert plan.layouts["layers.mlp.w_up"].spec[-1] == "model"
     assert plan.layouts["embedding"].spec[0] == "model"
     assert plan.fallbacks == [("attention", "14 q heads do not divide 4 "
-                                            "ways")]
+                                            "ways: replicated, its queries "
+                                            "split by sequence from 16384 "
+                                            "tokens")]
     assert (plan.heads_local, plan.kv_local) == (14, 2)
 
 
