@@ -1181,8 +1181,10 @@ def phase_flash(torch, report):
     stablelm-12b's (32/8, hd 160) in bf16 and fp32, both at B=32, S=256;
     at whisper-large-v3's (20/20, group 1) in bf16 at B=16, S=256 and
     S=64, at llama-3.2-vision-11b's (32/8, hd 128) in bf16 at B=4,
-    S=64, at one rank's heads of the tp=2 rollouts, and at one rank's rows
-    of tp_path's dp=2 update (B=4, S=256, 14/2). Each is held against ``ref.py`` and timed beside its
+    S=64, at one rank's heads of the tp=2 rollouts, at one rank's rows
+    of tp_path's dp=2 update (B=4, S=256, 14/2), and at granite-moe's rows
+    a rank computes in tp_path's (f) and (g) (B=3, 2 and 1, S=256,
+    24/8). Each is held against ``ref.py`` and timed beside its
     bound, the plain version and torch's scaled_dot_product_attention
     (forward, or its autograd backward, which computes dq, dk and dv in
     one call). At the update's bf16 shape every case also reports the
@@ -1229,7 +1231,13 @@ def phase_flash(torch, report):
             ("bf16_zamba2_tp2", 8, 256, 16, 16, 64, bf16),
             # one rank's rows of tp_path's data-parallel update at dp=2
             # (run (e): 4 of 8 rows of 256 tokens)
-            ("bf16_update_dp2", 4, 256, 14, 2, 64, bf16)):
+            ("bf16_update_dp2", 4, 256, 14, 2, 64, bf16),
+            # granite-moe's straddling runs at dp=2: a rank's 3 of 6 rows
+            # in (f), and in (g) a whole 2-row slice and a rank's 1-row
+            # part of the middle one
+            ("bf16_granite_straddle", 3, 256, 24, 8, 64, bf16),
+            ("bf16_granite_slice", 2, 256, 24, 8, 64, bf16),
+            ("bf16_granite_slice_part", 1, 256, 24, 8, 64, bf16)):
         q, do = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
                  for _ in range(2))
         k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
@@ -3360,13 +3368,13 @@ UPDATE_DP_SEQ = 256
 UPDATE_DP = dict(clip_eps=0.2, kl_coef=0.05, is_rho_max=2.0)
 
 
-def update_batch(torch, vocab: int, device):
-    """Run (e)'s ``ExperienceBatch``: TP_BATCH rows of UPDATE_DP_SEQ
+def update_batch(torch, vocab: int, device, rows: int = TP_BATCH):
+    """Run (e)'s ``ExperienceBatch``: ``rows`` rows of UPDATE_DP_SEQ
     random tokens, 40% of them in the loss, with behaviour and reference
     log-probs there, from a seeded host generator."""
     from repro_torch.rl.experience import ExperienceBatch
     g = torch.Generator().manual_seed(7)
-    B, T = TP_BATCH, UPDATE_DP_SEQ
+    B, T = rows, UPDATE_DP_SEQ
     gen = torch.rand((B, T), generator=g) < 0.4
     lp = lambda: torch.where(gen, -torch.rand((B, T), generator=g) * 8 - 4,
                              0.0)
@@ -3448,6 +3456,147 @@ def update_dp(torch, model, full32, rank: int) -> dict:
             remat=model.cfg.remat)
         del grads_one
     del grads, params
+    torch.cuda.empty_cache()
+    return out
+
+
+# tp_path's runs (f) and (g): layouts whose moe dispatch groups or LM
+# microbatch slices straddle the update's two ranks, on full-width
+# granite-moe-3b-a800m (d 1,536, 24/8 heads, 40 experts top-8, V 49,155)
+# cut to STRADDLE_LAYERS of its 32 layers, in bf16 with its remat: B=6
+# rows of UPDATE_DP_SEQ tokens, 3 a rank. (f) the policy-gradient step:
+# 1,536 tokens in three 512-token groups, the middle one cut by the ranks'
+# edge; (g) the LM step in STRADDLE_MICROBATCH slices of 2 rows, one
+# 512-token group each, the middle slice (and its group) cut the same way
+STRADDLE_LAYERS = 4
+STRADDLE_ROWS = 6
+STRADDLE_MICROBATCH = 3
+
+
+def _recording(opt, log):
+    """``opt`` logging the gradients each update is given."""
+    from repro_torch.optim.adamw import Optimizer
+
+    def update(grads, state, params):
+        log.append(grads)
+        return opt.update(grads, state, params)
+    return Optimizer(init=opt.init, update=update)
+
+
+def straddle_dp(torch, weights, rank: int) -> dict:
+    """tp_path's runs (f) and (g) on one rank (both call), on ``weights``
+    (granite-moe's fp32 and bf16 host tensors at MOE_LAYERS, viewed at
+    STRADDLE_LAYERS): each step at dp=2 on this rank's 3 rows (the
+    straddling group's tokens moved between the ranks in every layer,
+    forward, backward and the remat's rerun), then on rank 0 the one-rank
+    step on all 6 rows and an f32 evaluation of the same weights. Returns
+    each run's seconds, flash launches, peak bytes above the params, loss
+    and metrics, whether both ranks' new params are bitwise equal, and
+    (rank 0) each leaf's largest gradient error between the dp=2 run, the
+    one-rank run and the f32 evaluation, absolute and over the f32 leaf's
+    largest |g| (the gradients AdamW is given: (g)'s are the slices' f32
+    sums over ``microbatch``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.resharding import MeshConfig
+    from repro_torch.core.train_step import (make_lm_train_step,
+                                             make_rl_train_step)
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.tensor_parallel import update_group
+    from repro_torch.models.transformer import draft_params_view
+    from repro_torch.optim.adamw import adamw, apply_updates
+    from repro_torch.rl.experience import ExperienceBatch
+    reset, read = _tp_counters()
+    model = build_model(dataclasses.replace(
+        get_config("granite-moe-3b-a800m"), n_layers=STRADDLE_LAYERS))
+    opt = adamw(1e-3, weight_decay=0.0)
+    rl = make_rl_train_step(model, opt, attn_impl="flash", **UPDATE_DP)
+    full32, full16 = (draft_params_view(w, STRADDLE_LAYERS)
+                      for w in weights)
+    params = {k: v.to(DP_DEVICE) for k, v in full16.items()}
+    batch = update_batch(torch, model.cfg.vocab_size, DP_DEVICE,
+                         STRADDLE_ROWS)
+    tokens = batch.tokens.long()
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    h = STRADDLE_ROWS // 2
+    group = update_group(MeshConfig(*DP2))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset()
+        t0 = time.perf_counter()
+        loss, metrics, grads, new = fn()
+        torch.cuda.synchronize()
+        res = dict(seconds=time.perf_counter() - t0, launches=read(),
+                   peak_bytes=torch.cuda.max_memory_allocated() - base,
+                   loss=float(loss),
+                   metrics={k: float(v) for k, v in metrics.items()})
+        return res, grads, new
+
+    def rl_step(p, rows, g):
+        def fn():
+            (loss, metrics), grads = rl.grads_of(p, rows, group=g)
+            updates, _ = opt.update(grads, opt.init(p), p)
+            return loss, metrics, grads, apply_updates(p, updates)
+        return timed(fn)
+
+    def lm_step(p, rows, g):
+        def fn():
+            log = []
+            step = make_lm_train_step(model, _recording(opt, log),
+                                      attn_impl="flash",
+                                      microbatch=STRADDLE_MICROBATCH)
+            new, _, metrics = step(p, opt.init(p), tokens[rows],
+                                   labels[rows], group=g)
+            return metrics["loss"], metrics, log[0], new
+        return timed(fn)
+
+    # the dp=2 runs first, so that each rank's seconds are its own; then
+    # rank 0's references. The card's bytes in use by every process
+    # (beside preempt_path's) before and after them
+    free, total = torch.cuda.mem_get_info()
+    out, held = {"card_used_bytes": [total - free]}, {}
+    for name, run, mine in (
+            ("f", rl_step, ExperienceBatch(*(x[rank * h:(rank + 1) * h]
+                                             for x in batch))),
+            ("g", lm_step, slice(rank * h, (rank + 1) * h))):
+        dp, grads, new = run(params, mine, group)
+        t0 = time.perf_counter()
+        dp["params_equal"] = _same_on_ranks(torch, new)
+        dp["compare_seconds"] = time.perf_counter() - t0
+        del new
+        out[name] = {"dp": dp}
+        if rank == 0:
+            held[name] = grads
+        del grads
+    free, total = torch.cuda.mem_get_info()
+    out["card_used_bytes"].append(total - free)
+    for name, run, everything in (("f", rl_step, batch),
+                                  ("g", lm_step, slice(None))):
+        if rank:
+            break
+        grads = held.pop(name)
+        one, grads_one, new = run(params, everything, None)
+        del new
+        p32 = {k: v.to(DP_DEVICE) for k, v in full32.items()}
+        _, g32, new = run(p32, everything, None)
+        del p32, new
+        pairs = {"dp_vs_one": (grads, grads_one), "dp_vs_f32": (grads, g32),
+                 "one_vs_f32": (grads_one, g32)}
+        absolute = {n: {k: float((a[k].float() - b[k].float()).abs().max())
+                        for k in b} for n, (a, b) in pairs.items()}
+        errs = {n: {k: e / float(g32[k].abs().max().clamp_min(1e-30))
+                    for k, e in d.items()} for n, d in absolute.items()}
+        del g32, grads_one, grads
+        torch.cuda.empty_cache()
+        worst = {n: max(e, key=e.get) for n, e in errs.items()}
+        out[name].update(one=one, grad_abs=absolute, grad_errs=errs,
+                         grad_worst={n: [k, errs[n][k]]
+                                     for n, k in worst.items()})
+    out["remat"] = model.cfg.remat
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -3637,6 +3786,10 @@ def tp_worker(rank: int, world: int, store: str, go: str) -> int:
     t0 = time.perf_counter()
     out["update_dp"] = update_dp(torch, model, full32, rank)
     out["update_dp_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["straddle"] = straddle_dp(torch, weights["granite-moe-3b-a800m"],
+                                  rank)
+    out["straddle_seconds"] = time.perf_counter() - t0
     out["families"] = {}
     for arch, depth in _tp_families():
         t0 = time.perf_counter()
@@ -3973,7 +4126,11 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     Last of the dp runs, (e) the update step alone at dp=2 on full-width
     qwen2-0.5b in bf16, each rank 4 of 8 rows of 256 tokens, the
     gradients summed over the ranks, against rank 0's one-rank update
-    (``update_dp``, gated by ``update_dp_results``)."""
+    (``update_dp``, gated by ``update_dp_results``); then (f) and (g), the
+    layouts whose moe dispatch group or LM microbatch slice straddles the
+    two ranks, on full-width granite-moe-3b-a800m at STRADDLE_LAYERS, each
+    against rank 0's one-rank step (``straddle_dp``, gated by
+    ``straddle_results``)."""
     t0 = time.perf_counter()
     workers.go()
     codes, texts = workers.wait(timeout=900)
@@ -4047,6 +4204,9 @@ def phase_tp_path(torch, report, workers: TPWorkers):
     for k in ("flash_fwd", "flash_dq", "flash_dkv"):
         report[k]["launches_dp2_update"] = [
             x["update_dp"]["dp"]["launches"][k] for x in res]
+        report[k]["launches_dp2_straddle"] = {
+            n: [x["straddle"][n]["dp"]["launches"][k] for x in res]
+            for n in ("f", "g")}
     if not (same_tokens and lp_err <= 1e-4 and ref_err <= 1e-2
             and launches_ok and families_ok and options_ok and dp_ok
             and dp_options_ok
@@ -4272,6 +4432,7 @@ def tp_dp_results(torch, res):
     axis: each launched the flash backward as often as the one-rank run)
     and their final params are bitwise equal.
     (e) update_dp (``update_dp_results``).
+    (f) and (g) straddle_dp (``straddle_results``).
     Reported: each run's seconds and each rank's peak memory against
     dp=1's."""
     T = torch.tensor
@@ -4355,9 +4516,12 @@ def tp_dp_results(torch, res):
     ok &= row_ok
     out["update"], row_ok = update_dp_results(res)
     ok &= row_ok
+    out["straddle"], row_ok = straddle_results(res)
+    ok &= row_ok
     out["seconds"] = {f"rank{r}": {"dp": x["dp_seconds"],
                                    "train": x["dp_train_seconds"],
-                                   "update": x["update_dp_seconds"]}
+                                   "update": x["update_dp_seconds"],
+                                   "straddle": x["straddle_seconds"]}
                       for r, x in enumerate(res)}
     return out, ok
 
@@ -4409,6 +4573,76 @@ def update_dp_results(res):
                  "one_rank": one["seconds"]},
         within_budget=all(x["seconds"] <= 30 for x in dp),
         compare_seconds=[x["compare_seconds"] for x in dp]), row_ok
+
+
+def straddle_results(res):
+    """Runs (f) and (g) (``straddle_dp``) from both ranks' results, by run
+    (e)'s rule: the dp=2 loss (the ranks' shares summed) and (f)'s
+    ``aux_loss`` within 1e-5 of the one-rank run's, relative, and equal on
+    both ranks; both ranks' new params bitwise equal; the gradients,
+    leaf by leaf, no further from the one-rank run's than the one-rank
+    run's lie from an f32 evaluation of the same weights (bf16's own
+    noise); each rank's flash launches exact: (f) a dq and a dk/dv a layer
+    (the forward once more a layer under full remat), as one rank's; (g)
+    the same for each slice a rank holds rows of, two of the three (one
+    whole, its part of the middle one), against three on one rank.
+    Reported: each leaf's largest error over its largest |g| for the
+    three pairs, each run's seconds on each rank (the budget is 30 s a
+    rank for both runs), each rank's peak bytes above the params against
+    the one-rank run's, the bitwise comparison's seconds, and the card's
+    bytes in use by every process (preempt_path's beside the ranks')
+    before and after each rank's dp=2 runs."""
+    r0 = res[0]["straddle"]
+    layers = STRADDLE_LAYERS * (2 if r0["remat"] == "full" else 1)
+    want = lambda n: {"flash_fwd": n * layers,
+                      "flash_dq": n * STRADDLE_LAYERS,
+                      "flash_dkv": n * STRADDLE_LAYERS}
+    rel = lambda a, b: abs(a - b) / abs(b)
+    out, ok = {}, True
+    for name, held, total in (("f", 1, 1), ("g", 2, STRADDLE_MICROBATCH)):
+        one = r0[name]["one"]
+        dp = [x["straddle"][name]["dp"] for x in res]
+        launches = {f"rank{r}": {k: x["launches"][k] for k in want(1)}
+                    for r, x in enumerate(dp)}
+        launches["one_rank"] = {k: one["launches"][k] for k in want(1)}
+        errs = {"loss": rel(dp[0]["loss"], one["loss"])}
+        if name == "f":
+            errs["aux_loss"] = rel(dp[0]["metrics"]["aux_loss"],
+                                   one["metrics"]["aux_loss"])
+        g = r0[name]["grad_abs"]
+        within_noise = {k: g["dp_vs_one"][k] <= g["one_vs_f32"][k]
+                        for k in g["dp_vs_one"]}
+        row_ok = (all(e <= 1e-5 for e in errs.values())
+                  and all(within_noise.values())
+                  and all(x["params_equal"] is True for x in dp)
+                  and dp[0]["loss"] == dp[1]["loss"]
+                  and launches == {"rank0": want(held), "rank1": want(held),
+                                   "one_rank": want(total)})
+        out[name] = dict(
+            ok=row_ok, rows=STRADDLE_ROWS, seq=UPDATE_DP_SEQ,
+            layers=STRADDLE_LAYERS, loss=dp[0]["loss"],
+            loss_one_rank=one["loss"], rel_err=errs,
+            metrics=dp[0]["metrics"], metrics_one_rank=one["metrics"],
+            grad_err_over_scale=r0[name]["grad_errs"],
+            grad_worst=r0[name]["grad_worst"],
+            grads_within_bf16_noise=within_noise,
+            params_equal=dp[0]["params_equal"], launches=launches,
+            peak_bytes={"rank0": dp[0]["peak_bytes"],
+                        "rank1": dp[1]["peak_bytes"],
+                        "one_rank": one["peak_bytes"]},
+            peak_ratio=[x["peak_bytes"] / one["peak_bytes"] for x in dp],
+            seconds={"rank0": dp[0]["seconds"], "rank1": dp[1]["seconds"],
+                     "one_rank": one["seconds"]},
+            compare_seconds=[x["compare_seconds"] for x in dp])
+        ok &= row_ok
+    rank_s = [sum(x["straddle"][n]["dp"]["seconds"]
+                  + x["straddle"][n]["dp"]["compare_seconds"]
+                  for n in ("f", "g")) for x in res]
+    out.update(remat=r0["remat"], rank_seconds=rank_s,
+               within_budget=all(t <= 30 for t in rank_s),
+               card_used_bytes=[x["straddle"]["card_used_bytes"]
+                                for x in res])
+    return out, ok
 
 
 def dp_option_results(torch, res):

@@ -13,17 +13,20 @@ process group of an update whose batch rows are split over its ranks
 (``models.tensor_parallel.update_group``), as GSPMD runs JAX's jitted
 step on a batch laid over ``data``. Each rank computes on its rows, and
 the step equals the global batch's: the token denominators are the
-global counts, the moe aux loss is shared by the global batch's dispatch
-groups, and the gradients are summed over the group in f32 and rounded
-once to the param dtype before the optimizer (so the global-norm clip
-sees the global gradients, and every rank takes the same step). The loss
-and metrics are summed the same way.
+global counts, the moe layers route the global batch's dispatch groups
+(a group that straddles ranks moves between them) and share the aux loss
+by them, the microbatch slices are the global batch's, and the gradients
+are summed over the group in f32 and rounded once to the param dtype
+before the optimizer (so the global-norm clip sees the global gradients,
+and every rank takes the same step). The loss and metrics are summed the
+same way.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.tensor_parallel import UpdateSplit, update_split
 from repro_torch.optim.adamw import Optimizer, apply_updates
 from repro_torch.rl.algo import policy_gradient_loss, token_logprobs
 from repro_torch.rl.experience import ExperienceBatch
@@ -37,14 +40,24 @@ def lm_loss(model, params, tokens, labels, *, extra=None,
     {"lm_loss", "n_tokens"})``. With ``group`` (the module docstring's)
     the denominator and ``n_tokens`` are the global count, and the loss
     is this rank's share."""
+    return _lm_loss(model, params, tokens, labels, extra, attn_impl,
+                    update_split(group, tokens.shape[0]))
+
+
+def _lm_loss(model, params, tokens, labels, extra, attn_impl, split,
+             n_tokens=None):
+    """``lm_loss`` on this rank's rows of ``split`` (an
+    ``UpdateSplit``, or None for one rank). ``n_tokens``: the global
+    count of ``labels >= 0``, where the caller has reduced it already;
+    else it is counted here and summed over the split's group."""
     logits, aux = model.forward(params, tokens, extra=extra,
-                                attn_impl=attn_impl,
-                                data_shards=_shards(group))
+                                attn_impl=attn_impl, split=split)
     mask = (labels >= 0).float()
     tok_lp = token_logprobs(logits, labels.clamp(min=0))
-    n_tokens = mask.sum()
-    if group is not None:
-        dist.all_reduce(n_tokens, group=group)
+    if n_tokens is None:
+        n_tokens = mask.sum()
+        if split is not None:
+            dist.all_reduce(n_tokens, group=split.group)
     denom = n_tokens.clamp(min=1.0)
     loss = -(tok_lp * mask).sum() / denom
     if "aux_loss" in aux:
@@ -129,45 +142,31 @@ def make_lm_train_step(model, optimizer: Optimizer, *,
     ``lm_loss``'s plus ``"loss"``. Metrics are 0-dim device tensors.
 
     With ``group`` (the module docstring's) B is the global batch's rows,
-    these ``tokens`` one rank's share of them; the microbatch slices are
-    the global batch's, each whole on one rank, so ``microbatch`` must be
-    a multiple of the group's size (else ``ValueError``)."""
-
-    def grads_of(p, tokens, labels, extra, group=None):
-        return _grads(lambda leaves: lm_loss(
-            model, leaves, tokens, labels, extra=extra,
-            attn_impl=attn_impl, group=group), p)
+    these ``tokens`` one rank's share of them, and the microbatch slices
+    are the global batch's, rows ``[i mb, (i+1) mb)`` with ``mb = B /
+    microbatch``, each scored by its own mean, as in JAX's one program.
+    Where ``microbatch`` is a multiple of the group's size each slice lies
+    whole on one rank, which runs its slices as the one-rank step does.
+    Else a slice can straddle ranks (``_straddling_slices``)."""
 
     def train_step(params, opt_state, tokens, labels, extra=None,
                    group=None):
         D = _shards(group)
         B = tokens.shape[0]
         if microbatch > 1 and (B * D) % microbatch == 0:
-            if microbatch % D:
-                raise ValueError(
-                    f"{microbatch} microbatches of a batch split over {D} "
-                    f"ranks: a slice would straddle two ranks")
-            mb = B // (microbatch // D)
-            grads = {k: torch.zeros(v.shape, dtype=torch.float32,
-                                    device=v.device)
-                     for k, v in params.items()}
-            loss = None
-            for i in range(microbatch // D):
-                sl = slice(i * mb, (i + 1) * mb)
-                ex = (None if extra is None
-                      else {k: v[sl] for k, v in extra.items()})
-                (l_i, _), g = grads_of(params, tokens[sl], labels[sl], ex)
-                for k in grads:
-                    grads[k] += g[k].float()
-                loss = l_i.float() if loss is None else loss + l_i
+            slices = (_straddling_slices if microbatch % D
+                      else _whole_slices)
+            grads, loss = _accumulate(params, slices(
+                model, tokens, labels, extra, attn_impl, microbatch, group))
             grads = sum_grads(grads, group)
             loss = _sum_metrics({"loss": loss}, group)["loss"]
             grads = {k: g / microbatch for k, g in grads.items()}
             loss = loss / microbatch
             metrics = {"lm_loss": loss}
         else:
-            (loss, metrics), grads = grads_of(params, tokens, labels, extra,
-                                              group)
+            (loss, metrics), grads = _grads(lambda leaves: lm_loss(
+                model, leaves, tokens, labels, extra=extra,
+                attn_impl=attn_impl, group=group), params)
             grads = sum_grads(grads, group)
             metrics = _sum_metrics(dict(metrics, loss=loss), group,
                                    keep=("n_tokens",))
@@ -179,6 +178,73 @@ def make_lm_train_step(model, optimizer: Optimizer, *,
         return params2, opt_state2, metrics
 
     return train_step
+
+
+def _whole_slices(model, tokens, labels, extra, attn_impl,
+                  microbatch: int, group):
+    """The loss functions of the microbatch slices this rank holds whole
+    (``microbatch`` a multiple of ``group``'s size), in order: each the
+    one-rank ``lm_loss`` of its rows."""
+    mb = tokens.shape[0] * _shards(group) // microbatch
+    out = []
+    for i in range(tokens.shape[0] // mb):
+        sl = slice(i * mb, (i + 1) * mb)
+        ex = None if extra is None else {k: v[sl] for k, v in extra.items()}
+        out.append(lambda leaves, sl=sl, ex=ex: lm_loss(
+            model, leaves, tokens[sl], labels[sl], extra=ex,
+            attn_impl=attn_impl))
+    return out
+
+
+def _straddling_slices(model, tokens, labels, extra, attn_impl,
+                       microbatch: int, group):
+    """The loss functions of the microbatch slices this rank holds rows
+    of, in order, where slices straddle the ranks of ``group``
+    (``microbatch`` not a multiple of its size): every slice's global
+    count of ``labels >= 0`` is summed over the group here, in one
+    all-reduce; each function is this rank's part of a slice, on its rows
+    of it, with the slice's global count as the denominator and the
+    slice's own ``UpdateSplit`` (a moe dispatch group of the slice that
+    straddles ranks moves between them, ``moe.moe_mlp``). A rank that
+    holds no row of a slice computes nothing for it, and no transfer of
+    the slice involves it."""
+    D, me, B = _shards(group), dist.get_rank(group), tokens.shape[0]
+    mb, first = B * D // microbatch, me * B
+    # the rows each rank holds of each slice
+    spans = [tuple(max(0, min((i + 1) * mb, (r + 1) * B)
+                       - max(i * mb, r * B)) for r in range(D))
+             for i in range(microbatch)]
+    of_row = torch.div(torch.arange(first, first + B, device=labels.device),
+                       mb, rounding_mode="floor")
+    counts = torch.zeros((microbatch,), dtype=torch.float32,
+                         device=labels.device).index_add_(
+        0, of_row, (labels >= 0).float().sum(dim=1))
+    dist.all_reduce(counts, group=group)
+    out = []
+    for i, rows in enumerate(spans):
+        if not rows[me]:
+            continue
+        lo = max(i * mb, first) - first
+        sl = slice(lo, lo + rows[me])
+        ex = None if extra is None else {k: v[sl] for k, v in extra.items()}
+        out.append(lambda leaves, sl=sl, ex=ex, i=i, rows=rows: _lm_loss(
+            model, leaves, tokens[sl], labels[sl], ex, attn_impl,
+            UpdateSplit(group, me, rows), n_tokens=counts[i]))
+    return out
+
+
+def _accumulate(params, losses):
+    """The gradients of each of ``losses`` (functions of the param
+    leaves) summed in f32, one after another, and their losses summed."""
+    grads = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+             for k, v in params.items()}
+    loss = None
+    for fn in losses:
+        (l_i, _), g = _grads(fn, params)
+        for k in grads:
+            grads[k] += g[k].float()
+        loss = l_i.float() if loss is None else loss + l_i
+    return grads, loss
 
 
 def make_rl_train_step(model, optimizer: Optimizer, *, clip_eps: float = 0.0,
@@ -197,9 +263,9 @@ def make_rl_train_step(model, optimizer: Optimizer, *, clip_eps: float = 0.0,
 
     def grads_of(params, batch: ExperienceBatch, extra=None, group=None):
         def loss_fn(leaves):
-            logits, aux = model.forward(leaves, batch.tokens, extra=extra,
-                                        attn_impl=attn_impl,
-                                        data_shards=_shards(group))
+            logits, aux = model.forward(
+                leaves, batch.tokens, extra=extra, attn_impl=attn_impl,
+                split=update_split(group, batch.tokens.shape[0]))
             lp = token_logprobs(logits[:, :-1], batch.tokens[:, 1:])
             del logits
             loss, metrics = policy_gradient_loss(

@@ -33,6 +33,11 @@ every rank routes the whole group, gets the same capacity slots and drops
 the same tokens; it fills and runs only its experts' buffers, and the
 combine's partial sums, in f32, are all-reduced and rounded once
 (``TPContext.partial_sum``).
+
+A data-parallel update (``forward(split=)``) routes the global batch's
+dispatch groups, as JAX's one program does: a group that straddles the
+update's ranks is routed whole on each of them, its other tokens moved in
+(``moe_mlp``, ``_GroupEdges``).
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.param import pdef
-from repro_torch.models.tensor_parallel import heads as _heads
+from repro_torch.models.tensor_parallel import exchange, heads as _heads
 from repro_torch.models.transformer import (_chunk_logits, layer_params,
                                             scan_body_over)
 
@@ -77,7 +82,7 @@ MOE_GROUP_TOKENS = 512     # GShard group size: capacity tensors are
                            # O(T^2 * E) per group, so T must stay bounded
 
 
-def moe_mlp(cfg: ModelConfig, p, x, tp=None, *, data_shards: int = 1):
+def moe_mlp(cfg: ModelConfig, p, x, tp=None, *, split=None):
     """x: (B, S, D) -> (out (B,S,D), aux_loss scalar).
 
     Tokens are regrouped into ``MOE_GROUP_TOKENS``-sized dispatch groups
@@ -86,29 +91,119 @@ def moe_mlp(cfg: ModelConfig, p, x, tp=None, *, data_shards: int = 1):
     into one group per row of ``S``. Under ``tp`` ``p`` holds the rank's
     experts and the output is summed over the ranks.
 
-    ``data_shards`` > 1: ``x`` is one rank's rows of a batch split over
-    that many ranks (a data-parallel update). The groups are the global
-    batch's, chosen from its ``B*S`` tokens, and the aux loss is this
-    rank's share of their mean (its mean over its own groups, divided by
-    ``data_shards``). A 512-token group that would straddle two ranks is
-    refused with a ``ValueError``."""
+    ``split`` (a ``models.tensor_parallel.UpdateSplit``): ``x`` is one
+    rank's rows of a batch split over a data-parallel update's ranks. The
+    groups are the global batch's, cut from its tokens in row-major order,
+    as JAX's one program cuts them. A group that straddles ranks is routed
+    whole by every rank that holds one of its tokens (capacity slots are a
+    running count over the group): the other ranks' tokens of the groups
+    at this rank's edges come in by ``_GroupEdges``, and the rank keeps
+    its own tokens' outputs. The aux loss is this rank's share of the mean
+    over the global groups: each group's term weighted by the share of its
+    tokens the rank holds."""
     B_, S_, D_ = x.shape
-    Tg = (MOE_GROUP_TOKENS
-          if (B_ * data_shards * S_) % MOE_GROUP_TOKENS == 0 else S_)
-    if (B_ * S_) % Tg:
-        raise ValueError(
-            f"the update splits {B_ * data_shards} rows of {S_} tokens over "
-            f"{data_shards} ranks: the global batch forms "
-            f"{MOE_GROUP_TOKENS}-token dispatch groups, and a rank's "
-            f"{B_ * S_} tokens do not divide into them, so a group would "
-            f"straddle two ranks")
-    x = x.reshape(B_ * S_ // Tg, Tg, D_)
-    out, aux = _moe_mlp_grouped(cfg, p, x, tp)
+    rows = (B_,) if split is None else split.rows
+    Tg = _group_tokens(sum(rows) * S_, S_)
+    a = 0 if split is None else S_ * split.first_row()
+    b = a + B_ * S_
+    lo, hi = a - a % Tg, -(-b // Tg) * Tg
+    straddles = (lo, hi) != (a, b)
+    xg = (_GroupEdges.apply(x.reshape(B_ * S_, D_), split, S_, Tg)
+          if straddles else x)
+    out, aux = _moe_mlp_grouped(cfg, p, xg.reshape(-1, Tg, D_), tp,
+                                per_group=straddles)
     if _split(tp):
         out = tp.partial_sum(out, x.dtype)
-    if data_shards > 1:
-        aux = aux / data_shards
+    n_groups = sum(rows) * S_ // Tg
+    if straddles:
+        out = out.reshape(hi - lo, D_)[a - lo:b - lo]
+        # each group's term weighted by the share of its tokens held here
+        starts = torch.arange(lo, hi, Tg, dtype=aux.dtype, device=aux.device)
+        held = ((starts + Tg).clamp(max=b) - starts.clamp(min=a)) / Tg
+        aux = cfg.moe.n_experts * (aux * held).sum() / n_groups
+    elif split is not None:
+        # the mean over this rank's whole groups, as a share of the
+        # global mean
+        aux = aux / (n_groups / (B_ * S_ // Tg))
     return out.reshape(B_, S_, D_), aux
+
+
+def _group_tokens(n_tokens: int, seq: int) -> int:
+    """Tokens a dispatch group of a batch of ``n_tokens`` tokens in rows of
+    ``seq`` holds: ``MOE_GROUP_TOKENS`` when they divide into it, else
+    one row."""
+    return MOE_GROUP_TOKENS if n_tokens % MOE_GROUP_TOKENS == 0 else seq
+
+
+def edge_transfers(split, seq: int, group_tokens: int):
+    """The token ranges ``moe_mlp`` moves between the ranks of ``split``
+    so that every rank holds every group it has a token of, whole:
+    ``(src, dst, lo, hi)``, rank ``src``'s global tokens ``[lo, hi)`` of
+    the groups that cross rank ``dst``'s edges, in one order on every
+    rank. Only ranks whose groups straddle send or receive; a rank that
+    holds at least one whole group gets at most ``group_tokens - 1``
+    tokens on each side."""
+    ends = [seq * split.first_row(r) for r in range(len(split.rows) + 1)]
+    out = []
+    for dst in range(len(split.rows)):
+        a, b = ends[dst], ends[dst + 1]
+        if a == b:
+            continue
+        lo = a - a % group_tokens
+        hi = -(-b // group_tokens) * group_tokens
+        for src in range(len(split.rows)):
+            s_lo, s_hi = max(ends[src], lo), min(ends[src + 1], hi)
+            if src != dst and s_lo < s_hi:
+                out.append((src, dst, s_lo, s_hi))
+    return out
+
+
+class _GroupEdges(torch.autograd.Function):
+    """``x`` (n, D), this rank's tokens of a split batch, -> the tokens of
+    every dispatch group it has a token of, in global order: the other
+    ranks' tokens of its edge groups come by point-to-point transfers
+    over the update group (``tensor_parallel.exchange``), and only those.
+    The backward is the conjugate: the gradient of each token received is
+    sent back to its owner, which adds it to its own, in f32 and rounded
+    once. Transfers are point to point, so a rank whose groups are all
+    whole takes no part. The ranks that do call this once a moe layer in
+    the forward and once in the backward (and again in a remat's rerun),
+    layer after layer in one order on every rank, so each pair of ranks
+    posts its transfers to each other in one order."""
+
+    @staticmethod
+    def forward(ctx, x, split, seq, group_tokens):
+        me = split.index
+        a = seq * split.first_row()
+        lo = a - a % group_tokens
+        hi = -(-(a + x.shape[0]) // group_tokens) * group_tokens
+        moves = edge_transfers(split, seq, group_tokens)
+        ext = x.new_empty((hi - lo, x.shape[1]))
+        ext[a - lo:a - lo + x.shape[0]] = x
+        exchange([(x[s - a:e - a], dst) for src, dst, s, e in moves
+                  if src == me],
+                 [(ext[s - lo:e - lo], src) for src, dst, s, e in moves
+                  if dst == me], split.group)
+        ctx.split, ctx.moves, ctx.a, ctx.lo = split, moves, a, lo
+        ctx.n = x.shape[0]
+        return ext
+
+    @staticmethod
+    def backward(ctx, g):
+        me, a, lo, n = ctx.split.index, ctx.a, ctx.lo, ctx.n
+        sent = [(dst, s, e) for src, dst, s, e in ctx.moves if src == me]
+        back = [g.new_empty((e - s, g.shape[1])) for _, s, e in sent]
+        exchange([(g[s - lo:e - lo], src) for src, dst, s, e in ctx.moves
+                  if dst == me],
+                 [(buf, dst) for buf, (dst, _, _) in zip(back, sent)],
+                 ctx.split.group)
+        gx = g[a - lo:a - lo + n]
+        if back:
+            gx = gx.float()
+            for buf, (_, s, e) in zip(back, sent):
+                gx[s - a:e - a] += buf.float()
+            gx = gx.to(g.dtype)
+        return gx, None, None, None
 
 
 def _top_k(probs, k: int):
@@ -118,11 +213,13 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(cfg: ModelConfig, p, x):
+def _route(cfg: ModelConfig, p, x, per_group: bool = False):
     """Shared router: top-k gates + capacity slots + aux loss.
 
     Returns (gate_vals (G,T,K) f32, gate_idx (G,T,K) int64, slot (G,T,K)
-    int64, in_cap (G,T,K) bool, C, aux)."""
+    int64, in_cap (G,T,K) bool, C, aux): ``aux`` is ``E`` times the mean
+    over the groups of each group's ``sum_e(frac_tokens_e *
+    mean_prob_e)``; with ``per_group``, those (G,) terms themselves."""
     m = cfg.moe
     G, T, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -138,7 +235,10 @@ def _route(cfg: ModelConfig, p, x):
     assign1 = F.one_hot(gate_idx[..., 0], E).float()         # top-1 choice
     frac_tokens = assign1.mean(dim=1)                        # (G,E)
     mean_probs = probs.mean(dim=1)                           # (G,E)
-    aux = E * (frac_tokens * mean_probs).sum(dim=-1).mean()
+    if per_group:
+        aux = (frac_tokens * mean_probs).sum(dim=-1)         # (G,)
+    else:
+        aux = E * (frac_tokens * mean_probs).sum(dim=-1).mean()
 
     # Capacity slots: for the k-th choice of token t in expert e, its slot is
     # the running count of earlier tokens that chose e (across all k ranks).
@@ -150,10 +250,10 @@ def _route(cfg: ModelConfig, p, x):
     return gate_vals, gate_idx, slot, in_cap, C, aux
 
 
-def _moe_mlp_grouped(cfg: ModelConfig, p, x, tp=None):
+def _moe_mlp_grouped(cfg: ModelConfig, p, x, tp=None, per_group=False):
     if cfg.moe_dispatch == "scatter":
-        return _moe_mlp_grouped_scatter(cfg, p, x, tp)
-    return _moe_mlp_grouped_onehot(cfg, p, x, tp)
+        return _moe_mlp_grouped_scatter(cfg, p, x, tp, per_group)
+    return _moe_mlp_grouped_onehot(cfg, p, x, tp, per_group)
 
 
 def _split(tp) -> bool:
@@ -183,8 +283,10 @@ def _experts(p, xe, dtype, tp=None):
     return torch.einsum("gecf,efd->gecd", act, p["w_down"])
 
 
-def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x, tp=None):
-    """x: (G, T, D) grouped tokens -> (out (G,T,D), aux_loss scalar).
+def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x, tp=None,
+                             per_group=False):
+    """x: (G, T, D) grouped tokens -> (out (G,T,D), aux_loss scalar, or
+    each group's aux term (G,) with ``per_group``: ``_route``'s).
 
     Scatter/gather dispatch: tokens are added into their (expert,
     capacity-slot) buffers and gathered back by flat slot index; dropped
@@ -195,7 +297,8 @@ def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x, tp=None):
     the ranks' partial outputs)."""
     G, T, D = x.shape
     e0, E = _local_experts(cfg, tp)
-    gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x)
+    gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x,
+                                                        per_group)
     if tp is not None:
         in_cap = in_cap & (gate_idx >= e0) & (gate_idx < e0 + E)
         gate_idx = (gate_idx - e0).clamp(0, E - 1)
@@ -215,9 +318,11 @@ def _moe_mlp_grouped_scatter(cfg: ModelConfig, p, x, tp=None):
     return out, aux.float()
 
 
-def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x, tp=None):
+def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x, tp=None,
+                            per_group=False):
     """GShard einsum formulation with a fused flat-slot one-hot (the JAX
-    package's default dispatch and its numeric oracle). The one-hot is
+    package's default dispatch and its numeric oracle); returns what the
+    scatter dispatch returns. The one-hot is
     built in the model dtype by a scatter (``F.one_hot`` would be int64,
     four times its size). Under ``tp`` the rank keeps its experts'
     columns of the combine (the caller sums the ranks' partial
@@ -225,7 +330,8 @@ def _moe_mlp_grouped_onehot(cfg: ModelConfig, p, x, tp=None):
     m = cfg.moe
     G, T, D = x.shape
     E, K = m.n_experts, m.top_k
-    gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x)
+    gate_vals, gate_idx, slot, in_cap, C, aux = _route(cfg, p, x,
+                                                        per_group)
 
     f_idx = gate_idx * C + torch.clamp(slot, max=C - 1)      # (G,T,K)
     z_oh = torch.zeros((G, T, K, E * C), dtype=x.dtype, device=x.device)
@@ -325,25 +431,27 @@ def _attn_kw(cfg: ModelConfig, attn_impl: str, tp=None):
 
 
 def _block_apply(cfg: ModelConfig, p, x, *, attn_impl: str = "xla",
-                 data_shards: int = 1):
+                 split=None):
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     x = x + L.self_attention(p["attn"], h, **_attn_kw(cfg, attn_impl))
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    out, aux = moe_mlp(cfg, p["moe"], h, data_shards=data_shards)
+    out, aux = moe_mlp(cfg, p["moe"], h, split=split)
     return x + out, aux
 
 
 
 
 def forward(cfg: ModelConfig, params, tokens, *, extra=None,
-            attn_impl: str = "xla", data_shards: int = 1):
+            attn_impl: str = "xla", split=None):
     """Full-sequence forward -> ``(logits (B,S,V), {"aux_loss": ...})``,
     the aux loss ``mean over layers * router_aux_weight``. attn_impl:
     "xla" or "flash" (the flash-attention kernels). With ``cfg.remat ==
     "full"`` and grad enabled, each layer keeps only its input for the
     backward and runs again inside it (routing and dispatch included).
-    ``data_shards``: ``moe_mlp``'s (``tokens`` are one rank's rows of a
-    batch split over that many ranks)."""
+    ``split``: ``moe_mlp``'s (``tokens`` are one rank's rows of a batch
+    split over a data-parallel update's ranks, whose straddling dispatch
+    groups move between the ranks in every layer, and again in a remat's
+    rerun)."""
     del extra
     x = L.embed(params["embedding"], tokens)
     auxes = []
@@ -351,10 +459,10 @@ def forward(cfg: ModelConfig, params, tokens, *, extra=None,
         lp = layer_params(params, i)
         if cfg.remat == "full" and torch.is_grad_enabled():
             x, aux = checkpoint(_block_apply, cfg, lp, x, attn_impl=attn_impl,
-                                data_shards=data_shards, use_reentrant=False)
+                                split=split, use_reentrant=False)
         else:
             x, aux = _block_apply(cfg, lp, x, attn_impl=attn_impl,
-                                  data_shards=data_shards)
+                                  split=split)
         auxes.append(aux)
     aux_loss = torch.stack(auxes).mean() * cfg.moe.router_aux_weight
     return _chunk_logits(cfg, params, x), {"aux_loss": aux_loss}

@@ -51,7 +51,7 @@ class Model:
         return init_params(self.defs, generator, device, dtype)
 
     def forward(self, params, tokens, *, extra=None, attn_impl="xla",
-                data_shards=1):
+                split=None):
         """Full-sequence forward: ``(logits (B,S,V), aux)``. ``aux`` is
         the moe family's ``{"aux_loss": ...}`` (the router's load-balance
         loss) and ``{}`` for the others. ``attn_impl``: "xla" (the plain
@@ -59,11 +59,12 @@ class Model:
         hybrid's attention sites, the audio decoder's and the vlm's self
         layers) or "pallas" (ssm: the SSD scan kernel). ``extra``: the
         audio and vlm families' modality inputs (``make_extras``).
-        ``data_shards``: the number of ranks a data-parallel update splits
-        the batch rows over (``tokens`` are this rank's): the moe family
-        groups its tokens and shares its aux loss by the global batch
-        (``moe.moe_mlp``); the other families' rows are independent."""
-        kw = {"data_shards": data_shards} if self.has_aux else {}
+        ``split``: a ``models.tensor_parallel.UpdateSplit`` when a
+        data-parallel update splits the batch rows over its ranks
+        (``tokens`` are this rank's): the moe family groups its tokens and
+        shares its aux loss by the global batch (``moe.moe_mlp``); the
+        other families' rows are independent."""
+        kw = {"split": split} if self.has_aux else {}
         out = self._forward(self.cfg, params, tokens, extra=extra,
                             attn_impl=attn_impl, **kw)
         return out if self.has_aux else (out, {})

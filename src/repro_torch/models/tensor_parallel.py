@@ -49,7 +49,7 @@ gradients.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -117,6 +117,63 @@ def update_group(mesh_cfg):
         return None
     return _group_of(mesh_cfg.ranks().reshape(-1, mesh_cfg.tp).T.tolist(),
                      "update")
+
+
+class UpdateSplit(NamedTuple):
+    """What a model's forward is told of a data-parallel update whose
+    batch rows are split over ``group`` (``update_group``'s): ``index``,
+    this rank's place in the group, which is also its block of the global
+    batch's rows (the group's ranks are its data rows in (pod, data)
+    order, as ``launch.mesh._batch_spec`` lays the rows), and ``rows``,
+    the rows every rank holds, in that order. A microbatch slice of the
+    global batch can give a rank fewer rows than another, or none."""
+    group: object
+    index: int
+    rows: Tuple[int, ...]
+
+    def first_row(self, index: Optional[int] = None) -> int:
+        """The global row of rank ``index``'s first row (this rank's by
+        default)."""
+        return sum(self.rows[:self.index if index is None else index])
+
+
+def update_split(group, rows: int) -> Optional[UpdateSplit]:
+    """The ``UpdateSplit`` of a batch of which every rank of ``group``
+    holds ``rows`` rows (the update's ``_batch_spec`` layouts split only
+    where the rows divide); None without a group (one rank)."""
+    if group is None:
+        return None
+    return UpdateSplit(group, dist.get_rank(group),
+                       (rows,) * dist.get_world_size(group))
+
+
+def exchange(sends, recvs, group) -> None:
+    """One round of point-to-point transfers over ``group``, posted
+    together: ``sends`` and ``recvs`` are ``(tensor, peer)`` pairs, the
+    peer a rank's index in the group, each received tensor a contiguous
+    buffer that is filled in place. Each pair of ranks must post its
+    transfers to each other in the same order. Gloo moves host memory:
+    under it a device tensor goes through a host copy."""
+    if not sends and not recvs:
+        return
+    staged = lambda t: (t.device.type != "cpu"
+                        and dist.get_backend(group) == "gloo")
+    ops, copies = [], []
+    for t, peer in sends:
+        t = t.contiguous()
+        ops.append(dist.P2POp(dist.isend, t.cpu() if staged(t) else t,
+                              dist.get_global_rank(group, peer), group))
+    for buf, peer in recvs:
+        host = torch.empty(buf.shape, dtype=buf.dtype) if staged(buf) \
+            else buf
+        ops.append(dist.P2POp(dist.irecv, host,
+                              dist.get_global_rank(group, peer), group))
+        if host is not buf:
+            copies.append((buf, host))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    for buf, host in copies:
+        buf.copy_(host)
 
 
 class TPContext:

@@ -596,7 +596,7 @@ UPDATE_WORKER = """
 import dataclasses, json, sys
 import torch
 import torch.distributed as dist
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.resharding import MeshConfig
 from repro_torch.core.train_step import make_rl_train_step
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -608,13 +608,19 @@ rank = int(sys.argv[1])
 torch.backends.cuda.matmul.allow_tf32 = False
 dist.init_process_group("gloo", store=dist.FileStore(sys.argv[2], 2),
                         rank=rank, world_size=2)
-model = build_model(dataclasses.replace(get_config("qwen2-0.5b"),
-                                        n_layers=2))
+# "qwen2-0.5b": full width at 2 layers; "<arch>-smoke": the smoke config;
+# the config's remat unless one is given
+name, B, remat = sys.argv[4], int(sys.argv[5]), sys.argv[6]
+cfg = (get_smoke_config(name[:-len("-smoke")]) if name.endswith("-smoke")
+       else dataclasses.replace(get_config(name), n_layers=2))
+if remat != "config":
+    cfg = dataclasses.replace(cfg, remat=remat)
+model = build_model(cfg)
 dtype = getattr(torch, sys.argv[3])
 params = model.init(torch.Generator(device="cuda").manual_seed(0),
                     dtype=dtype)
 g = torch.Generator().manual_seed(7)
-B, T = 8, 256
+T = 256
 gen = torch.rand((B, T), generator=g) < 0.4
 lp = lambda: torch.where(gen, -torch.rand((B, T), generator=g) * 8 - 4, 0.0)
 rewards = torch.randint(-1, 2, (B,), generator=g).float()
@@ -633,15 +639,17 @@ step = make_rl_train_step(model, opt, attn_impl="flash", clip_eps=0.2,
 
 def run(rows, group):
     fa_ops.reset_launches()
-    (loss, _), grads = step.grads_of(params, rows, group=group)
+    (loss, metrics), grads = step.grads_of(params, rows, group=group)
     updates, _ = opt.update(grads, opt.init(params), params)
     return float(loss), grads, apply_updates(params, updates), dict(
-        fa_ops.launches)
+        fa_ops.launches), {k: float(v) for k, v in metrics.items()}
 
 
-mine = ExperienceBatch(*(x[rank * 4:(rank + 1) * 4] for x in batch))
-loss, grads, new, launches = run(mine, update_group(MeshConfig("dp2", 2, 1)))
-out = dict(loss=loss, launches=launches)
+h = B // 2
+mine = ExperienceBatch(*(x[rank * h:(rank + 1) * h] for x in batch))
+loss, grads, new, launches, metrics = run(
+    mine, update_group(MeshConfig("dp2", 2, 1)))
+out = dict(loss=loss, launches=launches, metrics=metrics, remat=cfg.remat)
 same = True
 for k in sorted(new):
     v = new[k].contiguous().view(-1).view(torch.uint8).cpu()
@@ -652,7 +660,8 @@ for k in sorted(new):
         dist.recv(got, 1)
         same &= torch.equal(got, v)
 if rank == 0:
-    loss1, grads1, _, _ = run(batch, None)
+    loss1, grads1, _, _, metrics1 = run(batch, None)
+    out["metrics_one"] = metrics1
     # an f32 evaluation of the same weights and rows
     _, g32 = step.grads_of({k: v.float() for k, v in params.items()}, batch)
     err = lambda a, b, k: float((a[k].float() - b[k].float()).abs().max())
@@ -664,6 +673,51 @@ print("RESULT " + json.dumps(out), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
+
+
+def _update_workers(tmp_path, dtype, name, rows, remat="config"):
+    """``UPDATE_WORKER`` on two processes: ``name``'s model at ``rows``
+    rows of 256 tokens, half a rank; both ranks' results."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    store = str(tmp_path / "store")
+    procs = [subprocess.Popen([sys.executable, "-c", UPDATE_WORKER, str(r),
+                               store, dtype, name, str(rows), remat],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    return [json.loads(next(ln[7:] for ln in o.splitlines()
+                            if ln.startswith("RESULT "))) for o in outs]
+
+
+def _assert_update_dp2(r0, r1, dtype, layers, keys=("loss",)):
+    """Run (e)'s rule: ``keys`` of the two-rank step within 1e-5 of the
+    one-rank step's, relative, and equal on both ranks; the summed
+    gradients in fp32 within 2e-3 of each leaf's largest |g|, in bf16 no
+    further, leaf by leaf, from the one-rank run's than the one-rank run's
+    lie from an f32 evaluation of the same weights; both ranks' new params
+    bitwise equal; each rank launched the flash forward, dq and dk/dv once
+    a layer (the forward once more under full remat)."""
+    got = lambda r, k: r[k] if k == "loss" else r["metrics"][k]
+    want = lambda k: r0["loss_one"] if k == "loss" else r0["metrics_one"][k]
+    for k in keys:
+        assert got(r0, k) == got(r1, k), k
+        assert abs(got(r0, k) - want(k)) <= 1e-5 * abs(want(k)), (
+            k, got(r0, k), want(k))
+    for k, e in r0["grads"].items():
+        bound = (2e-3 * e["scale"] if dtype == "float32"
+                 else e["one_vs_f32"])
+        assert e["dp_vs_one"] <= bound, (k, e)
+    assert r0["params_equal"] is True
+    fwd = layers * (2 if r0["remat"] == "full" else 1)
+    for r in (r0, r1):
+        assert r["launches"] == {"fwd": fwd, "dq": layers, "dkv": layers}, r
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -679,32 +733,26 @@ def test_update_dp2_over_gloo_matches_one_rank(dtype, dev, tmp_path):
     leaf by leaf, from the one-rank run's than the one-rank run's lie from
     an f32 evaluation of the same weights (bf16's own noise, which at
     full width is above 2e-3 of a leaf's scale)."""
-    import json
-    import os
-    import subprocess
-    import sys
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
-    store = str(tmp_path / "store")
-    procs = [subprocess.Popen([sys.executable, "-c", UPDATE_WORKER, str(r),
-                               store, dtype], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in (0, 1)]
-    outs = [p.communicate(timeout=600)[0] for p in procs]
-    assert all(p.returncode == 0 for p in procs), outs
-    r0, r1 = (json.loads(next(ln[7:] for ln in o.splitlines()
-                              if ln.startswith("RESULT "))) for o in outs)
-    assert r0["loss"] == r1["loss"]
-    assert abs(r0["loss"] - r0["loss_one"]) <= 1e-5 * abs(r0["loss_one"])
-    for k, e in r0["grads"].items():
-        bound = (2e-3 * e["scale"] if dtype == "float32"
-                 else e["one_vs_f32"])
-        assert e["dp_vs_one"] <= bound, (k, e)
-    assert r0["params_equal"] is True
-    fwd = 2 * (2 if get_config("qwen2-0.5b").remat == "full" else 1)
-    for r in (r0, r1):
-        assert r["launches"] == {"fwd": fwd, "dq": 2, "dkv": 2}, r
+    r0, r1 = _update_workers(tmp_path, dtype, "qwen2-0.5b", 8)
+    _assert_update_dp2(r0, r1, dtype, 2)
+
+
+@pytest.mark.parametrize("dtype,remat", [("bfloat16", "full"),
+                                         ("float32", "none"),
+                                         ("float32", "full")])
+def test_update_dp2_with_a_straddling_moe_group_over_gloo(dtype, remat, dev,
+                                                          tmp_path):
+    """chip_smoke.py's tp_path run (f) at the smoke width: the smoke
+    granite-moe (2 layers, 4/2 heads of 32 on the flash kernels) at 6 rows
+    of 256 tokens, 3 a rank, whose middle 512-token dispatch group
+    straddles the two processes (its tokens moved between them in each
+    layer, forward, backward and the remat's rerun), against rank 0's
+    one-rank update: the loss and ``aux_loss`` by run (e)'s rule, as
+    ``test_update_dp2_over_gloo_matches_one_rank`` holds it."""
+    r0, r1 = _update_workers(tmp_path, dtype, "granite-moe-3b-a800m-smoke",
+                             6, remat)
+    assert r0["remat"] == remat
+    _assert_update_dp2(r0, r1, dtype, 2, keys=("loss", "aux_loss"))
 
 
 @pytest.fixture
